@@ -6,16 +6,27 @@ recall against the exact scan.
 
     python3 chip_smoke.py
 
-Phases, one line each:
+Phases, one line each (phases 3-4 one per variant, and one more with
+its launch counts):
 
 1. set-up: the card, torch and CUDA versions, TF32 off, kernel build time;
 2. each kernel against its plain version on the card (distances to 1e-4
-   relative, top-k exactly equal), with both times by CUDA events;
-3. clustered 1M cell, f32 blocks (``bench.py``'s flagship parameters):
-   build, pack, serve 131,072 queries, recall@10 on 1,024 of them;
+   relative, top-k exactly equal; the fused tile top-k's distances
+   bit-equal to the tile kernel's, sorted), with both times by CUDA
+   events;
+3. clustered 1M cell (``bench.py``'s flagship parameters): one build and
+   one exact ground truth (recall@10 on 1,024 queries), then 131,072
+   queries served by five variants: f32 blocks with the kernel tail, the
+   sort tail, and the fused tile top-k (``impl="kernel_topk"``); bf16
+   blocks with the sort tail and the fused tile top-k.  The fused
+   variants' distances must be bit-equal to their full-kernel twins';
 4. iid 100k cell, int8 blocks with slack 8 (``bench.py``'s headline
-   parameters): the same on 65,536 queries;
+   parameters): the same on 65,536 queries with the kernel tail;
 5. the kernels' launch counts over phases 3-4, each of which must be > 0.
+
+Every variant is served with the launch counts set to 0 just before it
+and read just after it: the kernels it must run have launched once per
+chunk and pass, and every other kernel of the path not at all.
 
 Then one JSON line describing each kernel and, last, the result line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script then
@@ -34,7 +45,9 @@ SEED = 20260816
 K = 10
 DIST_RTOL = 1e-4           # kernel vs plain version, distances (relative)
 CLUSTERED_MIN_RECALL = 0.90
+BF16_MIN_RECALL = 0.80     # single-pass bf16 products; the JAX package: 0.860
 IID_MIN_RECALL = 0.10
+KP = 16                    # the fused tile top-k's per-pair width at k = 10
 JAX_RECALL = {"clustered": 0.9249, "iid": 0.123}  # the JAX package's records
 
 
@@ -76,9 +89,10 @@ def _rel_err(got, want):
     return float(diff.max()), float(rel.max())
 
 
-def tile_inputs(g, lmax, d, nt, tile_m, int8, device, seed=1):
+def tile_inputs(g, lmax, d, nt, tile_m, int8, device, seed=1, bf16=False):
     """Blocks, tables and query rows at the serving path's shapes: runs of
-    one repeated block, partial and empty occupancy, junk empty slots."""
+    one repeated block, partial and empty occupancy, junk empty slots;
+    slot norms from the f32 rows, as packing takes them."""
     import torch
 
     gen = torch.Generator(device="cpu").manual_seed(seed)
@@ -91,6 +105,8 @@ def tile_inputs(g, lmax, d, nt, tile_m, int8, device, seed=1):
     lens[1] = 0
     qt = torch.randn(nt * tile_m, d, generator=gen)
     scale = None
+    if bf16:
+        x = x.bfloat16()
     if int8:
         from rptree_tpu_torch.ops.grouped_kernel import INV_127
 
@@ -122,20 +138,23 @@ def topk_inputs(b, w, device, seed=2):
 
 def check_kernels(device, g=4096, nt=4096, dim=128, reps=5):
     """Phase 2: each kernel against its plain version at the path's shapes
-    (f32 lmax 128, int8 lmax 64, tile_m 8, D 128; top-k W 1024 and 640,
-    k 10).  Returns one record per kernel."""
+    (f32 and bf16 lmax 128, int8 lmax 64, tile_m 8, D 128, tile top-k kp
+    16; top-k W 1024 and 640, k 10).  Returns one record per kernel."""
     import torch
 
     from rptree_tpu_torch.ops import grouped_kernel as gk
     from rptree_tpu_torch.ops import topk_kernel as tk
 
     tile_m = 8
+    shape = {"tiles": nt, "tile_m": tile_m, "D": dim}
     out = {}
-    for name, int8, lmax in (("grouped_score_tiles", False, 128),
-                             ("grouped_score_tiles_int8", True, 64)):
-        x, sq, scale, tb, lens, qt = tile_inputs(g, lmax, dim, nt, tile_m,
-                                                 int8, device)
-        if int8:
+    for name, kind, lmax in (("grouped_score_tiles", "f32", 128),
+                             ("grouped_score_tiles_bf16", "bf16", 128),
+                             ("grouped_score_tiles_int8", "int8", 64)):
+        x, sq, scale, tb, lens, qt = tile_inputs(
+            g, lmax, dim, nt, tile_m, kind == "int8", device,
+            bf16=kind == "bf16")
+        if kind == "int8":
             args = (x, sq, scale, tb, lens, qt)
             kern, plain = gk.grouped_score_tiles_int8, \
                 gk.grouped_score_tiles_int8_reference
@@ -155,8 +174,43 @@ def check_kernels(device, g=4096, nt=4096, dim=128, reps=5):
             "max_abs_err": abs_err, "max_rel_err": rel_err,
             "ms": cuda_ms(lambda: kern(*args, "l2", tile_m), reps),
             "plain_ms": cuda_ms(lambda: plain(*args, "l2", tile_m), reps),
-            "shape": {"tiles": nt, "tile_m": tile_m, "lmax": lmax, "D": dim},
+            "shape": {**shape, "lmax": lmax},
         }
+    rec = {"shape": {**shape, "lmax": 128, "kp": KP}}
+    for kind in ("f32", "bf16"):
+        x, sq, _, tb, lens, qt = tile_inputs(g, 128, dim, nt, tile_m, False,
+                                             device, bf16=kind == "bf16")
+        ids = torch.randperm(g * 128, generator=torch.Generator().manual_seed(3)
+                             ).to(torch.int32).reshape(g, 128).to(device)
+        args = (x, sq, ids, tb, lens, qt)
+        for metric in ("sql2", "l2"):
+            kd, ki = gk.grouped_score_topk(*args, metric, tile_m, KP)
+            pd, pi = gk.grouped_score_topk_reference(*args, metric, tile_m, KP)
+            full = gk.grouped_score_tiles(x, sq, tb, lens, qt, metric, tile_m)
+            first = torch.sort(full, dim=1, stable=True).values[:, :KP]
+            torch.cuda.synchronize()
+            abs_err, rel_err = _rel_err(kd, pd)
+            if rel_err > DIST_RTOL:
+                raise AssertionError(f"grouped_score_topk {kind} {metric}: "
+                                     f"relative error {rel_err}")
+            if not torch.equal(kd.view(torch.int32), first.view(torch.int32)):
+                raise AssertionError(f"grouped_score_topk {kind} {metric}: "
+                                     "distances differ from the tile kernel's")
+            chk = gk.untied(pd, DIST_RTOL)
+            if not torch.equal(ki[chk], pi[chk]) or bool(
+                    (ki[torch.isinf(kd)] != -1).any()):
+                raise AssertionError(f"grouped_score_topk {kind} {metric}: "
+                                     "ids differ from the plain version's")
+        sfx = "" if kind == "f32" else "_bf16"
+        rec.update({
+            f"max_abs_err{sfx}": abs_err, f"max_rel_err{sfx}": rel_err,
+            f"ms{sfx}": cuda_ms(lambda: gk.grouped_score_topk(
+                *args, "l2", tile_m, KP), reps),
+            f"plain_ms{sfx}": cuda_ms(lambda: gk.grouped_score_topk_reference(
+                *args, "l2", tile_m, KP), reps),
+        })
+    rec["max_abs_err"] = max(rec["max_abs_err"], rec["max_abs_err_bf16"])
+    out["grouped_score_topk"] = rec
     topk_err, times = 0.0, {}
     for w in (1024, 640):
         d, ids = topk_inputs(8192, w, device)
@@ -213,22 +267,24 @@ def recall(ids, truth):
                           for a, b in zip(ids.tolist(), truth.tolist())]))
 
 
-def serve_cell(name, x, q, min_leaf, n_trees, pack, serve, device,
-               n_recall=1024):
-    """Build, pack and serve one cell through the port's public entry
-    points; returns its record (recall@10 on ``n_recall`` queries against
-    the exact scan, QPS of the median of three steady-state ``check=False``
-    passes)."""
+def sync_time(fn):
+    """``(fn(), seconds)`` on the host clock between two synchronisations."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def build_cell(x, q, min_leaf, n_trees, device, n_recall=1024):
+    """Build one cell's forest through the port's public entry points and
+    its exact ground truth for the first ``n_recall`` queries; returns
+    ``(forest, queries on the card, truth ids, record)``."""
     import torch
 
     import rptree_tpu_torch as rp
-
-    def sync_time(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        return res, time.perf_counter() - t0
 
     n, dim = x.shape
     cfg = rp.rp_tree_cfg(min_leaf, n, dim)
@@ -237,18 +293,79 @@ def serve_cell(name, x, q, min_leaf, n_trees, pack, serve, device,
     f, build_s = sync_time(lambda: rp.forest_batch(
         SEED, cfg.max_depth, min_leaf, n_trees, cfg.proj_nz_density, xd,
         device=device))
+    (_, truth), truth_s = sync_time(lambda: f.brute_force_knn(qd[:n_recall],
+                                                              K))
+    return f, qd, truth, {
+        "n": n, "dim": dim, "trees": n_trees, "min_leaf": min_leaf,
+        "depth": cfg.max_depth, "leaves": f.plan.n_leaves,
+        "queries": q.shape[0], "build_s": build_s, "ground_truth_s": truth_s,
+    }
+
+
+def kernel_counts():
+    """The launch count of each kernel of the path: ``{name: (wrapper,
+    attribute)}``."""
+    from rptree_tpu_torch.ops import grouped_kernel as gk
+    from rptree_tpu_torch.ops import topk_kernel as tk
+
+    return {
+        "grouped_score_tiles": (gk.grouped_score_tiles, "launches"),
+        "grouped_score_tiles_bf16": (gk.grouped_score_tiles, "launches_bf16"),
+        "grouped_score_tiles_int8": (gk.grouped_score_tiles_int8, "launches"),
+        "topk_dedup_kernel": (tk.topk_dedup_kernel, "launches"),
+        "grouped_score_topk": (gk.grouped_score_topk, "launches"),
+    }
+
+
+def counted(fn):
+    """``(fn(), launches)``: every kernel's count set to 0 just before
+    ``fn`` runs and read just after it."""
+    counts = kernel_counts()
+    for wrapper, attr in counts.values():
+        setattr(wrapper, attr, 0)
+    res = fn()
+    return res, {name: getattr(wrapper, attr)
+                 for name, (wrapper, attr) in counts.items()}
+
+
+def check_launches(name, runs, warm, steady, chunks, passes):
+    """The kernels ``runs`` launched once per chunk in each steady-state
+    pass and at least once per chunk in the checked call (which may retry
+    with more tiles); every other kernel of the path not at all."""
+    for kern in warm:
+        if kern in runs:
+            ok = steady[kern] == passes * chunks and warm[kern] >= chunks
+        else:
+            ok = steady[kern] == warm[kern] == 0
+        if not ok:
+            raise AssertionError(
+                f"{name}: {kern} launched {warm[kern]} + {steady[kern]} "
+                f"times; expected {'>= ' if kern in runs else ''}"
+                f"{chunks if kern in runs else 0} + "
+                f"{passes * chunks if kern in runs else 0}")
+
+
+def serve_variant(name, f, qd, truth, pack, serve, runs, n_passes=3):
+    """Pack ``f`` as ``pack`` asks and serve ``qd`` with ``serve``: one
+    checked call that learns the tile capacity, then ``n_passes``
+    steady-state ``check=False`` passes that must return the same.  The
+    launch counts are read around each of the two and must show that the
+    kernels ``runs`` served the variant and no other kernel did.  Returns
+    the record (recall@10 against ``truth``, QPS of the median pass,
+    launches) and the last pass's ``(dists, ids)``."""
+    import torch
+
     _, pack_s = sync_time(lambda: f.pack_leaves(**pack))
-    (_, truth), truth_s = sync_time(
-        lambda: f.brute_force_knn(qd[:n_recall], K))
-    # the checked call learns the tile capacity; the timed pass reuses it
-    (_, ids0), warm_s = sync_time(
-        lambda: f.knn_grouped(qd, K, selection="kernel", check=True,
-                              **serve))
-    passes = [sync_time(lambda: f.knn_grouped(
-        qd, K, selection="kernel", check=False, **serve)) for _ in range(3)]
+    ((_, ids0), warm_s), warm_n = counted(lambda: sync_time(
+        lambda: f.knn_grouped(qd, K, check=True, **serve)))
+    passes, steady_n = counted(lambda: [sync_time(
+        lambda: f.knn_grouped(qd, K, check=False, **serve))
+        for _ in range(n_passes)])
+    chunks = -(-qd.shape[0] // serve["chunk"])
+    check_launches(name, runs, warm_n, steady_n, chunks, n_passes)
     serve_s = float(np.median([s for _, s in passes]))
-    dist, ids = passes[0][0]
-    if tuple(ids.shape) != (q.shape[0], K) or tuple(dist.shape) != tuple(
+    dist, ids = passes[-1][0]
+    if tuple(ids.shape) != (qd.shape[0], K) or tuple(dist.shape) != tuple(
             ids.shape):
         raise AssertionError(f"{name}: result shape {tuple(ids.shape)}")
     live = ids >= 0
@@ -263,19 +380,33 @@ def serve_cell(name, x, q, min_leaf, n_trees, pack, serve, device,
     over = f.grouped_overflow()
     if over["overflow"]:
         raise AssertionError(f"{name}: tile capacity overflow {over}")
+    x_leaf = f._packed[0]
     return {
-        "n": n, "dim": dim, "trees": n_trees, "min_leaf": min_leaf,
-        "depth": cfg.max_depth, "leaves": f.plan.n_leaves,
-        "lmax": int(f._packed[0].shape[1]),
-        "block_dtype": str(f._packed[0].dtype).replace("torch.", ""),
-        "x_leaf_gb": f._packed[0].numel() * f._packed[0].element_size()
-        / 1e9,
-        "queries": q.shape[0], **serve,
-        "recall_at_10": recall(ids[:n_recall], truth),
-        "qps": q.shape[0] / serve_s, "serve_s": serve_s,
-        "checked_serve_s": warm_s, "build_s": build_s, "pack_s": pack_s,
-        "ground_truth_s": truth_s, "tiles": over,
-    }
+        "lmax": int(x_leaf.shape[1]),
+        "block_dtype": str(x_leaf.dtype).replace("torch.", ""),
+        "x_leaf_gb": x_leaf.numel() * x_leaf.element_size() / 1e9,
+        **serve, "recall_at_10": recall(ids[:truth.shape[0]], truth),
+        "qps": qd.shape[0] / serve_s, "serve_s": serve_s,
+        "checked_serve_s": warm_s, "pack_s": pack_s, "tiles": over,
+        "launches": {kern: warm_n[kern] + steady_n[kern] for kern in warm_n},
+    }, (dist, ids)
+
+
+def same_results(name, got, want):
+    """``got`` against ``want``, both ``(dists, ids)``: distances bit-equal
+    on every row, ids equal outside runs of equal distances."""
+    import torch
+
+    from rptree_tpu_torch.ops.grouped_kernel import untied
+
+    (gd, gi), (wd, wi) = got, want
+    if not torch.equal(gd.view(torch.int32), wd.view(torch.int32)):
+        bad = int((gd.view(torch.int32) != wd.view(torch.int32)).any(1).sum())
+        raise AssertionError(f"{name}: distances differ on {bad} rows")
+    chk = untied(wd)
+    if not torch.equal(gi[chk], wi[chk]):
+        raise AssertionError(f"{name}: ids differ outside runs of ties")
+    return int(chk.sum())
 
 
 def main():
@@ -285,8 +416,6 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script runs only on a CUDA device")
     from rptree_tpu_torch import _cuda
-    from rptree_tpu_torch.ops import grouped_kernel as gk
-    from rptree_tpu_torch.ops import topk_kernel as tk
 
     device = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -308,29 +437,60 @@ def main():
     for name, rec in kern.items():
         log("kernel", name=name, **rec)
 
-    kernels = (gk.grouped_score_tiles, gk.grouped_score_tiles_int8,
-               tk.topk_dedup_kernel)
-    for k in kernels:
-        k.launches = 0
     x, q = clustered_data(1_000_000, 128, 4_000, 0.15, 131_072)
-    cl = serve_cell("clustered", x, q, 128, 8, {},
-                    dict(budget=1, probes=8, tile_m=8, chunk=65536), device)
+    f, qd, truth, cell = build_cell(x, q, 128, 8, device)
     del x, q
-    log("clustered_1m_f32", **cl, jax_recall=JAX_RECALL["clustered"])
-    if cl["recall_at_10"] < CLUSTERED_MIN_RECALL:
-        raise AssertionError(f"clustered recall {cl['recall_at_10']} < "
-                             f"{CLUSTERED_MIN_RECALL}")
+    log("clustered_1m", **cell)
+    serve = dict(budget=1, probes=8, tile_m=8, chunk=65536)
+    bf16 = dict(dtype=torch.bfloat16)
+    tiles, tiles_bf16, topk, topk_tiles = (
+        "grouped_score_tiles", "grouped_score_tiles_bf16",
+        "topk_dedup_kernel", "grouped_score_topk")
+    variants = (  # (name, pack, serve, the kernels it runs, recall floor)
+        ("a_f32_kernel_tail", {}, dict(selection="kernel"), {tiles, topk},
+         CLUSTERED_MIN_RECALL),
+        ("b_f32_sort_tail", {}, dict(selection="sort", impl="kernel"),
+         {tiles}, CLUSTERED_MIN_RECALL),
+        ("c_f32_kernel_topk", {}, dict(selection="sort", impl="kernel_topk"),
+         {topk_tiles}, CLUSTERED_MIN_RECALL),
+        ("d_bf16_sort_tail", bf16, dict(selection="sort", impl="kernel"),
+         {tiles_bf16}, BF16_MIN_RECALL),
+        ("e_bf16_kernel_topk", bf16,
+         dict(selection="sort", impl="kernel_topk"), {topk_tiles},
+         BF16_MIN_RECALL),
+    )
+    out, launches = {}, dict.fromkeys(kernel_counts(), 0)
+    for name, pack, extra, runs, floor in variants:
+        rec, out[name[0]] = serve_variant(name, f, qd, truth, pack,
+                                          {**serve, **extra}, runs)
+        log("launches", variant=name, **rec["launches"])
+        for kname, n in rec["launches"].items():
+            launches[kname] += n
+        if name[0] in "ce":
+            twin = chr(ord(name[0]) - 1)
+            rec[f"same_as_{twin}_untied_ids"] = same_results(
+                name, out[name[0]], out[twin])
+        log(f"clustered_1m_{name}", **rec, jax_recall=JAX_RECALL["clustered"])
+        if rec["recall_at_10"] < floor:
+            raise AssertionError(f"{name}: recall {rec['recall_at_10']} < "
+                                 f"{floor}")
+    del f, qd, truth, out
     torch.cuda.empty_cache()
     x, q = iid_data(100_000, 128, 65_536)
-    iid = serve_cell("iid", x, q, 64, 8, dict(dtype=torch.int8, slack=8),
-                     dict(budget=2, probes=10, tile_m=8, chunk=32768),
-                     device)
-    log("iid_100k_int8", **iid, jax_recall=JAX_RECALL["iid"])
-    if iid["recall_at_10"] < IID_MIN_RECALL:
-        raise AssertionError(f"iid recall {iid['recall_at_10']} < "
+    f, qd, truth, cell = build_cell(x, q, 64, 8, device)
+    del x, q
+    rec, _ = serve_variant("iid", f, qd, truth, dict(dtype=torch.int8, slack=8),
+                           dict(budget=2, probes=10, tile_m=8, chunk=32768,
+                                selection="kernel"),
+                           {"grouped_score_tiles_int8", "topk_dedup_kernel"})
+    log("launches", variant="iid_100k_int8", **rec["launches"])
+    for kname, n in rec["launches"].items():
+        launches[kname] += n
+    log("iid_100k_int8", **cell, **rec, jax_recall=JAX_RECALL["iid"])
+    if rec["recall_at_10"] < IID_MIN_RECALL:
+        raise AssertionError(f"iid recall {rec['recall_at_10']} < "
                              f"{IID_MIN_RECALL}")
-    launches = {k.__name__: k.launches for k in kernels}
-    log("launches", **launches)
+    log("launches", variant="all", **launches)
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
@@ -338,10 +498,14 @@ def main():
     sources = {
         "grouped_score_tiles": ("rptree_tpu_torch/csrc/grouped_score.cu",
                                 "rptree_tpu/ops/grouped_kernel.py:63"),
+        "grouped_score_tiles_bf16": ("rptree_tpu_torch/csrc/grouped_score.cu",
+                                     "rptree_tpu/ops/grouped_kernel.py:63"),
         "grouped_score_tiles_int8": ("rptree_tpu_torch/csrc/grouped_score.cu",
                                      "rptree_tpu/ops/grouped_kernel.py:145"),
         "topk_dedup_kernel": ("rptree_tpu_torch/csrc/topk_dedup.cu",
                               "rptree_tpu/ops/topk_kernel.py:72"),
+        "grouped_score_topk": ("rptree_tpu_torch/csrc/grouped_topk.cu",
+                               "rptree_tpu/ops/grouped_kernel.py:233"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

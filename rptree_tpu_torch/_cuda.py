@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 The sources in ``csrc/*.cu`` are compiled on first use by ``nvcc`` for
-Hopper (``sm_90a``) into ONE shared library with a plain C interface,
+Hopper (``sm_90a``), one ``nvcc`` process per source, all started
+together, and linked into ONE shared library with a plain C interface,
 which is loaded with ``ctypes``.  No PyTorch header is compiled, so a
 build takes seconds.  The library lands in ``_build/`` beside this file,
 named by a hash of the sources and flags, so an edited source is never
@@ -20,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -30,17 +32,21 @@ __all__ = ["build", "lib", "check", "ptr", "stream_of"]
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 _SIGNATURES = {
     # x, sq, tb, lens, qt, out, nt, g, tile_m, lmax, d, l2, stream
     "rpt_grouped_score_f32": [_P] * 6 + [_I] * 6 + [_P],
+    "rpt_grouped_score_bf16": [_P] * 6 + [_I] * 6 + [_P],
     # x, sq, scale_t, tb, lens, q, qscale, qq, out, nt, g, tile_m, lmax, d,
     # l2, words, stream
     "rpt_grouped_score_i8": [_P] * 9 + [_I] * 7 + [_P],
     # d, ids, od, oi, b, w, k, dedup, stream
     "rpt_topk_dedup": [_P] * 4 + [_L, _I, _I, _I, _P],
+    # x, sq, ids, tb, lens, qt, od, oi, nt, g, tile_m, lmax, d, l2, kp, stream
+    "rpt_grouped_topk_f32": [_P] * 8 + [_I] * 7 + [_P],
+    "rpt_grouped_topk_bf16": [_P] * 8 + [_I] * 7 + [_P],
 }
 
 _lib = None
@@ -62,6 +68,18 @@ def _sources():
     return sorted(_CSRC.glob("*.cu")), sorted(_CSRC.glob("*.cuh"))
 
 
+def _run_all(cmds):
+    """Run the commands at once; raise with the first failure's output.
+    Returns the combined compiler output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, o in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{o}")
+    return "".join(outs)
+
+
 def build(verbose: bool = False):
     """Compile ``csrc/*.cu`` into the kernel library unless a build of the
     same sources exists.  Returns ``(path, seconds, compiler_output)``;
@@ -76,17 +94,16 @@ def build(verbose: bool = False):
     if out.exists() and not verbose:
         return out, 0.0, ""
     _BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cus)]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
+    flags = [*NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else [])]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, seconds, proc.stdout + proc.stderr
+    with tempfile.TemporaryDirectory(dir=_BUILD) as tmp:
+        objs = [os.path.join(tmp, f"{p.stem}.o") for p in cus]
+        log = _run_all([[_nvcc(), *flags, "-c", str(p), "-o", o]
+                        for p, o in zip(cus, objs)])
+        lib_tmp = os.path.join(tmp, out.name)
+        log += _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", lib_tmp, *objs]])
+        os.replace(lib_tmp, out)
+    return out, time.perf_counter() - t0, log
 
 
 def lib():

@@ -1,96 +1,65 @@
-// Grouped tile scoring for the query-grouped rerank.
+// Grouped tile scoring for the query-grouped rerank: kernels 1 and 2.
 //
-// Replaces the Pallas TPU kernels grouped_score_tiles and
-// grouped_score_tiles_int8 (rptree_tpu/ops/grouped_kernel.py:63 and :145).
-// A tile is up to tile_m (query, probe) pairs that probe the SAME leaf
-// block; for every tile t and slot row i of it the kernel writes
+// Replaces the Pallas TPU kernels grouped_score_tiles (f32 and bf16
+// blocks) and grouped_score_tiles_int8 (rptree_tpu/ops/grouped_kernel.py:63
+// and :145).  A tile is up to tile_m (query, probe) pairs that probe the
+// SAME leaf block; for every tile t and slot row i of it the kernel writes
 //
 //   out[t * m + i, j] = max(sq_leaf[tb[t], j] - 2 * <qt[t * m + i], x_leaf[tb[t], j]> + |q|^2, 0)
 //
 // (square-rooted for "l2") for j < lens_t[t], and +inf for the slots past
-// the block's occupancy.  int8 blocks take int8 query rows (quantized per
-// row outside the kernel) and dequantize the exact integer dots with
+// the block's occupancy.  f32 and bf16 blocks share one scoring device
+// function with kernel 4 (score_tile, csrc/grouped_tile.cuh), which says
+// how bf16 rounds.  int8 blocks take int8 query rows (quantized per row
+// outside the kernel) and dequantize the exact integer dots with
 // dots * (block scale * row scale), the Pallas kernel's float order.
 //
-// What bounds it on an H100: bytes.  Each tile reads one block
-// (lmax * D * 4 = 64 KB for f32 at lmax 128, D 128; 8 KB for int8 at lmax
-// 64) and its m query rows, and does 2 * m * lmax * D operations on them:
-// 4 per block byte at m = 8 in f32 (16 in int8), far below the card's
-// operations-per-byte balance, so the block read from device memory is
-// the cost.  The design therefore reads every block row exactly once per
-// tile, coalesced (one warp sweeps a row across D), and reuses it from
-// registers for all m query rows, which sit in shared memory.  Plain fp32
-// FMAs, never TF32: the JAX package measured a recall loss with
-// single-pass bf16 products (0.9249 -> 0.860 at the clustered 1M cell).
-// int8 uses __dp4a on 4-byte words, whose integer sums are exact.
-// Results are staged in shared memory so the output rows are written
-// coalesced.  Rows past a tile's occupancy are not computed at all.
+// What bounds it on an H100: by its arithmetic intensity, bytes.  Each
+// tile reads one block (lmax * D * 4 = 64 KB for f32 at lmax 128, D 128;
+// 32 KB for bf16; 8 KB for int8 at lmax 64) and its m query rows, and does
+// 2 * m * lmax * D operations on them: 4 per block byte at m = 8 in f32
+// (8 in bf16, 16 in int8), far below the card's operations-per-byte
+// balance, so the block read from device memory is the floor.  The design
+// therefore reads every block row exactly once per tile, coalesced (one
+// warp sweeps a row across D), and reuses it from registers for all m
+// query rows, which sit in shared memory.  Plain fp32 FMAs, never TF32:
+// the JAX package measured a recall loss with single-pass bf16 products of
+// f32 blocks (0.9249 -> 0.860 at the clustered 1M cell).  int8 uses __dp4a
+// on 4-byte words, whose integer sums are exact.  Results are staged in
+// shared memory so the output rows are written coalesced.  Rows past a
+// tile's occupancy are not computed at all.
+//
+// As written the f32 / bf16 kernel does not reach that floor: bf16 blocks,
+// half the bytes, measured only ~8% faster than f32 per clustered 1M
+// chunk (PERF.md), so it is bound by instruction issue: every (slot row,
+// query row) dot ends in a five-step warp-shuffle sum, and every block
+// element costs m shared-memory loads.  Register-blocking slots and query
+// rows, or tensor-core MMA, is the next step.
 //
 // One thread block per tile, eight warps; warps take slot rows in turn.
 
-#include "common.cuh"
+#include "grouped_tile.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
-template <int MT>
+template <int MT, typename T>
 __global__ void __launch_bounds__(kThreads)
-grouped_score_f32_kernel(const float* __restrict__ x, const float* __restrict__ sq,
-                         const int* __restrict__ tb, const int* __restrict__ lens,
-                         const float* __restrict__ qt, float* __restrict__ out,
-                         int g, int m, int lmax, int d, int l2) {
+grouped_score_kernel(const T* __restrict__ x, const float* __restrict__ sq,
+                     const int* __restrict__ tb, const int* __restrict__ lens,
+                     const float* __restrict__ qt, float* __restrict__ out, int g, int m,
+                     int lmax, int d, int l2, int pairs) {
   extern __shared__ float smem[];
   float* qs = smem;               // [m][d] query rows
   float* qq = qs + m * d;         // [MT] query squared norms
-  float* dots = qq + MT;          // [m][lmax] staged dot products
+  float* dist = qq + MT;          // [m][lmax] staged distances
   const int t = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
   const long blk = min(max(tb[t], 0), g - 1);
   const int len = min(max(lens[t], 0), lmax);
-
-  const float* qsrc = qt + (size_t)t * m * d;
-  for (int i = threadIdx.x; i < m * d; i += blockDim.x) qs[i] = qsrc[i];
-  __syncthreads();
-
-  for (int i = warp; i < m; i += nw) {
-    float s = 0.0f;
-    for (int c = lane; c < d; c += 32) s = fmaf(qs[i * d + c], qs[i * d + c], s);
-    s = rpt::warp_sum(s);
-    if (lane == 0) qq[i] = s;
-  }
-
-  const float* xb = x + (size_t)blk * lmax * d;
-  for (int j = warp; j < len; j += nw) {
-    const float* xr = xb + (size_t)j * d;
-    float acc[MT];
-#pragma unroll
-    for (int i = 0; i < MT; ++i) acc[i] = 0.0f;
-    for (int c = lane; c < d; c += 32) {
-      const float xv = __ldg(xr + c);
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-        if (i < m) acc[i] = fmaf(qs[i * d + c], xv, acc[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      if (i < m) {
-        const float s = rpt::warp_sum(acc[i]);
-        if (lane == 0) dots[i * lmax + j] = s;
-      }
-    }
-  }
-  __syncthreads();
-
-  const float* sqb = sq + (size_t)blk * lmax;
+  rpt::score_tile<MT>(x, sq, qt, t, blk, len, m, lmax, d, l2, pairs, qs, qq, dist);
   float* ob = out + (size_t)t * m * lmax;
-  for (int idx = threadIdx.x; idx < m * lmax; idx += blockDim.x) {
-    const int i = idx / lmax;
-    const int j = idx - i * lmax;
-    ob[idx] = j < len ? rpt::factored_l2(sqb[j], dots[idx], qq[i], l2) : INFINITY;
-  }
+  for (int idx = threadIdx.x; idx < m * lmax; idx += blockDim.x) ob[idx] = dist[idx];
 }
 
 template <int MT>
@@ -179,16 +148,33 @@ grouped_score_i8_kernel(const int8_t* __restrict__ x, const float* __restrict__ 
   }
 }
 
-template <int MT>
-cudaError_t launch_f32(const float* x, const float* sq, const int* tb, const int* lens,
-                       const float* qt, float* out, int nt, int g, int m, int lmax, int d,
-                       int l2, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)m * d + MT + (size_t)m * lmax);
-  cudaError_t e = rpt::allow_smem(grouped_score_f32_kernel<MT>, smem);
+template <int MT, typename T>
+cudaError_t launch_tiles(const T* x, const float* sq, const int* tb, const int* lens,
+                         const float* qt, float* out, int nt, int g, int m, int lmax, int d,
+                         int l2, int pairs, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * rpt::score_tile_floats<MT>(m, lmax, d);
+  cudaError_t e = rpt::allow_smem(grouped_score_kernel<MT, T>, smem);
   if (e != cudaSuccess) return e;
-  grouped_score_f32_kernel<MT><<<nt, kThreads, smem, stream>>>(x, sq, tb, lens, qt, out, g,
-                                                              m, lmax, d, l2);
+  grouped_score_kernel<MT, T><<<nt, kThreads, smem, stream>>>(x, sq, tb, lens, qt, out, g, m,
+                                                              lmax, d, l2, pairs);
   return cudaGetLastError();
+}
+
+template <typename T>
+int launch_tiles_m(const T* x, const float* sq, const int* tb, const int* lens,
+                   const float* qt, float* out, int nt, int g, int tile_m, int lmax, int d,
+                   int l2, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int pairs = rpt::pair_rows(x, d);
+  if (nt <= 0) return 0;
+  if (tile_m < 1) return (int)cudaErrorInvalidValue;
+  if (tile_m <= 8)
+    return launch_tiles<8>(x, sq, tb, lens, qt, out, nt, g, tile_m, lmax, d, l2, pairs, s);
+  if (tile_m <= 16)
+    return launch_tiles<16>(x, sq, tb, lens, qt, out, nt, g, tile_m, lmax, d, l2, pairs, s);
+  if (tile_m <= 32)
+    return launch_tiles<32>(x, sq, tb, lens, qt, out, nt, g, tile_m, lmax, d, l2, pairs, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int MT>
@@ -208,17 +194,18 @@ cudaError_t launch_i8(const int8_t* x, const float* sq, const float* scale_t, co
 
 extern "C" {
 
-// Returns a cudaError_t code: 0 on a good launch; cudaErrorInvalidValue for a
-// tile_m outside [1, 32].
+// Each returns a cudaError_t code: 0 on a good launch; cudaErrorInvalidValue
+// for a tile_m outside [1, 32].
 int rpt_grouped_score_f32(const float* x, const float* sq, const int* tb, const int* lens,
                           const float* qt, float* out, int nt, int g, int tile_m, int lmax,
                           int d, int l2, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nt <= 0) return 0;
-  if (tile_m <= 8) return launch_f32<8>(x, sq, tb, lens, qt, out, nt, g, tile_m, lmax, d, l2, s);
-  if (tile_m <= 16) return launch_f32<16>(x, sq, tb, lens, qt, out, nt, g, tile_m, lmax, d, l2, s);
-  if (tile_m <= 32) return launch_f32<32>(x, sq, tb, lens, qt, out, nt, g, tile_m, lmax, d, l2, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_tiles_m(x, sq, tb, lens, qt, out, nt, g, tile_m, lmax, d, l2, stream);
+}
+
+int rpt_grouped_score_bf16(const __nv_bfloat16* x, const float* sq, const int* tb,
+                           const int* lens, const float* qt, float* out, int nt, int g,
+                           int tile_m, int lmax, int d, int l2, void* stream) {
+  return launch_tiles_m(x, sq, tb, lens, qt, out, nt, g, tile_m, lmax, d, l2, stream);
 }
 
 int rpt_grouped_score_i8(const int8_t* x, const float* sq, const float* scale_t, const int* tb,

@@ -8,17 +8,18 @@ device (the ``device=`` given to :func:`forest_batch` or the loader).  The
 serving path is:
 
 1. :meth:`RPForest.pack_leaves`: each leaf's points copied into one
-   contiguous block (f32, or int8 with a per-block scale);
+   contiguous block (f32, bf16, or int8 with a per-block scale);
 2. :meth:`RPForest.knn_grouped`: traversal and probe selection, pair to
-   tile grouping, tile scoring (kernels 1 and 2, :mod:`..ops.
-   grouped_kernel`) and the top-k tail (kernel 3, :mod:`..ops.
-   topk_kernel`), chunk by chunk;
+   tile grouping, tile scoring (kernels 1 and 2, or kernel 4 with its
+   per-pair top-kp, :mod:`..ops.grouped_kernel`) and the selection tail
+   (the sort tail, or kernel 3, :mod:`..ops.topk_kernel`), chunk by chunk;
 3. :meth:`RPForest.brute_force_knn`: the exact scan that recall is held
    against.
 
 Not ported yet (ROADMAP.md): the per-pair and unpacked query paths, the
-sort and approx selection tails, bf16 / centered / sub-block / shared /
-ELL layouts, online updates, streaming and the sharded forests.
+XLA-form grouped scorer (``impl="xla"``), centered / sub-block / shared /
+ELL layouts, online updates, streaming and the sharded forests.  The
+``approx`` selection tail is not to be ported.
 """
 
 from __future__ import annotations
@@ -30,9 +31,9 @@ import torch
 
 from ..config import ForestConfig
 from ..ops.build import TreeArrays, build_forest_arrays
-from ..ops.grouped import grouped_distances_kernel
+from ..ops.grouped import grouped_distances_kernel, grouped_topk_kernel
 from ..ops.grouped_kernel import INV_127, grouped_kernel_ok
-from ..ops.rerank import distances_from_dots
+from ..ops.rerank import distances_from_dots, merge_top_k
 from ..ops.topk_kernel import topk_dedup_kernel, topk_kernel_ok
 from ..ops.traverse import child_tables, traverse_tree
 from ..utils import gen as rgen
@@ -42,19 +43,21 @@ __all__ = ["RPForest", "forest_batch", "DEFAULT_BUDGET"]
 
 DEFAULT_BUDGET = 32
 _LAYOUTS_TODO = "ROADMAP.md queue 1 item 13 (other dense layouts)"
-_TAILS_TODO = "ROADMAP.md queue 1 item 6 (selection tail)"
+_PRECISIONS = ("highest", "default", "fastest")
+_BLOCK_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+                 "int8": torch.int8}
 
 
 def _dtype_str(dtype) -> str:
-    """Validated block-dtype name for pack_leaves: ``f32`` or ``int8``.
-    bf16 blocks are not ported yet; anything else raises."""
-    if dtype is None or dtype == torch.float32:
+    """Validated block-dtype name for pack_leaves: ``f32``, ``bf16`` or
+    ``int8``; anything else raises."""
+    if dtype is None:
         return "f32"
-    if dtype == torch.int8:
-        return "int8"
-    if dtype == torch.bfloat16:
-        raise NotImplementedError(f"bf16 blocks: {_LAYOUTS_TODO}")
-    raise ValueError(f"pack_leaves supports f32 / int8 blocks; got {dtype}")
+    for name, dt in _BLOCK_DTYPES.items():
+        if dtype == dt:
+            return name
+    raise ValueError(f"pack_leaves supports f32 / bf16 / int8 blocks; "
+                     f"got {dtype}")
 
 
 def _tile_align(n: int, dtype_str: str) -> int:
@@ -174,42 +177,85 @@ def _select_probes(plan, arrays, q, budget, probes, k=None,
     return gsel.to(torch.int32), lsel.to(torch.int32)
 
 
-def _selection_tail(d, id_leaf, rows_sel, k, dedup):
-    """Top-k tail over ``d f32[B, P * lmax]``: the ids are fetched as whole
-    leaf blocks with the rows' ``[B, P]`` pattern, then the top-k kernel
-    extracts the k smallest (distinct, with ``dedup``) candidates."""
+def _selection_tail(d, id_leaf, rows_sel, k, kk, dedup, min_votes=1,
+                    selection="sort"):
+    """Candidate-selection tail over ``d f32[B, P * lmax]`` (+inf in masked
+    slots): the ids are fetched as whole leaf blocks with the rows' ``[B,
+    P]`` pattern, then :func:`_selection_tail_ids` selects."""
     b = d.shape[0]
     ids_flat = id_leaf[rows_sel.long()].reshape(b, -1)
-    return topk_dedup_kernel(d, ids_flat, k, dedup=dedup)
+    return _selection_tail_ids(d, ids_flat, k, kk, dedup, min_votes,
+                               selection)
+
+
+def _selection_tail_ids(d, ids_flat, k, kk, dedup, min_votes=1,
+                        selection="sort"):
+    """The k best of ``(d, ids_flat) [B, W]``; returns ``(dists f32[B, k],
+    ids int32[B, k])``.
+
+    ``selection="kernel"`` with ``min_votes == 1`` is the top-k kernel
+    (kernel 3).  Otherwise the sort tail: a stable sort of the row by
+    distance, its first ``kk`` entries (ids -1 at +inf), then
+    :func:`merge_top_k`.  Vote counting is exact only over the full
+    candidate list, so ``min_votes > 1`` takes ``kk = W``."""
+    w = d.shape[1]
+    kk = w if min_votes > 1 else min(int(kk), w)
+    if selection == "kernel" and min_votes == 1:
+        return topk_dedup_kernel(d, ids_flat, k, dedup=dedup)
+    d_top, order = torch.sort(d, dim=1, stable=True)
+    d_top = d_top[:, :kk]
+    ids_top = ids_flat.gather(1, order[:, :kk])
+    ids_top = torch.where(torch.isinf(d_top), -1, ids_top)
+    return merge_top_k(d_top, ids_top, k, dedup=dedup, min_votes=min_votes)
 
 
 def _knn_grouped(f, q, k, budget, probes, metric, dedup, tile_m, nt,
-                 bucket_stop=False):
+                 bucket_stop=False, min_votes=1, selection="sort",
+                 impl="auto"):
     """One chunk of the grouped serving path; returns
     ``(dists f32[B, k], ids int32[B, k], needed int32[])``, exact iff
-    ``needed <= nt``."""
+    ``needed <= nt``.
+
+    ``impl="kernel_topk"`` scores with kernel 4, which keeps each pair's
+    ``kp = ceil(max(k, 8) / 8) * 8`` nearest in-block candidates, and runs
+    the sort tail over ``P * kp`` of them: exact for the top-k, since
+    ``kp >= k``.  It needs the sort tail, no vote counting (which needs
+    the full lists), f32 or bf16 blocks and ``2 * kp <= lmax``; otherwise,
+    and for the other ``impl`` values, the full tile kernel runs and then
+    :func:`_selection_tail`."""
     x_leaf, sq_leaf, id_leaf = f._packed
     lens = f._lens_global()
     gsel, lsel = _select_probes(f.plan, f.arrays, q, budget, probes, k=k,
                                 bucket_stop=bucket_stop, block_len=lens,
                                 children=f._children())
     b, p = gsel.shape
+    kk = k * f.n_trees if dedup else k
+    kp = -(-max(k, 8) // 8) * 8
+    if (impl == "kernel_topk" and min_votes == 1 and selection == "sort"
+            and 2 * kp <= x_leaf.shape[1] and x_leaf.dtype != torch.int8):
+        d_t, i_t, needed = grouped_topk_kernel(
+            x_leaf, sq_leaf, id_leaf, lens, gsel, lsel, q, metric, tile_m,
+            nt, kp)
+        d_out, i_out = _selection_tail_ids(
+            d_t.reshape(b, p * kp), i_t.reshape(b, p * kp), k,
+            min(kk, p * kp), dedup)
+        return d_out, i_out, needed
     d, needed = grouped_distances_kernel(
         x_leaf, sq_leaf, lens, gsel, lsel, q, metric, tile_m, nt,
         block_scale=f._block_scale)
-    d_out, i_out = _selection_tail(d.reshape(b, -1), id_leaf, gsel, k, dedup)
+    d_out, i_out = _selection_tail(d.reshape(b, -1), id_leaf, gsel, k, kk,
+                                   dedup, min_votes, selection)
     return d_out, i_out, needed
 
 
-def _knn_grouped_many(f, q, k, budget, probes, metric, dedup, tile_m, nt,
-                      chunk, bucket_stop=False):
+def _knn_grouped_many(f, q, chunk, **kw):
     """The grouped path over ``chunk``-query slices of ``q`` (a multiple of
-    ``chunk`` rows); ``nt`` is the per-chunk capacity and the returned
-    ``needed`` the maximum over chunks."""
+    ``chunk`` rows); ``kw`` are :func:`_knn_grouped`'s arguments, its
+    ``nt`` the per-chunk capacity.  The returned ``needed`` is the
+    maximum over chunks."""
     ds, ids, needs = [], [], []
     for s in range(0, q.shape[0], chunk):
-        d, i, n = _knn_grouped(f, q[s:s + chunk], k, budget, probes, metric,
-                               dedup, tile_m, nt, bucket_stop)
+        d, i, n = _knn_grouped(f, q[s:s + chunk], **kw)
         ds.append(d)
         ids.append(i)
         needs.append(n)
@@ -318,10 +364,12 @@ class RPForest:
         (exact, from the f32 rows), the point ids ``id_leaf`` (-1 in empty
         slots) and, for ``dtype=torch.int8``, one scale per block
         (``max |row| / 127``; rows divided by it and rounded half to even).
-        ``slack`` adds empty slots per block; the slot axis is then
-        aligned as in the JAX package.  Packing the same layout again is
-        a no-op.  ``centered``, ``sub_block > 1``, ``store="shared"`` and
-        bf16 blocks are not ported yet and raise."""
+        ``dtype=torch.bfloat16`` rounds the rows to nearest even and
+        halves the blocks' memory and read bytes; distances are then
+        computed from the bf16 rows.  ``slack`` adds empty slots per
+        block; the slot axis is aligned as in the JAX package.  Packing
+        the same layout again is a no-op.  ``centered``, ``sub_block >
+        1`` and ``store="shared"`` are not ported yet and raise."""
         if store != "blocks" or centered or int(sub_block or 1) > 1:
             raise NotImplementedError(
                 f"store={store!r} centered={centered} sub_block={sub_block}: "
@@ -341,7 +389,7 @@ class RPForest:
             np.where(in_leaf_np, starts[:, None] + offs, 0), device=self.device)
         in_leaf = torch.as_tensor(in_leaf_np, device=self.device)
         nl, d, t = plan.n_leaves, self.dim, self.n_trees
-        dt = torch.int8 if dtype_str == "int8" else torch.float32
+        dt = _BLOCK_DTYPES[dtype_str]
         x_leaf = torch.empty((t, nl, lmax, d), dtype=dt, device=self.device)
         sq_leaf = torch.empty((t, nl, lmax), device=self.device)
         id_leaf = torch.empty((t, nl, lmax), dtype=torch.int32,
@@ -354,7 +402,7 @@ class RPForest:
             id_leaf[ti] = torch.where(in_leaf, ids, -1).to(torch.int32)
             sq_leaf[ti] = (rows * rows).sum(-1)
             if scale is None:
-                x_leaf[ti] = rows
+                x_leaf[ti] = rows  # bf16: the copy rounds to nearest even
                 continue
             amax = rows.abs().amax(dim=(-2, -1), keepdim=True)
             sc = amax.clamp_min(1e-30) * INV_127
@@ -373,15 +421,32 @@ class RPForest:
     @torch.no_grad()
     def knn_grouped(self, q, k: int, metric: str = "l2",
                     budget: Optional[int] = None, dedup: bool = True,
+                    precision: str = "highest",
                     probes: Optional[int] = None, tile_m: int = 16,
-                    nt: Optional[int] = None,
+                    nt: Optional[int] = None, tile_chunk: int = 2048,
                     bucket_stop: bool = False, min_votes: int = 1,
-                    selection: str = "kernel", impl: str = "auto",
+                    selection: str = "sort", impl: str = "auto",
                     check: bool = True, chunk: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Query-grouped block-resident kNN: queries probing the same leaf
         block share one read of it per tile.  Returns ``(dists f32[B, k],
         ids int32[B, k])`` (``(+inf, -1)`` where fewer than k candidates).
+        The parameters are the JAX package's, in its order.
+
+        ``selection``: "sort" (stable sort, ``k * n_trees`` overselect
+        with ``dedup``, then :func:`merge_top_k`) or "kernel" (the top-k
+        kernel; k <= 128).  ``min_votes > 1`` keeps only ids found in at
+        least that many of the probed blocks and always takes the sort
+        tail over the full candidate list.  ``impl``: "auto", "kernel"
+        and "kernel_full" score with the full tile kernel;
+        "kernel_topk" with the per-pair top-kp kernel where it applies
+        (see :func:`_knn_grouped`).  Metric l2 or sql2.
+
+        ``precision`` takes the JAX package's values and changes nothing
+        here, as on the JAX package's kernel paths: f32 blocks are always
+        scored in full fp32, bf16 blocks by exact products of bf16 values
+        summed in fp32.  ``tile_chunk``, the step of the JAX package's
+        XLA scorer, has no effect: the port has no such scorer.
 
         The tile capacity auto-sizes (see :func:`_grouped_auto_capacity`);
         ``check=False`` is the steady-state mode that skips reading the
@@ -389,22 +454,23 @@ class RPForest:
         (overflow then masks candidates, see :meth:`grouped_overflow`).
         ``chunk`` serves the batch ``chunk`` queries at a time (default:
         all at once), with ``nt`` and the cached capacity per chunk.
-
-        Only the kernel path is ported: ``selection="kernel"`` (the
-        default here; the JAX package defaults to "sort"), ``impl`` "auto"
-        / "kernel" / "kernel_full", ``min_votes=1``, metric l2 / sql2.
-        f32 blocks are always scored in full fp32.
         """
         if self._packed is None:
             raise ValueError("pack_leaves() first: knn_grouped runs on the "
                              "leaf-blocked layout")
-        if selection != "kernel":
-            raise NotImplementedError(f"selection={selection!r}: {_TAILS_TODO}")
-        if impl in ("kernel_topk", "xla"):
+        if precision not in _PRECISIONS:
+            raise ValueError(f"precision must be one of {_PRECISIONS}")
+        if selection == "approx":
             raise NotImplementedError(
-                f"impl={impl!r}: the port serves the grouped path through "
-                f"its tile kernels only; {_TAILS_TODO}")
-        if impl not in ("auto", "kernel", "kernel_full"):
+                "selection='approx': not to be ported (ROADMAP.md, "
+                "\"Not to port\")")
+        if selection not in ("sort", "kernel"):
+            raise ValueError(f"unknown selection {selection!r}")
+        if impl == "xla":
+            raise NotImplementedError(
+                "impl='xla': the port scores through its tile kernels only; "
+                "ROADMAP.md queue 1 item 5 (XLA-form grouped_distances)")
+        if impl not in ("auto", "kernel", "kernel_full", "kernel_topk"):
             raise ValueError(f"unknown impl {impl!r}")
         if not grouped_kernel_ok(self._packed[0], metric):
             raise NotImplementedError(
@@ -412,10 +478,11 @@ class RPForest:
         k = self._check_k(k)
         budget = self._budget(budget)
         probes = int(self.n_trees * budget if probes is None else probes)
-        if not topk_kernel_ok(probes * self._packed[0].shape[1], k,
-                              int(min_votes)):
-            raise ValueError("selection='kernel' needs k <= 128 and "
-                             "min_votes == 1")
+        min_votes = int(min_votes)
+        if selection == "kernel" and min_votes == 1 and not topk_kernel_ok(
+                probes * self._packed[0].shape[1], k):
+            raise ValueError("selection='kernel' needs k <= 128; use "
+                             "selection='sort'")
         qb = _as_dense_queries(q, self.dim, self.device)
         b = qb.shape[0]
         chunk = b if chunk is None else max(1, min(int(chunk), b))
@@ -425,8 +492,10 @@ class RPForest:
 
         def run(cap):
             d, ids, needed = _knn_grouped_many(
-                self, qb, k, budget, probes, metric, dedup, int(tile_m), cap,
-                chunk, bucket_stop)
+                self, qb, chunk, k=k, budget=budget, probes=probes,
+                metric=metric, dedup=dedup, tile_m=int(tile_m), nt=cap,
+                bucket_stop=bucket_stop, min_votes=min_votes,
+                selection=selection, impl=impl)
             return (d, ids), needed
 
         key = (qb.shape[0], probes, int(tile_m), chunk)

@@ -1,5 +1,6 @@
 """Query-grouped block-resident rerank (``rptree_tpu/ops/grouped.py``, the
-kernel form ``grouped_distances_kernel``).
+kernel forms ``grouped_distances_kernel`` and ``grouped_topk_kernel``;
+the XLA-form ``grouped_distances`` is not ported).
 
 1. Flatten the batch's (query, probe) pairs and sort them by probed block.
 2. Chop each equal-block run into tiles of at most ``tile_m`` pairs, so a
@@ -9,6 +10,9 @@ kernel form ``grouped_distances_kernel``).
    tile instead of once per pair.
 4. Gather each pair's distance row back to its slot through the inverse
    permutation that rides the tile tables.
+
+``grouped_topk_kernel`` scores the same tiles with kernel 4, which keeps
+only each pair's ``kp`` nearest in-block candidates and their point ids.
 
 Static shapes: the tile count ``sum_g ceil(c_g / tile_m)`` depends on the
 data, so the tables take a capacity ``nt`` and report the tiles actually
@@ -21,9 +25,10 @@ from __future__ import annotations
 
 import torch
 
-from .grouped_kernel import grouped_score_tiles, grouped_score_tiles_int8
+from .grouped_kernel import (grouped_score_tiles, grouped_score_tiles_int8,
+                             grouped_score_topk)
 
-__all__ = ["grouped_distances_kernel"]
+__all__ = ["grouped_distances_kernel", "grouped_topk_kernel"]
 
 _BIG = 1 << 30  # sentinel block id for masked pairs (sorts to the end)
 
@@ -68,6 +73,26 @@ def _tile_tables(gsel, lsel, tile_m: int, nt: int, with_slots=False):
     return tile_block[:nt], tile_pair[:nt], needed, slot
 
 
+def _tile_operands(gsel, lsel, lens_of_block, q, tile_m, nt):
+    """Tile tables and kernel operands of a chunk's pairs: ``(tb, lens_t,
+    qt, needed, inv)``, with ``qt f32[nt * tile_m, D]`` the query rows in
+    tile-slot order and ``inv`` each pair's flat tile slot."""
+    p = gsel.shape[1]
+    tb, tp, needed, inv = _tile_tables(gsel, lsel, tile_m, nt,
+                                       with_slots=True)
+    lens_t = lens_of_block[tb.long()].to(torch.int32)
+    qi = torch.where(tp >= 0, tp // p, 0).reshape(-1).long()
+    return tb, lens_t, q[qi], needed, inv
+
+
+def _pair_rows(rows, inv, fill, b, p):
+    """Pair reorder: each pair's tile-slot row of ``rows [nt * tile_m,
+    w]``, with pairs in no tile reading a pad row of ``fill``."""
+    pad = torch.full((1, rows.shape[1]), fill, dtype=rows.dtype,
+                     device=rows.device)
+    return torch.cat([rows, pad])[inv].reshape(b, p, rows.shape[1])
+
+
 @torch.no_grad()
 def grouped_distances_kernel(x_leaf, sq_leaf, lens_of_block, gsel, lsel, q,
                              metric, tile_m: int, nt: int, block_scale=None):
@@ -75,7 +100,7 @@ def grouped_distances_kernel(x_leaf, sq_leaf, lens_of_block, gsel, lsel, q,
     by the tile kernels.
 
     Args:
-      x_leaf/sq_leaf: packed blocks ``f32 or int8 [G, lmax, D]`` and
+      x_leaf/sq_leaf: packed blocks ``f32, bf16 or int8 [G, lmax, D]`` and
         ``f32[G, lmax]`` slot squared norms.
       lens_of_block: ``int32[G]`` occupancy per block.
       gsel/lsel: probe selection ``int32[B, P]`` (block id / leaf id, -1 =
@@ -89,19 +114,32 @@ def grouped_distances_kernel(x_leaf, sq_leaf, lens_of_block, gsel, lsel, q,
     probes, occupancy padding, capacity overflow) carry +inf.
     """
     b, p = gsel.shape
-    lmax = x_leaf.shape[-2]
-    tb, tp, needed, inv = _tile_tables(gsel, lsel, tile_m, nt,
-                                       with_slots=True)
-    lens_t = lens_of_block[tb.long()].to(torch.int32)
-    qi = torch.where(tp >= 0, tp // p, 0).reshape(-1).long()
-    qt = q[qi]  # [nt * tile_m, D] in tile-slot order
+    tb, lens_t, qt, needed, inv = _tile_operands(gsel, lsel, lens_of_block,
+                                                 q, tile_m, nt)
     if x_leaf.dtype == torch.int8:
         d_all = grouped_score_tiles_int8(x_leaf, sq_leaf, block_scale, tb,
                                          lens_t, qt, metric, tile_m)
     else:
         d_all = grouped_score_tiles(x_leaf, sq_leaf, tb, lens_t, qt, metric,
                                     tile_m)
-    # pair reorder: pairs in no tile read the +inf pad row
-    pad = torch.cat([d_all, torch.full((1, lmax), float("inf"),
-                                       device=d_all.device)])
-    return pad[inv].reshape(b, p, lmax), needed
+    return _pair_rows(d_all, inv, float("inf"), b, p), needed
+
+
+@torch.no_grad()
+def grouped_topk_kernel(x_leaf, sq_leaf, id_leaf, lens_of_block, gsel, lsel,
+                        q, metric, tile_m: int, nt: int, kp: int):
+    """Each (query, probe) pair's ``kp`` nearest in-block candidates, by
+    the same tiling as :func:`grouped_distances_kernel` and kernel 4
+    (:func:`..grouped_kernel.grouped_score_topk`); f32 or bf16 blocks.
+    Exact for the final per-query top-k whenever ``kp >= k``.
+
+    Returns ``(d f32[B, P, kp], ids int32[B, P, kp], needed int32[])``:
+    masked and overflow pairs carry ``(+inf, -1)``.
+    """
+    b, p = gsel.shape
+    tb, lens_t, qt, needed, inv = _tile_operands(gsel, lsel, lens_of_block,
+                                                 q, tile_m, nt)
+    d_all, i_all = grouped_score_topk(x_leaf, sq_leaf, id_leaf, tb, lens_t,
+                                      qt, metric, tile_m, kp)
+    return (_pair_rows(d_all, inv, float("inf"), b, p),
+            _pair_rows(i_all, inv, -1, b, p), needed)

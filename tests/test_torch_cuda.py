@@ -26,7 +26,7 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _tiles(dev, g, lmax, d, nt, tile_m, int8, seed=0):
+def _tiles(dev, g, lmax, d, nt, tile_m, int8, seed=0, bf16=False):
     gen = torch.Generator().manual_seed(seed)
     x = torch.randn(g, lmax, d, generator=gen)
     sq = (x * x).sum(-1)
@@ -36,6 +36,8 @@ def _tiles(dev, g, lmax, d, nt, tile_m, int8, seed=0):
                          dtype=torch.int32)
     qt = torch.randn(nt * tile_m, d, generator=gen)
     scale = None
+    if bf16:
+        x = x.bfloat16()
     if int8:
         scale = x.abs().amax(dim=(1, 2)) * gk.INV_127
         x = torch.round(x / scale[:, None, None]).clamp(-127, 127).to(
@@ -65,6 +67,78 @@ def test_f32_tiles(dev, metric, g, lmax, d, nt, tile_m):
                                             tile_m)
     torch.cuda.synchronize()
     _close(got, want)
+
+
+@pytest.mark.parametrize("metric", ["l2", "sql2"])
+@pytest.mark.parametrize("g,lmax,d,nt,tile_m", [
+    (50, 128, 128, 300, 8), (7, 24, 20, 33, 3), (9, 40, 131, 17, 16),
+    (5, 8, 1, 4, 32),
+])
+def test_bf16_tiles(dev, metric, g, lmax, d, nt, tile_m):
+    x, sq, _, tb, lens, qt = _tiles(dev, g, lmax, d, nt, tile_m, False,
+                                    bf16=True)
+    before = (gk.grouped_score_tiles.launches,
+              gk.grouped_score_tiles.launches_bf16)
+    got = gk.grouped_score_tiles(x, sq, tb, lens, qt, metric, tile_m)
+    assert (gk.grouped_score_tiles.launches,
+            gk.grouped_score_tiles.launches_bf16) == (before[0],
+                                                      before[1] + 1)
+    want = gk.grouped_score_tiles_reference(x, sq, tb, lens, qt, metric,
+                                            tile_m)
+    torch.cuda.synchronize()
+    _close(got, want)
+    # blocks 2-byte aligned take the unpaired loads
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+    xo = buf[1:].view(x.shape)
+    xo.copy_(x)
+    _close(gk.grouped_score_tiles(xo, sq, tb, lens, qt, metric, tile_m), want)
+
+
+def _topk_case(dev, g, lmax, d, nt, tile_m, bf16, seed):
+    x, sq, _, tb, lens, qt = _tiles(dev, g, lmax, d, nt, tile_m, False,
+                                    seed=seed, bf16=bf16)
+    x[0, 1::2] = x[0, ::2][: lmax // 2]          # duplicated rows
+    sq[0, 1::2] = sq[0, ::2][: lmax // 2]
+    tb[0], lens[0] = 0, lmax
+    lens[1] = 0                                  # an empty tile
+    ids = torch.randint(0, 1 << 20, (g, lmax), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(seed))
+    return x, sq, ids.to(dev), tb, lens, qt
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("metric", ["l2", "sql2"])
+@pytest.mark.parametrize("g,lmax,d,nt,tile_m,kp", [
+    (50, 128, 128, 300, 8, 16), (7, 24, 20, 33, 3, 12), (9, 40, 130, 17, 16, 8),
+    (5, 16, 8, 9, 32, 8), (6, 256, 64, 40, 8, 128), (4, 8, 4, 5, 1, 1),
+])
+def test_topk_tiles(dev, bf16, metric, g, lmax, d, nt, tile_m, kp):
+    x, sq, ids, tb, lens, qt = _topk_case(dev, g, lmax, d, nt, tile_m, bf16,
+                                          seed=g * lmax)
+    before = gk.grouped_score_topk.launches
+    kd, ki = gk.grouped_score_topk(x, sq, ids, tb, lens, qt, metric, tile_m,
+                                   kp)
+    assert gk.grouped_score_topk.launches == before + 1
+    pd, pi = gk.grouped_score_topk_reference(x, sq, ids, tb, lens, qt, metric,
+                                             tile_m, kp)
+    full = gk.grouped_score_tiles(x, sq, tb, lens, qt, metric, tile_m)
+    torch.cuda.synchronize()
+    _close(kd, pd)
+    # kernel 4's distances are kernel 1's, bit for bit, in sorted order
+    first = torch.sort(full, dim=1, stable=True).values[:, :kp]
+    assert torch.equal(kd.view(torch.int32), first.view(torch.int32))
+    # ids agree wherever the distance is finite and not tied in its row
+    chk = gk.untied(pd) & torch.isfinite(kd)
+    assert torch.equal(ki[chk], pi[chk])
+    assert bool((ki[~torch.isfinite(kd)] == -1).all())
+    # both copies of a duplicated row come out (tile 0 holds block 0,
+    # whose slots 2j and 2j + 1 are twins)
+    twin = {}
+    for a, b in ids[0].reshape(-1, 2).tolist():
+        twin[a], twin[b] = b, a
+    got = set(ki[0, : kp - kp % 2].tolist())
+    assert got == {twin[i] for i in got}
+    assert bool(torch.isinf(kd[tile_m:2 * tile_m]).all())  # the empty tile
 
 
 @pytest.mark.parametrize("metric", ["l2", "sql2"])
@@ -118,11 +192,25 @@ def test_wrappers_raise_on_what_they_do_not_serve(dev):
     with pytest.raises(ValueError):
         gk.grouped_score_tiles(x, sq, tb, lens, qt, "cosine", 2)
     with pytest.raises(TypeError):
-        gk.grouped_score_tiles(x.bfloat16(), sq, tb, lens, qt, "l2", 2)
+        gk.grouped_score_tiles(x.half(), sq, tb, lens, qt, "l2", 2)
     with pytest.raises(ValueError):
         gk.grouped_score_tiles(x, sq, tb, lens, qt[:-2], "l2", 2)
     with pytest.raises(ValueError):
         gk.grouped_score_tiles(x, sq, tb, lens, qt, "l2", 33)
+    ids = torch.zeros(4, 16, dtype=torch.int32, device=dev)
+    for bad_kp in (0, 17, 129):
+        with pytest.raises(ValueError):
+            gk.grouped_score_topk(x, sq, ids, tb, lens, qt, "l2", 2, bad_kp)
+    with pytest.raises(ValueError):
+        gk.grouped_score_topk(x, sq, ids, tb, lens, qt, "l2", 33, 8)
+    with pytest.raises(TypeError):
+        gk.grouped_score_topk(x.half(), sq, ids, tb, lens, qt, "l2", 2, 8)
+    with pytest.raises(TypeError):
+        gk.grouped_score_topk(x, sq, ids.long(), tb, lens, qt, "l2", 2, 8)
+    with pytest.raises(ValueError):
+        gk.grouped_score_topk(x, sq, ids[:, :8], tb, lens, qt, "l2", 2, 8)
+    with pytest.raises(ValueError):
+        gk.grouped_score_topk(x, sq, ids.cpu(), tb, lens, qt, "l2", 2, 8)
     d = torch.zeros(4, 8, device=dev)
     with pytest.raises(TypeError):
         tk.topk_dedup_kernel(d, torch.zeros(4, 8, dtype=torch.int64,

@@ -100,8 +100,10 @@ def test_gate_and_bad_arguments():
     assert tk.grouped_kernel_ok(torch.zeros(4, 16, 8, dtype=torch.int8),
                                 "sql2")
     assert not tk.grouped_kernel_ok(torch.zeros(4, 16, 8), "cosine")
-    assert not tk.grouped_kernel_ok(
+    assert tk.grouped_kernel_ok(
         torch.zeros(4, 16, 8, dtype=torch.bfloat16), "l2")
+    assert not tk.grouped_kernel_ok(
+        torch.zeros(4, 16, 8, dtype=torch.float16), "l2")
     x, sq, tb, lens, qt = (torch.as_tensor(a)
                            for a in _tiles(3, 4, 8, 8, 2, 4))
     with pytest.raises(ValueError):

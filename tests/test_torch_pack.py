@@ -1,5 +1,5 @@
 """The port's leaf packing against the JAX package's ``pack_leaves``: the
-same forest gives the same blocks, f32 and int8 with slack."""
+same forest gives the same blocks, f32, bf16 and int8, with slack."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,19 +18,30 @@ def forests():
     return fj, carry(fj)
 
 
+_DTYPES = {None: (None, None, torch.float32),
+           "int8": (jnp.int8, torch.int8, torch.int8),
+           "bf16": (jnp.bfloat16, torch.bfloat16, torch.bfloat16)}
+
+
 @pytest.mark.parametrize("layout", [
     dict(), dict(slack=3), dict(dtype="int8", slack=8), dict(dtype="int8"),
+    dict(dtype="bf16"), dict(dtype="bf16", slack=5),
 ])
 def test_pack_equal(forests, layout):
     fj, ft = forests
+    dj, dt, want_dtype = _DTYPES[layout.get("dtype")]
     int8 = layout.get("dtype") == "int8"
     slack = layout.get("slack", 0)
-    fj.pack_leaves(dtype=jnp.int8 if int8 else None, slack=slack)
-    ft.pack_leaves(dtype=torch.int8 if int8 else None, slack=slack)
+    fj.pack_leaves(dtype=dj, slack=slack)
+    ft.pack_leaves(dtype=dt, slack=slack)
     (xj, sj, ij), (xt, st, it) = fj._packed, ft._packed
     assert tuple(xt.shape) == tuple(xj.shape)
-    assert xt.dtype == (torch.int8 if int8 else torch.float32)
-    np.testing.assert_array_equal(xt.numpy(), np.asarray(xj))
+    assert xt.dtype == want_dtype
+    if want_dtype == torch.bfloat16:  # bit for bit: both round to even
+        np.testing.assert_array_equal(xt.view(torch.int16).numpy(),
+                                      np.asarray(xj).view(np.int16))
+    else:
+        np.testing.assert_array_equal(xt.numpy(), np.asarray(xj))
     np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
     np.testing.assert_allclose(st.numpy(), np.asarray(sj), rtol=1e-6,
                                atol=0)
@@ -57,8 +68,6 @@ def test_pack_is_idempotent_and_repacks(forests):
 def test_unported_layouts_raise(forests):
     _, ft = forests
     with pytest.raises(NotImplementedError):
-        ft.pack_leaves(dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError):
         ft.pack_leaves(dtype=torch.int8, centered=True)
     with pytest.raises(NotImplementedError):
         ft.pack_leaves(sub_block=2)
@@ -66,6 +75,8 @@ def test_unported_layouts_raise(forests):
         ft.pack_leaves(store="shared")
     with pytest.raises(ValueError):
         ft.pack_leaves(dtype=torch.float64)
+    with pytest.raises(ValueError):
+        ft.pack_leaves(dtype=torch.float16)
 
 
 @pytest.mark.parametrize("n,dtype,want", [

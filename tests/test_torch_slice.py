@@ -127,16 +127,75 @@ def test_capacity_cache_and_steady_state(data):
                                atol=1e-5)
 
 
+def test_kernel_selection_counts_votes_like_jax(data):
+    """``selection="kernel"`` with ``min_votes=2``: vote counting needs the
+    full candidate lists, so both packages take the sort tail."""
+    x, q, fj = data
+    ft = carry(fj)
+    fj.pack_leaves()
+    ft.pack_leaves()
+    dj, ij = fj.knn_grouped(q, K, selection="kernel", min_votes=2, **SERVE)
+    dt, it = ft.knn_grouped(q, K, selection="kernel", min_votes=2, **SERVE)
+    dj, ij, dt, it = np.asarray(dj), np.asarray(ij), dt.numpy(), it.numpy()
+    same = _set_equal_rows(it, ij)
+    assert same.mean() >= 0.99, same.mean()
+    np.testing.assert_allclose(dt[same], dj[same], rtol=1e-5, atol=1e-5)
+    # the vote filter dropped candidates found in one probed block only
+    assert (it < 0).any() and (it >= 0).any()
+    # k past the top-k kernel's 128 is served through the sort tail
+    d129, i129 = ft.knn_grouped(q[:8], 129, selection="kernel", min_votes=2,
+                                **SERVE)
+    assert i129.shape == (8, 129)
+
+
+def test_signature_and_positional_binding_match_jax(data):
+    """``knn_grouped`` takes the JAX package's parameters in its order and
+    with its defaults, so a positional call binds alike in both."""
+    import inspect
+
+    import rptree_tpu as rt
+    import rptree_tpu_torch as rp
+
+    def params(fn):
+        return [(p.name, p.default)
+                for p in inspect.signature(fn).parameters.values()]
+
+    assert params(rp.RPForest.knn_grouped) == params(rt.RPForest.knn_grouped)
+    x, q, fj = data
+    ft = carry(fj)
+    fj.pack_leaves()
+    ft.pack_leaves()
+    args = (q, K, "sql2", 2, False, "default", 6, 8, None, 2048, False, 1,
+            "sort", "auto", True, 100)
+    dj, ij = fj.knn_grouped(*args)
+    dt, it = ft.knn_grouped(*args)
+    dj, ij, dt, it = np.asarray(dj), np.asarray(ij), dt.numpy(), it.numpy()
+    same = _set_equal_rows(it, ij)
+    assert same.mean() >= 0.99, same.mean()
+    # sql2 squares the distances, and with them their relative noise:
+    # compared as l2 distances, at the slice's l2 tolerance
+    np.testing.assert_allclose(np.sqrt(dt[same]), np.sqrt(dj[same]),
+                               rtol=1e-5, atol=1e-5)
+    # without dedup the copies of an id (one per tree) are kept
+    assert (dt[:, 0] == dt[:, 1]).any()
+    with pytest.raises(ValueError):
+        ft.knn_grouped(q, K, precision="exact")
+
+
 def test_unported_options_raise(data):
     _, q, fj = data
     ft = carry(fj)
     with pytest.raises(ValueError):
         ft.knn_grouped(q, K)  # not packed yet
     ft.pack_leaves()
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        ft.knn_grouped(q, K, selection="sort")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        ft.knn_grouped(q, K, impl="kernel_topk")
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        ft.knn_grouped(q, K, impl="xla")
+    with pytest.raises(NotImplementedError, match="Not to port"):
+        ft.knn_grouped(q, K, selection="approx")
+    with pytest.raises(ValueError):
+        ft.knn_grouped(q, K, selection="exact")
+    with pytest.raises(ValueError):
+        ft.knn_grouped(q, K, impl="pallas")
     with pytest.raises(NotImplementedError):
         ft.knn_grouped(q, K, metric="cosine")
     with pytest.raises(NotImplementedError):
@@ -144,9 +203,7 @@ def test_unported_options_raise(data):
     with pytest.raises(ValueError):
         ft.knn_grouped(q[:, :5], K)
     with pytest.raises(ValueError):
-        ft.knn_grouped(q, K, min_votes=2)
-    with pytest.raises(ValueError):
-        ft.knn_grouped(q, 129)
+        ft.knn_grouped(q, 129, selection="kernel")
 
 
 def test_port_imports_no_jax():
