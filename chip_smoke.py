@@ -1,28 +1,42 @@
 """Smoke test of the PyTorch / CUDA port (``rptree_tpu_torch``) on one
 NVIDIA GPU: builds the port's CUDA kernels from ``rptree_tpu_torch/csrc``,
 holds each against its plain PyTorch version at the serving path's shapes,
-then drives the grouped serving path end to end on two cells and checks
-recall against the exact scan.
+then drives the grouped, per-pair, unpacked and exact-scan query paths end
+to end and checks recall against the exact fp32 scan.
 
     python3 chip_smoke.py
 
-Phases, one line each (phases 3-4 one per variant, and one more with
+Phases, one line each (phases 3-6 one per variant, and one more with
 its launch counts):
 
 1. set-up: the card, torch and CUDA versions, TF32 off, kernel build time;
 2. each kernel against its plain version on the card (distances to 1e-4
    relative, top-k exactly equal; the fused tile top-k's distances
-   bit-equal to the tile kernel's, sorted), with both times by CUDA
-   events;
+   bit-equal to the tile kernel's, sorted; the block gather's norms
+   bit-equal; the scan's ids equal outside near-ties), with both times by
+   CUDA events, the least time the card could take (``bound_ms``) and,
+   where one PyTorch call computes the same function, its time;
 3. clustered 1M cell (``bench.py``'s flagship parameters): one build and
-   one exact ground truth (recall@10 on 1,024 queries), then 131,072
-   queries served by five variants: f32 blocks with the kernel tail, the
-   sort tail, and the fused tile top-k (``impl="kernel_topk"``); bf16
+   one exact ground truth (recall@10 on 1,024 queries); unpacked ``knn``
+   on those 1,024 queries; then 131,072 queries served by six variants:
+   f32 blocks with the kernel tail, the sort tail, and the fused tile
+   top-k (``impl="kernel_topk"``); the per-pair path (``knn_batched``,
+   variant f, held against the sort tail and the unpacked result); bf16
    blocks with the sort tail and the fused tile top-k.  The fused
-   variants' distances must be bit-equal to their full-kernel twins';
+   variants' distances must be bit-equal to their full-kernel twins'.
+   Then the bf16 scan (``brute_force_knn(precision="fastest")``) of
+   16,384 queries, recall@10 >= 0.88;
 4. iid 100k cell, int8 blocks with slack 8 (``bench.py``'s headline
    parameters): the same on 65,536 queries with the kernel tail;
-5. the kernels' launch counts over phases 3-4, each of which must be > 0.
+5. iid 100k bracket (``bench.py``'s >= 0.9 recall points on the same
+   data): the quality forest (32 trees, ``min_leaf`` 4,096, bf16 blocks)
+   served per pair, recall@10 >= 0.90, and the bf16 scan, >= 0.98;
+6. iid 1M scan: the bf16 scan of 4,096 queries over 1M rows against the
+   fp32 scan on 256, recall@10 >= 0.98;
+7. the kernels' launch counts over phases 3-6, each of which must be > 0.
+
+Each scan of phases 3, 5 and 6 is also held, on its first chunk of
+queries, against the scan kernel's plain version at that shape.
 
 Every variant is served with the launch counts set to 0 just before it
 and read just after it: the kernels it must run have launched once per
@@ -47,12 +61,50 @@ DIST_RTOL = 1e-4           # kernel vs plain version, distances (relative)
 CLUSTERED_MIN_RECALL = 0.90
 BF16_MIN_RECALL = 0.80     # single-pass bf16 products; the JAX package: 0.860
 IID_MIN_RECALL = 0.10
+SCAN_MIN_RECALL = {"clustered": 0.88, "bracket": 0.98, "1m": 0.98}
+BRACKET_MIN_RECALL = 0.90
 KP = 16                    # the fused tile top-k's per-pair width at k = 10
-JAX_RECALL = {"clustered": 0.9249, "iid": 0.123}  # the JAX package's records
+JAX_RECALL = {"clustered": 0.9249, "iid": 0.123,   # the JAX package's records
+              "clustered_scan": 0.9037, "bracket_tree": 0.9276,
+              "bracket_scan": 0.9943, "scan_1m": 0.9937}
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense): device
+# memory bytes / s, and operations / s by operand type
+HBM_BPS = 3.35e12
+PEAK_OPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
 
 
 def log(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def bound(nbytes, ops, kind):
+    """``{"bound_ms", "bound_by"}``: the least time the card could take to
+    move ``nbytes`` (each input read once, each output written once) and
+    to do ``ops`` operations on ``kind`` operands, whichever is longer."""
+    by_bytes = nbytes / HBM_BPS * 1e3
+    by_ops = ops / PEAK_OPS[kind] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_bytes": int(nbytes), "bound_ops": int(ops)}
+
+
+def tile_bound(x, tb, lens, tile_m, qt, out_bytes_per_row, kind, ids=False):
+    """:func:`bound` of a tile kernel on these inputs: the occupied rows
+    of the blocks the tiles use (the most any tile reads of each), their
+    norms (and ids), the tiles' query rows and tables, the output."""
+    import torch
+
+    g, lmax, d = x.shape
+    rows = torch.zeros(g, dtype=torch.int64, device=tb.device).scatter_reduce(
+        0, tb.long(), lens.long().clamp(0, lmax), "amax")
+    nrows = int(rows.sum())
+    row_bytes = d * x.element_size() + 4 + (4 if ids else 0)
+    nbytes = (nrows * row_bytes + qt.numel() * 4 + tb.numel() * 8
+              + qt.shape[0] * out_bytes_per_row)
+    if kind == "int8":
+        nbytes += int((rows > 0).sum()) * 4  # block scales
+    ops = 2 * tile_m * int(lens.long().clamp(0, lmax).sum()) * d
+    return bound(nbytes, ops, kind)
 
 
 def cuda_ms(fn, reps=5):
@@ -174,6 +226,8 @@ def check_kernels(device, g=4096, nt=4096, dim=128, reps=5):
             "max_abs_err": abs_err, "max_rel_err": rel_err,
             "ms": cuda_ms(lambda: kern(*args, "l2", tile_m), reps),
             "plain_ms": cuda_ms(lambda: plain(*args, "l2", tile_m), reps),
+            "library_ms": None,
+            **tile_bound(x, tb, lens, tile_m, qt, lmax * 4, kind),
             "shape": {**shape, "lmax": lmax},
         }
     rec = {"shape": {**shape, "lmax": 128, "kp": KP}}
@@ -209,7 +263,10 @@ def check_kernels(device, g=4096, nt=4096, dim=128, reps=5):
             f"plain_ms{sfx}": cuda_ms(lambda: gk.grouped_score_topk_reference(
                 *args, "l2", tile_m, KP), reps),
         })
+        b = tile_bound(x, tb, lens, tile_m, qt, KP * 8, kind, ids=True)
+        rec.update({f"{key}{sfx}": v for key, v in b.items()})
     rec["max_abs_err"] = max(rec["max_abs_err"], rec["max_abs_err_bf16"])
+    rec["library_ms"] = None
     out["grouped_score_topk"] = rec
     topk_err, times = 0.0, {}
     for w in (1024, 640):
@@ -226,14 +283,129 @@ def check_kernels(device, g=4096, nt=4096, dim=128, reps=5):
             topk_err = max(topk_err, _rel_err(kd, pd)[0])
         times[w] = (cuda_ms(lambda: tk.topk_dedup_kernel(d, ids, K), reps),
                     cuda_ms(lambda: tk.topk_dedup_kernel_reference(d, ids, K),
+                            reps),
+                    cuda_ms(lambda: tk.topk_dedup_kernel(d, ids, K,
+                                                         dedup=False), reps),
+                    # the one PyTorch call that computes dedup=False's
+                    # function (its tie order unpromised)
+                    cuda_ms(lambda: torch.topk(d, K, dim=1, largest=False),
                             reps))
     out["topk_dedup_kernel"] = {
         "max_abs_err": topk_err, "ids_equal": True,
         "ms": times[1024][0], "plain_ms": times[1024][1],
+        "ms_no_dedup": times[1024][2], "library_ms": times[1024][3],
+        "library_call": "torch.topk(largest=False), the dedup=False function",
         "ms_w640": times[640][0], "plain_ms_w640": times[640][1],
+        # the rows read once and the k winners written; a selection does at
+        # least one comparison per candidate
+        **bound(8192 * 1024 * 8 + 8192 * K * 8, 8192 * 1024, "f32"),
         "shape": {"rows": 8192, "W": [1024, 640], "k": K},
     }
+    out.update(check_gather(device, reps))
+    out.update(check_scan(device, reps))
     return out
+
+
+def gather_inputs(g, lmax, d, b, p, bf16, device, seed):
+    """Blocks, norms, queries and block rows for the block gather, made on
+    the card from a seed; every fourth query probes one block twice."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(g, lmax, d, generator=gen, device=device)
+    sq = (x * x).sum(-1)
+    if bf16:
+        x = x.bfloat16()
+    q = torch.randn(b, d, generator=gen, device=device)
+    sel = torch.randint(0, g, (b, p), generator=gen, device=device,
+                        dtype=torch.int32)
+    sel[::4, 1] = sel[::4, 0]
+    return x, sq, q, sel
+
+
+def check_gather(device, reps):
+    """Kernel 6 against its plain version at the per-pair path's chunks:
+    the clustered cell's (2,048 queries x 8 probes over 8,192 blocks of
+    128 x 128, f32 and bf16) and the iid bracket's (32 queries x 32
+    probes over 1,024 bf16 blocks of 3,128 x 128)."""
+    import torch
+
+    from rptree_tpu_torch.ops import fused_gather as fg
+
+    out = {}
+    cases = (("gather_score", False, (8192, 128, 128, 2048, 8)),
+             ("gather_score_bf16", True, (8192, 128, 128, 2048, 8)),
+             ("gather_score_bf16_bracket", True, (1024, 3128, 128, 32, 32)))
+    for name, bf16, (g, lmax, d, b, p) in cases:
+        x, sq, q, sel = gather_inputs(g, lmax, d, b, p, bf16, device, seed=g + p)
+        got, gsq = fg.gather_score(x, sq, q, sel)
+        want, wsq = fg.gather_score_reference(x, sq, q, sel)
+        torch.cuda.synchronize()
+        abs_err, rel_err = _rel_err(got, want)
+        if rel_err > DIST_RTOL or not torch.equal(gsq, wsq):
+            raise AssertionError(f"{name}: relative error {rel_err}, norms "
+                                 f"equal {torch.equal(gsq, wsq)}")
+        blocks = int(torch.unique(sel).numel())
+        nbytes = (blocks * lmax * (d * x.element_size() + 4) + q.numel() * 4
+                  + sel.numel() * 4 + 2 * b * p * lmax * 4)
+        out[name] = {
+            "max_abs_err": abs_err, "max_rel_err": rel_err,
+            "ms": cuda_ms(lambda: fg.gather_score(x, sq, q, sel), reps),
+            "plain_ms": cuda_ms(
+                lambda: fg.gather_score_reference(x, sq, q, sel), reps),
+            "library_ms": None,
+            **bound(nbytes, 2 * b * p * lmax * d, "bf16" if bf16 else "f32"),
+            "shape": {"blocks": g, "lmax": lmax, "D": d, "B": b, "P": p,
+                      "distinct_blocks": blocks},
+        }
+        del x, sq, q, sel, got, gsq, want, wsq
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_scan(device, reps, n=100_000, b=4096, d=128):
+    """Kernel 5 against its plain version on 100,000 iid rows and 4,096
+    queries, k 10, for l2, sql2 and dot: partial distances within 1e-4
+    relative, ids equal outside near-ties.  (The main path's own shapes,
+    1M x 2,048, 100k x 2,048 and 1M x 1,024 with l2, are held against the
+    plain version by :func:`scan_phase`.)"""
+    import torch
+
+    from rptree_tpu_torch.ops import scan as sc
+    from rptree_tpu_torch.ops.grouped_kernel import untied
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    x = torch.randn(n, d, generator=gen, device=device)
+    q = x[torch.randint(0, n, (b,), generator=gen, device=device)]
+    q += 0.1 * torch.randn(b, d, generator=gen, device=device)
+    sq = (x * x).sum(-1)
+    abs_err = rel_err = 0.0
+    untied_ids = 0
+    for metric in sc.SCAN_METRICS:
+        kd, ki = sc._scan_partial(x, sq, q, K, metric)
+        pd, pi = sc._partial_reference(x, sq, q, K, metric)
+        torch.cuda.synchronize()
+        a, r = _rel_err(kd, pd)
+        chk = untied(pd, DIST_RTOL)
+        if r > DIST_RTOL or not torch.equal(ki[chk], pi[chk]):
+            raise AssertionError(f"scan_topk {metric}: relative error {r}, "
+                                 f"ids equal {torch.equal(ki[chk], pi[chk])}")
+        abs_err, rel_err = max(abs_err, a), max(rel_err, r)
+        untied_ids += int(chk.sum())
+    rec = {
+        "max_abs_err": abs_err, "max_rel_err": rel_err,
+        "ids_equal_untied": untied_ids,
+        "ms": cuda_ms(lambda: sc.scan_topk(x, sq, q, K, "l2"), reps),
+        "plain_ms": cuda_ms(lambda: sc.scan_topk_reference(x, sq, q, K, "l2"),
+                            reps),
+        "library_ms": None,
+        **bound(n * d * 4 + n * 4 + b * d * 4 + b * K * 8, 2 * b * n * d,
+                "bf16"),
+        "shape": {"N": n, "B": b, "D": d, "k": K},
+    }
+    del x, q, sq
+    torch.cuda.empty_cache()
+    return {"scan_topk": rec}
 
 
 # -- phases 3-4: the serving path ------------------------------------------
@@ -305,7 +477,9 @@ def build_cell(x, q, min_leaf, n_trees, device, n_recall=1024):
 def kernel_counts():
     """The launch count of each kernel of the path: ``{name: (wrapper,
     attribute)}``."""
+    from rptree_tpu_torch.ops import fused_gather as fg
     from rptree_tpu_torch.ops import grouped_kernel as gk
+    from rptree_tpu_torch.ops import scan as sc
     from rptree_tpu_torch.ops import topk_kernel as tk
 
     return {
@@ -314,6 +488,9 @@ def kernel_counts():
         "grouped_score_tiles_int8": (gk.grouped_score_tiles_int8, "launches"),
         "topk_dedup_kernel": (tk.topk_dedup_kernel, "launches"),
         "grouped_score_topk": (gk.grouped_score_topk, "launches"),
+        "gather_score": (fg.gather_score, "launches"),
+        "gather_score_bf16": (fg.gather_score, "launches_bf16"),
+        "scan_topk": (sc.scan_topk, "launches"),
     }
 
 
@@ -365,18 +542,10 @@ def serve_variant(name, f, qd, truth, pack, serve, runs, n_passes=3):
     check_launches(name, runs, warm_n, steady_n, chunks, n_passes)
     serve_s = float(np.median([s for _, s in passes]))
     dist, ids = passes[-1][0]
-    if tuple(ids.shape) != (qd.shape[0], K) or tuple(dist.shape) != tuple(
-            ids.shape):
-        raise AssertionError(f"{name}: result shape {tuple(ids.shape)}")
-    live = ids >= 0
-    if not bool(torch.isfinite(dist[live]).all()) or not bool(
-            torch.equal(torch.isinf(dist), ~live)):
-        raise AssertionError(f"{name}: non-finite distances on live ids")
+    check_result(name, (dist, ids), qd.shape[0])
     if not all(torch.equal(r[1], ids0) for r, _ in passes):
         raise AssertionError(f"{name}: a steady-state pass differs from "
                              "the checked pass")
-    if int(((dist[:, 1:] - dist[:, :-1]) < 0).sum()):
-        raise AssertionError(f"{name}: distances not ascending")
     over = f.grouped_overflow()
     if over["overflow"]:
         raise AssertionError(f"{name}: tile capacity overflow {over}")
@@ -390,6 +559,62 @@ def serve_variant(name, f, qd, truth, pack, serve, runs, n_passes=3):
         "checked_serve_s": warm_s, "pack_s": pack_s, "tiles": over,
         "launches": {kern: warm_n[kern] + steady_n[kern] for kern in warm_n},
     }, (dist, ids)
+
+
+def counted_calls(name, fn, runs, per_call, n_calls):
+    """``fn()`` ``n_calls`` times between synchronisations, with every
+    kernel's count set to 0 just before and read just after: the kernels
+    ``runs`` must have launched ``per_call`` times per call and every
+    other kernel of the path not at all.  Returns ``(the last result, the
+    median seconds of a call, the launches)``."""
+    outs, launches = counted(lambda: [sync_time(fn) for _ in range(n_calls)])
+    for kern, n in launches.items():
+        want = per_call * n_calls if kern in runs else 0
+        if n != want:
+            raise AssertionError(f"{name}: {kern} launched {n} times; "
+                                 f"expected {want}")
+    return outs[-1][0], float(np.median([s for _, s in outs])), launches
+
+
+def check_result(name, res, n_queries):
+    """Shape ``[n_queries, K]``, finite ascending distances on live ids and
+    +inf exactly where the id is -1."""
+    import torch
+
+    dist, ids = res
+    if tuple(ids.shape) != (n_queries, K) or tuple(dist.shape) != (
+            n_queries, K):
+        raise AssertionError(f"{name}: result shape {tuple(ids.shape)}")
+    live = ids >= 0
+    if not bool(torch.isfinite(dist[live]).all()) or not torch.equal(
+            torch.isinf(dist), ~live):
+        raise AssertionError(f"{name}: non-finite distances on live ids")
+    if int(((dist[:, 1:] - dist[:, :-1]) < 0).sum()):
+        raise AssertionError(f"{name}: distances not ascending")
+
+
+def close_results(name, got, want):
+    """``got`` against ``want``, both ``(dists, ids)`` over the same
+    candidates summed in other orders: distances within ``DIST_RTOL``
+    relative, ids equal wherever ``want``'s distance is apart from its
+    row neighbours by more than that.  The k-th id is not compared: its
+    neighbour past the k-th, which neither result shows, may be as near
+    and trade places with it.  Returns the ids compared."""
+    import torch
+
+    from rptree_tpu_torch.ops.grouped_kernel import untied
+
+    (gd, gi), (wd, wi) = got, want
+    _, rel = _rel_err(gd, wd)
+    if rel > DIST_RTOL:
+        raise AssertionError(f"{name}: distances differ by {rel} relative")
+    chk = untied(wd, DIST_RTOL)
+    chk[:, -1] = False
+    if not torch.equal(gi[chk], wi[chk]):
+        bad = int(((gi != wi) & chk).any(1).sum())
+        raise AssertionError(f"{name}: ids differ outside near-ties on {bad} "
+                             "rows")
+    return int(chk.sum())
 
 
 def same_results(name, got, want):
@@ -409,12 +634,86 @@ def same_results(name, got, want):
     return int(chk.sum())
 
 
+def serve_grouped(variants, f, qd, truth, launches, out):
+    """Serve each grouped variant ``(name, pack, serve, runs, floor)`` and
+    log its record and launch line; ``out`` collects the results by the
+    variant's letter, ``launches`` the launch totals."""
+    for name, pack, serve, runs, floor in variants:
+        rec, out[name[0]] = serve_variant(name, f, qd, truth, pack, serve,
+                                          runs)
+        add_launches(launches, name, rec["launches"])
+        if name[0] in "ce":
+            twin = chr(ord(name[0]) - 1)
+            rec[f"same_as_{twin}_untied_ids"] = same_results(
+                name, out[name[0]], out[twin])
+        log(f"clustered_1m_{name}", **rec, jax_recall=JAX_RECALL["clustered"])
+        if rec["recall_at_10"] < floor:
+            raise AssertionError(f"{name}: recall {rec['recall_at_10']} < "
+                                 f"{floor}")
+
+
+def add_launches(launches, variant, counts):
+    log("launches", variant=variant, **counts)
+    for kname, n in counts.items():
+        launches[kname] += n
+
+
+def scan_phase(name, f, qd, truth, query_chunk, floor, launches, jax_recall):
+    """The bf16 scan (``brute_force_knn(precision="fastest")``) of ``qd``,
+    ``query_chunk`` queries per launch of kernel 5, twice; recall@10 of
+    its first rows against ``truth`` must reach ``floor``.  Then the
+    kernel at its first launch's shape (the forest's rows, the first
+    ``query_chunk`` queries) against its plain version, as
+    :func:`close_results` compares: this shape sets its grid."""
+    from rptree_tpu_torch.ops import scan as sc
+
+    chunks = -(-qd.shape[0] // query_chunk)
+    res, s, n = counted_calls(name, lambda: f.brute_force_knn(
+        qd, K, precision="fastest", query_chunk=query_chunk), {"scan_topk"},
+        chunks, n_calls=2)
+    check_result(name, res, qd.shape[0])
+    add_launches(launches, name, n)
+    qc = qd[:query_chunk].contiguous()
+    got = sc._scan_partial(f.x, f.sq_norms, qc, K, "l2")
+    want = sc._partial_reference(f.x, f.sq_norms, qc, K, "l2")
+    rec = {"queries": qd.shape[0], "query_chunk": query_chunk,
+           "recall_at_10": recall(res[1][:truth.shape[0]], truth),
+           "recall_queries": truth.shape[0], "qps": qd.shape[0] / s,
+           "serve_s": s, "jax_recall": jax_recall,
+           "plain_max_rel_err": _rel_err(got[0], want[0])[1],
+           "plain_same_untied_ids": close_results(f"{name} vs plain", got,
+                                                  want)}
+    del got, want
+    log(name, **rec)
+    if rec["recall_at_10"] < floor:
+        raise AssertionError(f"{name}: recall {rec['recall_at_10']} < {floor}")
+
+
+def per_pair_phase(name, f, qd, truth, serve, runs, n_calls, launches):
+    """The per-pair path (``knn_batched``) over ``qd``, ``n_calls`` times:
+    kernel 6 (``runs``) once per chunk and call, no other kernel.
+    Returns its record and its last result."""
+    chunks = -(-qd.shape[0] // serve["chunk"])
+    res, s, n = counted_calls(name, lambda: f.knn_batched(qd, K, **serve),
+                              runs, chunks, n_calls)
+    check_result(name, res, qd.shape[0])
+    add_launches(launches, name, n)
+    x_leaf = f._packed[0]
+    return {"block_dtype": str(x_leaf.dtype).replace("torch.", ""),
+            "lmax": int(x_leaf.shape[1]),
+            "x_leaf_gb": x_leaf.numel() * x_leaf.element_size() / 1e9,
+            **serve, "queries": qd.shape[0],
+            "recall_at_10": recall(res[1][:truth.shape[0]], truth),
+            "qps": qd.shape[0] / s, "serve_s": s}, res
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script runs only on a CUDA device")
+    import rptree_tpu_torch as rp
     from rptree_tpu_torch import _cuda
 
     device = torch.device("cuda", 0)
@@ -436,46 +735,65 @@ def main():
     kern = check_kernels(device)
     for name, rec in kern.items():
         log("kernel", name=name, **rec)
+    launches = dict.fromkeys(kernel_counts(), 0)
 
+    # -- phase 3: clustered 1M --------------------------------------------
     x, q = clustered_data(1_000_000, 128, 4_000, 0.15, 131_072)
     f, qd, truth, cell = build_cell(x, q, 128, 8, device)
     del x, q
     log("clustered_1m", **cell)
+    n_truth = truth.shape[0]
+    unpacked, s, n = counted_calls(
+        "clustered_unpacked", lambda: f.knn(qd[:n_truth], K, budget=1), set(),
+        0, n_calls=1)
+    check_result("clustered_unpacked", unpacked, n_truth)
+    log("clustered_1m_unpacked", queries=n_truth, budget=1, serve_s=s,
+        recall_at_10=recall(unpacked[1], truth))
     serve = dict(budget=1, probes=8, tile_m=8, chunk=65536)
     bf16 = dict(dtype=torch.bfloat16)
     tiles, tiles_bf16, topk, topk_tiles = (
         "grouped_score_tiles", "grouped_score_tiles_bf16",
         "topk_dedup_kernel", "grouped_score_topk")
-    variants = (  # (name, pack, serve, the kernels it runs, recall floor)
-        ("a_f32_kernel_tail", {}, dict(selection="kernel"), {tiles, topk},
-         CLUSTERED_MIN_RECALL),
-        ("b_f32_sort_tail", {}, dict(selection="sort", impl="kernel"),
+    out = {}
+    serve_grouped((  # (name, pack, serve, the kernels it runs, recall floor)
+        ("a_f32_kernel_tail", {}, {**serve, "selection": "kernel"},
+         {tiles, topk}, CLUSTERED_MIN_RECALL),
+        ("b_f32_sort_tail", {}, {**serve, "selection": "sort",
+                                 "impl": "kernel"},
          {tiles}, CLUSTERED_MIN_RECALL),
-        ("c_f32_kernel_topk", {}, dict(selection="sort", impl="kernel_topk"),
+        ("c_f32_kernel_topk", {}, {**serve, "selection": "sort",
+                                   "impl": "kernel_topk"},
          {topk_tiles}, CLUSTERED_MIN_RECALL),
-        ("d_bf16_sort_tail", bf16, dict(selection="sort", impl="kernel"),
+    ), f, qd, truth, launches, out)
+    # (f) the per-pair path on the same f32 blocks, bench.py's setting
+    rec, out["f"] = per_pair_phase(
+        "f_f32_per_pair", f, qd, truth,
+        dict(budget=1, probes=8, precision="default", chunk=2048),
+        {"gather_score"}, 4, launches)
+    rec["same_as_b_untied_ids"] = close_results("f_f32_per_pair", out["f"],
+                                                out["b"])
+    rec["unpacked_same_untied_ids"] = close_results(
+        "clustered_unpacked", unpacked,
+        (out["f"][0][:n_truth], out["f"][1][:n_truth]))
+    log("clustered_1m_f_f32_per_pair", **rec,
+        jax_recall=JAX_RECALL["clustered"])
+    if rec["recall_at_10"] < CLUSTERED_MIN_RECALL:
+        raise AssertionError(f"per-pair recall {rec['recall_at_10']}")
+    serve_grouped((
+        ("d_bf16_sort_tail", bf16, {**serve, "selection": "sort",
+                                    "impl": "kernel"},
          {tiles_bf16}, BF16_MIN_RECALL),
-        ("e_bf16_kernel_topk", bf16,
-         dict(selection="sort", impl="kernel_topk"), {topk_tiles},
-         BF16_MIN_RECALL),
-    )
-    out, launches = {}, dict.fromkeys(kernel_counts(), 0)
-    for name, pack, extra, runs, floor in variants:
-        rec, out[name[0]] = serve_variant(name, f, qd, truth, pack,
-                                          {**serve, **extra}, runs)
-        log("launches", variant=name, **rec["launches"])
-        for kname, n in rec["launches"].items():
-            launches[kname] += n
-        if name[0] in "ce":
-            twin = chr(ord(name[0]) - 1)
-            rec[f"same_as_{twin}_untied_ids"] = same_results(
-                name, out[name[0]], out[twin])
-        log(f"clustered_1m_{name}", **rec, jax_recall=JAX_RECALL["clustered"])
-        if rec["recall_at_10"] < floor:
-            raise AssertionError(f"{name}: recall {rec['recall_at_10']} < "
-                                 f"{floor}")
-    del f, qd, truth, out
+        ("e_bf16_kernel_topk", bf16, {**serve, "selection": "sort",
+                                      "impl": "kernel_topk"},
+         {topk_tiles}, BF16_MIN_RECALL),
+    ), f, qd, truth, launches, out)
+    scan_phase("clustered_1m_scan", f, qd[:16384], truth, 2048,
+               SCAN_MIN_RECALL["clustered"], launches,
+               JAX_RECALL["clustered_scan"])
+    del f, qd, truth, out, unpacked
     torch.cuda.empty_cache()
+
+    # -- phase 4: iid 100k, int8 blocks -----------------------------------
     x, q = iid_data(100_000, 128, 65_536)
     f, qd, truth, cell = build_cell(x, q, 64, 8, device)
     del x, q
@@ -483,36 +801,91 @@ def main():
                            dict(budget=2, probes=10, tile_m=8, chunk=32768,
                                 selection="kernel"),
                            {"grouped_score_tiles_int8", "topk_dedup_kernel"})
-    log("launches", variant="iid_100k_int8", **rec["launches"])
-    for kname, n in rec["launches"].items():
-        launches[kname] += n
+    add_launches(launches, "iid_100k_int8", rec["launches"])
     log("iid_100k_int8", **cell, **rec, jax_recall=JAX_RECALL["iid"])
     if rec["recall_at_10"] < IID_MIN_RECALL:
         raise AssertionError(f"iid recall {rec['recall_at_10']} < "
                              f"{IID_MIN_RECALL}")
+
+    # -- phase 5: the iid 100k bracket (bench.py's >= 0.9 recall points) --
+    xd = f.x
+    del f
+    torch.cuda.empty_cache()
+    n, dim = xd.shape
+    cfg = rp.rp_tree_cfg(4096, n, dim)
+    fq, build_q_s = sync_time(lambda: rp.forest_batch(
+        SEED, cfg.max_depth, 4096, 32, cfg.proj_nz_density, xd,
+        device=device))
+    _, pack_q_s = sync_time(lambda: fq.pack_leaves(dtype=torch.bfloat16))
+    lmax_q = fq.plan.max_leaf_len
+    chunk_q = 1 << int(np.log2(max(32, (1 << 21) // max(32 * lmax_q, 1))))
+    rec, _ = per_pair_phase(
+        "bracket_tree", fq, qd[:8192], truth,
+        dict(budget=2, probes=32, precision="default", chunk=chunk_q),
+        {"gather_score_bf16"}, 2, launches)
+    log("iid_100k_bracket_tree", trees=32, min_leaf=4096,
+        depth=cfg.max_depth, leaves=fq.plan.n_leaves, build_s=build_q_s,
+        pack_s=pack_q_s, **rec, jax_recall=JAX_RECALL["bracket_tree"])
+    if rec["recall_at_10"] < BRACKET_MIN_RECALL:
+        raise AssertionError(f"bracket recall {rec['recall_at_10']}")
+    scan_phase("iid_100k_bracket_scan", fq, qd[:16384], truth, 2048,
+               SCAN_MIN_RECALL["bracket"], launches,
+               JAX_RECALL["bracket_scan"])
+    del fq, xd, truth
+    torch.cuda.empty_cache()
+
+    # -- phase 6: the iid 1M scan (a single-leaf forest hosts the rows) ---
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    x1 = torch.randn(1_000_000, 128, generator=gen, device=device)
+    f1, build_1_s = sync_time(lambda: rp.forest_batch(
+        SEED, 3, x1.shape[0], 1, 1.0, x1, device=device))
+    q1 = qd[:4096]
+    (_, exact), truth_s = sync_time(lambda: f1.brute_force_knn(q1[:256], K))
+    log("iid_1m", n=x1.shape[0], dim=128, leaves=f1.plan.n_leaves,
+        build_s=build_1_s, ground_truth_s=truth_s)
+    scan_phase("iid_1m_scan", f1, q1, exact, 1024, SCAN_MIN_RECALL["1m"],
+               launches, JAX_RECALL["scan_1m"])
+    del f1, x1, qd
+
     log("launches", variant="all", **launches)
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
 
-    sources = {
+    sources = {  # name: (source, TPU kernel, phase-2 record)
         "grouped_score_tiles": ("rptree_tpu_torch/csrc/grouped_score.cu",
-                                "rptree_tpu/ops/grouped_kernel.py:63"),
+                                "rptree_tpu/ops/grouped_kernel.py:63",
+                                "grouped_score_tiles"),
         "grouped_score_tiles_bf16": ("rptree_tpu_torch/csrc/grouped_score.cu",
-                                     "rptree_tpu/ops/grouped_kernel.py:63"),
+                                     "rptree_tpu/ops/grouped_kernel.py:63",
+                                     "grouped_score_tiles_bf16"),
         "grouped_score_tiles_int8": ("rptree_tpu_torch/csrc/grouped_score.cu",
-                                     "rptree_tpu/ops/grouped_kernel.py:145"),
+                                     "rptree_tpu/ops/grouped_kernel.py:145",
+                                     "grouped_score_tiles_int8"),
         "topk_dedup_kernel": ("rptree_tpu_torch/csrc/topk_dedup.cu",
-                              "rptree_tpu/ops/topk_kernel.py:72"),
+                              "rptree_tpu/ops/topk_kernel.py:72",
+                              "topk_dedup_kernel"),
         "grouped_score_topk": ("rptree_tpu_torch/csrc/grouped_topk.cu",
-                               "rptree_tpu/ops/grouped_kernel.py:233"),
+                               "rptree_tpu/ops/grouped_kernel.py:233",
+                               "grouped_score_topk"),
+        "gather_score": ("rptree_tpu_torch/csrc/gather_score.cu",
+                         "rptree_tpu/ops/fused_gather.py:62", "gather_score"),
+        "gather_score_bf16": ("rptree_tpu_torch/csrc/gather_score.cu",
+                              "rptree_tpu/ops/fused_gather.py:62",
+                              "gather_score_bf16_bracket"),
+        "scan_topk": ("rptree_tpu_torch/csrc/scan_topk.cu",
+                      "rptree_tpu/ops/scan.py:102", "scan_topk"),
     }
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    # where the library call computes a variant's function, that variant's
+    # time and the call's name stand beside it
+    extra = ("ms_no_dedup", "library_call")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name],
-         "max_abs_err": kern[name]["max_abs_err"],
-         "ms": kern[name]["ms"], "plain_ms": kern[name]["plain_ms"]}
-        for name, (src, rep) in sources.items()]}), flush=True)
+         "launches": launches[name], **{key: kern[r][key] for key in keys},
+         **{key: kern[r][key] for key in extra if key in kern[r]}}
+        for name, (src, rep, r) in sources.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

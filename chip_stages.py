@@ -1,7 +1,9 @@
-"""Where the time of the grouped serving path goes, on one NVIDIA GPU: the
-stage times of one clustered 1M chunk (65,536 queries, ``chip_smoke.py``'s
-phase-3 cell) under the three selection tails, on f32 and bf16 blocks,
-and the device time by kernel of one whole call of each tail.
+"""Where the time of the serving paths goes, on one NVIDIA GPU: the stage
+times of one clustered 1M chunk (65,536 queries, ``chip_smoke.py``'s
+phase-3 cell) under the grouped path's three selection tails, on f32 and
+bf16 blocks, and the device time by kernel of one whole call of each
+tail; then the stages of one per-pair chunk (2,048 queries, variant f)
+and the time of one bf16 scan chunk (2,048 queries over the 1M rows).
 
     python3 chip_stages.py            # on the card
     python3 chip_stages.py --cpu      # a tiny rehearsal on the CPU
@@ -121,6 +123,33 @@ def stages(f, fm, og, gk, tk, rr, qc, cap, sync):
     return st, int(needed)
 
 
+def pair_stages(f, fm, fg, rr, qc, sync):
+    """Stage times of one per-pair chunk ``qc`` on f32 blocks, as
+    ``_knn_packed`` runs it: probe selection, kernel 6, distances and
+    occupancy mask, the sort tail; then the whole call."""
+    x_leaf, sq_leaf, id_leaf = f._packed
+    lens = f._lens_global()
+    lmax = x_leaf.shape[1]
+    st = {}
+    (gsel, lsel), st["traversal_probes"] = timed(lambda: fm._select_probes(
+        f.plan, f.arrays, qc, BUDGET, PROBES, k=K, block_len=lens,
+        children=f._children()), sync)
+    b = gsel.shape[0]
+    (dots, sqx), st["kernel6_gather_score"] = timed(
+        lambda: fg.gather_score(x_leaf, sq_leaf, qc, gsel.contiguous()), sync)
+    col = torch.arange(lmax, device=qc.device)
+    d, st["distances_mask"] = timed(lambda: torch.where(
+        (lsel >= 0)[..., None] & (col < lens[gsel.long()][..., None]),
+        rr.distances_from_dots(dots, sqx, qc[:, None], "l2"),
+        float("inf")).reshape(b, -1), sync)
+    _, st["sort_tail"] = timed(lambda: fm._selection_tail(
+        d, id_leaf, gsel, K, K * f.n_trees, True), sync)
+    st["sum"] = sum(st.values())
+    _, st["whole_call"] = timed(
+        lambda: f.knn(qc, K, budget=BUDGET, probes=PROBES), sync)
+    return st
+
+
 def device_times(f, qd, serve, sel, impl, on_card):
     """Wall ms of one whole call under ``torch.profiler`` and its kernels'
     device ms, the largest eight by name."""
@@ -148,6 +177,7 @@ def device_times(f, qd, serve, sel, impl, on_card):
 def main():
     import rptree_tpu_torch as rp
     from rptree_tpu_torch.models import forest as fm
+    from rptree_tpu_torch.ops import fused_gather as fg
     from rptree_tpu_torch.ops import grouped as og
     from rptree_tpu_torch.ops import grouped_kernel as gk
     from rptree_tpu_torch.ops import rerank as rr
@@ -187,6 +217,15 @@ def main():
             print(json.dumps({"profile": name, "selection": sel, "impl": impl,
                               **device_times(f, qd, serve, sel, impl,
                                              on_card)}), flush=True)
+        if dtype is None:
+            pc = min(2048, chunk)
+            print(json.dumps({"pair_stages_ms": name, "chunk": pc,
+                              **pair_stages(f, fm, fg, rr, qd[:pc], sync)}),
+                  flush=True)
+    _, scan_ms = timed(lambda: f.brute_force_knn(
+        qd[:2048], K, precision="fastest"), sync)
+    print(json.dumps({"scan_chunk_ms": scan_ms, "queries": min(2048, len(qd)),
+                      "rows": f.n_points}), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,16 +1,18 @@
 """rptree_tpu_torch: the RP-forest ANN engine on PyTorch and CUDA.
 
 The port of the JAX package ``rptree_tpu`` to an NVIDIA H100, one slice at
-a time; ``rptree_tpu`` stays the reference it is tested against.  This
-slice is the grouped serving path: build (:func:`forest_batch`), pack
-(:meth:`RPForest.pack_leaves`), serve (:meth:`RPForest.knn_grouped` with
-the top-k kernel tail) and exact ground truth
-(:meth:`RPForest.brute_force_knn`), plus loading a forest the JAX package
-saved (:func:`load_forest`, :func:`forest_from_numpy`).
+a time; ``rptree_tpu`` stays the reference it is tested against.  It
+covers build (:func:`forest_batch`), pack (:meth:`RPForest.pack_leaves`),
+the grouped, per-pair and unpacked query paths
+(:meth:`RPForest.knn_grouped`, :meth:`RPForest.knn`,
+:meth:`RPForest.knn_batched`), candidates and recall, the exact scan
+(:meth:`RPForest.brute_force_knn`), and loading a forest the JAX package
+saved (:func:`load_forest`, :func:`forest_from_numpy`).  Entry points
+build on the card unless the caller passes ``device="cpu"``.
 
-Modules keep the JAX package's names.  The three CUDA kernels of the path
-(``csrc/``) are compiled with nvcc on first use; on CPU tensors their
-plain torch versions run instead.  This package never imports JAX.
+Modules keep the JAX package's names.  The CUDA kernels (``csrc/``) are
+compiled with nvcc on first use; on CPU tensors their plain torch versions
+run instead.  This package never imports JAX.
 """
 
 from .config import ForestConfig, RPTreeConfig, rp_tree_cfg

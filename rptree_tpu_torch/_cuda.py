@@ -27,7 +27,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["build", "lib", "check", "ptr", "stream_of"]
+__all__ = ["build", "lib", "check", "ptr", "stream_of", "resolve_device"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
@@ -47,6 +47,12 @@ _SIGNATURES = {
     # x, sq, ids, tb, lens, qt, od, oi, nt, g, tile_m, lmax, d, l2, kp, stream
     "rpt_grouped_topk_f32": [_P] * 8 + [_I] * 7 + [_P],
     "rpt_grouped_topk_bf16": [_P] * 8 + [_I] * 7 + [_P],
+    # x, sq, q, sel, dots, sqx, b, p, g, lmax, d, stream
+    "rpt_gather_score_f32": [_P] * 6 + [_I] * 5 + [_P],
+    "rpt_gather_score_bf16": [_P] * 6 + [_I] * 5 + [_P],
+    # x, sq, q, pd, pi, od, oi, n, b, d, k, dot, splits, rows_per_split,
+    # stream
+    "rpt_scan_topk": [_P] * 7 + [_L] + [_I] * 5 + [_L, _P],
 }
 
 _lib = None
@@ -131,6 +137,18 @@ def check(code: int, name: str) -> None:
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point builds on: the card unless the caller
+    names another.  ``None`` is the current CUDA device and raises where
+    CUDA is absent; the CPU is used only when asked for (``"cpu"``)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port builds on the card by "
+                           "default; pass device='cpu' to use the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:

@@ -1,25 +1,33 @@
-"""RP forest index: construction, leaf packing, grouped serving and exact
-ground truth (``rptree_tpu/models/forest.py``, the slice of it that
-``bench.py`` drives).
+"""RP forest index: construction, leaf packing, serving and exact ground
+truth (``rptree_tpu/models/forest.py``, the part of it that ``bench.py``
+drives).
 
 ``RPForest`` holds the static :class:`TreePlan`, the forest's
 :class:`TreeArrays`, the dataset and its squared norms, all tensors on one
-device (the ``device=`` given to :func:`forest_batch` or the loader).  The
-serving path is:
+device (the ``device=`` given to :func:`forest_batch` or the loader; the
+card unless the caller names the CPU).  The query paths are:
 
-1. :meth:`RPForest.pack_leaves`: each leaf's points copied into one
+1. unpacked :meth:`RPForest.knn`: the union of the trees' candidate
+   buckets (:meth:`RPForest.candidates`), reranked exactly;
+2. :meth:`RPForest.pack_leaves`: each leaf's points copied into one
    contiguous block (f32, bf16, or int8 with a per-block scale);
-2. :meth:`RPForest.knn_grouped`: traversal and probe selection, pair to
-   tile grouping, tile scoring (kernels 1 and 2, or kernel 4 with its
-   per-pair top-kp, :mod:`..ops.grouped_kernel`) and the selection tail
-   (the sort tail, or kernel 3, :mod:`..ops.topk_kernel`), chunk by chunk;
-3. :meth:`RPForest.brute_force_knn`: the exact scan that recall is held
-   against.
+3. per pair, :meth:`RPForest.knn` / :meth:`RPForest.knn_batched` on packed
+   blocks: probe selection, then each (query, probe) block fetched and
+   scored (kernel 6, :mod:`..ops.fused_gather`, on f32 / bf16 blocks)
+   and the selection tail (the sort tail, or kernel 3,
+   :mod:`..ops.topk_kernel`);
+4. grouped, :meth:`RPForest.knn_grouped`: probe selection, pair to tile
+   grouping, tile scoring (kernels 1 and 2, or kernel 4 with its per-pair
+   top-kp, :mod:`..ops.grouped_kernel`) and the same tail, chunk by chunk;
+5. :meth:`RPForest.brute_force_knn`: the exact scan, fp32 at
+   ``precision="highest"``, bf16 products otherwise (kernel 5,
+   :mod:`..ops.scan`); :meth:`RPForest.recall_with` holds the trees'
+   candidates against it.
 
-Not ported yet (ROADMAP.md): the per-pair and unpacked query paths, the
-XLA-form grouped scorer (``impl="xla"``), centered / sub-block / shared /
-ELL layouts, online updates, streaming and the sharded forests.  The
-``approx`` selection tail is not to be ported.
+Not ported yet (ROADMAP.md): the XLA-form grouped scorer (``impl="xla"``),
+centered / sub-block / shared / ELL layouts and sparse query batches,
+online updates, streaming and the sharded forests.  The ``approx``
+selection tail is not to be ported.
 """
 
 from __future__ import annotations
@@ -29,11 +37,17 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .._cuda import resolve_device
 from ..config import ForestConfig
 from ..ops.build import TreeArrays, build_forest_arrays
+from ..ops.fused_gather import gather_score, gather_score_ok
 from ..ops.grouped import grouped_distances_kernel, grouped_topk_kernel
-from ..ops.grouped_kernel import INV_127, grouped_kernel_ok
-from ..ops.rerank import distances_from_dots, merge_top_k
+from ..ops.grouped_kernel import (INV_127, _int8_dots, _quantize_rows,
+                                  grouped_kernel_ok)
+from ..ops.rerank import (dedup_ids, distances_from_dots, gather_leaf_points,
+                          merge_top_k, rerank_top_k)
+from ..ops.scan import MAX_K as SCAN_MAX_K
+from ..ops.scan import SCAN_METRICS, scan_topk, stream_topk
 from ..ops.topk_kernel import topk_dedup_kernel, topk_kernel_ok
 from ..ops.traverse import child_tables, traverse_tree
 from ..utils import gen as rgen
@@ -112,9 +126,42 @@ def _grouped_auto_capacity(f, key, e, tile_m, nt, run, check=True):
     return out
 
 
+def _check_precision(precision):
+    if precision not in _PRECISIONS:
+        raise ValueError(f"precision must be one of {_PRECISIONS}")
+
+
+def _check_selection(selection, k, min_votes):
+    """The selection tails the port serves: "sort", and "kernel" (the
+    top-k kernel, k <= 128, unless vote counting takes the sort tail)."""
+    if selection == "approx":
+        raise NotImplementedError(
+            "selection='approx': not to be ported (ROADMAP.md, "
+            "\"Not to port\")")
+    if selection not in ("sort", "kernel"):
+        raise ValueError(f"unknown selection {selection!r}")
+    if selection == "kernel" and min_votes == 1 and not topk_kernel_ok(1, k):
+        raise ValueError("selection='kernel' needs k <= 128; use "
+                         "selection='sort'")
+
+
+def _pad_to_chunk(qb: torch.Tensor, chunk: int):
+    """Pad a ``[B, D]`` batch with zero rows up to a multiple of ``chunk``
+    rows; returns ``(padded batch, original B, effective chunk)``."""
+    b = qb.shape[0]
+    ch = max(1, min(int(chunk), b))
+    pad = (-b) % ch
+    if pad:
+        qb = torch.cat([qb, qb.new_zeros((pad, qb.shape[1]))])
+    return qb, b, ch
+
+
 def _as_dense_queries(q, dim: int, device) -> torch.Tensor:
     """Queries as ``f32[B, D]`` on ``device``; a single vector becomes a
-    batch of one."""
+    batch of one.  Sparse (ELL) query batches are not ported."""
+    if hasattr(q, "cols") and hasattr(q, "vals"):
+        raise NotImplementedError("sparse (ELL) query batches: ROADMAP.md "
+                                  "queue 1 item 14")
     q = torch.as_tensor(q, dtype=torch.float32, device=device)
     if q.dim() == 1:
         q = q[None, :]
@@ -263,27 +310,134 @@ def _knn_grouped_many(f, q, chunk, **kw):
 
 
 @torch.no_grad()
-def _brute_force(x, sq_norms, q, k, metric):
-    """Exact k nearest neighbours over the whole dataset, streamed in row
-    chunks (the ``[B, chunk]`` distance tile stays ~32M floats) with a
-    running top-k merge.  Each chunk's distances are one fp32
-    ``torch.matmul``; the JAX package computes them in XLA outside any
-    kernel."""
-    n, b = x.shape[0], q.shape[0]
-    k = min(int(k), n)
-    c = max(1, min(n, (32 * 1024 * 1024) // max(b, 1)))
-    bd = torch.full((b, k), float("inf"), device=q.device)
-    bi = torch.full((b, k), -1, dtype=torch.int64, device=q.device)
-    for s in range(0, n, c):
-        xc = x[s:s + c]
-        d = distances_from_dots(q @ xc.T, sq_norms[s:s + c][None, :], q,
-                                metric)
-        dv, di = torch.topk(d, min(k, d.shape[1]), dim=1, largest=False)
-        alld = torch.cat([bd, dv], dim=1)
-        alli = torch.cat([bi, di + s], dim=1)
-        order = torch.sort(alld, dim=1, stable=True).indices[:, :k]
-        bd, bi = alld.gather(1, order), alli.gather(1, order)
-    return bd, bi.to(torch.int32)
+def _candidate_ids(plan, arrays, q, budget, children=None):
+    """Per-tree candidate point ids: ``int32[T, B, F * lmax]``, -1 padded."""
+    leaf_ids, _ = _traverse_forest(plan, arrays, q, budget, children)
+    return torch.stack([gather_leaf_points(plan, arrays.perm[t], leaf_ids[t])
+                        for t in range(leaf_ids.shape[0])])
+
+
+@torch.no_grad()
+def _knn(f, q, k, budget, metric, dedup, min_votes=1):
+    """Unpacked forest kNN: the union of the trees' candidates, reranked
+    exactly (reference ``knn``; with ``dedup`` it is ``knnPQ``).  With
+    ``min_votes > 1`` only ids found by that many trees stay."""
+    cand = _candidate_ids(f.plan, f.arrays, q, budget, f._children())
+    t, b, c1 = cand.shape
+    union = cand.transpose(0, 1).reshape(b, t * c1)
+    if min_votes > 1:
+        union, dedup = dedup_ids(union, min_votes=min_votes), False
+    return rerank_top_k(f.x, f.sq_norms, q, union, k, metric, dedup=dedup)
+
+
+def _int8_block_dots(x_leaf, block_scale, sel, q):
+    """Dots of int8 blocks ``x_leaf[sel]`` with ``q f32[B, D]`` as the JAX
+    package's per-pair scorer forms them: the query quantized per row,
+    exact integer dots, then ``dots * block scale * row scale`` in that
+    order.  ``f32[B, P, lmax]``."""
+    b, p = sel.shape
+    _, lmax, d = x_leaf.shape
+    q_i8, qscale = _quantize_rows(q)                       # [B, D], [B, 1]
+    dots = _int8_dots(q_i8[:, None, :], x_leaf[sel].reshape(b, p * lmax, d))
+    return (dots.reshape(b, p, lmax) * block_scale[sel][..., None]
+            * qscale[:, :, None])
+
+
+@torch.no_grad()
+def _score_blocks(f, rows_sel, lsel, q, k, kk, metric, dedup, min_votes=1,
+                  selection="sort"):
+    """Fetch and exactly score each query's selected blocks ``rows_sel
+    int32[B, P]`` (``lsel``: leaf ids, -1 to skip), then select: ``(dists
+    f32[B, k], ids int32[B, k])``.  f32 and bf16 blocks are fetched and
+    multiplied by kernel 6 (:func:`gather_score`); int8 blocks by plain
+    torch, as the JAX package leaves them to an XLA einsum; a callable
+    ``metric`` gets the gathered rows as f32 (not on int8 blocks)."""
+    x_leaf, sq_leaf, id_leaf = f._packed
+    b, p = rows_sel.shape
+    lmax = x_leaf.shape[1]
+    sel = rows_sel.long()
+    if callable(metric):
+        if x_leaf.dtype == torch.int8:
+            raise NotImplementedError(
+                "custom distance callables are unsupported on int8-"
+                "quantized blocks (pack with f32/bf16)")
+        d = metric(x_leaf[sel].float(), q[:, None, None, :])
+    else:
+        if gather_score_ok(x_leaf, p):
+            dots, sqx = gather_score(x_leaf, sq_leaf, q,
+                                     rows_sel.contiguous())
+        else:  # int8 blocks
+            dots = _int8_block_dots(x_leaf, f._block_scale, sel, q)
+            sqx = sq_leaf[sel]
+        d = distances_from_dots(dots, sqx, q[:, None], metric)
+    lens = f._lens_global()[sel]
+    valid = (lsel >= 0)[..., None] & (
+        torch.arange(lmax, device=q.device) < lens[..., None])
+    d = torch.where(valid, d, float("inf")).reshape(b, p * lmax)
+    return _selection_tail(d, id_leaf, rows_sel, k, kk, dedup, min_votes,
+                           selection)
+
+
+def _knn_packed(f, q, k, budget, probes, metric, dedup, min_votes=1,
+                selection="sort"):
+    """One chunk of the per-pair path: each query's ``probes``
+    lowest-priority leaf blocks, fetched and scored one (query, probe)
+    pair at a time (:func:`_score_blocks`)."""
+    gsel, lsel = _select_probes(f.plan, f.arrays, q, budget, probes, k=k,
+                                block_len=f._lens_global(),
+                                children=f._children())
+    kk = k * f.n_trees if dedup else k
+    return _score_blocks(f, gsel, lsel, q, k, kk, metric, dedup, min_votes,
+                         selection)
+
+
+def _knn_packed_many(f, q, chunk, **kw):
+    """The per-pair path over ``chunk``-query slices of ``q`` (a multiple
+    of ``chunk`` rows); ``kw`` are :func:`_knn_packed`'s arguments."""
+    outs = [_knn_packed(f, q[s:s + chunk], **kw)
+            for s in range(0, q.shape[0], chunk)]
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+
+@torch.no_grad()
+def _brute_force(x, sq_norms, q, k, metric, precision="highest"):
+    """Exact k nearest neighbours over the whole dataset: ``(dists f32[B,
+    k'], ids int32[B, k'])``, ``k' = min(k, n)``, ties to the lower index.
+
+    ``precision="highest"``: fp32 products.  ``"default"`` / ``"fastest"``:
+    data and queries rounded to bf16, products summed in fp32; for l2,
+    sql2 and dot at ``k <= 128`` that is kernel 5 (:func:`scan_topk`,
+    the JAX package's own gate for its fused selection), otherwise a plain
+    product of the rounded operands.  The plain forms stream the rows with
+    a running exact selection (:func:`stream_topk`); a callable metric gets
+    f32 rows at every precision.  Every form selects exactly: the JAX
+    package's ``"fastest"`` selects with the TPU's approximate
+    ``lax.approx_max_k``."""
+    k = min(int(k), x.shape[0])
+    fast = precision in ("default", "fastest") and not callable(metric)
+    if fast and metric in SCAN_METRICS and k <= SCAN_MAX_K:
+        return scan_topk(x, sq_norms, q, k, metric)
+    if callable(metric):  # the callable sees [B, c, D] rows
+        return stream_topk(x, q, k, lambda xc, s: metric(xc[None], q[:, None]),
+                           width=x.shape[1])
+    qf = q.to(torch.bfloat16).float() if fast else q
+
+    def dist(xc, s):
+        if fast:
+            xc = xc.to(torch.bfloat16).float()
+        return distances_from_dots(qf @ xc.T, sq_norms[s:s + xc.shape[0]][None],
+                                   q, metric)
+
+    return stream_topk(x, q, k, dist)
+
+
+def _recall(exact_ids, cand, k):
+    """Mean over trees of ``|candidates . exact top-k| / k``: ``f32[B]``
+    (``exact_ids int32[B, k']``, ``cand int32[T, B, C]``, -1 padded)."""
+    per_tree = [((exact_ids[:, :, None] == c[:, None, :])
+                 & (c[:, None, :] >= 0)).any(-1).sum(-1).float() / k
+                for c in cand]
+    return torch.stack(per_tree).mean(0)
 
 
 class RPForest:
@@ -416,6 +570,93 @@ class RPForest:
         self._grouped_nt = {}
         return self
 
+    # -- per-pair and unpacked serving --------------------------------------
+
+    @torch.no_grad()
+    def knn(self, q, k: int, metric="l2", budget: Optional[int] = None,
+            dedup: bool = True, precision: str = "highest",
+            probes: Optional[int] = None, min_votes: int = 1,
+            selection: str = "sort") -> Tuple[torch.Tensor, torch.Tensor]:
+        """k nearest neighbours of ``q`` (a vector or a ``[B, D]`` batch):
+        ``(dists f32[B, k], ids int32[B, k])`` in ascending distance,
+        ``(+inf, -1)`` where fewer than k candidates.  The parameters are
+        the JAX package's, in its order.
+
+        Unpacked, the trees' candidate buckets are unioned and reranked
+        exactly (``dedup=False`` keeps the reference ``knn``'s repeats).
+        After :meth:`pack_leaves`, the per-pair path: ``probes`` caps the
+        leaf blocks reranked per query (lowest margin priority first;
+        default ``n_trees * budget``, no cap), and ``selection`` is "sort"
+        or "kernel" (the top-k kernel, k <= 128).  ``min_votes > 1`` keeps
+        only candidates found by at least that many trees.  ``metric``:
+        ``l2``, ``sql2``, ``cosine``, ``dot`` or a callable
+        ``distf(rows[..., C, D], q[..., 1, D]) -> [..., C]`` of torch
+        operations (not on int8 blocks).
+
+        ``precision`` takes the JAX package's values and changes nothing
+        here: f32 rows are always multiplied in full fp32, bf16 blocks by
+        exact products of bf16 values summed in fp32."""
+        k = self._check_k(k)
+        _check_precision(precision)
+        min_votes = int(min_votes)
+        qb = _as_dense_queries(q, self.dim, self.device)
+        budget = self._budget(budget)
+        if self._packed is None:
+            return _knn(self, qb, k, budget, metric, dedup, min_votes)
+        _check_selection(selection, k, min_votes)
+        probes = int(self.n_trees * budget if probes is None else probes)
+        return _knn_packed(self, qb, k, budget, probes, metric, dedup,
+                           min_votes, selection)
+
+    @torch.no_grad()
+    def knn_batched(self, q, k: int, metric="l2",
+                    budget: Optional[int] = None, dedup: bool = True,
+                    precision: str = "highest",
+                    probes: Optional[int] = None, min_votes: int = 1,
+                    chunk: int = 4096, selection: str = "sort"
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The per-pair path of :meth:`knn` over a large batch, ``chunk``
+        queries at a time, so its rerank buffers stay per chunk.  Requires
+        :meth:`pack_leaves`; results equal chunked :meth:`knn` calls."""
+        if self._packed is None:
+            raise ValueError("pack_leaves() first: knn_batched runs the "
+                             "leaf-blocked pipeline")
+        k = self._check_k(k)
+        _check_precision(precision)
+        min_votes = int(min_votes)
+        _check_selection(selection, k, min_votes)
+        budget = self._budget(budget)
+        probes = int(self.n_trees * budget if probes is None else probes)
+        qb, b, chunk = _pad_to_chunk(
+            _as_dense_queries(q, self.dim, self.device), chunk)
+        d, ids = _knn_packed_many(self, qb, chunk, k=k, budget=budget,
+                                  probes=probes, metric=metric, dedup=dedup,
+                                  min_votes=min_votes, selection=selection)
+        return d[:b], ids[:b]
+
+    @torch.no_grad()
+    def candidates(self, q, budget: Optional[int] = None,
+                   tree: Optional[int] = None) -> torch.Tensor:
+        """Candidate point ids per tree (reference ``candidates``):
+        ``int32[T, B, C]`` (-1 padded), or ``[B, C]`` for one ``tree``."""
+        qb = _as_dense_queries(q, self.dim, self.device)
+        cand = _candidate_ids(self.plan, self.arrays, qb,
+                              self._budget(budget), self._children())
+        return cand if tree is None else cand[tree]
+
+    @torch.no_grad()
+    def recall_with(self, q, k: int, metric="l2",
+                    budget: Optional[int] = None) -> torch.Tensor:
+        """Average recall@k over the forest's trees (reference
+        ``recallWith``): per tree, the share of the exact k nearest (fp32
+        scan) among its candidates.  Returns ``f32[B]``."""
+        qb = _as_dense_queries(q, self.dim, self.device)
+        k = self._check_k(k)
+        _, exact = _brute_force(self.x, self.sq_norms, qb, k, metric)
+        cand = _candidate_ids(self.plan, self.arrays, qb,
+                              self._budget(budget), self._children())
+        return _recall(exact, cand, k)
+
     # -- grouped serving ---------------------------------------------------
 
     @torch.no_grad()
@@ -458,14 +699,10 @@ class RPForest:
         if self._packed is None:
             raise ValueError("pack_leaves() first: knn_grouped runs on the "
                              "leaf-blocked layout")
-        if precision not in _PRECISIONS:
-            raise ValueError(f"precision must be one of {_PRECISIONS}")
-        if selection == "approx":
-            raise NotImplementedError(
-                "selection='approx': not to be ported (ROADMAP.md, "
-                "\"Not to port\")")
-        if selection not in ("sort", "kernel"):
-            raise ValueError(f"unknown selection {selection!r}")
+        _check_precision(precision)
+        k = self._check_k(k)
+        min_votes = int(min_votes)
+        _check_selection(selection, k, min_votes)
         if impl == "xla":
             raise NotImplementedError(
                 "impl='xla': the port scores through its tile kernels only; "
@@ -475,20 +712,11 @@ class RPForest:
         if not grouped_kernel_ok(self._packed[0], metric):
             raise NotImplementedError(
                 f"metric {metric!r}: grouped tile scoring serves l2 / sql2")
-        k = self._check_k(k)
         budget = self._budget(budget)
         probes = int(self.n_trees * budget if probes is None else probes)
-        min_votes = int(min_votes)
-        if selection == "kernel" and min_votes == 1 and not topk_kernel_ok(
-                probes * self._packed[0].shape[1], k):
-            raise ValueError("selection='kernel' needs k <= 128; use "
-                             "selection='sort'")
         qb = _as_dense_queries(q, self.dim, self.device)
-        b = qb.shape[0]
-        chunk = b if chunk is None else max(1, min(int(chunk), b))
-        pad = (-b) % chunk
-        if pad:
-            qb = torch.cat([qb, qb.new_zeros((pad, qb.shape[1]))])
+        qb, b, chunk = _pad_to_chunk(qb, qb.shape[0] if chunk is None
+                                     else chunk)
 
         def run(cap):
             d, ids, needed = _knn_grouped_many(
@@ -516,15 +744,21 @@ class RPForest:
     # -- ground truth ------------------------------------------------------
 
     @torch.no_grad()
-    def brute_force_knn(self, q, k: int, metric: str = "l2",
+    def brute_force_knn(self, q, k: int, metric="l2",
+                        precision: str = "highest",
                         query_chunk: Optional[int] = None):
-        """Exact kNN by full scan (the recall oracle), in full fp32:
-        ``(dists f32[B, k], ids int32[B, k])``.  ``query_chunk`` scans the
-        batch that many queries at a time."""
+        """Exact kNN by full scan (the recall oracle): ``(dists f32[B, k],
+        ids int32[B, k])``, ties to the lower index.  ``precision``:
+        "highest" multiplies in fp32; "default" and "fastest" round data
+        and queries to bf16 and sum in fp32 (kernel 5 for l2 / sql2 / dot
+        and k <= 128; see :func:`_brute_force`), and select exactly.
+        ``query_chunk`` scans the batch that many queries at a time."""
+        _check_precision(precision)
         qb = _as_dense_queries(q, self.dim, self.device)
         k = self._check_k(k)
         step = int(query_chunk) if query_chunk else qb.shape[0]
-        outs = [_brute_force(self.x, self.sq_norms, qb[s:s + step], k, metric)
+        outs = [_brute_force(self.x, self.sq_norms, qb[s:s + step], k, metric,
+                             precision)
                 for s in range(0, qb.shape[0], step)]
         return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
@@ -534,7 +768,8 @@ class RPForest:
 
 
 def _prepare_data(data, device):
-    x = torch.as_tensor(data, dtype=torch.float32, device=device)
+    x = torch.as_tensor(data, dtype=torch.float32,
+                        device=resolve_device(device))
     if x.dim() != 2:
         raise ValueError(f"dataset must be [n, dim], got shape {tuple(x.shape)}")
     x = x.contiguous()
@@ -544,7 +779,9 @@ def _prepare_data(data, device):
 @torch.no_grad()
 def forest_batch(seed, max_depth: int, min_leaf: int, n_trees: int,
                  pnz: float, data, device=None, r=None) -> RPForest:
-    """Batch-build a random projection forest on ``device``: sample
+    """Batch-build a random projection forest on ``device`` (default: the
+    card; it raises where CUDA is absent, and the CPU is used only with
+    ``device="cpu"``): sample
     ``n_trees x max_depth`` sparse Gaussian projections from ``seed``
     (or take ``r [n_trees, max_depth, D]`` as given), then run the
     level-synchronous builder tree by tree."""

@@ -1,21 +1,60 @@
-"""Candidate merging and distances from inner products
-(``rptree_tpu/ops/rerank.py``): ``dedup_ids``, ``merge_top_k`` and the
-L2 metrics of ``distances_from_dots`` that the serving path uses.
+"""Candidate gather, union / dedup, exact rerank and merging
+(``rptree_tpu/ops/rerank.py``): ``leaf_positions``, ``gather_leaf_points``,
+``dedup_ids``, ``merge_top_k``, ``distances_from_dots``,
+``candidate_distances`` and ``rerank_top_k``, for dense data.
 
 JAX's multi-operand ``lax.sort((keys, payload), num_keys=1)`` becomes a
 stable ``torch.sort`` of the keys and a gather of the payload by the
 returned order.  The JAX sort is not declared stable, so where two
 entries tie on the key the two packages may order them differently; the
-parity tests compare such rows as sets.
+parity tests compare such rows as sets.  ``lax.top_k`` keeps the lower
+position on ties, which ``torch.topk`` does not promise, so the port
+selects with a stable sort there too.
+
+Metrics (the reference's ``distf``): ``l2``, ``sql2``, ``cosine`` (1 -
+cosine similarity), ``dot`` (negative inner product), or a callable
+``distf(rows f32[..., C, D], q f32[..., 1, D]) -> f32[..., C]`` of torch
+operations (smaller is closer).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["distances_from_dots", "dedup_ids", "merge_top_k", "METRICS"]
+from ..models.plan import TreePlan
 
-METRICS = ("l2", "sql2")
+__all__ = ["leaf_positions", "gather_leaf_points", "distances_from_dots",
+           "dedup_ids", "merge_top_k", "candidate_distances",
+           "rerank_top_k", "METRICS"]
+
+METRICS = ("l2", "sql2", "cosine", "dot")
+
+
+def leaf_positions(plan: TreePlan, leaf_ids: torch.Tensor):
+    """Leaf ids ``int32[..., F]`` (-1 for empty) to positions in
+    leaf-sorted (permutation) order: ``(pos int64[..., F * lmax], valid
+    bool[same])``, ``lmax = max(plan.max_leaf_len, 1)``; invalid slots
+    point at position 0."""
+    lmax = max(plan.max_leaf_len, 1)
+    dev = leaf_ids.device
+    starts = torch.as_tensor(plan.leaf_start, dtype=torch.int64, device=dev)
+    lens = torch.as_tensor(plan.leaf_len, dtype=torch.int64, device=dev)
+    safe = leaf_ids.long().clamp(0, plan.n_leaves - 1)
+    offs = torch.arange(lmax, device=dev)
+    pos = starts[safe][..., None] + offs
+    valid = (leaf_ids >= 0)[..., None] & (offs < lens[safe][..., None])
+    pos = torch.where(valid, pos, 0)
+    flat = pos.shape[:-2] + (pos.shape[-2] * pos.shape[-1],)
+    return pos.reshape(flat), valid.reshape(flat)
+
+
+def gather_leaf_points(plan: TreePlan, perm: torch.Tensor,
+                       leaf_ids: torch.Tensor) -> torch.Tensor:
+    """The point ids stored in the leaf buckets ``leaf_ids int32[..., F]``
+    of one tree (``perm int32[n]``): ``int32[..., F * lmax]``, -1 where a
+    bucket is empty or shorter than ``lmax``."""
+    pos, valid = leaf_positions(plan, leaf_ids)
+    return torch.where(valid, perm[pos], -1).to(torch.int32)
 
 
 def _run_lengths(ids_sorted: torch.Tensor) -> torch.Tensor:
@@ -77,11 +116,48 @@ def distances_from_dots(dots: torch.Tensor, sqx: torch.Tensor,
                         q: torch.Tensor, metric: str = "l2") -> torch.Tensor:
     """Distances from inner products ``dots[..., C]`` and candidate
     squared norms ``sqx[..., C]`` (``q [B, D]`` broadcast against the
-    trailing query axes of ``dots``).  The JAX package's ``cosine`` and
-    ``dot`` metrics are not ported yet and raise."""
-    if metric not in METRICS:
-        raise NotImplementedError(f"metric {metric!r}: the port serves "
-                                  f"{', '.join(METRICS)}")
-    sqq = (q * q).sum(-1)[..., None]
-    d = (sqx - 2.0 * dots + sqq).clamp_min(0.0)
-    return d.sqrt() if metric == "l2" else d
+    trailing query axes of ``dots``)."""
+    if metric in ("l2", "sql2"):
+        sqq = (q * q).sum(-1)[..., None]
+        d = (sqx - 2.0 * dots + sqq).clamp_min(0.0)
+        return d.sqrt() if metric == "l2" else d
+    if metric == "cosine":
+        nq = (q * q).sum(-1).sqrt()[..., None]
+        return 1.0 - dots / (sqx.sqrt() * nq).clamp_min(1e-30)
+    if metric == "dot":
+        return -dots
+    raise ValueError(f"unknown metric {metric!r}; one of {sorted(METRICS)}")
+
+
+def candidate_distances(x: torch.Tensor, sq_norms: torch.Tensor,
+                        q: torch.Tensor, ids: torch.Tensor,
+                        metric="l2") -> torch.Tensor:
+    """Exact distances ``f32[B, C]`` from each query ``q [B, D]`` to its
+    candidate rows ``x[ids]`` (``ids int32[B, C]``, -1 for none: +inf),
+    with the squared norms ``sq_norms [n]`` precomputed.  Inner products
+    are fp32."""
+    valid = ids >= 0
+    safe = ids.long().clamp_min(0)
+    rows = x[safe]                                          # [B, C, D]
+    if callable(metric):
+        d = metric(rows, q[:, None, :])
+    else:
+        dots = torch.einsum("bcd,bd->bc", rows, q)
+        d = distances_from_dots(dots, sq_norms[safe], q, metric)
+    return torch.where(valid, d, float("inf"))
+
+
+def rerank_top_k(x, sq_norms, q, ids, k: int, metric="l2",
+                 dedup: bool = True):
+    """Exact rerank of the candidate union ``ids int32[B, C]`` and its k
+    best: ``(dists f32[B, k'], ids int32[B, k'])``, ``k' = min(k, C)``, in
+    ascending order, ties to the lower position; unfilled slots are
+    ``(+inf, -1)``."""
+    if dedup:
+        ids = dedup_ids(ids)
+    d = candidate_distances(x, sq_norms, q, ids, metric)
+    k = min(int(k), ids.shape[-1])
+    d, order = torch.sort(d, dim=-1, stable=True)
+    d = d[..., :k]
+    out = ids.gather(-1, order[..., :k])
+    return d, torch.where(torch.isinf(d), -1, out).to(torch.int32)

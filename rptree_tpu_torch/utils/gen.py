@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from .._cuda import resolve_device
+
 __all__ = ["sample_projections"]
 
 
@@ -20,7 +22,8 @@ def sample_projections(seed, n_trees: int, depth: int, dim: int, pnz: float,
     N(0, 1) components under a Bernoulli(``pnz``) support mask, zeros
     where the mask is off (the reference's sparse Gaussian vectors,
     materialized dense).  Drawn on the CPU from ``seed`` so that the same
-    seed gives the same projections on every device."""
+    seed gives the same projections on every device, then moved to
+    ``device`` (default: the card; the CPU only with ``device="cpu"``)."""
     g = torch.Generator(device="cpu")
     g.manual_seed(int(seed) & 0x7FFFFFFFFFFFFFFF)
     shape = (int(n_trees), int(depth), int(dim))
@@ -28,4 +31,4 @@ def sample_projections(seed, n_trees: int, depth: int, dim: int, pnz: float,
     if pnz < 1.0:
         mask = torch.rand(shape, generator=g) < pnz
         r = torch.where(mask, r, torch.zeros((), dtype=r.dtype))
-    return r.to(device)
+    return r.to(resolve_device(device))

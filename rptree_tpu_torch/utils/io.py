@@ -15,6 +15,7 @@ import json
 import numpy as np
 import torch
 
+from .._cuda import resolve_device
 from ..config import ForestConfig
 from ..models.forest import RPForest
 from ..models.plan import make_plan
@@ -26,12 +27,14 @@ _ARRAYS = ("r", "thr", "mgl", "mgh", "perm")
 
 
 def forest_from_numpy(header: dict, arrays: dict, device=None) -> RPForest:
-    """Build an :class:`RPForest` on ``device`` from a JAX forest's header
-    (as ``save_forest`` writes it) and its arrays ``r, thr, mgl, mgh,
-    perm, x`` as numpy arrays.  Sparse (ELL) datasets are not ported."""
+    """Build an :class:`RPForest` on ``device`` (default: the card; the CPU
+    only with ``device="cpu"``) from a JAX forest's header (as
+    ``save_forest`` writes it) and its arrays ``r, thr, mgl, mgh, perm, x``
+    as numpy arrays.  Sparse (ELL) datasets are not ported."""
     if header.get("sparse"):
         raise NotImplementedError("ELL-sparse forests: ROADMAP.md queue 1 "
                                   "item 14")
+    device = resolve_device(device)
     plan = make_plan(header["n"], header["max_depth"], header["min_leaf"])
     if plan.n_levels != header["n_levels"]:
         raise ValueError("checkpoint plan mismatch: "
@@ -49,7 +52,8 @@ def forest_from_numpy(header: dict, arrays: dict, device=None) -> RPForest:
 
 def load_forest(path: str, device=None) -> RPForest:
     """Restore a forest saved by the JAX package's ``save_forest`` onto
-    ``device``.  Reads no pickled payloads (``allow_pickle=False``)."""
+    ``device`` (default: the card, as :func:`forest_from_numpy`).  Reads
+    no pickled payloads (``allow_pickle=False``)."""
     with np.load(path, allow_pickle=False) as z:
         header = json.loads(z["header"].tobytes().decode())
         return forest_from_numpy(header, {k: z[k] for k in (*_ARRAYS, "x")},

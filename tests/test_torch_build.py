@@ -9,9 +9,12 @@ from jax import lax
 
 from rptree_tpu.models.plan import make_plan
 from rptree_tpu.ops.build import build_forest_arrays as jax_build
+from rptree_tpu.utils.io import save_forest
 from rptree_tpu_torch.ops.build import _level_order
 from rptree_tpu_torch.ops.build import build_forest_arrays as torch_build
 from rptree_tpu_torch.models.forest import forest_batch as torch_forest_batch
+from rptree_tpu_torch.utils.gen import sample_projections
+from rptree_tpu_torch.utils.io import forest_from_numpy, load_forest
 
 from torch_parity import jax_forest, one_torch_thread  # noqa: F401
 
@@ -77,7 +80,8 @@ def test_float_data_close():
     x = rng.normal(size=(4096, 32)).astype(np.float32)
     fj = jax_forest(x, seed=3, n_trees=4, min_leaf=32)
     r = np.array(fj.arrays.r)
-    ft = torch_forest_batch(3, fj.plan.max_depth, 32, 4, 1.0, x, r=r)
+    ft = torch_forest_batch(3, fj.plan.max_depth, 32, 4, 1.0, x, r=r,
+                            device="cpu")
     for f in ("thr", "mgl", "mgh"):
         np.testing.assert_allclose(getattr(ft.arrays, f).numpy(),
                                    np.asarray(getattr(fj.arrays, f)),
@@ -101,8 +105,8 @@ def test_forest_batch_own_projections():
     seed, same forest; Bernoulli(pnz) support; valid permutations."""
     rng = np.random.default_rng(2)
     x = rng.normal(size=(600, 12)).astype(np.float32)
-    f1 = torch_forest_batch(9, 4, 16, 3, 0.5, x)
-    f2 = torch_forest_batch(9, 4, 16, 3, 0.5, x)
+    f1 = torch_forest_batch(9, 4, 16, 3, 0.5, x, device="cpu")
+    f2 = torch_forest_batch(9, 4, 16, 3, 0.5, x, device="cpu")
     assert torch.equal(f1.arrays.perm, f2.arrays.perm)
     assert torch.equal(f1.arrays.r, f2.arrays.r)
     assert tuple(f1.arrays.r.shape) == (3, 4, 12)
@@ -111,4 +115,34 @@ def test_forest_batch_own_projections():
     perm = f1.arrays.perm.numpy()
     assert (np.sort(perm, axis=1) == np.arange(600)).all()
     with pytest.raises(ValueError):
-        torch_forest_batch(9, 4, 16, 3, 0.5, x, r=np.zeros((3, 5, 12)))
+        torch_forest_batch(9, 4, 16, 3, 0.5, x, r=np.zeros((3, 5, 12)),
+                           device="cpu")
+
+
+def test_default_device_is_the_card(monkeypatch, tmp_path):
+    """``device=None`` builds on the card: without CUDA it raises, and the
+    CPU is used only when asked for."""
+    x = np.random.default_rng(4).normal(size=(300, 8)).astype(np.float32)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        torch_forest_batch(1, 3, 16, 2, 1.0, x)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sample_projections(1, 2, 3, 8, 1.0)
+    f = torch_forest_batch(1, 3, 16, 2, 1.0, x, device="cpu")
+    assert f.device.type == "cpu"
+    header = {"n": 300, "max_depth": 3, "min_leaf": 16,
+              "n_levels": f.plan.n_levels,
+              "config": dict(n_trees=2, max_depth=3, min_leaf=16,
+                             proj_nz_density=1.0, dim=8)}
+    arrays = {k: getattr(f.arrays, k).numpy()
+              for k in ("r", "thr", "mgl", "mgh", "perm")}
+    arrays["x"] = x
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        forest_from_numpy(header, arrays)
+    assert forest_from_numpy(header, arrays, device="cpu").device.type == \
+        "cpu"
+    path = str(tmp_path / "forest.npz")
+    save_forest(path, jax_forest(x, seed=3, n_trees=2, min_leaf=16))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_forest(path)
+    assert load_forest(path, device="cpu").device.type == "cpu"

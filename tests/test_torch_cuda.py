@@ -12,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+from rptree_tpu_torch.ops import fused_gather as fg
 from rptree_tpu_torch.ops import grouped_kernel as gk
+from rptree_tpu_torch.ops import scan as sc
 from rptree_tpu_torch.ops import topk_kernel as tk
 
 pytestmark = pytest.mark.cuda
@@ -179,6 +181,73 @@ def test_topk(dev, dedup, b, w, k):
                                   pd.cpu().numpy().view(np.int32))
 
 
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("g,lmax,d,b,p", [
+    (50, 128, 128, 40, 8), (7, 13, 20, 9, 3), (9, 40, 130, 5, 4),
+    (5, 8, 1, 4, 2), (6, 33, 256, 3, 5), (4, 3128, 128, 2, 3),
+])
+def test_gather_score(dev, bf16, g, lmax, d, b, p):
+    gen = torch.Generator().manual_seed(g * lmax + d)
+    x = torch.randn(g, lmax, d, generator=gen)
+    sq = (x * x).sum(-1)
+    q = torch.randn(b, d, generator=gen)
+    sel = torch.randint(0, g, (b, p), generator=gen, dtype=torch.int32)
+    sel[0] = sel[0, 0]                     # one block probed p times
+    sel[-1, -1] = g + 3                    # clamped to the last block
+    x = (x.bfloat16() if bf16 else x).to(dev)
+    sq, q, sel = sq.to(dev), q.to(dev), sel.to(dev)
+    key = "launches_bf16" if bf16 else "launches"
+    before = getattr(fg.gather_score, key)
+    dots, sqx = fg.gather_score(x, sq, q, sel)
+    assert getattr(fg.gather_score, key) == before + 1
+    want_d, want_s = fg.gather_score_reference(x, sq, q, sel)
+    torch.cuda.synchronize()
+    _close(dots, want_d)
+    assert torch.equal(sqx, want_s)
+    assert torch.equal(dots[0, 0], dots[0, -1])
+    # a block array that is not 16-byte aligned takes the element loads
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+    xo = buf[1:].view(x.shape)
+    xo.copy_(x)
+    _close(fg.gather_score(xo, sq, q, sel)[0], want_d)
+
+
+@pytest.mark.parametrize("metric", ["l2", "sql2", "dot"])
+@pytest.mark.parametrize("n,b,d,k", [
+    (5000, 300, 128, 10), (131, 9, 10, 5), (1000, 129, 130, 128),
+    (70, 3, 8, 100), (20000, 2, 64, 1), (3000, 200, 256, 16),
+])
+def test_scan_topk(dev, metric, n, b, d, k):
+    gen = torch.Generator().manual_seed(n + b + d)
+    x = torch.randn(n, d, generator=gen)
+    q = x[torch.randint(0, n, (b,), generator=gen)] + 0.3 * torch.randn(
+        b, d, generator=gen)
+    x[n // 2] = x[3]                       # an exact tie: index 3 first
+    q[0] = x[3]
+    x, q = x.to(dev), q.to(dev)
+    sq = (x * x).sum(-1)
+    before = sc.scan_topk.launches
+    kd, ki = sc._scan_partial(x, sq, q, k, metric)
+    assert sc.scan_topk.launches == before + 1
+    pd, pi = sc._partial_reference(x, sq, q, k, metric)
+    torch.cuda.synchronize()
+    assert kd.shape == (b, min(k, n)) and ki.dtype == torch.int32
+    _close(kd, pd)
+    chk = gk.untied(pd, 1e-4)
+    assert torch.equal(ki[chk], pi[chk])
+    assert bool((ki >= 0).all()) and bool((ki < n).all())
+    assert bool((kd[:, 1:] >= kd[:, :-1]).all())
+    row = ki[0].tolist()
+    if metric != "dot" and min(k, n) > 1:
+        assert row[:2] == [3, n // 2]
+    # the final distances are the epilogue of the kernel's partial ones
+    # (near a zero distance the epilogue's cancellation amplifies the
+    # partials' fp32 noise, so they are not held to 1e-4 relative)
+    fd, fi = sc.scan_topk(x, sq, q, k, metric)
+    assert torch.equal(fi, ki)
+    assert torch.equal(fd, sc._epilogue(kd, ki, q, metric)[0])
+
+
 def test_wrappers_raise_on_what_they_do_not_serve(dev):
     x, sq, scale, tb, lens, qt = _tiles(dev, 4, 16, 8, 4, 2, False)
     with pytest.raises(TypeError):
@@ -217,3 +286,23 @@ def test_wrappers_raise_on_what_they_do_not_serve(dev):
                                             device=dev), 3)
     with pytest.raises(ValueError):
         tk.topk_dedup_kernel(d, torch.zeros(4, 8, dtype=torch.int32), 3)
+    q, sel = torch.zeros(3, 8, device=dev), torch.zeros(
+        3, 2, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        fg.gather_score(x.half(), sq, q, sel)
+    with pytest.raises(TypeError):
+        fg.gather_score(x, sq, q, sel.long())
+    with pytest.raises(ValueError):
+        fg.gather_score(x, sq, q.cpu(), sel)
+    with pytest.raises(ValueError):
+        fg.gather_score(x, sq, q.t().contiguous().t(), sel)
+    xs = torch.zeros(300, 8, device=dev)
+    sqs = torch.zeros(300, device=dev)
+    with pytest.raises(TypeError):
+        sc.scan_topk(xs.double(), sqs, q, 3)
+    with pytest.raises(ValueError):
+        sc.scan_topk(xs, sqs, q, 3, "cosine")
+    with pytest.raises(ValueError):
+        sc.scan_topk(xs, sqs, q, 129)
+    with pytest.raises(ValueError):
+        sc.scan_topk(xs[:, ::2], sqs, q[:, :4], 3)

@@ -149,8 +149,9 @@ def test_kernel_selection_counts_votes_like_jax(data):
 
 
 def test_signature_and_positional_binding_match_jax(data):
-    """``knn_grouped`` takes the JAX package's parameters in its order and
-    with its defaults, so a positional call binds alike in both."""
+    """The query entry points take the JAX package's parameters in its
+    order and with its defaults, so a positional call binds alike in
+    both."""
     import inspect
 
     import rptree_tpu as rt
@@ -160,7 +161,10 @@ def test_signature_and_positional_binding_match_jax(data):
         return [(p.name, p.default)
                 for p in inspect.signature(fn).parameters.values()]
 
-    assert params(rp.RPForest.knn_grouped) == params(rt.RPForest.knn_grouped)
+    for name in ("knn_grouped", "knn", "knn_batched", "brute_force_knn",
+                 "recall_with", "candidates"):
+        assert params(getattr(rp.RPForest, name)) == params(
+            getattr(rt.RPForest, name)), name
     x, q, fj = data
     ft = carry(fj)
     fj.pack_leaves()
@@ -180,6 +184,18 @@ def test_signature_and_positional_binding_match_jax(data):
     assert (dt[:, 0] == dt[:, 1]).any()
     with pytest.raises(ValueError):
         ft.knn_grouped(q, K, precision="exact")
+    # brute_force_knn's fourth parameter is the precision, as in JAX
+    dj, ij = fj.brute_force_knn(q[:20], K, "l2", "fastest")
+    dt, it = ft.brute_force_knn(q[:20], K, "l2", "fastest")
+    same = _set_equal_rows(it.numpy(), np.asarray(ij))
+    assert same.mean() >= 0.95, same.mean()
+    np.testing.assert_allclose(dt.numpy()[same], np.asarray(dj)[same],
+                               rtol=1e-5, atol=1e-5)
+    # knn's sixth parameter is the precision, its seventh the probes
+    dj, ij = fj.knn(q, K, "l2", 2, True, "default", 3)
+    dt, it = ft.knn(q, K, "l2", 2, True, "default", 3)
+    same = _set_equal_rows(it.numpy(), np.asarray(ij))
+    assert same.mean() >= 0.99, same.mean()
 
 
 def test_unported_options_raise(data):
@@ -198,8 +214,8 @@ def test_unported_options_raise(data):
         ft.knn_grouped(q, K, impl="pallas")
     with pytest.raises(NotImplementedError):
         ft.knn_grouped(q, K, metric="cosine")
-    with pytest.raises(NotImplementedError):
-        ft.brute_force_knn(q, K, metric="dot")
+    with pytest.raises(ValueError):  # every JAX metric is served; not typos
+        ft.brute_force_knn(q, K, metric="l3")
     with pytest.raises(ValueError):
         ft.knn_grouped(q[:, :5], K)
     with pytest.raises(ValueError):

@@ -9,6 +9,7 @@ import torch
 import rptree_tpu as rt
 from rptree_tpu.utils.io import _header
 from rptree_tpu_torch import forest_from_numpy
+from rptree_tpu_torch.ops.grouped_kernel import untied
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -45,3 +46,23 @@ def carry(fj, device="cpu"):
               for k in ("r", "thr", "mgl", "mgh", "perm")}
     arrays["x"] = np.array(fj.x)
     return forest_from_numpy(_header(fj), arrays, device=device)
+
+
+def knn_agree(got, want, rtol=1e-5):
+    """The port's ``(dists, ids)`` against the JAX package's, both ``[B,
+    k]`` in ascending order: the same shapes and padding, distances within
+    ``rtol`` (relative, and absolute below 1), and ids equal wherever
+    JAX's distance is apart from its row neighbours by more than ``rtol``
+    (``untied``), where two correct summation orders cannot swap them."""
+    (dt, it), (dj, ij) = got, want
+    dt, it = dt.numpy(), it.numpy()
+    dj, ij = np.array(dj), np.array(ij)
+    assert it.dtype == np.int32 and dt.dtype == np.float32
+    assert dt.shape == dj.shape
+    np.testing.assert_array_equal(np.isinf(dt), np.isinf(dj))
+    np.testing.assert_array_equal(it < 0, ij < 0)
+    fin = np.isfinite(dj)
+    np.testing.assert_allclose(dt[fin], dj[fin], rtol=rtol, atol=rtol)
+    chk = untied(torch.as_tensor(dj), rtol).numpy()
+    np.testing.assert_array_equal(it[chk], ij[chk])
+    assert chk.any()
