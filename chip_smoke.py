@@ -15,7 +15,10 @@ its launch counts):
    bit-equal to the tile kernel's, sorted; the block gather's norms
    bit-equal; the scan's ids equal outside near-ties), with both times by
    CUDA events, the least time the card could take (``bound_ms``) and,
-   where one PyTorch call computes the same function, its time;
+   where one PyTorch call computes the same function, its time; the
+   scan's time excludes its bf16 copy of the rows, made once per call and
+   timed apart (``cast_ms``), and a bf16 ``torch.matmul`` of its operands
+   stands beside it as a yardstick for the products alone (``gemm_ms``);
 3. clustered 1M cell (``bench.py``'s flagship parameters): one build and
    one exact ground truth (recall@10 on 1,024 queries); unpacked ``knn``
    on those 1,024 queries; then 131,072 queries served by six variants:
@@ -366,7 +369,8 @@ def check_gather(device, reps):
 def check_scan(device, reps, n=100_000, b=4096, d=128):
     """Kernel 5 against its plain version on 100,000 iid rows and 4,096
     queries, k 10, for l2, sql2 and dot: partial distances within 1e-4
-    relative, ids equal outside near-ties.  (The main path's own shapes,
+    relative, ids equal outside near-ties.  Its time is on the call's bf16
+    copy of the rows (``scan_rows``), which is timed apart.  (The main path's own shapes,
     1M x 2,048, 100k x 2,048 and 1M x 1,024 with l2, are held against the
     plain version by :func:`scan_phase`.)"""
     import torch
@@ -392,18 +396,25 @@ def check_scan(device, reps, n=100_000, b=4096, d=128):
                                  f"ids equal {torch.equal(ki[chk], pi[chk])}")
         abs_err, rel_err = max(abs_err, a), max(rel_err, r)
         untied_ids += int(chk.sum())
+    rows = sc.scan_rows(x, sq)
+    xb, qb = rows.x[:n, :d], q.bfloat16()
     rec = {
         "max_abs_err": abs_err, "max_rel_err": rel_err,
         "ids_equal_untied": untied_ids,
-        "ms": cuda_ms(lambda: sc.scan_topk(x, sq, q, K, "l2"), reps),
+        # the kernel on the call's bf16 copy of the rows, made once per
+        # call and timed apart (cast_ms)
+        "ms": cuda_ms(lambda: sc.scan_topk(x, sq, q, K, "l2", rows), reps),
+        "cast_ms": cuda_ms(lambda: sc.scan_rows(x, sq), reps),
         "plain_ms": cuda_ms(lambda: sc.scan_topk_reference(x, sq, q, K, "l2"),
                             reps),
         "library_ms": None,
+        # a yardstick for the products alone: no one call computes the scan
+        "gemm_ms": cuda_ms(lambda: torch.matmul(qb, xb.T), reps),
         **bound(n * d * 4 + n * 4 + b * d * 4 + b * K * 8, 2 * b * n * d,
                 "bf16"),
         "shape": {"N": n, "B": b, "D": d, "k": K},
     }
-    del x, q, sq
+    del x, q, sq, rows, xb, qb
     torch.cuda.empty_cache()
     return {"scan_topk": rec}
 
@@ -880,7 +891,7 @@ def main():
             "library_ms")
     # where the library call computes a variant's function, that variant's
     # time and the call's name stand beside it
-    extra = ("ms_no_dedup", "library_call")
+    extra = ("ms_no_dedup", "library_call", "gemm_ms", "cast_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **{key: kern[r][key] for key in keys},

@@ -3,7 +3,13 @@ times of one clustered 1M chunk (65,536 queries, ``chip_smoke.py``'s
 phase-3 cell) under the grouped path's three selection tails, on f32 and
 bf16 blocks, and the device time by kernel of one whole call of each
 tail; then the stages of one per-pair chunk (2,048 queries, variant f)
-and the time of one bf16 scan chunk (2,048 queries over the 1M rows).
+and the time of one bf16 scan chunk (2,048 queries over the 1M rows),
+with its bf16 row copy timed apart.  Where an earlier commit's sources of
+kernels 5 and 6 sit in ``_checkout/base`` (``git show
+a0583c7:rptree_tpu_torch/csrc/scan_topk.cu`` and ``gather_score.cu``;
+git-ignored), it first times them against this tree's in turns (old,
+new, new, old) at ``chip_smoke.py``'s phase-2 shapes and the 1M scan
+chunk.
 
     python3 chip_stages.py            # on the card
     python3 chip_stages.py --cpu      # a tiny rehearsal on the CPU
@@ -72,6 +78,127 @@ def build_times():
     _, last, _ = _cuda.build()
     return {"sources": len(cus), "one_nvcc_s": one,
             "one_nvcc_per_source_s": [first, last]}
+
+
+def base_lib(src):
+    """An earlier commit's kernels 5 and 6 (their sources at ``src``: ``git
+    show a0583c7:rptree_tpu_torch/csrc/<name>`` for ``scan_topk.cu`` and
+    ``gather_score.cu``) built into one library under other symbol names."""
+    import ctypes
+
+    from rptree_tpu_torch import _cuda
+
+    out = os.path.join(src, "libbase.so")
+    renames = [f"-D{n}={n}_base" for n in (
+        "rpt_scan_topk", "rpt_gather_score_f32", "rpt_gather_score_bf16")]
+    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, *renames, "-I",
+                    str(_cuda._CSRC), "-shared", "-o", out,
+                    os.path.join(src, "scan_topk.cu"),
+                    os.path.join(src, "gather_score.cu")],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(out)
+    p, i, l_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+    lib.rpt_scan_topk_base.argtypes = [p] * 7 + [l_] + [i] * 5 + [l_, p]
+    for name in ("rpt_gather_score_f32_base", "rpt_gather_score_bf16_base"):
+        getattr(lib, name).argtypes = [p] * 6 + [i] * 5 + [p]
+    return lib
+
+
+def base_scan(lib, x, sq, q, k):
+    """The earlier kernel 5, on f32 rows, with its own row ranges."""
+    from rptree_tpu_torch import _cuda
+
+    (n, d), b = x.shape, q.shape[0]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    splits = max(1, min(-(-4 * sms // -(-b // 128)), -(-n // 256)))
+    rows = -(-n // splits)
+    rows = -(-rows // 64) * 64
+    splits = -(-n // rows)
+    pd = torch.empty((splits, b, k), device=x.device)
+    pi = torch.empty((splits, b, k), dtype=torch.int32, device=x.device)
+    od = torch.empty((b, k), device=x.device)
+    oi = torch.empty((b, k), dtype=torch.int32, device=x.device)
+    code = lib.rpt_scan_topk_base(*map(_cuda.ptr, (x, sq, q, pd, pi, od, oi)),
+                                 n, b, d, k, 0, splits, rows,
+                                 _cuda.stream_of(x))
+    assert code == 0, code
+    return od, oi
+
+
+def base_gather(lib, x, sq, q, sel):
+    """The earlier kernel 6: one thread block per (query, probe) pair."""
+    from rptree_tpu_torch import _cuda
+
+    g, lmax, d = x.shape
+    b, p = sel.shape
+    dots = torch.empty((b, p, lmax), device=x.device)
+    sqx = torch.empty((b, p, lmax), device=x.device)
+    fn = (lib.rpt_gather_score_bf16_base if x.dtype == torch.bfloat16
+          else lib.rpt_gather_score_f32_base)
+    code = fn(*map(_cuda.ptr, (x, sq, q, sel, dots, sqx)), b, p, g, lmax, d,
+              _cuda.stream_of(x))
+    assert code == 0, code
+    return dots, sqx
+
+
+def turns(old, new, reps=10):
+    """``(old ms, new ms)``, each the mean of two CUDA-event timings taken
+    in the turns old, new, new, old."""
+    a = cs.cuda_ms(old, reps)
+    b = cs.cuda_ms(new, reps)
+    c = cs.cuda_ms(new, reps)
+    d = cs.cuda_ms(old, reps)
+    return (a + d) / 2, (b + c) / 2, [a, b, c, d]
+
+
+def compare_base(src):
+    """The earlier kernels 5 and 6 against this tree's, in turns in this call,
+    at the shapes of ``chip_smoke.py``'s phase 2 and the 1M scan chunk."""
+    from rptree_tpu_torch.ops import fused_gather as fg
+    from rptree_tpu_torch.ops import scan as sc
+
+    lib = base_lib(src)
+    dev = torch.device("cuda", 0)
+    for n, b in ((100_000, 4096), (1_000_000, 2048)):
+        gen = torch.Generator(device=dev).manual_seed(5)
+        x = torch.randn(n, 128, generator=gen, device=dev)
+        q = x[torch.randint(0, n, (b,), generator=gen, device=dev)]
+        q += 0.1 * torch.randn(b, 128, generator=gen, device=dev)
+        sq = (x * x).sum(-1)
+        rows = sc.scan_rows(x, sq)
+        old, new, raw = turns(lambda: base_scan(lib, x, sq, q, K),
+                              lambda: sc._scan_partial(x, sq, q, K, "l2", rows))
+        print(json.dumps({"base_vs_tree": "scan_topk", "N": n, "B": b, "D": 128,
+                          "k": K, "base_ms": old, "tree_ms": new,
+                          "speedup": old / new, "turns_ms": raw,
+                          "tree_cast_ms": cs.cuda_ms(
+                              lambda: sc.scan_rows(x, sq), 10)}), flush=True)
+        del x, q, sq, rows
+        torch.cuda.empty_cache()
+    cases = (("gather_score", False, (8192, 128, 128, 2048, 8)),
+             ("gather_score_bf16", True, (8192, 128, 128, 2048, 8)),
+             ("gather_score_bf16_bracket", True, (1024, 3128, 128, 32, 32)))
+    for name, bf16, (g, lmax, d, b, p) in cases:
+        x, sq, q, sel = cs.gather_inputs(g, lmax, d, b, p, bf16, dev,
+                                         seed=g + p)
+        old, new, raw = turns(lambda: base_gather(lib, x, sq, q, sel),
+                              lambda: fg.gather_score(x, sq, q, sel))
+        runs_ms = cs.cuda_ms(lambda: fg._pair_runs(sel, g), 10)
+        # the step before the block-major design: the earlier kernel on the
+        # pairs in block order (L2 serves the repeats; the query gather
+        # untimed)
+        order = torch.sort(sel.reshape(-1), stable=True).indices
+        sel_s = sel.reshape(-1)[order].reshape(-1, 1).contiguous()
+        q_s = q[order // p].contiguous()
+        sorted_ms = cs.cuda_ms(lambda: base_gather(lib, x, sq, q_s, sel_s), 10)
+        print(json.dumps({"base_vs_tree": name, "blocks": g, "lmax": lmax,
+                          "D": d, "B": b, "P": p, "base_ms": old,
+                          "tree_ms": new, "speedup": old / new,
+                          "turns_ms": raw, "tree_pair_runs_ms": runs_ms,
+                          "base_sorted_pairs_ms": sorted_ms}),
+              flush=True)
+        del x, sq, q, sel, q_s, sel_s
+        torch.cuda.empty_cache()
 
 
 def stages(f, fm, og, gk, tk, rr, qc, cap, sync):
@@ -196,6 +323,12 @@ def main():
         print(smi.strip().splitlines()[0], flush=True)
         torch.backends.cuda.matmul.allow_tf32 = False
         print(json.dumps({"build": build_times()}), flush=True)
+        src = "_checkout/base"
+        if os.path.exists(os.path.join(src, "scan_topk.cu")):
+            compare_base(src)
+        else:
+            print(json.dumps({"base_vs_tree": f"skipped: no earlier sources in "
+                              f"{src}"}), flush=True)
     n, nq, centers, chunk = ((1_000_000, 131_072, 4_000, 65_536) if on_card
                              else (20_000, 1_024, 80, 512))
     x, q = cs.clustered_data(n, 128, centers, 0.15, nq)
@@ -222,10 +355,17 @@ def main():
             print(json.dumps({"pair_stages_ms": name, "chunk": pc,
                               **pair_stages(f, fm, fg, rr, qd[:pc], sync)}),
                   flush=True)
+    from rptree_tpu_torch.ops import scan as sc
+
     _, scan_ms = timed(lambda: f.brute_force_knn(
         qd[:2048], K, precision="fastest"), sync)
-    print(json.dumps({"scan_chunk_ms": scan_ms, "queries": min(2048, len(qd)),
-                      "rows": f.n_points}), flush=True)
+    rows, cast_ms = timed(lambda: sc.scan_rows(f.x, f.sq_norms), sync)
+    _, kernel_ms = timed(lambda: sc.scan_topk(f.x, f.sq_norms, qd[:2048], K,
+                                              rows=rows), sync)
+    print(json.dumps({"scan_chunk_ms": scan_ms, "row_copy_ms": cast_ms,
+                      "scan_with_copy_made_ms": kernel_ms,
+                      "queries": min(2048, len(qd)), "rows": f.n_points}),
+          flush=True)
 
 
 if __name__ == "__main__":

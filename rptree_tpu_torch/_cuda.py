@@ -47,12 +47,15 @@ _SIGNATURES = {
     # x, sq, ids, tb, lens, qt, od, oi, nt, g, tile_m, lmax, d, l2, kp, stream
     "rpt_grouped_topk_f32": [_P] * 8 + [_I] * 7 + [_P],
     "rpt_grouped_topk_bf16": [_P] * 8 + [_I] * 7 + [_P],
-    # x, sq, q, sel, dots, sqx, b, p, g, lmax, d, stream
+    # sel, n, g, runs, q, qr, nq, stream
+    "rpt_pair_runs": [_P, _L, _I, _P, _P, _P, _L, _P],
+    # x, sq, q, runs, dots, sqx, b, p, g, lmax, d, stream
     "rpt_gather_score_f32": [_P] * 6 + [_I] * 5 + [_P],
     "rpt_gather_score_bf16": [_P] * 6 + [_I] * 5 + [_P],
-    # x, sq, q, pd, pi, od, oi, n, b, d, k, dot, splits, rows_per_split,
-    # stream
-    "rpt_scan_topk": [_P] * 7 + [_L] + [_I] * 5 + [_L, _P],
+    # np, dp, b, k, out[3]
+    "rpt_scan_plan": [_L, _I, _I, _I, ctypes.POINTER(_I)],
+    # xb, sq, qb, pd, pi, od, oi, np, dp, b, k, dot, splits, tps, stream
+    "rpt_scan_topk": [_P] * 7 + [_L] + [_I] * 6 + [_P],
 }
 
 _lib = None

@@ -8,189 +8,403 @@
 //   dots[b, p, j] = <x_leaf[rows_sel[b, p], j], q[b]>      j < lmax
 //   sqx[b, p, j]  = sq_leaf[rows_sel[b, p], j]
 //
-// With bf16 blocks the query is rounded to bf16 first (nearest even), as
-// the Pallas kernel's q.astype(x_leaf.dtype) does, so every product of two
-// bf16 values is exact in fp32; sums are fp32 FMAs, never TF32.  Block
-// rows are clamped into [0, G).  Distances, masks and the selection stay in
-// plain torch, as they stay in XLA in the JAX package.
+// With bf16 blocks the query is rounded to bf16 first (nearest even; once
+// per call, by rpt_pair_runs), as the Pallas kernel's
+// q.astype(x_leaf.dtype) does, so every product of two bf16 values is
+// exact in fp32; sums are fp32 FMAs, never TF32.  Block rows are clamped
+// into [0, G).  Distances, masks and the selection stay in plain torch, as
+// they stay in XLA in the JAX package.
 //
-// What bounds it on an H100: bytes.  A pair reads one block (lmax * D * 4
-// bytes in f32, half that in bf16) and does 2 operations per element it
-// reads: 0.5 (f32) or 1 (bf16) operation per byte, some forty times below
-// the card's fp32 operations-per-byte balance, so the block read from
-// device memory is the floor.  The design therefore reads each block
-// element once, 16 bytes per thread (a float4, or eight bf16), with
-// neighbouring lanes on neighbouring addresses: a row is taken by an
-// aligned group of lanes as wide as its 16-byte chunks (the whole warp for
-// a D 128 f32 row, half a warp for a D 128 bf16 row, so a warp then takes
-// two rows at once), and each group sums its dot with a shuffle reduction
-// inside the group.  A warp loads four row groups before it reduces any,
-// so it keeps four 16-byte loads per lane in flight.  The query row sits in
-// shared memory.  Rows whose 16-byte chunks would not be aligned (D not a
-// multiple of the chunk, or an unaligned base) take the same mapping one
-// element per lane at a time.
+// What bounds it on an H100: bytes.  Each (query, probe) pair needs one
+// block (lmax * D * 4 bytes in f32, half that in bf16) for 2 operations per
+// element: 0.5 (f32) or 1 (bf16) operation per byte, far below the card's
+// fp32 balance.  The floor is reading each DISTINCT block once: the pairs
+// of one launch probe the same block again and again (on the clustered
+// chunk 16,384 pairs touch 7,030 blocks), and the blocks do not fit in L2.
+// The design therefore works block-major:
 //
-// One thread block of eight warps per (query, probe) pair.
+// - A first launch (rpt_pair_runs) orders the pairs by block row, clamped
+//   into [0, G), with a counting sort on the card (a histogram, one scan
+//   of the G counts, a scatter by atomic cursors), and cuts each block's
+//   run of pairs into work items of at most 8 pairs: (first slot, pairs,
+//   block) and their number.  No value is read back to the host.
+// - A persistent grid, sized to what the SMs hold, walks the work units:
+//   an item and a segment of up to 2 row tiles of 128 rows of its block
+//   (one on the clustered chunk, thirteen a block on the bracket's 3,128
+//   rows).  For a unit, a thread block streams its tiles through shared
+//   memory once, one 128-byte column chunk of every row at a time,
+//   double-buffered with cp.async (16 bytes per copy, asking L2 for the
+//   256-byte line, so a row's next chunk is on its way) across chunks and
+//   tiles, beside the item's query rows for the same columns.  Two stages
+//   of 128-byte chunks keep a block small (41 KB of shared memory for
+//   bf16), so five blocks run on an SM; deeper rings, wider chunks and
+//   query rows kept for the whole unit measured slower, by fewer blocks in
+//   flight.  Each thread owns one row and keeps one fp32 sum per pair of
+//   the item in registers, from four FMA chains a chunk; the query chunk is
+//   read as a broadcast, the row chunk from a row stride padded to an odd
+//   number of 16-byte units so that the row reads do not collide in the
+//   banks.  Rows that are not 16-byte aligned (D not a multiple of the
+//   vector, or an unaligned base) are staged with plain loads, zero-padded
+//   to the vector.
+// - For every pair of the item it writes dots[b, p, rows] and sqx[b, p,
+//   rows]; the output layout [B, P, lmax] is the Pallas kernel's.
+//
+// So a block is read from device memory once per work item: once, unless
+// more than 8 pairs probe it.
 
 #include "grouped_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kUnroll = 4;
+constexpr int RT = 128;            // rows per tile: one per thread
+constexpr int kSegTiles = 2;       // row tiles per work unit
+constexpr int kStages = 2;         // ring depth
+constexpr int kChunkBytes = 128;   // a row's bytes per column chunk
+constexpr int kMaxPairs = 8;       // pairs per work item, at most
 
-// V consecutive elements of a row, as floats: one 16-byte load where V is
-// the vector width, one element where V is 1.
-template <int V>
-__device__ __forceinline__ void load_chunk(const float* p, float (&v)[V]) {
-  if constexpr (V == 4) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = t.x;
-    v[1] = t.y;
-    v[2] = t.z;
-    v[3] = t.w;
-  } else {
-    v[0] = __ldg(p);
+template <typename T>
+struct Shape {
+  static constexpr int V = 16 / sizeof(T);            // elements per 16 bytes
+  static constexpr int DC = kChunkBytes / sizeof(T);  // columns per chunk
+  static constexpr int XS = DC + V;                   // row stride: an odd count of 16 bytes
+  static constexpr int kStage = RT * XS * sizeof(T) + kMaxPairs * DC * sizeof(float);
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// V elements of a staged row, as floats.
+__device__ __forceinline__ void load_row(const float* p, float (&v)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
+}
+__device__ __forceinline__ void load_row(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 t = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
   }
 }
 
-template <int V>
-__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p, float (&v)[V]) {
-  if constexpr (V == 8) {
-    const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
+// Stages columns [c0, c0 + DC) of rows [j0, j0 + rows) of block xb and of
+// the item's query rows (already rounded to the block type) into one
+// stage, as one cp.async group.  vec: 16-byte cp.async copies (d % V == 0,
+// x and q 16-byte aligned); else plain loads, zeros past d.
+template <typename T>
+__device__ void stage_chunk(T* xs, float* qs, const T* __restrict__ xb,
+                            const float* __restrict__ q, const int* qrow, int cnt, int rows,
+                            int j0, int d, int c0, int vec) {
+  using S = Shape<T>;
+  const int w = min(S::DC, d - c0);
+  if (vec) {
+    const int ppr = w / S::V;
+    for (int i = threadIdx.x; i < rows * ppr; i += RT) {
+      const int r = i / ppr;
+      const int c = (i - r * ppr) * S::V;
+      cp_async16(xs + r * S::XS + c, xb + (size_t)(j0 + r) * d + c0 + c);
+    }
+    const int qpr = w / 4;
+    for (int i = threadIdx.x; i < cnt * qpr; i += RT) {
+      const int j = i / qpr;
+      const int c = (i - j * qpr) * 4;
+      cp_async16(qs + j * S::DC + c, q + (size_t)qrow[j] * d + c0 + c);
     }
   } else {
-    v[0] = __bfloat162float(__ldg(p));
-  }
-}
-
-// acc + <q chunk, v>, in element order; the query chunk is read from
-// shared memory 16 bytes at a time where V > 1 (conflict-free).
-template <int V>
-__device__ __forceinline__ float dot_chunk(const float* qc, const float (&v)[V], float acc) {
-  if constexpr (V == 1) {
-    return fmaf(qc[0], v[0], acc);
-  } else {
-#pragma unroll
-    for (int h = 0; h < V / 4; ++h) {
-      const float4 qv = reinterpret_cast<const float4*>(qc)[h];
-      acc = fmaf(qv.x, v[4 * h], acc);
-      acc = fmaf(qv.y, v[4 * h + 1], acc);
-      acc = fmaf(qv.z, v[4 * h + 2], acc);
-      acc = fmaf(qv.w, v[4 * h + 3], acc);
+    const int wp = (w + S::V - 1) / S::V * S::V;
+    for (int i = threadIdx.x; i < rows * wp; i += RT) {
+      const int r = i / wp;
+      const int c = i - r * wp;
+      xs[r * S::XS + c] = c < w ? xb[(size_t)(j0 + r) * d + c0 + c] : T(0.0f);
     }
-    return acc;
+    for (int i = threadIdx.x; i < cnt * S::DC; i += RT) {
+      const int j = i / S::DC;
+      const int c = i - j * S::DC;
+      qs[i] = c0 + c < d ? q[(size_t)qrow[j] * d + c0 + c] : 0.0f;
+    }
   }
+  cp_async_commit();
 }
 
-// gs: lanes per row group (a power of two <= 32); each lane of a group
-// takes the row's chunks gs apart.
-template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
+// Persistent: thread block i takes units i, i + gridDim.x, ... of the
+// nitems[0] items (start[it], count[it], block[it]: the pairs order[start
+// .. start + count) on one block) times their segments of kSegTiles row
+// tiles.
+template <typename T>
+__global__ void __launch_bounds__(RT)
 gather_score_kernel(const T* __restrict__ x, const float* __restrict__ sq,
-                    const float* __restrict__ q, const int* __restrict__ sel,
-                    float* __restrict__ dots, float* __restrict__ sqx, int p, int g, int lmax,
-                    int d, int gs) {
-  extern __shared__ __align__(16) float qs[];  // [d] the query row, rounded to the block type
-  const long pair = blockIdx.x;  // b * p + probe
-  const long b = pair / p;
-  const long blk = min(max(sel[pair], 0), g - 1);
-  const float* qrow = q + b * d;
-  for (int c = threadIdx.x; c < d; c += blockDim.x) qs[c] = rpt::round_to(x, qrow[c]);
-  const float* sqb = sq + blk * lmax;
-  float* so = sqx + pair * lmax;
-  for (int j = threadIdx.x; j < lmax; j += blockDim.x) so[j] = sqb[j];
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int sub = lane & (gs - 1);      // lane within its row group
-  const int rpw = 32 / gs;              // rows a warp takes per step
-  const int r0 = lane / gs;             // this lane's row within the step
-  const int cpr = (d + V - 1) / V;      // chunks per row (V divides d when V > 1)
-  const int step = (blockDim.x >> 5) * rpw;  // rows the block takes per step
-  const T* xb = x + (size_t)blk * lmax * d;
-  float* out = dots + (size_t)pair * lmax;
-  for (int base = warp * rpw; base < lmax; base += step * kUnroll) {
-    float acc[kUnroll];
+                    const float* __restrict__ q, const int* __restrict__ order,
+                    const int* __restrict__ start, const int* __restrict__ count,
+                    const int* __restrict__ block, const int* __restrict__ nitems,
+                    float* __restrict__ dots, float* __restrict__ sqx, int p, int lmax, int d,
+                    int vec) {
+  using S = Shape<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int pair[kMaxPairs];
+  __shared__ int qrow[kMaxPairs];
+  const int r = threadIdx.x;
+  const int nchunk = (d + S::DC - 1) / S::DC;
+  const int ntiles = (lmax + RT - 1) / RT;
+  const int nseg = (ntiles + kSegTiles - 1) / kSegTiles;
+  const long units = (long)nitems[0] * nseg;
+  for (long u = blockIdx.x; u < units; u += gridDim.x) {
+    const int it = (int)(u / nseg);
+    const int t0 = (int)(u - (long)it * nseg) * kSegTiles;  // the segment's first tile
+    const int nsteps = (min(ntiles, t0 + kSegTiles) - t0) * nchunk;  // (tile, chunk)
+    const int cnt = count[it];
+    const long blk = block[it];
+    if (threadIdx.x < cnt) {
+      pair[threadIdx.x] = order[start[it] + threadIdx.x];
+      qrow[threadIdx.x] = pair[threadIdx.x] / p;
+    }
+    __syncthreads();
+    const T* xb = x + (size_t)blk * lmax * d;
+    auto xs = [&](int step) {
+      return reinterpret_cast<T*>(smem + step % kStages * S::kStage);
+    };
+    auto qs = [&](int step) {
+      return reinterpret_cast<float*>(smem + step % kStages * S::kStage +
+                                      RT * S::XS * sizeof(T));
+    };
+    auto stage = [&](int step) {  // an empty group past the last step
+      if (step < nsteps) {
+        const int j0 = (t0 + step / nchunk) * RT;
+        stage_chunk(xs(step), qs(step), xb, q, qrow, cnt, min(RT, lmax - j0), j0, d,
+                    step % nchunk * S::DC, vec);
+      } else {
+        cp_async_commit();
+      }
+    };
+    float acc[kMaxPairs];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      acc[u] = 0.0f;
-      const int j = base + u * step + r0;
-      if (j < lmax) {
-        const T* xr = xb + (size_t)j * d;
-        for (int c = sub; c < cpr; c += gs) {
-          float v[V];
-          load_chunk<V>(xr + c * V, v);
-          acc[u] = dot_chunk<V>(qs + c * V, v, acc[u]);
+    for (int j = 0; j < kMaxPairs; ++j) acc[j] = 0.0f;
+    for (int s = 0; s < kStages - 1; ++s) stage(s);
+    for (int step = 0; step < nsteps; ++step) {
+      stage(step + kStages - 1);
+      cp_async_wait<kStages - 1>();  // the group of this step has landed
+      __syncthreads();
+      const float* qc = qs(step);
+      const int c = step % nchunk;
+      const int j0 = (t0 + step / nchunk) * RT;
+      const int rows = min(RT, lmax - j0);
+      const int w = min(S::DC, d - c * S::DC);
+      const int kw = (w + S::V - 1) / S::V * S::V;
+      if (r < rows) {
+        // per pair, four FMA chains over the chunk (one per position in a
+        // float4), added as a tree into the row's sum: a shorter chain
+        // than one FMA per element, so the sum stays as close to the other
+        // kernels' shuffle trees as their checks need
+        const T* xr = xs(step) + r * S::XS;
+        float part[kMaxPairs][4];
+#pragma unroll
+        for (int j = 0; j < kMaxPairs; ++j)
+#pragma unroll
+          for (int h = 0; h < 4; ++h) part[j][h] = 0.0f;
+        for (int e = 0; e < kw; e += S::V) {
+          float v[S::V];
+          load_row(xr + e, v);
+#pragma unroll
+          for (int j = 0; j < kMaxPairs; ++j) {
+            if (j < cnt) {
+#pragma unroll
+              for (int h = 0; h < S::V / 4; ++h) {
+                const float4 qv = *reinterpret_cast<const float4*>(qc + j * S::DC + e + 4 * h);
+                part[j][0] = fmaf(qv.x, v[4 * h], part[j][0]);
+                part[j][1] = fmaf(qv.y, v[4 * h + 1], part[j][1]);
+                part[j][2] = fmaf(qv.z, v[4 * h + 2], part[j][2]);
+                part[j][3] = fmaf(qv.w, v[4 * h + 3], part[j][3]);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kMaxPairs; ++j)
+          acc[j] += (part[j][0] + part[j][1]) + (part[j][2] + part[j][3]);
+        if (c == nchunk - 1) {  // the tile's rows are summed: write them
+          const float sv = sq[(size_t)blk * lmax + j0 + r];
+#pragma unroll
+          for (int j = 0; j < kMaxPairs; ++j) {
+            if (j < cnt) {
+              const size_t o = (size_t)pair[j] * lmax + j0 + r;
+              dots[o] = acc[j];
+              sqx[o] = sv;
+            }
+            acc[j] = 0.0f;
+          }
         }
       }
+      __syncthreads();  // the stage is refilled kStages - 1 steps on
     }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      float s = acc[u];
-      for (int off = gs >> 1; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-      const int j = base + u * step + r0;
-      if (sub == 0 && j < lmax) out[j] = s;
-    }
+    cp_async_wait<0>();  // the empty groups
   }
 }
 
-int pow2_at_least(int v) {
-  int r = 1;
-  while (r < v) r <<= 1;
-  return r;
+// -- the work items --------------------------------------------------------
+
+constexpr int kScanThreads = 1024;
+
+// Also rounds the nq query values q to bf16 into qr where qr is given (the
+// queries of bf16 blocks), in the same launch.
+__global__ void histogram_kernel(const int* __restrict__ sel, long n, int g, int* counts,
+                                 const float* __restrict__ q, float* __restrict__ qr, long nq) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) atomicAdd(counts + min(max(sel[i], 0), g - 1), 1);
+  if (qr != nullptr)
+    for (long j = i; j < nq; j += (long)gridDim.x * blockDim.x)
+      qr[j] = __bfloat162float(__float2bfloat16_rn(q[j]));
 }
 
-template <typename T, int V>
-int launch(const T* x, const float* sq, const float* q, const int* sel, float* dots,
-           float* sqx, long pairs, int p, int g, int lmax, int d, cudaStream_t stream) {
-  const int cpr = (d + V - 1) / V;
-  const int gs = pow2_at_least(cpr) < 32 ? pow2_at_least(cpr) : 32;
-  const size_t smem = sizeof(float) * (size_t)d;
-  cudaError_t e = rpt::allow_smem(gather_score_kernel<T, V>, smem);
-  if (e != cudaSuccess) return (int)e;
-  gather_score_kernel<T, V><<<(unsigned)pairs, kThreads, smem, stream>>>(
-      x, sq, q, sel, dots, sqx, p, g, lmax, d, gs);
-  return (int)cudaGetLastError();
+// One block: offsets (and the cursors) = the exclusive prefix sums of counts.
+__global__ void __launch_bounds__(kScanThreads)
+scan_counts_kernel(const int* __restrict__ counts, int* offsets, int* cursor, int g) {
+  __shared__ int warp_tot[kScanThreads / 32];
+  const int per = (g + kScanThreads - 1) / kScanThreads;
+  const int lo = min(g, threadIdx.x * per), hi = min(g, lo + per);
+  int sum = 0;
+  for (int i = lo; i < hi; ++i) sum += counts[i];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = sum;  // inclusive scan within the warp
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int o = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += o;
+  }
+  if (lane == 31) warp_tot[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int t = warp_tot[lane];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int o = __shfl_up_sync(0xffffffffu, t, off);
+      if (lane >= off) t += o;
+    }
+    warp_tot[lane] = t - warp_tot[lane];  // exclusive over warps
+  }
+  __syncthreads();
+  int run = warp_tot[warp] + incl - sum;
+  for (int i = lo; i < hi; ++i) {
+    offsets[i] = run;
+    cursor[i] = run;
+    run += counts[i];
+  }
+}
+
+// Each pair takes the next slot of its block's run; the pair at every
+// kMaxPairs-th slot of a run opens a work item.
+__global__ void scatter_kernel(const int* __restrict__ sel, long n, int g,
+                               const int* __restrict__ counts, const int* __restrict__ offsets,
+                               int* cursor, int* order, int* start, int* count, int* block,
+                               int* nitems) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int blk = min(max(sel[i], 0), g - 1);
+  const int slot = atomicAdd(cursor + blk, 1);
+  order[slot] = (int)i;
+  const int rel = slot - offsets[blk];
+  if (rel % kMaxPairs == 0) {
+    const int it = atomicAdd(nitems, 1);
+    start[it] = slot;
+    count[it] = min(kMaxPairs, counts[blk] - rel);
+    block[it] = blk;
+  }
+}
+
+// The int32 scratch of rpt_pair_runs: counts[g], nitems[1], offsets[g],
+// cursor[g], then order, start, count, block [n] each.
+struct Runs {
+  int *counts, *nitems, *offsets, *cursor, *order, *start, *count, *block;
+};
+
+Runs runs_of(int* base, int g, long n) {
+  Runs t;
+  t.counts = base;
+  t.nitems = t.counts + g;
+  t.offsets = t.nitems + 1;
+  t.cursor = t.offsets + g;
+  t.order = t.cursor + g;
+  t.start = t.order + n;
+  t.count = t.start + n;
+  t.block = t.count + n;
+  return t;
 }
 
 template <typename T>
-int launch_any(const T* x, const float* sq, const float* q, const int* sel, float* dots,
-               float* sqx, int b, int p, int g, int lmax, int d, void* stream) {
+int launch(const T* x, const float* sq, const float* q, const int* runs, float* dots,
+           float* sqx, int b, int p, int g, int lmax, int d, void* stream) {
   if (b < 0 || p < 1 || g < 1 || lmax < 1 || d < 1) return (int)cudaErrorInvalidValue;
   const long pairs = (long)b * p;
   if (pairs == 0) return 0;
   if (pairs > 0x7fffffffL) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  constexpr int V = 16 / sizeof(T);
-  if (d % V == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0)
-    return launch<T, V>(x, sq, q, sel, dots, sqx, pairs, p, g, lmax, d, s);
-  return launch<T, 1>(x, sq, q, sel, dots, sqx, pairs, p, g, lmax, d, s);
+  using S = Shape<T>;
+  const int vec = d % S::V == 0 && ((reinterpret_cast<uintptr_t>(x) |
+                                      reinterpret_cast<uintptr_t>(q)) & 15) == 0;
+  const size_t smem = kStages * (size_t)S::kStage;
+  cudaError_t e = rpt::allow_smem(gather_score_kernel<T>, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gather_score_kernel<T>, RT, smem);
+  if (e != cudaSuccess) return (int)e;
+  const Runs t = runs_of(const_cast<int*>(runs), g, pairs);
+  const long grid = min(pairs, (long)sms * (per_sm > 0 ? per_sm : 1));
+  gather_score_kernel<T><<<(unsigned)grid, RT, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, sq, q, t.order, t.start, t.count, t.block, t.nitems, dots, sqx, p, lmax, d, vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Each returns a cudaError_t code: 0 on a good launch; cudaErrorInvalidValue
-// for an empty block array, probe axis or row, or more than 2^31 - 1 pairs.
-int rpt_gather_score_f32(const float* x, const float* sq, const float* q, const int* sel,
+// The work items of at most 8 pairs of the n pairs sel (int32 block rows,
+// clamped into [0, g)) into the int32 scratch runs (3 g + 4 n + 1
+// entries; see Runs); where qr is not null, also the nq values of q
+// rounded to bf16 (nearest even) into qr.  Returns a cudaError_t code.
+int rpt_pair_runs(const int* sel, long n, int g, int* runs, const float* q, float* qr, long nq,
+                  void* stream) {
+  if (n < 1 || g < 1 || n > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Runs t = runs_of(runs, g, n);
+  cudaError_t e = cudaMemsetAsync(t.counts, 0, sizeof(int) * ((size_t)g + 1), s);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned grid = (unsigned)((n + 255) / 256);
+  histogram_kernel<<<grid, 256, 0, s>>>(sel, n, g, t.counts, q, qr, nq);
+  scan_counts_kernel<<<1, kScanThreads, 0, s>>>(t.counts, t.offsets, t.cursor, g);
+  scatter_kernel<<<grid, 256, 0, s>>>(sel, n, g, t.counts, t.offsets, t.cursor, t.order,
+                                      t.start, t.count, t.block, t.nitems);
+  return (int)cudaGetLastError();
+}
+
+// runs: rpt_pair_runs's scratch for the b * p pairs.  Each returns a
+// cudaError_t code: 0 on a good launch; cudaErrorInvalidValue for an empty
+// block array, probe axis or row, or more than 2^31 - 1 pairs.
+int rpt_gather_score_f32(const float* x, const float* sq, const float* q, const int* runs,
                          float* dots, float* sqx, int b, int p, int g, int lmax, int d,
                          void* stream) {
-  return launch_any(x, sq, q, sel, dots, sqx, b, p, g, lmax, d, stream);
+  return launch(x, sq, q, runs, dots, sqx, b, p, g, lmax, d, stream);
 }
 
 int rpt_gather_score_bf16(const __nv_bfloat16* x, const float* sq, const float* q,
-                          const int* sel, float* dots, float* sqx, int b, int p, int g,
+                          const int* runs, float* dots, float* sqx, int b, int p, int g,
                           int lmax, int d, void* stream) {
-  return launch_any(x, sq, q, sel, dots, sqx, b, p, g, lmax, d, stream);
+  return launch(x, sq, q, runs, dots, sqx, b, p, g, lmax, d, stream);
 }
 
 }  // extern "C"

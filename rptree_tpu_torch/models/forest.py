@@ -47,7 +47,7 @@ from ..ops.grouped_kernel import (INV_127, _int8_dots, _quantize_rows,
 from ..ops.rerank import (dedup_ids, distances_from_dots, gather_leaf_points,
                           merge_top_k, rerank_top_k)
 from ..ops.scan import MAX_K as SCAN_MAX_K
-from ..ops.scan import SCAN_METRICS, scan_topk, stream_topk
+from ..ops.scan import SCAN_METRICS, scan_rows, scan_topk, stream_topk
 from ..ops.topk_kernel import topk_dedup_kernel, topk_kernel_ok
 from ..ops.traverse import child_tables, traverse_tree
 from ..utils import gen as rgen
@@ -400,7 +400,7 @@ def _knn_packed_many(f, q, chunk, **kw):
 
 
 @torch.no_grad()
-def _brute_force(x, sq_norms, q, k, metric, precision="highest"):
+def _brute_force(x, sq_norms, q, k, metric, precision="highest", rows=None):
     """Exact k nearest neighbours over the whole dataset: ``(dists f32[B,
     k'], ids int32[B, k'])``, ``k' = min(k, n)``, ties to the lower index.
 
@@ -412,11 +412,12 @@ def _brute_force(x, sq_norms, q, k, metric, precision="highest"):
     a running exact selection (:func:`stream_topk`); a callable metric gets
     f32 rows at every precision.  Every form selects exactly: the JAX
     package's ``"fastest"`` selects with the TPU's approximate
-    ``lax.approx_max_k``."""
+    ``lax.approx_max_k``.  ``rows``: kernel 5's bf16 copy of ``(x,
+    sq_norms)`` (:func:`scan_rows`), where the caller made one."""
     k = min(int(k), x.shape[0])
     fast = precision in ("default", "fastest") and not callable(metric)
-    if fast and metric in SCAN_METRICS and k <= SCAN_MAX_K:
-        return scan_topk(x, sq_norms, q, k, metric)
+    if _uses_scan(fast, metric, k):
+        return scan_topk(x, sq_norms, q, k, metric, rows=rows)
     if callable(metric):  # the callable sees [B, c, D] rows
         return stream_topk(x, q, k, lambda xc, s: metric(xc[None], q[:, None]),
                            width=x.shape[1])
@@ -429,6 +430,13 @@ def _brute_force(x, sq_norms, q, k, metric, precision="highest"):
                                    q, metric)
 
     return stream_topk(x, q, k, dist)
+
+
+def _uses_scan(fast, metric, k):
+    """Whether a scan at these settings runs kernel 5: bf16 products, l2 /
+    sql2 / dot, ``k <= 128`` (the JAX package's gate for its fused scan)."""
+    return fast and not callable(metric) and metric in SCAN_METRICS \
+        and k <= SCAN_MAX_K
 
 
 def _recall(exact_ids, cand, k):
@@ -752,13 +760,17 @@ class RPForest:
         "highest" multiplies in fp32; "default" and "fastest" round data
         and queries to bf16 and sum in fp32 (kernel 5 for l2 / sql2 / dot
         and k <= 128; see :func:`_brute_force`), and select exactly.
-        ``query_chunk`` scans the batch that many queries at a time."""
+        ``query_chunk`` scans the batch that many queries at a time; kernel
+        5's bf16 copy of the rows is made once for all of them."""
         _check_precision(precision)
         qb = _as_dense_queries(q, self.dim, self.device)
         k = self._check_k(k)
         step = int(query_chunk) if query_chunk else qb.shape[0]
+        fast = precision in ("default", "fastest")
+        rows = (scan_rows(self.x, self.sq_norms)
+                if _uses_scan(fast, metric, min(k, self.n_points)) else None)
         outs = [_brute_force(self.x, self.sq_norms, qb[s:s + step], k, metric,
-                             precision)
+                             precision, rows)
                 for s in range(0, qb.shape[0], step)]
         return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 

@@ -13,6 +13,12 @@ query is rounded to bf16 (nearest even) first, as the JAX package's
 ``q.astype(x_leaf.dtype)`` does, so each product of two bf16 values is
 exact and the sums are fp32.
 
+The kernel works block-major: a first launch orders the pairs by block on
+the card (:func:`_pair_runs`) and one thread block serves every pair of a
+run from one read of the block, so each distinct block is read once per
+launch (once per ``MAX_PAIRS`` pairs of a longer run).  The ordering
+counts in the kernel's time and launch: ``gather_score`` launches both.
+
 The wrapper takes the plain version for a tensor on the CPU and launches
 the kernel for a tensor on a CUDA device, or raises there: it never falls
 back.  ``gather_score.launches`` counts f32 launches and
@@ -20,6 +26,8 @@ back.  ``gather_score.launches`` counts f32 launches and
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -31,6 +39,9 @@ _FLOAT_BLOCKS = (torch.float32, torch.bfloat16)
 # (query, probe) pairs per step of the plain version (bounds its gathered
 # block buffer)
 _REF_PAIRS = 1 << 14
+# pairs the kernel serves from one read of a block (csrc/gather_score.cu),
+# at most
+MAX_PAIRS = 8
 
 
 def gather_score_ok(x_leaf, probes: int) -> bool:
@@ -77,6 +88,77 @@ def gather_score_reference(x_leaf, sq_leaf, q, rows_sel):
     return dots, sq_leaf[sel]
 
 
+class PairRuns(NamedTuple):
+    """Kernel 6's work items over the flattened (query, probe) pairs
+    (views of one int32 buffer, the layout the card fills): ``counts[g]``
+    pairs per block row (clamped into ``[0, g)``), ``n_items[1]``,
+    ``offsets[g]`` their exclusive prefix sums, ``cursor[g] = offsets +
+    counts``; ``order[n]`` the pairs (``b * P + p``) by block, each
+    block's run at ``[offsets, offsets + counts)``; and over the first
+    ``n_items`` entries of ``start``, ``count``, ``block`` ``[n]`` the
+    items: every ``MAX_PAIRS``-th slot of a run opens one, of the run's
+    next ``min(MAX_PAIRS, left)`` pairs."""
+
+    buf: torch.Tensor
+    counts: torch.Tensor
+    n_items: torch.Tensor
+    offsets: torch.Tensor
+    cursor: torch.Tensor
+    order: torch.Tensor
+    start: torch.Tensor
+    count: torch.Tensor
+    block: torch.Tensor
+
+
+def _runs_view(buf, g, n):
+    parts = buf.split([g, 1, g, g, n, n, n, n])
+    return PairRuns(buf, *parts)
+
+
+def _runs_on_card(rows_sel, g, q=None):
+    """The card's :class:`PairRuns` buffer of ``rows_sel`` (its counting
+    sort, ``csrc/gather_score.cu`` ``rpt_pair_runs``: the order inside a
+    run and of the items is that of its atomics), and, where ``q`` is
+    given, ``q`` rounded to bf16 by the same launch (else None)."""
+    flat = rows_sel.reshape(-1)
+    n = flat.numel()
+    buf = torch.empty(3 * g + 4 * n + 1, dtype=torch.int32, device=flat.device)
+    qr = None if q is None else torch.empty_like(q)
+    code = _cuda.lib().rpt_pair_runs(
+        _cuda.ptr(flat), n, g, _cuda.ptr(buf),
+        None if q is None else _cuda.ptr(q),
+        None if qr is None else _cuda.ptr(qr), 0 if q is None else q.numel(),
+        _cuda.stream_of(flat))
+    _cuda.check(code, "gather_score")
+    return buf, qr
+
+
+def _pair_runs(rows_sel, g):
+    """:class:`PairRuns` of ``rows_sel [B, P]``: on a CUDA device by the
+    card's counting sort (:func:`_runs_on_card`), on the CPU by the plain
+    version (a stable sort; the same runs, items and counts)."""
+    flat = rows_sel.reshape(-1)
+    n = flat.numel()
+    if flat.device.type != "cpu":
+        return _runs_view(_runs_on_card(rows_sel, g)[0], g, n)
+    blk = flat.long().clamp(0, g - 1)
+    counts = torch.bincount(blk, minlength=g)
+    offsets = counts.cumsum(0) - counts
+    blocks, order = torch.sort(blk, stable=True)
+    rel = torch.arange(n) - offsets[blocks]
+    first = torch.nonzero(rel % MAX_PAIRS == 0).reshape(-1)
+    runs = _runs_view(torch.zeros(3 * g + 4 * n + 1, dtype=torch.int32), g, n)
+    for view, val in ((runs.counts, counts), (runs.offsets, offsets),
+                      (runs.cursor, offsets + counts), (runs.order, order)):
+        view.copy_(val)
+    k = first.numel()
+    runs.n_items.fill_(k)
+    runs.start[:k] = first
+    runs.count[:k] = (counts[blocks[first]] - rel[first]).clamp_max(MAX_PAIRS)
+    runs.block[:k] = blocks[first]
+    return runs
+
+
 def gather_score(x_leaf, sq_leaf, q, rows_sel):
     """``dots[b, p, :] = x_leaf[rows_sel[b, p]] @ q[b]`` and ``sqx[b, p, :]
     = sq_leaf[rows_sel[b, p]]``.
@@ -109,9 +191,12 @@ def gather_score(x_leaf, sq_leaf, q, rows_sel):
     lib = _cuda.lib()
     fn = lib.rpt_gather_score_bf16 if bf16 else lib.rpt_gather_score_f32
     with torch.cuda.device(x_leaf.device):
-        code = fn(_cuda.ptr(x_leaf), _cuda.ptr(sq_leaf), _cuda.ptr(q),
-                  _cuda.ptr(rows_sel), _cuda.ptr(dots), _cuda.ptr(sqx), b, p,
-                  g, lmax, d, _cuda.stream_of(x_leaf))
+        # with bf16 blocks the kernel multiplies the query rounded to bf16
+        runs, qr = _runs_on_card(rows_sel, g, q=q if bf16 else None)
+        code = fn(_cuda.ptr(x_leaf), _cuda.ptr(sq_leaf),
+                  _cuda.ptr(q if qr is None else qr), _cuda.ptr(runs),
+                  _cuda.ptr(dots), _cuda.ptr(sqx), b, p, g, lmax, d,
+                  _cuda.stream_of(x_leaf))
     _cuda.check(code, name)
     if bf16:
         gather_score.launches_bf16 += 1

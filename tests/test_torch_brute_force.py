@@ -87,3 +87,17 @@ def test_callable_and_bad_arguments(forests):
     with pytest.raises(ValueError):
         ft.brute_force_knn(q, 0)
 
+
+
+@pytest.mark.parametrize("metric", ["l2", "sql2", "dot"])
+def test_fastest_query_chunk_makes_one_row_copy(forests, metric):
+    """``brute_force_knn`` at "fastest" with ``query_chunk`` makes kernel 5's
+    bf16 row copy once for all chunks; the result equals scanning each
+    chunk on its own, as the port did before it hoisted the copy."""
+    _, q, _, ft = forests
+    got = ft.brute_force_knn(q, K, metric, "fastest", query_chunk=16)
+    qt = torch.as_tensor(q)
+    parts = [scan_mod.scan_topk(ft.x, ft.sq_norms, qt[s:s + 16], K, metric)
+             for s in range(0, qt.shape[0], 16)]
+    assert torch.equal(got[0], torch.cat([p[0] for p in parts]))
+    assert torch.equal(got[1], torch.cat([p[1] for p in parts]))

@@ -185,6 +185,7 @@ def test_topk(dev, dedup, b, w, k):
 @pytest.mark.parametrize("g,lmax,d,b,p", [
     (50, 128, 128, 40, 8), (7, 13, 20, 9, 3), (9, 40, 130, 5, 4),
     (5, 8, 1, 4, 2), (6, 33, 256, 3, 5), (4, 3128, 128, 2, 3),
+    (5, 40, 3000, 6, 8),
 ])
 def test_gather_score(dev, bf16, g, lmax, d, b, p):
     gen = torch.Generator().manual_seed(g * lmax + d)
@@ -216,6 +217,7 @@ def test_gather_score(dev, bf16, g, lmax, d, b, p):
 @pytest.mark.parametrize("n,b,d,k", [
     (5000, 300, 128, 10), (131, 9, 10, 5), (1000, 129, 130, 128),
     (70, 3, 8, 100), (20000, 2, 64, 1), (3000, 200, 256, 16),
+    (9, 4, 16, 3), (700, 100, 1000, 10), (300, 70, 3000, 128),
 ])
 def test_scan_topk(dev, metric, n, b, d, k):
     gen = torch.Generator().manual_seed(n + b + d)
@@ -246,6 +248,92 @@ def test_scan_topk(dev, metric, n, b, d, k):
     fd, fi = sc.scan_topk(x, sq, q, k, metric)
     assert torch.equal(fi, ki)
     assert torch.equal(fd, sc._epilogue(kd, ki, q, metric)[0])
+
+
+@pytest.mark.parametrize("copies", [range(3, 23), [*range(3, 9), *range(500, 521)]])
+@pytest.mark.parametrize("metric", ["l2", "dot"])
+def test_scan_ties_past_k(dev, copies, metric):
+    """More than k rows equal to the best, inside one row tile and across
+    two row ranges (384 rows each at 50,000 rows and 5 queries): the k
+    lowest indices, whatever order the candidates reach the k-list in.
+    Small integer entries make every sum exact, so the copies tie."""
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randint(-3, 4, (50_000, 32), generator=gen).float()
+    copies = list(copies)
+    x[copies] = x[copies[0]].clone()
+    q = x[[copies[0]] * 5].clone()
+    q[1:, 0] += 1.0                          # other queries: other best rows
+    x, q = x.to(dev), q.to(dev)
+    sq = (x * x).sum(-1)
+    kd, ki = sc._scan_partial(x, sq, q, 10, metric)
+    pd, pi = sc._partial_reference(x, sq, q, 10, metric)
+    torch.cuda.synchronize()
+    if metric == "l2":  # under dot a longer row may beat the copies
+        assert ki[0].tolist() == copies[:10]
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+
+
+def test_scan_dot_never_selects_padding(dev):
+    """``dot`` with every inner product negative: the zero rows padding N
+    and D would win with partial 0 if their +inf norm were lost."""
+    gen = torch.Generator().manual_seed(12)
+    x = torch.rand(1000, 70, generator=gen).to(dev)      # 1000 -> 1024 rows
+    q = -torch.rand(37, 70, generator=gen).to(dev)
+    sq = (x * x).sum(-1)
+    kd, ki = sc._scan_partial(x, sq, q, 20, "dot")
+    pd, pi = sc._partial_reference(x, sq, q, 20, "dot")
+    torch.cuda.synchronize()
+    assert bool((ki >= 0).all()) and bool((ki < 1000).all())
+    assert bool((kd > 0).all())
+    _close(kd, pd)
+    chk = gk.untied(pd, 1e-4)
+    assert torch.equal(ki[chk], pi[chk])
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_gather_score_runs(dev, bf16):
+    """Block-major work items: one block probed by every pair (a run of
+    320 pairs, 20 items), a query probing a block twice, ids clamped from
+    both sides."""
+    g, lmax, d, b, p = 6, 200, 72, 40, 8
+    gen = torch.Generator().manual_seed(13)
+    x = torch.randn(g, lmax, d, generator=gen)
+    sq = (x * x).sum(-1)
+    q = torch.randn(b, d, generator=gen)
+    x = (x.bfloat16() if bf16 else x).to(dev)
+    sq, q = sq.to(dev), q.to(dev)
+    for sel in (torch.full((b, p), 2, dtype=torch.int32),
+                torch.tensor([[1, 1, -5, g + 7, 0, 5, 1, 3]] * b,
+                             dtype=torch.int32)):
+        sel = sel.to(dev)
+        dots, sqx = fg.gather_score(x, sq, q, sel)
+        want_d, want_s = fg.gather_score_reference(x, sq, q, sel)
+        torch.cuda.synchronize()
+        _close(dots, want_d)
+        assert torch.equal(sqx, want_s)
+        assert torch.equal(dots[:, 0], dots[:, 1])
+
+
+@pytest.mark.parametrize("g,b,p", [(50, 40, 8), (3, 300, 7), (1000, 2, 1)])
+def test_pair_runs(dev, g, b, p):
+    """The card's counting sort of the pairs against the plain stable
+    sort: the same counts, runs and items; inside a run, and in the item
+    list, the order of the card's atomics."""
+    gen = torch.Generator().manual_seed(g + b)
+    sel = torch.randint(-2, g + 2, (b, p), generator=gen, dtype=torch.int32)
+    sel[: b // 2, 0] = 1                   # a run past 16 pairs
+    got = fg._pair_runs(sel.to(dev), g)
+    want = fg._pair_runs(sel, g)
+    torch.cuda.synchronize()
+    for key in ("counts", "n_items", "offsets", "cursor"):
+        assert torch.equal(getattr(got, key).cpu(), getattr(want, key)), key
+    k = int(want.n_items)
+    by_start = torch.sort(got.start[:k].cpu()).indices
+    for key in ("start", "count", "block"):
+        assert torch.equal(getattr(got, key)[:k].cpu()[by_start],
+                           getattr(want, key)[:k]), key
+    for o, c in zip(want.offsets.tolist(), want.counts.tolist()):
+        assert sorted(got.order[o:o + c].tolist()) == want.order[o:o + c].tolist()
 
 
 def test_wrappers_raise_on_what_they_do_not_serve(dev):
@@ -306,3 +394,5 @@ def test_wrappers_raise_on_what_they_do_not_serve(dev):
         sc.scan_topk(xs, sqs, q, 129)
     with pytest.raises(ValueError):
         sc.scan_topk(xs[:, ::2], sqs, q[:, :4], 3)
+    with pytest.raises(ValueError):  # a copy of other rows
+        sc.scan_topk(xs, sqs, q, 3, rows=sc.scan_rows(xs[:100], sqs[:100]))

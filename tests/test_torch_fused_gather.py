@@ -9,7 +9,8 @@ import pytest
 import torch
 
 from rptree_tpu.ops.fused_gather import gather_score as jax_gather_score
-from rptree_tpu_torch.ops.fused_gather import (gather_score,
+from rptree_tpu_torch.ops.fused_gather import (MAX_PAIRS, _pair_runs,
+                                               gather_score,
                                                gather_score_ok,
                                                gather_score_reference)
 
@@ -101,3 +102,32 @@ def test_raises_on_bad_shapes():
         gather_score(x, sq, q[:, :5], sel)
     with pytest.raises(ValueError):
         gather_score(x, sq, q, sel[:2])
+
+
+@pytest.mark.parametrize("g,b,p", [(9, 40, 3), (4, 40, 8), (1, 5, 2)])
+def test_pair_runs(g, b, p):
+    """Kernel 6's work items: every pair exactly once, the pairs ordered
+    by block row (clamped), a run past ``MAX_PAIRS`` pairs split into
+    items of at most that many, each item on one block."""
+    rng = np.random.default_rng(g * b)
+    sel = rng.integers(-2, g + 2, size=(b, p)).astype(np.int32)
+    sel[: b // 2, 0] = g // 2              # a long run on one block
+    runs = _pair_runs(torch.as_tensor(sel), g)
+    blk = np.clip(sel.reshape(-1), 0, g - 1)
+    order = runs.order.numpy()
+    assert sorted(order.tolist()) == list(range(b * p))
+    assert (np.diff(blk[order]) >= 0).all()  # runs sorted by block
+    np.testing.assert_array_equal(runs.counts.numpy(),
+                                  np.bincount(blk, minlength=g))
+    k = int(runs.n_items)
+    served = []
+    for s0, c, bl in zip(runs.start[:k].tolist(), runs.count[:k].tolist(),
+                         runs.block[:k].tolist()):
+        assert 1 <= c <= MAX_PAIRS
+        assert (blk[order[s0:s0 + c]] == bl).all()
+        served += order[s0:s0 + c].tolist()
+    assert sorted(served) == list(range(b * p))  # each pair in one item
+    want_items = sum(-(-n // MAX_PAIRS) for n in np.bincount(blk).tolist())
+    assert k == want_items
+    if b // 2 > MAX_PAIRS:  # the long run was split
+        assert int(runs.count[:k].min()) < MAX_PAIRS < int(runs.counts.max())

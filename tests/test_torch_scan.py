@@ -9,8 +9,8 @@ import torch
 
 from rptree_tpu.ops.scan import scan_topk as jax_scan_topk
 from rptree_tpu_torch.ops.grouped_kernel import untied
-from rptree_tpu_torch.ops.scan import (_partial_reference, scan_topk,
-                                       scan_topk_reference)
+from rptree_tpu_torch.ops.scan import (_partial_reference, scan_rows,
+                                       scan_topk, scan_topk_reference)
 
 from torch_parity import one_torch_thread  # noqa: F401
 
@@ -110,3 +110,22 @@ def test_rejects_unknown_metric():
             scan_topk_reference(x, sq, q, 2, metric=bad)
     with pytest.raises(ValueError):  # past the kernel's 128 kept entries
         scan_topk(torch.zeros(200, 4), torch.zeros(200), q, 129)
+
+
+@pytest.mark.parametrize("metric", ["l2", "sql2", "dot"])
+def test_row_copy_matches_f32_rows(metric):
+    """Kernel 5's bf16 copy of the rows (``scan_rows``): zeros past (N, D),
+    norms +inf past N, and the plain scan on the copy equal to the plain
+    scan on the f32 rows, bit for bit."""
+    x, sq, q = _case(10, 131, 9, 10, positive=metric == "dot")  # -> 256 x 64
+    xt, sqt, qt = (torch.as_tensor(a) for a in (x, sq, q))
+    rows = scan_rows(xt, sqt)
+    assert rows.x.shape == (256, 64) and rows.x.dtype == torch.bfloat16
+    assert torch.equal(rows.x[:131, :10], xt.bfloat16())
+    assert not rows.x[131:].any() and not rows.x[:, 10:].any()
+    assert torch.equal(rows.sq[:131], sqt)
+    assert bool(torch.isinf(rows.sq[131:]).all())
+    got = scan_topk(xt, sqt, qt, 7, metric, rows=rows)
+    want = scan_topk(xt, sqt, qt, 7, metric)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool((got[1] < 131).all())
