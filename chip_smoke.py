@@ -19,6 +19,10 @@ its launch counts):
    scan's time excludes its bf16 copy of the rows, made once per call and
    timed apart (``cast_ms``), and a bf16 ``torch.matmul`` of its operands
    stands beside it as a yardstick for the products alone (``gemm_ms``);
+   the tile kernels are also timed on tiles in block order, as the serving
+   path makes them (``*_block_order``), and the top-k tail at a clustered
+   chunk's 65,536 x 1,024 (``ms_chunk``) and on its wide-row route past W
+   1,024 (``ms_wide``), both held against the plain version;
 3. clustered 1M cell (``bench.py``'s flagship parameters): one build and
    one exact ground truth (recall@10 on 1,024 queries); unpacked ``knn``
    on those 1,024 queries; then 131,072 queries served by six variants:
@@ -173,6 +177,19 @@ def tile_inputs(g, lmax, d, nt, tile_m, int8, device, seed=1, bf16=False):
             tb.to(**to), lens.to(**to), qt.to(**to))
 
 
+def block_order(g, lmax, nt, device, seed=4, run=8):
+    """Tile tables as the serving path's ``_tile_tables`` makes them: tiles
+    in block order, runs of ``run`` tiles on one block, one occupancy per
+    block.  Returns ``(tb, lens)``."""
+    import torch
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    blocks = torch.randperm(g, generator=gen)[: -(-nt // run)].sort().values
+    tb = blocks.repeat_interleave(run)[:nt].to(torch.int32)
+    lens = torch.randint(1, lmax + 1, (g,), generator=gen, dtype=torch.int32)
+    return tb.to(device), lens[tb.long()].to(device)
+
+
 def topk_inputs(b, w, device, seed=2):
     """Candidate rows with ties, duplicate ids (duplicates carry the same
     distance, as on exact layouts, and different ones) and exhausted rows."""
@@ -194,7 +211,9 @@ def topk_inputs(b, w, device, seed=2):
 def check_kernels(device, g=4096, nt=4096, dim=128, reps=5):
     """Phase 2: each kernel against its plain version at the path's shapes
     (f32 and bf16 lmax 128, int8 lmax 64, tile_m 8, D 128, tile top-k kp
-    16; top-k W 1024 and 640, k 10).  Returns one record per kernel."""
+    16, tiles in random and in block order; top-k W 1024 and 640, k 10,
+    65,536 x 1,024 and the wide-row route at W 3,000).  Returns one record
+    per kernel."""
     import torch
 
     from rptree_tpu_torch.ops import grouped_kernel as gk
@@ -233,6 +252,19 @@ def check_kernels(device, g=4096, nt=4096, dim=128, reps=5):
             **tile_bound(x, tb, lens, tile_m, qt, lmax * 4, kind),
             "shape": {**shape, "lmax": lmax},
         }
+        if kind != "int8":  # the serving path's tile order as well
+            tbo, lenso = block_order(g, lmax, nt, device)
+            argso = (x, sq, tbo, lenso, qt)
+            _, rel_o = _rel_err(kern(*argso, "l2", tile_m),
+                                plain(*argso, "l2", tile_m))
+            if rel_o > DIST_RTOL:
+                raise AssertionError(f"{name} in block order: relative "
+                                     f"error {rel_o} > {DIST_RTOL}")
+            out[name]["ms_block_order"] = cuda_ms(
+                lambda: kern(*argso, "l2", tile_m), reps)
+            out[name].update({
+                f"{key}_block_order": v for key, v in tile_bound(
+                    x, tbo, lenso, tile_m, qt, lmax * 4, kind).items()})
     rec = {"shape": {**shape, "lmax": 128, "kp": KP}}
     for kind in ("f32", "bf16"):
         x, sq, _, tb, lens, qt = tile_inputs(g, 128, dim, nt, tile_m, False,
@@ -253,7 +285,11 @@ def check_kernels(device, g=4096, nt=4096, dim=128, reps=5):
             if not torch.equal(kd.view(torch.int32), first.view(torch.int32)):
                 raise AssertionError(f"grouped_score_topk {kind} {metric}: "
                                      "distances differ from the tile kernel's")
-            chk = gk.untied(pd, DIST_RTOL)
+            # the kp-th id is compared only where the unseen (kp + 1)-th
+            # does not nearly tie it
+            wide = gk.grouped_score_topk_reference(*args, metric, tile_m,
+                                                   KP + 1)[0]
+            chk = gk.untied(wide, DIST_RTOL)[:, :KP]
             if not torch.equal(ki[chk], pi[chk]) or bool(
                     (ki[torch.isinf(kd)] != -1).any()):
                 raise AssertionError(f"grouped_score_topk {kind} {metric}: "
@@ -268,6 +304,18 @@ def check_kernels(device, g=4096, nt=4096, dim=128, reps=5):
         })
         b = tile_bound(x, tb, lens, tile_m, qt, KP * 8, kind, ids=True)
         rec.update({f"{key}{sfx}": v for key, v in b.items()})
+        tbo, lenso = block_order(g, 128, nt, device)
+        argso = (x, sq, ids, tbo, lenso, qt)
+        kdo, _ = gk.grouped_score_topk(*argso, "l2", tile_m, KP)
+        fullo = gk.grouped_score_tiles(x, sq, tbo, lenso, qt, "l2", tile_m)
+        if not torch.equal(kdo.view(torch.int32), torch.sort(
+                fullo, dim=1, stable=True).values[:, :KP].view(torch.int32)):
+            raise AssertionError(f"grouped_score_topk {kind} in block order:"
+                                 " distances differ from the tile kernel's")
+        rec[f"ms_block_order{sfx}"] = cuda_ms(lambda: gk.grouped_score_topk(
+            *argso, "l2", tile_m, KP), reps)
+        b = tile_bound(x, tbo, lenso, tile_m, qt, KP * 8, kind, ids=True)
+        rec.update({f"{key}_block_order{sfx}": v for key, v in b.items()})
     rec["max_abs_err"] = max(rec["max_abs_err"], rec["max_abs_err_bf16"])
     rec["library_ms"] = None
     out["grouped_score_topk"] = rec
@@ -293,6 +341,21 @@ def check_kernels(device, g=4096, nt=4096, dim=128, reps=5):
                     # function (its tie order unpromised)
                     cuda_ms(lambda: torch.topk(d, K, dim=1, largest=False),
                             reps))
+    # a real clustered chunk (65,536 queries x 8 probes x lmax 128), and the
+    # wide-row route past W 1,024, each held against the plain version
+    big = {}
+    for b, w in ((65536, 1024), (2048, 3000)):
+        d, ids = topk_inputs(b, w, device)
+        for dedup in (True, False):
+            kd, ki = tk.topk_dedup_kernel(d, ids, K, dedup=dedup)
+            pd, pi = tk.topk_dedup_kernel_reference(d, ids, K, dedup=dedup)
+            torch.cuda.synchronize()
+            if not (torch.equal(ki, pi) and torch.equal(
+                    kd.view(torch.int32), pd.view(torch.int32))):
+                raise AssertionError(f"topk_dedup_kernel B={b} W={w} "
+                                     f"dedup={dedup}: rows differ")
+        big[w] = cuda_ms(lambda: tk.topk_dedup_kernel(d, ids, K), reps)
+        del d, ids, kd, ki, pd, pi
     out["topk_dedup_kernel"] = {
         "max_abs_err": topk_err, "ids_equal": True,
         "ms": times[1024][0], "plain_ms": times[1024][1],
@@ -303,6 +366,11 @@ def check_kernels(device, g=4096, nt=4096, dim=128, reps=5):
         # least one comparison per candidate
         **bound(8192 * 1024 * 8 + 8192 * K * 8, 8192 * 1024, "f32"),
         "shape": {"rows": 8192, "W": [1024, 640], "k": K},
+        "ms_chunk": big[1024],
+        **{f"{key}_chunk": v for key, v in bound(
+            65536 * 1024 * 8 + 65536 * K * 8, 65536 * 1024, "f32").items()},
+        "shape_chunk": {"rows": 65536, "W": 1024, "k": K},
+        "ms_wide": big[3000], "shape_wide": {"rows": 2048, "W": 3000, "k": K},
     }
     out.update(check_gather(device, reps))
     out.update(check_scan(device, reps))

@@ -4,12 +4,14 @@ phase-3 cell) under the grouped path's three selection tails, on f32 and
 bf16 blocks, and the device time by kernel of one whole call of each
 tail; then the stages of one per-pair chunk (2,048 queries, variant f)
 and the time of one bf16 scan chunk (2,048 queries over the 1M rows),
-with its bf16 row copy timed apart.  Where an earlier commit's sources of
-kernels 5 and 6 sit in ``_checkout/base`` (``git show
-a0583c7:rptree_tpu_torch/csrc/scan_topk.cu`` and ``gather_score.cu``;
-git-ignored), it first times them against this tree's in turns (old,
-new, new, old) at ``chip_smoke.py``'s phase-2 shapes and the 1M scan
-chunk.
+with its bf16 row copy timed apart.  Where an earlier commit's sources sit
+in ``_checkout/base`` (git-ignored), it times that build against this
+tree's in turns (old, new, new, old): kernels 1, 3 and 4 (``git show
+264d9ee:rptree_tpu_torch/csrc/<name>`` for each of ``GROUPED_BASE``) at
+``chip_smoke.py``'s phase-2 shapes, kernel 3 at a chunk's 65,536 x 1,024,
+and all three on the clustered chunk's own operands; kernels 5 and 6
+(``git show a0583c7:...`` of ``scan_topk.cu`` and ``gather_score.cu``) at
+the phase-2 shapes and the 1M scan chunk.
 
     python3 chip_stages.py            # on the card
     python3 chip_stages.py --cpu      # a tiny rehearsal on the CPU
@@ -102,6 +104,153 @@ def base_lib(src):
     for name in ("rpt_gather_score_f32_base", "rpt_gather_score_bf16_base"):
         getattr(lib, name).argtypes = [p] * 6 + [i] * 5 + [p]
     return lib
+
+
+GROUPED_BASE = ("grouped_score.cu", "grouped_topk.cu", "topk_dedup.cu",
+                "grouped_tile.cuh")
+
+
+def base_grouped_lib(src):
+    """An earlier commit's kernels 1, 3 and 4 (their sources at ``src``:
+    ``git show 264d9ee:rptree_tpu_torch/csrc/<name>`` for each of
+    ``GROUPED_BASE``) built into one library under other symbol names."""
+    import ctypes
+
+    from rptree_tpu_torch import _cuda
+
+    out = os.path.join(src, "libbase_grouped.so")
+    renames = [f"-D{n}={n}_base" for n in (
+        "rpt_grouped_score_f32", "rpt_grouped_score_bf16",
+        "rpt_grouped_score_i8", "rpt_error_string", "rpt_topk_dedup",
+        "rpt_grouped_topk_f32", "rpt_grouped_topk_bf16")]
+    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, *renames, "-I",
+                    str(_cuda._CSRC), "-shared", "-o", out,
+                    *(os.path.join(src, n) for n in GROUPED_BASE
+                      if n.endswith(".cu"))],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(out)
+    p, i, l_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+    for name in ("rpt_grouped_score_f32_base", "rpt_grouped_score_bf16_base"):
+        getattr(lib, name).argtypes = [p] * 6 + [i] * 6 + [p]
+    for name in ("rpt_grouped_topk_f32_base", "rpt_grouped_topk_bf16_base"):
+        getattr(lib, name).argtypes = [p] * 8 + [i] * 7 + [p]
+    lib.rpt_topk_dedup_base.argtypes = [p] * 4 + [l_, i, i, i, p]
+    return lib
+
+
+def base_tiles(lib, x, sq, tb, lens, qt, tile_m):
+    """The earlier kernel 1 (f32 or bf16 blocks), metric l2."""
+    from rptree_tpu_torch import _cuda
+
+    g, lmax, d = x.shape
+    nt = tb.shape[0]
+    out = torch.empty((nt * tile_m, lmax), device=x.device)
+    fn = (lib.rpt_grouped_score_bf16_base if x.dtype == torch.bfloat16
+          else lib.rpt_grouped_score_f32_base)
+    code = fn(*map(_cuda.ptr, (x, sq, tb, lens, qt, out)), nt, g, tile_m,
+              lmax, d, 1, _cuda.stream_of(x))
+    assert code == 0, code
+    return out
+
+
+def base_topk_tiles(lib, x, sq, ids, tb, lens, qt, tile_m, kp):
+    """The earlier kernel 4, metric l2."""
+    from rptree_tpu_torch import _cuda
+
+    g, lmax, d = x.shape
+    nt = tb.shape[0]
+    od = torch.empty((nt * tile_m, kp), device=x.device)
+    oi = torch.empty((nt * tile_m, kp), dtype=torch.int32, device=x.device)
+    fn = (lib.rpt_grouped_topk_bf16_base if x.dtype == torch.bfloat16
+          else lib.rpt_grouped_topk_f32_base)
+    code = fn(*map(_cuda.ptr, (x, sq, ids, tb, lens, qt, od, oi)), nt, g,
+              tile_m, lmax, d, 1, kp, _cuda.stream_of(x))
+    assert code == 0, code
+    return od, oi
+
+
+def base_topk(lib, d, ids, k):
+    """The earlier kernel 3, with dedup."""
+    from rptree_tpu_torch import _cuda
+
+    b, w = d.shape
+    od = torch.empty((b, k), device=d.device)
+    oi = torch.empty((b, k), dtype=torch.int32, device=d.device)
+    code = lib.rpt_topk_dedup_base(*map(_cuda.ptr, (d, ids, od, oi)), b, w,
+                                   k, 1, _cuda.stream_of(d))
+    assert code == 0, code
+    return od, oi
+
+
+def grouped_turns(lib, label, x, sq, ids, tb, lens, qt, kp):
+    """Kernels 1 and 4, the earlier build against this tree's in turns on
+    these tiles (l2), after checking that both give the same distances to
+    1e-4 relative; one JSON line each."""
+    from rptree_tpu_torch.ops import grouped_kernel as gk
+
+    kind = "bf16" if x.dtype == torch.bfloat16 else "f32"
+    new = gk.grouped_score_tiles(x, sq, tb, lens, qt, "l2", TILE_M)
+    old = base_tiles(lib, x, sq, tb, lens, qt, TILE_M)
+    rel = cs._rel_err(new, old)[1]
+    o, n, raw = turns(lambda: base_tiles(lib, x, sq, tb, lens, qt, TILE_M),
+                      lambda: gk.grouped_score_tiles(x, sq, tb, lens, qt,
+                                                     "l2", TILE_M))
+    b = cs.tile_bound(x, tb, lens, TILE_M, qt, x.shape[1] * 4, kind)
+    print(json.dumps({"base_vs_tree": f"grouped_score_tiles_{kind}",
+                      "tiles": label, "base_ms": o, "tree_ms": n,
+                      "speedup": o / n, "turns_ms": raw, "rel_err": rel,
+                      "bound_ms": b["bound_ms"]}), flush=True)
+    new = gk.grouped_score_topk(x, sq, ids, tb, lens, qt, "l2", TILE_M, kp)[0]
+    old = base_topk_tiles(lib, x, sq, ids, tb, lens, qt, TILE_M, kp)[0]
+    rel = cs._rel_err(new, old)[1]
+    o, n, raw = turns(
+        lambda: base_topk_tiles(lib, x, sq, ids, tb, lens, qt, TILE_M, kp),
+        lambda: gk.grouped_score_topk(x, sq, ids, tb, lens, qt, "l2", TILE_M,
+                                      kp))
+    b = cs.tile_bound(x, tb, lens, TILE_M, qt, kp * 8, kind, ids=True)
+    print(json.dumps({"base_vs_tree": f"grouped_score_topk_{kind}",
+                      "tiles": label, "kp": kp, "base_ms": o, "tree_ms": n,
+                      "speedup": o / n, "turns_ms": raw, "rel_err": rel,
+                      "bound_ms": b["bound_ms"]}), flush=True)
+
+
+def topk_turns(lib, label, d, ids):
+    """Kernel 3 (dedup, k = K), the earlier build against this tree's in
+    turns, after checking that both give the same bits."""
+    from rptree_tpu_torch.ops import topk_kernel as tk
+
+    new, old = tk.topk_dedup_kernel(d, ids, K), base_topk(lib, d, ids, K)
+    same = bool(torch.equal(new[0].view(torch.int32),
+                            old[0].view(torch.int32))
+                and torch.equal(new[1], old[1]))
+    o, n, raw = turns(lambda: base_topk(lib, d, ids, K),
+                      lambda: tk.topk_dedup_kernel(d, ids, K))
+    b, w = d.shape
+    print(json.dumps({"base_vs_tree": "topk_dedup_kernel", "rows": label,
+                      "B": b, "W": w, "k": K, "base_ms": o, "tree_ms": n,
+                      "speedup": o / n, "turns_ms": raw, "same_bits": same,
+                      "bound_ms": cs.bound(b * w * 8 + b * K * 8, b * w,
+                                           "f32")["bound_ms"]}), flush=True)
+
+
+def compare_grouped_base(lib):
+    """The earlier kernels 1, 3 and 4 against this tree's at the shapes of
+    ``chip_smoke.py``'s phase 2 (tiles in random and in block order) and
+    kernel 3 at a real chunk's 65,536 x 1,024."""
+    dev = torch.device("cuda", 0)
+    g = nt = 4096
+    for bf16 in (False, True):
+        x, sq, _, tb, lens, qt = cs.tile_inputs(g, 128, 128, nt, TILE_M,
+                                                False, dev, bf16=bf16)
+        ids = torch.randperm(g * 128, generator=torch.Generator().manual_seed(
+            3)).to(torch.int32).reshape(g, 128).to(dev)
+        grouped_turns(lib, "random", x, sq, ids, tb, lens, qt, cs.KP)
+        tbo, lenso = cs.block_order(g, 128, nt, dev)
+        grouped_turns(lib, "block_order", x, sq, ids, tbo, lenso, qt, cs.KP)
+    for b, w in ((8192, 1024), (8192, 640), (65536, 1024)):
+        d, ids = cs.topk_inputs(b, w, dev)
+        topk_turns(lib, "phase2" if b == 8192 else "chunk", d, ids)
+    torch.cuda.empty_cache()
 
 
 def base_scan(lib, x, sq, q, k):
@@ -247,7 +396,8 @@ def stages(f, fm, og, gk, tk, rr, qc, cap, sync):
                            + st["sort_tail_take_kk"] + st["sort_tail_merge"])
     st["sum_kernel_topk"] = (head + st["kernel4_tiles_topk"]
                              + st["kp_pair_reorder"] + st["kp_sort_tail"])
-    return st, int(needed)
+    ops = {"tb": tb, "lens": lens_t, "qt": qt, "d": d, "ids": ids, "kp": kp}
+    return st, int(needed), ops
 
 
 def pair_stages(f, fm, fg, rr, qc, sync):
@@ -315,6 +465,7 @@ def main():
         raise SystemExit("chip_stages: no CUDA device (use --cpu to rehearse)")
     dev = torch.device("cuda", 0) if on_card else torch.device("cpu")
     sync = torch.cuda.synchronize if on_card else (lambda: None)
+    grouped_lib = None
     if on_card:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -324,9 +475,12 @@ def main():
         torch.backends.cuda.matmul.allow_tf32 = False
         print(json.dumps({"build": build_times()}), flush=True)
         src = "_checkout/base"
+        if all(os.path.exists(os.path.join(src, n)) for n in GROUPED_BASE):
+            grouped_lib = base_grouped_lib(src)
+            compare_grouped_base(grouped_lib)
         if os.path.exists(os.path.join(src, "scan_topk.cu")):
             compare_base(src)
-        else:
+        if grouped_lib is None:
             print(json.dumps({"base_vs_tree": f"skipped: no earlier sources in "
                               f"{src}"}), flush=True)
     n, nq, centers, chunk = ((1_000_000, 131_072, 4_000, 65_536) if on_card
@@ -342,9 +496,19 @@ def main():
         f.pack_leaves(dtype=dtype)
         f.knn_grouped(qd, K, selection="sort", **serve)  # learn the capacity
         (cap,) = f._grouped_nt.values()
-        st, needed = stages(f, fm, og, gk, tk, rr, qd[:chunk], cap, sync)
+        st, needed, ops = stages(f, fm, og, gk, tk, rr, qd[:chunk], cap,
+                                 sync)
         print(json.dumps({"stages_ms": name, "chunk": chunk, "needed": needed,
                           "cap": cap, **st}), flush=True)
+        if on_card and grouped_lib is not None:  # the chunk's own operands
+            x_leaf, sq_leaf, id_leaf = f._packed
+            grouped_turns(grouped_lib, "clustered_chunk", x_leaf, sq_leaf,
+                          id_leaf, ops["tb"], ops["lens"], ops["qt"],
+                          ops["kp"])
+            if dtype is None:
+                topk_turns(grouped_lib, "clustered_chunk", ops["d"],
+                           ops["ids"])
+        del ops
         for sel, impl in (("kernel", "kernel"), ("sort", "kernel"),
                           ("sort", "kernel_topk")):
             print(json.dumps({"profile": name, "selection": sel, "impl": impl,

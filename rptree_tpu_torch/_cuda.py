@@ -42,8 +42,8 @@ _SIGNATURES = {
     # x, sq, scale_t, tb, lens, q, qscale, qq, out, nt, g, tile_m, lmax, d,
     # l2, words, stream
     "rpt_grouped_score_i8": [_P] * 9 + [_I] * 7 + [_P],
-    # d, ids, od, oi, b, w, k, dedup, stream
-    "rpt_topk_dedup": [_P] * 4 + [_L, _I, _I, _I, _P],
+    # d, ids, od, oi, b, w, k, dedup, regs, stream
+    "rpt_topk_dedup": [_P] * 4 + [_L, _I, _I, _I, _I, _P],
     # x, sq, ids, tb, lens, qt, od, oi, nt, g, tile_m, lmax, d, l2, kp, stream
     "rpt_grouped_topk_f32": [_P] * 8 + [_I] * 7 + [_P],
     "rpt_grouped_topk_bf16": [_P] * 8 + [_I] * 7 + [_P],

@@ -29,6 +29,13 @@ __device__ __forceinline__ float factored_l2(float sq, float dot, float qq, int 
   return l2 ? sqrtf(v) : v;
 }
 
+// Orderable bits of a float: unsigned order is float order, with -0 as +0
+// (as a float compare has it), so one integer min finds the least value.
+__device__ __forceinline__ unsigned orderable(float v) {
+  const unsigned u = __float_as_uint(v + 0.0f);
+  return u ^ ((unsigned)((int)u >> 31) | 0x80000000u);
+}
+
 // Raise the dynamic shared-memory limit of a kernel when a launch needs
 // more than the default 48 KB (less 1 KB for its static shared memory).
 template <typename K>

@@ -19,45 +19,43 @@
 // 32 KB for bf16; 8 KB for int8 at lmax 64) and its m query rows, and does
 // 2 * m * lmax * D operations on them: 4 per block byte at m = 8 in f32
 // (8 in bf16, 16 in int8), far below the card's operations-per-byte
-// balance, so the block read from device memory is the floor.  The design
-// therefore reads every block row exactly once per tile, coalesced (one
-// warp sweeps a row across D), and reuses it from registers for all m
-// query rows, which sit in shared memory.  Plain fp32 FMAs, never TF32:
-// the JAX package measured a recall loss with single-pass bf16 products of
-// f32 blocks (0.9249 -> 0.860 at the clustered 1M cell).  int8 uses __dp4a
-// on 4-byte words, whose integer sums are exact.  Results are staged in
-// shared memory so the output rows are written coalesced.  Rows past a
-// tile's occupancy are not computed at all.
+// balance, so the block read from device memory is the floor.  Results
+// are staged in shared memory so the output rows are written coalesced.
+// Rows past a tile's occupancy are not computed at all.
 //
-// As written the f32 / bf16 kernel does not reach that floor: bf16 blocks,
-// half the bytes, measured only ~8% faster than f32 per clustered 1M
-// chunk (PERF.md), so it is bound by instruction issue: every (slot row,
-// query row) dot ends in a five-step warp-shuffle sum, and every block
-// element costs m shared-memory loads.  Register-blocking slots and query
-// rows, or tensor-core MMA, is the next step.
+// f32 and bf16 (score_tile, csrc/grouped_tile.cuh): the block's occupied
+// rows stream through shared memory by cp.async, and no dot ends in a
+// cross-lane sum.  f32 blocks take register-blocked fp32 FMAs, never TF32:
+// the JAX package measured a recall loss with single-pass bf16 products
+// of f32 blocks (0.9249 -> 0.860 at the clustered 1M cell).  bf16 blocks
+// take mma.sync on the tensor cores (exact bf16 products, fp32 sums).
 //
-// One thread block per tile, eight warps; warps take slot rows in turn.
+// int8: one warp sweeps a slot row across D coalesced and reuses it from
+// registers for all m query rows, which sit in shared memory; __dp4a on
+// 4-byte words, whose integer sums are exact, then one warp-shuffle sum a
+// dot.
+//
+// One thread block per tile, eight warps.
 
 #include "grouped_tile.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+static_assert(kThreads == rpt::kTileThreads, "score_tile's block size");
 
 template <int MT, typename T>
 __global__ void __launch_bounds__(kThreads)
 grouped_score_kernel(const T* __restrict__ x, const float* __restrict__ sq,
                      const int* __restrict__ tb, const int* __restrict__ lens,
                      const float* __restrict__ qt, float* __restrict__ out, int g, int m,
-                     int lmax, int d, int l2, int pairs) {
-  extern __shared__ float smem[];
-  float* qs = smem;               // [m][d] query rows
-  float* qq = qs + m * d;         // [MT] query squared norms
-  float* dist = qq + MT;          // [m][lmax] staged distances
+                     int lmax, int d, int l2, int vec) {
+  extern __shared__ __align__(16) float smem[];  // score_tile's stages, queries, distances
+  const float* dist = rpt::tile_dist<MT, T>(smem, d);
   const int t = blockIdx.x;
   const long blk = min(max(tb[t], 0), g - 1);
   const int len = min(max(lens[t], 0), lmax);
-  rpt::score_tile<MT>(x, sq, qt, t, blk, len, m, lmax, d, l2, pairs, qs, qq, dist);
+  rpt::score_tile<MT>(x, sq, qt, t, blk, len, m, lmax, d, l2, vec, smem);
   float* ob = out + (size_t)t * m * lmax;
   for (int idx = threadIdx.x; idx < m * lmax; idx += blockDim.x) ob[idx] = dist[idx];
 }
@@ -151,12 +149,12 @@ grouped_score_i8_kernel(const int8_t* __restrict__ x, const float* __restrict__ 
 template <int MT, typename T>
 cudaError_t launch_tiles(const T* x, const float* sq, const int* tb, const int* lens,
                          const float* qt, float* out, int nt, int g, int m, int lmax, int d,
-                         int l2, int pairs, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * rpt::score_tile_floats<MT>(m, lmax, d);
+                         int l2, int vec, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * rpt::score_tile_floats<MT, T>(m, lmax, d);
   cudaError_t e = rpt::allow_smem(grouped_score_kernel<MT, T>, smem);
   if (e != cudaSuccess) return e;
   grouped_score_kernel<MT, T><<<nt, kThreads, smem, stream>>>(x, sq, tb, lens, qt, out, g, m,
-                                                              lmax, d, l2, pairs);
+                                                              lmax, d, l2, vec);
   return cudaGetLastError();
 }
 
@@ -165,15 +163,15 @@ int launch_tiles_m(const T* x, const float* sq, const int* tb, const int* lens,
                    const float* qt, float* out, int nt, int g, int tile_m, int lmax, int d,
                    int l2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int pairs = rpt::pair_rows(x, d);
+  const int vec = rpt::vec_rows(x, d);
   if (nt <= 0) return 0;
   if (tile_m < 1) return (int)cudaErrorInvalidValue;
   if (tile_m <= 8)
-    return launch_tiles<8>(x, sq, tb, lens, qt, out, nt, g, tile_m, lmax, d, l2, pairs, s);
+    return launch_tiles<8>(x, sq, tb, lens, qt, out, nt, g, tile_m, lmax, d, l2, vec, s);
   if (tile_m <= 16)
-    return launch_tiles<16>(x, sq, tb, lens, qt, out, nt, g, tile_m, lmax, d, l2, pairs, s);
+    return launch_tiles<16>(x, sq, tb, lens, qt, out, nt, g, tile_m, lmax, d, l2, vec, s);
   if (tile_m <= 32)
-    return launch_tiles<32>(x, sq, tb, lens, qt, out, nt, g, tile_m, lmax, d, l2, pairs, s);
+    return launch_tiles<32>(x, sq, tb, lens, qt, out, nt, g, tile_m, lmax, d, l2, vec, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -13,8 +13,11 @@ pinned by ``tests/test_topk_kernel.py`` for the JAX kernel and by
 ``tests/test_torch_topk_kernel.py`` for this port.
 
 The wrapper takes the plain version for a tensor on the CPU and launches
-the kernel for a tensor on a CUDA device, or raises there.
-``topk_dedup_kernel.launches`` counts kernel launches.
+the kernel for a tensor on a CUDA device, or raises there.  On the card a
+row of ``W <= 1024`` is read once into registers (:func:`topk_route`
+gives the registers per lane); a wider row takes the wide-row kernel,
+which sweeps it once per pass.  ``topk_dedup_kernel.launches`` counts
+kernel launches of either route.
 """
 
 from __future__ import annotations
@@ -24,9 +27,18 @@ import torch
 from .. import _cuda
 
 __all__ = ["topk_dedup_kernel", "topk_dedup_kernel_reference",
-           "topk_kernel_ok"]
+           "topk_kernel_ok", "topk_route"]
 
 _MAX_K = 128
+_MAX_REGS = 32      # the register route's distances per lane: W <= 32 * 32
+
+
+def topk_route(w: int) -> int:
+    """The kernel's route for rows of width ``w``: the distances each lane
+    of a warp holds in registers (a multiple of 4, so that 16-byte loads
+    fill them), or 0 for the wide-row route past ``32 * 32``."""
+    regs = 4 * -(-w // 128)
+    return regs if regs <= _MAX_REGS else 0
 
 
 def topk_kernel_ok(w: int, k: int, min_votes: int = 1) -> bool:
@@ -93,7 +105,7 @@ def topk_dedup_kernel(d, ids, k: int, dedup: bool = True):
     with torch.cuda.device(d.device):
         code = lib.rpt_topk_dedup(_cuda.ptr(d), _cuda.ptr(ids), _cuda.ptr(od),
                                   _cuda.ptr(oi), b, w, k, int(bool(dedup)),
-                                  _cuda.stream_of(d))
+                                  topk_route(w), _cuda.stream_of(d))
     _cuda.check(code, name)
     topk_dedup_kernel.launches += 1
     return od, oi

@@ -58,7 +58,7 @@ def _close(got, want, rtol=1e-4):
 @pytest.mark.parametrize("metric", ["l2", "sql2"])
 @pytest.mark.parametrize("g,lmax,d,nt,tile_m", [
     (50, 128, 128, 300, 8), (7, 24, 20, 33, 3), (9, 40, 130, 17, 16),
-    (5, 8, 1, 4, 32),
+    (5, 8, 1, 4, 32), (5, 33, 7, 20, 1), (4, 300, 20, 9, 3),
 ])
 def test_f32_tiles(dev, metric, g, lmax, d, nt, tile_m):
     x, sq, _, tb, lens, qt = _tiles(dev, g, lmax, d, nt, tile_m, False)
@@ -69,12 +69,24 @@ def test_f32_tiles(dev, metric, g, lmax, d, nt, tile_m):
                                             tile_m)
     torch.cuda.synchronize()
     _close(got, want)
+    # blocks 4-byte aligned take the plain staging loads, to the same bits
+    xo = _misaligned(x)
+    assert torch.equal(gk.grouped_score_tiles(xo, sq, tb, lens, qt, metric,
+                                              tile_m), got)
+
+
+def _misaligned(x):
+    """A copy of ``x`` one element past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    xo = buf[1:].view(x.shape)
+    xo.copy_(x)
+    return xo
 
 
 @pytest.mark.parametrize("metric", ["l2", "sql2"])
 @pytest.mark.parametrize("g,lmax,d,nt,tile_m", [
     (50, 128, 128, 300, 8), (7, 24, 20, 33, 3), (9, 40, 131, 17, 16),
-    (5, 8, 1, 4, 32),
+    (5, 8, 1, 4, 32), (5, 33, 7, 20, 1), (4, 300, 20, 9, 3),
 ])
 def test_bf16_tiles(dev, metric, g, lmax, d, nt, tile_m):
     x, sq, _, tb, lens, qt = _tiles(dev, g, lmax, d, nt, tile_m, False,
@@ -89,11 +101,10 @@ def test_bf16_tiles(dev, metric, g, lmax, d, nt, tile_m):
                                             tile_m)
     torch.cuda.synchronize()
     _close(got, want)
-    # blocks 2-byte aligned take the unpaired loads
-    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
-    xo = buf[1:].view(x.shape)
-    xo.copy_(x)
-    _close(gk.grouped_score_tiles(xo, sq, tb, lens, qt, metric, tile_m), want)
+    # blocks 2-byte aligned take the plain staging loads, to the same bits
+    xo = _misaligned(x)
+    assert torch.equal(gk.grouped_score_tiles(xo, sq, tb, lens, qt, metric,
+                                              tile_m), got)
 
 
 def _topk_case(dev, g, lmax, d, nt, tile_m, bf16, seed):
@@ -103,6 +114,7 @@ def _topk_case(dev, g, lmax, d, nt, tile_m, bf16, seed):
     sq[0, 1::2] = sq[0, ::2][: lmax // 2]
     tb[0], lens[0] = 0, lmax
     lens[1] = 0                                  # an empty tile
+    lens[2] = 1                                  # one occupied slot
     ids = torch.randint(0, 1 << 20, (g, lmax), dtype=torch.int32,
                         generator=torch.Generator().manual_seed(seed))
     return x, sq, ids.to(dev), tb, lens, qt
@@ -113,6 +125,8 @@ def _topk_case(dev, g, lmax, d, nt, tile_m, bf16, seed):
 @pytest.mark.parametrize("g,lmax,d,nt,tile_m,kp", [
     (50, 128, 128, 300, 8, 16), (7, 24, 20, 33, 3, 12), (9, 40, 130, 17, 16, 8),
     (5, 16, 8, 9, 32, 8), (6, 256, 64, 40, 8, 128), (4, 8, 4, 5, 1, 1),
+    (5, 40, 7, 11, 32, 16), (4, 130, 130, 6, 1, 128), (3, 300, 20, 7, 3, 100),
+    (4, 200, 20, 9, 8, 32), (5, 100, 24, 9, 8, 64),
 ])
 def test_topk_tiles(dev, bf16, metric, g, lmax, d, nt, tile_m, kp):
     x, sq, ids, tb, lens, qt = _topk_case(dev, g, lmax, d, nt, tile_m, bf16,
@@ -141,6 +155,11 @@ def test_topk_tiles(dev, bf16, metric, g, lmax, d, nt, tile_m, kp):
     got = set(ki[0, : kp - kp % 2].tolist())
     assert got == {twin[i] for i in got}
     assert bool(torch.isinf(kd[tile_m:2 * tile_m]).all())  # the empty tile
+    assert bool(torch.isinf(kd[2 * tile_m:3 * tile_m, 1:]).all())  # one slot
+    # misaligned blocks take the plain staging loads, to the same result
+    md, mi = gk.grouped_score_topk(_misaligned(x), sq, ids, tb, lens, qt,
+                                   metric, tile_m, kp)
+    assert torch.equal(md, kd) and torch.equal(mi, ki)
 
 
 @pytest.mark.parametrize("metric", ["l2", "sql2"])
@@ -161,7 +180,9 @@ def test_int8_tiles(dev, metric, g, lmax, d, nt, tile_m):
 
 @pytest.mark.parametrize("dedup", [True, False])
 @pytest.mark.parametrize("b,w,k", [(300, 1024, 10), (77, 640, 10),
-                                   (9, 33, 128), (5, 3, 7)])
+                                   (9, 33, 128), (5, 3, 7), (40, 3000, 10),
+                                   (50, 1023, 128), (64, 1024, 1),
+                                   (20, 130, 128), (6, 2500, 128)])
 def test_topk(dev, dedup, b, w, k):
     gen = torch.Generator().manual_seed(b * w)
     d = torch.randint(0, 50, (b, w), generator=gen).float()
@@ -179,6 +200,31 @@ def test_topk(dev, dedup, b, w, k):
     assert torch.equal(ki, pi)
     np.testing.assert_array_equal(kd.cpu().numpy().view(np.int32),
                                   pd.cpu().numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("dedup", [True, False])
+@pytest.mark.parametrize("w", [1024, 640, 1023, 3000])
+def test_topk_ties(dev, dedup, w):
+    """Rows of all-equal distances (ties to the lowest position, whichever
+    lane holds it), ids repeated across lanes, and an exhausted row, on
+    each route, bit for bit against the plain version."""
+    b, k = 4, 128
+    pos = torch.arange(w, dtype=torch.int32)
+    d = torch.full((b, w), 2.5)
+    ids = torch.stack([pos, pos % 7, (w - 1 - pos) % 37, pos])
+    d[2] = (pos % 5).float()              # five runs of ties, interleaved
+    d[3] = float("inf")                   # exhausted
+    ids[3] = -1
+    d, ids = d.to(dev), ids.to(dev)
+    before = tk.topk_dedup_kernel.launches
+    kd, ki = tk.topk_dedup_kernel(d, ids, k, dedup=dedup)
+    assert tk.topk_dedup_kernel.launches == before + 1
+    pd, pi = tk.topk_dedup_kernel_reference(d, ids, k, dedup=dedup)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, pi)
+    assert torch.equal(kd.view(torch.int32), pd.view(torch.int32))
+    assert ki[0].tolist() == list(range(k))
+    assert ki[3].tolist() == [-1] * k
 
 
 @pytest.mark.parametrize("bf16", [False, True])

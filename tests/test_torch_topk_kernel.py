@@ -91,3 +91,14 @@ def test_wrapper_on_cpu_and_bad_arguments():
     assert tt.topk_kernel_ok(640, 10)
     assert not tt.topk_kernel_ok(640, 10, min_votes=2)
     assert not tt.topk_kernel_ok(640, 129)
+
+
+@pytest.mark.parametrize("w,regs", [(1, 4), (3, 4), (128, 4), (129, 8),
+                                    (640, 20), (1023, 32), (1024, 32),
+                                    (1025, 0), (3000, 0)])
+def test_route_by_width(w, regs):
+    """The card's route: rows of up to 1,024 in registers (4 per lane for
+    every 128 of W, so 16-byte loads fill them), wider rows on the
+    wide-row kernel (0)."""
+    assert tt.topk_route(w) == regs
+    assert regs == 0 or 32 * regs >= w
