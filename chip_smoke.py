@@ -19,10 +19,11 @@ its launch counts):
    scan's time excludes its bf16 copy of the rows, made once per call and
    timed apart (``cast_ms``), and a bf16 ``torch.matmul`` of its operands
    stands beside it as a yardstick for the products alone (``gemm_ms``);
-   the tile kernels are also timed on tiles in block order, as the serving
-   path makes them (``*_block_order``), and the top-k tail at a clustered
-   chunk's 65,536 x 1,024 (``ms_chunk``) and on its wide-row route past W
-   1,024 (``ms_wide``), both held against the plain version;
+   the tile kernels are also checked and timed on tiles in block order,
+   as the serving path makes them (``*_block_order``), and the top-k tail
+   at a clustered chunk's 65,536 x 1,024 (``ms_chunk``) and on its
+   wide-row route past W 1,024 (``ms_wide``), both held against the plain
+   version;
 3. clustered 1M cell (``bench.py``'s flagship parameters): one build and
    one exact ground truth (recall@10 on 1,024 queries); unpacked ``knn``
    on those 1,024 queries; then 131,072 queries served by six variants:
@@ -34,7 +35,9 @@ its launch counts):
    Then the bf16 scan (``brute_force_knn(precision="fastest")``) of
    16,384 queries, recall@10 >= 0.88;
 4. iid 100k cell, int8 blocks with slack 8 (``bench.py``'s headline
-   parameters): the same on 65,536 queries with the kernel tail;
+   parameters): the same on 65,536 queries with the kernel tail; then
+   the int8 tile kernel against its plain version on the tiles of the
+   cell's first chunk;
 5. iid 100k bracket (``bench.py``'s >= 0.9 recall points on the same
    data): the quality forest (32 trees, ``min_leaf`` 4,096, bf16 blocks)
    served per pair, recall@10 >= 0.90, and the bf16 scan, >= 0.98;
@@ -129,6 +132,36 @@ def cuda_ms(fn, reps=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps=20, replays=5):
+    """Mean device milliseconds of ``fn()``: ``reps`` calls captured in one
+    CUDA graph, replayed ``replays`` times between two CUDA events, so that
+    the host's cost of each call (argument checks, launch) is off the
+    clock; where a call costs the host more than the card, :func:`cuda_ms`
+    times the host."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up on a side stream, as capture asks
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * replays)
 
 
 # -- phase 2: kernels against their plain versions -------------------------
@@ -252,19 +285,22 @@ def check_kernels(device, g=4096, nt=4096, dim=128, reps=5):
             **tile_bound(x, tb, lens, tile_m, qt, lmax * 4, kind),
             "shape": {**shape, "lmax": lmax},
         }
-        if kind != "int8":  # the serving path's tile order as well
-            tbo, lenso = block_order(g, lmax, nt, device)
-            argso = (x, sq, tbo, lenso, qt)
-            _, rel_o = _rel_err(kern(*argso, "l2", tile_m),
-                                plain(*argso, "l2", tile_m))
-            if rel_o > DIST_RTOL:
-                raise AssertionError(f"{name} in block order: relative "
-                                     f"error {rel_o} > {DIST_RTOL}")
-            out[name]["ms_block_order"] = cuda_ms(
-                lambda: kern(*argso, "l2", tile_m), reps)
-            out[name].update({
-                f"{key}_block_order": v for key, v in tile_bound(
-                    x, tbo, lenso, tile_m, qt, lmax * 4, kind).items()})
+        # the serving path's tile order as well
+        tbo, lenso = block_order(g, lmax, nt, device)
+        argso = (*args[:-3], tbo, lenso, qt)
+        _, rel_o = _rel_err(kern(*argso, "l2", tile_m),
+                            plain(*argso, "l2", tile_m))
+        if rel_o > DIST_RTOL:
+            raise AssertionError(f"{name} in block order: relative "
+                                 f"error {rel_o} > {DIST_RTOL}")
+        out[name]["ms_block_order"] = cuda_ms(
+            lambda: kern(*argso, "l2", tile_m), reps)
+        out[name]["device_ms"] = graph_ms(lambda: kern(*args, "l2", tile_m))
+        out[name]["device_ms_block_order"] = graph_ms(
+            lambda: kern(*argso, "l2", tile_m))
+        out[name].update({
+            f"{key}_block_order": v for key, v in tile_bound(
+                x, tbo, lenso, tile_m, qt, lmax * 4, kind).items()})
     rec = {"shape": {**shape, "lmax": 128, "kp": KP}}
     for kind in ("f32", "bf16"):
         x, sq, _, tb, lens, qt = tile_inputs(g, 128, dim, nt, tile_m, False,
@@ -551,6 +587,54 @@ def build_cell(x, q, min_leaf, n_trees, device, n_recall=1024):
         "depth": cfg.max_depth, "leaves": f.plan.n_leaves,
         "queries": q.shape[0], "build_s": build_s, "ground_truth_s": truth_s,
     }
+
+
+def chunk_tiles(f, qc, budget, probes, tile_m):
+    """The tile operands ``(tb, lens_t, qt)`` that the grouped path makes
+    for the chunk ``qc`` at the tile capacity it learned (one serving
+    configuration on ``f``)."""
+    from rptree_tpu_torch.models import forest as fm
+    from rptree_tpu_torch.ops import grouped as og
+
+    lens = f._lens_global()
+    gsel, lsel = fm._select_probes(f.plan, f.arrays, qc, budget, probes,
+                                   k=K, block_len=lens,
+                                   children=f._children())
+    (cap,) = f._grouped_nt.values()
+    tb, lens_t, qt, _, _ = og._tile_operands(gsel, lsel, lens, qc, tile_m,
+                                             cap)
+    return tb, lens_t, qt
+
+
+def check_int8_chunk(f, qc, serve, reps=5):
+    """Kernel 2 against its plain version on the tiles the grouped path
+    makes for the chunk ``qc`` (distances within ``DIST_RTOL``), with both
+    times and the bound on those tiles."""
+    import torch
+
+    from rptree_tpu_torch.ops import grouped_kernel as gk
+
+    x, sq, _ = f._packed
+    tb, lens, qt = chunk_tiles(f, qc, serve["budget"], serve["probes"],
+                               serve["tile_m"])
+    args = (x, sq, f._block_scale, tb, lens, qt, "l2", serve["tile_m"])
+    got = gk.grouped_score_tiles_int8(*args)
+    want = gk.grouped_score_tiles_int8_reference(*args)
+    torch.cuda.synchronize()
+    abs_err, rel_err = _rel_err(got, want)
+    if rel_err > DIST_RTOL:
+        raise AssertionError(f"grouped_score_tiles_int8 on the iid chunk: "
+                             f"relative error {rel_err} > {DIST_RTOL}")
+    del got, want
+    return {"tiles": tb.shape[0], "max_abs_err": abs_err,
+            "max_rel_err": rel_err,
+            "ms": cuda_ms(lambda: gk.grouped_score_tiles_int8(*args), reps),
+            "device_ms": graph_ms(
+                lambda: gk.grouped_score_tiles_int8(*args), reps=5),
+            "plain_ms": cuda_ms(
+                lambda: gk.grouped_score_tiles_int8_reference(*args), reps),
+            **tile_bound(x, tb, lens, serve["tile_m"], qt, x.shape[1] * 4,
+                         "int8")}
 
 
 def kernel_counts():
@@ -876,11 +960,15 @@ def main():
     x, q = iid_data(100_000, 128, 65_536)
     f, qd, truth, cell = build_cell(x, q, 64, 8, device)
     del x, q
+    iid_serve = dict(budget=2, probes=10, tile_m=8, chunk=32768,
+                     selection="kernel")
     rec, _ = serve_variant("iid", f, qd, truth, dict(dtype=torch.int8, slack=8),
-                           dict(budget=2, probes=10, tile_m=8, chunk=32768,
-                                selection="kernel"),
+                           iid_serve,
                            {"grouped_score_tiles_int8", "topk_dedup_kernel"})
     add_launches(launches, "iid_100k_int8", rec["launches"])
+    # kernel 2 on the first chunk's own tiles (launches here are not counted)
+    rec["kernel2_chunk"] = check_int8_chunk(f, qd[:iid_serve["chunk"]],
+                                            iid_serve)
     log("iid_100k_int8", **cell, **rec, jax_recall=JAX_RECALL["iid"])
     if rec["recall_at_10"] < IID_MIN_RECALL:
         raise AssertionError(f"iid recall {rec['recall_at_10']} < "
@@ -938,7 +1026,7 @@ def main():
         "grouped_score_tiles_bf16": ("rptree_tpu_torch/csrc/grouped_score.cu",
                                      "rptree_tpu/ops/grouped_kernel.py:63",
                                      "grouped_score_tiles_bf16"),
-        "grouped_score_tiles_int8": ("rptree_tpu_torch/csrc/grouped_score.cu",
+        "grouped_score_tiles_int8": ("rptree_tpu_torch/csrc/grouped_score_i8.cu",
                                      "rptree_tpu/ops/grouped_kernel.py:145",
                                      "grouped_score_tiles_int8"),
         "topk_dedup_kernel": ("rptree_tpu_torch/csrc/topk_dedup.cu",
@@ -958,8 +1046,10 @@ def main():
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     # where the library call computes a variant's function, that variant's
-    # time and the call's name stand beside it
-    extra = ("ms_no_dedup", "library_call", "gemm_ms", "cast_ms")
+    # time and the call's name stand beside it; the tile kernels' device
+    # time (graph_ms) beside their wrapper's
+    extra = ("ms_no_dedup", "library_call", "gemm_ms", "cast_ms",
+             "device_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **{key: kern[r][key] for key in keys},

@@ -1,17 +1,21 @@
 """Where the time of the serving paths goes, on one NVIDIA GPU: the stage
-times of one clustered 1M chunk (65,536 queries, ``chip_smoke.py``'s
-phase-3 cell) under the grouped path's three selection tails, on f32 and
-bf16 blocks, and the device time by kernel of one whole call of each
-tail; then the stages of one per-pair chunk (2,048 queries, variant f)
-and the time of one bf16 scan chunk (2,048 queries over the 1M rows),
-with its bf16 row copy timed apart.  Where an earlier commit's sources sit
-in ``_checkout/base`` (git-ignored), it times that build against this
-tree's in turns (old, new, new, old): kernels 1, 3 and 4 (``git show
-264d9ee:rptree_tpu_torch/csrc/<name>`` for each of ``GROUPED_BASE``) at
+times of one iid 100k chunk (32,768 queries, int8 blocks, ``chip_smoke.py``'s
+phase-4 cell) with the kernel tail, and of one clustered 1M chunk (65,536
+queries, the phase-3 cell) under the grouped path's three selection tails,
+on f32 and bf16 blocks, with the device time by kernel of one whole call of
+each; then the stages of one per-pair chunk (2,048 queries, variant f) and
+the time of one bf16 scan chunk (2,048 queries over the 1M rows), with its
+bf16 row copy timed apart.  Where an earlier commit's sources sit in
+``_checkout/base`` (git-ignored), it times that build against this tree's
+in turns (old, new, new, old): kernels 1 to 4 (``git show
+21888d1:rptree_tpu_torch/csrc/<name>`` for each of ``GROUPED_BASE``) at
 ``chip_smoke.py``'s phase-2 shapes, kernel 3 at a chunk's 65,536 x 1,024,
-and all three on the clustered chunk's own operands; kernels 5 and 6
-(``git show a0583c7:...`` of ``scan_topk.cu`` and ``gather_score.cu``) at
-the phase-2 shapes and the 1M scan chunk.
+kernel 2 on the iid chunk's own tiles (the earlier kernel 2 both with the
+plain-torch query operands its wrapper made and as its launch alone, and
+the operands apart), and kernels 1, 3 and 4 on the clustered chunk's own
+operands, each also checked for the same bits; kernels 5 and 6 where
+``scan_topk.cu`` and ``gather_score.cu`` of an earlier commit sit there
+too, at the phase-2 shapes and the 1M scan chunk.
 
     python3 chip_stages.py            # on the card
     python3 chip_stages.py --cpu      # a tiny rehearsal on the CPU
@@ -22,15 +26,18 @@ median on the host clock in ms, so launch latency is not overlapped
 between stages.  The sums are per tail:
 
 - kernel tail (``selection="kernel"``): traversal, tile tables, query
-  gather, kernel 1, pair reorder, id gather, kernel 3;
+  gather, tile scoring (kernel 1, or kernel 2 on int8 blocks), pair
+  reorder, id gather, kernel 3;
 - sort tail (``selection="sort", impl="kernel"``): the same up to the id
   gather, then the stable sort, its first ``kk`` and ``merge_top_k``;
-- ``impl="kernel_topk"``: traversal, tile tables, query gather, kernel 4,
-  the pair reorder of its ``(d, ids)`` and the sort tail over them.
+- ``impl="kernel_topk"`` (f32 and bf16 blocks): traversal, tile tables,
+  query gather, kernel 4, the pair reorder of its ``(d, ids)`` and the
+  sort tail over them.
 
 On the card it first times the kernel build two ways from the same
 sources: one ``nvcc`` over all of them, and ``_cuda.build``'s one
-process per source plus a link.  One JSON object per line; it never
+process per source plus a link; with an earlier commit's sources it also
+times their compile against this tree's, in turns.  One JSON object per line; it never
 imports JAX.
 """
 
@@ -47,6 +54,7 @@ import torch
 import chip_smoke as cs
 
 K, TILE_M, PROBES, BUDGET = 10, 8, 8, 1
+IID_PROBES, IID_BUDGET = 10, 2  # the iid cell's
 
 
 def timed(fn, sync, reps=7):
@@ -82,6 +90,44 @@ def build_times():
             "one_nvcc_per_source_s": [first, last]}
 
 
+def compile_s(srcs):
+    """Seconds to compile ``srcs`` as ``_cuda.build`` does: one ``nvcc -c``
+    per source, all started together (no link)."""
+    from rptree_tpu_torch import _cuda
+
+    with tempfile.TemporaryDirectory(dir=_cuda._BUILD) as tmp:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-I", str(_cuda._CSRC), "-c",
+             str(p), "-o", os.path.join(tmp, f"{i}.o")],
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+            for i, p in enumerate(srcs)]
+        if any([p.wait() for p in procs]):
+            raise RuntimeError("nvcc failed")
+        return time.perf_counter() - t0
+
+
+# this tree's sources that the earlier commit in _checkout/base lacks
+NEW_SOURCES = ("grouped_score_i8.cu",)
+
+
+def build_turns(src):
+    """The earlier commit's build (its sources at ``src``, this tree's for
+    the kernels ``src`` does not hold, less ``NEW_SOURCES``) against this
+    tree's, each compiled as :func:`compile_s`, in turns old, new, new,
+    old."""
+    from pathlib import Path
+
+    from rptree_tpu_torch import _cuda
+
+    cus, _ = _cuda._sources()
+    base = [Path(src) / p.name if (Path(src) / p.name).exists() else p
+            for p in cus if p.name not in NEW_SOURCES]
+    ts = [compile_s(base), compile_s(cus), compile_s(cus), compile_s(base)]
+    return {"base_s": (ts[0] + ts[3]) / 2, "tree_s": (ts[1] + ts[2]) / 2,
+            "turns_s": ts}
+
+
 def base_lib(src):
     """An earlier commit's kernels 5 and 6 (their sources at ``src``: ``git
     show a0583c7:rptree_tpu_torch/csrc/<name>`` for ``scan_topk.cu`` and
@@ -111,8 +157,8 @@ GROUPED_BASE = ("grouped_score.cu", "grouped_topk.cu", "topk_dedup.cu",
 
 
 def base_grouped_lib(src):
-    """An earlier commit's kernels 1, 3 and 4 (their sources at ``src``:
-    ``git show 264d9ee:rptree_tpu_torch/csrc/<name>`` for each of
+    """An earlier commit's kernels 1 to 4 (their sources at ``src``: ``git
+    show 21888d1:rptree_tpu_torch/csrc/<name>`` for each of
     ``GROUPED_BASE``) built into one library under other symbol names."""
     import ctypes
 
@@ -134,7 +180,10 @@ def base_grouped_lib(src):
         getattr(lib, name).argtypes = [p] * 6 + [i] * 6 + [p]
     for name in ("rpt_grouped_topk_f32_base", "rpt_grouped_topk_bf16_base"):
         getattr(lib, name).argtypes = [p] * 8 + [i] * 7 + [p]
-    lib.rpt_topk_dedup_base.argtypes = [p] * 4 + [l_, i, i, i, p]
+    lib.rpt_topk_dedup_base.argtypes = [p] * 4 + [l_, i, i, i, i, p]
+    # x, sq, scale_t, tb, lens, q, qscale, qq, out, nt, g, tile_m, lmax, d,
+    # l2, words, stream: kernel 2 as it was before the quantization moved in
+    lib.rpt_grouped_score_i8_base.argtypes = [p] * 9 + [i] * 7 + [p]
     return lib
 
 
@@ -149,6 +198,26 @@ def base_tiles(lib, x, sq, tb, lens, qt, tile_m):
           else lib.rpt_grouped_score_f32_base)
     code = fn(*map(_cuda.ptr, (x, sq, tb, lens, qt, out)), nt, g, tile_m,
               lmax, d, 1, _cuda.stream_of(x))
+    assert code == 0, code
+    return out
+
+
+def base_int8_tiles(lib, x, sq, scale, tb, lens, qt, tile_m, ops=None):
+    """The earlier kernel 2, metric l2: its launch alone on operands made
+    before (``ops``, :func:`_int8_operands`'s), or with the plain-torch
+    operands made first, as its wrapper made them."""
+    from rptree_tpu_torch import _cuda
+    from rptree_tpu_torch.ops import grouped_kernel as gk
+
+    q_i8, qscale, qq, scale_t = (ops if ops is not None
+                                 else gk._int8_operands(scale, tb, qt))
+    g, lmax, d = x.shape
+    nt = tb.shape[0]
+    out = torch.empty((nt * tile_m, lmax), device=x.device)
+    words = int(d % 4 == 0 and x.data_ptr() % 4 == 0)
+    code = lib.rpt_grouped_score_i8_base(
+        *map(_cuda.ptr, (x, sq, scale_t, tb, lens, q_i8, qscale, qq, out)),
+        nt, g, tile_m, lmax, d, 1, words, _cuda.stream_of(x))
     assert code == 0, code
     return out
 
@@ -170,48 +239,107 @@ def base_topk_tiles(lib, x, sq, ids, tb, lens, qt, tile_m, kp):
 
 
 def base_topk(lib, d, ids, k):
-    """The earlier kernel 3, with dedup."""
+    """The earlier kernel 3, with dedup, on its register route where the
+    row fits (``topk_route``)."""
     from rptree_tpu_torch import _cuda
+    from rptree_tpu_torch.ops import topk_kernel as tk
 
     b, w = d.shape
     od = torch.empty((b, k), device=d.device)
     oi = torch.empty((b, k), dtype=torch.int32, device=d.device)
     code = lib.rpt_topk_dedup_base(*map(_cuda.ptr, (d, ids, od, oi)), b, w,
-                                   k, 1, _cuda.stream_of(d))
+                                   k, 1, tk.topk_route(w),
+                                   _cuda.stream_of(d))
     assert code == 0, code
     return od, oi
 
 
+def same_bits(a, b):
+    return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
 def grouped_turns(lib, label, x, sq, ids, tb, lens, qt, kp):
     """Kernels 1 and 4, the earlier build against this tree's in turns on
-    these tiles (l2), after checking that both give the same distances to
-    1e-4 relative; one JSON line each."""
+    these tiles (l2), with whether both give the same bits and their
+    largest relative difference; one JSON line each."""
     from rptree_tpu_torch.ops import grouped_kernel as gk
 
     kind = "bf16" if x.dtype == torch.bfloat16 else "f32"
     new = gk.grouped_score_tiles(x, sq, tb, lens, qt, "l2", TILE_M)
     old = base_tiles(lib, x, sq, tb, lens, qt, TILE_M)
     rel = cs._rel_err(new, old)[1]
+    same = same_bits(new, old)
     o, n, raw = turns(lambda: base_tiles(lib, x, sq, tb, lens, qt, TILE_M),
                       lambda: gk.grouped_score_tiles(x, sq, tb, lens, qt,
                                                      "l2", TILE_M))
+    do, dn, draw = device_turns(
+        lambda: base_tiles(lib, x, sq, tb, lens, qt, TILE_M),
+        lambda: gk.grouped_score_tiles(x, sq, tb, lens, qt, "l2", TILE_M))
     b = cs.tile_bound(x, tb, lens, TILE_M, qt, x.shape[1] * 4, kind)
     print(json.dumps({"base_vs_tree": f"grouped_score_tiles_{kind}",
                       "tiles": label, "base_ms": o, "tree_ms": n,
-                      "speedup": o / n, "turns_ms": raw, "rel_err": rel,
-                      "bound_ms": b["bound_ms"]}), flush=True)
-    new = gk.grouped_score_topk(x, sq, ids, tb, lens, qt, "l2", TILE_M, kp)[0]
-    old = base_topk_tiles(lib, x, sq, ids, tb, lens, qt, TILE_M, kp)[0]
-    rel = cs._rel_err(new, old)[1]
+                      "speedup": o / n, "turns_ms": raw,
+                      "base_device_ms": do, "tree_device_ms": dn,
+                      "device_turns_ms": draw, "rel_err": rel,
+                      "same_bits": same, "bound_ms": b["bound_ms"]}),
+          flush=True)
+    new = gk.grouped_score_topk(x, sq, ids, tb, lens, qt, "l2", TILE_M, kp)
+    old = base_topk_tiles(lib, x, sq, ids, tb, lens, qt, TILE_M, kp)
+    rel = cs._rel_err(new[0], old[0])[1]
+    same = same_bits(new[0], old[0]) and bool(torch.equal(new[1], old[1]))
     o, n, raw = turns(
+        lambda: base_topk_tiles(lib, x, sq, ids, tb, lens, qt, TILE_M, kp),
+        lambda: gk.grouped_score_topk(x, sq, ids, tb, lens, qt, "l2", TILE_M,
+                                      kp))
+    do, dn, draw = device_turns(
         lambda: base_topk_tiles(lib, x, sq, ids, tb, lens, qt, TILE_M, kp),
         lambda: gk.grouped_score_topk(x, sq, ids, tb, lens, qt, "l2", TILE_M,
                                       kp))
     b = cs.tile_bound(x, tb, lens, TILE_M, qt, kp * 8, kind, ids=True)
     print(json.dumps({"base_vs_tree": f"grouped_score_topk_{kind}",
                       "tiles": label, "kp": kp, "base_ms": o, "tree_ms": n,
-                      "speedup": o / n, "turns_ms": raw, "rel_err": rel,
-                      "bound_ms": b["bound_ms"]}), flush=True)
+                      "speedup": o / n, "turns_ms": raw,
+                      "base_device_ms": do, "tree_device_ms": dn,
+                      "device_turns_ms": draw, "rel_err": rel,
+                      "same_bits": same, "bound_ms": b["bound_ms"]}),
+          flush=True)
+
+
+def int8_turns(lib, label, x, sq, scale, tb, lens, qt):
+    """Kernel 2, the earlier build (its launch with the plain-torch
+    operands its wrapper made, and its launch alone) against this tree's
+    in turns on these tiles (l2), by CUDA events and by device time, with
+    the operands timed apart and the two builds' largest relative
+    difference.  One JSON line."""
+    from rptree_tpu_torch.ops import grouped_kernel as gk
+
+    new = gk.grouped_score_tiles_int8(x, sq, scale, tb, lens, qt, "l2",
+                                      TILE_M)
+    old = base_int8_tiles(lib, x, sq, scale, tb, lens, qt, TILE_M)
+    rel = cs._rel_err(new, old)[1]
+    ops = gk._int8_operands(scale, tb, qt)
+    fns = (lambda: base_int8_tiles(lib, x, sq, scale, tb, lens, qt, TILE_M),
+           lambda: base_int8_tiles(lib, x, sq, scale, tb, lens, qt, TILE_M,
+                                   ops),
+           lambda: gk.grouped_score_tiles_int8(x, sq, scale, tb, lens, qt,
+                                               "l2", TILE_M))
+    o, ol, n, raw = turns(*fns)
+    do, dol, dn, draw = device_turns(*fns)
+    b = cs.tile_bound(x, tb, lens, TILE_M, qt, x.shape[1] * 4, "int8")
+    print(json.dumps({
+        "base_vs_tree": "grouped_score_tiles_int8", "tiles": label,
+        "nt": tb.shape[0], "lmax": x.shape[1], "D": x.shape[2],
+        "base_ms": o, "base_launch_ms": ol,
+        "base_operands_ms": cs.cuda_ms(
+            lambda: gk._int8_operands(scale, tb, qt), 10),
+        "tree_ms": n, "speedup": o / n, "launch_speedup": ol / n,
+        "turns_ms": raw, "base_device_ms": do, "base_launch_device_ms": dol,
+        "base_operands_device_ms": cs.graph_ms(
+            lambda: gk._int8_operands(scale, tb, qt)),
+        "tree_device_ms": dn, "device_speedup": do / dn,
+        "launch_device_speedup": dol / dn, "device_turns_ms": draw,
+        "rel_err": rel, "same_bits": same_bits(new, old),
+        "bound_ms": b["bound_ms"]}), flush=True)
 
 
 def topk_turns(lib, label, d, ids):
@@ -220,25 +348,32 @@ def topk_turns(lib, label, d, ids):
     from rptree_tpu_torch.ops import topk_kernel as tk
 
     new, old = tk.topk_dedup_kernel(d, ids, K), base_topk(lib, d, ids, K)
-    same = bool(torch.equal(new[0].view(torch.int32),
-                            old[0].view(torch.int32))
-                and torch.equal(new[1], old[1]))
-    o, n, raw = turns(lambda: base_topk(lib, d, ids, K),
-                      lambda: tk.topk_dedup_kernel(d, ids, K))
+    same = same_bits(new[0], old[0]) and bool(torch.equal(new[1], old[1]))
+    fns = (lambda: base_topk(lib, d, ids, K),
+           lambda: tk.topk_dedup_kernel(d, ids, K))
+    o, n, raw = turns(*fns)
+    do, dn, draw = device_turns(*fns)
     b, w = d.shape
     print(json.dumps({"base_vs_tree": "topk_dedup_kernel", "rows": label,
                       "B": b, "W": w, "k": K, "base_ms": o, "tree_ms": n,
-                      "speedup": o / n, "turns_ms": raw, "same_bits": same,
+                      "speedup": o / n, "turns_ms": raw,
+                      "base_device_ms": do, "tree_device_ms": dn,
+                      "device_turns_ms": draw, "same_bits": same,
                       "bound_ms": cs.bound(b * w * 8 + b * K * 8, b * w,
                                            "f32")["bound_ms"]}), flush=True)
 
 
 def compare_grouped_base(lib):
-    """The earlier kernels 1, 3 and 4 against this tree's at the shapes of
+    """The earlier kernels 1 to 4 against this tree's at the shapes of
     ``chip_smoke.py``'s phase 2 (tiles in random and in block order) and
     kernel 3 at a real chunk's 65,536 x 1,024."""
     dev = torch.device("cuda", 0)
     g = nt = 4096
+    x, sq, scale, tb, lens, qt = cs.tile_inputs(g, 64, 128, nt, TILE_M, True,
+                                                dev)
+    int8_turns(lib, "random", x, sq, scale, tb, lens, qt)
+    tbo, lenso = cs.block_order(g, 64, nt, dev)
+    int8_turns(lib, "block_order", x, sq, scale, tbo, lenso, qt)
     for bf16 in (False, True):
         x, sq, _, tb, lens, qt = cs.tile_inputs(g, 128, 128, nt, TILE_M,
                                                 False, dev, bf16=bf16)
@@ -290,14 +425,20 @@ def base_gather(lib, x, sq, q, sel):
     return dots, sqx
 
 
-def turns(old, new, reps=10):
-    """``(old ms, new ms)``, each the mean of two CUDA-event timings taken
-    in the turns old, new, new, old."""
-    a = cs.cuda_ms(old, reps)
-    b = cs.cuda_ms(new, reps)
-    c = cs.cuda_ms(new, reps)
-    d = cs.cuda_ms(old, reps)
-    return (a + d) / 2, (b + c) / 2, [a, b, c, d]
+def turns(*fns, clock=cs.cuda_ms, reps=10):
+    """``(ms of each of fns..., raw)``: each the mean of two timings by
+    ``clock`` (``cs.cuda_ms``: CUDA events over ``reps`` calls back to
+    back; ``cs.graph_ms``: device time, the calls replayed from a CUDA
+    graph), taken in the turns f0 .. fk, fk .. f0 (old, new, new, old for
+    two)."""
+    first = [clock(fn, reps) for fn in fns]
+    last = [clock(fn, reps) for fn in reversed(fns)][::-1]
+    return (*[(a + b) / 2 for a, b in zip(first, last)],
+            first + last[::-1])
+
+
+def device_turns(*fns):
+    return turns(*fns, clock=cs.graph_ms, reps=20)
 
 
 def compare_base(src):
@@ -350,13 +491,19 @@ def compare_base(src):
         torch.cuda.empty_cache()
 
 
-def stages(f, fm, og, gk, tk, rr, qc, cap, sync):
-    """Stage times of one chunk ``qc`` at tile capacity ``cap``."""
+def stages(f, fm, og, gk, tk, rr, qc, cap, sync, budget, probes, base=None):
+    """Stage times of one chunk ``qc`` at tile capacity ``cap``, probed
+    with ``budget`` and ``probes``.  The scoring stage is named by the
+    kernel the blocks take: kernel 1 (f32, bf16) or kernel 2 (int8).  On
+    int8 blocks, ``base`` (the earlier build's library) adds that build's
+    kernel 2 as two stages, its plain-torch operands and its launch, and
+    its kernel-tail sum; kernel 4 serves no int8 blocks."""
     x_leaf, sq_leaf, id_leaf = f._packed
     lens = f._lens_global()
+    int8 = x_leaf.dtype == torch.int8
     st = {}
     (gsel, lsel), st["traversal_probes"] = timed(lambda: fm._select_probes(
-        f.plan, f.arrays, qc, BUDGET, PROBES, k=K, block_len=lens,
+        f.plan, f.arrays, qc, budget, probes, k=K, block_len=lens,
         children=f._children()), sync)
     b, p = gsel.shape
     (tb, tp, needed, inv), st["tile_tables"] = timed(
@@ -365,8 +512,22 @@ def stages(f, fm, og, gk, tk, rr, qc, cap, sync):
     (lens_t, qt), st["query_gather"] = timed(lambda: (
         lens[tb.long()].to(torch.int32),
         qc[torch.where(tp >= 0, tp // p, 0).reshape(-1).long()]), sync)
-    d_all, st["kernel1_tiles"] = timed(lambda: gk.grouped_score_tiles(
-        x_leaf, sq_leaf, tb, lens_t, qt, "l2", TILE_M), sync)
+    if int8:
+        score = "kernel2_tiles_int8"
+        d_all, st[score] = timed(lambda: gk.grouped_score_tiles_int8(
+            x_leaf, sq_leaf, f._block_scale, tb, lens_t, qt, "l2", TILE_M),
+            sync)
+        if base is not None:
+            ops, st["base_int8_operands"] = timed(lambda: gk._int8_operands(
+                f._block_scale, tb, qt), sync)
+            _, st["base_kernel2_launch"] = timed(lambda: base_int8_tiles(
+                base, x_leaf, sq_leaf, f._block_scale, tb, lens_t, qt, TILE_M,
+                ops), sync)
+            del ops
+    else:
+        score = "kernel1_tiles"
+        d_all, st[score] = timed(lambda: gk.grouped_score_tiles(
+            x_leaf, sq_leaf, tb, lens_t, qt, "l2", TILE_M), sync)
     d, st["pair_reorder"] = timed(lambda: og._pair_rows(
         d_all, inv, float("inf"), b, p).reshape(b, -1), sync)
     ids, st["id_gather"] = timed(
@@ -381,23 +542,64 @@ def stages(f, fm, og, gk, tk, rr, qc, cap, sync):
                                 ids.gather(1, order[:, :kk]))), sync)
     _, st["sort_tail_merge"] = timed(lambda: rr.merge_top_k(d_kk, i_kk, K),
                                      sync)
-    kp = -(-max(K, 8) // 8) * 8
-    (dk, ik), st["kernel4_tiles_topk"] = timed(lambda: gk.grouped_score_topk(
-        x_leaf, sq_leaf, id_leaf, tb, lens_t, qt, "l2", TILE_M, kp), sync)
-    (dp, ip), st["kp_pair_reorder"] = timed(lambda: (
-        og._pair_rows(dk, inv, float("inf"), b, p).reshape(b, -1),
-        og._pair_rows(ik, inv, -1, b, p).reshape(b, -1)), sync)
-    _, st["kp_sort_tail"] = timed(lambda: fm._selection_tail_ids(
-        dp, ip, K, min(kk, p * kp), True), sync)
     head = st["traversal_probes"] + st["tile_tables"] + st["query_gather"]
-    scored = head + st["kernel1_tiles"] + st["pair_reorder"] + st["id_gather"]
+    rest = st["pair_reorder"] + st["id_gather"]
+    scored = head + st[score] + rest
     st["sum_kernel_tail"] = scored + st["kernel3_topk_tail"]
     st["sum_sort_tail"] = (scored + st["sort_tail_sort"]
                            + st["sort_tail_take_kk"] + st["sort_tail_merge"])
-    st["sum_kernel_topk"] = (head + st["kernel4_tiles_topk"]
-                             + st["kp_pair_reorder"] + st["kp_sort_tail"])
+    if "base_kernel2_launch" in st:
+        st["sum_kernel_tail_base"] = (
+            head + st["base_int8_operands"] + st["base_kernel2_launch"] + rest
+            + st["kernel3_topk_tail"])
+    kp = -(-max(K, 8) // 8) * 8
+    if not int8:
+        (dk, ik), st["kernel4_tiles_topk"] = timed(
+            lambda: gk.grouped_score_topk(x_leaf, sq_leaf, id_leaf, tb, lens_t,
+                                          qt, "l2", TILE_M, kp), sync)
+        (dp, ip), st["kp_pair_reorder"] = timed(lambda: (
+            og._pair_rows(dk, inv, float("inf"), b, p).reshape(b, -1),
+            og._pair_rows(ik, inv, -1, b, p).reshape(b, -1)), sync)
+        _, st["kp_sort_tail"] = timed(lambda: fm._selection_tail_ids(
+            dp, ip, K, min(kk, p * kp), True), sync)
+        st["sum_kernel_topk"] = (head + st["kernel4_tiles_topk"]
+                                 + st["kp_pair_reorder"] + st["kp_sort_tail"])
     ops = {"tb": tb, "lens": lens_t, "qt": qt, "d": d, "ids": ids, "kp": kp}
     return st, int(needed), ops
+
+
+def iid_cell(rp, fm, og, gk, tk, rr, dev, sync, on_card, base):
+    """The iid 100k cell as ``chip_smoke.py``'s phase 4 builds and serves
+    it (seed, T 8, ``min_leaf`` 64, int8 blocks with slack 8, budget 2,
+    probes 10, tile_m 8, chunks of 32,768, the kernel tail): the stages of
+    its first chunk, and with ``base`` the earlier kernel 2 against this
+    tree's on that chunk's own tiles."""
+    n, nq, chunk = ((100_000, 65_536, 32_768) if on_card
+                    else (4_000, 1_024, 512))
+    x, q = cs.iid_data(n, 128, nq)
+    cfg = rp.rp_tree_cfg(64, n, 128)
+    f = rp.forest_batch(cs.SEED, cfg.max_depth, 64, 8, cfg.proj_nz_density,
+                        torch.as_tensor(x, device=dev), device=dev)
+    qd = torch.as_tensor(q, device=dev)
+    del x, q
+    f.pack_leaves(dtype=torch.int8, slack=8)
+    serve = dict(budget=IID_BUDGET, probes=IID_PROBES, tile_m=TILE_M,
+                 chunk=chunk)
+    f.knn_grouped(qd, K, selection="kernel", **serve)  # learn the capacity
+    (cap,) = f._grouped_nt.values()
+    st, needed, ops = stages(f, fm, og, gk, tk, rr, qd[:chunk], cap, sync,
+                             IID_BUDGET, IID_PROBES, base)
+    print(json.dumps({"stages_ms": "iid_int8", "chunk": chunk,
+                      "needed": needed, "cap": cap,
+                      "lmax": int(f._packed[0].shape[1]), **st}), flush=True)
+    if base is not None:
+        x_leaf, sq_leaf, _ = f._packed
+        int8_turns(base, "iid_chunk", x_leaf, sq_leaf, f._block_scale,
+                   ops["tb"], ops["lens"], ops["qt"])
+    print(json.dumps({"profile": "iid_int8", "selection": "kernel",
+                      "impl": "kernel", **device_times(f, qd, serve, "kernel",
+                                                       "kernel", on_card)}),
+          flush=True)
 
 
 def pair_stages(f, fm, fg, rr, qc, sync):
@@ -476,6 +678,8 @@ def main():
         print(json.dumps({"build": build_times()}), flush=True)
         src = "_checkout/base"
         if all(os.path.exists(os.path.join(src, n)) for n in GROUPED_BASE):
+            print(json.dumps({"build_base_vs_tree": build_turns(src)}),
+                  flush=True)
             grouped_lib = base_grouped_lib(src)
             compare_grouped_base(grouped_lib)
         if os.path.exists(os.path.join(src, "scan_topk.cu")):
@@ -483,6 +687,9 @@ def main():
         if grouped_lib is None:
             print(json.dumps({"base_vs_tree": f"skipped: no earlier sources in "
                               f"{src}"}), flush=True)
+    iid_cell(rp, fm, og, gk, tk, rr, dev, sync, on_card, grouped_lib)
+    if on_card:
+        torch.cuda.empty_cache()
     n, nq, centers, chunk = ((1_000_000, 131_072, 4_000, 65_536) if on_card
                              else (20_000, 1_024, 80, 512))
     x, q = cs.clustered_data(n, 128, centers, 0.15, nq)
@@ -497,7 +704,7 @@ def main():
         f.knn_grouped(qd, K, selection="sort", **serve)  # learn the capacity
         (cap,) = f._grouped_nt.values()
         st, needed, ops = stages(f, fm, og, gk, tk, rr, qd[:chunk], cap,
-                                 sync)
+                                 sync, BUDGET, PROBES)
         print(json.dumps({"stages_ms": name, "chunk": chunk, "needed": needed,
                           "cap": cap, **st}), flush=True)
         if on_card and grouped_lib is not None:  # the chunk's own operands

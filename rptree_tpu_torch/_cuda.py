@@ -39,9 +39,8 @@ _SIGNATURES = {
     # x, sq, tb, lens, qt, out, nt, g, tile_m, lmax, d, l2, stream
     "rpt_grouped_score_f32": [_P] * 6 + [_I] * 6 + [_P],
     "rpt_grouped_score_bf16": [_P] * 6 + [_I] * 6 + [_P],
-    # x, sq, scale_t, tb, lens, q, qscale, qq, out, nt, g, tile_m, lmax, d,
-    # l2, words, stream
-    "rpt_grouped_score_i8": [_P] * 9 + [_I] * 7 + [_P],
+    # x, sq, scale, tb, lens, qt, out, nt, g, tile_m, lmax, d, l2, stream
+    "rpt_grouped_score_i8": [_P] * 7 + [_I] * 6 + [_P],
     # d, ids, od, oi, b, w, k, dedup, regs, stream
     "rpt_topk_dedup": [_P] * 4 + [_L, _I, _I, _I, _I, _P],
     # x, sq, ids, tb, lens, qt, od, oi, nt, g, tile_m, lmax, d, l2, kp, stream

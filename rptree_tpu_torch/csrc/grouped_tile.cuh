@@ -2,6 +2,8 @@
 // grouped_score (kernel 1, csrc/grouped_score.cu) and grouped_topk
 // (kernel 4, csrc/grouped_topk.cu).  Both stage a tile's distances with
 // score_tile below, so kernel 4's distances are bit-equal to kernel 1's.
+// Kernel 2 (int8 blocks, csrc/grouped_score_i8.cu) stages its block rows
+// with the same stage_rows and TileShape<int8_t>.
 //
 // A tile is up to m (query, probe) pairs that probe the SAME leaf block
 // tb[t]; score_tile leaves in shared memory
@@ -119,8 +121,8 @@ __device__ __forceinline__ float* tile_dist(float* smem, int d) {
 
 // Stages columns [c0, c0 + DC) of slot rows [j0, j0 + rows) of block xb
 // (vec: 16-byte cp.async copies; else plain loads), zeros from d to the
-// end of its 32-byte mma column step.
-template <typename T>
+// end of its 32-byte mma column step.  NT threads share the copies.
+template <typename T, int NT = kTileThreads>
 __device__ __forceinline__ void stage_rows(T* xs, const T* __restrict__ xb, int rows, int j0,
                                            int d, int c0, int vec) {
   using S = TileShape<T>;
@@ -129,7 +131,7 @@ __device__ __forceinline__ void stage_rows(T* xs, const T* __restrict__ xb, int 
   const int wk = (w + KS - 1) / KS * KS;
   if (vec) {  // w is whole 16-byte pieces; at most one more piece is zero
     const int ppr = wk / S::V;
-    for (int i = threadIdx.x; i < rows * ppr; i += kTileThreads) {
+    for (int i = threadIdx.x; i < rows * ppr; i += NT) {
       const int r = i / ppr;
       const int c = (i - r * ppr) * S::V;
       if (c < w)
@@ -138,7 +140,7 @@ __device__ __forceinline__ void stage_rows(T* xs, const T* __restrict__ xb, int 
         *reinterpret_cast<uint4*>(xs + r * S::XS + c) = make_uint4(0, 0, 0, 0);
     }
   } else {
-    for (int i = threadIdx.x; i < rows * wk; i += kTileThreads) {
+    for (int i = threadIdx.x; i < rows * wk; i += NT) {
       const int r = i / wk;
       const int c = i - r * wk;
       xs[r * S::XS + c] = c < w ? xb[(size_t)(j0 + r) * d + c0 + c] : T(0.0f);

@@ -57,6 +57,8 @@ __all__ = ["RPForest", "forest_batch", "DEFAULT_BUDGET"]
 
 DEFAULT_BUDGET = 32
 _LAYOUTS_TODO = "ROADMAP.md queue 1 item 13 (other dense layouts)"
+_PAYLOADS_TODO = "ROADMAP.md queue 1 item 12 (online updates and payloads)"
+_DATA_DTYPES_TODO = "ROADMAP.md queue 1 item 22 (datasets of other types)"
 _PRECISIONS = ("highest", "default", "fastest")
 _BLOCK_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
                  "int8": torch.int8}
@@ -520,7 +522,8 @@ class RPForest:
 
     @torch.no_grad()
     def pack_leaves(self, dtype=None, slack: int = 0, centered: bool = False,
-                    sub_block: int = 1, store: str = "blocks") -> "RPForest":
+                    sub_block: int = 1, sub_split: str = "kmeans",
+                    store: str = "blocks") -> "RPForest":
         """Copy each leaf's points into one contiguous block: ``x_leaf
         [T * n_leaves, lmax, D]``, with the slot squared norms ``sq_leaf``
         (exact, from the f32 rows), the point ids ``id_leaf`` (-1 in empty
@@ -530,8 +533,13 @@ class RPForest:
         halves the blocks' memory and read bytes; distances are then
         computed from the bf16 rows.  ``slack`` adds empty slots per
         block; the slot axis is aligned as in the JAX package.  Packing
-        the same layout again is a no-op.  ``centered``, ``sub_block >
-        1`` and ``store="shared"`` are not ported yet and raise."""
+        the same layout again is a no-op.  The parameters are the JAX
+        package's, in its order.  ``centered``, ``sub_block > 1`` (with
+        its ``sub_split`` ordering, which one block a leaf ignores) and
+        ``store="shared"`` are not ported yet and raise."""
+        if sub_split not in ("kmeans", "proj"):
+            raise ValueError(f"sub_split must be 'kmeans' or 'proj', got "
+                             f"{sub_split!r}")
         if store != "blocks" or centered or int(sub_block or 1) > 1:
             raise NotImplementedError(
                 f"store={store!r} centered={centered} sub_block={sub_block}: "
@@ -779,9 +787,12 @@ class RPForest:
                 f"dim={self.dim}, device={self.device}, {self.plan!r})")
 
 
-def _prepare_data(data, device):
-    x = torch.as_tensor(data, dtype=torch.float32,
-                        device=resolve_device(device))
+def _prepare_data(data, dtype, device):
+    if dtype != torch.float32:
+        raise NotImplementedError(
+            f"forest_batch(dtype={dtype}): the port builds on f32 data only; "
+            f"{_DATA_DTYPES_TODO}")
+    x = torch.as_tensor(data, dtype=dtype, device=resolve_device(device))
     if x.dim() != 2:
         raise ValueError(f"dataset must be [n, dim], got shape {tuple(x.shape)}")
     x = x.contiguous()
@@ -790,14 +801,24 @@ def _prepare_data(data, device):
 
 @torch.no_grad()
 def forest_batch(seed, max_depth: int, min_leaf: int, n_trees: int,
-                 pnz: float, data, device=None, r=None) -> RPForest:
-    """Batch-build a random projection forest on ``device`` (default: the
-    card; it raises where CUDA is absent, and the CPU is used only with
-    ``device="cpu"``): sample
-    ``n_trees x max_depth`` sparse Gaussian projections from ``seed``
-    (or take ``r [n_trees, max_depth, D]`` as given), then run the
-    level-synchronous builder tree by tree."""
-    x, sq_norms, dim, n = _prepare_data(data, device)
+                 pnz: float, data, payloads=None, dtype=torch.float32,
+                 pack=False, *, device=None, r=None) -> RPForest:
+    """Batch-build a random projection forest: sample ``n_trees x
+    max_depth`` sparse Gaussian projections from ``seed`` (or take ``r
+    [n_trees, max_depth, D]`` as given), then run the level-synchronous
+    builder tree by tree.  The parameters are the JAX package's, in its
+    order; ``device`` and ``r`` are the port's own.
+
+    ``dtype`` is the type the data are cast to, as in the JAX package;
+    only ``torch.float32`` is ported.  ``pack=True`` (or a block dtype,
+    ``torch.bfloat16`` or ``torch.int8``) packs the leaves at build
+    (:meth:`RPForest.pack_leaves`).  ``payloads`` are not ported yet and
+    raise.  Builds on ``device`` (default: the card; it raises where CUDA
+    is absent, and the CPU is used only with ``device="cpu"``)."""
+    if payloads is not None:
+        raise NotImplementedError(f"forest_batch(payloads=...): "
+                                  f"{_PAYLOADS_TODO}")
+    x, sq_norms, dim, n = _prepare_data(data, dtype, device)
     plan = make_plan(n, max_depth, min_leaf)
     if r is None:
         r = rgen.sample_projections(seed, n_trees, max_depth, dim, pnz,
@@ -810,4 +831,7 @@ def forest_batch(seed, max_depth: int, min_leaf: int, n_trees: int,
     arrays = build_forest_arrays(plan, x, r)
     cfg = ForestConfig(n_trees=n_trees, max_depth=max_depth,
                        min_leaf=min_leaf, proj_nz_density=pnz, dim=dim)
-    return RPForest(plan, arrays, x, sq_norms, cfg)
+    f = RPForest(plan, arrays, x, sq_norms, cfg)
+    if pack:
+        f.pack_leaves(dtype=None if pack is True else pack)
+    return f

@@ -1,7 +1,8 @@
 """Grouped tile scoring (``rptree_tpu/ops/grouped_kernel.py``): kernels 1
-(f32 and bf16 blocks) and 2 (int8) of the serving path, CUDA in
-``csrc/grouped_score.cu``, and kernel 4, the tile scoring fused with a
-per-slot top-kp (``impl="kernel_topk"``), CUDA in ``csrc/grouped_topk.cu``.
+(f32 and bf16 blocks, CUDA in ``csrc/grouped_score.cu``) and 2 (int8,
+``csrc/grouped_score_i8.cu``) of the serving path, and kernel 4, the tile
+scoring fused with a per-slot top-kp (``impl="kernel_topk"``), CUDA in
+``csrc/grouped_topk.cu``.
 
 A tile is up to ``tile_m`` (query, probe) pairs that probe the same leaf
 block; each tile's rows are scored against its one block.  Each kernel
@@ -324,10 +325,11 @@ def grouped_score_tiles_int8(x_leaf, sq_leaf, scale, tb, lens_t, qt, metric,
                              tile_m: int):
     """:func:`grouped_score_tiles` for int8 blocks: ``x_leaf int8[G, lmax,
     D]`` with per-block scales ``scale f32[G]``.  Query rows are quantized
-    to int8 per row outside the kernel (:func:`_quantize_rows`); the
-    kernel forms exact integer dots, dequantizes them with the block scale
-    times the row scale, and assembles the factored L2 against the exact
-    stored slot norms and the true f32 query norms."""
+    to int8 per row (:func:`_quantize_rows`; on the card inside the
+    kernel, to the same bits); the dots are exact integers, dequantized
+    with the block scale times the row scale, and the factored L2 is
+    assembled against the exact stored slot norms and the true f32 query
+    norms (summed in another order on the card)."""
     _check_metric(metric)
     if x_leaf.device.type == "cpu":
         return grouped_score_tiles_int8_reference(x_leaf, sq_leaf, scale, tb,
@@ -346,15 +348,13 @@ def grouped_score_tiles_int8(x_leaf, sq_leaf, scale, tb, lens_t, qt, metric,
                       device=x_leaf.device)
     if nt == 0:
         return out
-    q_i8, qscale, qq, scale_t = _int8_operands(scale, tb, qt)
-    words = int(d % 4 == 0 and x_leaf.data_ptr() % 4 == 0)
     lib = _cuda.lib()
     with torch.cuda.device(x_leaf.device):
         code = lib.rpt_grouped_score_i8(
-            _cuda.ptr(x_leaf), _cuda.ptr(sq_leaf), _cuda.ptr(scale_t),
-            _cuda.ptr(tb), _cuda.ptr(lens_t), _cuda.ptr(q_i8),
-            _cuda.ptr(qscale), _cuda.ptr(qq), _cuda.ptr(out), nt, g, tile_m,
-            lmax, d, int(metric == "l2"), words, _cuda.stream_of(x_leaf))
+            _cuda.ptr(x_leaf), _cuda.ptr(sq_leaf), _cuda.ptr(scale),
+            _cuda.ptr(tb), _cuda.ptr(lens_t), _cuda.ptr(qt), _cuda.ptr(out),
+            nt, g, tile_m, lmax, d, int(metric == "l2"),
+            _cuda.stream_of(x_leaf))
     _cuda.check(code, name)
     grouped_score_tiles_int8.launches += 1
     return out

@@ -17,13 +17,15 @@ __all__ = ["sample_projections"]
 
 
 def sample_projections(seed, n_trees: int, depth: int, dim: int, pnz: float,
-                       device=None) -> torch.Tensor:
-    """Sample the forest's projection tensor ``R: [n_trees, depth, dim]``:
-    N(0, 1) components under a Bernoulli(``pnz``) support mask, zeros
-    where the mask is off (the reference's sparse Gaussian vectors,
-    materialized dense).  Drawn on the CPU from ``seed`` so that the same
-    seed gives the same projections on every device, then moved to
-    ``device`` (default: the card; the CPU only with ``device="cpu"``)."""
+                       dtype=torch.float32, *, device=None) -> torch.Tensor:
+    """Sample the forest's projection tensor ``R: [n_trees, depth, dim]``
+    in ``dtype``: N(0, 1) components under a Bernoulli(``pnz``) support
+    mask, zeros where the mask is off (the reference's sparse Gaussian
+    vectors, materialized dense).  The parameters are the JAX package's,
+    in its order; ``device`` is the port's own.  Drawn in f32 on the CPU
+    from ``seed`` so that the same seed gives the same projections on
+    every device, then cast and moved to ``device`` (default: the card;
+    the CPU only with ``device="cpu"``)."""
     g = torch.Generator(device="cpu")
     g.manual_seed(int(seed) & 0x7FFFFFFFFFFFFFFF)
     shape = (int(n_trees), int(depth), int(dim))
@@ -31,4 +33,4 @@ def sample_projections(seed, n_trees: int, depth: int, dim: int, pnz: float,
     if pnz < 1.0:
         mask = torch.rand(shape, generator=g) < pnz
         r = torch.where(mask, r, torch.zeros((), dtype=r.dtype))
-    return r.to(resolve_device(device))
+    return r.to(device=resolve_device(device), dtype=dtype)

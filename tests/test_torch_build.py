@@ -119,6 +119,58 @@ def test_forest_batch_own_projections():
                            device="cpu")
 
 
+def _one_hot_rows(seed, n, dim):
+    """Rows with one nonzero coordinate, a small integer: every projection
+    is one exact product, so both builders see the same projections."""
+    rng = np.random.default_rng(seed)
+    x = np.zeros((n, dim), np.float32)
+    x[np.arange(n), rng.integers(0, dim, size=n)] = (
+        rng.integers(1, 8, size=n) * rng.choice([-1, 1], size=n))
+    return x
+
+
+@pytest.mark.parametrize("pack", ["true", "int8", "bf16"])
+def test_forest_batch_packs_at_build_as_jax(pack):
+    """forest_batch's seventh to ninth parameters are JAX's (payloads,
+    dtype, pack), bound by position: ``pack=True`` and a block dtype pack
+    the leaves at build into JAX's blocks."""
+    import rptree_tpu as rt
+
+    x = _one_hot_rows(6, 800, 6)
+    pj, pt = {"true": (True, True), "int8": (jnp.int8, torch.int8),
+              "bf16": (jnp.bfloat16, torch.bfloat16)}[pack]
+    fj = rt.forest_batch(3, 5, 16, 3, 1.0, x, None, jnp.float32, pj)
+    ft = torch_forest_batch(3, 5, 16, 3, 1.0, x, None, torch.float32, pt,
+                            device="cpu", r=np.array(fj.arrays.r))
+    np.testing.assert_array_equal(ft.arrays.perm.numpy(),
+                                  np.asarray(fj.arrays.perm))
+    (xt, st, it), (xj, sj, ij) = ft._packed, fj._packed
+    if pack == "bf16":
+        xt, xj = xt.view(torch.int16), np.asarray(xj).view(np.int16)
+    np.testing.assert_array_equal(xt.numpy(), np.asarray(xj))
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    if pack == "int8":
+        np.testing.assert_array_equal(ft._block_scale.numpy(),
+                                      np.asarray(fj._block_scale))
+    # unpacked by default, as in JAX
+    assert torch_forest_batch(3, 5, 16, 3, 1.0, x, device="cpu")._packed \
+        is None
+
+
+def test_forest_batch_unported_parameters_raise():
+    x = _one_hot_rows(7, 300, 4)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        torch_forest_batch(1, 3, 16, 2, 1.0, x, list(range(300)),
+                           device="cpu")
+    with pytest.raises(NotImplementedError, match="item 22"):
+        torch_forest_batch(1, 3, 16, 2, 1.0, x, None, torch.bfloat16,
+                           device="cpu")
+    with pytest.raises(TypeError):  # device is keyword-only
+        torch_forest_batch(1, 3, 16, 2, 1.0, x, None, torch.float32, False,
+                           "cpu")
+
+
 def test_default_device_is_the_card(monkeypatch, tmp_path):
     """``device=None`` builds on the card: without CUDA it raises, and the
     CPU is used only when asked for."""

@@ -162,12 +162,26 @@ def test_topk_tiles(dev, bf16, metric, g, lmax, d, nt, tile_m, kp):
     assert torch.equal(md, kd) and torch.equal(mi, ki)
 
 
+def _int8_case(dev, g, lmax, d, nt, tile_m, seed):
+    """int8 tiles with an empty tile, a tile of one occupied slot, a full
+    one, and a query row of zeros in the full one."""
+    x, sq, scale, tb, lens, qt = _tiles(dev, g, lmax, d, nt, tile_m, True,
+                                        seed=seed)
+    lens[0], lens[1], lens[2] = 0, 1, lmax
+    qt[2 * tile_m] = 0.0
+    return x, sq, scale, tb, lens, qt
+
+
 @pytest.mark.parametrize("metric", ["l2", "sql2"])
 @pytest.mark.parametrize("g,lmax,d,nt,tile_m", [
     (50, 64, 128, 300, 8), (6, 32, 30, 21, 5), (4, 16, 7, 9, 32),
+    (7, 33, 20, 40, 3), (9, 96, 130, 17, 16), (5, 200, 1000, 6, 32),
+    (8, 64, 7, 25, 1), (6, 200, 20, 11, 8), (4, 96, 1000, 5, 1),
+    (5, 33, 128, 12, 16), (3, 64, 130, 7, 32), (6, 200, 128, 9, 3),
 ])
 def test_int8_tiles(dev, metric, g, lmax, d, nt, tile_m):
-    x, sq, scale, tb, lens, qt = _tiles(dev, g, lmax, d, nt, tile_m, True)
+    x, sq, scale, tb, lens, qt = _int8_case(dev, g, lmax, d, nt, tile_m,
+                                            seed=g * d + tile_m)
     before = gk.grouped_score_tiles_int8.launches
     got = gk.grouped_score_tiles_int8(x, sq, scale, tb, lens, qt, metric,
                                       tile_m)
@@ -176,6 +190,38 @@ def test_int8_tiles(dev, metric, g, lmax, d, nt, tile_m):
                                                  metric, tile_m)
     torch.cuda.synchronize()
     _close(got, want)
+    # blocks one byte past a 16-byte boundary take the plain staging loads,
+    # and query rows one float past it the plain query loads: same bits
+    xo = _misaligned(x)
+    assert torch.equal(gk.grouped_score_tiles_int8(xo, sq, scale, tb, lens,
+                                                   qt, metric, tile_m), got)
+    qo = _misaligned(qt)
+    assert torch.equal(gk.grouped_score_tiles_int8(x, sq, scale, tb, lens,
+                                                   qo, metric, tile_m), got)
+
+
+@pytest.mark.parametrize("metric", ["l2", "sql2"])
+@pytest.mark.parametrize("g,lmax,d,nt,tile_m", [
+    (50, 64, 128, 300, 8), (6, 200, 130, 21, 16), (5, 33, 7, 9, 32),
+    (4, 96, 20, 13, 3), (4, 64, 1000, 5, 1),
+])
+def test_int8_tiles_bit_equal_on_dyadic_rows(dev, metric, g, lmax, d, nt,
+                                             tile_m):
+    """Query rows of quarters of small integers make |q|^2 exact in any
+    order, so the kernel's in-kernel quantization and epilogue order give
+    the plain version's bits."""
+    x, sq, scale, tb, lens, _ = _int8_case(dev, g, lmax, d, nt, tile_m,
+                                           seed=g + d)
+    gen = torch.Generator().manual_seed(d)
+    qt = (torch.randint(-8, 9, (nt * tile_m, d), generator=gen).float()
+          / 4).to(dev)
+    qt[2 * tile_m] = 0.0
+    got = gk.grouped_score_tiles_int8(x, sq, scale, tb, lens, qt, metric,
+                                      tile_m)
+    want = gk.grouped_score_tiles_int8_reference(x, sq, scale, tb, lens, qt,
+                                                 metric, tile_m)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.parametrize("dedup", [True, False])

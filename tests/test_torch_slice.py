@@ -149,9 +149,10 @@ def test_kernel_selection_counts_votes_like_jax(data):
 
 
 def test_signature_and_positional_binding_match_jax(data):
-    """The query entry points take the JAX package's parameters in its
-    order and with its defaults, so a positional call binds alike in
-    both."""
+    """The query entry points, the builder, the sampler and the packer
+    take the JAX package's parameters in its order and with its defaults
+    (the port's own ``device`` and ``r`` follow, keyword-only), so a
+    positional call binds alike in both."""
     import inspect
 
     import rptree_tpu as rt
@@ -165,6 +166,24 @@ def test_signature_and_positional_binding_match_jax(data):
                  "recall_with", "candidates"):
         assert params(getattr(rp.RPForest, name)) == params(
             getattr(rt.RPForest, name)), name
+    for name, (port_fn, jax_fn) in {
+            "forest_batch": (rp.forest_batch, rt.forest_batch),
+            "sample_projections": (rp.sample_projections,
+                                   rt.sample_projections),
+            "pack_leaves": (rp.RPForest.pack_leaves,
+                            rt.RPForest.pack_leaves)}.items():
+        pj = list(inspect.signature(jax_fn).parameters.values())
+        pt = list(inspect.signature(port_fn).parameters.values())
+        assert [p.name for p in pt[:len(pj)]] == [p.name for p in pj], name
+        for a, b in zip(pt, pj):
+            assert a.kind is b.kind, (name, a.name)
+            assert a.default == b.default or (
+                a.default is torch.float32 and b.default is jnp.float32), (
+                name, a.name)
+        assert [p.name for p in pt[len(pj):]] == (
+            ["device", "r"] if name == "forest_batch"
+            else ["device"] if name == "sample_projections" else []), name
+        assert all(p.kind is p.KEYWORD_ONLY for p in pt[len(pj):]), name
     x, q, fj = data
     ft = carry(fj)
     fj.pack_leaves()
@@ -196,6 +215,21 @@ def test_signature_and_positional_binding_match_jax(data):
     dt, it = ft.knn(q, K, "l2", 2, True, "default", 3)
     same = _set_equal_rows(it.numpy(), np.asarray(ij))
     assert same.mean() >= 0.99, same.mean()
+    # pack_leaves' fifth parameter is sub_split, its sixth the store
+    fj.pack_leaves(jnp.int8, 8, False, 1, "kmeans", "blocks")
+    ft.pack_leaves(torch.int8, 8, False, 1, "kmeans", "blocks")
+    np.testing.assert_array_equal(ft._packed[0].numpy(),
+                                  np.asarray(fj._packed[0]))
+    np.testing.assert_array_equal(ft._block_scale.numpy(),
+                                  np.asarray(fj._block_scale))
+    with pytest.raises(ValueError):  # an ordering neither package knows
+        ft.pack_leaves(None, 0, False, 1, "random")
+    fj.pack_leaves()
+    # sample_projections' sixth parameter is the dtype
+    rj = rt.sample_projections(5, 2, 3, 8, 0.5, jnp.bfloat16)
+    rt_ = rp.sample_projections(5, 2, 3, 8, 0.5, torch.bfloat16, device="cpu")
+    assert rj.dtype == jnp.bfloat16 and rt_.dtype == torch.bfloat16
+    assert tuple(rt_.shape) == rj.shape == (2, 3, 8)
 
 
 def test_unported_options_raise(data):
