@@ -23,10 +23,14 @@ its launch counts):
    as the serving path makes them (``*_block_order``), and the top-k tail
    at a clustered chunk's 65,536 x 1,024 (``ms_chunk``) and on its
    wide-row route past W 1,024 (``ms_wide``), both held against the plain
-   version;
+   version; the descent (kernel 7) and the probe selection (kernel 8) at
+   the descents the main path runs (``DESCENTS``: the clustered and iid
+   chunks, the bracket's, and unpacked ``knn`` at budget 32), leaves,
+   priorities and probes bit-equal;
 3. clustered 1M cell (``bench.py``'s flagship parameters): one build and
    one exact ground truth (recall@10 on 1,024 queries); unpacked ``knn``
-   on those 1,024 queries; then 131,072 queries served by six variants:
+   on those 1,024 queries at budget 1 and at its default budget 32; then
+   131,072 queries served by six variants:
    f32 blocks with the kernel tail, the sort tail, and the fused tile
    top-k (``impl="kernel_topk"``); the per-pair path (``knn_batched``,
    variant f, held against the sort tail and the unpacked result); bf16
@@ -46,11 +50,13 @@ its launch counts):
 7. the kernels' launch counts over phases 3-6, each of which must be > 0.
 
 Each scan of phases 3, 5 and 6 is also held, on its first chunk of
-queries, against the scan kernel's plain version at that shape.
+queries, against the scan kernel's plain version at that shape; kernels
+7 and 8, on the cells' own forests and first chunks (phases 3-5).
 
 Every variant is served with the launch counts set to 0 just before it
 and read just after it: the kernels it must run have launched once per
-chunk and pass, and every other kernel of the path not at all.
+chunk and pass, and every other kernel of the path not at all.  Every
+query path runs kernel 7 once per chunk, the packed ones kernel 8 too.
 
 Then one JSON line describing each kernel and, last, the result line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script then
@@ -410,7 +416,119 @@ def check_kernels(device, g=4096, nt=4096, dim=128, reps=5):
     }
     out.update(check_gather(device, reps))
     out.update(check_scan(device, reps))
+    out.update(check_descent(device, reps))
     return out
+
+
+# (cell, n, min_leaf, trees, queries a launch, budget, probes): the
+# descents the main path runs (phases 3-5), then one past shared memory's
+# cap (kernel 7's global-scratch route, which no served cell takes)
+DESCENTS = (("clustered_chunk", 1_000_000, 128, 8, 65_536, 1, 8),
+            ("iid_chunk", 100_000, 64, 8, 32_768, 2, 10),
+            ("bracket_chunk", 100_000, 4096, 32, 32, 2, 32),
+            ("unpacked_b32", 1_000_000, 128, 8, 1_024, 32, None),
+            ("global_route", 1_000_000, 64, 2, 64, 8_500, None))
+
+
+def descent_inputs(n, min_leaf, trees, b, device, seed):
+    """A plan at a cell's shape (its depth from ``rp_tree_cfg``), a node
+    table of thresholds and margins, and ``[T, L, B]`` projections, all
+    multiples of 1/64 so that projections hit thresholds and margins
+    exactly (the forks' tie rules); one query in 16 is all zeros."""
+    import torch
+
+    import rptree_tpu_torch as rp
+    from rptree_tpu_torch.ops import traverse as tv
+
+    plan = rp.make_plan(n, rp.rp_tree_cfg(min_leaf, n, 128).max_depth,
+                        min_leaf)
+    nl, smax = plan.n_levels, max(lp.n_segs for lp in plan.levels)
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def dyadic(*shape):
+        return torch.round(64 * torch.randn(*shape, generator=gen,
+                                            device=device)) / 64
+
+    thr = dyadic(trees, nl, smax)
+    mgl = thr - dyadic(trees, nl, smax).abs()
+    mgh = thr + dyadic(trees, nl, smax).abs()
+    projq = dyadic(trees, nl, b)
+    projq[..., ::16] = 0.0
+    return plan, tv.node_table(plan, thr, mgl, mgh), projq
+
+
+def check_descent(device, reps):
+    """Kernels 7 and 8 against their plain versions at the descents of
+    ``DESCENTS`` (each on its kernel-7 route): leaves and priorities
+    bit-equal, probes equal with the
+    bucket stop off (as served) and on; both times, device times, bounds,
+    and for kernel 8 the one PyTorch call that orders the same entries
+    (a stable ``torch.sort`` over ``[B, T * F]``).  The first shape is the
+    record's; every shape's numbers are under ``by_shape``."""
+    import torch
+
+    from rptree_tpu_torch.ops import traverse as tv
+
+    rec7, rec8 = {"by_shape": {}}, {"by_shape": {}}
+    for i, (name, n, min_leaf, trees, b, budget, probes) in enumerate(
+            DESCENTS):
+        plan, table, projq = descent_inputs(n, min_leaf, trees, b, device,
+                                            seed=11 + i)
+        args = (plan, table, projq, budget)
+        leaf, pri = tv.traverse_kernel(*args)
+        want_l, want_p = tv.traverse_tree_reference(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(leaf, want_l) and torch.equal(
+                pri.view(torch.int32), want_p.view(torch.int32))):
+            raise AssertionError(f"traverse_kernel {name}: differs from the "
+                                 "plain version")
+        t, nlev, f = trees, plan.n_levels, budget
+        s7 = {"max_abs_err": 0.0, "route": tv.traverse_route(f)[0],
+              "ms": cuda_ms(lambda: tv.traverse_kernel(*args), reps),
+              "device_ms": graph_ms(lambda: tv.traverse_kernel(*args)),
+              "plain_ms": cuda_ms(lambda: tv.traverse_tree_reference(*args),
+                                  reps),
+              "library_ms": None,
+              # projections and node table read once, leaves and
+              # priorities written once; ~8 f32 operations a slot and level
+              **bound(projq.numel() * 4 + table.rec.numel() * 4
+                      + t * b * f * 8, 8 * t * b * f * nlev, "f32"),
+              "shape": {"T": t, "L": nlev, "B": b, "F": f,
+                        "nodes": table.rec.shape[1]}}
+        rec7["by_shape"][name] = s7
+        if probes is None:
+            continue
+        lens = torch.as_tensor(np.tile(plan.leaf_len, t), device=device)
+        for stop in (False, True):
+            pargs = (leaf, pri, plan.n_leaves, probes, lens, K, stop)
+            got, want = tv.select_probes(*pargs), \
+                tv.select_probes_reference(*pargs)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, c) for a, c in zip(got, want)):
+                raise AssertionError(f"select_probes {name} bucket_stop="
+                                     f"{stop}: differs from the plain version")
+        pargs = (leaf, pri, plan.n_leaves, probes, lens, K, False)
+        keys = pri.transpose(0, 1).reshape(b, t * f)
+        p = min(probes, t * f)
+        rec8["by_shape"][name] = {
+            "max_abs_err": 0.0,
+            "ms": cuda_ms(lambda: tv.select_probes(*pargs), reps),
+            "device_ms": graph_ms(lambda: tv.select_probes(*pargs)),
+            "plain_ms": cuda_ms(lambda: tv.select_probes_reference(*pargs),
+                                reps),
+            "library_ms": cuda_ms(lambda: torch.sort(keys, dim=1,
+                                                     stable=True), reps),
+            "library_call": "torch.sort(stable=True) over [B, T * F]",
+            # leaves and priorities read once, the probes written once;
+            # at least one comparison per entry and other tree
+            **bound(t * b * f * 8 + b * p * 8, b * t * f * t, "f32"),
+            "shape": {"T": t, "B": b, "F": f, "P": p}}
+        del leaf, pri, want_l, want_p, table, projq
+    torch.cuda.empty_cache()
+    for rec in (rec7, rec8):
+        first = next(iter(rec["by_shape"].values()))
+        rec.update({key: v for key, v in first.items() if key != "shape"})
+    return {"traverse": rec7, "select_probes": rec8}
 
 
 def gather_inputs(g, lmax, d, b, p, bf16, device, seed):
@@ -599,7 +717,7 @@ def chunk_tiles(f, qc, budget, probes, tile_m):
     lens = f._lens_global()
     gsel, lsel = fm._select_probes(f.plan, f.arrays, qc, budget, probes,
                                    k=K, block_len=lens,
-                                   children=f._children())
+                                   table=f._table())
     (cap,) = f._grouped_nt.values()
     tb, lens_t, qt, _, _ = og._tile_operands(gsel, lsel, lens, qc, tile_m,
                                              cap)
@@ -637,6 +755,33 @@ def check_int8_chunk(f, qc, serve, reps=5):
                          "int8")}
 
 
+def check_descent_chunk(f, qc, budget, probes=None):
+    """Kernels 7 and 8 against their plain versions on a cell's own forest
+    and queries ``qc``: leaves, priorities (as int32 bits) and probes
+    equal.  Their launches here are not counted."""
+    import torch
+
+    from rptree_tpu_torch.ops import traverse as tv
+
+    args = (f.plan, f._table(),
+            tv.project_queries(qc, f.arrays.r, f.plan.n_levels), budget)
+    leaf, pri = tv.traverse_kernel(*args)
+    want_l, want_p = tv.traverse_tree_reference(*args)
+    same = torch.equal(leaf, want_l) and torch.equal(
+        pri.view(torch.int32), want_p.view(torch.int32))
+    if probes is not None:
+        pargs = (leaf, pri, f.plan.n_leaves, probes, f._lens_global(), K,
+                 False)
+        same = same and all(torch.equal(a, c) for a, c in zip(
+            tv.select_probes(*pargs), tv.select_probes_reference(*pargs)))
+    torch.cuda.synchronize()
+    if not same:
+        raise AssertionError(f"kernels 7/8 on {qc.shape[0]} queries at "
+                             f"budget {budget}: differ from the plain versions")
+    return {"queries": qc.shape[0], "budget": budget, "probes": probes,
+            "bit_equal": True, "live_slots": int((leaf >= 0).sum())}
+
+
 def kernel_counts():
     """The launch count of each kernel of the path: ``{name: (wrapper,
     attribute)}``."""
@@ -644,8 +789,11 @@ def kernel_counts():
     from rptree_tpu_torch.ops import grouped_kernel as gk
     from rptree_tpu_torch.ops import scan as sc
     from rptree_tpu_torch.ops import topk_kernel as tk
+    from rptree_tpu_torch.ops import traverse as tv
 
     return {
+        "traverse": (tv.traverse_kernel, "launches"),
+        "select_probes": (tv.select_probes, "launches"),
         "grouped_score_tiles": (gk.grouped_score_tiles, "launches"),
         "grouped_score_tiles_bf16": (gk.grouped_score_tiles, "launches_bf16"),
         "grouped_score_tiles_int8": (gk.grouped_score_tiles_int8, "launches"),
@@ -906,12 +1054,23 @@ def main():
     del x, q
     log("clustered_1m", **cell)
     n_truth = truth.shape[0]
+    walk, probe = "traverse", "select_probes"  # kernels 7 and 8
     unpacked, s, n = counted_calls(
-        "clustered_unpacked", lambda: f.knn(qd[:n_truth], K, budget=1), set(),
-        0, n_calls=1)
+        "clustered_unpacked", lambda: f.knn(qd[:n_truth], K, budget=1), {walk},
+        1, n_calls=1)
     check_result("clustered_unpacked", unpacked, n_truth)
+    add_launches(launches, "clustered_unpacked", n)
     log("clustered_1m_unpacked", queries=n_truth, budget=1, serve_s=s,
         recall_at_10=recall(unpacked[1], truth))
+    # unpacked knn at its default budget (32: kernel 7's shared-memory route)
+    wide, s, n = counted_calls(
+        "clustered_unpacked_b32", lambda: f.knn(qd[:n_truth], K), {walk}, 1,
+        n_calls=1)
+    check_result("clustered_unpacked_b32", wide, n_truth)
+    add_launches(launches, "clustered_unpacked_b32", n)
+    log("clustered_1m_unpacked_b32", queries=n_truth, budget=f._budget(None),
+        serve_s=s, recall_at_10=recall(wide[1], truth),
+        kernel7_chunk=check_descent_chunk(f, qd[:n_truth], f._budget(None)))
     serve = dict(budget=1, probes=8, tile_m=8, chunk=65536)
     bf16 = dict(dtype=torch.bfloat16)
     tiles, tiles_bf16, topk, topk_tiles = (
@@ -920,19 +1079,22 @@ def main():
     out = {}
     serve_grouped((  # (name, pack, serve, the kernels it runs, recall floor)
         ("a_f32_kernel_tail", {}, {**serve, "selection": "kernel"},
-         {tiles, topk}, CLUSTERED_MIN_RECALL),
+         {walk, probe, tiles, topk}, CLUSTERED_MIN_RECALL),
         ("b_f32_sort_tail", {}, {**serve, "selection": "sort",
                                  "impl": "kernel"},
-         {tiles}, CLUSTERED_MIN_RECALL),
+         {walk, probe, tiles}, CLUSTERED_MIN_RECALL),
         ("c_f32_kernel_topk", {}, {**serve, "selection": "sort",
                                    "impl": "kernel_topk"},
-         {topk_tiles}, CLUSTERED_MIN_RECALL),
+         {walk, probe, topk_tiles}, CLUSTERED_MIN_RECALL),
     ), f, qd, truth, launches, out)
+    # kernels 7 and 8 on the served chunk's own forest and queries
+    log("clustered_1m_descent", **check_descent_chunk(
+        f, qd[:serve["chunk"]], serve["budget"], serve["probes"]))
     # (f) the per-pair path on the same f32 blocks, bench.py's setting
     rec, out["f"] = per_pair_phase(
         "f_f32_per_pair", f, qd, truth,
         dict(budget=1, probes=8, precision="default", chunk=2048),
-        {"gather_score"}, 4, launches)
+        {walk, probe, "gather_score"}, 4, launches)
     rec["same_as_b_untied_ids"] = close_results("f_f32_per_pair", out["f"],
                                                 out["b"])
     rec["unpacked_same_untied_ids"] = close_results(
@@ -945,15 +1107,15 @@ def main():
     serve_grouped((
         ("d_bf16_sort_tail", bf16, {**serve, "selection": "sort",
                                     "impl": "kernel"},
-         {tiles_bf16}, BF16_MIN_RECALL),
+         {walk, probe, tiles_bf16}, BF16_MIN_RECALL),
         ("e_bf16_kernel_topk", bf16, {**serve, "selection": "sort",
                                       "impl": "kernel_topk"},
-         {topk_tiles}, BF16_MIN_RECALL),
+         {walk, probe, topk_tiles}, BF16_MIN_RECALL),
     ), f, qd, truth, launches, out)
     scan_phase("clustered_1m_scan", f, qd[:16384], truth, 2048,
                SCAN_MIN_RECALL["clustered"], launches,
                JAX_RECALL["clustered_scan"])
-    del f, qd, truth, out, unpacked
+    del f, qd, truth, out, unpacked, wide
     torch.cuda.empty_cache()
 
     # -- phase 4: iid 100k, int8 blocks -----------------------------------
@@ -964,11 +1126,14 @@ def main():
                      selection="kernel")
     rec, _ = serve_variant("iid", f, qd, truth, dict(dtype=torch.int8, slack=8),
                            iid_serve,
-                           {"grouped_score_tiles_int8", "topk_dedup_kernel"})
+                           {walk, probe, "grouped_score_tiles_int8",
+                            "topk_dedup_kernel"})
     add_launches(launches, "iid_100k_int8", rec["launches"])
     # kernel 2 on the first chunk's own tiles (launches here are not counted)
     rec["kernel2_chunk"] = check_int8_chunk(f, qd[:iid_serve["chunk"]],
                                             iid_serve)
+    rec["kernels7_8_chunk"] = check_descent_chunk(
+        f, qd[:iid_serve["chunk"]], iid_serve["budget"], iid_serve["probes"])
     log("iid_100k_int8", **cell, **rec, jax_recall=JAX_RECALL["iid"])
     if rec["recall_at_10"] < IID_MIN_RECALL:
         raise AssertionError(f"iid recall {rec['recall_at_10']} < "
@@ -989,10 +1154,11 @@ def main():
     rec, _ = per_pair_phase(
         "bracket_tree", fq, qd[:8192], truth,
         dict(budget=2, probes=32, precision="default", chunk=chunk_q),
-        {"gather_score_bf16"}, 2, launches)
+        {walk, probe, "gather_score_bf16"}, 2, launches)
     log("iid_100k_bracket_tree", trees=32, min_leaf=4096,
         depth=cfg.max_depth, leaves=fq.plan.n_leaves, build_s=build_q_s,
-        pack_s=pack_q_s, **rec, jax_recall=JAX_RECALL["bracket_tree"])
+        pack_s=pack_q_s, **rec, jax_recall=JAX_RECALL["bracket_tree"],
+        kernels7_8_chunk=check_descent_chunk(fq, qd[:8192], 2, 32))
     if rec["recall_at_10"] < BRACKET_MIN_RECALL:
         raise AssertionError(f"bracket recall {rec['recall_at_10']}")
     scan_phase("iid_100k_bracket_scan", fq, qd[:16384], truth, 2048,
@@ -1019,7 +1185,11 @@ def main():
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
 
-    sources = {  # name: (source, TPU kernel, phase-2 record)
+    sources = {  # name: (source, TPU kernel or XLA stage, phase-2 record)
+        "traverse": ("rptree_tpu_torch/csrc/traverse.cu",
+                     "rptree_tpu/ops/traverse.py:154", "traverse"),
+        "select_probes": ("rptree_tpu_torch/csrc/traverse.cu",
+                          "rptree_tpu/models/forest.py:449", "select_probes"),
         "grouped_score_tiles": ("rptree_tpu_torch/csrc/grouped_score.cu",
                                 "rptree_tpu/ops/grouped_kernel.py:63",
                                 "grouped_score_tiles"),
@@ -1049,7 +1219,7 @@ def main():
     # time and the call's name stand beside it; the tile kernels' device
     # time (graph_ms) beside their wrapper's
     extra = ("ms_no_dedup", "library_call", "gemm_ms", "cast_ms",
-             "device_ms")
+             "device_ms", "by_shape")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **{key: kern[r][key] for key in keys},

@@ -5,7 +5,10 @@ queries, the phase-3 cell) under the grouped path's three selection tails,
 on f32 and bf16 blocks, with the device time by kernel of one whole call of
 each; then the stages of one per-pair chunk (2,048 queries, variant f) and
 the time of one bf16 scan chunk (2,048 queries over the 1M rows), with its
-bf16 row copy timed apart.  Where an earlier commit's sources sit in
+bf16 row copy timed apart.  The traversal + probe stage of the iid,
+clustered and per-pair chunks (kernels 7 and 8) is also timed against its
+plain form in turns, with its spread over calls (``descent_turns``).
+Where an earlier commit's sources sit in
 ``_checkout/base`` (git-ignored), it times that build against this tree's
 in turns (old, new, new, old): kernels 1 to 4 (``git show
 21888d1:rptree_tpu_torch/csrc/<name>`` for each of ``GROUPED_BASE``) at
@@ -108,7 +111,7 @@ def compile_s(srcs):
 
 
 # this tree's sources that the earlier commit in _checkout/base lacks
-NEW_SOURCES = ("grouped_score_i8.cu",)
+NEW_SOURCES = ("grouped_score_i8.cu", "traverse.cu")
 
 
 def build_turns(src):
@@ -491,6 +494,57 @@ def compare_base(src):
         torch.cuda.empty_cache()
 
 
+def descent_turns(label, f, fm, qc, budget, probes, sync, on_card, calls=4):
+    """The traversal + probe stage of the chunk ``qc`` as the path runs it
+    (``_select_probes``: the projections, kernels 7 and 8) against its
+    plain form (the same projections, then the plain twins), in turns
+    plain, kernels, kernels, plain, ... ``calls`` times each, each turn
+    the median of 7 synchronised runs on the host clock; the results
+    must be equal.  Prints every turn's time (the spread over calls), the
+    kernels alone, and on the card the stage's device time (``graph_ms``)."""
+    from rptree_tpu_torch.ops import traverse as tv
+
+    lens, table = f._lens_global(), f._table()
+    nl = f.plan.n_levels
+
+    def kernels():
+        return fm._select_probes(f.plan, f.arrays, qc, budget, probes, k=K,
+                                 block_len=lens, table=table)
+
+    def plain():
+        pq = tv.project_queries(qc, f.arrays.r, nl)
+        leaf, pri = tv.traverse_tree_reference(f.plan, table, pq, budget)
+        return tv.select_probes_reference(leaf, pri, f.plan.n_leaves, probes,
+                                          lens, K)
+
+    if not all(torch.equal(a, b) for a, b in zip(kernels(), plain())):
+        raise AssertionError(f"{label}: kernels 7 and 8 differ from the "
+                             "plain form")
+    ks, ps = [], []
+    for i in range(calls):
+        for fn in ((plain, kernels) if i % 2 == 0 else (kernels, plain)):
+            (ps if fn is plain else ks).append(timed(fn, sync)[1])
+    pq, proj_ms = timed(lambda: tv.project_queries(qc, f.arrays.r, nl), sync)
+    (leaf, pri), k7_ms = timed(lambda: tv.traverse_kernel(f.plan, table, pq,
+                                                          budget), sync)
+    _, k8_ms = timed(lambda: tv.select_probes(leaf, pri, f.plan.n_leaves,
+                                              probes, lens, K), sync)
+    rec = {"descent_turns": label, "queries": qc.shape[0], "budget": budget,
+           "probes": probes, "trees": f.n_trees, "levels": nl,
+           "kernels_ms": float(np.median(ks)), "plain_ms": float(np.median(ps)),
+           "speedup": float(np.median(ps) / np.median(ks)),
+           "kernels_turns_ms": ks, "plain_turns_ms": ps,
+           "projections_ms": proj_ms, "kernel7_ms": k7_ms, "kernel8_ms": k8_ms}
+    if on_card:
+        rec["kernels_device_ms"] = cs.graph_ms(kernels)
+        rec["kernel7_device_ms"] = cs.graph_ms(
+            lambda: tv.traverse_kernel(f.plan, table, pq, budget))
+        rec["kernel8_device_ms"] = cs.graph_ms(
+            lambda: tv.select_probes(leaf, pri, f.plan.n_leaves, probes, lens,
+                                     K))
+    print(json.dumps(rec), flush=True)
+
+
 def stages(f, fm, og, gk, tk, rr, qc, cap, sync, budget, probes, base=None):
     """Stage times of one chunk ``qc`` at tile capacity ``cap``, probed
     with ``budget`` and ``probes``.  The scoring stage is named by the
@@ -504,7 +558,7 @@ def stages(f, fm, og, gk, tk, rr, qc, cap, sync, budget, probes, base=None):
     st = {}
     (gsel, lsel), st["traversal_probes"] = timed(lambda: fm._select_probes(
         f.plan, f.arrays, qc, budget, probes, k=K, block_len=lens,
-        children=f._children()), sync)
+        table=f._table()), sync)
     b, p = gsel.shape
     (tb, tp, needed, inv), st["tile_tables"] = timed(
         lambda: og._tile_tables(gsel, lsel, TILE_M, cap, with_slots=True),
@@ -592,6 +646,8 @@ def iid_cell(rp, fm, og, gk, tk, rr, dev, sync, on_card, base):
     print(json.dumps({"stages_ms": "iid_int8", "chunk": chunk,
                       "needed": needed, "cap": cap,
                       "lmax": int(f._packed[0].shape[1]), **st}), flush=True)
+    descent_turns("iid_int8", f, fm, qd[:chunk], IID_BUDGET, IID_PROBES, sync,
+                  on_card)
     if base is not None:
         x_leaf, sq_leaf, _ = f._packed
         int8_turns(base, "iid_chunk", x_leaf, sq_leaf, f._block_scale,
@@ -612,7 +668,7 @@ def pair_stages(f, fm, fg, rr, qc, sync):
     st = {}
     (gsel, lsel), st["traversal_probes"] = timed(lambda: fm._select_probes(
         f.plan, f.arrays, qc, BUDGET, PROBES, k=K, block_len=lens,
-        children=f._children()), sync)
+        table=f._table()), sync)
     b = gsel.shape[0]
     (dots, sqx), st["kernel6_gather_score"] = timed(
         lambda: fg.gather_score(x_leaf, sq_leaf, qc, gsel.contiguous()), sync)
@@ -707,6 +763,11 @@ def main():
                                  sync, BUDGET, PROBES)
         print(json.dumps({"stages_ms": name, "chunk": chunk, "needed": needed,
                           "cap": cap, **st}), flush=True)
+        if dtype is None:
+            descent_turns("clustered", f, fm, qd[:chunk], BUDGET, PROBES, sync,
+                          on_card)
+            descent_turns("per_pair", f, fm, qd[:min(2048, chunk)], BUDGET,
+                          PROBES, sync, on_card)
         if on_card and grouped_lib is not None:  # the chunk's own operands
             x_leaf, sq_leaf, id_leaf = f._packed
             grouped_turns(grouped_lib, "clustered_chunk", x_leaf, sq_leaf,

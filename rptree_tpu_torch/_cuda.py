@@ -55,6 +55,11 @@ _SIGNATURES = {
     "rpt_scan_plan": [_L, _I, _I, _I, ctypes.POINTER(_I)],
     # xb, sq, qb, pd, pi, od, oi, np, dp, b, k, dot, splits, tps, stream
     "rpt_scan_topk": [_P] * 7 + [_L] + [_I] * 6 + [_P],
+    # projq, rec, off, leaf, pri, scratch, root, t, b, l, n, f, m, route,
+    # grid, stream
+    "rpt_traverse": [_P] * 6 + [_I] * 4 + [_L] + [_I] * 4 + [_P],
+    # leaf, pri, lens, gsel, lsel, t, b, f, p, nl, k, bucket_stop, stream
+    "rpt_select_probes": [_P] * 5 + [_I] * 5 + [_L, _I, _P],
 }
 
 _lib = None

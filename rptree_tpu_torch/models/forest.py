@@ -24,6 +24,11 @@ card unless the caller names the CPU).  The query paths are:
    :mod:`..ops.scan`); :meth:`RPForest.recall_with` holds the trees'
    candidates against it.
 
+Every query path starts with the descent of all trees (kernel 7 on the
+card, over the forest's node table, :meth:`RPForest._table`) and, on
+packed blocks, the probe selection (kernel 8), both in
+:mod:`..ops.traverse`.
+
 Not ported yet (ROADMAP.md): the XLA-form grouped scorer (``impl="xla"``),
 centered / sub-block / shared / ELL layouts and sparse query batches,
 online updates, streaming and the sharded forests.  The ``approx``
@@ -49,7 +54,8 @@ from ..ops.rerank import (dedup_ids, distances_from_dots, gather_leaf_points,
 from ..ops.scan import MAX_K as SCAN_MAX_K
 from ..ops.scan import SCAN_METRICS, scan_rows, scan_topk, stream_topk
 from ..ops.topk_kernel import topk_dedup_kernel, topk_kernel_ok
-from ..ops.traverse import child_tables, traverse_tree
+from ..ops.traverse import (node_table, project_queries, select_probes,
+                             traverse_kernel)
 from ..utils import gen as rgen
 from .plan import TreePlan, make_plan
 
@@ -175,55 +181,34 @@ def _as_dense_queries(q, dim: int, device) -> torch.Tensor:
 
 
 def _traverse_forest(plan: TreePlan, arrays: TreeArrays, q: torch.Tensor,
-                     budget: int, children=None):
-    """All-tree traversal: ``(leaf_ids int32[T, B, F], prio f32[T, B, F])``."""
-    nl = plan.n_levels
-    projq = torch.einsum("bd,tld->tbl", q, arrays.r[:, :nl, :])
-    return traverse_tree(plan, arrays.thr, arrays.mgl, arrays.mgh, projq,
-                         budget, children=children)
+                     budget: int, table=None):
+    """All-tree traversal (kernel 7 on the card): ``(leaf_ids int32[T, B,
+    F], prio f32[T, B, F])``.  ``table``: the forest's node table, built
+    here when not given."""
+    if table is None:
+        table = node_table(plan, arrays.thr, arrays.mgl, arrays.mgh)
+    projq = project_queries(q, arrays.r, plan.n_levels)
+    return traverse_kernel(plan, table, projq, budget)
 
 
 @torch.no_grad()
 def _select_probes(plan, arrays, q, budget, probes, k=None,
-                   bucket_stop=False, block_len=None, children=None):
-    """Traverse and keep each query's ``probes`` lowest-priority leaves.
+                   bucket_stop=False, block_len=None, table=None):
+    """Traverse and keep each query's ``probes`` lowest-priority leaves
+    (kernels 7 and 8 on the card).
 
     Returns ``(gsel int32[B, P], lsel int32[B, P])``: global block index
     (tree * n_leaves + leaf; masked entries point at block 0) and leaf id
     (-1 where masked).  With ``bucket_stop`` the reference knnH rule masks
-    buckets beyond the first ``k`` collected points."""
-    leaf_ids, prio = _traverse_forest(plan, arrays, q, budget, children)
-    t, b, f = leaf_ids.shape
-    nl = plan.n_leaves
-    dev = leaf_ids.device
-    gid = leaf_ids + torch.arange(t, dtype=torch.int32,
-                                  device=dev)[:, None, None] * nl
-    gid_bt = gid.transpose(0, 1).reshape(b, t * f)
-    prio_bt = prio.transpose(0, 1).reshape(b, t * f)
-    live = (leaf_ids >= 0).transpose(0, 1).reshape(b, t * f)
-    prio_bt = torch.where(live, prio_bt, float("inf"))
-    probes = min(int(probes), t * f)
-    prio_s, order = torch.sort(prio_bt, dim=1, stable=True)
-    prio_s = prio_s[:, :probes]
-    gid_s = gid_bt.gather(1, order[:, :probes])
-    lsel = torch.where(torch.isinf(prio_s), -1,
-                       gid_s % nl if t > 1 else gid_s)
-    gsel = gid_s
-    if bucket_stop:
-        # knn_h semantics (RPTree.hs:208-217): consume buckets in
-        # ascending priority while the cumulative size stays <= k, always
-        # keeping the first
-        if block_len is not None:
-            sz = block_len[gsel.clamp(0, block_len.shape[0] - 1).long()]
-        else:
-            leaf_len = torch.as_tensor(plan.leaf_len, device=dev)
-            sz = leaf_len[lsel.clamp(min=0).long()]
-        sizes = torch.where(lsel >= 0, sz.to(torch.int64), 0)
-        csum = torch.cumsum(sizes, dim=-1)
-        first = torch.arange(probes, device=dev)[None, :] == 0
-        lsel = torch.where((csum <= k) | first, lsel, -1)
-    gsel = torch.where(lsel >= 0, gsel, 0)
-    return gsel.to(torch.int32), lsel.to(torch.int32)
+    buckets beyond the first ``k`` collected points, counting ``block_len``
+    (each global block's occupancy) or else the plan's leaf sizes."""
+    leaf_ids, prio = _traverse_forest(plan, arrays, q, budget, table)
+    if block_len is None:
+        block_len = torch.as_tensor(
+            np.tile(np.asarray(plan.leaf_len, np.int32), leaf_ids.shape[0]),
+            device=leaf_ids.device)
+    return select_probes(leaf_ids, prio, plan.n_leaves, probes, block_len,
+                         k=k, bucket_stop=bucket_stop)
 
 
 def _selection_tail(d, id_leaf, rows_sel, k, kk, dedup, min_votes=1,
@@ -276,7 +261,7 @@ def _knn_grouped(f, q, k, budget, probes, metric, dedup, tile_m, nt,
     lens = f._lens_global()
     gsel, lsel = _select_probes(f.plan, f.arrays, q, budget, probes, k=k,
                                 bucket_stop=bucket_stop, block_len=lens,
-                                children=f._children())
+                                table=f._table())
     b, p = gsel.shape
     kk = k * f.n_trees if dedup else k
     kp = -(-max(k, 8) // 8) * 8
@@ -312,9 +297,9 @@ def _knn_grouped_many(f, q, chunk, **kw):
 
 
 @torch.no_grad()
-def _candidate_ids(plan, arrays, q, budget, children=None):
+def _candidate_ids(plan, arrays, q, budget, table=None):
     """Per-tree candidate point ids: ``int32[T, B, F * lmax]``, -1 padded."""
-    leaf_ids, _ = _traverse_forest(plan, arrays, q, budget, children)
+    leaf_ids, _ = _traverse_forest(plan, arrays, q, budget, table)
     return torch.stack([gather_leaf_points(plan, arrays.perm[t], leaf_ids[t])
                         for t in range(leaf_ids.shape[0])])
 
@@ -324,7 +309,7 @@ def _knn(f, q, k, budget, metric, dedup, min_votes=1):
     """Unpacked forest kNN: the union of the trees' candidates, reranked
     exactly (reference ``knn``; with ``dedup`` it is ``knnPQ``).  With
     ``min_votes > 1`` only ids found by that many trees stay."""
-    cand = _candidate_ids(f.plan, f.arrays, q, budget, f._children())
+    cand = _candidate_ids(f.plan, f.arrays, q, budget, f._table())
     t, b, c1 = cand.shape
     union = cand.transpose(0, 1).reshape(b, t * c1)
     if min_votes > 1:
@@ -387,7 +372,7 @@ def _knn_packed(f, q, k, budget, probes, metric, dedup, min_votes=1,
     pair at a time (:func:`_score_blocks`)."""
     gsel, lsel = _select_probes(f.plan, f.arrays, q, budget, probes, k=k,
                                 block_len=f._lens_global(),
-                                children=f._children())
+                                table=f._table())
     kk = k * f.n_trees if dedup else k
     return _score_blocks(f, gsel, lsel, q, k, kk, metric, dedup, min_votes,
                          selection)
@@ -472,7 +457,7 @@ class RPForest:
         self._block_scale = None   # f32[G] for int8 blocks
         self._pack_cfg = None      # (dtype_str, slack) of the packed layout
         self._lens_dev = None      # int32[G] block occupancy
-        self._child_dev = None     # per-level child tables
+        self._nodes = None         # node table (kernel 7's records)
         self._grouped_nt = {}      # learned tile capacities by shape key
         self._grouped_last = None  # (needed, capacity) of the last call
 
@@ -504,10 +489,14 @@ class RPForest:
             raise ValueError(f"k must be >= 1, got {k}")
         return k
 
-    def _children(self):
-        if self._child_dev is None:
-            self._child_dev = child_tables(self.plan, self.device)
-        return self._child_dev
+    def _table(self):
+        """The forest's node table, built on first use.  Nothing in the
+        port changes ``arrays`` after the build; online updates
+        (ROADMAP.md queue 1 item 12) must rebuild it."""
+        if self._nodes is None:
+            a = self.arrays
+            self._nodes = node_table(self.plan, a.thr, a.mgl, a.mgh)
+        return self._nodes
 
     def _lens_global(self) -> torch.Tensor:
         """Per-block occupancy ``int32[G]`` in global block order: the
@@ -657,7 +646,7 @@ class RPForest:
         ``int32[T, B, C]`` (-1 padded), or ``[B, C]`` for one ``tree``."""
         qb = _as_dense_queries(q, self.dim, self.device)
         cand = _candidate_ids(self.plan, self.arrays, qb,
-                              self._budget(budget), self._children())
+                              self._budget(budget), self._table())
         return cand if tree is None else cand[tree]
 
     @torch.no_grad()
@@ -670,7 +659,7 @@ class RPForest:
         k = self._check_k(k)
         _, exact = _brute_force(self.x, self.sq_norms, qb, k, metric)
         cand = _candidate_ids(self.plan, self.arrays, qb,
-                              self._budget(budget), self._children())
+                              self._budget(budget), self._table())
         return _recall(exact, cand, k)
 
     # -- grouped serving ---------------------------------------------------

@@ -17,6 +17,7 @@ compare ``-0.0`` and ``+0.0`` as equal.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -25,7 +26,7 @@ import torch
 from ..models.plan import TreePlan
 
 __all__ = ["TreeArrays", "build_tree_arrays", "build_forest_arrays",
-           "project_dataset"]
+           "project_dataset", "ieee_fp32"]
 
 
 class TreeArrays(NamedTuple):
@@ -39,11 +40,43 @@ class TreeArrays(NamedTuple):
     perm: torch.Tensor  # int32[n] point ids sorted by leaf
 
 
+@contextlib.contextmanager
+def ieee_fp32():
+    """Run the float32 matrix products inside in IEEE fp32, never TF32,
+    whatever the caller's switch, and restore the switch after.  The JAX
+    package pins ``Precision.HIGHEST`` on the build and query projections;
+    the leaves depend on their bits.  A caller may have set either of
+    PyTorch's two switches (``torch.backends.cuda.matmul.allow_tf32`` and
+    ``torch.set_float32_matmul_precision``, or the per-backend
+    ``torch.backends.cuda.matmul.fp32_precision``), and PyTorch refuses
+    to read the first kind once the second is set apart from it, so each
+    is saved and restored in its own terms."""
+    try:
+        prev = torch.get_float32_matmul_precision()
+    except RuntimeError:  # the per-backend switch is set apart
+        prev = None
+    if prev is None:
+        m = torch.backends.cuda.matmul
+        old = m.fp32_precision
+        m.fp32_precision = "ieee"
+        try:
+            yield
+        finally:
+            m.fp32_precision = old
+    else:
+        torch.set_float32_matmul_precision("highest")
+        try:
+            yield
+        finally:
+            torch.set_float32_matmul_precision(prev)
+
+
 def project_dataset(x: torch.Tensor, r_l: torch.Tensor) -> torch.Tensor:
-    """``x [n, D] @ r_l [L, D].T`` in float32.  The JAX package runs this
+    """``x [n, D] @ r_l [L, D].T`` in IEEE fp32.  The JAX package runs this
     product outside any kernel at HIGHEST precision; the port leaves it to
-    ``torch.matmul``, which is full fp32 while TF32 is off."""
-    return torch.matmul(x, r_l.T)
+    ``torch.matmul`` under :func:`ieee_fp32`."""
+    with ieee_fp32():
+        return torch.matmul(x, r_l.T)
 
 
 def _stacked_plan_constants(plan: TreePlan, device):

@@ -488,3 +488,200 @@ def test_wrappers_raise_on_what_they_do_not_serve(dev):
         sc.scan_topk(xs[:, ::2], sqs, q[:, :4], 3)
     with pytest.raises(ValueError):  # a copy of other rows
         sc.scan_topk(xs, sqs, q, 3, rows=sc.scan_rows(xs[:100], sqs[:100]))
+
+
+# -- kernels 7 and 8: the descent and the probe selection -----------------
+
+def _dyadic(rng, shape):
+    """Multiples of 1/16 in [-2, 2]: with D <= 16 every projection is
+    exact in f32 in any order, and data points and thresholds tie."""
+    return (rng.integers(-32, 33, size=shape) / 16.0).astype(np.float32)
+
+
+def _descent_forest(dev, n, dim, depth, min_leaf, trees, seed, b=333):
+    """A forest built by the port on the card from dyadic data, its node
+    table, and the projections of ``b`` queries (not a multiple of any
+    block size): dyadic points, a few zero queries, a few data points."""
+    from rptree_tpu_torch import forest_batch
+    from rptree_tpu_torch.ops import traverse as tv
+
+    rng = np.random.default_rng(seed)
+    x = _dyadic(rng, (n, dim))
+    f = forest_batch(seed, depth, min_leaf, trees, 1.0, x, device=dev,
+                     r=_dyadic(rng, (trees, depth, dim)))
+    q = _dyadic(rng, (b, dim))
+    q[:7] = 0.0
+    q[7:40] = x[rng.integers(0, n, size=q[7:40].shape[0])]
+    qd = torch.as_tensor(q, device=dev)
+    return f, tv.project_queries(qd, f.arrays.r, f.plan.n_levels), qd
+
+
+def _same_descent(plan, table, projq, budget):
+    from rptree_tpu_torch.ops import traverse as tv
+
+    leaf, pri = tv.traverse_kernel(plan, table, projq, budget)
+    want_l, want_p = tv.traverse_tree_reference(plan, table, projq, budget)
+    torch.cuda.synchronize()
+    assert torch.equal(leaf, want_l)
+    assert torch.equal(pri.view(torch.int32), want_p.view(torch.int32))
+    return leaf, pri
+
+
+_DESCENT_PLANS = {  # (n, dim, depth, min_leaf, trees)
+    "one_tree": (3000, 12, 12, 2, 1),
+    "ragged": (777, 5, 9, 3, 3),
+}
+
+
+@pytest.mark.parametrize("budget", [1, 2, 3, 8, 9, 32, 64, "all"])
+@pytest.mark.parametrize("plan_name", list(_DESCENT_PLANS))
+def test_traverse_and_probes(dev, plan_name, budget):
+    """Kernel 7 bit-equal to its plain twin (leaves, priorities as int32
+    bits) on every route, and kernel 8 on its output, with and without
+    the bucket stop, for a probe count below, at and past T * F."""
+    from rptree_tpu_torch.ops import traverse as tv
+
+    f, projq, _ = _descent_forest(dev, *_DESCENT_PLANS[plan_name], seed=7)
+    plan = f.plan
+    budget = plan.n_leaves if budget == "all" else budget
+    leaf, pri = _same_descent(plan, f._table(), projq, budget)
+    t = leaf.shape[0]
+    lens = f._lens_global()
+    for probes in (1, max(1, t * budget // 2), t * budget + 3):
+        for stop in (False, True):
+            args = (leaf, pri, plan.n_leaves, probes, lens, 24, stop)
+            g, s = tv.select_probes(*args)
+            wg, ws = tv.select_probes_reference(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(g, wg) and torch.equal(s, ws), (probes, stop)
+
+
+def test_traverse_tied_forks(dev):
+    """Projections that hit thresholds and margins exactly at every
+    level (the JAX package's fork tie-break test), one tree and three."""
+    rng = np.random.default_rng(3)
+    f, projq, _ = _descent_forest(dev, 1500, 4, 14, 2, 3, seed=11, b=130)
+    plan, table = f.plan, f._table()
+    for l, lp in enumerate(plan.levels):
+        cols = [f.arrays.thr, f.arrays.mgl, f.arrays.mgh]
+        pick = torch.as_tensor(rng.integers(0, lp.n_segs, size=projq.shape[2]),
+                               device=dev)
+        src = torch.as_tensor(rng.integers(0, 3, size=projq.shape[2]),
+                              device=dev)
+        vals = torch.stack([c[:, l, pick] for c in cols])  # [3, T, B]
+        projq[:, l] = vals.gather(0, src[None, None].expand(1, *vals.shape[1:]))[0]
+    one = table._replace(rec=table.rec[:1].contiguous())
+    for budget in (1, 2, 3, 8, 9, 32):
+        _same_descent(plan, table, projq, budget)
+        _same_descent(plan, one, projq[:1].contiguous(), budget)
+
+
+@pytest.mark.parametrize("budget", [1, 9])
+def test_traverse_without_levels(dev, budget):
+    """A single-leaf forest (no levels): leaf 0 at VALID_PRIO_CAP in slot 0,
+    empty slots after it; probe selection of it."""
+    from rptree_tpu_torch.ops import traverse as tv
+
+    f, projq, _ = _descent_forest(dev, 5, 3, 4, 8, 2, seed=1, b=70)
+    assert f.plan.n_levels == 0 and projq.shape == (2, 0, 70)
+    leaf, pri = _same_descent(f.plan, f._table(), projq, budget)
+    assert bool((leaf[..., 0] == 0).all()) and bool((leaf[..., 1:] == -1).all())
+    assert bool((pri[..., 0] == tv.VALID_PRIO_CAP).all())
+    lens = f._lens_global()
+    g, s = tv.select_probes(leaf, pri, 1, 4, lens, 3, True)
+    assert torch.equal(s, tv.select_probes_reference(leaf, pri, 1, 4, lens, 3,
+                                                     True)[1])
+    assert s[:, 0].eq(0).all() and s[:, 1:].eq(-1).all() and g.eq(0).all()
+
+
+def test_traverse_past_shared_memory(dev):
+    """A budget whose 2F entries pass shared memory's cap: the global-
+    scratch route, bit-equal to the plain twin."""
+    from rptree_tpu_torch.ops import traverse as tv
+
+    f, projq, _ = _descent_forest(dev, 20000, 6, 15, 1, 2, seed=5, b=3)
+    budget = tv.SMEM_MAX_ENTRIES // 2 + 300
+    assert f.plan.n_leaves > budget
+    assert tv.traverse_route(budget)[0] == "global"
+    assert tv.traverse_route(tv.SMEM_MAX_ENTRIES // 2)[0] == "shared"
+    leaf, pri = _same_descent(f.plan, f._table(), projq, budget)
+    g, s = tv.select_probes(leaf, pri, f.plan.n_leaves, 500,
+                            f._lens_global(), 10, True)
+    wg, ws = tv.select_probes_reference(leaf, pri, f.plan.n_leaves, 500,
+                                        f._lens_global(), 10, True)
+    assert torch.equal(g, wg) and torch.equal(s, ws)
+
+
+def test_every_path_traverses_on_the_card(dev, monkeypatch):
+    """Every query path runs kernel 7 (and the packed ones kernel 8) with
+    contiguous operands; a non-contiguous projection or a CPU operand is
+    refused by the wrappers."""
+    from rptree_tpu_torch.models import forest as fm
+    from rptree_tpu_torch.ops import traverse as tv
+
+    f, projq, q = _descent_forest(dev, 3000, 12, 12, 16, 3, seed=9, b=50)
+    seen = []
+    orig = fm.traverse_kernel
+
+    def checked(plan, table, pq, budget):
+        seen.append(pq.is_contiguous() and table.rec.is_contiguous())
+        return orig(plan, table, pq, budget)
+
+    monkeypatch.setattr(fm, "traverse_kernel", checked)
+    n7, n8 = tv.traverse_kernel.launches, tv.select_probes.launches
+    f.knn(q, 5)
+    f.candidates(q, budget=3)
+    f.recall_with(q, 5)
+    f.pack_leaves()
+    f.knn(q, 5, budget=2)
+    f.knn_batched(q, 5, budget=2, chunk=20)
+    f.knn_grouped(q, 5, budget=1, probes=3, nt=150, selection="kernel")
+    assert seen and all(seen)
+    # unpacked knn, candidates, recall_with; per pair 1 + 3 chunks; grouped
+    assert tv.traverse_kernel.launches - n7 == len(seen) == 8
+    assert tv.select_probes.launches - n8 == 5
+    table = f._table()
+    with pytest.raises(ValueError):
+        tv.traverse_kernel(f.plan, table, projq.transpose(1, 2).contiguous()
+                           .transpose(1, 2), 2)
+    with pytest.raises(ValueError):
+        tv.traverse_kernel(f.plan, table._replace(rec=table.rec.cpu()), projq, 2)
+    leaf, pri = tv.traverse_kernel(f.plan, table, projq, 2)
+    with pytest.raises(ValueError):
+        tv.select_probes(leaf, pri, f.plan.n_leaves, 3, f._lens_global().cpu())
+    with pytest.raises(TypeError):
+        tv.select_probes(leaf, pri.double(), f.plan.n_leaves, 3,
+                         f._lens_global())
+
+
+@pytest.mark.parametrize("switch", ["allow_tf32", "precision"])
+def test_projections_ignore_tf32(dev, switch):
+    """The build and query projections run in IEEE fp32 whatever the
+    caller's TF32 switch: thresholds, projections and leaves bit-equal with
+    TF32 on and off, and the caller's switch restored."""
+    from rptree_tpu_torch import forest_batch
+    from rptree_tpu_torch.models import forest as fm
+
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(4000, 96)).astype(np.float32)
+    q = torch.as_tensor(rng.normal(size=(500, 96)).astype(np.float32),
+                        device=dev)
+
+    def run():
+        f = forest_batch(3, 9, 8, 4, 1.0, x, device=dev)
+        pq = fm.project_queries(q, f.arrays.r, f.plan.n_levels)
+        leaf, pri = fm._traverse_forest(f.plan, f.arrays, q, 2, f._table())
+        return f.arrays.thr, pq, leaf, pri
+
+    off = run()
+    if switch == "allow_tf32":
+        torch.backends.cuda.matmul.allow_tf32 = True
+    else:
+        torch.set_float32_matmul_precision("high")
+    try:
+        on = run()
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    for a, b in zip(off, on):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
