@@ -26,7 +26,11 @@ its launch counts):
    version; the descent (kernel 7) and the probe selection (kernel 8) at
    the descents the main path runs (``DESCENTS``: the clustered and iid
    chunks, the bracket's, and unpacked ``knn`` at budget 32), leaves,
-   priorities and probes bit-equal;
+   priorities and probes bit-equal; the tile tables (kernel 9) bit-equal
+   to their twin, all five outputs, on the pairs of ``TABLES`` (the
+   clustered and iid chunks' shapes, a hot block that every query probes,
+   all pairs masked, a capacity below the tiles needed, tile_m 1 and 16,
+   G past 65,536);
 3. clustered 1M cell (``bench.py``'s flagship parameters): one build and
    one exact ground truth (recall@10 on 1,024 queries); unpacked ``knn``
    on those 1,024 queries at budget 1 and at its default budget 32; then
@@ -34,14 +38,22 @@ its launch counts):
    f32 blocks with the kernel tail, the sort tail, and the fused tile
    top-k (``impl="kernel_topk"``); the per-pair path (``knn_batched``,
    variant f, held against the sort tail and the unpacked result); bf16
-   blocks with the sort tail and the fused tile top-k.  The fused
-   variants' distances must be bit-equal to their full-kernel twins'.
+   blocks with the sort tail and the fused tile top-k; then three
+   variants through the XLA-form scorer on the f32 blocks: (g)
+   ``metric="cosine"`` with the kernel tail, (h) ``metric="dot"`` with
+   the sort tail, each held against the per-pair path with the same
+   metric and scored against its own exact scan (recall reported, no
+   floor: the JAX package has no record to pin it to), and (i)
+   ``impl="xla"`` on ``l2``, held against (b) and required to reach (b)'s
+   recall exactly.  The fused variants' distances must be bit-equal to
+   their full-kernel twins'.  Kernel 9 is held against its twin on the
+   first chunk's own pairs.
    Then the bf16 scan (``brute_force_knn(precision="fastest")``) of
    16,384 queries, recall@10 >= 0.88;
 4. iid 100k cell, int8 blocks with slack 8 (``bench.py``'s headline
    parameters): the same on 65,536 queries with the kernel tail; then
    the int8 tile kernel against its plain version on the tiles of the
-   cell's first chunk;
+   cell's first chunk, and kernel 9 on its pairs;
 5. iid 100k bracket (``bench.py``'s >= 0.9 recall points on the same
    data): the quality forest (32 trees, ``min_leaf`` 4,096, bf16 blocks)
    served per pair, recall@10 >= 0.90, and the bf16 scan, >= 0.98;
@@ -56,7 +68,8 @@ queries, against the scan kernel's plain version at that shape; kernels
 Every variant is served with the launch counts set to 0 just before it
 and read just after it: the kernels it must run have launched once per
 chunk and pass, and every other kernel of the path not at all.  Every
-query path runs kernel 7 once per chunk, the packed ones kernel 8 too.
+query path runs kernel 7 once per chunk, the packed ones kernel 8 too,
+the grouped ones kernel 9 too.
 
 Then one JSON line describing each kernel and, last, the result line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script then
@@ -417,6 +430,7 @@ def check_kernels(device, g=4096, nt=4096, dim=128, reps=5):
     out.update(check_gather(device, reps))
     out.update(check_scan(device, reps))
     out.update(check_descent(device, reps))
+    out.update(check_tables(device, reps))
     return out
 
 
@@ -529,6 +543,111 @@ def check_descent(device, reps):
         first = next(iter(rec["by_shape"].values()))
         rec.update({key: v for key, v in first.items() if key != "shape"})
     return {"traverse": rec7, "select_probes": rec8}
+
+
+# (name, blocks G, trees, queries, probes, tile_m, hot block, masked
+# share, capacity as a share of the tiles needed (None: as served, the
+# need plus 1/8)): kernel 9's cases; the first is the record's
+TABLES = (("clustered_chunk", 65_536, 8, 65_536, 8, 8, False, 0.0, None),
+          ("iid_chunk", 16_384, 8, 32_768, 10, 8, False, 0.0, None),
+          ("hot_block", 16_384, 8, 32_768, 10, 8, True, 0.0, None),
+          ("all_masked", 65_536, 8, 4_096, 8, 8, False, 1.0, None),
+          ("overflow", 65_536, 8, 65_536, 8, 8, False, 0.1, 0.5),
+          ("tile_m_1", 16_384, 8, 8_192, 10, 1, False, 0.1, None),
+          ("tile_m_16", 16_384, 8, 8_192, 10, 16, False, 0.1, None),
+          ("g_past_65536", 131_072, 8, 16_384, 8, 8, True, 0.1, None))
+
+
+def table_pairs(g, trees, b, p, hot, masked, device, seed):
+    """``(gsel, lsel, lens)`` as the probe selection makes them: probe j
+    of a query in tree ``j % trees`` at a random leaf of ``g / trees``; a
+    ``masked`` share of the pairs masked (block 0, leaf -1); with ``hot``
+    every query probes block 5 first; occupancies 1-128."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    nl = g // trees
+    leaf = torch.randint(0, nl, (b, p), generator=gen, device=device)
+    tree = torch.arange(p, device=device) % trees
+    gsel = (tree * nl + leaf).to(torch.int32)
+    if hot:
+        gsel[:, 0] = 5
+    off = torch.rand(b, p, generator=gen, device=device) < masked
+    lsel = torch.where(off, -1, gsel % nl).to(torch.int32)
+    gsel = torch.where(off, 0, gsel).to(torch.int32)
+    lens = torch.randint(1, 129, (g,), generator=gen, device=device,
+                         dtype=torch.int32)
+    return gsel, lsel, lens
+
+
+def tables_record(name, gsel, lsel, lens, tile_m, nt, reps):
+    """Kernel 9 against its twin on these pairs: ``tb``, ``tp``,
+    ``needed``, ``slot`` and ``lens_t`` equal (``torch.equal``), then both
+    times, the device time, the bound (the pairs read once, the tables
+    written once) and the library call that is the plain form's first
+    step, a stable ``torch.sort`` of the ``B * P`` flat keys."""
+    import torch
+
+    from rptree_tpu_torch.ops import grouped as og
+
+    args = (gsel, lsel, lens, tile_m, nt)
+    got, want = og.tile_tables(*args), og.tile_tables_reference(*args)
+    torch.cuda.synchronize()
+    for key, a, w in zip(("tb", "tp", "needed", "slot", "lens_t"), got, want):
+        if a.dtype != w.dtype or not torch.equal(a, w):
+            raise AssertionError(f"tile_tables {name}: {key} differs from "
+                                 "the plain version")
+    e, g = gsel.numel(), lens.shape[0]
+    keys = torch.where(lsel >= 0, gsel.long(), og._BIG).reshape(e)
+    return {"max_abs_err": 0.0, "bit_equal": True,
+            "ms": cuda_ms(lambda: og.tile_tables(*args), reps),
+            "device_ms": graph_ms(lambda: og.tile_tables(*args)),
+            "plain_ms": cuda_ms(lambda: og.tile_tables_reference(*args), reps),
+            "library_ms": cuda_ms(lambda: torch.sort(keys, stable=True), reps),
+            "library_call": "torch.sort(stable=True) of the B * P flat keys",
+            **bound(8 * e + 4 * g + 4 * nt * (tile_m + 2) + 4 + 8 * e, e,
+                    "int8"),
+            "shape": {"pairs": e, "G": g, "tile_m": tile_m, "nt": nt,
+                      "needed": int(want[2])}}
+
+
+def check_tables(device, reps):
+    """Kernel 9 against its twin on the pairs of ``TABLES``."""
+    import torch
+
+    from rptree_tpu_torch.ops import grouped as og
+
+    rec = {"by_shape": {}}
+    for i, (name, g, trees, b, p, tile_m, hot, masked, share) in enumerate(
+            TABLES):
+        gsel, lsel, lens = table_pairs(g, trees, b, p, hot, masked, device,
+                                       seed=21 + i)
+        need = int(og.tile_tables_reference(gsel, lsel, lens, tile_m, 1)[2])
+        nt = max(1, need + need // 8 if share is None else int(need * share))
+        rec["by_shape"][name] = tables_record(name, gsel, lsel, lens, tile_m,
+                                              nt, reps)
+        del gsel, lsel, lens
+    torch.cuda.empty_cache()
+    first = next(iter(rec["by_shape"].values()))
+    rec.update({key: v for key, v in first.items() if key != "shape"})
+    return {"tile_tables": rec}
+
+
+def check_tables_chunk(f, qc, serve, kern, name):
+    """Kernel 9 against its twin on the pairs that the grouped path makes
+    for the chunk ``qc`` at the capacity it learned, timed as
+    :func:`tables_record` does; the record joins kernel 9's ``by_shape``
+    as ``name``.  Launches here are not counted."""
+    from rptree_tpu_torch.models import forest as fm
+
+    lens = f._lens_global()
+    gsel, lsel = fm._select_probes(f.plan, f.arrays, qc, serve["budget"],
+                                   serve["probes"], k=K, block_len=lens,
+                                   table=f._table())
+    (cap,) = f._grouped_nt.values()
+    rec = tables_record(name, gsel, lsel, lens, serve["tile_m"], cap, 5)
+    kern["tile_tables"]["by_shape"][name] = rec
+    return rec
 
 
 def gather_inputs(g, lmax, d, b, p, bf16, device, seed):
@@ -786,6 +905,7 @@ def kernel_counts():
     """The launch count of each kernel of the path: ``{name: (wrapper,
     attribute)}``."""
     from rptree_tpu_torch.ops import fused_gather as fg
+    from rptree_tpu_torch.ops import grouped as og
     from rptree_tpu_torch.ops import grouped_kernel as gk
     from rptree_tpu_torch.ops import scan as sc
     from rptree_tpu_torch.ops import topk_kernel as tk
@@ -794,6 +914,7 @@ def kernel_counts():
     return {
         "traverse": (tv.traverse_kernel, "launches"),
         "select_probes": (tv.select_probes, "launches"),
+        "tile_tables": (og.tile_tables, "launches"),
         "grouped_score_tiles": (gk.grouped_score_tiles, "launches"),
         "grouped_score_tiles_bf16": (gk.grouped_score_tiles, "launches_bf16"),
         "grouped_score_tiles_int8": (gk.grouped_score_tiles_int8, "launches"),
@@ -1000,6 +1121,46 @@ def scan_phase(name, f, qd, truth, query_chunk, floor, launches, jax_recall):
         raise AssertionError(f"{name}: recall {rec['recall_at_10']} < {floor}")
 
 
+def xla_variants(f, qd, truth, serve, launches, out):
+    """(g)-(i) on the f32 blocks, through the XLA-form scorer: (g)
+    ``cosine`` with the kernel tail and (h) ``dot`` with the sort tail,
+    each held against the per-pair path (``knn_batched``) with the same
+    metric, probes and tail, its recall@10 against the exact fp32 scan
+    with that metric; (i) ``impl="xla"`` on ``l2`` with the sort tail,
+    held against (b), whose recall it must reach exactly."""
+    walk, probe, tables = "traverse", "select_probes", "tile_tables"
+    n_truth = truth.shape[0]
+    for name, metric, sel, runs in (
+            ("g_f32_cosine_kernel_tail", "cosine", "kernel",
+             {walk, probe, tables, "topk_dedup_kernel"}),
+            ("h_f32_dot_sort_tail", "dot", "sort", {walk, probe, tables})):
+        (_, exact), truth_s = sync_time(lambda: f.brute_force_knn(
+            qd[:n_truth], K, metric=metric))
+        rec, out[name[0]] = serve_variant(
+            name, f, qd, exact, {}, {**serve, "metric": metric,
+                                     "selection": sel}, runs)
+        add_launches(launches, name, rec["launches"])
+        pair = f.knn_batched(qd, K, metric=metric, budget=serve["budget"],
+                             probes=serve["probes"], chunk=2048,
+                             selection=sel)
+        rec["per_pair_same_untied_ids"] = close_results(name, out[name[0]],
+                                                        pair)
+        log(f"clustered_1m_{name}", **rec, ground_truth_s=truth_s,
+            recall_against=f"brute_force_knn(metric={metric!r}), highest")
+        del pair
+    name = "i_f32_xla_sort_tail"
+    rec, out["i"] = serve_variant(name, f, qd, truth, {},
+                                  {**serve, "selection": "sort",
+                                   "impl": "xla"}, {walk, probe, tables})
+    add_launches(launches, name, rec["launches"])
+    rec["same_as_b_untied_ids"] = close_results(name, out["i"], out["b"])
+    rec["b_recall_at_10"] = recall(out["b"][1][:n_truth], truth)
+    log(f"clustered_1m_{name}", **rec, jax_recall=JAX_RECALL["clustered"])
+    if rec["recall_at_10"] != rec["b_recall_at_10"]:
+        raise AssertionError(f"{name}: recall {rec['recall_at_10']} != "
+                             f"(b)'s {rec['b_recall_at_10']}")
+
+
 def per_pair_phase(name, f, qd, truth, serve, runs, n_calls, launches):
     """The per-pair path (``knn_batched``) over ``qd``, ``n_calls`` times:
     kernel 6 (``runs``) once per chunk and call, no other kernel.
@@ -1054,7 +1215,7 @@ def main():
     del x, q
     log("clustered_1m", **cell)
     n_truth = truth.shape[0]
-    walk, probe = "traverse", "select_probes"  # kernels 7 and 8
+    walk, probe, tables = "traverse", "select_probes", "tile_tables"
     unpacked, s, n = counted_calls(
         "clustered_unpacked", lambda: f.knn(qd[:n_truth], K, budget=1), {walk},
         1, n_calls=1)
@@ -1079,13 +1240,13 @@ def main():
     out = {}
     serve_grouped((  # (name, pack, serve, the kernels it runs, recall floor)
         ("a_f32_kernel_tail", {}, {**serve, "selection": "kernel"},
-         {walk, probe, tiles, topk}, CLUSTERED_MIN_RECALL),
+         {walk, probe, tables, tiles, topk}, CLUSTERED_MIN_RECALL),
         ("b_f32_sort_tail", {}, {**serve, "selection": "sort",
                                  "impl": "kernel"},
-         {walk, probe, tiles}, CLUSTERED_MIN_RECALL),
+         {walk, probe, tables, tiles}, CLUSTERED_MIN_RECALL),
         ("c_f32_kernel_topk", {}, {**serve, "selection": "sort",
                                    "impl": "kernel_topk"},
-         {walk, probe, topk_tiles}, CLUSTERED_MIN_RECALL),
+         {walk, probe, tables, topk_tiles}, CLUSTERED_MIN_RECALL),
     ), f, qd, truth, launches, out)
     # kernels 7 and 8 on the served chunk's own forest and queries
     log("clustered_1m_descent", **check_descent_chunk(
@@ -1104,13 +1265,16 @@ def main():
         jax_recall=JAX_RECALL["clustered"])
     if rec["recall_at_10"] < CLUSTERED_MIN_RECALL:
         raise AssertionError(f"per-pair recall {rec['recall_at_10']}")
+    xla_variants(f, qd, truth, serve, launches, out)
+    log("clustered_1m_kernel9_chunk", **check_tables_chunk(
+        f, qd[:serve["chunk"]], serve, kern, "clustered_chunk_own_pairs"))
     serve_grouped((
         ("d_bf16_sort_tail", bf16, {**serve, "selection": "sort",
                                     "impl": "kernel"},
-         {walk, probe, tiles_bf16}, BF16_MIN_RECALL),
+         {walk, probe, tables, tiles_bf16}, BF16_MIN_RECALL),
         ("e_bf16_kernel_topk", bf16, {**serve, "selection": "sort",
                                       "impl": "kernel_topk"},
-         {walk, probe, topk_tiles}, BF16_MIN_RECALL),
+         {walk, probe, tables, topk_tiles}, BF16_MIN_RECALL),
     ), f, qd, truth, launches, out)
     scan_phase("clustered_1m_scan", f, qd[:16384], truth, 2048,
                SCAN_MIN_RECALL["clustered"], launches,
@@ -1126,7 +1290,7 @@ def main():
                      selection="kernel")
     rec, _ = serve_variant("iid", f, qd, truth, dict(dtype=torch.int8, slack=8),
                            iid_serve,
-                           {walk, probe, "grouped_score_tiles_int8",
+                           {walk, probe, tables, "grouped_score_tiles_int8",
                             "topk_dedup_kernel"})
     add_launches(launches, "iid_100k_int8", rec["launches"])
     # kernel 2 on the first chunk's own tiles (launches here are not counted)
@@ -1134,6 +1298,8 @@ def main():
                                             iid_serve)
     rec["kernels7_8_chunk"] = check_descent_chunk(
         f, qd[:iid_serve["chunk"]], iid_serve["budget"], iid_serve["probes"])
+    rec["kernel9_chunk"] = check_tables_chunk(
+        f, qd[:iid_serve["chunk"]], iid_serve, kern, "iid_chunk_own_pairs")
     log("iid_100k_int8", **cell, **rec, jax_recall=JAX_RECALL["iid"])
     if rec["recall_at_10"] < IID_MIN_RECALL:
         raise AssertionError(f"iid recall {rec['recall_at_10']} < "
@@ -1190,6 +1356,8 @@ def main():
                      "rptree_tpu/ops/traverse.py:154", "traverse"),
         "select_probes": ("rptree_tpu_torch/csrc/traverse.cu",
                           "rptree_tpu/models/forest.py:449", "select_probes"),
+        "tile_tables": ("rptree_tpu_torch/csrc/tile_tables.cu",
+                        "rptree_tpu/ops/grouped.py:66", "tile_tables"),
         "grouped_score_tiles": ("rptree_tpu_torch/csrc/grouped_score.cu",
                                 "rptree_tpu/ops/grouped_kernel.py:63",
                                 "grouped_score_tiles"),

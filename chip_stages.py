@@ -7,7 +7,9 @@ each; then the stages of one per-pair chunk (2,048 queries, variant f) and
 the time of one bf16 scan chunk (2,048 queries over the 1M rows), with its
 bf16 row copy timed apart.  The traversal + probe stage of the iid,
 clustered and per-pair chunks (kernels 7 and 8) is also timed against its
-plain form in turns, with its spread over calls (``descent_turns``).
+plain form in turns, with its spread over calls (``descent_turns``), and
+so is the tile-table stage of the iid and clustered chunks (kernel 9,
+``tables_turns``).
 Where an earlier commit's sources sit in
 ``_checkout/base`` (git-ignored), it times that build against this tree's
 in turns (old, new, new, old): kernels 1 to 4 (``git show
@@ -28,14 +30,17 @@ two ``torch.cuda.synchronize`` calls, seven times; the line gives the
 median on the host clock in ms, so launch latency is not overlapped
 between stages.  The sums are per tail:
 
-- kernel tail (``selection="kernel"``): traversal, tile tables, query
-  gather, tile scoring (kernel 1, or kernel 2 on int8 blocks), pair
-  reorder, id gather, kernel 3;
+- kernel tail (``selection="kernel"``): traversal, tile tables (kernel
+  9), query gather, tile scoring (kernel 1, or kernel 2 on int8 blocks),
+  pair reorder, id gather, kernel 3;
 - sort tail (``selection="sort", impl="kernel"``): the same up to the id
   gather, then the stable sort, its first ``kk`` and ``merge_top_k``;
 - ``impl="kernel_topk"`` (f32 and bf16 blocks): traversal, tile tables,
   query gather, kernel 4, the pair reorder of its ``(d, ids)`` and the
-  sort tail over them.
+  sort tail over them;
+- the XLA-form scorer (``grouped_distances``, ``impl="xla"`` and the
+  metrics the tile kernels do not serve) on ``l2`` and ``cosine``, its
+  tile tables and pair reorder included, apart.
 
 On the card it first times the kernel build two ways from the same
 sources: one ``nvcc`` over all of them, and ``_cuda.build``'s one
@@ -545,6 +550,45 @@ def descent_turns(label, f, fm, qc, budget, probes, sync, on_card, calls=4):
     print(json.dumps(rec), flush=True)
 
 
+def tables_turns(label, f, fm, og, qc, budget, probes, cap, sync, on_card,
+                 calls=4):
+    """The tile-table stage of the chunk ``qc`` at capacity ``cap`` as the
+    path runs it (kernel 9, ``tile_tables``) against its plain twin
+    (``tile_tables_reference``) on the same pairs, in turns plain, kernel,
+    kernel, plain, ... ``calls`` times each, each turn the median of 7
+    synchronised runs on the host clock; all five outputs must be equal.
+    On the card also the kernel's device time (``graph_ms``) and a stable
+    ``torch.sort`` of the flat keys, the twin's first step."""
+    lens = f._lens_global()
+    gsel, lsel = fm._select_probes(f.plan, f.arrays, qc, budget, probes, k=K,
+                                   block_len=lens, table=f._table())
+    args = (gsel, lsel, lens, TILE_M, cap)
+
+    def kernel():
+        return og.tile_tables(*args)
+
+    def plain():
+        return og.tile_tables_reference(*args)
+
+    if not all(torch.equal(a, b) for a, b in zip(kernel(), plain())):
+        raise AssertionError(f"{label}: kernel 9 differs from its twin")
+    ks, ps = [], []
+    for i in range(calls):
+        for fn in ((plain, kernel) if i % 2 == 0 else (kernel, plain)):
+            (ps if fn is plain else ks).append(timed(fn, sync)[1])
+    keys = torch.where(lsel >= 0, gsel.long(), og._BIG).reshape(-1)
+    rec = {"tables_turns": label, "pairs": gsel.numel(), "cap": cap,
+           "kernel_ms": float(np.median(ks)), "plain_ms": float(np.median(ps)),
+           "speedup": float(np.median(ps) / np.median(ks)),
+           "kernel_turns_ms": ks, "plain_turns_ms": ps,
+           "stable_sort_ms": timed(lambda: torch.sort(keys, stable=True),
+                                   sync)[1]}
+    if on_card:
+        rec["kernel_device_ms"] = cs.graph_ms(kernel)
+        rec["plain_device_ms"] = cs.graph_ms(plain)
+    print(json.dumps(rec), flush=True)
+
+
 def stages(f, fm, og, gk, tk, rr, qc, cap, sync, budget, probes, base=None):
     """Stage times of one chunk ``qc`` at tile capacity ``cap``, probed
     with ``budget`` and ``probes``.  The scoring stage is named by the
@@ -560,12 +604,10 @@ def stages(f, fm, og, gk, tk, rr, qc, cap, sync, budget, probes, base=None):
         f.plan, f.arrays, qc, budget, probes, k=K, block_len=lens,
         table=f._table()), sync)
     b, p = gsel.shape
-    (tb, tp, needed, inv), st["tile_tables"] = timed(
-        lambda: og._tile_tables(gsel, lsel, TILE_M, cap, with_slots=True),
-        sync)
-    (lens_t, qt), st["query_gather"] = timed(lambda: (
-        lens[tb.long()].to(torch.int32),
-        qc[torch.where(tp >= 0, tp // p, 0).reshape(-1).long()]), sync)
+    (tb, tp, needed, inv, lens_t), st["tile_tables"] = timed(
+        lambda: og.tile_tables(gsel, lsel, lens, TILE_M, cap), sync)
+    qt, st["query_gather"] = timed(
+        lambda: qc[torch.where(tp >= 0, tp // p, 0).reshape(-1).long()], sync)
     if int8:
         score = "kernel2_tiles_int8"
         d_all, st[score] = timed(lambda: gk.grouped_score_tiles_int8(
@@ -618,6 +660,10 @@ def stages(f, fm, og, gk, tk, rr, qc, cap, sync, budget, probes, base=None):
             dp, ip, K, min(kk, p * kp), True), sync)
         st["sum_kernel_topk"] = (head + st["kernel4_tiles_topk"]
                                  + st["kp_pair_reorder"] + st["kp_sort_tail"])
+    for metric in ("l2", "cosine"):
+        _, st[f"xla_form_{metric}"] = timed(lambda: og.grouped_distances(
+            x_leaf, sq_leaf, lens, gsel, lsel, qc, metric, TILE_M, cap, 2048,
+            block_scale=f._block_scale), sync)
     ops = {"tb": tb, "lens": lens_t, "qt": qt, "d": d, "ids": ids, "kp": kp}
     return st, int(needed), ops
 
@@ -648,6 +694,8 @@ def iid_cell(rp, fm, og, gk, tk, rr, dev, sync, on_card, base):
                       "lmax": int(f._packed[0].shape[1]), **st}), flush=True)
     descent_turns("iid_int8", f, fm, qd[:chunk], IID_BUDGET, IID_PROBES, sync,
                   on_card)
+    tables_turns("iid_int8", f, fm, og, qd[:chunk], IID_BUDGET, IID_PROBES,
+                 cap, sync, on_card)
     if base is not None:
         x_leaf, sq_leaf, _ = f._packed
         int8_turns(base, "iid_chunk", x_leaf, sq_leaf, f._block_scale,
@@ -685,21 +733,23 @@ def pair_stages(f, fm, fg, rr, qc, sync):
     return st
 
 
-def device_times(f, qd, serve, sel, impl, on_card):
+def device_times(f, qd, serve, sel, impl, on_card, metric="l2"):
     """Wall ms of one whole call under ``torch.profiler`` and its kernels'
     device ms, the largest eight by name."""
     def self_ms(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0)) / 1e3
 
-    f.knn_grouped(qd, K, selection=sel, impl=impl, check=False, **serve)
+    f.knn_grouped(qd, K, metric, selection=sel, impl=impl, check=False,
+                  **serve)
     acts = [torch.profiler.ProfilerActivity.CPU]
     if on_card:
         torch.cuda.synchronize()
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        f.knn_grouped(qd, K, selection=sel, impl=impl, check=False, **serve)
+        f.knn_grouped(qd, K, metric, selection=sel, impl=impl, check=False,
+                      **serve)
         if on_card:
             torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
@@ -768,6 +818,8 @@ def main():
                           on_card)
             descent_turns("per_pair", f, fm, qd[:min(2048, chunk)], BUDGET,
                           PROBES, sync, on_card)
+            tables_turns("clustered", f, fm, og, qd[:chunk], BUDGET, PROBES,
+                         cap, sync, on_card)
         if on_card and grouped_lib is not None:  # the chunk's own operands
             x_leaf, sq_leaf, id_leaf = f._packed
             grouped_turns(grouped_lib, "clustered_chunk", x_leaf, sq_leaf,
@@ -777,11 +829,14 @@ def main():
                 topk_turns(grouped_lib, "clustered_chunk", ops["d"],
                            ops["ids"])
         del ops
-        for sel, impl in (("kernel", "kernel"), ("sort", "kernel"),
-                          ("sort", "kernel_topk")):
+        for sel, impl, metric in (("kernel", "kernel", "l2"),
+                                  ("sort", "kernel", "l2"),
+                                  ("sort", "kernel_topk", "l2"),
+                                  ("kernel", "auto", "cosine")):
             print(json.dumps({"profile": name, "selection": sel, "impl": impl,
-                              **device_times(f, qd, serve, sel, impl,
-                                             on_card)}), flush=True)
+                              "metric": metric, **device_times(
+                                  f, qd, serve, sel, impl, on_card, metric)}),
+                  flush=True)
         if dtype is None:
             pc = min(2048, chunk)
             print(json.dumps({"pair_stages_ms": name, "chunk": pc,

@@ -60,6 +60,9 @@ _SIGNATURES = {
     "rpt_traverse": [_P] * 6 + [_I] * 4 + [_L] + [_I] * 4 + [_P],
     # leaf, pri, lens, gsel, lsel, t, b, f, p, nl, k, bucket_stop, stream
     "rpt_select_probes": [_P] * 5 + [_I] * 5 + [_L, _I, _P],
+    # gsel, lsel, lens, tb, tp, slot, lens_t, needed, scratch, scratch_len,
+    # n, g, nt, tile_m, stream
+    "rpt_tile_tables": [_P] * 9 + [_L, _L, _I, _L, _I, _P],
 }
 
 _lib = None

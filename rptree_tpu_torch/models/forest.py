@@ -17,8 +17,11 @@ card unless the caller names the CPU).  The query paths are:
    and the selection tail (the sort tail, or kernel 3,
    :mod:`..ops.topk_kernel`);
 4. grouped, :meth:`RPForest.knn_grouped`: probe selection, pair to tile
-   grouping, tile scoring (kernels 1 and 2, or kernel 4 with its per-pair
-   top-kp, :mod:`..ops.grouped_kernel`) and the same tail, chunk by chunk;
+   grouping (kernel 9, :func:`..ops.grouped.tile_tables`), tile scoring
+   (kernels 1 and 2, or kernel 4 with its per-pair top-kp,
+   :mod:`..ops.grouped_kernel`; for ``cosine``, ``dot``, callables and
+   ``impl="xla"`` the batched products of :func:`..ops.grouped.
+   grouped_distances`) and the same tail, chunk by chunk;
 5. :meth:`RPForest.brute_force_knn`: the exact scan, fp32 at
    ``precision="highest"``, bf16 products otherwise (kernel 5,
    :mod:`..ops.scan`); :meth:`RPForest.recall_with` holds the trees'
@@ -29,8 +32,8 @@ card, over the forest's node table, :meth:`RPForest._table`) and, on
 packed blocks, the probe selection (kernel 8), both in
 :mod:`..ops.traverse`.
 
-Not ported yet (ROADMAP.md): the XLA-form grouped scorer (``impl="xla"``),
-centered / sub-block / shared / ELL layouts and sparse query batches,
+Not ported yet (ROADMAP.md): centered / sub-block / shared / ELL layouts
+and sparse query batches,
 online updates, streaming and the sharded forests.  The ``approx``
 selection tail is not to be ported.
 """
@@ -46,7 +49,8 @@ from .._cuda import resolve_device
 from ..config import ForestConfig
 from ..ops.build import TreeArrays, build_forest_arrays
 from ..ops.fused_gather import gather_score, gather_score_ok
-from ..ops.grouped import grouped_distances_kernel, grouped_topk_kernel
+from ..ops.grouped import (grouped_distances, grouped_distances_kernel,
+                           grouped_topk_kernel)
 from ..ops.grouped_kernel import (INV_127, _int8_dots, _quantize_rows,
                                   grouped_kernel_ok)
 from ..ops.rerank import (dedup_ids, distances_from_dots, gather_leaf_points,
@@ -106,8 +110,10 @@ def _grouped_auto_capacity(f, key, e, tile_m, nt, run, check=True):
     A capacity is any tile count in ``[1, e]`` (``e`` pairs: every pair its
     own tile).  The JAX package rounds it up to a multiple of its
     ``tile_chunk``, the step of its XLA scorer's ``lax.map``, and leaves
-    that chunk out of the cache key (ROADMAP.md queue 3); the port has no
-    such step, so neither the rounding nor the fault exists here."""
+    that chunk out of the cache key (ROADMAP.md queue 3); the port's XLA
+    form takes a shorter last step instead, so a capacity learned at one
+    ``tile_chunk`` serves every other, and neither the rounding nor the
+    fault exists here."""
 
     def _clip(n):
         return min(max(int(n), 1), e)
@@ -243,20 +249,42 @@ def _selection_tail_ids(d, ids_flat, k, kk, dedup, min_votes=1,
     return merge_top_k(d_top, ids_top, k, dedup=dedup, min_votes=min_votes)
 
 
+_IMPLS = ("auto", "xla", "kernel", "kernel_full", "kernel_topk")
+
+
+def _grouped_use_kernel(impl, x_leaf, metric) -> bool:
+    """Whether the grouped path scores with the tile kernels (the JAX
+    package's gate, less its TPU-backend clause): dense f32 / bf16 / int8
+    blocks and ``l2`` / ``sql2``.  ``impl="xla"`` never does; "auto" does
+    where the kernels serve; "kernel", "kernel_full" and "kernel_topk"
+    raise where they do not."""
+    if impl == "xla":
+        return False
+    ok = not callable(metric) and grouped_kernel_ok(x_leaf, metric)
+    if impl in ("kernel", "kernel_full", "kernel_topk") and not ok:
+        raise ValueError(
+            f"impl={impl!r} needs dense f32/bf16/int8 blocks and metric l2 / "
+            f"sql2, got {metric!r}; use impl='auto' or 'xla'")
+    return ok
+
+
 def _knn_grouped(f, q, k, budget, probes, metric, dedup, tile_m, nt,
-                 bucket_stop=False, min_votes=1, selection="sort",
-                 impl="auto"):
+                 tile_chunk=2048, bucket_stop=False, min_votes=1,
+                 selection="sort", impl="auto"):
     """One chunk of the grouped serving path; returns
     ``(dists f32[B, k], ids int32[B, k], needed int32[])``, exact iff
     ``needed <= nt``.
 
+    Where :func:`_grouped_use_kernel` admits the tile kernels,
     ``impl="kernel_topk"`` scores with kernel 4, which keeps each pair's
     ``kp = ceil(max(k, 8) / 8) * 8`` nearest in-block candidates, and runs
     the sort tail over ``P * kp`` of them: exact for the top-k, since
     ``kp >= k``.  It needs the sort tail, no vote counting (which needs
     the full lists), f32 or bf16 blocks and ``2 * kp <= lmax``; otherwise,
     and for the other ``impl`` values, the full tile kernel runs and then
-    :func:`_selection_tail`."""
+    :func:`_selection_tail`.  Where it does not, the XLA form
+    (:func:`grouped_distances`, ``tile_chunk`` tiles a step) scores and
+    the same tail selects."""
     x_leaf, sq_leaf, id_leaf = f._packed
     lens = f._lens_global()
     gsel, lsel = _select_probes(f.plan, f.arrays, q, budget, probes, k=k,
@@ -265,7 +293,11 @@ def _knn_grouped(f, q, k, budget, probes, metric, dedup, tile_m, nt,
     b, p = gsel.shape
     kk = k * f.n_trees if dedup else k
     kp = -(-max(k, 8) // 8) * 8
-    if (impl == "kernel_topk" and min_votes == 1 and selection == "sort"
+    if not _grouped_use_kernel(impl, x_leaf, metric):
+        d, needed = grouped_distances(
+            x_leaf, sq_leaf, lens, gsel, lsel, q, metric, tile_m, nt,
+            tile_chunk, block_scale=f._block_scale)
+    elif (impl == "kernel_topk" and min_votes == 1 and selection == "sort"
             and 2 * kp <= x_leaf.shape[1] and x_leaf.dtype != torch.int8):
         d_t, i_t, needed = grouped_topk_kernel(
             x_leaf, sq_leaf, id_leaf, lens, gsel, lsel, q, metric, tile_m,
@@ -274,9 +306,10 @@ def _knn_grouped(f, q, k, budget, probes, metric, dedup, tile_m, nt,
             d_t.reshape(b, p * kp), i_t.reshape(b, p * kp), k,
             min(kk, p * kp), dedup)
         return d_out, i_out, needed
-    d, needed = grouped_distances_kernel(
-        x_leaf, sq_leaf, lens, gsel, lsel, q, metric, tile_m, nt,
-        block_scale=f._block_scale)
+    else:
+        d, needed = grouped_distances_kernel(
+            x_leaf, sq_leaf, lens, gsel, lsel, q, metric, tile_m, nt,
+            block_scale=f._block_scale)
     d_out, i_out = _selection_tail(d.reshape(b, -1), id_leaf, gsel, k, kk,
                                    dedup, min_votes, selection)
     return d_out, i_out, needed
@@ -683,16 +716,23 @@ class RPForest:
         with ``dedup``, then :func:`merge_top_k`) or "kernel" (the top-k
         kernel; k <= 128).  ``min_votes > 1`` keeps only ids found in at
         least that many of the probed blocks and always takes the sort
-        tail over the full candidate list.  ``impl``: "auto", "kernel"
-        and "kernel_full" score with the full tile kernel;
+        tail over the full candidate list.  ``metric``: ``l2``, ``sql2``,
+        ``cosine``, ``dot`` or a callable ``distf(rows[..., L, D], q[...,
+        1, D]) -> [..., L]`` of torch operations (not on int8 blocks).
+        ``impl``: "auto" scores ``l2`` / ``sql2`` with the full tile
+        kernel and every other metric with the XLA form (batched products,
+        :func:`..ops.grouped.grouped_distances`); "xla" always with the
+        XLA form; "kernel" and "kernel_full" with the full tile kernel,
         "kernel_topk" with the per-pair top-kp kernel where it applies
-        (see :func:`_knn_grouped`).  Metric l2 or sql2.
+        (see :func:`_knn_grouped`), and these three raise ``ValueError``
+        for a metric the kernels do not serve.  ``tile_chunk`` is the
+        XLA form's step in tiles (it bounds the gathered blocks' memory).
 
         ``precision`` takes the JAX package's values and changes nothing
         here, as on the JAX package's kernel paths: f32 blocks are always
-        scored in full fp32, bf16 blocks by exact products of bf16 values
-        summed in fp32.  ``tile_chunk``, the step of the JAX package's
-        XLA scorer, has no effect: the port has no such scorer.
+        scored in full fp32 (the XLA form too: the JAX package floors it
+        at ``HIGH``), bf16 blocks by exact products of bf16 values summed
+        in fp32.
 
         The tile capacity auto-sizes (see :func:`_grouped_auto_capacity`);
         ``check=False`` is the steady-state mode that skips reading the
@@ -708,15 +748,13 @@ class RPForest:
         k = self._check_k(k)
         min_votes = int(min_votes)
         _check_selection(selection, k, min_votes)
-        if impl == "xla":
-            raise NotImplementedError(
-                "impl='xla': the port scores through its tile kernels only; "
-                "ROADMAP.md queue 1 item 5 (XLA-form grouped_distances)")
-        if impl not in ("auto", "kernel", "kernel_full", "kernel_topk"):
+        if impl not in _IMPLS:
             raise ValueError(f"unknown impl {impl!r}")
-        if not grouped_kernel_ok(self._packed[0], metric):
+        if callable(metric) and self._packed[0].dtype == torch.int8:
             raise NotImplementedError(
-                f"metric {metric!r}: grouped tile scoring serves l2 / sql2")
+                "custom distance callables are unsupported on int8-"
+                "quantized blocks (pack with f32/bf16)")
+        _grouped_use_kernel(impl, self._packed[0], metric)  # raises early
         budget = self._budget(budget)
         probes = int(self.n_trees * budget if probes is None else probes)
         qb = _as_dense_queries(q, self.dim, self.device)
@@ -727,8 +765,8 @@ class RPForest:
             d, ids, needed = _knn_grouped_many(
                 self, qb, chunk, k=k, budget=budget, probes=probes,
                 metric=metric, dedup=dedup, tile_m=int(tile_m), nt=cap,
-                bucket_stop=bucket_stop, min_votes=min_votes,
-                selection=selection, impl=impl)
+                tile_chunk=int(tile_chunk), bucket_stop=bucket_stop,
+                min_votes=min_votes, selection=selection, impl=impl)
             return (d, ids), needed
 
         key = (qb.shape[0], probes, int(tile_m), chunk)

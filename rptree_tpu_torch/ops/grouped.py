@@ -1,13 +1,17 @@
-"""Query-grouped block-resident rerank (``rptree_tpu/ops/grouped.py``, the
-kernel forms ``grouped_distances_kernel`` and ``grouped_topk_kernel``;
-the XLA-form ``grouped_distances`` is not ported).
+"""Query-grouped block-resident rerank (``rptree_tpu/ops/grouped.py``):
+the XLA-form scorer ``grouped_distances`` and the kernel forms
+``grouped_distances_kernel`` and ``grouped_topk_kernel``.
 
 1. Flatten the batch's (query, probe) pairs and sort them by probed block.
 2. Chop each equal-block run into tiles of at most ``tile_m`` pairs, so a
-   tile references exactly one block.
-3. Score every tile against its block in one kernel launch
-   (:mod:`.grouped_kernel`): each distinct probed block is read once per
-   tile instead of once per pair.
+   tile references exactly one block.  Steps 1-2 are the tile tables,
+   kernel 9 on the card (:func:`tile_tables`, ``csrc/tile_tables.cu``).
+3. Score every tile against its block: in one launch of a tile kernel
+   (:mod:`.grouped_kernel`), or, in the XLA form, as batched products of
+   ``tile_chunk`` tiles at a time (the JAX package's einsum, here
+   ``torch.bmm``), which serves every metric (``l2``, ``sql2``,
+   ``cosine``, ``dot``, a callable) on f32, bf16 and int8 blocks.  Each
+   distinct probed block is read once per tile instead of once per pair.
 4. Gather each pair's distance row back to its slot through the inverse
    permutation that rides the tile tables.
 
@@ -25,12 +29,24 @@ from __future__ import annotations
 
 import torch
 
-from .grouped_kernel import (grouped_score_tiles, grouped_score_tiles_int8,
-                             grouped_score_topk)
+from .. import _cuda
+from .build import ieee_fp32
+from .grouped_kernel import (_int8_dots, _quantize_rows, grouped_score_tiles,
+                             grouped_score_tiles_int8, grouped_score_topk)
+from .rerank import distances_from_dots
 
-__all__ = ["grouped_distances_kernel", "grouped_topk_kernel"]
+__all__ = ["grouped_distances", "grouped_distances_kernel",
+           "grouped_topk_kernel", "tile_tables", "tile_tables_reference"]
 
 _BIG = 1 << 30  # sentinel block id for masked pairs (sorts to the end)
+# The tile kernels sum each f32 dot in four FMA chains added as a tree; one
+# chain over the whole row (a plain product's order) strays past 1e-4 from
+# them on the clustered cell's small l2 distances, so the XLA form sums
+# four partial products over quarters of the row the same way.
+_PARTS = 4
+# csrc/tile_tables.cu's pairs a thread block (kChunk), digit bins (kBins)
+# and blocks g a scan block (kSeg): its scratch is sized by them
+_TT_CHUNK, _TT_BINS, _TT_SEG = 2048, 257, 1024
 
 
 @torch.no_grad()
@@ -73,14 +89,89 @@ def _tile_tables(gsel, lsel, tile_m: int, nt: int, with_slots=False):
     return tile_block[:nt], tile_pair[:nt], needed, slot
 
 
+def tile_tables_reference(gsel, lsel, lens_of_block, tile_m: int, nt: int):
+    """Plain torch version of :func:`tile_tables`: :func:`_tile_tables`
+    and the gather of each tile's occupancy."""
+    tb, tp, needed, slot = _tile_tables(gsel, lsel, tile_m, nt,
+                                        with_slots=True)
+    return tb, tp, needed, slot, lens_of_block[tb.long()].to(torch.int32)
+
+
+def _check_tables(gsel, lsel, lens_of_block, tile_m, nt):
+    name = "tile_tables"
+    for key, t in (("gsel", gsel), ("lsel", lsel), ("lens_of_block",
+                                                     lens_of_block)):
+        if t.device != gsel.device:
+            raise ValueError(f"{name}: {key} is on {t.device}, gsel on "
+                             f"{gsel.device}")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: {key} must be int32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+    if gsel.dim() != 2 or tuple(lsel.shape) != tuple(gsel.shape):
+        raise ValueError(f"{name}: gsel and lsel must be [B, P] alike, got "
+                         f"{tuple(gsel.shape)} and {tuple(lsel.shape)}")
+    if lens_of_block.dim() != 1 or lens_of_block.shape[0] < 1:
+        raise ValueError(f"{name}: lens_of_block must be [G >= 1], got "
+                         f"{tuple(lens_of_block.shape)}")
+    if tile_m < 1 or nt < 0:
+        raise ValueError(f"{name}: tile_m {tile_m} < 1 or nt {nt} < 0")
+    if gsel.numel() >= 1 << 31:
+        raise ValueError(f"{name}: {gsel.numel()} pairs; int32 ids hold "
+                         f"fewer than 2**31")
+
+
+def tile_tables(gsel, lsel, lens_of_block, tile_m: int, nt: int):
+    """The tile tables of a chunk's pairs (kernel 9 on the card,
+    ``csrc/tile_tables.cu``): ``(tb int32[nt], tp int32[nt, tile_m],
+    needed int32[], slot int64[B * P], lens_t int32[nt])``, bit-equal to
+    :func:`tile_tables_reference`.
+
+    ``gsel``/``lsel int32[B, P]``: each pair's block and leaf (-1 =
+    masked); ``lens_of_block int32[G]``: occupancy per block.  Tiles hold
+    the runs of one block's pairs in ascending pair order, ``tile_m`` at
+    a time, blocks in ascending order: ``tb`` is each tile's block, ``tp``
+    its pairs (-1 for an empty slot), ``needed`` the tiles the pairs need
+    (a device scalar, never read back here), ``slot`` each pair's flat
+    tile slot (``nt * tile_m`` for a masked pair and one past the
+    capacity), ``lens_t`` each tile's occupancy ``lens_of_block[tb]``.
+    Tiles past ``needed`` hold block 0 and no pair.  On the card block
+    ids outside ``[0, G)`` are clamped into it."""
+    if gsel.device.type == "cpu":
+        return tile_tables_reference(gsel, lsel, lens_of_block, tile_m, nt)
+    tile_m, nt = int(tile_m), int(nt)
+    _check_tables(gsel, lsel, lens_of_block, tile_m, nt)
+    dev = gsel.device
+    e, g = gsel.numel(), lens_of_block.shape[0]
+    tb = torch.empty(nt, dtype=torch.int32, device=dev)
+    tp = torch.empty((nt, tile_m), dtype=torch.int32, device=dev)
+    needed = torch.empty((), dtype=torch.int32, device=dev)
+    slot = torch.empty(e, dtype=torch.int64, device=dev)
+    lens_t = torch.empty(nt, dtype=torch.int32, device=dev)
+    chunks = max(1, -(-e // _TT_CHUNK))
+    segs = -(-g // _TT_SEG)
+    scratch = torch.empty(3 * g + _TT_BINS * (chunks + 1) + 4 * e + 2 * segs
+                          + 1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        code = _cuda.lib().rpt_tile_tables(
+            *map(_cuda.ptr, (gsel, lsel, lens_of_block, tb, tp, slot, lens_t,
+                             needed, scratch)),
+            scratch.numel(), e, g, nt, tile_m, _cuda.stream_of(gsel))
+    _cuda.check(code, "tile_tables")
+    tile_tables.launches += 1
+    return tb, tp, needed, slot, lens_t
+
+
+tile_tables.launches = 0
+
+
 def _tile_operands(gsel, lsel, lens_of_block, q, tile_m, nt):
     """Tile tables and kernel operands of a chunk's pairs: ``(tb, lens_t,
     qt, needed, inv)``, with ``qt f32[nt * tile_m, D]`` the query rows in
     tile-slot order and ``inv`` each pair's flat tile slot."""
     p = gsel.shape[1]
-    tb, tp, needed, inv = _tile_tables(gsel, lsel, tile_m, nt,
-                                       with_slots=True)
-    lens_t = lens_of_block[tb.long()].to(torch.int32)
+    tb, tp, needed, inv, lens_t = tile_tables(gsel, lsel, lens_of_block,
+                                              tile_m, nt)
     qi = torch.where(tp >= 0, tp // p, 0).reshape(-1).long()
     return tb, lens_t, q[qi], needed, inv
 
@@ -91,6 +182,86 @@ def _pair_rows(rows, inv, fill, b, p):
     pad = torch.full((1, rows.shape[1]), fill, dtype=rows.dtype,
                      device=rows.device)
     return torch.cat([rows, pad])[inv].reshape(b, p, rows.shape[1])
+
+
+def _float_dots(qr, blk):
+    """``qr [c, m, D] x blk [c, L, D]`` dots ``[c, m, L]``: one IEEE-fp32
+    product per quarter of the row, added as ``(p0 + p1) + (p2 + p3)``."""
+    p = [torch.bmm(a, b.transpose(1, 2)) for a, b in
+         zip(qr.tensor_split(_PARTS, -1), blk.tensor_split(_PARTS, -1))]
+    return (p[0] + p[1]) + (p[2] + p[3])
+
+
+@torch.no_grad()
+def grouped_distances(x_leaf, sq_leaf, lens_of_block, gsel, lsel, q, metric,
+                      tile_m: int, nt: int, tile_chunk: int, block_scale=None):
+    """Exact distances of every (query, probe) pair, computed block-major
+    as batched products (the JAX package's XLA form, which serves every
+    metric and block type; :func:`grouped_distances_kernel` is the tile
+    kernels' form).
+
+    Args:
+      x_leaf/sq_leaf: packed blocks ``f32, bf16 or int8 [G, lmax, D]`` and
+        ``f32[G, lmax]`` slot squared norms.
+      lens_of_block: ``int32[G]`` occupancy per block.
+      gsel/lsel: probe selection ``int32[B, P]`` (block id / leaf id, -1 =
+        masked) from ``_select_probes``.
+      q: ``f32[B, D]`` queries.
+      metric: ``l2``, ``sql2``, ``cosine``, ``dot``, or a callable
+        ``distf(rows[..., L, D], q[..., 1, D]) -> [..., L]`` of torch
+        operations, given the block rows as f32 (not on int8 blocks).
+      tile_m: pairs per tile.
+      nt: tile capacity.
+      tile_chunk: tiles scored a step (bounds the gathered blocks'
+        memory); the last step may be shorter.
+      block_scale: ``f32[G]`` per-block scales of int8 blocks.
+
+    f32 blocks are multiplied in IEEE fp32 (never TF32), bf16 blocks
+    against the query rows rounded to bf16 (exact products, fp32 sums),
+    int8 blocks against the rows quantized per row (exact integer dots,
+    then ``dots * block scale * row scale``).
+
+    Returns ``(d f32[B, P, lmax], needed int32[])``: masked slots (invalid
+    probes, occupancy padding, capacity overflow) carry +inf.
+    """
+    b, p = gsel.shape
+    lmax = x_leaf.shape[1]
+    int8 = x_leaf.dtype == torch.int8
+    if callable(metric) and int8:
+        raise NotImplementedError(
+            "custom distance callables are unsupported on int8-quantized "
+            "blocks (pack with f32/bf16)")
+    tb, tp, needed, inv, lens_t = tile_tables(gsel, lsel, lens_of_block,
+                                              tile_m, nt)
+    step = max(1, int(tile_chunk))
+    col = torch.arange(lmax, device=q.device)
+    d_all = torch.empty((nt * tile_m, lmax), dtype=torch.float32,
+                        device=q.device)
+    with ieee_fp32():
+        for s in range(0, nt, step):
+            c = min(step, nt - s)
+            rows = tb[s:s + c].long()
+            tp_i = tp[s:s + c]
+            qt = q[torch.where(tp_i >= 0, tp_i // p, 0).long()]  # [c, m, D]
+            blk = x_leaf[rows]                                    # [c, L, D]
+            if callable(metric):
+                d = metric(blk.float()[:, None].expand(
+                    c, tile_m, lmax, blk.shape[-1]), qt[:, :, None, :])
+            else:
+                if int8:
+                    q_i8, qscale = _quantize_rows(qt)
+                    dots = (_int8_dots(q_i8, blk)
+                            * block_scale[rows][:, None, None] * qscale)
+                else:  # f32; bf16: the rows rounded, products exact
+                    dots = _float_dots(qt.to(x_leaf.dtype).float(),
+                                       blk.float())
+                d = distances_from_dots(dots, sq_leaf[rows][:, None, :], qt,
+                                        metric)
+            valid = (tp_i >= 0)[:, :, None] & (
+                col < lens_t[s:s + c, None, None])
+            d_all[s * tile_m:(s + c) * tile_m] = torch.where(
+                valid, d, float("inf")).reshape(c * tile_m, lmax)
+    return _pair_rows(d_all, inv, float("inf"), b, p), needed
 
 
 @torch.no_grad()

@@ -685,3 +685,164 @@ def test_projections_ignore_tf32(dev, switch):
         torch.backends.cuda.matmul.allow_tf32 = False
     for a, b in zip(off, on):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+# -- kernel 9: the tile tables ---------------------------------------------
+
+def _pairs(dev, g, b, p, seed, hot=False, masked=0.2):
+    """Pairs over ``g`` blocks: a share masked, one query in three
+    probing block ``g - 1`` (past 65,536 where ``g`` is), and with
+    ``hot`` every query probing block 5 once."""
+    gen = torch.Generator().manual_seed(seed)
+    gsel = torch.randint(0, g, (b, p), generator=gen, dtype=torch.int32)
+    gsel[::3, -1] = g - 1
+    if hot:
+        gsel[:, 0] = min(5, g - 1)
+    lsel = torch.where(torch.rand(b, p, generator=gen) < masked, -1,
+                       gsel % 97).to(torch.int32)
+    gsel = torch.where(lsel < 0, 0, gsel).to(torch.int32)
+    lens = torch.randint(0, 130, (g,), generator=gen, dtype=torch.int32)
+    return gsel.to(dev), lsel.to(dev), lens.to(dev)
+
+
+def _same_tables(gsel, lsel, lens, tile_m, nt):
+    """Kernel 9 against its twin: all five outputs bit-equal, and the
+    wrapper counted one launch."""
+    from rptree_tpu_torch.ops import grouped as og
+
+    before = og.tile_tables.launches
+    got = og.tile_tables(gsel, lsel, lens, tile_m, nt)
+    assert og.tile_tables.launches == before + 1
+    want = og.tile_tables_reference(gsel, lsel, lens, tile_m, nt)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("tb", "tp", "needed", "slot", "lens_t"), got,
+                          want):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        assert torch.equal(a, w), name
+    return int(want[2])
+
+
+@pytest.mark.parametrize("case", [
+    # (blocks, queries, probes, tile_m, hot, masked, capacity: None = ample)
+    (50, 300, 8, 8, False, 0.2, None), (50, 300, 8, 1, False, 0.2, None),
+    (50, 300, 8, 16, False, 0.2, None), (40, 3000, 10, 8, True, 0.1, None),
+    (65_536, 3000, 8, 8, False, 0.1, None), (70_000, 700, 8, 8, True, 0.1,
+                                               None),
+    (1, 33, 3, 8, False, 0.3, None), (257, 41, 7, 3, False, 0.0, None),
+    (300, 999, 5, 8, True, 1.0, None), (300, 999, 5, 8, True, 0.2, 100),
+    (300, 999, 5, 16, False, 0.2, 1), (8192, 5000, 8, 8, True, 0.05, None),
+])
+def test_tile_tables(dev, case):
+    """Kernel 9 bit-equal to ``_tile_tables`` over chunks of one and many
+    4,096-pair blocks: a hot block that every query probes, all pairs
+    masked, a capacity below the tiles needed, tile_m 1, 3, 8 and 16, one
+    block, and G past 256, at 65,536 and past it (the radix sort's one,
+    two and three passes)."""
+    g, b, p, tile_m, hot, masked, nt = case
+    gsel, lsel, lens = _pairs(dev, g, b, p, seed=g + b, hot=hot,
+                              masked=masked)
+    if nt is None:
+        nt = b * p
+    need = _same_tables(gsel, lsel, lens, tile_m, nt)
+    if masked == 1.0:
+        assert need == 0
+    if case[-1] is not None:
+        assert need > nt
+
+
+def test_tile_tables_refuse_what_they_do_not_serve(dev):
+    from rptree_tpu_torch.ops import grouped as og
+
+    gsel, lsel, lens = _pairs(dev, 20, 10, 4, seed=1)
+    with pytest.raises(TypeError):
+        og.tile_tables(gsel.long(), lsel, lens, 8, 10)
+    with pytest.raises(ValueError):
+        og.tile_tables(gsel, lsel, lens.cpu(), 8, 10)
+    with pytest.raises(ValueError):
+        og.tile_tables(gsel, lsel[:, :3].contiguous(), lens, 8, 10)
+    with pytest.raises(ValueError):
+        og.tile_tables(gsel, lsel, lens[:0], 8, 10)
+    with pytest.raises(ValueError):
+        og.tile_tables(gsel, lsel, lens, 0, 10)
+
+
+def _served_forest(dev, n=6000, dim=24, seed=3):
+    from rptree_tpu_torch import forest_batch
+
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, dim)).astype(np.float32)
+    q = torch.as_tensor(x[:400] + 0.1 * rng.normal(size=(400, dim)).astype(
+        np.float32), device=dev)
+    f = forest_batch(seed, 8, 16, 4, 1.0, x, device=dev)
+    f.pack_leaves()
+    return f, q
+
+
+def test_grouped_steady_state_never_syncs(dev):
+    """``knn_grouped(check=False)`` at a cached capacity reads nothing
+    back to the host, through the tile kernels and through the XLA form
+    (kernel 9 builds the tables of both)."""
+    from rptree_tpu_torch.ops import grouped as og
+
+    f, q = _served_forest(dev)
+    serve = dict(budget=2, probes=6, tile_m=8, chunk=200)
+    runs = (dict(selection="kernel"), dict(metric="cosine"),
+            dict(impl="xla", selection="sort"))
+    want = [f.knn_grouped(q, 10, check=True, **serve, **kw) for kw in runs]
+    n9 = og.tile_tables.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [f.knn_grouped(q, 10, check=False, **serve, **kw)
+               for kw in runs]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert og.tile_tables.launches == n9 + 2 * len(runs)
+    for (gd, gi), (wd, wi) in zip(got, want):
+        assert torch.equal(gd, wd) and torch.equal(gi, wi)
+
+
+@pytest.mark.parametrize("switch", ["allow_tf32", "precision"])
+def test_xla_form_ignores_tf32(dev, switch):
+    """The XLA form multiplies f32 blocks in IEEE fp32 whatever the
+    caller's TF32 switch: the same bits with TF32 on and off, and the
+    caller's switch restored."""
+    from rptree_tpu_torch.ops import grouped as og
+
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(30, 40, 96, generator=gen).to(dev)
+    sq = (x * x).sum(-1)
+    q = torch.randn(64, 96, generator=gen).to(dev)
+    gsel, lsel, _ = _pairs(dev, 30, 64, 5, seed=4)
+    lens = torch.full((30,), 37, dtype=torch.int32, device=dev)
+
+    def run():
+        return og.grouped_distances(x, sq, lens, gsel, lsel, q, "l2", 4,
+                                    200, 16)[0]
+
+    off = run()
+    if switch == "allow_tf32":
+        torch.backends.cuda.matmul.allow_tf32 = True
+    else:
+        torch.set_float32_matmul_precision("high")
+    try:
+        on = run()
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert torch.equal(off.view(torch.int32), on.view(torch.int32))
+
+
+def test_dot_through_kernel_3_equals_the_sort_tail(dev):
+    """``dot`` distances are negative: the top-k kernel (kernel 3) selects
+    them as the sort tail does, distances bit-equal and ids equal outside
+    runs of equal distances."""
+    f, q = _served_forest(dev, seed=8)
+    serve = dict(budget=2, probes=6, tile_m=8, metric="dot")
+    kd, ki = f.knn_grouped(q, 10, selection="kernel", **serve)
+    sd, si = f.knn_grouped(q, 10, selection="sort", **serve)
+    torch.cuda.synchronize()
+    assert bool((kd[:, 0] < 0).all())
+    assert torch.equal(kd.view(torch.int32), sd.view(torch.int32))
+    chk = gk.untied(sd)
+    assert torch.equal(ki[chk], si[chk])

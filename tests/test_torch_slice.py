@@ -237,17 +237,21 @@ def test_unported_options_raise(data):
     ft = carry(fj)
     with pytest.raises(ValueError):
         ft.knn_grouped(q, K)  # not packed yet
+    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+        ft.pack_leaves(centered=True)
     ft.pack_leaves()
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        ft.knn_grouped(q, K, impl="xla")
+    # the XLA-form scorer serves impl="xla" and the metrics the tile
+    # kernels do not
+    for kw in (dict(impl="xla"), dict(metric="cosine")):
+        d, i = ft.knn_grouped(q, K, **kw)
+        assert d.shape == i.shape == (q.shape[0], K)
+        assert d.dtype == torch.float32 and i.dtype == torch.int32
     with pytest.raises(NotImplementedError, match="Not to port"):
         ft.knn_grouped(q, K, selection="approx")
     with pytest.raises(ValueError):
         ft.knn_grouped(q, K, selection="exact")
     with pytest.raises(ValueError):
         ft.knn_grouped(q, K, impl="pallas")
-    with pytest.raises(NotImplementedError):
-        ft.knn_grouped(q, K, metric="cosine")
     with pytest.raises(ValueError):  # every JAX metric is served; not typos
         ft.brute_force_knn(q, K, metric="l3")
     with pytest.raises(ValueError):
