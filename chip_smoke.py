@@ -6,7 +6,7 @@ to end and checks recall against the exact fp32 scan.
 
     python3 chip_smoke.py
 
-Phases, one line each (phases 3-6 one per variant, and one more with
+Phases, one line each (phases 3-7 one per variant, and one more with
 its launch counts):
 
 1. set-up: the card, torch and CUDA versions, TF32 off, kernel build time;
@@ -59,7 +59,30 @@ its launch counts):
    served per pair, recall@10 >= 0.90, and the bf16 scan, >= 0.98;
 6. iid 1M scan: the bf16 scan of 4,096 queries over 1M rows against the
    fp32 scan on 256, recall@10 >= 0.98;
-7. the kernels' launch counts over phases 3-6, each of which must be > 0.
+7. online updates (``updates_*`` lines), on phase 3's forest packed f32
+   with slack 32: 100,000 points of the same mixture added in four
+   chunks with payloads, each chunk folded into the blocks' slack slots;
+   5,000 more left pending; 10,000 ids removed over indexed, folded and
+   pending points.  Then (a) on 65,536 queries, the per-pair path at
+   ``precision="default"`` (its pending merge through the scan kernel)
+   and ``knn_h`` on 8,192, ``knn_h_buckets`` on 1,024, each counted.
+   Checks: recall@10 of (a) >= 0.90 against the exact scan of the live
+   points, which this script builds; no removed id returned; 4,096 folded
+   points and every live pending point each find itself; the fold's
+   leaves against a query's primary-side descent (>= 99.9% of the (tree,
+   point) pairs) and kernel 7's budget-1 leaves (>= 99%, and equal to its
+   plain twin's); ``payload_of`` naming each returned row; each kernel of
+   the phase against its plain version on the phase's own first chunks,
+   with the fold's occupancy table (kernels 7, 8 with and without the
+   bucket stop, 9, 1, 3, 6, 5);
+   after ``rebuild``, the size, the counts at 0, the permutation of a
+   fresh build and pack of the same rows (both timed), and (a)'s recall
+   >= 0.90 and within 0.01 of the folded forest's.  Then on phase 4's
+   int8 forest: 10,000 points added and folded (overflow printed), 32,768
+   queries with the kernel tail, recall@10 >= 0.10 against the live
+   truth, and kernel 2 on the folded chunk.  The steps' times stand with
+   the card's name and power limit;
+8. the kernels' launch counts over phases 3-7, each of which must be > 0.
 
 Each scan of phases 3, 5 and 6 is also held, on its first chunk of
 queries, against the scan kernel's plain version at that shape; kernels
@@ -87,6 +110,12 @@ import numpy as np
 SEED = 20260816
 K = 10
 DIST_RTOL = 1e-4           # kernel vs plain version, distances (relative)
+# f32 / bf16 tile kernels on a served chunk: squared distances within this
+# share of |x|^2 + |q|^2, the terms the factored form cancels (a 128-term
+# fp32 dot product's error bound, 2 * 128 * 2**-24, is 1.5e-5 of them); the
+# clustered cell's distances are ~1% of its norms, so two correct summation
+# orders can part by more than DIST_RTOL of a distance there
+SUM_RTOL = 1e-5
 CLUSTERED_MIN_RECALL = 0.90
 BF16_MIN_RECALL = 0.80     # single-pass bf16 products; the JAX package: 0.860
 IID_MIN_RECALL = 0.10
@@ -644,7 +673,7 @@ def check_tables_chunk(f, qc, serve, kern, name):
     gsel, lsel = fm._select_probes(f.plan, f.arrays, qc, serve["budget"],
                                    serve["probes"], k=K, block_len=lens,
                                    table=f._table())
-    (cap,) = f._grouped_nt.values()
+    cap = max(f._grouped_nt.values())  # per chunk of serve["chunk"]
     rec = tables_record(name, gsel, lsel, lens, serve["tile_m"], cap, 5)
     kern["tile_tables"]["by_shape"][name] = rec
     return rec
@@ -837,47 +866,68 @@ def chunk_tiles(f, qc, budget, probes, tile_m):
     gsel, lsel = fm._select_probes(f.plan, f.arrays, qc, budget, probes,
                                    k=K, block_len=lens,
                                    table=f._table())
-    (cap,) = f._grouped_nt.values()
+    cap = max(f._grouped_nt.values())  # per chunk of serve["chunk"]
     tb, lens_t, qt, _, _ = og._tile_operands(gsel, lsel, lens, qc, tile_m,
                                              cap)
     return tb, lens_t, qt
 
 
-def check_int8_chunk(f, qc, serve, reps=5):
-    """Kernel 2 against its plain version on the tiles the grouped path
-    makes for the chunk ``qc`` (distances within ``DIST_RTOL``), with both
+def check_tiles_chunk(f, qc, serve, reps=5):
+    """The tile kernel of ``f``'s blocks (kernel 2 on int8, kernel 1 on f32
+    and bf16) against its plain version on the tiles the grouped path
+    makes for the chunk ``qc``, with the blocks' occupancy table: int8
+    distances within ``DIST_RTOL`` (exact integer dots), f32 / bf16
+    squared distances within ``SUM_RTOL`` of ``|x|^2 + |q|^2``; with both
     times and the bound on those tiles."""
     import torch
 
     from rptree_tpu_torch.ops import grouped_kernel as gk
 
     x, sq, _ = f._packed
-    tb, lens, qt = chunk_tiles(f, qc, serve["budget"], serve["probes"],
-                               serve["tile_m"])
-    args = (x, sq, f._block_scale, tb, lens, qt, "l2", serve["tile_m"])
-    got = gk.grouped_score_tiles_int8(*args)
-    want = gk.grouped_score_tiles_int8_reference(*args)
+    tm = serve["tile_m"]
+    tb, lens, qt = chunk_tiles(f, qc, serve["budget"], serve["probes"], tm)
+    int8 = x.dtype == torch.int8
+    if int8:
+        name, kind = "grouped_score_tiles_int8", "int8"
+        args = (x, sq, f._block_scale, tb, lens, qt, "l2", tm)
+    else:
+        name = "grouped_score_tiles"
+        kind = "bf16" if x.dtype == torch.bfloat16 else "f32"
+        args = (x, sq, tb, lens, qt, "l2", tm)
+    fn, ref = getattr(gk, name), getattr(gk, name + "_reference")
+    got, want = fn(*args), ref(*args)
     torch.cuda.synchronize()
     abs_err, rel_err = _rel_err(got, want)
-    if rel_err > DIST_RTOL:
-        raise AssertionError(f"grouped_score_tiles_int8 on the iid chunk: "
-                             f"relative error {rel_err} > {DIST_RTOL}")
+    rec = {"kernel": name, "tiles": tb.shape[0], "max_abs_err": abs_err,
+           "max_rel_err": rel_err}
+    if int8 and rel_err > DIST_RTOL:
+        raise AssertionError(f"{name} on the chunk: relative error "
+                             f"{rel_err} > {DIST_RTOL}")
+    if not int8:
+        sargs = (*args[:5], "sql2", tm)
+        got, want = fn(*sargs), ref(*sargs)
+        scale = (sq[tb.long()].repeat_interleave(tm, 0)
+                 + (qt * qt).sum(-1)[:, None])
+        _rel_err(got, want)  # masking must agree
+        fin = torch.isfinite(want)
+        rec["max_err_of_norms"] = float(
+            ((got - want).abs()[fin] / scale[fin]).max())
+        if rec["max_err_of_norms"] > SUM_RTOL:
+            raise AssertionError(f"{name} on the chunk: squared distances "
+                                 f"off by {rec['max_err_of_norms']} of "
+                                 f"|x|^2 + |q|^2 > {SUM_RTOL}")
     del got, want
-    return {"tiles": tb.shape[0], "max_abs_err": abs_err,
-            "max_rel_err": rel_err,
-            "ms": cuda_ms(lambda: gk.grouped_score_tiles_int8(*args), reps),
-            "device_ms": graph_ms(
-                lambda: gk.grouped_score_tiles_int8(*args), reps=5),
-            "plain_ms": cuda_ms(
-                lambda: gk.grouped_score_tiles_int8_reference(*args), reps),
-            **tile_bound(x, tb, lens, serve["tile_m"], qt, x.shape[1] * 4,
-                         "int8")}
+    return {**rec, "ms": cuda_ms(lambda: fn(*args), reps),
+            "device_ms": graph_ms(lambda: fn(*args), reps=5),
+            "plain_ms": cuda_ms(lambda: ref(*args), reps),
+            **tile_bound(x, tb, lens, tm, qt, x.shape[1] * 4, kind)}
 
 
-def check_descent_chunk(f, qc, budget, probes=None):
+def check_descent_chunk(f, qc, budget, probes=None, bucket_stop=False):
     """Kernels 7 and 8 against their plain versions on a cell's own forest
     and queries ``qc``: leaves, priorities (as int32 bits) and probes
-    equal.  Their launches here are not counted."""
+    equal (kernel 8 over the blocks' occupancy table, with the knnH bucket
+    stop where asked).  Their launches here are not counted."""
     import torch
 
     from rptree_tpu_torch.ops import traverse as tv
@@ -890,7 +940,7 @@ def check_descent_chunk(f, qc, budget, probes=None):
         pri.view(torch.int32), want_p.view(torch.int32))
     if probes is not None:
         pargs = (leaf, pri, f.plan.n_leaves, probes, f._lens_global(), K,
-                 False)
+                 bucket_stop)
         same = same and all(torch.equal(a, c) for a, c in zip(
             tv.select_probes(*pargs), tv.select_probes_reference(*pargs)))
     torch.cuda.synchronize()
@@ -993,15 +1043,15 @@ def serve_variant(name, f, qd, truth, pack, serve, runs, n_passes=3):
     }, (dist, ids)
 
 
-def counted_calls(name, fn, runs, per_call, n_calls):
+def counted_calls(name, fn, runs, n_calls):
     """``fn()`` ``n_calls`` times between synchronisations, with every
-    kernel's count set to 0 just before and read just after: the kernels
-    ``runs`` must have launched ``per_call`` times per call and every
-    other kernel of the path not at all.  Returns ``(the last result, the
-    median seconds of a call, the launches)``."""
+    kernel's count set to 0 just before and read just after: each kernel
+    that ``runs`` maps must have launched that many times per call and
+    every other kernel of the path not at all.  Returns ``(the last
+    result, the median seconds of a call, the launches)``."""
     outs, launches = counted(lambda: [sync_time(fn) for _ in range(n_calls)])
     for kern, n in launches.items():
-        want = per_call * n_calls if kern in runs else 0
+        want = runs.get(kern, 0) * n_calls
         if n != want:
             raise AssertionError(f"{name}: {kern} launched {n} times; "
                                  f"expected {want}")
@@ -1101,8 +1151,8 @@ def scan_phase(name, f, qd, truth, query_chunk, floor, launches, jax_recall):
 
     chunks = -(-qd.shape[0] // query_chunk)
     res, s, n = counted_calls(name, lambda: f.brute_force_knn(
-        qd, K, precision="fastest", query_chunk=query_chunk), {"scan_topk"},
-        chunks, n_calls=2)
+        qd, K, precision="fastest", query_chunk=query_chunk),
+        {"scan_topk": chunks}, n_calls=2)
     check_result(name, res, qd.shape[0])
     add_launches(launches, name, n)
     qc = qd[:query_chunk].contiguous()
@@ -1167,7 +1217,7 @@ def per_pair_phase(name, f, qd, truth, serve, runs, n_calls, launches):
     Returns its record and its last result."""
     chunks = -(-qd.shape[0] // serve["chunk"])
     res, s, n = counted_calls(name, lambda: f.knn_batched(qd, K, **serve),
-                              runs, chunks, n_calls)
+                              dict.fromkeys(runs, chunks), n_calls)
     check_result(name, res, qd.shape[0])
     add_launches(launches, name, n)
     x_leaf = f._packed[0]
@@ -1177,6 +1227,384 @@ def per_pair_phase(name, f, qd, truth, serve, runs, n_calls, launches):
             **serve, "queries": qd.shape[0],
             "recall_at_10": recall(res[1][:truth.shape[0]], truth),
             "qps": qd.shape[0] / s, "serve_s": s}, res
+
+
+# -- phase 7: online updates ----------------------------------------------
+
+UPDATE_CHUNKS, UPDATE_CHUNK = 4, 25_000   # added and folded in turn
+UPDATE_PENDING = 5_000                    # then added and left pending
+# removed: indexed, folded and pending ids; the pending share keeps
+# k + removed <= 128, so that the pending merge runs kernel 5
+UPDATE_REMOVED = {"indexed": 7_000, "folded": 2_900, "pending": 100}
+SELF_QUERIES = 4_096
+PLACEMENT_MIN_AGREE = 0.999
+# kernel 7's budget-1 leaf leaves the fold's at margin forks: ~0.35% of
+# the pairs on the clustered cell, the same pairs as JAX's on the CPU
+# (tests/test_torch_updates.py); a change in how forks go fails here
+BUDGET1_MIN_AGREE = 0.99
+IID_ADD = 10_000
+
+
+def clustered_more(m, dim, centers, sigma, seed=SEED):
+    """``m`` more points from :func:`clustered_data`'s mixture: the same
+    centers (its generator's first draw), new members and noise."""
+    c = np.random.default_rng(seed).standard_normal((centers, dim),
+                                                    dtype=np.float32)
+    rng = np.random.default_rng(seed + 1)
+    x = c[rng.integers(0, centers, size=m)]
+    x += sigma * rng.standard_normal((m, dim), dtype=np.float32)
+    return x
+
+
+def rows_by_id(f, new):
+    """Every point of ``f`` in id order, ``f32[n + folded + pending, D]``:
+    the indexed and folded rows (``points()``), then the pending ones,
+    found in ``new`` by the payload (an index into ``new``) each carries."""
+    import torch
+
+    lo = f.n_points + f.n_folded
+    pend = np.asarray(f.payload_of(np.arange(lo, lo + f.n_pending)),
+                      dtype=np.int64)
+    return torch.cat([f.points(), new[torch.as_tensor(pend,
+                                                      device=new.device)]])
+
+
+def live_truth(f, new, removed, q):
+    """The exact fp32 k nearest of ``q`` among the live points of ``f``
+    (indexed, folded and pending, less the ids ``removed``), in ``f``'s
+    ids.  Built here, as ``brute_force_knn`` covers neither the pending
+    buffer nor the tombstones."""
+    import torch
+
+    from rptree_tpu_torch.models import forest as fm
+
+    rows = rows_by_id(f, new)
+    live = torch.ones(rows.shape[0], dtype=torch.bool, device=rows.device)
+    live[torch.as_tensor(removed, device=rows.device)] = False
+    ids = torch.nonzero(live).squeeze(1)
+    xl = rows[ids]
+    _, idx = fm._brute_force(xl, (xl * xl).sum(-1), q, K, "l2")
+    return ids[idx.long()].to(torch.int32)
+
+
+def path_gap(f, projq):
+    """Along each (tree, point)'s primary-side path (``proj >= thr`` goes
+    right) over the projections ``projq [T, L, M]``: the smallest ``|proj
+    - thr|`` of its levels, ``f32[T, M]``."""
+    import torch
+
+    child = torch.as_tensor(f.plan.padded_child_table(), dtype=torch.int64,
+                            device=projq.device)
+    t, nl, m = projq.shape
+    code = torch.zeros((t, m), dtype=torch.int64, device=projq.device)
+    done = torch.zeros((t, m), dtype=torch.bool, device=projq.device)
+    gap = torch.full((t, m), float("inf"), device=projq.device)
+    for lvl in range(nl):
+        thr = f.arrays.thr[:, lvl, :].gather(1, code)
+        gap = torch.where(done, gap, torch.minimum(
+            gap, (projq[:, lvl] - thr).abs()))
+        nxt = child[lvl][code.clamp(0, child.shape[1] - 1),
+                         (projq[:, lvl] >= thr).long()]
+        done = done | (nxt < 0)
+        code = torch.where(nxt >= 0, nxt, code)
+    return gap
+
+
+def check_placement(f, ids, pts):
+    """Where the fold put the points ``pts`` (ids ``ids``), against where
+    a query at each one goes: (i) the primary-side descent of the points
+    projected as one query batch, which must agree on at least
+    ``PLACEMENT_MIN_AGREE`` of the (tree, point) pairs (a miss: the batch
+    shape moved a projection across a threshold), with the smallest
+    ``|proj - thr|`` on the misses' paths; (ii) kernel 7's budget-1 leaf,
+    which also leaves the primary side where a fork's margin priority
+    prefers the other child (the reference traversal's own rule): it must
+    equal its plain twin's pair for pair, and agree with the fold's leaf
+    on at least ``BUDGET1_MIN_AGREE`` of the pairs."""
+    import torch
+
+    from rptree_tpu_torch.models import forest as fm
+    from rptree_tpu_torch.ops import traverse as tv
+
+    fold_leaf = torch.as_tensor(np.concatenate(f._folded_leaf, axis=1)[
+        :, ids - f.n_points], device=pts.device)
+    projq = tv.project_queries(pts, f.arrays.r, f.plan.n_levels)
+    primary = fm._descend(f.plan, f.arrays, pts)
+    b1 = tv.traverse_kernel(f.plan, f._table(), projq, 1)[0][:, :, 0]
+    b1_plain = tv.traverse_tree_reference(f.plan, f._table(), projq,
+                                          1)[0][:, :, 0]
+    miss, fork = fold_leaf != primary, fold_leaf != b1
+    gap = path_gap(f, projq)
+    rec = {"pairs": miss.numel(), "misses": int(miss.sum()),
+           "agree": 1.0 - float(miss.float().mean()),
+           "misses_min_gap": (float(gap[miss].min())
+                              if bool(miss.any()) else None),
+           "budget1_agree": 1.0 - float(fork.float().mean()),
+           "budget1_margin_forks": int((primary != b1).sum()),
+           # whether the budget-1 misses sit at threshold ties
+           "budget1_misses_min_gap": (float(gap[fork].min())
+                                      if bool(fork.any()) else None)}
+    if (rec["agree"] < PLACEMENT_MIN_AGREE
+            or rec["budget1_agree"] < BUDGET1_MIN_AGREE
+            or not torch.equal(b1, b1_plain)):
+        raise AssertionError(f"fold placement: {rec}")
+    return rec
+
+
+def check_update_chunk(f, qd, serve, kern, pending_q):
+    """On phase 7's own first chunks, each kernel that runs against its
+    plain twin, with the fold's occupancy table: kernels 7 and 8 (with and
+    without the bucket stop), 9, 1 (:func:`check_tiles_chunk`) and 3 on
+    the grouped chunk, 6 on the first per-pair chunk, 5 on the pending
+    merge's own shape (the buffer, ``k`` plus the removed pending points,
+    the per-pair call's queries).  Launches here are not counted."""
+    import torch
+
+    from rptree_tpu_torch.models import forest as fm
+    from rptree_tpu_torch.ops import fused_gather as fg
+    from rptree_tpu_torch.ops import grouped as og
+    from rptree_tpu_torch.ops import scan as sc
+    from rptree_tpu_torch.ops import topk_kernel as tk
+
+    qc = qd[:serve["chunk"]]
+    rec = {"kernels7_8": check_descent_chunk(f, qc, serve["budget"],
+                                             serve["probes"]),
+           "kernel8_bucket_stop": check_descent_chunk(
+               f, qd[:8192], serve["budget"], serve["probes"], True),
+           "kernel9": check_tables_chunk(f, qc, serve, kern,
+                                         "updates_chunk_own_pairs"),
+           "kernel1": check_tiles_chunk(f, qc, serve)}
+    x_leaf, sq_leaf, id_leaf = f._packed
+    lens = f._lens_global()
+    gsel, lsel = fm._select_probes(f.plan, f.arrays, qc, serve["budget"],
+                                   serve["probes"], k=K, block_len=lens,
+                                   table=f._table())
+    cap = max(f._grouped_nt.values())
+    d, _ = og.grouped_distances_kernel(x_leaf, sq_leaf, lens, gsel, lsel, qc,
+                                       "l2", serve["tile_m"], cap)
+    d = d.reshape(qc.shape[0], -1)
+    ids = id_leaf[gsel.long()].reshape(qc.shape[0], -1)
+    got, want = (tk.topk_dedup_kernel(d, ids, K),
+                 tk.topk_dedup_kernel_reference(d, ids, K))
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("topk_dedup_kernel on the updates chunk differs")
+    rec["kernel3"] = {"rows": d.shape[0], "width": d.shape[1],
+                      "bit_equal": True}
+    del d, ids, got, want
+    qp = qd[:2048]
+    sel, _ = fm._select_probes(f.plan, f.arrays, qp, serve["budget"],
+                               serve["probes"], k=K, block_len=lens,
+                               table=f._table())
+    (gd, gs), (wd, ws) = (fg.gather_score(x_leaf, sq_leaf, qp, sel),
+                          fg.gather_score_reference(x_leaf, sq_leaf, qp, sel))
+    rel = _rel_err(gd, wd)[1]
+    if rel > DIST_RTOL or not torch.equal(gs, ws):
+        raise AssertionError(f"gather_score on the updates chunk: {rel}")
+    rec["kernel6"] = {"queries": 2048, "max_rel_err": rel}
+    xp = torch.cat(f._pending)
+    kp = min(K + len(f._pending_deleted or ()), xp.shape[0])
+    sqp = (xp * xp).sum(-1)
+    got = sc._scan_partial(xp, sqp, pending_q, kp, "l2")
+    want = sc._partial_reference(xp, sqp, pending_q, kp, "l2")
+    rec["kernel5"] = {"rows": xp.shape[0], "k": kp,
+                      "queries": pending_q.shape[0],
+                      "max_rel_err": _rel_err(got[0], want[0])[1],
+                      "same_untied_ids": close_results(
+                          "scan_topk on the pending merge", got, want)}
+    return rec
+
+
+def updates_phase(f, qd, device, launches, kern, card):
+    """Phase 7 on the clustered 1M forest: pack f32 with slack 32; add
+    100,000 points of the same mixture in four chunks, with payloads
+    (their index into the added points), and fold after each; add 5,000
+    more and leave them pending; remove 10,000 ids over indexed, folded
+    and pending points; serve (a), per pair (``knn_batched``), ``knn_h``
+    and ``knn_h_buckets``, each counted; check recall against the live
+    truth, tombstones, placement, self-queries, payloads; time the steps;
+    rebuild and check again."""
+    import torch
+
+    import rptree_tpu_torch as rp
+
+    t_phase = time.perf_counter()
+    walk, probe, tables = "traverse", "select_probes", "tile_tables"
+    n = f.n_points
+    serve = dict(budget=1, probes=8, tile_m=8, chunk=65536,
+                 selection="kernel")
+    pack = dict(slack=32)
+    _, pack_s = sync_time(lambda: f.pack_leaves(**pack))
+    total = UPDATE_CHUNKS * UPDATE_CHUNK + UPDATE_PENDING
+    new = torch.as_tensor(clustered_more(total, f.dim, 4_000, 0.15),
+                          device=device)
+    steps = []
+    for c in range(UPDATE_CHUNKS):
+        lo = c * UPDATE_CHUNK
+        hi = lo + UPDATE_CHUNK
+        _, add_s = sync_time(lambda: f.add(new[lo:hi],
+                                           payloads=range(lo, hi)))
+        _, fold_s = sync_time(f.fold)
+        steps.append({"add_s": add_s, "fold_s": fold_s,
+                      "folded": f.n_folded, "pending": f.n_pending})
+    overflow = f.n_pending
+    lo = UPDATE_CHUNKS * UPDATE_CHUNK
+    _, add_s = sync_time(lambda: f.add(new[lo:], payloads=range(lo, total)))
+    log("updates_added", card=card, pack_s=pack_s, chunks=steps,
+        pending_add_s=add_s, overflow_pending=overflow,
+        folded=f.n_folded, pending=f.n_pending,
+        slack_lmax=int(f._packed[0].shape[1]))
+    # the ids to remove, and the folded points to query by themselves
+    rng = np.random.default_rng(SEED + 7)
+    nf, npend = f.n_folded, f.n_pending
+    folded = n + rng.permutation(nf)
+    self_ids = np.sort(folded[:SELF_QUERIES])
+    pend = n + nf + rng.permutation(npend)
+    removed = np.concatenate([
+        rng.choice(n, UPDATE_REMOVED["indexed"], replace=False),
+        folded[SELF_QUERIES:SELF_QUERIES + UPDATE_REMOVED["folded"]],
+        pend[:UPDATE_REMOVED["pending"]]])
+    _, remove_s = sync_time(lambda: f.remove(removed))
+    dead = set(removed.tolist())
+    if f.n_deleted != removed.size:
+        raise AssertionError(f"n_deleted {f.n_deleted} != {removed.size}")
+    n_truth = 1024
+    truth, truth_s = sync_time(lambda: live_truth(f, new, removed,
+                                                  qd[:n_truth]))
+    qa = qd[:serve["chunk"]]
+    rec, res_a = serve_variant(
+        "updates_a", f, qa, truth, pack, serve,
+        {walk, probe, tables, "grouped_score_tiles", "topk_dedup_kernel"})
+    add_launches(launches, "updates_a", rec["launches"])
+    pending_q = qd[:8192]
+    pair, pair_s, pair_n = counted_calls(
+        "updates_per_pair", lambda: f.knn_batched(
+            pending_q, K, budget=1, probes=8, precision="default",
+            chunk=2048),
+        {walk: 4, probe: 4, "gather_score": 4, "scan_topk": 1}, 2)
+    add_launches(launches, "updates_per_pair", pair_n)
+    knnh, knnh_s, knnh_n = counted_calls(
+        "updates_knn_h", lambda: f.knn_h(pending_q, K, budget=1, probes=8),
+        {walk: 1, probe: 1, "gather_score": 1}, 2)
+    add_launches(launches, "updates_knn_h", knnh_n)
+    buckets, buckets_s, buckets_n = counted_calls(
+        "updates_knn_h_buckets", lambda: f.knn_h_buckets(qd[:1024], K,
+                                                         budget=1),
+        {walk: 1, probe: 1}, 2)
+    add_launches(launches, "updates_knn_h_buckets", buckets_n)
+    for name, res in (("updates_a", res_a), ("updates_per_pair", pair),
+                      ("updates_knn_h", knnh)):
+        check_result(name, res, res[1].shape[0])
+        back = dead & set(res[1].reshape(-1).tolist())
+        if back:
+            raise AssertionError(f"{name}: removed ids returned: "
+                                 f"{sorted(back)[:5]}")
+    if int(buckets.shape[0]) != 1024 or int((buckets >= 0).sum(1).min()) < 1:
+        raise AssertionError("knn_h_buckets: a query with no bucket")
+    chunk_checks = check_update_chunk(f, qd, serve, kern, pending_q)
+    # the merge's cost: one chunk with the pending buffer, and without it
+    with_s = float(np.median([sync_time(lambda: f.knn_grouped(
+        qa, K, check=False, **serve))[1] for _ in range(3)]))
+    held, f._pending = f._pending, []
+    try:
+        without_s = float(np.median([sync_time(lambda: f.knn_grouped(
+            qa, K, check=False, **serve))[1] for _ in range(3)]))
+    finally:
+        f._pending = held
+    # each folded point queried by itself, through (a)'s settings
+    pay = np.asarray(f.payload_of(self_ids), dtype=np.int64)
+    pts = new[torch.as_tensor(pay, device=device)]
+    placement = check_placement(f, self_ids, pts)
+    _, own = f.knn_grouped(pts, K, **serve)
+    own_ok = (own == torch.as_tensor(self_ids, device=device)[:, None]).any(1)
+    if not bool(own_ok.all()):
+        raise AssertionError(f"{int((~own_ok).sum())} folded points miss "
+                             "themselves")
+    # each live pending point queried by itself
+    live_pend = np.setdiff1d(np.arange(n + nf, n + nf + npend), removed)
+    pend_rows = rows_by_id(f, new)[torch.as_tensor(live_pend, device=device)]
+    _, pown = f.knn_grouped(pend_rows, K, **serve)
+    p_ok = (pown == torch.as_tensor(live_pend, device=device)[:, None]).any(1)
+    if not bool(p_ok.all()):
+        raise AssertionError(f"{int((~p_ok).sum())} pending points miss "
+                             "themselves")
+    # payloads resolve the ids returned past n to the rows they were given
+    got = np.unique(torch.cat([own.reshape(-1), pown.reshape(-1)]).cpu()
+                    .numpy())
+    got = got[got >= n]
+    pays = np.asarray(f.payload_of(got), dtype=np.int64)
+    if not torch.equal(rows_by_id(f, new)[torch.as_tensor(got, device=device)],
+                       new[torch.as_tensor(pays, device=device)]):
+        raise AssertionError("payload_of: a returned id's payload names "
+                             "another row")
+    recall_a = rec["recall_at_10"]
+    log("updates_served", card=card, remove_s=remove_s, removed=int(
+        removed.size), truth_s=truth_s, **rec, per_pair_s=pair_s,
+        per_pair_recall=recall(pair[1][:n_truth], truth), knn_h_s=knnh_s,
+        knn_h_recall=recall(knnh[1][:n_truth], truth),
+        buckets_s=buckets_s, buckets_width=int(buckets.shape[1]),
+        chunk_with_pending_s=with_s, chunk_without_pending_s=without_s,
+        self_queries=int(own_ok.numel()), pending_self_queries=int(
+            p_ok.numel()), payloads_checked=int(got.size),
+        placement=placement, chunk_kernels=chunk_checks)
+    if recall_a < CLUSTERED_MIN_RECALL:
+        raise AssertionError(f"updates (a): recall {recall_a}")
+    # rebuild, against a fresh build and pack of the same rows
+    _, rebuild_s = sync_time(f.rebuild)
+    want_n = n + total - removed.size
+    counts = (f.n_pending, f.n_folded, f.n_deleted)
+    if f.tree_size() != want_n or counts != (0, 0, 0):
+        raise AssertionError(f"rebuild: size {f.tree_size()}, counts "
+                             f"{counts}")
+    cfg = f.config
+    fresh, fresh_s = sync_time(lambda: rp.forest_batch(
+        SEED, cfg.max_depth, cfg.min_leaf, cfg.n_trees, cfg.proj_nz_density,
+        f.x, device=device, r=f.arrays.r).pack_leaves(**pack))
+    same_perm = torch.equal(fresh.arrays.perm, f.arrays.perm)
+    del fresh
+    (_, truth_r), _ = sync_time(lambda: f.brute_force_knn(qd[:n_truth], K))
+    rec_r, _ = serve_variant(
+        "updates_rebuilt_a", f, qa, truth_r, pack, serve,
+        {walk, probe, tables, "grouped_score_tiles", "topk_dedup_kernel"})
+    add_launches(launches, "updates_rebuilt_a", rec_r["launches"])
+    log("updates_rebuilt", card=card, rebuild_s=rebuild_s,
+        fresh_build_pack_s=fresh_s, same_perm_as_fresh=same_perm,
+        tree_size=f.tree_size(), **rec_r, folded_recall=recall_a,
+        phase_s=time.perf_counter() - t_phase)
+    if not same_perm:
+        raise AssertionError("rebuild differs from a fresh build")
+    if rec_r["recall_at_10"] < CLUSTERED_MIN_RECALL or abs(
+            rec_r["recall_at_10"] - recall_a) > 0.01:
+        raise AssertionError(f"rebuilt recall {rec_r['recall_at_10']} "
+                             f"against folded {recall_a}")
+
+
+def updates_int8(f, qd, device, launches, card):
+    """Phase 7's int8 step on the iid 100k forest (int8 blocks, slack 8):
+    add 10,000 points and fold (each row quantized by its target block's
+    scale); serve 32,768 queries with the kernel tail (kernels 7, 8, 9, 2,
+    3) against the live truth; kernel 2 on the folded chunk."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 9)
+    new = torch.as_tensor(rng.normal(size=(IID_ADD, f.dim)).astype(
+        np.float32), device=device)
+    f.add(new, payloads=range(IID_ADD))
+    _, fold_s = sync_time(f.fold)
+    serve = dict(budget=2, probes=10, tile_m=8, chunk=32768,
+                 selection="kernel")
+    q = qd[:serve["chunk"]]
+    truth = live_truth(f, new, np.zeros(0, np.int64), q[:1024])
+    rec, _ = serve_variant(
+        "updates_iid_int8", f, q, truth, dict(dtype=torch.int8, slack=8),
+        serve, {"traverse", "select_probes", "tile_tables",
+                "grouped_score_tiles_int8", "topk_dedup_kernel"})
+    add_launches(launches, "updates_iid_int8", rec["launches"])
+    log("updates_iid_int8", card=card, added=IID_ADD, fold_s=fold_s,
+        folded=f.n_folded, overflow_pending=f.n_pending, **rec,
+        kernel2_chunk=check_tiles_chunk(f, q, serve))
+    if rec["recall_at_10"] < IID_MIN_RECALL:
+        raise AssertionError(f"iid int8 after fold: recall "
+                             f"{rec['recall_at_10']}")
 
 
 def main():
@@ -1193,7 +1621,8 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
-    print(smi.strip().splitlines()[0], flush=True)
+    card = smi.strip().splitlines()[0]
+    print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _, build_s, _ = _cuda.build()
@@ -1217,15 +1646,15 @@ def main():
     n_truth = truth.shape[0]
     walk, probe, tables = "traverse", "select_probes", "tile_tables"
     unpacked, s, n = counted_calls(
-        "clustered_unpacked", lambda: f.knn(qd[:n_truth], K, budget=1), {walk},
-        1, n_calls=1)
+        "clustered_unpacked", lambda: f.knn(qd[:n_truth], K, budget=1),
+        {walk: 1}, n_calls=1)
     check_result("clustered_unpacked", unpacked, n_truth)
     add_launches(launches, "clustered_unpacked", n)
     log("clustered_1m_unpacked", queries=n_truth, budget=1, serve_s=s,
         recall_at_10=recall(unpacked[1], truth))
     # unpacked knn at its default budget (32: kernel 7's shared-memory route)
     wide, s, n = counted_calls(
-        "clustered_unpacked_b32", lambda: f.knn(qd[:n_truth], K), {walk}, 1,
+        "clustered_unpacked_b32", lambda: f.knn(qd[:n_truth], K), {walk: 1},
         n_calls=1)
     check_result("clustered_unpacked_b32", wide, n_truth)
     add_launches(launches, "clustered_unpacked_b32", n)
@@ -1279,6 +1708,8 @@ def main():
     scan_phase("clustered_1m_scan", f, qd[:16384], truth, 2048,
                SCAN_MIN_RECALL["clustered"], launches,
                JAX_RECALL["clustered_scan"])
+    # phase 7 takes up this forest and its queries again
+    f_clustered, qd_clustered = f, qd
     del f, qd, truth, out, unpacked, wide
     torch.cuda.empty_cache()
 
@@ -1294,8 +1725,8 @@ def main():
                             "topk_dedup_kernel"})
     add_launches(launches, "iid_100k_int8", rec["launches"])
     # kernel 2 on the first chunk's own tiles (launches here are not counted)
-    rec["kernel2_chunk"] = check_int8_chunk(f, qd[:iid_serve["chunk"]],
-                                            iid_serve)
+    rec["kernel2_chunk"] = check_tiles_chunk(f, qd[:iid_serve["chunk"]],
+                                             iid_serve)
     rec["kernels7_8_chunk"] = check_descent_chunk(
         f, qd[:iid_serve["chunk"]], iid_serve["budget"], iid_serve["probes"])
     rec["kernel9_chunk"] = check_tables_chunk(
@@ -1307,6 +1738,7 @@ def main():
 
     # -- phase 5: the iid 100k bracket (bench.py's >= 0.9 recall points) --
     xd = f.x
+    f_iid, qd_iid = f, qd  # phase 7 takes them up again
     del f
     torch.cuda.empty_cache()
     n, dim = xd.shape
@@ -1345,6 +1777,13 @@ def main():
     scan_phase("iid_1m_scan", f1, q1, exact, 1024, SCAN_MIN_RECALL["1m"],
                launches, JAX_RECALL["scan_1m"])
     del f1, x1, qd
+    torch.cuda.empty_cache()
+
+    # -- phase 7: online updates on the clustered and iid forests ---------
+    updates_phase(f_clustered, qd_clustered, device, launches, kern, card)
+    del f_clustered, qd_clustered
+    updates_int8(f_iid, qd_iid, device, launches, card)
+    del f_iid, qd_iid
 
     log("launches", variant="all", **launches)
     if min(launches.values()) < 1:

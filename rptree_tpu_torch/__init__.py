@@ -2,12 +2,15 @@
 
 The port of the JAX package ``rptree_tpu`` to an NVIDIA H100, one slice at
 a time; ``rptree_tpu`` stays the reference it is tested against.  It
-covers build (:func:`forest_batch`), pack (:meth:`RPForest.pack_leaves`),
-the grouped, per-pair and unpacked query paths
-(:meth:`RPForest.knn_grouped`, :meth:`RPForest.knn`,
-:meth:`RPForest.knn_batched`), candidates and recall, the exact scan
-(:meth:`RPForest.brute_force_knn`), and loading a forest the JAX package
-saved (:func:`load_forest`, :func:`forest_from_numpy`).  Entry points
+covers build (:func:`forest_batch`, :func:`tree_batch`, with payloads),
+pack (:meth:`RPForest.pack_leaves`), the grouped, per-pair and unpacked
+query paths (:meth:`RPForest.knn_grouped`, :meth:`RPForest.knn`,
+:meth:`RPForest.knn_batched`, the reference's ``knnPQ`` and ``knnH``),
+candidates, recall and the accessors, the exact scan
+(:meth:`RPForest.brute_force_knn`), online updates
+(:meth:`RPForest.add`, ``remove``, ``fold``, ``rebuild``,
+``drop_dataset``), and loading a forest the JAX package saved
+(:func:`load_forest`, :func:`forest_from_numpy`).  Entry points
 build on the card unless the caller passes ``device="cpu"``.
 
 Modules keep the JAX package's names.  The CUDA kernels (``csrc/``) are
@@ -16,7 +19,7 @@ run instead.  This package never imports JAX.
 """
 
 from .config import ForestConfig, RPTreeConfig, rp_tree_cfg
-from .models.forest import RPForest, forest_batch
+from .models.forest import RPForest, forest_batch, tree_batch
 from .models.plan import TreePlan, make_plan
 from .utils.gen import sample_projections
 from .utils.io import forest_from_numpy, load_forest
@@ -32,4 +35,5 @@ __all__ = [
     "make_plan",
     "rp_tree_cfg",
     "sample_projections",
+    "tree_batch",
 ]

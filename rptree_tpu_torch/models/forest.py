@@ -30,17 +30,29 @@ card unless the caller names the CPU).  The query paths are:
 Every query path starts with the descent of all trees (kernel 7 on the
 card, over the forest's node table, :meth:`RPForest._table`) and, on
 packed blocks, the probe selection (kernel 8), both in
-:mod:`..ops.traverse`.
+:mod:`..ops.traverse`.  :meth:`RPForest.knn_h` keeps the reference
+``knnH``'s buckets (the bucket stop, kernel 8 on packed blocks);
+:meth:`RPForest.knn_h_buckets` returns them unranked.
+
+The index takes updates between rebuilds (the JAX package's freshness
+layer): :meth:`RPForest.add` puts new points in a pending buffer that
+every dense query surface scans exactly and merges (kernel 5 at
+``precision="default"``), :meth:`RPForest.remove` sets tombstones that
+every surface masks, :meth:`RPForest.fold` writes pending points into
+the packed blocks' slack slots at the leaf each tree's thresholds send
+them to (the blocks' occupancy table, :meth:`RPForest._lens_global`, then
+feeds every kernel that reads occupancy), and :meth:`RPForest.rebuild`
+builds a fresh index over what is live with the forest's own
+projections.  :meth:`RPForest.drop_dataset` keeps only the packed blocks.
 
 Not ported yet (ROADMAP.md): centered / sub-block / shared / ELL layouts
-and sparse query batches,
-online updates, streaming and the sharded forests.  The ``approx``
-selection tail is not to be ported.
+and sparse query batches, streaming and the sharded forests.  The
+``approx`` selection tail is not to be ported.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,7 +66,7 @@ from ..ops.grouped import (grouped_distances, grouped_distances_kernel,
 from ..ops.grouped_kernel import (INV_127, _int8_dots, _quantize_rows,
                                   grouped_kernel_ok)
 from ..ops.rerank import (dedup_ids, distances_from_dots, gather_leaf_points,
-                          merge_top_k, rerank_top_k)
+                          leaf_positions, merge_top_k, rerank_top_k)
 from ..ops.scan import MAX_K as SCAN_MAX_K
 from ..ops.scan import SCAN_METRICS, scan_rows, scan_topk, stream_topk
 from ..ops.topk_kernel import topk_dedup_kernel, topk_kernel_ok
@@ -63,11 +75,11 @@ from ..ops.traverse import (node_table, project_queries, select_probes,
 from ..utils import gen as rgen
 from .plan import TreePlan, make_plan
 
-__all__ = ["RPForest", "forest_batch", "DEFAULT_BUDGET"]
+__all__ = ["RPForest", "forest_batch", "tree_batch", "DEFAULT_BUDGET"]
 
 DEFAULT_BUDGET = 32
 _LAYOUTS_TODO = "ROADMAP.md queue 1 item 13 (other dense layouts)"
-_PAYLOADS_TODO = "ROADMAP.md queue 1 item 12 (online updates and payloads)"
+_SPARSE_TODO = "ROADMAP.md queue 1 item 14 (sparse ELL data)"
 _DATA_DTYPES_TODO = "ROADMAP.md queue 1 item 22 (datasets of other types)"
 _PRECISIONS = ("highest", "default", "fastest")
 _BLOCK_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
@@ -174,8 +186,8 @@ def _as_dense_queries(q, dim: int, device) -> torch.Tensor:
     """Queries as ``f32[B, D]`` on ``device``; a single vector becomes a
     batch of one.  Sparse (ELL) query batches are not ported."""
     if hasattr(q, "cols") and hasattr(q, "vals"):
-        raise NotImplementedError("sparse (ELL) query batches: ROADMAP.md "
-                                  "queue 1 item 14")
+        raise NotImplementedError(f"sparse (ELL) query batches: "
+                                  f"{_SPARSE_TODO}")
     q = torch.as_tensor(q, dtype=torch.float32, device=device)
     if q.dim() == 1:
         q = q[None, :]
@@ -330,9 +342,11 @@ def _knn_grouped_many(f, q, chunk, **kw):
 
 
 @torch.no_grad()
-def _candidate_ids(plan, arrays, q, budget, table=None):
-    """Per-tree candidate point ids: ``int32[T, B, F * lmax]``, -1 padded."""
-    leaf_ids, _ = _traverse_forest(plan, arrays, q, budget, table)
+def _candidate_ids(plan, arrays, q, budget, table=None, leaf_ids=None):
+    """Per-tree candidate point ids: ``int32[T, B, F * lmax]``, -1 padded.
+    ``leaf_ids``: the descent's leaves, where the caller has them."""
+    if leaf_ids is None:
+        leaf_ids, _ = _traverse_forest(plan, arrays, q, budget, table)
     return torch.stack([gather_leaf_points(plan, arrays.perm[t], leaf_ids[t])
                         for t in range(leaf_ids.shape[0])])
 
@@ -399,11 +413,15 @@ def _score_blocks(f, rows_sel, lsel, q, k, kk, metric, dedup, min_votes=1,
 
 
 def _knn_packed(f, q, k, budget, probes, metric, dedup, min_votes=1,
-                selection="sort"):
+                selection="sort", bucket_stop=False):
     """One chunk of the per-pair path: each query's ``probes``
     lowest-priority leaf blocks, fetched and scored one (query, probe)
-    pair at a time (:func:`_score_blocks`)."""
+    pair at a time (:func:`_score_blocks`).  ``bucket_stop``: the
+    reference ``knnH`` rule keeps only the buckets up to the first ``k``
+    points, counted by the blocks' occupancy (:meth:`RPForest.
+    _lens_global`)."""
     gsel, lsel = _select_probes(f.plan, f.arrays, q, budget, probes, k=k,
+                                bucket_stop=bucket_stop,
                                 block_len=f._lens_global(),
                                 table=f._table())
     kk = k * f.n_trees if dedup else k
@@ -459,33 +477,139 @@ def _uses_scan(fast, metric, k):
         and k <= SCAN_MAX_K
 
 
-def _recall(exact_ids, cand, k):
-    """Mean over trees of ``|candidates . exact top-k| / k``: ``f32[B]``
-    (``exact_ids int32[B, k']``, ``cand int32[T, B, C]``, -1 padded)."""
-    per_tree = [((exact_ids[:, :, None] == c[:, None, :])
-                 & (c[:, None, :] >= 0)).any(-1).sum(-1).float() / k
-                for c in cand]
-    return torch.stack(per_tree).mean(0)
+def _found(exact_ids, cand):
+    """Which of the exact ids each tree's candidates hold: ``bool[T, B,
+    k']`` (``exact_ids int32[B, k']``, ``cand int32[T, B, C]``, -1
+    padded)."""
+    return torch.stack([((exact_ids[:, :, None] == c[:, None, :])
+                         & (c[:, None, :] >= 0)).any(-1) for c in cand])
+
+
+def _recall(found, k):
+    """Mean over trees of ``|candidates . exact top-k| / k``: ``f32[B]``."""
+    return (found.sum(-1).float() / k).mean(0)
+
+
+@torch.no_grad()
+def _knn_h_ids(plan, arrays, q, k, budget, table=None):
+    """Candidate point ids selected by the knnH bucket-stop rule
+    (reference ``knnH``): all trees' buckets in ascending priority (a
+    stable sort; empty slots +inf) while the running size stays ``<= k``,
+    the first always kept.  ``int32[B, T * F * lmax]``, -1 padded."""
+    leaf_ids, prio = _traverse_forest(plan, arrays, q, budget, table)
+    t, b, f = leaf_ids.shape
+    leaf_bt = leaf_ids.transpose(0, 1).reshape(b, t * f)
+    prio_bt = torch.where(leaf_bt >= 0,
+                          prio.transpose(0, 1).reshape(b, t * f),
+                          float("inf"))
+    order = torch.sort(prio_bt, dim=1, stable=True).indices
+    leaf_s = leaf_bt.gather(1, order)
+    tree_s = order // f                     # the (tree, slot) order's tree
+    lens = torch.as_tensor(plan.leaf_len, dtype=torch.int64,
+                           device=q.device)
+    sizes = torch.where(leaf_s >= 0, lens[leaf_s.long().clamp_min(0)], 0)
+    first = torch.arange(t * f, device=q.device)[None, :] == 0
+    keep = (torch.cumsum(sizes, dim=1) <= k) | first
+    leaf_kept = torch.where(keep & (leaf_s >= 0), leaf_s, -1)
+    pos, valid = leaf_positions(plan, leaf_kept)      # [B, T * F * lmax]
+    lmax = max(plan.max_leaf_len, 1)
+    tree_pos = tree_s.repeat_interleave(lmax, dim=1)
+    ids = arrays.perm.reshape(-1)[tree_pos * plan.n + pos]
+    return torch.where(valid, ids, -1).to(torch.int32)
+
+
+@torch.no_grad()
+def _knn_h_ids_packed(f, q, k, budget):
+    """:func:`_knn_h_ids` over the packed id blocks and their occupancy
+    (:meth:`RPForest._lens_global`), so that folded rows appear in, and
+    count toward the stop rule of, the buckets they were folded into.
+    Kernels 7 and 8 select the buckets."""
+    lens = f._lens_global()
+    id_leaf = f._packed[2]
+    gsel, lsel = _select_probes(f.plan, f.arrays, q, budget,
+                                f.n_trees * budget, k=k, bucket_stop=True,
+                                block_len=lens, table=f._table())
+    sel = gsel.long()
+    slots = torch.arange(id_leaf.shape[1], device=q.device)
+    valid = (lsel >= 0)[..., None] & (slots < lens[sel][..., None])
+    return torch.where(valid, id_leaf[sel], -1).reshape(q.shape[0], -1)
+
+
+@torch.no_grad()
+def _descend(plan, arrays, xnew):
+    """The leaf each point of ``xnew f32[M, D]`` reaches in each tree by
+    pure threshold descent (the placement step of the reference's
+    ``insert``): ``proj >= thr`` goes right, the primary side that the
+    query descent follows, over the projections that it uses
+    (:func:`..ops.traverse.project_queries`, IEEE fp32), so that a folded
+    point and a query at its place reach the same leaf.  ``int32[T,
+    M]``."""
+    nl = plan.n_levels
+    t, m, dev = arrays.perm.shape[0], xnew.shape[0], xnew.device
+    if nl == 0:
+        return torch.zeros((t, m), dtype=torch.int32, device=dev)
+    proj = project_queries(xnew, arrays.r, nl)               # [T, L, M]
+    child = torch.as_tensor(plan.padded_child_table(), dtype=torch.int64,
+                            device=dev)
+    smax = child.shape[1]
+    code = torch.zeros((t, m), dtype=torch.int64, device=dev)
+    leaf = torch.full((t, m), -1, dtype=torch.int64, device=dev)
+    for lvl in range(nl):
+        my_thr = arrays.thr[:, lvl, :].gather(1, code)
+        live = leaf < 0
+        side = (proj[:, lvl, :] >= my_thr).long()
+        nxt = child[lvl][code.clamp(0, smax - 1), side]
+        leaf = torch.where(live & (nxt < 0), -(nxt + 1), leaf)
+        code = torch.where(live & (nxt >= 0), nxt, code)
+    return leaf.to(torch.int32)
+
+
+def _ranks(g_row: np.ndarray) -> np.ndarray:
+    """Stable rank of each element within its group of equal values."""
+    width = g_row.shape[0]
+    order = np.argsort(g_row, kind="stable")
+    gs = g_row[order]
+    first = np.concatenate([[True], gs[1:] != gs[:-1]])
+    start = np.maximum.accumulate(np.where(first, np.arange(width), 0))
+    rank = np.empty(width, np.int64)
+    rank[order] = np.arange(width) - start
+    return rank
+
+
+def _keep_rows(x, payloads, dead):
+    """``x`` and its payload list without the rows where the bool mask
+    ``dead`` is set."""
+    keep = ~dead
+    return (x[torch.as_tensor(keep, device=x.device)],
+            [p for p, kp in zip(payloads, keep) if kp])
 
 
 class RPForest:
-    """A built RP forest index over a fixed dataset.
+    """A built RP forest index over a dataset, with online updates.
 
     Attributes:
       plan: static tree shape (shared by all trees).
       arrays: :class:`TreeArrays` with a leading ``[T]`` axis.
-      x: the dataset ``f32[n, D]`` on the forest's device.
+      x: the dataset ``f32[n, D]`` on the forest's device (None after
+        :meth:`drop_dataset`).
       sq_norms: ``f32[n]`` squared norms.
       config: the :class:`ForestConfig` it was built with.
+      payloads: an optional host-side sequence of per-point payloads
+        (the reference's ``Embed.eData``; row ids key into it).
+      seed: the seed the projections were drawn from, where known.
     """
 
     def __init__(self, plan: TreePlan, arrays: TreeArrays, x: torch.Tensor,
-                 sq_norms: torch.Tensor, config: ForestConfig):
+                 sq_norms: torch.Tensor, config: ForestConfig,
+                 payloads: Optional[Sequence] = None,
+                 seed: Optional[int] = None):
         self.plan = plan
         self.arrays = arrays
         self.x = x
         self.sq_norms = sq_norms
         self.config = config
+        self.payloads = payloads
+        self.seed = seed
         self._packed = None        # (x_leaf, sq_leaf, id_leaf) or None
         self._block_scale = None   # f32[G] for int8 blocks
         self._pack_cfg = None      # (dtype_str, slack) of the packed layout
@@ -493,6 +617,20 @@ class RPForest:
         self._nodes = None         # node table (kernel 7's records)
         self._grouped_nt = {}      # learned tile capacities by shape key
         self._grouped_last = None  # (needed, capacity) of the last call
+        self._reset_updates()
+
+    def _reset_updates(self):
+        """No pending, folded or removed points (a fresh build)."""
+        self._pending = []          # pending rows f32[m, D], one per add
+        self._pending_payloads = []
+        self._pending_deleted = None  # removed offsets into the buffer
+        self._deleted = None        # host bool[n + n_folded] tombstones
+        self._deleted_dev = None    # their copy on the forest's device
+        self._block_len = None      # host int32[G] occupancy after fold
+        self._folded_x = []         # folded rows f32[m, D], one per fold
+        self._folded_leaf = []      # host int32[T, m]: their leaves
+        self._folded_payloads = []
+        self._folded_cat = None     # (n_folded, x, sq): x with folded rows
 
     @property
     def n_trees(self) -> int:
@@ -504,11 +642,13 @@ class RPForest:
 
     @property
     def dim(self) -> int:
+        if self.x is None:  # serve-only: the packed blocks' width
+            return int(self._packed[0].shape[-1])
         return int(self.x.shape[1])
 
     @property
     def device(self) -> torch.device:
-        return self.x.device
+        return self.arrays.perm.device
 
     def _budget(self, budget: Optional[int]) -> int:
         if budget is None:
@@ -522,23 +662,86 @@ class RPForest:
             raise ValueError(f"k must be >= 1, got {k}")
         return k
 
+    def _require_x(self, what: str):
+        if self.x is None:
+            raise ValueError(f"dataset dropped (drop_dataset); {what} "
+                             f"needs the raw rows")
+
     def _table(self):
-        """The forest's node table, built on first use.  Nothing in the
-        port changes ``arrays`` after the build; online updates
-        (ROADMAP.md queue 1 item 12) must rebuild it."""
+        """The forest's node table, built on first use and dropped by
+        :meth:`rebuild`, which replaces ``arrays``."""
         if self._nodes is None:
             a = self.arrays
             self._nodes = node_table(self.plan, a.thr, a.mgl, a.mgh)
         return self._nodes
 
     def _lens_global(self) -> torch.Tensor:
-        """Per-block occupancy ``int32[G]`` in global block order: the
-        plan's leaf lengths tiled over trees."""
+        """Per-block occupancy ``int32[G]`` in global block order, the one
+        table every kernel that reads occupancy gets: after :meth:`fold`
+        the blocks' own counts (:meth:`_store_block_len`), else the plan's
+        leaf lengths tiled over trees."""
         if self._lens_dev is None:
             self._lens_dev = torch.as_tensor(
                 np.tile(np.asarray(self.plan.leaf_len, np.int32),
                         self.n_trees), device=self.device)
         return self._lens_dev
+
+    def _store_block_len(self, bl: np.ndarray) -> None:
+        """Record the blocks' occupancy after a fold, on the host and as
+        the device table :meth:`_lens_global` returns."""
+        self._block_len = bl
+        self._lens_dev = torch.as_tensor(bl, device=self.device)
+
+    # -- introspection (reference Internal.hs / RPTree.hs accessors) ------
+
+    def levels(self) -> int:
+        """Number of projection levels (the length of the reference's
+        ``rvs``)."""
+        return int(self.arrays.r.shape[1])
+
+    def tree_size(self, t: int = 0) -> int:
+        """Points stored in tree ``t`` (reference ``treeSize``): ``n`` for
+        every tree."""
+        del t
+        return self.plan.n
+
+    def leaf_sizes(self) -> np.ndarray:
+        """Per-leaf occupancy (reference ``leafSizes``), the same in every
+        tree."""
+        return np.asarray(self.plan.leaf_len)
+
+    def tree_stats(self) -> dict:
+        """Node counts (reference ``treeStats``)."""
+        return {"n_leaves": self.plan.n_leaves,
+                "n_branches": self.plan.n_branches,
+                "n_levels": self.plan.n_levels,
+                "max_leaf_len": self.plan.max_leaf_len}
+
+    def leaves(self, t: int = 0) -> list:
+        """Leaf buckets of tree ``t`` as lists of point ids (reference
+        ``leaves``)."""
+        perm = self.arrays.perm[t].cpu().numpy()
+        return [perm[s:s + m].tolist()
+                for s, m in zip(self.plan.leaf_start, self.plan.leaf_len)]
+
+    def points(self) -> torch.Tensor:
+        """The indexed dataset (reference ``points``), with the rows
+        :meth:`fold` appended after it, so that row ``i`` is the point of
+        id ``i``: ``f32[n + n_folded, D]`` on the forest's device."""
+        self._require_x("points()")
+        return self._with_folded()[0]
+
+    def _with_folded(self):
+        """``(x, sq_norms)`` with the folded rows appended (their ids
+        continue after the indexed points'): what the exact scan covers.
+        The concatenation is kept until the next fold."""
+        if not self.n_folded:
+            return self.x, self.sq_norms
+        nf = self.n_folded
+        if self._folded_cat is None or self._folded_cat[0] != nf:
+            xf = torch.cat([self.x, *self._folded_x])
+            self._folded_cat = (nf, xf, (xf * xf).sum(-1))
+        return self._folded_cat[1], self._folded_cat[2]
 
     # -- leaf packing ----------------------------------------------------
 
@@ -555,10 +758,12 @@ class RPForest:
         halves the blocks' memory and read bytes; distances are then
         computed from the bf16 rows.  ``slack`` adds empty slots per
         block; the slot axis is aligned as in the JAX package.  Packing
-        the same layout again is a no-op.  The parameters are the JAX
-        package's, in its order.  ``centered``, ``sub_block > 1`` (with
-        its ``sub_split`` ordering, which one block a leaf ignores) and
-        ``store="shared"`` are not ported yet and raise."""
+        the same layout again is a no-op; another layout repacks from the
+        dataset (it raises after :meth:`drop_dataset` or with folded
+        rows).  The parameters are the JAX package's, in its order.
+        ``centered``, ``sub_block > 1`` (with its ``sub_split`` ordering,
+        which one block a leaf ignores) and ``store="shared"`` are not
+        ported yet and raise."""
         if sub_split not in ("kmeans", "proj"):
             raise ValueError(f"sub_split must be 'kmeans' or 'proj', got "
                              f"{sub_split!r}")
@@ -571,6 +776,14 @@ class RPForest:
             raise ValueError(f"slack must be >= 0, got {slack}")
         if self._pack_cfg == (dtype_str, int(slack)):
             return self
+        if self.x is None:
+            raise ValueError("cannot repack a serve-only forest "
+                             "(drop_dataset was called); the packed "
+                             "blocks are the only copy of the data")
+        if self.n_folded:
+            raise ValueError("cannot repack with folded rows in the "
+                             "blocks (they live only in the packed slack "
+                             "slots); rebuild() first")
         plan = self.plan
         lmax = _tile_align(max(plan.max_leaf_len, 1) + int(slack), dtype_str)
         starts = np.asarray(plan.leaf_start)
@@ -608,6 +821,282 @@ class RPForest:
         self._grouped_nt = {}
         return self
 
+    # -- online updates (the freshness layer) --------------------------------
+
+    def add(self, points, payloads: Optional[Sequence] = None,
+            rebuild_every: int = 0) -> "RPForest":
+        """Insert points online (the reference's streaming ``insert``):
+        they land in a pending buffer on the forest's device, which every
+        dense query surface scans exactly and merges; their ids continue
+        after the indexed and folded points.  :meth:`fold` moves them into
+        the packed blocks, :meth:`rebuild` into a fresh index;
+        ``rebuild_every > 0`` rebuilds once the buffer holds that many."""
+        if self.x is None:
+            raise ValueError("cannot add to a serve-only forest "
+                             "(drop_dataset was called)")
+        p = torch.as_tensor(points, dtype=torch.float32, device=self.device)
+        if p.dim() == 1:
+            p = p[None, :]
+        if p.shape[-1] != self.dim:
+            raise ValueError(f"point dim {p.shape[-1]} != index dim "
+                             f"{self.dim}")
+        if payloads is not None and len(payloads) != p.shape[0]:
+            raise ValueError("payloads length != points length")
+        self._pending.append(p.contiguous())
+        self._pending_payloads.append(
+            list(payloads) if payloads is not None else [None] * p.shape[0])
+        if rebuild_every and self.n_pending >= rebuild_every:
+            self.rebuild()
+        return self
+
+    def remove(self, ids) -> "RPForest":
+        """Delete points by id (tombstones, kept on the forest's device):
+        they stop appearing in results at once, and :meth:`rebuild` purges
+        them.  Ids past the indexed and folded points address the pending
+        buffer; ids out of range are ignored."""
+        ids = (ids.cpu().numpy() if torch.is_tensor(ids)
+               else np.asarray(ids)).reshape(-1).astype(np.int64)
+        n_idx = self.plan.n + self.n_folded
+        if self._deleted is None:
+            self._deleted = np.zeros(n_idx, dtype=bool)
+        self._deleted[ids[(ids >= 0) & (ids < n_idx)]] = True
+        self._deleted_dev = torch.as_tensor(self._deleted, device=self.device)
+        in_pending = (ids >= n_idx) & (ids < n_idx + self.n_pending)
+        if in_pending.any():
+            self._pending_deleted = (self._pending_deleted or set()) | {
+                int(i) - n_idx for i in ids[in_pending]}
+        return self
+
+    @property
+    def n_deleted(self) -> int:
+        n = int(self._deleted.sum()) if self._deleted is not None else 0
+        return n + len(self._pending_deleted or ())
+
+    @property
+    def n_pending(self) -> int:
+        return sum(int(c.shape[0]) for c in self._pending)
+
+    @property
+    def n_folded(self) -> int:
+        return sum(int(c.shape[0]) for c in self._folded_x)
+
+    def _apply_update_hooks(self, qb, d, ids, k, metric, precision):
+        """Tombstone masking, then the exact pending merge: applied by
+        every dense query surface."""
+        if self._deleted is not None:
+            d, ids = self._mask_deleted(d, ids, k)
+        if self._pending:
+            d, ids = self._merge_pending(qb, d, ids, k, metric, precision)
+        return d, ids
+
+    def _mask_deleted(self, d, ids, k):
+        """Drop tombstoned ids from a ``(dists, ids)`` result and
+        re-select."""
+        flags = self._deleted_dev
+        nflag = flags.shape[0]
+        dead = (flags[ids.long().clamp(0, nflag - 1)] & (ids >= 0)
+                & (ids < nflag))
+        return merge_top_k(torch.where(dead, float("inf"), d),
+                           torch.where(dead, -1, ids), k, dedup=False)
+
+    def _merge_pending(self, qb, d, ids, k, metric, precision):
+        """The exact scan of the pending buffer (:func:`_brute_force` at
+        the caller's ``precision``: kernel 5 where its gate admits the
+        settings), merged with the forest's result.  It over-fetches by
+        the removed pending points, so that they never crowd live ones
+        out of the k."""
+        xp = torch.cat(self._pending)
+        dead = self._pending_deleted
+        kp = min(k + len(dead or ()), xp.shape[0])
+        dp, ip = _brute_force(xp, (xp * xp).sum(-1), qb, kp, metric,
+                              precision)
+        if dead:
+            mask = torch.zeros(xp.shape[0], dtype=torch.bool,
+                               device=xp.device)
+            mask[list(dead)] = True
+            hit = mask[ip.long().clamp_min(0)] & (ip >= 0)
+            dp = torch.where(hit, float("inf"), dp)
+            ip = torch.where(hit, -1, ip)
+        ip = torch.where(ip >= 0, ip + self.plan.n + self.n_folded, -1)
+        return merge_top_k(torch.cat([d, dp], dim=1),
+                           torch.cat([ids, ip.to(ids.dtype)], dim=1), k,
+                           dedup=False)
+
+    @torch.no_grad()
+    def fold(self) -> "RPForest":
+        """Fold the pending buffer into the packed blocks' slack slots:
+        each point descends every tree by the stored thresholds
+        (:func:`_descend`) and is appended to the block of the leaf it
+        reaches, as the next of its slots; ids continue after the indexed
+        and the earlier folded points.  A point is folded only if it fits
+        in every tree (stable ranks within each block, over all
+        candidates first, then over those accepted); the rest stay
+        pending.  Rows, norms, the int8 quantization (each row by its
+        target block's scale: a true division, rounded half to even,
+        clipped to +-127) and the scatter run on the forest's device; the
+        ranks on the host, as in the JAX package.  Needs
+        :meth:`pack_leaves` (``slack=...`` reserves room).  The port packs
+        only whole-leaf f32 / bf16 / int8 blocks, which all fold; the
+        layouts JAX also folds arrive with their items (ELL blocks,
+        ROADMAP.md queue 1 item 14; the sharded forests, item 20)."""
+        if self._packed is None:
+            raise ValueError("pack_leaves(slack=...) first: fold inserts "
+                             "into the packed blocks' slack slots")
+        if not self._pending:
+            return self
+        xp = torch.cat(self._pending)
+        pays = sum(self._pending_payloads, [])
+        if self._pending_deleted:
+            xp, pays = _keep_rows(xp, pays, np.isin(
+                np.arange(xp.shape[0]), list(self._pending_deleted)))
+            self._pending_deleted = None
+        m = int(xp.shape[0])
+        if m == 0:
+            self._pending, self._pending_payloads = [], []
+            return self
+        t, nl = self.n_trees, self.plan.n_leaves
+        x_leaf, sq_leaf, id_leaf = self._packed
+        lmax = x_leaf.shape[1]
+        bl = (np.tile(np.asarray(self.plan.leaf_len, np.int32), t)
+              if self._block_len is None else self._block_len.copy())
+        leaf = _descend(self.plan, self.arrays, xp).cpu().numpy()  # [T, M]
+        g = leaf + np.arange(t, dtype=np.int32)[:, None] * nl
+        # pass 1: acceptance with conservative ranks over all candidates
+        # (rejecting a point only frees slots, so pass 2's ranks are
+        # never larger)
+        fits = np.ones(m, bool)
+        for tt in range(t):
+            fits &= bl[g[tt]] + _ranks(g[tt]) < lmax
+        sel = np.flatnonzero(fits)
+        if sel.size:
+            msel = int(sel.size)
+            gsel = g[:, sel]
+            # pass 2: contiguous slots among the accepted
+            slots = np.stack([bl[gsel[tt]] + _ranks(gsel[tt])
+                              for tt in range(t)])
+            dev = self.device
+            rows = xp[torch.as_tensor(sel, device=dev)]
+            gi = torch.as_tensor(gsel.reshape(-1), dtype=torch.int64,
+                                 device=dev)
+            si = torch.as_tensor(slots.reshape(-1), dtype=torch.int64,
+                                 device=dev)
+            if self._block_scale is None:
+                vals = rows.repeat(t, 1)
+            else:
+                sc = self._block_scale[gi].reshape(t, msel, 1)
+                vals = torch.round(rows[None] / sc).clamp(-127, 127)
+                vals = vals.reshape(t * msel, -1)
+            base = self.plan.n + self.n_folded
+            x_leaf.index_put_((gi, si), vals.to(x_leaf.dtype))
+            sq_leaf.index_put_((gi, si), (rows * rows).sum(-1).repeat(t))
+            id_leaf.index_put_((gi, si), torch.arange(
+                base, base + msel, dtype=torch.int32, device=dev).repeat(t))
+            bl += np.bincount(gsel.reshape(-1), minlength=bl.size).astype(
+                np.int32)
+            self._store_block_len(bl)
+            self._folded_x.append(rows)
+            self._folded_leaf.append(leaf[:, sel])
+            self._folded_payloads.extend(pays[j] for j in sel.tolist())
+            if self._deleted is not None:
+                self._deleted = np.concatenate([self._deleted,
+                                                np.zeros(msel, bool)])
+                self._deleted_dev = torch.as_tensor(self._deleted,
+                                                    device=dev)
+        # the points that overflow stay in the exact pending merge
+        rest = np.flatnonzero(~fits)
+        self._pending = ([xp[torch.as_tensor(rest, device=xp.device)]]
+                         if rest.size else [])
+        self._pending_payloads = ([[pays[j] for j in rest.tolist()]]
+                                  if rest.size else [])
+        return self
+
+    def _rebuild_rows(self):
+        """The live dataset for a rebuild: the indexed, folded and pending
+        rows, less the removed ones; ``(x_all, payloads or None)``."""
+        x_old = self.x
+        pays = (list(self.payloads) if self.payloads is not None
+                else [None] * self.plan.n)
+        if self.n_folded:
+            x_old = torch.cat([x_old, *self._folded_x])
+            pays = pays + list(self._folded_payloads)
+        if self._deleted is not None and self._deleted.any():
+            x_old, pays = _keep_rows(x_old, pays, self._deleted)
+        if self._pending:
+            xp = torch.cat(self._pending)
+            pp = sum(self._pending_payloads, [])
+            if self._pending_deleted:
+                xp, pp = _keep_rows(xp, pp, np.isin(
+                    np.arange(xp.shape[0]), list(self._pending_deleted)))
+            x_old, pays = torch.cat([x_old, xp]), pays + pp
+        return x_old, (None if all(p is None for p in pays) else pays)
+
+    @torch.no_grad()
+    def rebuild(self) -> "RPForest":
+        """A fresh index over the live points (pending and folded points
+        in, removed ones out), with the forest's own projections
+        (``arrays.r``, which the JAX package draws again from ``seed``) and
+        construction parameters; the plan follows the new size.  Ids are
+        renumbered; payloads follow their points.  A packed forest is
+        packed again in the same layout.  Every cache that the old plan or
+        arrays fed is dropped: the node table (kernel 7 reads its records,
+        not ``arrays``), the occupancy table (kernels 1, 2, 4, 6, 8 and 9)
+        and the learned tile capacities (a stale one would mask pairs
+        under ``check=False``)."""
+        if not self._pending and self.n_deleted == 0 and self.n_folded == 0:
+            return self
+        self._require_x("rebuild()")
+        x_all, payloads = self._rebuild_rows()
+        cfg = self.config
+        self.plan = make_plan(int(x_all.shape[0]), cfg.max_depth,
+                              cfg.min_leaf)
+        self.arrays = build_forest_arrays(self.plan, x_all, self.arrays.r)
+        self.x, self.sq_norms = x_all, (x_all * x_all).sum(-1)
+        self.payloads = payloads
+        self._reset_updates()
+        self._nodes = self._lens_dev = self._grouped_last = None
+        self._grouped_nt = {}
+        if self._packed is not None:
+            dtype_str, slack = self._pack_cfg
+            self._packed = self._block_scale = self._pack_cfg = None
+            self.pack_leaves(dtype=_BLOCK_DTYPES[dtype_str], slack=slack)
+        return self
+
+    def drop_dataset(self) -> "RPForest":
+        """Serve-only mode: release the dataset and its norms and keep the
+        packed blocks, which hold every point.  The packed query paths
+        keep working; :meth:`brute_force_knn`, :meth:`recall_with`,
+        :meth:`points`, :meth:`add`, :meth:`rebuild` and the unpacked
+        paths raise."""
+        if self._packed is None:
+            raise ValueError("pack_leaves() first: the packed blocks are "
+                             "the only remaining copy of the data")
+        self.x = self.sq_norms = self._folded_cat = None
+        return self
+
+    def payload_of(self, ids) -> list:
+        """Resolve ids to payloads: None where the id is negative or past
+        every point, the id itself where no payloads were given.  Ids past
+        the indexed points resolve into the folded rows first, then the
+        pending buffer."""
+        ids = (ids.cpu().numpy() if torch.is_tensor(ids)
+               else np.asarray(ids)).reshape(-1)
+        pending = sum(self._pending_payloads, [])
+        folded = self._folded_payloads
+
+        def one(i):
+            i = int(i)
+            if i < 0:
+                return None
+            if i >= self.plan.n:
+                j = i - self.plan.n
+                if j < len(folded):
+                    return folded[j]
+                j -= len(folded)
+                return pending[j] if j < len(pending) else None
+            return i if self.payloads is None else self.payloads[i]
+
+        return [one(i) for i in ids]
+
     # -- per-pair and unpacked serving --------------------------------------
 
     @torch.no_grad()
@@ -631,20 +1120,26 @@ class RPForest:
         ``distf(rows[..., C, D], q[..., 1, D]) -> [..., C]`` of torch
         operations (not on int8 blocks).
 
-        ``precision`` takes the JAX package's values and changes nothing
-        here: f32 rows are always multiplied in full fp32, bf16 blocks by
-        exact products of bf16 values summed in fp32."""
+        ``precision`` takes the JAX package's values and sets only the
+        exact scan of the pending buffer (:meth:`add`; bf16 products at
+        "default" / "fastest", kernel 5 where its gate admits them): f32
+        rows are always multiplied in full fp32, bf16 blocks by exact
+        products of bf16 values summed in fp32.  Removed points
+        (:meth:`remove`) never appear."""
         k = self._check_k(k)
         _check_precision(precision)
         min_votes = int(min_votes)
         qb = _as_dense_queries(q, self.dim, self.device)
         budget = self._budget(budget)
         if self._packed is None:
-            return _knn(self, qb, k, budget, metric, dedup, min_votes)
-        _check_selection(selection, k, min_votes)
-        probes = int(self.n_trees * budget if probes is None else probes)
-        return _knn_packed(self, qb, k, budget, probes, metric, dedup,
-                           min_votes, selection)
+            self._require_x("the unpacked path")
+            d, ids = _knn(self, qb, k, budget, metric, dedup, min_votes)
+        else:
+            _check_selection(selection, k, min_votes)
+            probes = int(self.n_trees * budget if probes is None else probes)
+            d, ids = _knn_packed(self, qb, k, budget, probes, metric, dedup,
+                                 min_votes, selection)
+        return self._apply_update_hooks(qb, d, ids, k, metric, precision)
 
     @torch.no_grad()
     def knn_batched(self, q, k: int, metric="l2",
@@ -670,7 +1165,8 @@ class RPForest:
         d, ids = _knn_packed_many(self, qb, chunk, k=k, budget=budget,
                                   probes=probes, metric=metric, dedup=dedup,
                                   min_votes=min_votes, selection=selection)
-        return d[:b], ids[:b]
+        return self._apply_update_hooks(qb[:b], d[:b], ids[:b], k, metric,
+                                        precision)
 
     @torch.no_grad()
     def candidates(self, q, budget: Optional[int] = None,
@@ -687,13 +1183,79 @@ class RPForest:
                     budget: Optional[int] = None) -> torch.Tensor:
         """Average recall@k over the forest's trees (reference
         ``recallWith``): per tree, the share of the exact k nearest (fp32
-        scan) among its candidates.  Returns ``f32[B]``."""
+        scan, folded rows included) among its candidates.  A folded row
+        is a tree's candidate where the leaf it was folded into is among
+        the descent's leaves.  Returns ``f32[B]``."""
+        self._require_x("recall")
         qb = _as_dense_queries(q, self.dim, self.device)
         k = self._check_k(k)
-        _, exact = _brute_force(self.x, self.sq_norms, qb, k, metric)
-        cand = _candidate_ids(self.plan, self.arrays, qb,
-                              self._budget(budget), self._table())
-        return _recall(exact, cand, k)
+        budget = self._budget(budget)
+        _, exact = self.brute_force_knn(qb, k, metric=metric)
+        leaf_sel, _ = _traverse_forest(self.plan, self.arrays, qb, budget,
+                                       self._table())
+        found = _found(exact, _candidate_ids(self.plan, self.arrays, qb,
+                                             budget, leaf_ids=leaf_sel))
+        if self.n_folded:
+            n = self.plan.n
+            fl = torch.as_tensor(np.concatenate(self._folded_leaf, axis=1),
+                                 device=self.device)           # [T, M]
+            fleaf = fl[:, (exact.long() - n).clamp(0, fl.shape[1] - 1)]
+            found_f = (leaf_sel[:, :, None, :] == fleaf[..., None]).any(-1)
+            found = torch.where((exact >= n)[None], found_f, found)
+        return _recall(found, k)
+
+    # -- the reference knnPQ / knnH ----------------------------------------
+
+    @torch.no_grad()
+    def knn_pq(self, q, k: int, metric="l2", budget: Optional[int] = None,
+               precision: str = "highest"):
+        """Deduplicating kNN (reference ``knnPQ``): :meth:`knn` with
+        ``dedup=True``."""
+        return self.knn(q, k, metric=metric, budget=budget, dedup=True,
+                        precision=precision)
+
+    @torch.no_grad()
+    def knn_h(self, q, k: int, metric="l2", budget: Optional[int] = None,
+              dedup: bool = True, precision: str = "highest",
+              probes: Optional[int] = None):
+        """Margin-priority kNN (reference ``knnH``): all trees' buckets in
+        ascending margin priority until ``k`` points are collected (the
+        first always kept), reranked exactly and cut to k.  Packed, it is
+        the per-pair path with the bucket stop (kernels 7, 8 and 6;
+        ``probes`` bounds the bucket window, default ``n_trees * budget``),
+        counting the blocks' occupancy, folded rows included; unpacked,
+        the buckets of :meth:`knn_h_buckets`, reranked.  Tombstones and
+        the pending buffer apply as in :meth:`knn`."""
+        k = self._check_k(k)
+        _check_precision(precision)
+        qb = _as_dense_queries(q, self.dim, self.device)
+        budget = self._budget(budget)
+        if self._packed is not None:
+            probes = int(self.n_trees * budget if probes is None else probes)
+            d, ids = _knn_packed(self, qb, k, budget, probes, metric, dedup,
+                                 bucket_stop=True)
+        else:
+            self._require_x("the unpacked path")
+            ids = _knn_h_ids(self.plan, self.arrays, qb, k, budget,
+                             self._table())
+            d, ids = rerank_top_k(self.x, self.sq_norms, qb, ids, k, metric,
+                                  dedup=dedup)
+        return self._apply_update_hooks(qb, d, ids, k, metric, precision)
+
+    @torch.no_grad()
+    def knn_h_buckets(self, q, k: int, budget: Optional[int] = None):
+        """The candidate ids the knnH bucket stop selects, unsorted and
+        untruncated (the reference ``knnH``'s own return): ``int32[B,
+        M]``, -1 padded, buckets in ascending priority.  After
+        :meth:`fold` they are read from the packed id blocks with their
+        occupancy, so folded rows appear in their buckets and count toward
+        the stop."""
+        k = self._check_k(k)
+        qb = _as_dense_queries(q, self.dim, self.device)
+        if self.n_folded:
+            return _knn_h_ids_packed(self, qb, k, self._budget(budget))
+        return _knn_h_ids(self.plan, self.arrays, qb, k, self._budget(budget),
+                          self._table())
 
     # -- grouped serving ---------------------------------------------------
 
@@ -728,8 +1290,9 @@ class RPForest:
         for a metric the kernels do not serve.  ``tile_chunk`` is the
         XLA form's step in tiles (it bounds the gathered blocks' memory).
 
-        ``precision`` takes the JAX package's values and changes nothing
-        here, as on the JAX package's kernel paths: f32 blocks are always
+        ``precision`` takes the JAX package's values and sets only the
+        pending buffer's scan, as in :meth:`knn`; on the JAX package's
+        kernel paths it changes nothing either: f32 blocks are always
         scored in full fp32 (the XLA form too: the JAX package floors it
         at ``HIGH``), bf16 blocks by exact products of bf16 values summed
         in fp32.
@@ -772,7 +1335,8 @@ class RPForest:
         key = (qb.shape[0], probes, int(tile_m), chunk)
         d, ids = _grouped_auto_capacity(self, key, chunk * probes, tile_m, nt,
                                         run, check=check)
-        return d[:b], ids[:b]
+        return self._apply_update_hooks(qb[:b], d[:b], ids[:b], k, metric,
+                                        precision)
 
     def grouped_overflow(self) -> Optional[dict]:
         """Overflow telemetry of the most recent :meth:`knn_grouped` call:
@@ -790,22 +1354,26 @@ class RPForest:
     def brute_force_knn(self, q, k: int, metric="l2",
                         precision: str = "highest",
                         query_chunk: Optional[int] = None):
-        """Exact kNN by full scan (the recall oracle): ``(dists f32[B, k],
-        ids int32[B, k])``, ties to the lower index.  ``precision``:
+        """Exact kNN by full scan (the recall oracle) over the indexed and
+        the folded rows (not the pending buffer, and removed points too,
+        as in the JAX package): ``(dists f32[B, k], ids int32[B, k])``,
+        ties to the lower index.  ``precision``:
         "highest" multiplies in fp32; "default" and "fastest" round data
         and queries to bf16 and sum in fp32 (kernel 5 for l2 / sql2 / dot
         and k <= 128; see :func:`_brute_force`), and select exactly.
         ``query_chunk`` scans the batch that many queries at a time; kernel
-        5's bf16 copy of the rows is made once for all of them."""
+        5's bf16 copy of the rows is made once a call, for all of them."""
         _check_precision(precision)
+        self._require_x("brute force")
         qb = _as_dense_queries(q, self.dim, self.device)
         k = self._check_k(k)
+        x, sq = self._with_folded()
         step = int(query_chunk) if query_chunk else qb.shape[0]
         fast = precision in ("default", "fastest")
-        rows = (scan_rows(self.x, self.sq_norms)
-                if _uses_scan(fast, metric, min(k, self.n_points)) else None)
-        outs = [_brute_force(self.x, self.sq_norms, qb[s:s + step], k, metric,
-                             precision, rows)
+        rows = (scan_rows(x, sq)
+                if _uses_scan(fast, metric, min(k, x.shape[0])) else None)
+        outs = [_brute_force(x, sq, qb[s:s + step], k, metric, precision,
+                             rows)
                 for s in range(0, qb.shape[0], step)]
         return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
@@ -815,6 +1383,8 @@ class RPForest:
 
 
 def _prepare_data(data, dtype, device):
+    if hasattr(data, "cols") and hasattr(data, "vals"):
+        raise NotImplementedError(f"sparse (ELL) datasets: {_SPARSE_TODO}")
     if dtype != torch.float32:
         raise NotImplementedError(
             f"forest_batch(dtype={dtype}): the port builds on f32 data only; "
@@ -828,23 +1398,22 @@ def _prepare_data(data, dtype, device):
 
 @torch.no_grad()
 def forest_batch(seed, max_depth: int, min_leaf: int, n_trees: int,
-                 pnz: float, data, payloads=None, dtype=torch.float32,
-                 pack=False, *, device=None, r=None) -> RPForest:
+                 pnz: float, data, payloads: Optional[Sequence] = None,
+                 dtype=torch.float32, pack=False, *, device=None,
+                 r=None) -> RPForest:
     """Batch-build a random projection forest: sample ``n_trees x
     max_depth`` sparse Gaussian projections from ``seed`` (or take ``r
     [n_trees, max_depth, D]`` as given), then run the level-synchronous
     builder tree by tree.  The parameters are the JAX package's, in its
     order; ``device`` and ``r`` are the port's own.
 
-    ``dtype`` is the type the data are cast to, as in the JAX package;
-    only ``torch.float32`` is ported.  ``pack=True`` (or a block dtype,
-    ``torch.bfloat16`` or ``torch.int8``) packs the leaves at build
-    (:meth:`RPForest.pack_leaves`).  ``payloads`` are not ported yet and
-    raise.  Builds on ``device`` (default: the card; it raises where CUDA
-    is absent, and the CPU is used only with ``device="cpu"``)."""
-    if payloads is not None:
-        raise NotImplementedError(f"forest_batch(payloads=...): "
-                                  f"{_PAYLOADS_TODO}")
+    ``payloads`` is an optional host-side sequence of one payload per
+    point (:meth:`RPForest.payload_of`).  ``dtype`` is the type the data
+    are cast to, as in the JAX package; only ``torch.float32`` is ported.
+    ``pack=True`` (or a block dtype, ``torch.bfloat16`` or ``torch.int8``)
+    packs the leaves at build (:meth:`RPForest.pack_leaves`).  Builds on
+    ``device`` (default: the card; it raises where CUDA is absent, and the
+    CPU is used only with ``device="cpu"``)."""
     x, sq_norms, dim, n = _prepare_data(data, dtype, device)
     plan = make_plan(n, max_depth, min_leaf)
     if r is None:
@@ -858,7 +1427,18 @@ def forest_batch(seed, max_depth: int, min_leaf: int, n_trees: int,
     arrays = build_forest_arrays(plan, x, r)
     cfg = ForestConfig(n_trees=n_trees, max_depth=max_depth,
                        min_leaf=min_leaf, proj_nz_density=pnz, dim=dim)
-    f = RPForest(plan, arrays, x, sq_norms, cfg)
+    f = RPForest(plan, arrays, x, sq_norms, cfg, payloads=payloads,
+                 seed=seed)
     if pack:
         f.pack_leaves(dtype=None if pack is True else pack)
     return f
+
+
+def tree_batch(seed, max_depth: int, min_leaf: int, pnz: float, data,
+               payloads: Optional[Sequence] = None, dtype=torch.float32, *,
+               device=None, r=None) -> RPForest:
+    """Batch-build a single tree (reference ``treeBatch``): a forest of
+    one tree, :func:`forest_batch`'s parameters less ``n_trees`` (``r``
+    is then ``[1, max_depth, D]``)."""
+    return forest_batch(seed, max_depth, min_leaf, 1, pnz, data,
+                        payloads=payloads, dtype=dtype, device=device, r=r)

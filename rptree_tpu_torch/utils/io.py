@@ -26,11 +26,15 @@ __all__ = ["forest_from_numpy", "load_forest"]
 _ARRAYS = ("r", "thr", "mgl", "mgh", "perm")
 
 
-def forest_from_numpy(header: dict, arrays: dict, device=None) -> RPForest:
+def forest_from_numpy(header: dict, arrays: dict, device=None,
+                      payloads=None) -> RPForest:
     """Build an :class:`RPForest` on ``device`` (default: the card; the CPU
     only with ``device="cpu"``) from a JAX forest's header (as
     ``save_forest`` writes it) and its arrays ``r, thr, mgl, mgh, perm, x``
-    as numpy arrays.  Sparse (ELL) datasets are not ported."""
+    as numpy arrays.  ``payloads``: the forest's per-point payloads, a
+    list the caller holds (a checkpoint stores them pickled, which this
+    module never reads).  The seed is the header's.  Sparse (ELL)
+    datasets are not ported."""
     if header.get("sparse"):
         raise NotImplementedError("ELL-sparse forests: ROADMAP.md queue 1 "
                                   "item 14")
@@ -39,6 +43,8 @@ def forest_from_numpy(header: dict, arrays: dict, device=None) -> RPForest:
     if plan.n_levels != header["n_levels"]:
         raise ValueError("checkpoint plan mismatch: "
                          f"{plan.n_levels} != {header['n_levels']}")
+    if payloads is not None and len(payloads) != header["n"]:
+        raise ValueError(f"{len(payloads)} payloads for {header['n']} points")
     dt = {"perm": torch.int32}
     tree = TreeArrays(**{
         k: torch.as_tensor(np.asarray(arrays[k]), dtype=dt.get(k, torch.float32),
@@ -47,14 +53,17 @@ def forest_from_numpy(header: dict, arrays: dict, device=None) -> RPForest:
     x = torch.as_tensor(np.asarray(arrays["x"]), dtype=torch.float32,
                         device=device).contiguous()
     cfg = ForestConfig(**header["config"])
-    return RPForest(plan, tree, x, (x * x).sum(-1), cfg)
+    return RPForest(plan, tree, x, (x * x).sum(-1), cfg, payloads=payloads,
+                    seed=header.get("seed"))
 
 
-def load_forest(path: str, device=None) -> RPForest:
+def load_forest(path: str, device=None, payloads=None) -> RPForest:
     """Restore a forest saved by the JAX package's ``save_forest`` onto
-    ``device`` (default: the card, as :func:`forest_from_numpy`).  Reads
-    no pickled payloads (``allow_pickle=False``)."""
+    ``device`` (default: the card, as :func:`forest_from_numpy`), with
+    the seed its header names.  Reads no pickled payloads
+    (``allow_pickle=False``): a caller that has them passes
+    ``payloads``."""
     with np.load(path, allow_pickle=False) as z:
         header = json.loads(z["header"].tobytes().decode())
         return forest_from_numpy(header, {k: z[k] for k in (*_ARRAYS, "x")},
-                                 device=device)
+                                 device=device, payloads=payloads)

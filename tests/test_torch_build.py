@@ -160,8 +160,13 @@ def test_forest_batch_packs_at_build_as_jax(pack):
 
 def test_forest_batch_unported_parameters_raise():
     x = _one_hot_rows(7, 300, 4)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        torch_forest_batch(1, 3, 16, 2, 1.0, x, list(range(300)),
+    # payloads are ported: kept as given, with the seed
+    f = torch_forest_batch(1, 3, 16, 2, 1.0, x, list(range(300)),
+                           device="cpu")
+    assert f.payloads == list(range(300)) and f.seed == 1
+    with pytest.raises(NotImplementedError, match="item 14"):
+        torch_forest_batch(1, 3, 16, 2, 1.0,
+                           type("Ell", (), {"cols": 0, "vals": 0})(),
                            device="cpu")
     with pytest.raises(NotImplementedError, match="item 22"):
         torch_forest_batch(1, 3, 16, 2, 1.0, x, None, torch.bfloat16,

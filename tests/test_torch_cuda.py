@@ -846,3 +846,136 @@ def test_dot_through_kernel_3_equals_the_sort_tail(dev):
     assert torch.equal(kd.view(torch.int32), sd.view(torch.int32))
     chk = gk.untied(sd)
     assert torch.equal(ki[chk], si[chk])
+
+
+# -- online updates: the fold, its occupancy, the pending merge -------------
+
+def _to_device(f, dev):
+    """``f``'s twin on ``dev``: the same plan, arrays and rows."""
+    from rptree_tpu_torch import RPForest
+    from rptree_tpu_torch.ops.build import TreeArrays
+
+    return RPForest(f.plan, TreeArrays(*(a.to(dev) for a in f.arrays)),
+                    f.x.to(dev), f.sq_norms.to(dev), f.config)
+
+
+_BLOCKS = {"f32": None, "bf16": torch.bfloat16, "int8": torch.int8}
+
+
+def _folded_twins(dev, block, n=6000, dim=24, seed=11):
+    """A forest built on the CPU and its twin on the card, packed alike
+    with slack 8; on both the same 600 points added and folded (some
+    overflow and stay pending), two indexed, one folded and one pending
+    point removed, and 100 more points added."""
+    from rptree_tpu_torch import forest_batch
+
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n + 700, dim)).astype(np.float32)
+    q = x[:400] + 0.1 * rng.normal(size=(400, dim)).astype(np.float32)
+    fc = forest_batch(seed, 8, 16, 4, 1.0, x[:n], device="cpu")
+    fd = _to_device(fc, dev)
+    for f in (fc, fd):
+        f.pack_leaves(dtype=_BLOCKS[block], slack=8)
+        f.add(x[n:n + 600])
+        f.fold()
+        f.remove([1, 2, n + 3, n + f.n_folded + 1])
+        f.add(x[n + 600:])
+    return fc, fd, torch.as_tensor(q)
+
+
+def _agree(got, want):
+    """A path on the card against the same path on the CPU (the plain
+    twins): distances within 1e-4, ids equal outside near-ties."""
+    (gd, gi), (wd, wi) = (tuple(t.cpu() for t in r) for r in (got, want))
+    _close(gd, wd)
+    chk = gk.untied(wd, 1e-4)
+    assert torch.equal(gi[chk], wi[chk])
+
+
+@pytest.mark.parametrize("block", list(_BLOCKS))
+def test_fold_on_the_card_equals_the_cpu_fold(dev, block):
+    """The fold on the card writes the CPU fold's blocks: rows (int8 by
+    each target block's scale, bf16 rounded to even) and ids bit-equal,
+    the same occupancy table, leaves and counts; norms to fp32 order."""
+    fc, fd, _ = _folded_twins(dev, block)
+    assert 0 < fd.n_pending and fd.n_folded > 500
+    assert (fd.n_pending, fd.n_folded, fd.n_deleted) == (
+        fc.n_pending, fc.n_folded, fc.n_deleted)
+    (xc, sc_, ic), (xd, sd, idd) = fc._packed, fd._packed
+    if xc.dtype == torch.bfloat16:
+        xc, xd = xc.view(torch.int16), xd.view(torch.int16)
+    assert torch.equal(xd.cpu(), xc) and torch.equal(idd.cpu(), ic)
+    _close(sd.cpu(), sc_, rtol=1e-6)
+    assert torch.equal(fd._lens_global().cpu(), fc._lens_global())
+    assert fd._lens_global().device.type == "cuda"
+    for a, b in zip(fd._folded_leaf, fc._folded_leaf):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("block", list(_BLOCKS))
+def test_kernels_on_folded_occupancy(dev, block):
+    """Every kernel that reads occupancy, on the fold's table: kernel 8
+    (with the bucket stop) and kernel 9 bit-equal to their twins; the
+    grouped kernel tail (kernels 1 or 2, and 3), ``kernel_topk`` (kernel
+    4), the per-pair path (kernel 6) and packed ``knn_h`` against the
+    same calls on the CPU, tombstones and the pending merge included."""
+    from rptree_tpu_torch.models import forest as fm
+    from rptree_tpu_torch.ops import grouped as og
+    from rptree_tpu_torch.ops import traverse as tv
+
+    fc, fd, q = _folded_twins(dev, block)
+    qd = q.to(dev)
+    lens = fd._lens_global()
+    leaf, pri = fm._traverse_forest(fd.plan, fd.arrays, qd, 2, fd._table())
+    for stop in (False, True):
+        args = (leaf, pri, fd.plan.n_leaves, 8, lens, 10, stop)
+        got, want = tv.select_probes(*args), tv.select_probes_reference(*args)
+        assert all(torch.equal(a, w) for a, w in zip(got, want))
+    _same_tables(*got, lens, 8, 2 * got[0].numel())
+    scorer = (gk.grouped_score_tiles_int8 if block == "int8"
+              else gk.grouped_score_tiles)
+    count = "launches_bf16" if block == "bf16" else "launches"
+    n_score = getattr(scorer, count)
+    serve = dict(budget=2, probes=6, tile_m=8)
+    for kw in (dict(selection="kernel"), dict(impl="kernel_topk")):
+        if block == "int8" and "impl" in kw:
+            continue
+        _agree(fd.knn_grouped(qd, 10, **serve, **kw),
+               fc.knn_grouped(q, 10, **serve, **kw))
+    assert getattr(scorer, count) > n_score
+    n6 = getattr(fg.gather_score, count)
+    _agree(fd.knn_batched(qd, 10, budget=2, chunk=128),
+           fc.knn_batched(q, 10, budget=2, chunk=128))
+    _agree(fd.knn_h(qd, 10, budget=2), fc.knn_h(q, 10, budget=2))
+    assert (getattr(fg.gather_score, count) > n6) == (block != "int8")
+
+
+@pytest.mark.parametrize("n_pending,n_dead", [(3, 0), (3, 1), (300, 5),
+                                              (300, 150)])
+def test_pending_merge_through_kernel_5(dev, n_pending, n_dead):
+    """The pending merge at ``precision="default"`` on the card: kernel 5
+    on a buffer of fewer rows than k, or of a row count that is no
+    multiple of its 128-row tile; where the removed pending points push
+    ``k + removed`` past kernel 5's k of 128, the gate (JAX's own) takes
+    the plain bf16 product, and kernel 5 is not launched."""
+    from rptree_tpu_torch import forest_batch
+
+    rng = np.random.default_rng(n_pending + n_dead)
+    x = rng.normal(size=(3000 + n_pending, 16)).astype(np.float32)
+    fc = forest_batch(2, 7, 16, 3, 1.0, x[:3000], device="cpu")
+    fd = _to_device(fc, dev)
+    q = torch.as_tensor(x[3000:][:64] + 0.01)
+    for f in (fc, fd):
+        f.pack_leaves()
+        f.add(x[3000:])
+        f.remove(3000 + np.arange(n_dead))
+    launches = sc.scan_topk.launches
+    got = fd.knn(q.to(dev), 10, budget=2, precision="default")
+    want = fc.knn(q, 10, budget=2, precision="default")
+    served = 10 + n_dead <= sc.MAX_K
+    assert sc.scan_topk.launches - launches == int(served)
+    _agree(got, want)
+    ids = got[1].cpu()
+    assert not set(ids.reshape(-1).tolist()) & set(range(3000, 3000 + n_dead))
+    own = torch.arange(3000, 3000 + q.shape[0], dtype=torch.int32)
+    assert torch.equal(ids[n_dead:, 0], own[n_dead:])

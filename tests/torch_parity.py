@@ -34,18 +34,20 @@ def clustered(seed, n, dim, centers, sigma, n_queries):
     return x, q
 
 
-def jax_forest(x, seed=7, n_trees=4, min_leaf=32):
+def jax_forest(x, seed=7, n_trees=4, min_leaf=32, payloads=None):
     cfg = rt.rp_tree_cfg(min_leaf, x.shape[0], x.shape[1])
     return rt.forest_batch(seed, cfg.max_depth, min_leaf, n_trees,
-                           cfg.proj_nz_density, x)
+                           cfg.proj_nz_density, x, payloads=payloads)
 
 
 def carry(fj, device="cpu"):
-    """The port's forest from a JAX forest's header and arrays."""
+    """The port's forest from a JAX forest's header, arrays, payloads and
+    seed."""
     arrays = {k: np.array(getattr(fj.arrays, k))
               for k in ("r", "thr", "mgl", "mgh", "perm")}
     arrays["x"] = np.array(fj.x)
-    return forest_from_numpy(_header(fj), arrays, device=device)
+    return forest_from_numpy(_header(fj), arrays, device=device,
+                             payloads=fj.payloads)
 
 
 def knn_agree(got, want, rtol=1e-5):
