@@ -82,9 +82,30 @@ its launch counts):
    queries with the kernel tail, recall@10 >= 0.10 against the live
    truth, and kernel 2 on the folded chunk.  The steps' times stand with
    the card's name and power limit;
-8. the kernels' launch counts over phases 3-7, each of which must be > 0.
+8. the other dense layouts (``layouts_*`` and ``shared_10m*`` lines).
+   8a, on phase 3's forest, run after phase 3: 65,536 queries grouped
+   (chunk 65,536, tile_m 8) and 8,192 per pair (chunk 2,048) on (j) f32
+   sub-blocks of 4 (kmeans; kernel tail and per pair, held against (a)
+   and (f): distances within 1e-5, ids outside near-ties, recall within
+   0.001 of (a)'s), (k) int8 sub-blocks of 4 (kernel 2 on 32-row
+   blocks), (m) centered int8 sub-blocks of 8 (recall >= 0.80 and above
+   (l)'s), (n) shared f32 rows (per pair through kernel 6's shared-row
+   mode, held against (f); grouped in the XLA form, against (b), recall
+   within 0.001 of (b)'s; the rows alias the dataset), and (l) centered
+   int8 whole leaves with slack 32, on a twin of the forest, served,
+   then with 25,000 points of the mixture folded in and served against
+   the live truth (recall within 0.01 of before); each variant's kernels
+   on its own first chunk.  8b, after phase 7 with every earlier forest
+   freed: ``examples/scale_10m.py``'s cell, 10M x 128 points of 40,000
+   centers drawn on the card, ``rp_tree_cfg_clustered``, T 8,
+   ``store="shared"``; 65,536 queries per pair (chunk 8,192, sort and
+   kernel tails: the same ids outside near-ties) and grouped, recall@10
+   >= 0.88 on both, grouped within 0.005 of per pair; the bf16 scan of
+   4,096; build, pack and serve times, peak memory, the shared tables'
+   bytes beside the blocked layout's;
+9. the kernels' launch counts over phases 3-8, each of which must be > 0.
 
-Each scan of phases 3, 5 and 6 is also held, on its first chunk of
+Each scan of phases 3, 5, 6 and 8 is also held, on its first chunk of
 queries, against the scan kernel's plain version at that shape; kernels
 7 and 8, on the cells' own forests and first chunks (phases 3-5).
 
@@ -670,9 +691,7 @@ def check_tables_chunk(f, qc, serve, kern, name):
     from rptree_tpu_torch.models import forest as fm
 
     lens = f._lens_global()
-    gsel, lsel = fm._select_probes(f.plan, f.arrays, qc, serve["budget"],
-                                   serve["probes"], k=K, block_len=lens,
-                                   table=f._table())
+    gsel, lsel = fm._probe_pairs(f, qc, serve["budget"], serve["probes"], K)
     cap = max(f._grouped_nt.values())  # per chunk of serve["chunk"]
     rec = tables_record(name, gsel, lsel, lens, serve["tile_m"], cap, 5)
     kern["tile_tables"]["by_shape"][name] = rec
@@ -733,7 +752,126 @@ def check_gather(device, reps):
         }
         del x, sq, q, sel, got, gsq, want, wsq
     torch.cuda.empty_cache()
+    out["gather_score_shared"] = check_gather_shared(device, reps)
     return out
+
+
+def shared_inputs(n, g, lmax, d, b, p, device, seed):
+    """Shared rows ``f32[n, d]``, id tables ``[g, lmax]`` over them (each
+    block a random occupancy, -1 past it; one block empty), their slot
+    norms, queries and block rows with one hot block, made on the card."""
+    import torch
+
+    from rptree_tpu_torch.ops.shared import SharedRows
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rows = torch.randn(n, d, generator=gen, device=device)
+    ids = torch.randint(0, n, (g, lmax), generator=gen, device=device,
+                        dtype=torch.int32)
+    occ = torch.randint(lmax // 2, lmax + 1, (g, 1), generator=gen,
+                        device=device)
+    occ[0] = 0
+    ids = torch.where(torch.arange(lmax, device=device) < occ, ids, -1)
+    sq = torch.where(ids >= 0, (rows * rows).sum(-1)[ids.clamp_min(0).long()],
+                     0.0)
+    q = torch.randn(b, d, generator=gen, device=device)
+    sel = torch.randint(0, g, (b, p), generator=gen, device=device,
+                        dtype=torch.int32)
+    sel[::4, 0] = g // 2
+    return SharedRows(rows, ids.to(torch.int32).contiguous()), sq, q, sel
+
+
+def gather_shared_bound(xs, sel, b, p):
+    """:func:`bound` of kernel 6's shared-row mode on these pairs: each
+    distinct row that a filled slot of a selected block names, read once
+    (empty slots read no row), the selected blocks' ids and slot norms,
+    the queries and block rows, and the two outputs."""
+    import torch
+
+    _, lmax, d = xs.shape
+    blocks = torch.unique(sel)
+    ids = xs.ids[blocks.long()]
+    rows = int(torch.unique(ids[ids >= 0]).numel())
+    nbytes = (rows * d * xs.rows.element_size()
+              + blocks.numel() * lmax * (4 + 4)
+              + b * d * 4 + sel.numel() * 4 + 2 * b * p * lmax * 4)
+    rec = bound(nbytes, 2 * b * p * lmax * d,
+                "bf16" if xs.dtype == torch.bfloat16 else "f32")
+    rec["distinct_rows"] = rows
+    return rec
+
+
+def check_gather_shared(device, reps, n=1_000_000, g=65_536, lmax=128,
+                        d=128, b=2048, p=8):
+    """Kernel 6's shared-row mode against its plain version (``fetch_
+    blocks`` and the einsum) at a per-pair chunk over 1M shared rows:
+    dots within 1e-4 relative, norms bit-equal; and against the blocked
+    route on the blocks those rows make (zeros in empty slots): every
+    dot bit-equal (``blocked_same_bits``)."""
+    import torch
+
+    from rptree_tpu_torch.ops import fused_gather as fg
+
+    xs, sq, q, sel = shared_inputs(n, g, lmax, d, b, p, device, seed=17)
+    got, gsq = fg.gather_score(xs, sq, q, sel)
+    want, wsq = fg.gather_score_reference(xs, sq, q, sel)
+    torch.cuda.synchronize()
+    abs_err, rel_err = _rel_err(got, want)
+    if rel_err > DIST_RTOL or not torch.equal(gsq, wsq):
+        raise AssertionError(f"gather_score_shared: relative error {rel_err}, "
+                             f"norms equal {torch.equal(gsq, wsq)}")
+    blocks = torch.where((xs.ids >= 0)[..., None],
+                         xs.rows[xs.ids.long().clamp_min(0)], 0.0)
+    blocked = fg.gather_score(blocks, sq, q, sel)[0]
+    same = torch.equal(got.view(torch.int32), blocked.view(torch.int32))
+    if not same:
+        raise AssertionError("gather_score_shared: dots differ from the "
+                             "blocked route's over the same rows")
+    rec = {"max_abs_err": abs_err, "max_rel_err": rel_err,
+           "blocked_same_bits": same,
+           "ms": cuda_ms(lambda: fg.gather_score(xs, sq, q, sel), reps),
+           "blocked_ms": cuda_ms(lambda: fg.gather_score(blocks, sq, q, sel),
+                                 reps),
+           "plain_ms": cuda_ms(
+               lambda: fg.gather_score_reference(xs, sq, q, sel), reps),
+           "library_ms": None, **gather_shared_bound(xs, sel, b, p),
+           "shape": {"rows": n, "blocks": g, "lmax": lmax, "D": d, "B": b,
+                     "P": p}}
+    del xs, sq, q, sel, got, gsq, want, wsq, blocks, blocked
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_gather_chunk(f, qc, serve):
+    """Kernel 6 (blocked or shared-row mode, by ``f``'s layout) against
+    its plain version on the pairs the per-pair path makes for the chunk
+    ``qc``: dots within ``DIST_RTOL``, norms bit-equal, both timed.
+    Launches here are not counted."""
+    import torch
+
+    from rptree_tpu_torch.models import forest as fm
+    from rptree_tpu_torch.ops import fused_gather as fg
+    from rptree_tpu_torch.ops.shared import SharedRows
+
+    x_leaf, sq_leaf, _ = f._packed
+    sel, _ = fm._probe_pairs(f, qc, serve["budget"], serve["probes"], K)
+    (gd, gs), (wd, ws) = (fg.gather_score(x_leaf, sq_leaf, qc, sel),
+                          fg.gather_score_reference(x_leaf, sq_leaf, qc, sel))
+    torch.cuda.synchronize()
+    abs_err, rel = _rel_err(gd, wd)
+    if rel > DIST_RTOL or not torch.equal(gs, ws):
+        raise AssertionError(f"gather_score on the chunk: {rel}")
+    b, p = sel.shape
+    rec = {"queries": b, "pairs_per_query": p, "lmax": int(x_leaf.shape[1]),
+           "max_abs_err": abs_err, "max_rel_err": rel,
+           "ms": cuda_ms(lambda: fg.gather_score(x_leaf, sq_leaf, qc, sel)),
+           "plain_ms": cuda_ms(
+               lambda: fg.gather_score_reference(x_leaf, sq_leaf, qc, sel),
+               reps=2)}
+    if isinstance(x_leaf, SharedRows):
+        rec.update(gather_shared_bound(x_leaf, sel, b, p))
+    del gd, gs, wd, ws
+    return rec
 
 
 def check_scan(device, reps, n=100_000, b=4096, d=128):
@@ -863,22 +1001,24 @@ def chunk_tiles(f, qc, budget, probes, tile_m):
     from rptree_tpu_torch.ops import grouped as og
 
     lens = f._lens_global()
-    gsel, lsel = fm._select_probes(f.plan, f.arrays, qc, budget, probes,
-                                   k=K, block_len=lens,
-                                   table=f._table())
+    gsel, lsel = fm._probe_pairs(f, qc, budget, probes, K)
     cap = max(f._grouped_nt.values())  # per chunk of serve["chunk"]
     tb, lens_t, qt, _, _ = og._tile_operands(gsel, lsel, lens, qc, tile_m,
                                              cap)
     return tb, lens_t, qt
 
 
-def check_tiles_chunk(f, qc, serve, reps=5):
+def check_tiles_chunk(f, qc, serve, reps=5, clustered=False):
     """The tile kernel of ``f``'s blocks (kernel 2 on int8, kernel 1 on f32
     and bf16) against its plain version on the tiles the grouped path
     makes for the chunk ``qc``, with the blocks' occupancy table: int8
     distances within ``DIST_RTOL`` (exact integer dots), f32 / bf16
     squared distances within ``SUM_RTOL`` of ``|x|^2 + |q|^2``; with both
-    times and the bound on those tiles."""
+    times and the bound on those tiles.  ``clustered``: int8 too is held
+    by the squared distances' share of the norms, as the clustered
+    cell's distances are ~1% of the norms the factored form cancels
+    (the int8 dots are exact; the dequantized terms' float order is
+    not)."""
     import torch
 
     from rptree_tpu_torch.ops import grouped_kernel as gk
@@ -900,11 +1040,11 @@ def check_tiles_chunk(f, qc, serve, reps=5):
     abs_err, rel_err = _rel_err(got, want)
     rec = {"kernel": name, "tiles": tb.shape[0], "max_abs_err": abs_err,
            "max_rel_err": rel_err}
-    if int8 and rel_err > DIST_RTOL:
+    if int8 and not clustered and rel_err > DIST_RTOL:
         raise AssertionError(f"{name} on the chunk: relative error "
                              f"{rel_err} > {DIST_RTOL}")
-    if not int8:
-        sargs = (*args[:5], "sql2", tm)
+    if not int8 or clustered:
+        sargs = (*args[:-2], "sql2", tm)
         got, want = fn(*sargs), ref(*sargs)
         scale = (sq[tb.long()].repeat_interleave(tm, 0)
                  + (qt * qt).sum(-1)[:, None])
@@ -939,7 +1079,7 @@ def check_descent_chunk(f, qc, budget, probes=None, bucket_stop=False):
     same = torch.equal(leaf, want_l) and torch.equal(
         pri.view(torch.int32), want_p.view(torch.int32))
     if probes is not None:
-        pargs = (leaf, pri, f.plan.n_leaves, probes, f._lens_global(), K,
+        pargs = (leaf, pri, f.plan.n_leaves, probes, f._leaf_lens(), K,
                  bucket_stop)
         same = same and all(torch.equal(a, c) for a, c in zip(
             tv.select_probes(*pargs), tv.select_probes_reference(*pargs)))
@@ -972,6 +1112,7 @@ def kernel_counts():
         "grouped_score_topk": (gk.grouped_score_topk, "launches"),
         "gather_score": (fg.gather_score, "launches"),
         "gather_score_bf16": (fg.gather_score, "launches_bf16"),
+        "gather_score_shared": (fg.gather_score, "launches_shared"),
         "scan_topk": (sc.scan_topk, "launches"),
     }
 
@@ -1035,12 +1176,18 @@ def serve_variant(name, f, qd, truth, pack, serve, runs, n_passes=3):
     return {
         "lmax": int(x_leaf.shape[1]),
         "block_dtype": str(x_leaf.dtype).replace("torch.", ""),
-        "x_leaf_gb": x_leaf.numel() * x_leaf.element_size() / 1e9,
+        "x_leaf_gb": rows_gb(x_leaf),
         **serve, "recall_at_10": recall(ids[:truth.shape[0]], truth),
         "qps": qd.shape[0] / serve_s, "serve_s": serve_s,
         "checked_serve_s": warm_s, "pack_s": pack_s, "tiles": over,
         "launches": {kern: warm_n[kern] + steady_n[kern] for kern in warm_n},
     }, (dist, ids)
+
+
+def rows_gb(x_leaf):
+    """The packed rows' gigabytes: the blocks, or the shared row store."""
+    t = getattr(x_leaf, "rows", x_leaf)
+    return t.numel() * t.element_size() / 1e9
 
 
 def counted_calls(name, fn, runs, n_calls):
@@ -1075,9 +1222,9 @@ def check_result(name, res, n_queries):
         raise AssertionError(f"{name}: distances not ascending")
 
 
-def close_results(name, got, want):
+def close_results(name, got, want, rtol=DIST_RTOL):
     """``got`` against ``want``, both ``(dists, ids)`` over the same
-    candidates summed in other orders: distances within ``DIST_RTOL``
+    candidates summed in other orders: distances within ``rtol``
     relative, ids equal wherever ``want``'s distance is apart from its
     row neighbours by more than that.  The k-th id is not compared: its
     neighbour past the k-th, which neither result shows, may be as near
@@ -1088,9 +1235,9 @@ def close_results(name, got, want):
 
     (gd, gi), (wd, wi) = got, want
     _, rel = _rel_err(gd, wd)
-    if rel > DIST_RTOL:
+    if rel > rtol:
         raise AssertionError(f"{name}: distances differ by {rel} relative")
-    chk = untied(wd, DIST_RTOL)
+    chk = untied(wd, rtol)
     chk[:, -1] = False
     if not torch.equal(gi[chk], wi[chk]):
         bad = int(((gi != wi) & chk).any(1).sum())
@@ -1223,7 +1370,7 @@ def per_pair_phase(name, f, qd, truth, serve, runs, n_calls, launches):
     x_leaf = f._packed[0]
     return {"block_dtype": str(x_leaf.dtype).replace("torch.", ""),
             "lmax": int(x_leaf.shape[1]),
-            "x_leaf_gb": x_leaf.numel() * x_leaf.element_size() / 1e9,
+            "x_leaf_gb": rows_gb(x_leaf),
             **serve, "queries": qd.shape[0],
             "recall_at_10": recall(res[1][:truth.shape[0]], truth),
             "qps": qd.shape[0] / s, "serve_s": s}, res
@@ -1376,9 +1523,7 @@ def check_update_chunk(f, qd, serve, kern, pending_q):
            "kernel1": check_tiles_chunk(f, qc, serve)}
     x_leaf, sq_leaf, id_leaf = f._packed
     lens = f._lens_global()
-    gsel, lsel = fm._select_probes(f.plan, f.arrays, qc, serve["budget"],
-                                   serve["probes"], k=K, block_len=lens,
-                                   table=f._table())
+    gsel, lsel = fm._probe_pairs(f, qc, serve["budget"], serve["probes"], K)
     cap = max(f._grouped_nt.values())
     d, _ = og.grouped_distances_kernel(x_leaf, sq_leaf, lens, gsel, lsel, qc,
                                        "l2", serve["tile_m"], cap)
@@ -1392,9 +1537,7 @@ def check_update_chunk(f, qd, serve, kern, pending_q):
                       "bit_equal": True}
     del d, ids, got, want
     qp = qd[:2048]
-    sel, _ = fm._select_probes(f.plan, f.arrays, qp, serve["budget"],
-                               serve["probes"], k=K, block_len=lens,
-                               table=f._table())
+    sel, _ = fm._probe_pairs(f, qp, serve["budget"], serve["probes"], K)
     (gd, gs), (wd, ws) = (fg.gather_score(x_leaf, sq_leaf, qp, sel),
                           fg.gather_score_reference(x_leaf, sq_leaf, qp, sel))
     rel = _rel_err(gd, wd)[1]
@@ -1607,6 +1750,276 @@ def updates_int8(f, qd, device, launches, card):
                              f"{rec['recall_at_10']}")
 
 
+# -- phase 8: the other dense layouts --------------------------------------
+
+LAYOUT_GROUPED = dict(budget=1, probes=8, tile_m=8, chunk=65_536)
+LAYOUT_PAIR = dict(budget=1, probes=8, precision="default", chunk=2048)
+LAYOUT_QUERIES, LAYOUT_PAIR_QUERIES = 65_536, 8_192
+SUB_RTOL = 1e-5            # sub-blocks re-block the same candidates
+SUB_RECALL_GAP = 0.001
+CENTERED_SUB_MIN_RECALL = 0.80
+LAYOUT_ADD = 25_000        # points folded into the centered blocks
+FOLD_RECALL_DROP = 0.01
+SHARED_MIN_RECALL = 0.88
+SHARED_GROUPED_GAP = 0.005
+JAX_LAYOUT_RECALL = {"int8c_sub8_kmeans": 0.8666, "int8c_whole_leaf": 0.754,
+                     "shared_10m_per_pair": 0.9093,
+                     "shared_10m_grouped": 0.9090}
+
+
+def bits_equal(got, want):
+    """Whether two ``(dists, ids)`` results are the same bits."""
+    import torch
+
+    return bool(torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+                and torch.equal(got[1], want[1]))
+
+
+def layouts_phase(f, qd, truth, out, launches, kern):
+    """Phase 8a on phase 3's clustered 1M forest: (j) f32 sub-blocks of
+    4 (kmeans), (k) int8 sub-blocks of 4, (m) centered int8 sub-blocks of
+    8, (n) shared f32 rows, each grouped on 65,536 queries and, where
+    asked, per pair on 8,192; (l) centered int8 whole-leaf blocks with
+    slack 32, on a twin of the forest (the same plan, arrays and rows),
+    served, then with 25,000 points of the mixture folded in, served
+    again.  Each variant's own kernels are checked on its first chunk."""
+    import torch
+
+    from rptree_tpu_torch.models import forest as fm
+
+    walk, probe, tables = "traverse", "select_probes", "tile_tables"
+    topk = "topk_dedup_kernel"
+    g, qg, qp = LAYOUT_GROUPED, qd[:LAYOUT_QUERIES], qd[:LAYOUT_PAIR_QUERIES]
+    n_truth = truth.shape[0]
+    a = tuple(t[:LAYOUT_QUERIES] for t in out["a"])
+    b = tuple(t[:LAYOUT_QUERIES] for t in out["b"])
+    pf = tuple(t[:LAYOUT_PAIR_QUERIES] for t in out["f"])
+    rec_a, rec_b = recall(a[1][:n_truth], truth), recall(b[1][:n_truth], truth)
+    t_phase = time.perf_counter()
+
+    def grouped(name, fo, pack, serve, runs, against=truth):
+        rec, res = serve_variant(name, fo, qg, against, pack, serve, runs)
+        add_launches(launches, name, rec["launches"])
+        return rec, res
+
+    def per_pair(name, fo, runs):
+        rec, res = per_pair_phase(name, fo, qp, truth, LAYOUT_PAIR, runs, 2,
+                                  launches)
+        return rec, res
+
+    # (j) f32, sub-blocks of 4, kmeans: the kernel tail and per pair
+    name = "j_f32_sub4_kernel_tail"
+    rec, res = grouped(name, f, dict(sub_block=4), {**g, "selection": "kernel"},
+                       {walk, probe, tables, "grouped_score_tiles", topk})
+    rec.update(same_as_a_untied_ids=close_results(name, res, a, SUB_RTOL),
+               max_rel_err_vs_a=_rel_err(res[0], a[0])[1],
+               same_bits_as_a=bits_equal(res, a), a_recall_at_10=rec_a,
+               kernel1_chunk=check_tiles_chunk(f, qg, g),
+               kernel9_chunk=check_tables_chunk(f, qg, g, kern,
+                                                "j_sub4_chunk_own_pairs"),
+               kernels7_8_chunk=check_descent_chunk(f, qg, g["budget"],
+                                                    g["probes"]))
+    log(f"layouts_{name}", **rec)
+    if abs(rec["recall_at_10"] - rec_a) > SUB_RECALL_GAP:
+        raise AssertionError(f"{name}: recall {rec['recall_at_10']} vs (a)'s "
+                             f"{rec_a}")
+    name = "j_f32_sub4_per_pair"
+    rec, res = per_pair(name, f, {walk, probe, "gather_score"})
+    rec.update(same_as_f_untied_ids=close_results(name, res, pf, SUB_RTOL),
+               same_bits_as_f=bits_equal(res, pf),
+               kernel6_chunk=check_gather_chunk(f, qp[:2048], LAYOUT_PAIR))
+    log(f"layouts_{name}", **rec)
+
+    # (k) int8, sub-blocks of 4, kmeans, not centered: kernel 2 on them
+    name = "k_int8_sub4_kernel_tail"
+    rec, _ = grouped(name, f, dict(dtype=torch.int8, sub_block=4),
+                     {**g, "selection": "kernel"},
+                     {walk, probe, tables, "grouped_score_tiles_int8", topk})
+    rec["kernel2_chunk"] = check_tiles_chunk(f, qg, g, clustered=True)
+    log(f"layouts_{name}", **rec)
+
+    # (m) centered int8, sub-blocks of 8, kmeans: the XLA form, per pair
+    name = "m_int8c_sub8_kernel_tail"
+    rec_m, _ = grouped(name, f, dict(dtype=torch.int8, centered=True,
+                                     sub_block=8),
+                       {**g, "selection": "kernel"},
+                       {walk, probe, tables, topk})
+    rec_m["kernel9_chunk"] = check_tables_chunk(f, qg, g, kern,
+                                                "m_sub8_chunk_own_pairs")
+    log(f"layouts_{name}", **rec_m,
+        jax_recall=JAX_LAYOUT_RECALL["int8c_sub8_kmeans"])
+    name = "m_int8c_sub8_per_pair"
+    rec, _ = per_pair(name, f, {walk, probe})
+    log(f"layouts_{name}", **rec)
+
+    # (n) shared f32 rows: kernel 6's shared-row mode, the XLA form
+    name = "n_shared_f32_per_pair"
+    shared = dict(store="shared")
+    f.pack_leaves(**shared)
+    rec, res = per_pair(name, f, {walk, probe, "gather_score_shared"})
+    rows = f._packed[0]
+    blocked = fm.RPForest(f.plan, f.arrays, f.x, f.sq_norms, f.config,
+                          seed=f.seed).pack_leaves()._packed[1]
+    rec["norms_same_bits_as_blocked"] = torch.equal(f._packed[1], blocked)
+    del blocked
+    if not rec["norms_same_bits_as_blocked"]:
+        raise AssertionError("shared slot norms differ from the blocked "
+                             "f32 pack's")
+    rec.update(same_as_f_untied_ids=close_results(name, res, pf, SUB_RTOL),
+               same_bits_as_f=bits_equal(res, pf),
+               rows_alias_dataset=rows.rows.data_ptr() == f.x.data_ptr(),
+               shared_tables_gb=(rows.ids.numel() * 4
+                                 + f._packed[1].numel() * 4) / 1e9,
+               kernel6_chunk=check_gather_chunk(f, qp[:2048], LAYOUT_PAIR))
+    log(f"layouts_{name}", **rec)
+    print(f"shared rows alias the dataset: "
+          f"{rows.rows.data_ptr() == f.x.data_ptr()}", flush=True)
+    if not rec["rows_alias_dataset"]:
+        raise AssertionError("shared f32 rows are a copy of the dataset")
+    name = "n_shared_f32_sort_tail"
+    rec, res = grouped(name, f, shared, {**g, "selection": "sort"},
+                       {walk, probe, tables})
+    rec.update(same_as_b_untied_ids=close_results(name, res, b),
+               max_rel_err_vs_b=_rel_err(res[0], b[0])[1],
+               b_recall_at_10=rec_b)
+    log(f"layouts_{name}", **rec)
+    if abs(rec["recall_at_10"] - rec_b) > SUB_RECALL_GAP:
+        raise AssertionError(f"{name}: recall {rec['recall_at_10']} vs (b)'s "
+                             f"{rec_b}")
+
+    # (l) centered int8 whole-leaf blocks, slack 32, on a twin: served,
+    # then 25,000 points folded into the centered blocks, served again
+    fl = fm.RPForest(f.plan, f.arrays, f.x, f.sq_norms, f.config,
+                     seed=f.seed)
+    name = "l_int8c_kernel_tail"
+    rec_l, _ = grouped(name, fl, dict(dtype=torch.int8, centered=True,
+                                      slack=32),
+                       {**g, "selection": "kernel"},
+                       {walk, probe, tables, topk})
+    log(f"layouts_{name}", **rec_l,
+        jax_recall=JAX_LAYOUT_RECALL["int8c_whole_leaf"])
+    name = "l_int8c_per_pair"
+    rec, _ = per_pair(name, fl, {walk, probe})
+    log(f"layouts_{name}", **rec)
+    new = torch.as_tensor(clustered_more(LAYOUT_ADD, qd.shape[1], 4000, 0.15),
+                          device=qd.device)
+    fl.add(new, payloads=list(range(LAYOUT_ADD)))
+    _, fold_s = sync_time(fl.fold)
+    live = live_truth(fl, new, np.zeros(0, np.int64), qd[:n_truth])
+    runs = {walk, probe, tables, topk}
+    name = "l_int8c_folded_kernel_tail"
+    rec, _ = grouped(name, fl, dict(dtype=torch.int8, centered=True,
+                                    slack=32),
+                     {**g, "selection": "kernel"}, runs, against=live)
+    rec.update(added=LAYOUT_ADD, folded=fl.n_folded,
+               overflow_pending=fl.n_pending, fold_s=fold_s,
+               before_recall_at_10=rec_l["recall_at_10"])
+    log(f"layouts_{name}", **rec)
+    del fl, new, live
+    torch.cuda.empty_cache()
+    if rec["recall_at_10"] < rec_l["recall_at_10"] - FOLD_RECALL_DROP:
+        raise AssertionError(f"{name}: recall {rec['recall_at_10']} after "
+                             f"the fold, {rec_l['recall_at_10']} before")
+    if not (rec_m["recall_at_10"] >= CENTERED_SUB_MIN_RECALL
+            and rec_m["recall_at_10"] > rec_l["recall_at_10"]):
+        raise AssertionError(f"(m) recall {rec_m['recall_at_10']}: needs >= "
+                             f"{CENTERED_SUB_MIN_RECALL} and above (l)'s "
+                             f"{rec_l['recall_at_10']}")
+    log("layouts_1m", phase_s=time.perf_counter() - t_phase)
+
+
+def clustered_on_card(n, dim, centers, sigma, nq, device, seed=SEED):
+    """:func:`clustered_data`'s family drawn on the card by a CUDA
+    ``torch.Generator`` (10M rows would take minutes through numpy):
+    ``(x f32[n, dim], q f32[nq, dim])``, the queries dataset points plus
+    half-sigma noise."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    c = torch.randn(centers, dim, generator=gen, device=device)
+    x = c[torch.randint(0, centers, (n,), generator=gen, device=device)]
+    x += sigma * torch.randn(n, dim, generator=gen, device=device)
+    q = x[torch.randint(0, n, (nq,), generator=gen, device=device)]
+    q += 0.5 * sigma * torch.randn(nq, dim, generator=gen, device=device)
+    return x, q
+
+
+def shared_10m_phase(device, launches, kern, card):
+    """Phase 8b, ``examples/scale_10m.py``'s cell: 10M x 128 f32 points of
+    40,000 N(0, 1) centers, sigma 0.15, drawn on the card; the forest of
+    ``rp_tree_cfg_clustered`` (T 8) packed with ``store="shared"``; 65,536
+    queries served per pair (sort tail and kernel tail) and grouped
+    (the XLA form), each against the exact fp32 scan of 1,024; the bf16
+    scan of 4,096 (kernel 5 at N 10M)."""
+    import torch
+
+    import rptree_tpu_torch as rp
+
+    n, dim, centers, sigma, nq = 10_000_000, 128, 40_000, 0.15, 65_536
+    walk, probe, tables = "traverse", "select_probes", "tile_tables"
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    x, q = clustered_on_card(n, dim, centers, sigma, nq, device)
+    cfg = rp.rp_tree_cfg_clustered(n, dim, centers=centers)
+    f, build_s = sync_time(lambda: rp.forest_batch(
+        SEED, cfg.max_depth, cfg.min_leaf, 8, cfg.proj_nz_density, x,
+        device=device))
+    _, pack_s = sync_time(lambda: f.pack_leaves(store="shared"))
+    g_blocks, lmax, _ = f._packed[0].shape
+    (_, truth), truth_s = sync_time(lambda: f.brute_force_knn(q[:1024], K))
+    cell = {"n": n, "dim": dim, "centers": centers, "sigma": sigma,
+            "trees": 8, "min_leaf": cfg.min_leaf, "depth": cfg.max_depth,
+            "leaves": f.plan.n_leaves, "lmax": int(lmax), "queries": nq,
+            "data": "drawn on the card by a torch.Generator (the JAX "
+                    "example draws with jax.random)",
+            "build_s": build_s, "pack_s": pack_s, "ground_truth_s": truth_s,
+            "shared_tables_gb": 2 * g_blocks * lmax * 4 / 1e9,
+            "blocked_t8_rows_gb": g_blocks * lmax * dim * 4 / 1e9,
+            "dataset_gb": n * dim * 4 / 1e9, "card": card}
+    log("shared_10m", **cell)
+    pair = dict(budget=1, probes=8, precision="default", chunk=8192)
+    rec_p, res_p = per_pair_phase(
+        "shared_10m_per_pair_sort", f, q, truth, pair,
+        {walk, probe, "gather_score_shared"}, 3, launches)
+    log("shared_10m_per_pair_sort", **rec_p,
+        jax_recall=JAX_LAYOUT_RECALL["shared_10m_per_pair"],
+        kernel6_chunk=check_gather_chunk(f, q[:pair["chunk"]], pair),
+        kernels7_8_chunk=check_descent_chunk(f, q[:pair["chunk"]], 1, 8))
+    rec, res = per_pair_phase(
+        "shared_10m_per_pair_kernel", f, q, truth,
+        {**pair, "selection": "kernel"},
+        {walk, probe, "gather_score_shared", "topk_dedup_kernel"}, 3,
+        launches)
+    rec["sort_tail_same_untied_ids"] = close_results(
+        "shared_10m_per_pair_kernel", res, res_p)
+    log("shared_10m_per_pair_kernel", **rec)
+    del res
+    serve = dict(budget=1, probes=8, precision="default", chunk=8192,
+                 tile_m=16)
+    rec_g, _ = serve_variant("shared_10m_grouped", f, q, truth,
+                             dict(store="shared"), serve,
+                             {walk, probe, tables})
+    add_launches(launches, "shared_10m_grouped", rec_g["launches"])
+    log("shared_10m_grouped", **rec_g,
+        jax_recall=JAX_LAYOUT_RECALL["shared_10m_grouped"],
+        kernel9_chunk=check_tables_chunk(f, q[:serve["chunk"]], serve, kern,
+                                         "shared_10m_chunk_own_pairs"))
+    scan_phase("shared_10m_scan", f, q[:4096], truth, 1024, 0.0, launches,
+               None)
+    rp_, rg = rec_p["recall_at_10"], rec_g["recall_at_10"]
+    log("shared_10m_summary", per_pair_recall_at_10=rp_,
+        grouped_recall_at_10=rg, per_pair_qps=rec_p["qps"],
+        grouped_qps=rec_g["qps"],
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        phase_s=time.perf_counter() - t_phase, card=card)
+    if min(rp_, rg) < SHARED_MIN_RECALL or abs(rg - rp_) > SHARED_GROUPED_GAP:
+        raise AssertionError(f"shared 10M: recall per pair {rp_}, grouped "
+                             f"{rg}: needs >= {SHARED_MIN_RECALL}, within "
+                             f"{SHARED_GROUPED_GAP}")
+    del f, x, q, truth, res_p
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -1708,6 +2121,9 @@ def main():
     scan_phase("clustered_1m_scan", f, qd[:16384], truth, 2048,
                SCAN_MIN_RECALL["clustered"], launches,
                JAX_RECALL["clustered_scan"])
+    # -- phase 8a: the other dense layouts on this forest, before phase 7
+    # repacks it --------------------------------------------------------
+    layouts_phase(f, qd, truth, out, launches, kern)
     # phase 7 takes up this forest and its queries again
     f_clustered, qd_clustered = f, qd
     del f, qd, truth, out, unpacked, wide
@@ -1784,6 +2200,10 @@ def main():
     del f_clustered, qd_clustered
     updates_int8(f_iid, qd_iid, device, launches, card)
     del f_iid, qd_iid
+    torch.cuda.empty_cache()
+
+    # -- phase 8b: the 10M shared-row cell, every earlier forest freed ----
+    shared_10m_phase(device, launches, kern, card)
 
     log("launches", variant="all", **launches)
     if min(launches.values()) < 1:
@@ -1817,6 +2237,10 @@ def main():
         "gather_score_bf16": ("rptree_tpu_torch/csrc/gather_score.cu",
                               "rptree_tpu/ops/fused_gather.py:62",
                               "gather_score_bf16_bracket"),
+        "gather_score_shared": ("rptree_tpu_torch/csrc/gather_score.cu",
+                                "rptree_tpu/ops/fused_gather.py:62 with "
+                                "rptree_tpu/ops/shared.py:67 fetch_blocks",
+                                "gather_score_shared"),
         "scan_topk": ("rptree_tpu_torch/csrc/scan_topk.cu",
                       "rptree_tpu/ops/scan.py:102", "scan_topk"),
     }
@@ -1826,7 +2250,7 @@ def main():
     # time and the call's name stand beside it; the tile kernels' device
     # time (graph_ms) beside their wrapper's
     extra = ("ms_no_dedup", "library_call", "gemm_ms", "cast_ms",
-             "device_ms", "by_shape")
+             "device_ms", "by_shape", "blocked_ms", "blocked_same_bits")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **{key: kern[r][key] for key in keys},

@@ -24,6 +24,8 @@ too, at the phase-2 shapes and the 1M scan chunk.
 
     python3 chip_stages.py            # on the card
     python3 chip_stages.py --cpu      # a tiny rehearsal on the CPU
+    python3 chip_stages.py --shared-10m   # only the 10M shared-row cell
+                                          # (add --cpu to rehearse it)
 
 Each stage runs as the serving path runs it (``_knn_grouped``), between
 two ``torch.cuda.synchronize`` calls, seven times; the line gives the
@@ -733,6 +735,80 @@ def pair_stages(f, fm, fg, rr, qc, sync):
     return st
 
 
+def shared_10m_stages(rp, fm, fg, og, rr, tk, dev, sync, on_card):
+    """The 10M shared-row cell (``chip_smoke.py`` phase 8b's): build and
+    pack times, the peak device memory, the shared tables' bytes beside the
+    blocked T=8 layout's rows; stage times of one per-pair chunk of 8,192
+    (kernels 7-8, kernel 6's shared-row mode, distances and mask, the sort
+    tail or kernel 3) and one grouped chunk of 8,192 at tile_m 16 (kernels
+    7-8, kernel 9, the XLA form through the id tables, the sort tail),
+    each beside its whole call."""
+    n, nq, centers, chunk = ((10_000_000, 65_536, 40_000, 8192) if on_card
+                             else (40_000, 2048, 160, 512))
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    x, q = cs.clustered_on_card(n, 128, centers, 0.15, nq, dev)
+    cfg = rp.rp_tree_cfg_clustered(n, 128, centers=centers)
+    f, build_ms = timed(lambda: rp.forest_batch(
+        cs.SEED, cfg.max_depth, cfg.min_leaf, 8, cfg.proj_nz_density, x,
+        device=dev), sync, reps=1)
+    _, pack_ms = timed(lambda: f.pack_leaves(store="shared"), sync, reps=1)
+    rows, sq_leaf, id_leaf = f._packed
+    g, lmax, _ = rows.shape
+    qc = q[:chunk]
+    lens = f._lens_global()
+    st = {}
+    (gsel, lsel), st["traversal_probes"] = timed(
+        lambda: fm._probe_pairs(f, qc, 1, 8, K), sync)
+    (dots, sqx), st["kernel6_gather_score_shared"] = timed(
+        lambda: fg.gather_score(rows, sq_leaf, qc, gsel.contiguous()), sync)
+    col = torch.arange(lmax, device=dev)
+    d, st["distances_mask"] = timed(lambda: torch.where(
+        (lsel >= 0)[..., None] & (col < lens[gsel.long()][..., None]),
+        rr.distances_from_dots(dots, sqx, qc[:, None], "l2"),
+        float("inf")).reshape(chunk, -1), sync)
+    ids = id_leaf[gsel.long()].reshape(chunk, -1)
+    _, st["sort_tail"] = timed(lambda: fm._selection_tail_ids(
+        d, ids, K, K * f.n_trees, True), sync)
+    _, st["kernel3_tail"] = timed(lambda: tk.topk_dedup_kernel(d, ids, K),
+                                  sync)
+    st["sum_sort_tail"] = (st["traversal_probes"]
+                           + st["kernel6_gather_score_shared"]
+                           + st["distances_mask"] + st["sort_tail"])
+    _, st["whole_call"] = timed(lambda: f.knn_batched(
+        qc, K, budget=1, probes=8, precision="default", chunk=chunk), sync)
+    del dots, sqx, d, ids
+    print(json.dumps({"shared_10m_pair_stages_ms": chunk, **st}), flush=True)
+    serve = dict(budget=1, probes=8, precision="default", chunk=chunk,
+                 tile_m=16)
+    f.knn_grouped(q, K, **serve)  # learn the capacity
+    cap = max(f._grouped_nt.values())
+    gt = {}
+    _, gt["traversal_probes"] = timed(
+        lambda: fm._probe_pairs(f, qc, 1, 8, K), sync)
+    _, gt["tile_tables"] = timed(
+        lambda: og.tile_tables(gsel, lsel, lens, 16, cap), sync)
+    (dg, _), gt["xla_form_with_tables_and_reorder"] = timed(
+        lambda: og.grouped_distances(rows, sq_leaf, lens, gsel, lsel, qc,
+                                     "l2", 16, cap, 2048), sync)
+    _, gt["sort_tail"] = timed(lambda: fm._selection_tail(
+        dg.reshape(chunk, -1), id_leaf, gsel, K, K * f.n_trees, True), sync)
+    gt["sum"] = (gt["traversal_probes"] + gt["xla_form_with_tables_and_reorder"]
+                 + gt["sort_tail"])
+    _, gt["whole_call"] = timed(lambda: f.knn_grouped(
+        qc, K, check=False, **serve), sync)
+    print(json.dumps({"shared_10m_grouped_stages_ms": chunk, "cap": cap,
+                      **gt}), flush=True)
+    print(json.dumps({
+        "shared_10m": n, "build_ms": build_ms, "pack_ms": pack_ms,
+        "blocks": g, "lmax": lmax,
+        "shared_tables_bytes": id_leaf.numel() * 4 + sq_leaf.numel() * 4,
+        "row_store_bytes": rows.rows.numel() * rows.rows.element_size(),
+        "blocked_t8_rows_bytes": g * lmax * 128 * 4,
+        "max_memory_allocated_bytes": (torch.cuda.max_memory_allocated()
+                                       if on_card else None)}), flush=True)
+
+
 def device_times(f, qd, serve, sel, impl, on_card, metric="l2"):
     """Wall ms of one whole call under ``torch.profiler`` and its kernels'
     device ms, the largest eight by name."""
@@ -781,6 +857,10 @@ def main():
             capture_output=True, text=True, check=True, timeout=60).stdout
         print(smi.strip().splitlines()[0], flush=True)
         torch.backends.cuda.matmul.allow_tf32 = False
+    if "--shared-10m" in sys.argv[1:]:  # phase 8b's cell alone
+        from rptree_tpu_torch.ops import fused_gather as fg
+        return shared_10m_stages(rp, fm, fg, og, rr, tk, dev, sync, on_card)
+    if on_card:
         print(json.dumps({"build": build_times()}), flush=True)
         src = "_checkout/base"
         if all(os.path.exists(os.path.join(src, n)) for n in GROUPED_BASE):

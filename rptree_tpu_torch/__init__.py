@@ -18,7 +18,8 @@ compiled with nvcc on first use; on CPU tensors their plain torch versions
 run instead.  This package never imports JAX.
 """
 
-from .config import ForestConfig, RPTreeConfig, rp_tree_cfg
+from .config import (ForestConfig, RPTreeConfig, rp_tree_cfg,
+                     rp_tree_cfg_clustered)
 from .models.forest import RPForest, forest_batch, tree_batch
 from .models.plan import TreePlan, make_plan
 from .utils.gen import sample_projections
@@ -34,6 +35,7 @@ __all__ = [
     "load_forest",
     "make_plan",
     "rp_tree_cfg",
+    "rp_tree_cfg_clustered",
     "sample_projections",
     "tree_batch",
 ]

@@ -51,6 +51,9 @@ _SIGNATURES = {
     # x, sq, q, runs, dots, sqx, b, p, g, lmax, d, stream
     "rpt_gather_score_f32": [_P] * 6 + [_I] * 5 + [_P],
     "rpt_gather_score_bf16": [_P] * 6 + [_I] * 5 + [_P],
+    # rows, ids, n, sq, q, runs, dots, sqx, b, p, g, lmax, d, stream
+    "rpt_gather_score_shared_f32": [_P, _P, _L] + [_P] * 5 + [_I] * 5 + [_P],
+    "rpt_gather_score_shared_bf16": [_P, _P, _L] + [_P] * 5 + [_I] * 5 + [_P],
     # np, dp, b, k, out[3]
     "rpt_scan_plan": [_L, _I, _I, _I, ctypes.POINTER(_I)],
     # xb, sq, qb, pd, pi, od, oi, np, dp, b, k, dot, splits, tps, stream

@@ -51,6 +51,21 @@
 //
 // So a block is read from device memory once per work item: once, unless
 // more than 8 pairs probe it.
+//
+// Shared-row mode (rpt_gather_score_shared_*; replaces, with the Pallas
+// kernel, rptree_tpu/ops/shared.py fetch_blocks): the packed layout is one
+// row store rows [N, D] and each block's id table ids [G, lmax] (-1 in empty
+// slots), so slot j of block g is row rows[ids[g, j]], and an empty slot a
+// row of zeros, as in a blocked pack.  It is a compile-time variant of the
+// same kernel: at the start of a work unit its thread block copies the
+// segment's row ids (clamped below N) into shared memory, and every stage
+// reads row rid[j] where the blocked route reads row j of the block; an
+// empty slot's copies zero-fill without a read (cp.async with a source
+// size of 0).  Every empty slot reading one real row instead would send
+// a quarter of a chunk's copies, from every SM, to the same lines: that
+// measured 3.3x the blocked route's time.  The runs, items, ring and FMA
+// order are the blocked route's, so the dots are bit-equal to it over the
+// same rows; the slot norms come from the layout's own sq table [G, lmax].
 
 #include "grouped_tile.cuh"
 
@@ -74,6 +89,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16;\n" ::"r"(
                    static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
                "l"(src)
+               : "memory");
+}
+// The same copy, reading src_bytes (0 or 16) and zero-filling the rest.
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(src_bytes)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -103,14 +125,27 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* p, float (&v)[8]) 
   }
 }
 
+// Row j of the block: row j of xb on the blocked route; on the shared-row
+// route (xb the row store) row rid[j - jbase] of the segment's staged ids,
+// and null for an empty slot (id -1).
+template <typename T, bool kShared>
+__device__ __forceinline__ const T* block_row(const T* __restrict__ xb, const int* rid,
+                                              int jbase, int j, int d) {
+  if constexpr (kShared) {
+    const int id = rid[j - jbase];
+    return id < 0 ? nullptr : xb + (size_t)id * d;
+  }
+  return xb + (size_t)j * d;
+}
+
 // Stages columns [c0, c0 + DC) of rows [j0, j0 + rows) of block xb and of
 // the item's query rows (already rounded to the block type) into one
 // stage, as one cp.async group.  vec: 16-byte cp.async copies (d % V == 0,
 // x and q 16-byte aligned); else plain loads, zeros past d.
-template <typename T>
-__device__ void stage_chunk(T* xs, float* qs, const T* __restrict__ xb,
-                            const float* __restrict__ q, const int* qrow, int cnt, int rows,
-                            int j0, int d, int c0, int vec) {
+template <typename T, bool kShared>
+__device__ void stage_chunk(T* xs, float* qs, const T* __restrict__ xb, const int* rid,
+                            int jbase, const float* __restrict__ q, const int* qrow, int cnt,
+                            int rows, int j0, int d, int c0, int vec) {
   using S = Shape<T>;
   const int w = min(S::DC, d - c0);
   if (vec) {
@@ -118,7 +153,12 @@ __device__ void stage_chunk(T* xs, float* qs, const T* __restrict__ xb,
     for (int i = threadIdx.x; i < rows * ppr; i += RT) {
       const int r = i / ppr;
       const int c = (i - r * ppr) * S::V;
-      cp_async16(xs + r * S::XS + c, xb + (size_t)(j0 + r) * d + c0 + c);
+      if constexpr (kShared) {  // an empty slot: zeros, no read
+        const T* row = block_row<T, true>(xb, rid, jbase, j0 + r, d);
+        cp_async16_zfill(xs + r * S::XS + c, (row ? row : xb) + c0 + c, row ? 16 : 0);
+      } else {
+        cp_async16(xs + r * S::XS + c, block_row<T, false>(xb, rid, jbase, j0 + r, d) + c0 + c);
+      }
     }
     const int qpr = w / 4;
     for (int i = threadIdx.x; i < cnt * qpr; i += RT) {
@@ -131,7 +171,8 @@ __device__ void stage_chunk(T* xs, float* qs, const T* __restrict__ xb,
     for (int i = threadIdx.x; i < rows * wp; i += RT) {
       const int r = i / wp;
       const int c = i - r * wp;
-      xs[r * S::XS + c] = c < w ? xb[(size_t)(j0 + r) * d + c0 + c] : T(0.0f);
+      const T* row = block_row<T, kShared>(xb, rid, jbase, j0 + r, d);
+      xs[r * S::XS + c] = c < w && row != nullptr ? row[c0 + c] : T(0.0f);
     }
     for (int i = threadIdx.x; i < cnt * S::DC; i += RT) {
       const int j = i / S::DC;
@@ -145,10 +186,12 @@ __device__ void stage_chunk(T* xs, float* qs, const T* __restrict__ xb,
 // Persistent: thread block i takes units i, i + gridDim.x, ... of the
 // nitems[0] items (start[it], count[it], block[it]: the pairs order[start
 // .. start + count) on one block) times their segments of kSegTiles row
-// tiles.
-template <typename T>
+// tiles.  kShared: x is the row store [nrows, D] and ids the blocks' id
+// tables [G, lmax] (unused on the blocked route).
+template <typename T, bool kShared>
 __global__ void __launch_bounds__(RT)
-gather_score_kernel(const T* __restrict__ x, const float* __restrict__ sq,
+gather_score_kernel(const T* __restrict__ x, const int* __restrict__ ids, long nrows,
+                    const float* __restrict__ sq,
                     const float* __restrict__ q, const int* __restrict__ order,
                     const int* __restrict__ start, const int* __restrict__ count,
                     const int* __restrict__ block, const int* __restrict__ nitems,
@@ -158,6 +201,7 @@ gather_score_kernel(const T* __restrict__ x, const float* __restrict__ sq,
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int pair[kMaxPairs];
   __shared__ int qrow[kMaxPairs];
+  __shared__ int rid[kShared ? kSegTiles * RT : 1];  // the segment's row ids
   const int r = threadIdx.x;
   const int nchunk = (d + S::DC - 1) / S::DC;
   const int ntiles = (lmax + RT - 1) / RT;
@@ -173,8 +217,16 @@ gather_score_kernel(const T* __restrict__ x, const float* __restrict__ sq,
       pair[threadIdx.x] = order[start[it] + threadIdx.x];
       qrow[threadIdx.x] = pair[threadIdx.x] / p;
     }
+    const int jbase = t0 * RT;
+    if constexpr (kShared) {
+      const int jn = min(lmax, jbase + kSegTiles * RT) - jbase;
+      for (int i = threadIdx.x; i < jn; i += RT) {
+        const int id = ids[(size_t)blk * lmax + jbase + i];
+        rid[i] = id < 0 ? -1 : (id < nrows ? id : (int)(nrows - 1));
+      }
+    }
     __syncthreads();
-    const T* xb = x + (size_t)blk * lmax * d;
+    const T* xb = kShared ? x : x + (size_t)blk * lmax * d;
     auto xs = [&](int step) {
       return reinterpret_cast<T*>(smem + step % kStages * S::kStage);
     };
@@ -185,8 +237,8 @@ gather_score_kernel(const T* __restrict__ x, const float* __restrict__ sq,
     auto stage = [&](int step) {  // an empty group past the last step
       if (step < nsteps) {
         const int j0 = (t0 + step / nchunk) * RT;
-        stage_chunk(xs(step), qs(step), xb, q, qrow, cnt, min(RT, lmax - j0), j0, d,
-                    step % nchunk * S::DC, vec);
+        stage_chunk<T, kShared>(xs(step), qs(step), xb, rid, jbase, q, qrow, cnt,
+                                min(RT, lmax - j0), j0, d, step % nchunk * S::DC, vec);
       } else {
         cp_async_commit();
       }
@@ -344,10 +396,12 @@ Runs runs_of(int* base, int g, long n) {
   return t;
 }
 
-template <typename T>
-int launch(const T* x, const float* sq, const float* q, const int* runs, float* dots,
-           float* sqx, int b, int p, int g, int lmax, int d, void* stream) {
-  if (b < 0 || p < 1 || g < 1 || lmax < 1 || d < 1) return (int)cudaErrorInvalidValue;
+template <typename T, bool kShared>
+int launch(const T* x, const int* ids, long nrows, const float* sq, const float* q,
+           const int* runs, float* dots, float* sqx, int b, int p, int g, int lmax, int d,
+           void* stream) {
+  if (b < 0 || p < 1 || g < 1 || lmax < 1 || d < 1 || (kShared && nrows < 1))
+    return (int)cudaErrorInvalidValue;
   const long pairs = (long)b * p;
   if (pairs == 0) return 0;
   if (pairs > 0x7fffffffL) return (int)cudaErrorInvalidValue;
@@ -355,17 +409,19 @@ int launch(const T* x, const float* sq, const float* q, const int* runs, float* 
   const int vec = d % S::V == 0 && ((reinterpret_cast<uintptr_t>(x) |
                                       reinterpret_cast<uintptr_t>(q)) & 15) == 0;
   const size_t smem = kStages * (size_t)S::kStage;
-  cudaError_t e = rpt::allow_smem(gather_score_kernel<T>, smem);
+  cudaError_t e = rpt::allow_smem(gather_score_kernel<T, kShared>, smem);
   int dev = 0, sms = 0, per_sm = 0;
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gather_score_kernel<T>, RT, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gather_score_kernel<T, kShared>,
+                                                      RT, smem);
   if (e != cudaSuccess) return (int)e;
   const Runs t = runs_of(const_cast<int*>(runs), g, pairs);
   const long grid = min(pairs, (long)sms * (per_sm > 0 ? per_sm : 1));
-  gather_score_kernel<T><<<(unsigned)grid, RT, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, sq, q, t.order, t.start, t.count, t.block, t.nitems, dots, sqx, p, lmax, d, vec);
+  gather_score_kernel<T, kShared><<<(unsigned)grid, RT, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, ids, nrows, sq, q, t.order, t.start, t.count, t.block, t.nitems, dots, sqx, p, lmax, d,
+      vec);
   return (int)cudaGetLastError();
 }
 
@@ -398,13 +454,30 @@ int rpt_pair_runs(const int* sel, long n, int g, int* runs, const float* q, floa
 int rpt_gather_score_f32(const float* x, const float* sq, const float* q, const int* runs,
                          float* dots, float* sqx, int b, int p, int g, int lmax, int d,
                          void* stream) {
-  return launch(x, sq, q, runs, dots, sqx, b, p, g, lmax, d, stream);
+  return launch<float, false>(x, nullptr, 0, sq, q, runs, dots, sqx, b, p, g, lmax, d, stream);
 }
 
 int rpt_gather_score_bf16(const __nv_bfloat16* x, const float* sq, const float* q,
                           const int* runs, float* dots, float* sqx, int b, int p, int g,
                           int lmax, int d, void* stream) {
-  return launch(x, sq, q, runs, dots, sqx, b, p, g, lmax, d, stream);
+  return launch<__nv_bfloat16, false>(x, nullptr, 0, sq, q, runs, dots, sqx, b, p, g, lmax, d,
+                                      stream);
+}
+
+// The shared-row mode: rows [n, d] the row store, ids [g, lmax] the blocks'
+// id tables (int32; -1 in empty slots, which read as zeros; ids are clamped
+// below n).  Also cudaErrorInvalidValue for n < 1.
+int rpt_gather_score_shared_f32(const float* rows, const int* ids, long n, const float* sq,
+                                const float* q, const int* runs, float* dots, float* sqx, int b,
+                                int p, int g, int lmax, int d, void* stream) {
+  return launch<float, true>(rows, ids, n, sq, q, runs, dots, sqx, b, p, g, lmax, d, stream);
+}
+
+int rpt_gather_score_shared_bf16(const __nv_bfloat16* rows, const int* ids, long n,
+                                 const float* sq, const float* q, const int* runs, float* dots,
+                                 float* sqx, int b, int p, int g, int lmax, int d, void* stream) {
+  return launch<__nv_bfloat16, true>(rows, ids, n, sq, q, runs, dots, sqx, b, p, g, lmax, d,
+                                     stream);
 }
 
 }  // extern "C"

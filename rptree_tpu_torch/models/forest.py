@@ -45,21 +45,28 @@ feeds every kernel that reads occupancy), and :meth:`RPForest.rebuild`
 builds a fresh index over what is live with the forest's own
 projections.  :meth:`RPForest.drop_dataset` keeps only the packed blocks.
 
-Not ported yet (ROADMAP.md): centered / sub-block / shared / ELL layouts
-and sparse query batches, streaming and the sharded forests.  The
-``approx`` selection tail is not to be ported.
+Every dense layout of the JAX package packs and serves: f32, bf16 and int8
+blocks, int8 residuals around each block's mean (``centered``), leaves cut
+into ``sub_block`` spatially ordered sub-blocks, and the shared-row store
+(``store="shared"``: one copy of the rows and per-block id tables, fetched
+by kernel 6's shared-row mode per pair and by :func:`..ops.shared.
+fetch_blocks` in the grouped XLA form).
+
+Not ported yet (ROADMAP.md): ELL layouts and sparse query batches,
+streaming and the sharded forests.  The ``approx`` selection tail is not
+to be ported.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .._cuda import resolve_device
 from ..config import ForestConfig
-from ..ops.build import TreeArrays, build_forest_arrays
+from ..ops.build import TreeArrays, build_forest_arrays, ieee_fp32
 from ..ops.fused_gather import gather_score, gather_score_ok
 from ..ops.grouped import (grouped_distances, grouped_distances_kernel,
                            grouped_topk_kernel)
@@ -69,6 +76,7 @@ from ..ops.rerank import (dedup_ids, distances_from_dots, gather_leaf_points,
                           leaf_positions, merge_top_k, rerank_top_k)
 from ..ops.scan import MAX_K as SCAN_MAX_K
 from ..ops.scan import SCAN_METRICS, scan_rows, scan_topk, stream_topk
+from ..ops.shared import SharedRows, fetch_blocks
 from ..ops.topk_kernel import topk_dedup_kernel, topk_kernel_ok
 from ..ops.traverse import (node_table, project_queries, select_probes,
                              traverse_kernel)
@@ -78,7 +86,6 @@ from .plan import TreePlan, make_plan
 __all__ = ["RPForest", "forest_batch", "tree_batch", "DEFAULT_BUDGET"]
 
 DEFAULT_BUDGET = 32
-_LAYOUTS_TODO = "ROADMAP.md queue 1 item 13 (other dense layouts)"
 _SPARSE_TODO = "ROADMAP.md queue 1 item 14 (sparse ELL data)"
 _DATA_DTYPES_TODO = "ROADMAP.md queue 1 item 22 (datasets of other types)"
 _PRECISIONS = ("highest", "default", "fastest")
@@ -106,6 +113,129 @@ def _tile_align(n: int, dtype_str: str) -> int:
     tile = {"f32": 8, "bf16": 16, "int8": 32}[dtype_str]
     nt = -(-n // tile) * tile
     return nt if nt == n8 else n8
+
+
+class _PackCfg(NamedTuple):
+    """A packed layout as :meth:`RPForest.pack_leaves` takes it, with the
+    fields that do not shape the blocks canonicalised away (``sub_split``
+    at ``sub_block`` 1), so that two requests of one layout compare
+    equal."""
+
+    dtype: str                 # "f32", "bf16" or "int8"
+    slack: int
+    centered: bool
+    sub_block: int
+    sub_split: Optional[str]   # None at sub_block 1
+    store: str                 # "blocks" or "shared"
+
+
+def _sub_split_of(sub_split: str, s: int) -> str:
+    """The sub-block ordering: an unknown mode raises; ``"kmeans"``
+    halves recursively, so it needs a power-of-two ``s`` and takes the
+    projection sort otherwise."""
+    if sub_split not in ("kmeans", "proj"):
+        raise ValueError("sub_split must be 'kmeans' or 'proj', "
+                         f"got {sub_split!r}")
+    if s > 1 and sub_split == "kmeans" and (s & (s - 1)):
+        return "proj"
+    return sub_split
+
+
+def _center_quantize(rows, valid):
+    """Centered (residual) int8 quantization of blocks ``rows f32[..., L,
+    D]`` with slot validity ``valid bool[..., L]``: each block's mean over
+    its valid rows, the residuals scaled by ``max |residual| / 127``
+    (rounded half to even, a true division) and ``mudr``, the mean's dot
+    with each dequantized residual.  Returns ``(q int8[..., L, D], scale
+    f32[..., 1, 1], mu f32[..., D], mudr f32[..., L])``."""
+    occ = valid.sum(-1).float().clamp_min(1.0)
+    mu = rows.sum(-2) / occ[..., None]
+    res = torch.where(valid[..., None], rows - mu[..., None, :], 0.0)
+    amax = res.abs().amax(dim=(-2, -1), keepdim=True)
+    scale = amax.clamp_min(1e-30) * INV_127
+    q = torch.round(res / scale).clamp(-127, 127).to(torch.int8)
+    mudr = ((q.float() * scale) * mu[..., None, :]).sum(-1)
+    return q, scale, mu, mudr
+
+
+def _sq_dist(rs, c):
+    """``|rs - c|^2`` over the last axis, ``rs [S, M, D]``, ``c [S, D]``."""
+    return ((rs - c[:, None]) ** 2).sum(-1)
+
+
+def _sub_order_kmeans(rows, valid, r_sub, sub):
+    """Within-leaf row order for sub-block packing by recursive balanced
+    2-means, ``log2(sub)`` levels: each segment seeds its two centers at
+    the row of least projection on ``r_sub`` and the valid row farthest
+    from it, runs four Lloyd steps over its valid rows (an empty cluster
+    keeps its center), sorts its rows by the margin ``|x - c1|^2 - |x -
+    c2|^2`` (stable; invalid rows last) and splits at the midpoint.  So
+    each sub-block's rows share a cluster center where the leaf straddles
+    clusters, and the valid rows stay a prefix of every segment.
+    ``rows f32[nl, lmax, D]``, ``valid bool[nl, lmax]``; returns ``order
+    int64[nl, lmax]`` (apply it to ids and rows alike)."""
+    nl, lmax, d = rows.shape
+    order = torch.arange(lmax, device=rows.device).expand(nl, lmax)
+    r, v = rows, valid
+    inf = float("inf")
+    for j in range(sub.bit_length() - 1):
+        segs, m = nl << j, lmax >> j
+        rs, vs = r.reshape(segs, m, d), v.reshape(segs, m)
+        os_ = order.reshape(segs, m)
+        key = torch.where(vs, rs @ r_sub, inf)
+        c1 = rs[torch.arange(segs, device=rs.device), key.argmin(-1)]
+        far = torch.where(vs, _sq_dist(rs, c1), -inf).argmax(-1)
+        c2 = rs[torch.arange(segs, device=rs.device), far]
+        for _ in range(4):
+            d1, d2 = _sq_dist(rs, c1), _sq_dist(rs, c2)
+            a1 = ((d1 <= d2) & vs).float()
+            a2 = ((d1 > d2) & vs).float()
+            n1 = a1.sum(-1, keepdim=True)
+            n2 = a2.sum(-1, keepdim=True)
+            c1 = torch.where(n1 > 0, torch.einsum("sm,smd->sd", a1, rs)
+                             / n1.clamp_min(1.0), c1)
+            c2 = torch.where(n2 > 0, torch.einsum("sm,smd->sd", a2, rs)
+                             / n2.clamp_min(1.0), c2)
+        margin = _sq_dist(rs, c1) - _sq_dist(rs, c2)
+        ord2 = torch.argsort(torch.where(vs, margin, inf), dim=-1,
+                             stable=True)
+        r = rs.gather(1, ord2[..., None].expand(segs, m, d)).reshape(
+            nl, lmax, d)
+        v = vs.gather(1, ord2).reshape(nl, lmax)
+        order = os_.gather(1, ord2).reshape(nl, lmax)
+    return order
+
+
+def _sub_r(seed, dim: int, device) -> torch.Tensor:
+    """The sub-block ordering direction ``f32[dim]``: N(0, 1) from a
+    ``torch.Generator`` on the CPU seeded with the forest's seed and salt
+    987 (0 where the seed is unknown), then moved to ``device``.  The JAX
+    package draws its own from threefry with the same salt; parity tests
+    hand it over (``pack_leaves(r_sub=...)``)."""
+    seed0 = int(seed) if isinstance(seed, (int, np.integer)) else 0
+    g = torch.Generator(device="cpu")
+    g.manual_seed((seed0 * 1_000_003 + 987) & 0x7FFFFFFFFFFFFFFF)
+    return torch.randn(int(dim), generator=g).to(device)
+
+
+def _sub_lens(lens: np.ndarray, ls: int, sub: int) -> np.ndarray:
+    """Each sub-block's occupancy ``int32[n_leaves * sub]``: a leaf's
+    valid rows are a prefix of it, so sub-block ``j`` holds ``clip(len -
+    j * ls, 0, ls)``."""
+    j = np.arange(sub)
+    return np.clip(np.asarray(lens)[:, None] - j[None, :] * ls, 0, ls
+                   ).astype(np.int32).reshape(-1)
+
+
+def _expand_sub_probes(gsel, lsel, sub: int):
+    """A leaf-granular probe selection ``[B, P]`` at sub-block
+    granularity ``[B, P * sub]``: leaf block ``g`` becomes blocks ``g *
+    sub .. g * sub + sub - 1`` (a leaf's sub-blocks are contiguous), and
+    the leaf ids repeat."""
+    b, p = gsel.shape
+    gsel = (gsel[..., None] * sub + torch.arange(
+        sub, dtype=gsel.dtype, device=gsel.device)).reshape(b, p * sub)
+    return gsel, lsel.repeat_interleave(sub, dim=-1)
 
 
 def _grouped_auto_capacity(f, key, e, tile_m, nt, run, check=True):
@@ -229,6 +359,19 @@ def _select_probes(plan, arrays, q, budget, probes, k=None,
                          k=k, bucket_stop=bucket_stop)
 
 
+def _probe_pairs(f, q, budget, probes, k, bucket_stop=False):
+    """The (query, block) pairs a packed path scores: ``(gsel, lsel)
+    int32[B, P * sub]``.  Probes are selected at leaf granularity, the
+    bucket stop counting the leaves' occupancy (:meth:`RPForest.
+    _leaf_lens`), then widened to the leaf's ``sub`` sub-blocks."""
+    gsel, lsel = _select_probes(f.plan, f.arrays, q, budget, probes, k=k,
+                                bucket_stop=bucket_stop,
+                                block_len=f._leaf_lens(), table=f._table())
+    if f._sub_block > 1:
+        gsel, lsel = _expand_sub_probes(gsel, lsel, f._sub_block)
+    return gsel, lsel
+
+
 def _selection_tail(d, id_leaf, rows_sel, k, kk, dedup, min_votes=1,
                     selection="sort"):
     """Candidate-selection tail over ``d f32[B, P * lmax]`` (+inf in masked
@@ -264,19 +407,22 @@ def _selection_tail_ids(d, ids_flat, k, kk, dedup, min_votes=1,
 _IMPLS = ("auto", "xla", "kernel", "kernel_full", "kernel_topk")
 
 
-def _grouped_use_kernel(impl, x_leaf, metric) -> bool:
+def _grouped_use_kernel(impl, x_leaf, metric, block_center=None) -> bool:
     """Whether the grouped path scores with the tile kernels (the JAX
     package's gate, less its TPU-backend clause): dense f32 / bf16 / int8
-    blocks and ``l2`` / ``sql2``.  ``impl="xla"`` never does; "auto" does
-    where the kernels serve; "kernel", "kernel_full" and "kernel_topk"
-    raise where they do not."""
+    blocks (not shared rows), no centered residuals, and ``l2`` /
+    ``sql2``.  ``impl="xla"`` never does; "auto" does where the kernels
+    serve; "kernel", "kernel_full" and "kernel_topk" raise where they do
+    not."""
     if impl == "xla":
         return False
-    ok = not callable(metric) and grouped_kernel_ok(x_leaf, metric)
+    ok = (block_center is None and not callable(metric)
+          and grouped_kernel_ok(x_leaf, metric))
     if impl in ("kernel", "kernel_full", "kernel_topk") and not ok:
         raise ValueError(
-            f"impl={impl!r} needs dense f32/bf16/int8 blocks and metric l2 / "
-            f"sql2, got {metric!r}; use impl='auto' or 'xla'")
+            f"impl={impl!r} needs dense f32/bf16/int8 blocks (not centered, "
+            f"not shared rows) and metric l2 / sql2, got {metric!r}; use "
+            f"impl='auto' or 'xla'")
     return ok
 
 
@@ -299,16 +445,15 @@ def _knn_grouped(f, q, k, budget, probes, metric, dedup, tile_m, nt,
     the same tail selects."""
     x_leaf, sq_leaf, id_leaf = f._packed
     lens = f._lens_global()
-    gsel, lsel = _select_probes(f.plan, f.arrays, q, budget, probes, k=k,
-                                bucket_stop=bucket_stop, block_len=lens,
-                                table=f._table())
+    gsel, lsel = _probe_pairs(f, q, budget, probes, k, bucket_stop)
     b, p = gsel.shape
     kk = k * f.n_trees if dedup else k
     kp = -(-max(k, 8) // 8) * 8
-    if not _grouped_use_kernel(impl, x_leaf, metric):
+    if not _grouped_use_kernel(impl, x_leaf, metric, f._block_center):
         d, needed = grouped_distances(
             x_leaf, sq_leaf, lens, gsel, lsel, q, metric, tile_m, nt,
-            tile_chunk, block_scale=f._block_scale)
+            tile_chunk, block_scale=f._block_scale,
+            block_center=f._block_center)
     elif (impl == "kernel_topk" and min_votes == 1 and selection == "sort"
             and 2 * kp <= x_leaf.shape[1] and x_leaf.dtype != torch.int8):
         d_t, i_t, needed = grouped_topk_kernel(
@@ -364,17 +509,29 @@ def _knn(f, q, k, budget, metric, dedup, min_votes=1):
     return rerank_top_k(f.x, f.sq_norms, q, union, k, metric, dedup=dedup)
 
 
-def _int8_block_dots(x_leaf, block_scale, sel, q):
+def _int8_block_dots(x_leaf, block_scale, block_center, sel, q):
     """Dots of int8 blocks ``x_leaf[sel]`` with ``q f32[B, D]`` as the JAX
     package's per-pair scorer forms them: the query quantized per row,
     exact integer dots, then ``dots * block scale * row scale`` in that
-    order.  ``f32[B, P, lmax]``."""
+    order.  On centered blocks (``block_center = (mu, mudr)``) the query
+    less each block's mean is quantized per (query, block) pair and the
+    dot is ``q . mu + mudr + dots * block scale * pair scale``.  ``f32[B,
+    P, lmax]``."""
     b, p = sel.shape
     _, lmax, d = x_leaf.shape
-    q_i8, qscale = _quantize_rows(q)                       # [B, D], [B, 1]
-    dots = _int8_dots(q_i8[:, None, :], x_leaf[sel].reshape(b, p * lmax, d))
-    return (dots.reshape(b, p, lmax) * block_scale[sel][..., None]
-            * qscale[:, :, None])
+    bscale = block_scale[sel][..., None]
+    if block_center is None:
+        q_i8, qscale = _quantize_rows(q)                   # [B, D], [B, 1]
+        dots = _int8_dots(q_i8[:, None, :],
+                          x_leaf[sel].reshape(b, p * lmax, d))
+        return dots.reshape(b, p, lmax) * bscale * qscale[:, :, None]
+    mu, mudr = block_center
+    mu_g = mu[sel]                                         # [B, P, D]
+    qc_i8, qscale = _quantize_rows(q[:, None, :] - mu_g)   # [B, P, D], [B, P, 1]
+    dots = _int8_dots(qc_i8.reshape(b * p, 1, d),
+                      x_leaf[sel].reshape(b * p, lmax, d)).reshape(b, p, lmax)
+    q_mu = (mu_g * q[:, None, :]).sum(-1)
+    return q_mu[..., None] + mudr[sel] + dots * bscale * qscale
 
 
 @torch.no_grad()
@@ -382,10 +539,11 @@ def _score_blocks(f, rows_sel, lsel, q, k, kk, metric, dedup, min_votes=1,
                   selection="sort"):
     """Fetch and exactly score each query's selected blocks ``rows_sel
     int32[B, P]`` (``lsel``: leaf ids, -1 to skip), then select: ``(dists
-    f32[B, k], ids int32[B, k])``.  f32 and bf16 blocks are fetched and
-    multiplied by kernel 6 (:func:`gather_score`); int8 blocks by plain
+    f32[B, k], ids int32[B, k])``.  f32 and bf16 blocks, and shared f32 /
+    bf16 rows, are fetched and multiplied by kernel 6
+    (:func:`gather_score`); int8 blocks, plain and centered, by plain
     torch, as the JAX package leaves them to an XLA einsum; a callable
-    ``metric`` gets the gathered rows as f32 (not on int8 blocks)."""
+    ``metric`` gets the fetched rows as f32 (not on int8 blocks)."""
     x_leaf, sq_leaf, id_leaf = f._packed
     b, p = rows_sel.shape
     lmax = x_leaf.shape[1]
@@ -395,13 +553,14 @@ def _score_blocks(f, rows_sel, lsel, q, k, kk, metric, dedup, min_votes=1,
             raise NotImplementedError(
                 "custom distance callables are unsupported on int8-"
                 "quantized blocks (pack with f32/bf16)")
-        d = metric(x_leaf[sel].float(), q[:, None, None, :])
+        d = metric(fetch_blocks(x_leaf, sel).float(), q[:, None, None, :])
     else:
         if gather_score_ok(x_leaf, p):
             dots, sqx = gather_score(x_leaf, sq_leaf, q,
                                      rows_sel.contiguous())
         else:  # int8 blocks
-            dots = _int8_block_dots(x_leaf, f._block_scale, sel, q)
+            dots = _int8_block_dots(x_leaf, f._block_scale, f._block_center,
+                                    sel, q)
             sqx = sq_leaf[sel]
         d = distances_from_dots(dots, sqx, q[:, None], metric)
     lens = f._lens_global()[sel]
@@ -415,15 +574,12 @@ def _score_blocks(f, rows_sel, lsel, q, k, kk, metric, dedup, min_votes=1,
 def _knn_packed(f, q, k, budget, probes, metric, dedup, min_votes=1,
                 selection="sort", bucket_stop=False):
     """One chunk of the per-pair path: each query's ``probes``
-    lowest-priority leaf blocks, fetched and scored one (query, probe)
-    pair at a time (:func:`_score_blocks`).  ``bucket_stop``: the
-    reference ``knnH`` rule keeps only the buckets up to the first ``k``
-    points, counted by the blocks' occupancy (:meth:`RPForest.
-    _lens_global`)."""
-    gsel, lsel = _select_probes(f.plan, f.arrays, q, budget, probes, k=k,
-                                bucket_stop=bucket_stop,
-                                block_len=f._lens_global(),
-                                table=f._table())
+    lowest-priority leaves (:func:`_probe_pairs`: their sub-blocks where
+    the layout has them), fetched and scored one (query, block) pair at a
+    time (:func:`_score_blocks`).  ``bucket_stop``: the reference
+    ``knnH`` rule keeps only the buckets up to the first ``k`` points,
+    counted by the leaves' occupancy."""
+    gsel, lsel = _probe_pairs(f, q, budget, probes, k, bucket_stop)
     kk = k * f.n_trees if dedup else k
     return _score_blocks(f, gsel, lsel, q, k, kk, metric, dedup, min_votes,
                          selection)
@@ -612,8 +768,11 @@ class RPForest:
         self.seed = seed
         self._packed = None        # (x_leaf, sq_leaf, id_leaf) or None
         self._block_scale = None   # f32[G] for int8 blocks
-        self._pack_cfg = None      # (dtype_str, slack) of the packed layout
-        self._lens_dev = None      # int32[G] block occupancy
+        self._block_center = None  # (mu f32[G, D], mudr f32[G, lmax]), centered
+        self._sub_len_dev = None   # int32[G] sub-block occupancy (sub > 1)
+        self._r_sub = None         # f32[D] the sub-block ordering direction
+        self._pack_cfg = None      # the packed layout's _PackCfg
+        self._lens_dev = None      # int32[T * n_leaves] leaf occupancy
         self._nodes = None         # node table (kernel 7's records)
         self._grouped_nt = {}      # learned tile capacities by shape key
         self._grouped_last = None  # (needed, capacity) of the last call
@@ -675,16 +834,30 @@ class RPForest:
             self._nodes = node_table(self.plan, a.thr, a.mgl, a.mgh)
         return self._nodes
 
-    def _lens_global(self) -> torch.Tensor:
-        """Per-block occupancy ``int32[G]`` in global block order, the one
-        table every kernel that reads occupancy gets: after :meth:`fold`
-        the blocks' own counts (:meth:`_store_block_len`), else the plan's
-        leaf lengths tiled over trees."""
+    def _leaf_lens(self) -> torch.Tensor:
+        """Per-leaf occupancy ``int32[T * n_leaves]`` in global leaf
+        order, which the probe selection's bucket stop counts: after
+        :meth:`fold` the blocks' own counts (:meth:`_store_block_len`),
+        else the plan's leaf lengths tiled over trees."""
         if self._lens_dev is None:
             self._lens_dev = torch.as_tensor(
                 np.tile(np.asarray(self.plan.leaf_len, np.int32),
                         self.n_trees), device=self.device)
         return self._lens_dev
+
+    @property
+    def _sub_block(self) -> int:
+        """Sub-blocks per leaf of the packed layout (1 unpacked)."""
+        return 1 if self._pack_cfg is None else self._pack_cfg.sub_block
+
+    def _lens_global(self) -> torch.Tensor:
+        """Per-block occupancy ``int32[G]`` in global block order, the one
+        table every kernel that reads block occupancy gets (kernels 1, 2,
+        4, 6 and 9, and the masks): the sub-blocks' where the layout has
+        them, else :meth:`_leaf_lens`."""
+        if self._sub_block > 1:
+            return self._sub_len_dev
+        return self._leaf_lens()
 
     def _store_block_len(self, bl: np.ndarray) -> None:
         """Record the blocks' occupancy after a fold, on the host and as
@@ -745,10 +918,70 @@ class RPForest:
 
     # -- leaf packing ----------------------------------------------------
 
+    def _validate_pack_args(self, dtype, slack, centered, sub_block,
+                            sub_split, store) -> _PackCfg:
+        """The requested layout as a :class:`_PackCfg`, or the JAX
+        package's refusal, raised before any state changes (a repack first
+        drops the old layout, so an invalid call must fail while it is
+        still intact)."""
+        s = int(sub_block) if sub_block else 1
+        if s < 1:
+            raise ValueError(f"sub_block must be >= 1, got {sub_block}")
+        if int(slack) < 0:
+            raise ValueError(f"slack must be >= 0, got {slack}")
+        if store not in ("blocks", "shared"):
+            raise ValueError(f"store must be 'blocks' or 'shared', "
+                             f"got {store!r}")
+        int8 = dtype is not None and dtype == torch.int8
+        if store == "shared":
+            if slack:
+                raise ValueError("store='shared' keeps no row blocks for "
+                                 "fold() to write into; slack requires "
+                                 "the blocked layout")
+            if s > 1:
+                raise ValueError("sub_block quantization state requires "
+                                 "the blocked layout (store='blocks')")
+            if centered or int8:
+                raise ValueError("quantized blocks require the blocked "
+                                 "layout (store='blocks'); shared rows "
+                                 "serve the dataset's own f32/bf16 rows")
+        if s > 1 and slack:
+            raise ValueError("sub_block and slack are mutually exclusive "
+                             "(fold() addresses whole-leaf blocks)")
+        if centered and not int8:
+            raise ValueError("centered=True applies to int8 blocks "
+                             "(pass dtype=torch.int8)")
+        dtype_str = _dtype_str(dtype)
+        split = _sub_split_of(sub_split, s)
+        return _PackCfg(dtype_str, int(slack), bool(centered), s,
+                        split if s > 1 else None, store)
+
+    def _clear_pack_for_repack(self) -> None:
+        """Drop the packed layout so that another can be packed.  Folded
+        rows block it (they live only in the blocks' slack slots) and a
+        serve-only forest has nothing to repack from."""
+        if self.x is None:
+            raise ValueError("cannot repack a serve-only forest "
+                             "(drop_dataset was called); the packed "
+                             "blocks are the only copy of the data")
+        if self.n_folded or self._block_len is not None:
+            raise ValueError("cannot repack with folded rows in the "
+                             "blocks (they live only in the packed slack "
+                             "slots); rebuild() first")
+        self._drop_pack()
+
+    def _drop_pack(self) -> None:
+        """Forget the packed layout and every table it owns."""
+        self._packed = self._block_scale = self._block_center = None
+        self._sub_len_dev = self._pack_cfg = None
+        # learned tile capacities depend on the layout (sub multiplies
+        # the pairs); a stale one would mask pairs under check=False
+        self._grouped_nt = {}
+
     @torch.no_grad()
     def pack_leaves(self, dtype=None, slack: int = 0, centered: bool = False,
                     sub_block: int = 1, sub_split: str = "kmeans",
-                    store: str = "blocks") -> "RPForest":
+                    store: str = "blocks", *, r_sub=None) -> "RPForest":
         """Copy each leaf's points into one contiguous block: ``x_leaf
         [T * n_leaves, lmax, D]``, with the slot squared norms ``sq_leaf``
         (exact, from the f32 rows), the point ids ``id_leaf`` (-1 in empty
@@ -757,69 +990,156 @@ class RPForest:
         ``dtype=torch.bfloat16`` rounds the rows to nearest even and
         halves the blocks' memory and read bytes; distances are then
         computed from the bf16 rows.  ``slack`` adds empty slots per
-        block; the slot axis is aligned as in the JAX package.  Packing
-        the same layout again is a no-op; another layout repacks from the
-        dataset (it raises after :meth:`drop_dataset` or with folded
-        rows).  The parameters are the JAX package's, in its order.
-        ``centered``, ``sub_block > 1`` (with its ``sub_split`` ordering,
-        which one block a leaf ignores) and ``store="shared"`` are not
-        ported yet and raise."""
-        if sub_split not in ("kmeans", "proj"):
-            raise ValueError(f"sub_split must be 'kmeans' or 'proj', got "
-                             f"{sub_split!r}")
-        if store != "blocks" or centered or int(sub_block or 1) > 1:
-            raise NotImplementedError(
-                f"store={store!r} centered={centered} sub_block={sub_block}: "
-                f"{_LAYOUTS_TODO}")
-        dtype_str = _dtype_str(dtype)
-        if slack < 0:
-            raise ValueError(f"slack must be >= 0, got {slack}")
-        if self._pack_cfg == (dtype_str, int(slack)):
-            return self
-        if self.x is None:
-            raise ValueError("cannot repack a serve-only forest "
-                             "(drop_dataset was called); the packed "
-                             "blocks are the only copy of the data")
-        if self.n_folded:
-            raise ValueError("cannot repack with folded rows in the "
-                             "blocks (they live only in the packed slack "
-                             "slots); rebuild() first")
-        plan = self.plan
-        lmax = _tile_align(max(plan.max_leaf_len, 1) + int(slack), dtype_str)
-        starts = np.asarray(plan.leaf_start)
-        lens = np.asarray(plan.leaf_len)
-        offs = np.arange(lmax)
-        in_leaf_np = offs < lens[:, None]
-        pos = torch.as_tensor(
-            np.where(in_leaf_np, starts[:, None] + offs, 0), device=self.device)
-        in_leaf = torch.as_tensor(in_leaf_np, device=self.device)
-        nl, d, t = plan.n_leaves, self.dim, self.n_trees
-        dt = _BLOCK_DTYPES[dtype_str]
-        x_leaf = torch.empty((t, nl, lmax, d), dtype=dt, device=self.device)
-        sq_leaf = torch.empty((t, nl, lmax), device=self.device)
-        id_leaf = torch.empty((t, nl, lmax), dtype=torch.int32,
-                              device=self.device)
-        scale = (torch.empty((t, nl), device=self.device)
-                 if dtype_str == "int8" else None)
-        for ti in range(t):  # one tree at a time bounds the f32 temporaries
-            ids = self.arrays.perm[ti].long()[pos]          # [nl, lmax]
-            rows = torch.where(in_leaf[..., None], self.x[ids], 0.0)
-            id_leaf[ti] = torch.where(in_leaf, ids, -1).to(torch.int32)
-            sq_leaf[ti] = (rows * rows).sum(-1)
-            if scale is None:
-                x_leaf[ti] = rows  # bf16: the copy rounds to nearest even
-                continue
-            amax = rows.abs().amax(dim=(-2, -1), keepdim=True)
-            sc = amax.clamp_min(1e-30) * INV_127
-            x_leaf[ti] = torch.round(rows / sc).clamp(-127, 127).to(torch.int8)
-            scale[ti] = sc.reshape(nl)
-        g = t * nl
-        self._packed = (x_leaf.reshape(g, lmax, d), sq_leaf.reshape(g, lmax),
-                        id_leaf.reshape(g, lmax))
-        self._block_scale = None if scale is None else scale.reshape(g)
-        self._pack_cfg = (dtype_str, int(slack))
+        block for :meth:`fold`; the slot axis is aligned as in the JAX
+        package.  The parameters are the JAX package's, in its order.
+
+        ``centered=True`` (int8 only) quantizes each row's residual around
+        its block's f32 mean, and keeps per slot the mean's dot with the
+        dequantized residual (``mudr``): the quantization step shrinks by
+        the block's center-to-spread ratio, which restores recall on
+        clustered data.  ``sub_block=s > 1`` orders each leaf's rows
+        (``sub_split="kmeans"``: recursive balanced 2-means, a power of
+        two ``s``, else ``"proj"``: a sort by projection on ``r_sub``) and
+        cuts it into ``s`` sub-blocks of ``ceil(lmax / s)`` slots rounded
+        to 8, each with its own scale and mean; queries still probe whole
+        leaves.  ``store="shared"`` keeps one row store (the dataset
+        itself for f32, a bf16 copy for bf16) and packs only the blocks'
+        id and norm tables: 1/T of the blocked layout's memory, bought
+        with row-by-row fetches; results equal the blocked layout's.
+        Shared rows exclude ``slack``, int8 and ``sub_block``; sub-blocks
+        exclude ``slack``.
+
+        ``r_sub`` (the port's own, keyword-only): the ordering direction
+        ``f32[D]`` of sub-blocks; by default drawn from the forest's seed
+        (:func:`_sub_r`, not the JAX package's threefry draw).
+
+        Packing the same layout again is a no-op; another layout repacks
+        from the dataset (it raises after :meth:`drop_dataset` or with
+        folded rows).  An invalid request raises before anything
+        changes."""
+        cfg = self._validate_pack_args(dtype, slack, centered, sub_block,
+                                       sub_split, store)
+        if self._packed is not None:
+            if cfg == self._pack_cfg:
+                return self
+            self._clear_pack_for_repack()
+        with ieee_fp32():
+            if cfg.store == "shared":
+                self._pack_shared(cfg)
+            else:
+                self._pack_blocks(cfg, r_sub)
+        self._pack_cfg = cfg
         self._grouped_nt = {}
         return self
+
+    def _slot_positions(self, lmax: int):
+        """Each leaf's dataset positions ``int64[nl, lmax]`` (0 past its
+        length) and their validity ``bool[nl, lmax]``, on the forest's
+        device."""
+        plan = self.plan
+        offs = np.arange(lmax)
+        lens = np.asarray(plan.leaf_len)
+        in_leaf = offs < lens[:, None]
+        pos = np.where(in_leaf, np.asarray(plan.leaf_start)[:, None] + offs,
+                       0)
+        return (torch.as_tensor(pos, device=self.device),
+                torch.as_tensor(in_leaf, device=self.device))
+
+    def _tree_rows(self, ti: int, pos: torch.Tensor, in_leaf: torch.Tensor):
+        """Tree ``ti``'s leaves as blocks: the ids ``[nl, lmax]`` (-1 in
+        empty slots) and the f32 rows ``[nl, lmax, D]`` (zeros there)."""
+        ids = torch.where(in_leaf, self.arrays.perm[ti].long()[pos], -1)
+        rows = torch.where(in_leaf[..., None], self.x[ids.clamp_min(0)], 0.0)
+        return ids, rows
+
+    def _pack_shared(self, cfg: _PackCfg) -> None:
+        """The shared-row layout: per tree the blocks' ids and slot norms
+        (0 in empty slots), over one row store.  The norms are the blocked
+        pack's sums, one tree of rows at a time, so that they are its bits
+        on every device (``sq_norms[ids]`` sums in another order on the
+        card)."""
+        t, nl = self.n_trees, self.plan.n_leaves
+        lmax = _tile_align(max(self.plan.max_leaf_len, 1), cfg.dtype)
+        pos, in_leaf = self._slot_positions(lmax)
+        ids = torch.empty((t, nl, lmax), dtype=torch.int32, device=self.device)
+        sq = torch.empty((t, nl, lmax), device=self.device)
+        for ti in range(t):
+            tid, rows = self._tree_rows(ti, pos, in_leaf)
+            ids[ti], sq[ti] = tid, (rows * rows).sum(-1)
+            del rows
+        ids = ids.reshape(t * nl, lmax)
+        rows = (self.x if cfg.dtype == "f32"
+                else self.x.to(_BLOCK_DTYPES[cfg.dtype]))
+        self._packed = (SharedRows(rows, ids), sq.reshape(t * nl, lmax), ids)
+
+    def _pack_blocks(self, cfg: _PackCfg, r_sub) -> None:
+        """The blocked layouts, one tree at a time (which bounds the f32
+        temporaries): rows gathered, ordered and cut into sub-blocks where
+        asked, then stored as f32, bf16, int8 or centered int8."""
+        plan, s = self.plan, cfg.sub_block
+        lmax0 = max(plan.max_leaf_len, 1) + cfg.slack
+        # sub-blocks round to 8 rows whatever the dtype (int8's 32-row
+        # tile would coarsen their centers)
+        ls = -(-lmax0 // s)
+        ls = _tile_align(ls, cfg.dtype) if s == 1 else -(-ls // 8) * 8
+        lmax = ls * s
+        pos, in_leaf = self._slot_positions(lmax)
+        nl, d, t = plan.n_leaves, self.dim, self.n_trees
+        nb = nl * s                                     # blocks a tree
+        valid = in_leaf
+        if s > 1:
+            r_sub = (_sub_r(self.seed, d, self.device) if r_sub is None
+                     else torch.as_tensor(r_sub, dtype=torch.float32,
+                                          device=self.device))
+            sub_len = _sub_lens(plan.leaf_len, ls, s)
+            valid = torch.as_tensor(np.arange(ls)[None, :] < sub_len[:, None],
+                                    device=self.device)
+            self._sub_len_dev = torch.as_tensor(np.tile(sub_len, t),
+                                                device=self.device)
+            self._r_sub = r_sub
+        int8 = cfg.dtype == "int8"
+        x_leaf = torch.empty((t, nb, ls, d), dtype=_BLOCK_DTYPES[cfg.dtype],
+                             device=self.device)
+        sq_leaf = torch.empty((t, nb, ls), device=self.device)
+        id_leaf = torch.empty((t, nb, ls), dtype=torch.int32,
+                              device=self.device)
+        scale = torch.empty((t, nb), device=self.device) if int8 else None
+        mu = (torch.empty((t, nb, d), device=self.device) if cfg.centered
+              else None)
+        mudr = (torch.empty((t, nb, ls), device=self.device) if cfg.centered
+                else None)
+        for ti in range(t):
+            ids, rows = self._tree_rows(ti, pos, in_leaf)
+            if s > 1:
+                order = (_sub_order_kmeans(rows, in_leaf, r_sub, s)
+                         if cfg.sub_split == "kmeans" else torch.argsort(
+                             torch.where(in_leaf, rows @ r_sub, float("inf")),
+                             dim=-1, stable=True))
+                ids = ids.gather(1, order).reshape(nb, ls)
+                rows = rows.gather(1, order[..., None].expand(-1, -1, d))
+                rows = torch.where(valid[..., None], rows.reshape(nb, ls, d),
+                                   0.0)
+                ids = torch.where(valid, ids, -1)
+            id_leaf[ti] = ids.to(torch.int32)
+            sq_leaf[ti] = (rows * rows).sum(-1)
+            if cfg.centered:
+                x_leaf[ti], sc, mu[ti], mudr[ti] = _center_quantize(rows,
+                                                                    valid)
+                scale[ti] = sc.reshape(nb)
+            elif int8:
+                sc = rows.abs().amax(dim=(-2, -1), keepdim=True).clamp_min(
+                    1e-30) * INV_127
+                x_leaf[ti] = torch.round(rows / sc).clamp(-127, 127).to(
+                    torch.int8)
+                scale[ti] = sc.reshape(nb)
+            else:
+                x_leaf[ti] = rows  # bf16: the copy rounds to nearest even
+        g = t * nb
+        self._packed = (x_leaf.reshape(g, ls, d), sq_leaf.reshape(g, ls),
+                        id_leaf.reshape(g, ls))
+        self._block_scale = None if scale is None else scale.reshape(g)
+        self._block_center = (None if mu is None else
+                              (mu.reshape(g, d), mudr.reshape(g, ls)))
 
     # -- online updates (the freshness layer) --------------------------------
 
@@ -933,15 +1253,25 @@ class RPForest:
         candidates first, then over those accepted); the rest stay
         pending.  Rows, norms, the int8 quantization (each row by its
         target block's scale: a true division, rounded half to even,
-        clipped to +-127) and the scatter run on the forest's device; the
-        ranks on the host, as in the JAX package.  Needs
-        :meth:`pack_leaves` (``slack=...`` reserves room).  The port packs
-        only whole-leaf f32 / bf16 / int8 blocks, which all fold; the
-        layouts JAX also folds arrive with their items (ELL blocks,
-        ROADMAP.md queue 1 item 14; the sharded forests, item 20)."""
+        clipped to +-127; on centered blocks the residual around the block's
+        mean, and the slots' ``mudr`` with it) and the scatter run on the
+        forest's device; the ranks on the host, as in the JAX package.
+        Needs :meth:`pack_leaves` (``slack=...`` reserves room) with
+        whole-leaf blocks: shared rows and sub-blocks refuse, as in the
+        JAX package.  The layouts JAX also folds arrive with their items
+        (ELL blocks, ROADMAP.md queue 1 item 14; the sharded forests,
+        item 20)."""
         if self._packed is None:
             raise ValueError("pack_leaves(slack=...) first: fold inserts "
                              "into the packed blocks' slack slots")
+        if isinstance(self._packed[0], SharedRows):
+            raise ValueError("fold() writes rows into the packed blocks' "
+                             "slack slots; the shared-row layout "
+                             "(store='shared') keeps no row blocks -- "
+                             "rebuild() folds pending points instead")
+        if self._sub_block > 1:
+            raise ValueError("fold() needs whole-leaf blocks; pack "
+                             "without sub_block (or rebuild())")
         if not self._pending:
             return self
         xp = torch.cat(self._pending)
@@ -984,7 +1314,15 @@ class RPForest:
                 vals = rows.repeat(t, 1)
             else:
                 sc = self._block_scale[gi].reshape(t, msel, 1)
-                vals = torch.round(rows[None] / sc).clamp(-127, 127)
+                if self._block_center is None:
+                    vals = torch.round(rows[None] / sc).clamp(-127, 127)
+                else:
+                    mu, mudr = self._block_center
+                    mu_sel = mu[gi].reshape(t, msel, -1)
+                    vals = torch.round((rows[None] - mu_sel) / sc).clamp(
+                        -127, 127)
+                    mudr.index_put_((gi, si), ((vals * sc) * mu_sel).sum(
+                        -1).reshape(-1))
                 vals = vals.reshape(t * msel, -1)
             base = self.plan.n + self.n_folded
             x_leaf.index_put_((gi, si), vals.to(x_leaf.dtype))
@@ -1055,10 +1393,13 @@ class RPForest:
         self._reset_updates()
         self._nodes = self._lens_dev = self._grouped_last = None
         self._grouped_nt = {}
-        if self._packed is not None:
-            dtype_str, slack = self._pack_cfg
-            self._packed = self._block_scale = self._pack_cfg = None
-            self.pack_leaves(dtype=_BLOCK_DTYPES[dtype_str], slack=slack)
+        if self._packed is not None:  # the whole remembered layout
+            cfg = self._pack_cfg
+            self._drop_pack()
+            self.pack_leaves(_BLOCK_DTYPES[cfg.dtype], cfg.slack,
+                             cfg.centered, cfg.sub_block,
+                             cfg.sub_split or "kmeans", cfg.store,
+                             r_sub=self._r_sub)
         return self
 
     def drop_dataset(self) -> "RPForest":
@@ -1070,6 +1411,11 @@ class RPForest:
         if self._packed is None:
             raise ValueError("pack_leaves() first: the packed blocks are "
                              "the only remaining copy of the data")
+        if isinstance(self._packed[0], SharedRows):
+            raise ValueError("the shared-row layout (store='shared') "
+                             "serves from the dataset array itself -- "
+                             "there is no separate copy to drop (it is "
+                             "already the single-copy mode)")
         self.x = self.sq_norms = self._folded_cat = None
         return self
 
@@ -1317,7 +1663,8 @@ class RPForest:
             raise NotImplementedError(
                 "custom distance callables are unsupported on int8-"
                 "quantized blocks (pack with f32/bf16)")
-        _grouped_use_kernel(impl, self._packed[0], metric)  # raises early
+        _grouped_use_kernel(impl, self._packed[0], metric,
+                            self._block_center)  # raises early
         budget = self._budget(budget)
         probes = int(self.n_trees * budget if probes is None else probes)
         qb = _as_dense_queries(q, self.dim, self.device)
@@ -1333,8 +1680,9 @@ class RPForest:
             return (d, ids), needed
 
         key = (qb.shape[0], probes, int(tile_m), chunk)
-        d, ids = _grouped_auto_capacity(self, key, chunk * probes, tile_m, nt,
-                                        run, check=check)
+        d, ids = _grouped_auto_capacity(self, key,
+                                        chunk * probes * self._sub_block,
+                                        tile_m, nt, run, check=check)
         return self._apply_update_hooks(qb[:b], d[:b], ids[:b], k, metric,
                                         precision)
 

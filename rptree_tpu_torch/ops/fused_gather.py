@@ -19,10 +19,20 @@ run from one read of the block, so each distinct block is read once per
 launch (once per ``MAX_PAIRS`` pairs of a longer run).  The ordering
 counts in the kernel's time and launch: ``gather_score`` launches both.
 
+On the shared-row layout (:class:`.shared.SharedRows`: one row store and
+each block's id table) the kernel's shared-row mode, a compile-time
+variant, stages row ``rows[ids[g, j]]`` for slot ``j`` of block ``g``
+where the blocked route stages ``x_leaf[g, j]``, and zeros for an empty
+slot (id -1) without reading a row; the rest (the runs, the items, the
+ring, the order of the sums) is the blocked route's, so its dots are
+bit-equal to the blocked route's over the same rows.
+
 The wrapper takes the plain version for a tensor on the CPU and launches
 the kernel for a tensor on a CUDA device, or raises there: it never falls
-back.  ``gather_score.launches`` counts f32 launches and
-``gather_score.launches_bf16`` bf16 ones.
+back.  ``gather_score.launches`` counts f32 launches,
+``gather_score.launches_bf16`` bf16 ones and
+``gather_score.launches_shared`` those of the shared-row mode (f32 and
+bf16 rows).
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _cuda
+from .shared import SharedRows, fetch_blocks
 
 __all__ = ["gather_score", "gather_score_reference", "gather_score_ok"]
 
@@ -46,17 +57,28 @@ MAX_PAIRS = 8
 
 def gather_score_ok(x_leaf, probes: int) -> bool:
     """Whether the kernel serves this packed layout: dense 3-D f32 or bf16
-    blocks and at least one probe.  The Pallas kernel's TPU tiling rules
+    blocks, or shared f32 or bf16 rows (its shared-row mode), and at least
+    one probe; never int8 blocks.  The Pallas kernel's TPU tiling rules
     (``lmax`` a multiple of 8 or 16, ``D`` of 128) do not apply here."""
-    return (isinstance(x_leaf, torch.Tensor) and x_leaf.dim() == 3
-            and x_leaf.dtype in _FLOAT_BLOCKS and int(probes) >= 1)
+    if isinstance(x_leaf, SharedRows):
+        ok = x_leaf.rows.dim() == 2 and x_leaf.ids.dim() == 2
+    else:
+        ok = isinstance(x_leaf, torch.Tensor) and x_leaf.dim() == 3
+    return ok and x_leaf.dtype in _FLOAT_BLOCKS and int(probes) >= 1
 
 
 def _check_shapes(x_leaf, sq_leaf, q, rows_sel):
     if x_leaf.dtype not in _FLOAT_BLOCKS:
         raise TypeError(f"gather_score: x_leaf must be float32 or bfloat16, "
                         f"got {x_leaf.dtype}")
-    if x_leaf.dim() != 3 or x_leaf.shape[0] < 1:
+    if isinstance(x_leaf, SharedRows):
+        rows, ids = x_leaf.rows, x_leaf.ids
+        if rows.dim() != 2 or rows.shape[0] < 1 or ids.dim() != 2 \
+                or ids.shape[0] < 1 or ids.dtype != torch.int32:
+            raise ValueError(f"shared rows must be [N >= 1, D] with int32 "
+                             f"ids [G >= 1, lmax], got {tuple(rows.shape)} "
+                             f"and {tuple(ids.shape)} {ids.dtype}")
+    elif x_leaf.dim() != 3 or x_leaf.shape[0] < 1:
         raise ValueError(f"x_leaf must be [G >= 1, lmax, D], got "
                          f"{tuple(x_leaf.shape)}")
     g, lmax, d = x_leaf.shape
@@ -72,18 +94,18 @@ def _check_shapes(x_leaf, sq_leaf, q, rows_sel):
 
 @torch.no_grad()
 def gather_score_reference(x_leaf, sq_leaf, q, rows_sel):
-    """Plain torch version of :func:`gather_score`: the gathered blocks
-    ``x_leaf[rows_sel]`` times the query rounded to the block type, as an
-    fp32 product, and the gathered slot norms."""
+    """Plain torch version of :func:`gather_score`: the fetched blocks
+    (:func:`.shared.fetch_blocks` of ``rows_sel``) times the query rounded
+    to the block type, as an fp32 product, and the gathered slot norms."""
     _check_shapes(x_leaf, sq_leaf, q, rows_sel)
     b, p = rows_sel.shape
     sel = rows_sel.long().clamp(0, x_leaf.shape[0] - 1)
     qr = q.to(x_leaf.dtype).float()
     dots = torch.empty((b, p, x_leaf.shape[1]), dtype=torch.float32,
-                       device=x_leaf.device)
+                       device=q.device)
     step = max(1, _REF_PAIRS // p)
     for s in range(0, b, step):
-        blk = x_leaf[sel[s:s + step]].float()              # [c, P, lmax, D]
+        blk = fetch_blocks(x_leaf, sel[s:s + step]).float()  # [c, P, lmax, D]
         dots[s:s + step] = torch.einsum("bpld,bd->bpl", blk, qr[s:s + step])
     return dots, sq_leaf[sel]
 
@@ -163,15 +185,21 @@ def gather_score(x_leaf, sq_leaf, q, rows_sel):
     """``dots[b, p, :] = x_leaf[rows_sel[b, p]] @ q[b]`` and ``sqx[b, p, :]
     = sq_leaf[rows_sel[b, p]]``.
 
-    ``x_leaf f32 or bf16 [G, lmax, D]`` packed blocks, ``sq_leaf f32[G,
-    lmax]`` slot norms, ``q f32[B, D]``, ``rows_sel int32[B, P]`` block
-    rows (clamped into ``[0, G)``).  Returns two ``f32[B, P, lmax]``."""
+    ``x_leaf f32 or bf16 [G, lmax, D]`` packed blocks, or
+    :class:`.shared.SharedRows` (``x_leaf[g, j]`` is then ``rows[ids[g,
+    j]]``, zeros where the id is -1), ``sq_leaf f32[G, lmax]`` slot norms,
+    ``q f32[B, D]``,
+    ``rows_sel int32[B, P]`` block rows (clamped into ``[0, G)``).
+    Returns two ``f32[B, P, lmax]``."""
     if x_leaf.device.type == "cpu":
         return gather_score_reference(x_leaf, sq_leaf, q, rows_sel)
     name = "gather_score"
     _check_shapes(x_leaf, sq_leaf, q, rows_sel)
-    for key, t, dtype in (("x_leaf", x_leaf, x_leaf.dtype),
-                          ("sq_leaf", sq_leaf, torch.float32),
+    shared = isinstance(x_leaf, SharedRows)
+    store = ((("rows", x_leaf.rows, x_leaf.dtype),
+              ("ids", x_leaf.ids, torch.int32)) if shared
+             else (("x_leaf", x_leaf, x_leaf.dtype),))
+    for key, t, dtype in (*store, ("sq_leaf", sq_leaf, torch.float32),
                           ("q", q, torch.float32),
                           ("rows_sel", rows_sel, torch.int32)):
         if t.device != x_leaf.device:
@@ -189,16 +217,24 @@ def gather_score(x_leaf, sq_leaf, q, rows_sel):
         return dots, sqx
     bf16 = x_leaf.dtype == torch.bfloat16
     lib = _cuda.lib()
-    fn = lib.rpt_gather_score_bf16 if bf16 else lib.rpt_gather_score_f32
     with torch.cuda.device(x_leaf.device):
         # with bf16 blocks the kernel multiplies the query rounded to bf16
         runs, qr = _runs_on_card(rows_sel, g, q=q if bf16 else None)
-        code = fn(_cuda.ptr(x_leaf), _cuda.ptr(sq_leaf),
-                  _cuda.ptr(q if qr is None else qr), _cuda.ptr(runs),
-                  _cuda.ptr(dots), _cuda.ptr(sqx), b, p, g, lmax, d,
-                  _cuda.stream_of(x_leaf))
+        tail = (_cuda.ptr(sq_leaf), _cuda.ptr(q if qr is None else qr),
+                _cuda.ptr(runs), _cuda.ptr(dots), _cuda.ptr(sqx), b, p, g,
+                lmax, d, _cuda.stream_of(q))
+        if shared:
+            fn = (lib.rpt_gather_score_shared_bf16 if bf16
+                  else lib.rpt_gather_score_shared_f32)
+            code = fn(_cuda.ptr(x_leaf.rows), _cuda.ptr(x_leaf.ids),
+                      x_leaf.rows.shape[0], *tail)
+        else:
+            fn = lib.rpt_gather_score_bf16 if bf16 else lib.rpt_gather_score_f32
+            code = fn(_cuda.ptr(x_leaf), *tail)
     _cuda.check(code, name)
-    if bf16:
+    if shared:
+        gather_score.launches_shared += 1
+    elif bf16:
         gather_score.launches_bf16 += 1
     else:
         gather_score.launches += 1
@@ -207,3 +243,4 @@ def gather_score(x_leaf, sq_leaf, q, rows_sel):
 
 gather_score.launches = 0
 gather_score.launches_bf16 = 0
+gather_score.launches_shared = 0

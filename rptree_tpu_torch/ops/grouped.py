@@ -10,7 +10,8 @@ the XLA-form scorer ``grouped_distances`` and the kernel forms
    (:mod:`.grouped_kernel`), or, in the XLA form, as batched products of
    ``tile_chunk`` tiles at a time (the JAX package's einsum, here
    ``torch.bmm``), which serves every metric (``l2``, ``sql2``,
-   ``cosine``, ``dot``, a callable) on f32, bf16 and int8 blocks.  Each
+   ``cosine``, ``dot``, a callable) on f32, bf16, int8 and centered int8
+   blocks and on shared rows (:func:`.shared.fetch_blocks`).  Each
    distinct probed block is read once per tile instead of once per pair.
 4. Gather each pair's distance row back to its slot through the inverse
    permutation that rides the tile tables.
@@ -34,6 +35,7 @@ from .build import ieee_fp32
 from .grouped_kernel import (_int8_dots, _quantize_rows, grouped_score_tiles,
                              grouped_score_tiles_int8, grouped_score_topk)
 from .rerank import distances_from_dots
+from .shared import fetch_blocks
 
 __all__ = ["grouped_distances", "grouped_distances_kernel",
            "grouped_topk_kernel", "tile_tables", "tile_tables_reference"]
@@ -194,15 +196,17 @@ def _float_dots(qr, blk):
 
 @torch.no_grad()
 def grouped_distances(x_leaf, sq_leaf, lens_of_block, gsel, lsel, q, metric,
-                      tile_m: int, nt: int, tile_chunk: int, block_scale=None):
+                      tile_m: int, nt: int, tile_chunk: int, block_scale=None,
+                      block_center=None):
     """Exact distances of every (query, probe) pair, computed block-major
     as batched products (the JAX package's XLA form, which serves every
     metric and block type; :func:`grouped_distances_kernel` is the tile
     kernels' form).
 
     Args:
-      x_leaf/sq_leaf: packed blocks ``f32, bf16 or int8 [G, lmax, D]`` and
-        ``f32[G, lmax]`` slot squared norms.
+      x_leaf/sq_leaf: packed blocks ``f32, bf16 or int8 [G, lmax, D]`` (or
+        :class:`.shared.SharedRows`) and ``f32[G, lmax]`` slot squared
+        norms.
       lens_of_block: ``int32[G]`` occupancy per block.
       gsel/lsel: probe selection ``int32[B, P]`` (block id / leaf id, -1 =
         masked) from ``_select_probes``.
@@ -215,11 +219,15 @@ def grouped_distances(x_leaf, sq_leaf, lens_of_block, gsel, lsel, q, metric,
       tile_chunk: tiles scored a step (bounds the gathered blocks'
         memory); the last step may be shorter.
       block_scale: ``f32[G]`` per-block scales of int8 blocks.
+      block_center: ``(mu f32[G, D], mudr f32[G, lmax])`` of centered int8
+        blocks, else None.
 
     f32 blocks are multiplied in IEEE fp32 (never TF32), bf16 blocks
     against the query rows rounded to bf16 (exact products, fp32 sums),
     int8 blocks against the rows quantized per row (exact integer dots,
-    then ``dots * block scale * row scale``).
+    then ``dots * block scale * row scale``); on centered blocks each
+    query row less the block's mean is quantized and the dot is ``q . mu
+    + mudr + dots * block scale * row scale``.
 
     Returns ``(d f32[B, P, lmax], needed int32[])``: masked slots (invalid
     probes, occupancy padding, capacity overflow) carry +inf.
@@ -243,12 +251,19 @@ def grouped_distances(x_leaf, sq_leaf, lens_of_block, gsel, lsel, q, metric,
             rows = tb[s:s + c].long()
             tp_i = tp[s:s + c]
             qt = q[torch.where(tp_i >= 0, tp_i // p, 0).long()]  # [c, m, D]
-            blk = x_leaf[rows]                                    # [c, L, D]
+            blk = fetch_blocks(x_leaf, rows)                      # [c, L, D]
             if callable(metric):
                 d = metric(blk.float()[:, None].expand(
                     c, tile_m, lmax, blk.shape[-1]), qt[:, :, None, :])
             else:
-                if int8:
+                if int8 and block_center is not None:
+                    mu = block_center[0][rows]                    # [c, D]
+                    qc_i8, qscale = _quantize_rows(qt - mu[:, None, :])
+                    dots = ((qt * mu[:, None, :]).sum(-1)[..., None]
+                            + block_center[1][rows][:, None, :]
+                            + _int8_dots(qc_i8, blk)
+                            * block_scale[rows][:, None, None] * qscale)
+                elif int8:
                     q_i8, qscale = _quantize_rows(qt)
                     dots = (_int8_dots(q_i8, blk)
                             * block_scale[rows][:, None, None] * qscale)

@@ -883,12 +883,12 @@ def _folded_twins(dev, block, n=6000, dim=24, seed=11):
     return fc, fd, torch.as_tensor(q)
 
 
-def _agree(got, want):
+def _agree(got, want, rtol=1e-4):
     """A path on the card against the same path on the CPU (the plain
-    twins): distances within 1e-4, ids equal outside near-ties."""
+    twins): distances within ``rtol``, ids equal outside near-ties."""
     (gd, gi), (wd, wi) = (tuple(t.cpu() for t in r) for r in (got, want))
-    _close(gd, wd)
-    chk = gk.untied(wd, 1e-4)
+    _close(gd, wd, rtol)
+    chk = gk.untied(wd, rtol)
     assert torch.equal(gi[chk], wi[chk])
 
 
@@ -979,3 +979,183 @@ def test_pending_merge_through_kernel_5(dev, n_pending, n_dead):
     assert not set(ids.reshape(-1).tolist()) & set(range(3000, 3000 + n_dead))
     own = torch.arange(3000, 3000 + q.shape[0], dtype=torch.int32)
     assert torch.equal(ids[n_dead:, 0], own[n_dead:])
+
+
+# -- the other dense layouts: kernel 6's shared-row mode, sub-block shapes --
+
+def _shared_case(dev, n, g, lmax, d, b, p, bf16, seed):
+    """Shared rows ``[n, d]`` and id tables ``[g, lmax]`` with -1 padding
+    (a ragged tail per block, an empty block), one hot block that every
+    query probes, the slot norms from the rows; and queries, block rows."""
+    from rptree_tpu_torch.ops.shared import SharedRows
+
+    gen = torch.Generator().manual_seed(seed)
+    rows = torch.randn(n, d, generator=gen)
+    ids = torch.randint(0, n, (g, lmax), generator=gen, dtype=torch.int32)
+    occ = torch.randint(0, lmax + 1, (g, 1), generator=gen)
+    occ[0] = 0
+    ids = torch.where(torch.arange(lmax) < occ, ids, -1).to(torch.int32)
+    sq = torch.where(ids >= 0, (rows * rows).sum(-1)[ids.clamp_min(0).long()],
+                     0.0)
+    q = torch.randn(b, d, generator=gen)
+    sel = torch.randint(0, g, (b, p), generator=gen, dtype=torch.int32)
+    sel[:, 0] = g // 2                     # the hot block
+    rows = rows.bfloat16() if bf16 else rows
+    return (SharedRows(rows.to(dev), ids.to(dev)), sq.to(dev), q.to(dev),
+            sel.to(dev))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("n,g,lmax,d,b,p", [
+    (5000, 300, 160, 128, 64, 8), (900, 40, 24, 20, 9, 3),
+    (700, 17, 40, 130, 33, 5), (300, 6, 200, 72, 40, 8),
+    (2000, 9, 3128, 128, 2, 3),
+])
+def test_gather_score_shared(dev, bf16, n, g, lmax, d, b, p):
+    """Kernel 6's shared-row mode against its twin (``fetch_blocks`` and
+    the einsum): dots within 1e-4, norms bit-equal; D not a multiple of
+    the 16-byte vector takes the element loads; counted apart."""
+    xs, sq, q, sel = _shared_case(dev, n, g, lmax, d, b, p, bf16, seed=n + d)
+    counts = {k: getattr(fg.gather_score, k)
+              for k in ("launches", "launches_bf16", "launches_shared")}
+    dots, sqx = fg.gather_score(xs, sq, q, sel)
+    assert fg.gather_score.launches_shared == counts["launches_shared"] + 1
+    assert fg.gather_score.launches == counts["launches"]
+    assert fg.gather_score.launches_bf16 == counts["launches_bf16"]
+    want_d, want_s = fg.gather_score_reference(xs, sq, q, sel)
+    torch.cuda.synchronize()
+    _close(dots, want_d)
+    assert torch.equal(sqx, want_s)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_gather_score_shared_bit_equal_to_blocked(dev, bf16):
+    """The shared-row mode over a store and the blocked route over the
+    blocks those rows make (empty slots zero in both): every dot
+    bit-equal."""
+    xs, sq, q, sel = _shared_case(dev, 3000, 200, 128, 128, 256, 8, bf16,
+                                  seed=5)
+    blocks = xs.rows[xs.ids.long().clamp_min(0)]
+    blocks = torch.where((xs.ids >= 0)[..., None], blocks, 0).contiguous()
+    got, gsq = fg.gather_score(xs, sq, q, sel)
+    want, wsq = fg.gather_score(blocks, sq, q, sel)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(gsq, wsq)
+
+
+def test_gather_score_shared_refuses(dev):
+    from rptree_tpu_torch.ops.shared import SharedRows
+
+    xs, sq, q, sel = _shared_case(dev, 100, 8, 16, 8, 4, 2, False, seed=1)
+    assert fg.gather_score_ok(xs, 2)
+    assert not fg.gather_score_ok(SharedRows(xs.rows.to(torch.int8), xs.ids),
+                                  2)
+    assert not gk.grouped_kernel_ok(xs, "l2")
+    with pytest.raises(TypeError):
+        fg.gather_score(SharedRows(xs.rows.half(), xs.ids), sq, q, sel)
+    with pytest.raises(ValueError):
+        fg.gather_score(SharedRows(xs.rows, xs.ids.long()), sq, q, sel)
+    with pytest.raises(ValueError):
+        fg.gather_score(SharedRows(xs.rows, xs.ids.cpu()), sq, q, sel)
+    with pytest.raises(ValueError):
+        fg.gather_score(xs, sq[:, :8], q, sel)
+
+
+@pytest.mark.parametrize("lmax", [16, 32])
+def test_tile_kernels_at_sub_block_shapes(dev, lmax):
+    """Kernels 1 (f32, bf16), 2 and 4 on sub-blocks: 16 and 32 rows, G
+    past 131,072 blocks, tile_m 8, as a sub-blocked pack serves them."""
+    g, d, nt, tile_m = 140_000, 128, 4096, 8
+    for bf16 in (False, True):
+        x, sq, _, tb, lens, qt = _tiles(dev, g, lmax, d, nt, tile_m, False,
+                                        seed=lmax, bf16=bf16)
+        tb[-8:] = g - 1
+        args = (x, sq, tb, lens, qt, "l2", tile_m)
+        _close(gk.grouped_score_tiles(*args),
+               gk.grouped_score_tiles_reference(*args))
+        ids = torch.arange(g * lmax, dtype=torch.int32,
+                           device=dev).reshape(g, lmax)
+        kp = 8 if lmax == 16 else 16       # 2 * kp <= lmax, as served
+        dt, it = gk.grouped_score_topk(x, sq, ids, tb, lens, qt, "l2",
+                                       tile_m, kp)
+        dw, iw = gk.grouped_score_topk_reference(x, sq, ids, tb, lens, qt,
+                                                 "l2", tile_m, kp)
+        _close(dt, dw)
+        chk = gk.untied(dw, 1e-4)
+        assert torch.equal(it[chk], iw[chk])
+        del x, sq, ids
+    x, sq, scale, tb, lens, qt = _tiles(dev, g, lmax, d, nt, tile_m, True,
+                                        seed=lmax + 1)
+    args = (x, sq, scale, tb, lens, qt, "l2", tile_m)
+    _close(gk.grouped_score_tiles_int8(*args),
+           gk.grouped_score_tiles_int8_reference(*args))
+
+
+@pytest.mark.parametrize("g,b,p", [(262_144, 8192, 32), (524_288, 4096, 64)])
+def test_tile_tables_at_sub_block_counts(dev, g, b, p):
+    """Kernel 9 at a sub-blocked pack's block counts (4 and 8 sub-blocks
+    of 65,536 leaves) and probe widths (8 probes x 4 or 8): its 3-pass
+    route, bit-equal to its twin."""
+    gsel, lsel, lens = _pairs(dev, g, b, p, seed=g, hot=True, masked=0.05)
+    _same_tables(gsel, lsel, lens.clamp_max(32), 8, b * p)
+
+
+_LAYOUTS = {"f32_sub4": dict(sub_block=4), "int8_sub4": dict(
+    dtype=torch.int8, sub_block=4), "int8c": dict(dtype=torch.int8,
+                                                 centered=True),
+    "int8c_sub8": dict(dtype=torch.int8, centered=True, sub_block=8),
+    "shared_f32": dict(store="shared"),
+    "shared_bf16": dict(dtype=torch.bfloat16, store="shared")}
+
+
+@pytest.mark.parametrize("layout", list(_LAYOUTS))
+def test_layouts_on_the_card_equal_the_cpu(dev, layout):
+    """Each layout packed on the card and on the CPU from one forest: the
+    same rows in every block (as sets: the 2-means order sums in other
+    float orders on the card), shared slot norms bit-equal to the blocked
+    pack's, and every query path on the card (kernels 6 to 9 and
+    the tile kernels where the layout takes them) against the same path
+    on the CPU."""
+    from rptree_tpu_torch import forest_batch
+    from rptree_tpu_torch.ops.shared import SharedRows
+
+    rng = np.random.default_rng(4)
+    c = rng.normal(size=(40, 24))
+    x = (c[rng.integers(0, 40, 6000)]
+         + 0.3 * rng.normal(size=(6000, 24))).astype(np.float32)
+    q = torch.as_tensor(x[:300] + 0.05)
+    fc = forest_batch(3, 8, 16, 4, 1.0, x, device="cpu")
+    fd = _to_device(fc, dev)
+    fd.seed = fc.seed
+    for f in (fc, fd):
+        f.pack_leaves(**_LAYOUTS[layout])
+    ic, idd = fc._packed[2], fd._packed[2]
+    assert torch.equal(torch.sort(idd.cpu(), 1).values,
+                       torch.sort(ic, 1).values)
+    if isinstance(fd._packed[0], SharedRows):
+        assert fd._packed[0].ids is idd
+        if fd._packed[0].dtype == torch.float32:
+            assert fd._packed[0].rows.data_ptr() == fd.x.data_ptr()
+        # slot norms: the blocked pack's sums over the same rows, bit for
+        # bit (sq_norms at the ids had parted from them by 2 ulps here)
+        blocked = _to_device(fc, dev).pack_leaves(
+            dtype=fd._packed[0].dtype)._packed[1]
+        assert torch.equal(fd._packed[1], blocked)
+    qd = q.to(dev)
+    # int8 distances: exact integer dots, but the dequantized terms sum in
+    # another float order, ~1e-5 of the norms (~48 here) on distances of
+    # ~1-2 (measured 1.05e-4 on sub-blocks of 4); bf16 rows: the f32 rows'
+    # norms against the rounded rows' dots leave distances near zero, where
+    # the square root widens the same float-order difference (measured
+    # 2.3e-4 on the shared bf16 rows' XLA form)
+    rtol = 3e-4 if layout.startswith("int8") or "bf16" in layout else 1e-4
+    serve = dict(budget=2, probes=6, tile_m=8)
+    for kw in (dict(selection="kernel"), dict(impl="xla")):
+        _agree(fd.knn_grouped(qd, 10, **serve, **kw),
+               fc.knn_grouped(q, 10, **serve, **kw), rtol)
+    n6 = fg.gather_score.launches_shared
+    _agree(fd.knn_batched(qd, 10, budget=2, chunk=128),
+           fc.knn_batched(q, 10, budget=2, chunk=128), rtol)
+    _agree(fd.knn_h(qd, 10, budget=2), fc.knn_h(q, 10, budget=2), rtol)
+    assert (fg.gather_score.launches_shared > n6) == layout.startswith(
+        "shared")

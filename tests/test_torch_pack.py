@@ -66,13 +66,24 @@ def test_pack_is_idempotent_and_repacks(forests):
 
 
 def test_unported_layouts_raise(forests):
-    _, ft = forests
-    with pytest.raises(NotImplementedError):
-        ft.pack_leaves(dtype=torch.int8, centered=True)
-    with pytest.raises(NotImplementedError):
-        ft.pack_leaves(sub_block=2)
-    with pytest.raises(NotImplementedError):
-        ft.pack_leaves(store="shared")
+    """The layout requests both packages refuse, with the JAX package's
+    messages; block dtypes neither packs."""
+    fj, ft = forests
+    for kw, jkw, msg in (
+            (dict(centered=True), dict(centered=True), "centered"),
+            (dict(dtype=torch.bfloat16, centered=True),
+             dict(dtype=jnp.bfloat16, centered=True), "centered"),
+            (dict(sub_block=2, slack=4), dict(sub_block=2, slack=4),
+             "exclusive"),
+            (dict(store="shared", dtype=torch.int8),
+             dict(store="shared", dtype=jnp.int8), "blocked layout"),
+            (dict(store="shared", slack=1), dict(store="shared", slack=1),
+             "slack"),
+            (dict(store="rows"), dict(store="rows"), "store")):
+        with pytest.raises(ValueError, match=msg):
+            ft.pack_leaves(**kw)
+        with pytest.raises(ValueError, match=msg):
+            fj.pack_leaves(**jkw)
     with pytest.raises(ValueError):
         ft.pack_leaves(dtype=torch.float64)
     with pytest.raises(ValueError):

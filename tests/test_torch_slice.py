@@ -180,9 +180,9 @@ def test_signature_and_positional_binding_match_jax(data):
             assert a.default == b.default or (
                 a.default is torch.float32 and b.default is jnp.float32), (
                 name, a.name)
-        assert [p.name for p in pt[len(pj):]] == (
-            ["device", "r"] if name == "forest_batch"
-            else ["device"] if name == "sample_projections" else []), name
+        assert [p.name for p in pt[len(pj):]] == {
+            "forest_batch": ["device", "r"], "sample_projections": ["device"],
+            "pack_leaves": ["r_sub"]}[name], name
         assert all(p.kind is p.KEYWORD_ONLY for p in pt[len(pj):]), name
     x, q, fj = data
     ft = carry(fj)
@@ -237,8 +237,8 @@ def test_unported_options_raise(data):
     ft = carry(fj)
     with pytest.raises(ValueError):
         ft.knn_grouped(q, K)  # not packed yet
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        ft.pack_leaves(centered=True)
+    with pytest.raises(ValueError, match="centered=True applies to int8"):
+        ft.pack_leaves(centered=True)  # as the JAX package refuses it
     ft.pack_leaves()
     # the XLA-form scorer serves impl="xla" and the metrics the tile
     # kernels do not

@@ -253,7 +253,7 @@ def test_rebuild_matches_jax(runs):
                                atol=1e-5)
     assert ft.plan.n == fj.plan.n == N + 240 - 5
     assert ft.payloads == fj.payloads
-    assert ft._pack_cfg == ("f32", 8)
+    assert ft._pack_cfg == ("f32", 8, False, 1, None, "blocks")  # replayed
 
 
 def test_rebuild_drops_every_stale_cache(data):

@@ -2,11 +2,13 @@
 seed with numpy, JAX forests, and their carry-over into the PyTorch port
 (``rptree_tpu_torch``) through the checkpoint arrays."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import rptree_tpu as rt
+from rptree_tpu.models.forest import _sub_pack_tables
 from rptree_tpu.utils.io import _header
 from rptree_tpu_torch import forest_from_numpy
 from rptree_tpu_torch.ops.grouped_kernel import untied
@@ -68,3 +70,39 @@ def knn_agree(got, want, rtol=1e-5):
     chk = untied(torch.as_tensor(dj), rtol).numpy()
     np.testing.assert_array_equal(it[chk], ij[chk])
     assert chk.any()
+
+
+# the dense layouts of ``pack_leaves`` beside f32 / bf16 / int8 blocks, by
+# name: block dtype ("bf16", "int8" or absent for f32) and the rest of the
+# request
+LAYOUTS = {
+    "f32_sub4_kmeans": dict(sub_block=4),
+    "f32_sub2_proj": dict(sub_block=2, sub_split="proj"),
+    "f32_sub3": dict(sub_block=3),                    # kmeans falls to proj
+    "bf16_sub2": dict(dtype="bf16", sub_block=2),
+    "int8_sub4": dict(dtype="int8", sub_block=4),
+    "int8_centered": dict(dtype="int8", centered=True),
+    "int8_centered_slack": dict(dtype="int8", centered=True, slack=8),
+    "int8_centered_sub8": dict(dtype="int8", centered=True, sub_block=8),
+    "shared_f32": dict(store="shared"),
+    "shared_bf16": dict(dtype="bf16", store="shared"),
+}
+JAX_DTYPES = {None: None, "bf16": jnp.bfloat16, "int8": jnp.int8}
+TORCH_DTYPES = {None: None, "bf16": torch.bfloat16, "int8": torch.int8}
+
+
+def jax_r_sub(fj):
+    """The JAX package's sub-block ordering direction for ``fj`` (its
+    threefry draw, salt 987), which the port takes as ``r_sub``."""
+    lens = np.asarray(fj.plan.leaf_len)
+    return np.array(_sub_pack_tables(fj.seed, fj.dim, lens, 8, 2)[0])
+
+
+def pack_twins(fj, ft, layout):
+    """Pack a JAX forest and its carried twin in ``layout`` (a
+    :data:`LAYOUTS` entry), the port with JAX's ``r_sub``."""
+    kw = dict(layout)
+    dtype = kw.pop("dtype", None)
+    fj.pack_leaves(dtype=JAX_DTYPES[dtype], **kw)
+    r_sub = jax_r_sub(fj) if kw.get("sub_block", 1) > 1 else None
+    ft.pack_leaves(dtype=TORCH_DTYPES[dtype], **kw, r_sub=r_sub)
