@@ -30,7 +30,14 @@ its launch counts):
    to their twin, all five outputs, on the pairs of ``TABLES`` (the
    clustered and iid chunks' shapes, a hot block that every query probes,
    all pairs masked, a capacity below the tiles needed, tile_m 1 and 16,
-   G past 65,536);
+   G past 65,536); the ELL tile scoring (kernel 10) at the sparse cell's
+   shapes (K 32, lmax 128, V 65,536; a grouped chunk at tile_m 8 and a
+   per-pair chunk as tiles of one; f32 and bf16 values; l2, sql2, cosine
+   and dot; masked pairs, a capacity below the tiles needed: distances
+   within 1e-4, squared ones within 1e-5 of ``|x|^2 + |q|^2``); the row
+   projections (kernel 11) against ``torch.matmul`` at the clustered
+   query chunk, the 1M build and the sparse query chunk, within the fp32
+   sum's bound, a row's bits the same in any batch;
 3. clustered 1M cell (``bench.py``'s flagship parameters): one build and
    one exact ground truth (recall@10 on 1,024 queries); unpacked ``knn``
    on those 1,024 queries at budget 1 and at its default budget 32; then
@@ -103,7 +110,18 @@ its launch counts):
    >= 0.88 on both, grouped within 0.005 of per pair; the bf16 scan of
    4,096; build, pack and serve times, peak memory, the shared tables'
    bytes beside the blocked layout's;
-9. the kernels' launch counts over phases 3-8, each of which must be > 0.
+9. sparse (ELL) data (``sparse_*`` lines): ``examples/bow_sparse.py``'s
+   cell, 262,144 documents of 32 terms over 65,536 columns, 256 topic
+   bands, drawn with numpy; T 8, ``min_leaf`` 128, f32 ``EllBlocks``;
+   8,192 dataset rows as queries: (s1) per pair (chunk 512), (s2) grouped
+   with the kernel tail (chunk 4,096), (s3) and (s4) the same with the
+   queries an ``EllMatrix``, densified a chunk at a time; recall@10 of
+   each >= 0.095 against the exact ELL scan (the JAX package's 0.104
+   beside it), (s3) the bits of (s2) and (s4) of (s1), kernel 10 on
+   (s2)'s first chunk; then a repack with slack 8 and 4,096 documents
+   folded: no row past the blocks' K slots folded, >= 99% of the folded
+   documents found by themselves through (s3)'s path;
+10. the kernels' launch counts over phases 3-9, each of which must be > 0.
 
 Each scan of phases 3, 5, 6 and 8 is also held, on its first chunk of
 queries, against the scan kernel's plain version at that shape; kernels
@@ -112,8 +130,9 @@ queries, against the scan kernel's plain version at that shape; kernels
 Every variant is served with the launch counts set to 0 just before it
 and read just after it: the kernels it must run have launched once per
 chunk and pass, and every other kernel of the path not at all.  Every
-query path runs kernel 7 once per chunk, the packed ones kernel 8 too,
-the grouped ones kernel 9 too.
+query path runs kernels 11 (the query projections) and 7 once per chunk,
+the packed ones kernel 8 too, the grouped ones kernel 9 too, the ELL ones
+kernel 10 and no dense path kernel 10.
 
 Then one JSON line describing each kernel and, last, the result line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script then
@@ -481,6 +500,8 @@ def check_kernels(device, g=4096, nt=4096, dim=128, reps=5):
     out.update(check_scan(device, reps))
     out.update(check_descent(device, reps))
     out.update(check_tables(device, reps))
+    out.update(check_ell(device, reps))
+    out.update(check_project(device, reps))
     return out
 
 
@@ -927,6 +948,234 @@ def check_scan(device, reps, n=100_000, b=4096, d=128):
     return {"scan_topk": rec}
 
 
+# the bag-of-words cell (examples/bow_sparse.py:39-73): documents of
+# SPARSE_NNZ terms from one of SPARSE_TOPICS bands of a SPARSE_V vocabulary
+SPARSE_N, SPARSE_V, SPARSE_NNZ, SPARSE_TOPICS = 262_144, 65_536, 32, 256
+SPARSE_PAIR = dict(budget=2, precision="default", chunk=512)
+SPARSE_GROUPED = dict(budget=2, tile_m=8, chunk=4096, selection="kernel")
+SPARSE_PROBES = 16         # T 8 x budget 2
+
+
+def sparse_rows(n, seed, v=SPARSE_V, nnz=SPARSE_NNZ, topics=SPARSE_TOPICS):
+    """``examples/bow_sparse.py``'s documents, drawn with numpy: ``nnz``
+    columns of one topic's band (offsets below ``v // 64``, sorted,
+    duplicates kept: they add), values ``|N(0, 1)| + 0.1``.  Returns
+    ``(cols int32[n, nnz], vals f32[n, nnz])``."""
+    rng = np.random.default_rng(seed)
+    topic = rng.integers(0, topics, size=(n, 1))
+    off = rng.integers(0, v // 64, size=(n, nnz))
+    cols = np.sort(np.clip(topic * (v // topics) + off, 0, v - 1), axis=1)
+    vals = np.abs(rng.standard_normal((n, nnz), dtype=np.float32)) + 0.1
+    return cols.astype(np.int32), vals.astype(np.float32)
+
+
+def ell_bound(blocks, tb, tp, lens, q, p):
+    """:func:`bound` of kernel 10 on these tiles: each probed block's
+    occupied slots once (cols, values, norms), each distinct (query,
+    column) value the tiles' rows read, the queries' norms, the tables
+    and the output; two operations per (row, slot, K) product."""
+    import torch
+
+    g, lmax, kz = blocks.shape
+    nt, m = tp.shape
+    b, v = q.shape
+    occ = lens.long().clamp(0, lmax)
+    nslots = int(torch.zeros(g, dtype=torch.int64, device=tb.device)
+                 .scatter_reduce(0, tb.long(), occ, "amax").sum())
+    mark = torch.zeros(b * v, dtype=torch.bool, device=q.device)
+    col = torch.arange(lmax, device=q.device)
+    for s in range(0, nt, 512):
+        c = min(512, nt - s)
+        rows = tp[s:s + c]
+        cols = blocks.cols[tb[s:s + c].long()].long()          # [c, lmax, K]
+        keys = (rows.long() // p)[:, :, None, None] * v + cols[:, None]
+        ok = ((rows >= 0)[:, :, None, None]
+              & (col < occ[s:s + c, None])[:, None, :, None])
+        mark[keys[ok.expand_as(keys)]] = True
+    live = tp[tp >= 0]
+    n_queries = int(torch.unique(live.long() // p).numel())
+    nbytes = (nslots * (kz * (4 + blocks.vals.element_size()) + 4)
+              + int(mark.sum()) * 4 + n_queries * 4 + nt * (8 + 4 * m)
+              + nt * m * lmax * 4)
+    ops = 2 * kz * int(((tp >= 0).sum(1) * occ).sum())
+    return bound(nbytes, ops, "f32")
+
+
+def ell_tiles_inputs(device, b, p, tile_m, seed, g=16_384, lmax=128,
+                     bf16=False):
+    """ELL blocks at the cell's shapes (``g`` blocks of ``lmax`` slots of
+    ``SPARSE_NNZ``, occupancy from half to all of ``lmax``, padding past
+    it), ``b`` dense query rows of the cell's kind and their norms, and the
+    tile tables of ``b * p`` pairs (kernel 9; a fifth masked, queries of a
+    topic probing that topic's blocks) at a capacity of 90% of the tiles
+    needed.  Returns ``(blocks, sq, tb, tp, lens_t, q, qq, needed,
+    capacity)``."""
+    import torch
+
+    from rptree_tpu_torch.ops import grouped as og
+    from rptree_tpu_torch.ops.sparse import EllBlocks, EllMatrix, ell_to_dense
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    cols, vals = sparse_rows(g * lmax, seed)
+    cols = torch.as_tensor(cols).reshape(g, lmax, SPARSE_NNZ)
+    vals = torch.as_tensor(vals).reshape(g, lmax, SPARSE_NNZ)
+    lens = torch.randint(lmax // 2, lmax + 1, (g,), generator=gen,
+                         dtype=torch.int32)
+    empty = torch.arange(lmax)[None, :] >= lens[:, None]
+    cols[empty], vals[empty] = 0, 0.0
+    sq = (vals * vals).sum(-1)
+    qc, qv = sparse_rows(b, seed + 1)
+    q = ell_to_dense(EllMatrix(SPARSE_V, qc, qv).to(device), torch.float32)
+    # a query probes blocks whose rows share its band
+    band = torch.as_tensor(qc[:, :1] // (SPARSE_V // SPARSE_TOPICS))
+    blk_band = cols[:, 0, 0] // (SPARSE_V // SPARSE_TOPICS)
+    order = torch.argsort(blk_band)
+    start = torch.searchsorted(blk_band[order], band)
+    pick = (start + torch.randint(0, 64, (b, p), generator=gen)) % g
+    gsel = order[pick].to(torch.int32)
+    lsel = torch.where(torch.rand(b, p, generator=gen) < 0.2, -1, gsel)
+    gsel = torch.where(lsel < 0, 0, gsel).to(torch.int32)
+    to = dict(device=device)
+    gsel, lsel, lens_d = gsel.to(**to), lsel.to(**to), lens.to(**to)
+    _, _, needed, _, _ = og.tile_tables(gsel, lsel, lens_d, tile_m, b * p)
+    cap = max(1, int(needed) * 9 // 10)
+    tb, tp, _, _, lens_t = og.tile_tables(gsel, lsel, lens_d, tile_m, cap)
+    if bf16:
+        vals = vals.bfloat16()
+    blocks = EllBlocks(SPARSE_V, cols.to(**to), vals.to(**to))
+    return (blocks, sq.to(**to), tb, tp, lens_t, q, (q * q).sum(-1),
+            int(needed), cap)
+
+
+def ell_agree(name, got, want, sq, qq, tb, tp, p, metric):
+    """Kernel 10 against its plain version: infinite at the same places;
+    ``sql2`` within ``SUM_RTOL`` of ``|x|^2 + |q|^2``, the other metrics
+    within ``DIST_RTOL``.  Returns the error."""
+    import torch
+
+    abs_err, rel_err = _rel_err(got, want)
+    if metric != "sql2":
+        if rel_err > DIST_RTOL:
+            raise AssertionError(f"{name} ({metric}): relative error "
+                                 f"{rel_err} > {DIST_RTOL}")
+        return abs_err, rel_err
+    qn = torch.where(tp >= 0, qq[(tp.long() // p).clamp_min(0)], 0.0)
+    scale = sq[tb.long()][:, None, :] + qn[..., None]
+    fin = torch.isfinite(want.reshape(scale.shape))
+    err = float(((got - want).abs().reshape(scale.shape)[fin]
+                 / scale[fin]).max()) if bool(fin.any()) else 0.0
+    if err > SUM_RTOL:
+        raise AssertionError(f"{name}: squared distances off by {err} of "
+                             f"|x|^2 + |q|^2 > {SUM_RTOL}")
+    return abs_err, err
+
+
+def check_ell(device, reps):
+    """Kernel 10 against its plain version at the sparse cell's shapes (K
+    32, lmax 128, V 65,536): a grouped chunk (4,096 queries x 16 probes,
+    tile_m 8) and a per-pair chunk (512 x 16, tiles of one), f32 and bf16
+    values, every metric, with masked pairs and a capacity below the tiles
+    needed; both times, the device time and the bound on those tiles."""
+    import torch
+
+    from rptree_tpu_torch.ops import ell_kernel as ek
+
+    rec = {"shape": {"K": SPARSE_NNZ, "lmax": 128, "V": SPARSE_V,
+                     "grouped": [4096, SPARSE_PROBES, 8],
+                     "per_pair": [512, SPARSE_PROBES, 1]}}
+    worst = 0.0
+    for label, b, tile_m in (("", 4096, 8), ("_pairs", 512, 1)):
+        for bf16 in (False, True):
+            sfx = label + ("_bf16" if bf16 else "")
+            (blocks, sq, tb, tp, lens, q, qq, needed,
+             cap) = ell_tiles_inputs(device, b, SPARSE_PROBES, tile_m, 7,
+                                     bf16=bf16)
+            p = SPARSE_PROBES
+            for metric in ("l2", "sql2", "cosine", "dot"):
+                args = (blocks, sq, tb, tp, lens, q, qq, p, metric)
+                got = ek.ell_score_tiles(*args)
+                want = ek.ell_score_tiles_reference(*args)
+                torch.cuda.synchronize()
+                a, r = ell_agree(f"ell_score_tiles{sfx}", got, want, sq, qq,
+                                 tb, tp, p, metric)
+                worst = max(worst, a)
+                rec[f"max_err_{metric}{sfx}"] = r
+                del got, want
+            args = (blocks, sq, tb, tp, lens, q, qq, p, "l2")
+            rec[f"ms{sfx}"] = cuda_ms(lambda: ek.ell_score_tiles(*args), reps)
+            rec[f"device_ms{sfx}"] = graph_ms(
+                lambda: ek.ell_score_tiles(*args), reps=5)
+            rec[f"plain_ms{sfx}"] = cuda_ms(
+                lambda: ek.ell_score_tiles_reference(*args), 2)
+            rec[f"tiles{sfx}"] = {"needed": needed, "capacity": cap}
+            b_rec = ell_bound(blocks, tb, tp, lens, q, p)
+            rec.update({f"{k}{sfx}": v for k, v in b_rec.items()})
+            del blocks, q
+            torch.cuda.empty_cache()
+    rec["max_abs_err"] = worst
+    rec["library_ms"] = None
+    return {"ell_score_tiles": rec}
+
+
+def check_project(device, reps):
+    """Kernel 11 at the main path's projections: the clustered chunk's
+    queries (65,536 x 128, T 8 x 13 levels), the 1M build's tree (13
+    levels), the sparse cell's query chunk (4,096 x 65,536, T 8 x 11
+    levels).  Held against the exact product (float64) within the error
+    bound of its own order of summation, ``project_rows_error_bound(D) *
+    sum |x_d r_d|`` (2.7 at 65,536 columns, where a segment of 1,024
+    columns dropped or doubled moves an entry by ~32); ``max_abs_err`` is
+    its distance from the plain version, ``torch.matmul``; the same bits
+    for a row in any batch."""
+    import torch
+
+    from rptree_tpu_torch.ops import build as ob
+
+    rec, worst = {}, 0.0
+    gen = torch.Generator(device=device).manual_seed(3)
+    for label, n, d, nl in (("", 65_536, 128, 104), ("_build", 1_000_000,
+                                                     128, 13),
+                            ("_sparse", 4096, SPARSE_V, 88)):
+        x = torch.randn(n, d, device=device, generator=gen)
+        r = torch.randn(nl, d, device=device, generator=gen)
+        got = ob.project_rows(x, r)
+        want = ob.project_rows_reference(x, r)
+        x64, r64 = x.double(), r.double()
+        exact = r64 @ x64.T
+        # the float64 product's own error, d * 2**-53 of the terms, added
+        terms = r64.abs() @ x64.abs().T
+        tol = (ob.project_rows_error_bound(d) + d * 2.0 ** -53) * terms
+        err = (got.double() - exact).abs()
+        if bool((err > tol).any()):
+            raise AssertionError(f"project_rows{label}: past the bound of "
+                                 "its order of summation")
+        part = ob.project_rows(x[n // 3:n // 2].contiguous(), r)
+        if not torch.equal(part.view(torch.int32),
+                           got[:, n // 3:n // 2].view(torch.int32)):
+            raise AssertionError(f"project_rows{label}: a row's bits depend "
+                                 "on its batch")
+        diff = float((got - want).abs().max())
+        worst = max(worst, diff)
+        rec[f"max_abs_err{label}"] = diff
+        rec[f"max_abs_err_vs_f64{label}"] = float(err.max())
+        rec[f"max_share_of_bound{label}"] = float((err / tol).max())
+        rec[f"ms{label}"] = cuda_ms(lambda: ob.project_rows(x, r), reps)
+        rec[f"device_ms{label}"] = graph_ms(lambda: ob.project_rows(x, r),
+                                            reps=5)
+        rec[f"plain_ms{label}"] = cuda_ms(
+            lambda: ob.project_rows_reference(x, r), reps)
+        rec[f"shape{label}"] = {"rows": n, "D": d, "projections": nl}
+        b_rec = bound(4 * (n * d + nl * d + nl * n), 2 * n * d * nl, "f32")
+        rec.update({f"{k}{label}": v for k, v in b_rec.items()})
+        del x, r, got, want, x64, r64, exact, terms, tol, err, part
+        torch.cuda.empty_cache()
+    rec["max_abs_err"] = worst
+    # the plain version is the one PyTorch call of the same function
+    rec["library_ms"] = rec["plain_ms"]
+    rec["library_call"] = "torch.matmul(r, x.T), IEEE fp32"
+    return {"project_rows": rec}
+
+
 # -- phases 3-4: the serving path ------------------------------------------
 
 def clustered_data(n, dim, centers, sigma, n_queries, seed=SEED):
@@ -1094,6 +1343,8 @@ def check_descent_chunk(f, qc, budget, probes=None, bucket_stop=False):
 def kernel_counts():
     """The launch count of each kernel of the path: ``{name: (wrapper,
     attribute)}``."""
+    from rptree_tpu_torch.ops import build as ob
+    from rptree_tpu_torch.ops import ell_kernel as ek
     from rptree_tpu_torch.ops import fused_gather as fg
     from rptree_tpu_torch.ops import grouped as og
     from rptree_tpu_torch.ops import grouped_kernel as gk
@@ -1102,6 +1353,7 @@ def kernel_counts():
     from rptree_tpu_torch.ops import traverse as tv
 
     return {
+        "project_rows": (ob.project_rows, "launches"),
         "traverse": (tv.traverse_kernel, "launches"),
         "select_probes": (tv.select_probes, "launches"),
         "tile_tables": (og.tile_tables, "launches"),
@@ -1114,7 +1366,17 @@ def kernel_counts():
         "gather_score_bf16": (fg.gather_score, "launches_bf16"),
         "gather_score_shared": (fg.gather_score, "launches_shared"),
         "scan_topk": (sc.scan_topk, "launches"),
+        "ell_score_tiles": (ek.ell_score_tiles, "launches"),
     }
+
+
+def with_projections(runs):
+    """``runs`` with kernel 11 (``project_rows``), which projects each
+    query chunk that kernel 7 (``traverse``) descends: as many launches as
+    it, on every query path."""
+    if isinstance(runs, dict):
+        return {**runs, "project_rows": runs.get("traverse", 0)}
+    return set(runs) | ({"project_rows"} if "traverse" in runs else set())
 
 
 def counted(fn):
@@ -1131,7 +1393,9 @@ def counted(fn):
 def check_launches(name, runs, warm, steady, chunks, passes):
     """The kernels ``runs`` launched once per chunk in each steady-state
     pass and at least once per chunk in the checked call (which may retry
-    with more tiles); every other kernel of the path not at all."""
+    with more tiles); every other kernel of the path not at all (kernel 11
+    with kernel 7: :func:`with_projections`)."""
+    runs = with_projections(runs)
     for kern in warm:
         if kern in runs:
             ok = steady[kern] == passes * chunks and warm[kern] >= chunks
@@ -1185,9 +1449,11 @@ def serve_variant(name, f, qd, truth, pack, serve, runs, n_passes=3):
 
 
 def rows_gb(x_leaf):
-    """The packed rows' gigabytes: the blocks, or the shared row store."""
-    t = getattr(x_leaf, "rows", x_leaf)
-    return t.numel() * t.element_size() / 1e9
+    """The packed rows' gigabytes: the blocks, the shared row store, or
+    the ELL blocks' columns and values."""
+    ts = ((x_leaf.cols, x_leaf.vals) if hasattr(x_leaf, "cols")
+          else (getattr(x_leaf, "rows", x_leaf),))
+    return sum(t.numel() * t.element_size() for t in ts) / 1e9
 
 
 def counted_calls(name, fn, runs, n_calls):
@@ -1197,6 +1463,7 @@ def counted_calls(name, fn, runs, n_calls):
     every other kernel of the path not at all.  Returns ``(the last
     result, the median seconds of a call, the launches)``."""
     outs, launches = counted(lambda: [sync_time(fn) for _ in range(n_calls)])
+    runs = with_projections(runs)
     for kern, n in launches.items():
         want = runs.get(kern, 0) * n_calls
         if n != want:
@@ -2020,6 +2287,170 @@ def shared_10m_phase(device, launches, kern, card):
     torch.cuda.empty_cache()
 
 
+# -- phase 9: sparse (ELL) data, the bag-of-words cell ----------------------
+
+SPARSE_QUERIES = 8_192
+SPARSE_RECALL_QUERIES = 1_024
+SPARSE_MIN_RECALL = 0.095
+JAX_SPARSE_RECALL = 0.104  # examples/bow_sparse.py, per pair, a TPU v5e
+SPARSE_ADD, SPARSE_FAT = 4_096, 16
+SPARSE_MIN_FOUND = 0.99
+
+
+def check_ell_chunk(f, qc, serve, reps=5):
+    """Kernel 10 against its plain version on the tiles that the grouped
+    path makes for the chunk ``qc`` (its probes, kernel 9's tables at the
+    learned capacity): squared distances within ``SUM_RTOL`` of ``|x|^2 +
+    |q|^2`` (the queries are dataset rows: near their own rows the l2
+    distance is the square root of that cancellation alone), l2 infinite
+    at the same places; both times and the bound there."""
+    import torch
+
+    from rptree_tpu_torch.models import forest as fm
+    from rptree_tpu_torch.ops import ell_kernel as ek
+    from rptree_tpu_torch.ops import grouped as og
+
+    blocks, sq, _ = f._packed
+    gsel, lsel = fm._probe_pairs(f, qc, serve["budget"], SPARSE_PROBES, K)
+    cap = max(f._grouped_nt.values())
+    tb, tp, needed, _, lens = og.tile_tables(gsel, lsel, f._lens_global(),
+                                             serve["tile_m"], cap)
+    qq = (qc * qc).sum(-1)
+    rec = {"tiles": {"needed": int(needed), "capacity": cap}}
+    for metric in ("l2", "sql2"):
+        args = (blocks, sq, tb, tp, lens, qc, qq, SPARSE_PROBES, metric)
+        got, want = ek.ell_score_tiles(*args), ek.ell_score_tiles_reference(
+            *args)
+        torch.cuda.synchronize()
+        if metric == "sql2":
+            rec["max_abs_err"], rec["max_err_of_norms"] = ell_agree(
+                "ell_score_tiles on the chunk", got, want, sq, qq, tb, tp,
+                SPARSE_PROBES, metric)
+        else:
+            rec["l2_max_abs_err"] = _rel_err(got, want)[0]
+        del got, want
+    args = (blocks, sq, tb, tp, lens, qc, qq, SPARSE_PROBES, "l2")
+    return {**rec, "ms": cuda_ms(lambda: ek.ell_score_tiles(*args), reps),
+            "device_ms": graph_ms(lambda: ek.ell_score_tiles(*args), reps=5),
+            "plain_ms": cuda_ms(lambda: ek.ell_score_tiles_reference(*args),
+                                2),
+            **ell_bound(blocks, tb, tp, lens, qc, SPARSE_PROBES)}
+
+
+def sparse_phase(device, launches, card, n=SPARSE_N, n_queries=SPARSE_QUERIES,
+                 n_add=SPARSE_ADD, on_card=True):
+    """Phase 9, ``examples/bow_sparse.py``'s cell: 262,144 documents of 32
+    terms over a 65,536-term vocabulary, 256 topic bands, drawn with numpy
+    at the smoke's seed (the example draws with ``jax.random``);
+    ``rp_tree_cfg(128, n, 65,536)``, T 8, f32 ``EllBlocks``; 8,192 queries
+    that are dataset rows, served (s1) per pair (``knn_batched``, chunk
+    512), (s2) grouped with the kernel tail (chunk 4,096), (s3) (s2) with
+    the queries an ``EllMatrix`` and (s4) (s1) with them so; recall@10 of
+    the first 1,024 against the exact ELL scan; (s3) the bits of (s2) and
+    (s4) of (s1); kernel 10 on (s2)'s first chunk.  Then a repack with
+    slack 8, 4,096 documents of the mixture and 16 rows of 64 nonzeros
+    added and folded: no row past the blocks' K slots folded, every folded
+    document found by itself through (s3)'s path (>= 99%)."""
+    import torch
+
+    import rptree_tpu_torch as rp
+    from rptree_tpu_torch.models import forest as fm
+    from rptree_tpu_torch.ops.sparse import EllMatrix, ell_take, ell_to_dense
+
+    t_phase = time.perf_counter()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    walk, probe, tables, ell = ("traverse", "select_probes", "tile_tables",
+                                "ell_score_tiles")
+    cols, vals = sparse_rows(n, SEED)
+    x = EllMatrix(SPARSE_V, cols, vals)
+    cfg = rp.rp_tree_cfg(128, n, SPARSE_V)
+    f, build_s = sync_time(lambda: rp.forest_batch(
+        SEED, cfg.max_depth, 128, 8, cfg.proj_nz_density, x, device=device))
+    _, pack_s = sync_time(f.pack_leaves)
+    blocks = f._packed[0]
+    qi = np.random.default_rng(SEED + 11).integers(0, n, size=n_queries)
+    qe = ell_take(f.x, torch.as_tensor(qi, device=device))
+    qd, densify_s = sync_time(lambda: ell_to_dense(qe, torch.float32))
+    nr = min(SPARSE_RECALL_QUERIES, n_queries)
+    (_, truth), scan_s = sync_time(lambda: f.brute_force_knn(qd[:nr], K))
+    cell = {"n": n, "V": SPARSE_V, "nnz": SPARSE_NNZ, "topics": SPARSE_TOPICS,
+            "trees": 8, "min_leaf": 128, "depth": cfg.max_depth,
+            "leaves": f.plan.n_leaves, "lmax": int(blocks.shape[1]),
+            "K": int(blocks.shape[2]), "queries": n_queries,
+            "build_s": build_s, "pack_s": pack_s, "densify_s": densify_s,
+            "ell_blocks_gb": rows_gb(blocks), "scan_s": scan_s,
+            "scan_qps": nr / scan_s, "card": card,
+            "data": "numpy at the smoke's seed (the example: jax.random)"}
+    log("sparse_bow_262k", **cell)
+    out, recs = {}, {}
+    pair_runs = {walk, probe, ell}
+    grouped_runs = {walk, probe, tables, ell, "topk_dedup_kernel"}
+    for name, q in (("s1_per_pair", qd), ("s4_per_pair_sparse_queries", qe)):
+        recs[name], out[name] = per_pair_phase(
+            f"sparse_{name}", f, q, truth, SPARSE_PAIR, pair_runs, 2,
+            launches)
+    for name, q in (("s2_grouped", qd), ("s3_grouped_sparse_queries", qe)):
+        recs[name], out[name] = serve_variant(
+            f"sparse_{name}", f, q, truth, {}, SPARSE_GROUPED, grouped_runs)
+        add_launches(launches, f"sparse_{name}", recs[name]["launches"])
+    recs["s3_grouped_sparse_queries"]["same_as_s2_untied_ids"] = same_results(
+        "sparse (s3)", out["s3_grouped_sparse_queries"], out["s2_grouped"])
+    recs["s4_per_pair_sparse_queries"]["same_as_s1_untied_ids"] = \
+        same_results("sparse (s4)", out["s4_per_pair_sparse_queries"],
+                     out["s1_per_pair"])
+    recs["s2_grouped"]["kernel10_chunk"] = (
+        check_ell_chunk(f, qd[:SPARSE_GROUPED["chunk"]], SPARSE_GROUPED)
+        if on_card else None)
+    for name, rec in recs.items():
+        log(f"sparse_{name}", **rec, jax_recall=JAX_SPARSE_RECALL)
+        if rec["recall_at_10"] < SPARSE_MIN_RECALL:
+            raise AssertionError(f"sparse {name}: recall "
+                                 f"{rec['recall_at_10']} < "
+                                 f"{SPARSE_MIN_RECALL}")
+    del out, qd, truth
+    # the fold: a repack with slack, documents of the mixture and rows past
+    # the blocks' K slots, which stay pending
+    _, repack_s = sync_time(lambda: f.pack_leaves(slack=8))
+    kz = int(f._packed[0].shape[2])
+    ac, av = sparse_rows(n_add, SEED + 12)
+    new = ell_to_dense(EllMatrix(SPARSE_V, ac, av).to(device), torch.float32)
+    fc, fv = sparse_rows(SPARSE_FAT, SEED + 13, nnz=2 * SPARSE_NNZ,
+                         topics=1)
+    fat = ell_to_dense(EllMatrix(SPARSE_V, fc, fv).to(device), torch.float32)
+    _, add_s = sync_time(lambda: f.add(torch.cat([new, fat])))
+    _, fold_s = sync_time(f.fold)
+    folded, pending = f.n_folded, f.n_pending
+    fx = torch.cat(f._folded_x)
+    widest = int((fx != 0).sum(1).max())
+    left = torch.cat(f._pending)
+    fat_pending = bool(pending >= SPARSE_FAT and torch.equal(
+        left[-SPARSE_FAT:], fat))
+    if widest > kz or not fat_pending:
+        raise AssertionError(f"sparse fold: a folded row of {widest} > {kz} "
+                             f"nonzeros, or a wide row folded "
+                             f"({pending} pending)")
+    # the rows left pending removed and dropped, so that sparse queries serve
+    f.remove(np.arange(n + folded, n + folded + pending))
+    f.fold()
+    rc, rv = fm._ell_slots(fx, kz)
+    (_, own), self_s = sync_time(lambda: f.knn_grouped(
+        EllMatrix(SPARSE_V, rc, rv), K, **SPARSE_GROUPED))
+    want = torch.arange(n, n + folded, device=device)[:, None]
+    found = float((own == want).any(1).float().mean())
+    log("sparse_fold", card=card, slack=8, repack_s=repack_s, added=n_add,
+        wide_rows=SPARSE_FAT, add_s=add_s, fold_s=fold_s, folded=folded,
+        pending_after_fold=pending, overflow_pending=pending - SPARSE_FAT,
+        widest_folded_row=widest, k_slots=kz, wide_rows_pending=fat_pending,
+        self_queries=folded, self_query_s=self_s, found_self=found,
+        peak_allocated_gb=(torch.cuda.max_memory_allocated() / 1e9
+                           if on_card else None),
+        phase_s=time.perf_counter() - t_phase)
+    if found < SPARSE_MIN_FOUND:
+        raise AssertionError(f"sparse fold: {found} of the folded documents "
+                             f"find themselves < {SPARSE_MIN_FOUND}")
+
+
 def main():
     import torch
 
@@ -2204,6 +2635,10 @@ def main():
 
     # -- phase 8b: the 10M shared-row cell, every earlier forest freed ----
     shared_10m_phase(device, launches, kern, card)
+    torch.cuda.empty_cache()
+
+    # -- phase 9: sparse (ELL) data, the bag-of-words cell ----------------
+    sparse_phase(device, launches, card)
 
     log("launches", variant="all", **launches)
     if min(launches.values()) < 1:
@@ -2243,6 +2678,14 @@ def main():
                                 "gather_score_shared"),
         "scan_topk": ("rptree_tpu_torch/csrc/scan_topk.cu",
                       "rptree_tpu/ops/scan.py:102", "scan_topk"),
+        "ell_score_tiles": ("rptree_tpu_torch/csrc/ell_score.cu",
+                            "rptree_tpu/ops/grouped.py:170 (XLA-form ELL "
+                            "step) and rptree_tpu/models/forest.py:612 "
+                            "(per-pair ELL step)", "ell_score_tiles"),
+        "project_rows": ("rptree_tpu_torch/csrc/project.cu",
+                         "rptree_tpu/models/forest.py:378 (query "
+                         "projections) and rptree_tpu/ops/build.py:58 "
+                         "project_dataset", "project_rows"),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -2250,7 +2693,9 @@ def main():
     # time and the call's name stand beside it; the tile kernels' device
     # time (graph_ms) beside their wrapper's
     extra = ("ms_no_dedup", "library_call", "gemm_ms", "cast_ms",
-             "device_ms", "by_shape", "blocked_ms", "blocked_same_bits")
+             "device_ms", "by_shape", "blocked_ms", "blocked_same_bits",
+             "ms_pairs", "device_ms_pairs", "bound_ms_pairs", "ms_bf16",
+             "bound_ms_bf16", "ms_sparse", "bound_ms_sparse")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **{key: kern[r][key] for key in keys},

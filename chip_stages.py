@@ -26,6 +26,8 @@ too, at the phase-2 shapes and the 1M scan chunk.
     python3 chip_stages.py --cpu      # a tiny rehearsal on the CPU
     python3 chip_stages.py --shared-10m   # only the 10M shared-row cell
                                           # (add --cpu to rehearse it)
+    python3 chip_stages.py --sparse       # only the bag-of-words ELL cell
+                                          # (add --cpu to rehearse it)
 
 Each stage runs as the serving path runs it (``_knn_grouped``), between
 two ``torch.cuda.synchronize`` calls, seven times; the line gives the
@@ -809,6 +811,86 @@ def shared_10m_stages(rp, fm, fg, og, rr, tk, dev, sync, on_card):
                                        if on_card else None)}), flush=True)
 
 
+def sparse_stages(rp, fm, og, tk, dev, sync, on_card):
+    """The bag-of-words cell (``chip_smoke.py`` phase 9's): build and pack
+    times, then the stages of one grouped chunk of 4,096 queries with the
+    kernel tail, (s2) dense and (s3) sparse: densify (s3), traversal +
+    probes (kernels 11, 7, 8; the projections also apart), tile tables
+    (kernel 9), the queries' norms, kernel 10, pair reorder, id gather,
+    kernel 3; and of one per-pair chunk of 512 (s1): traversal + probes,
+    kernel 10 as tiles of one, the sort tail; each beside its whole
+    call."""
+    from rptree_tpu_torch.ops import ell_kernel as ek
+    from rptree_tpu_torch.ops import traverse as tv
+    from rptree_tpu_torch.ops.sparse import EllMatrix, ell_take, ell_to_dense
+
+    n, nq, chunk, pchunk = ((cs.SPARSE_N, 8192, 4096, 512) if on_card
+                            else (20_000, 1024, 512, 128))
+    cols, vals = cs.sparse_rows(n, cs.SEED)
+    cfg = rp.rp_tree_cfg(128, n, cs.SPARSE_V)
+    f, build_ms = timed(lambda: rp.forest_batch(
+        cs.SEED, cfg.max_depth, 128, 8, cfg.proj_nz_density,
+        EllMatrix(cs.SPARSE_V, cols, vals), device=dev), sync, reps=1)
+    _, pack_ms = timed(f.pack_leaves, sync, reps=1)
+    print(json.dumps({"sparse_cell": n, "build_ms": build_ms,
+                      "pack_ms": pack_ms, "depth": cfg.max_depth,
+                      "blocks": list(f._packed[0].shape)}), flush=True)
+    qi = np.random.default_rng(cs.SEED + 11).integers(0, n, size=nq)
+    qe = ell_take(f.x, torch.as_tensor(qi, device=dev))
+    serve = dict(cs.SPARSE_GROUPED, chunk=chunk)
+    f.knn_grouped(qe, K, **serve)  # learn the capacity
+    cap = max(f._grouped_nt.values())
+    blocks, sq_leaf, id_leaf = f._packed
+    lens = f._lens_global()
+    budget, p = serve["budget"], cs.SPARSE_PROBES
+    qs = ell_take(qe, slice(0, chunk))
+    for label in ("s2_dense_queries", "s3_sparse_queries"):
+        st = {}
+        if label.startswith("s3"):
+            qc, st["densify"] = timed(lambda: ell_to_dense(qs, torch.float32),
+                                      sync)
+        else:
+            qc = ell_to_dense(qs, torch.float32)
+        _, proj_ms = timed(lambda: tv.project_queries(qc, f.arrays.r,
+                                                      f.plan.n_levels), sync)
+        (gsel, lsel), st["traversal_probes"] = timed(
+            lambda: fm._probe_pairs(f, qc, budget, p, K), sync)
+        (tb, tp, _, inv, lens_t), st["kernel9_tile_tables"] = timed(
+            lambda: og.tile_tables(gsel, lsel, lens, serve["tile_m"], cap),
+            sync)
+        qq, st["query_norms"] = timed(lambda: (qc * qc).sum(-1), sync)
+        d_all, st["kernel10_ell_score_tiles"] = timed(
+            lambda: ek.ell_score_tiles(blocks, sq_leaf, tb, tp, lens_t, qc,
+                                       qq, p, "l2"), sync)
+        d, st["pair_reorder"] = timed(lambda: og._pair_rows(
+            d_all, inv, float("inf"), chunk, p).reshape(chunk, -1), sync)
+        ids, st["id_gather"] = timed(
+            lambda: id_leaf[gsel.long()].reshape(chunk, -1), sync)
+        _, st["kernel3_tail"] = timed(
+            lambda: tk.topk_dedup_kernel(d, ids, K), sync)
+        st["sum"] = sum(st.values())
+        st["kernel11_projections_within_traversal"] = proj_ms
+        whole = qs if label.startswith("s3") else qc
+        _, st["whole_call"] = timed(lambda: f.knn_grouped(
+            whole, K, check=False, **serve), sync)
+        print(json.dumps({"sparse_grouped_stages_ms": label, "chunk": chunk,
+                          "cap": cap, **st}), flush=True)
+        del d_all, d, ids
+    qc = ell_to_dense(ell_take(qe, slice(0, pchunk)), torch.float32)
+    st = {}
+    (gsel, lsel), st["traversal_probes"] = timed(
+        lambda: fm._probe_pairs(f, qc, budget, p, K), sync)
+    d, st["kernel10_tiles_of_one"] = timed(
+        lambda: fm._score_ell_pairs(f, gsel, lsel, qc, "l2"), sync)
+    _, st["sort_tail"] = timed(lambda: fm._selection_tail(
+        d, id_leaf, gsel, K, K * f.n_trees, True), sync)
+    st["sum"] = sum(st.values())
+    _, st["whole_call"] = timed(lambda: f.knn_batched(
+        qc, K, **dict(cs.SPARSE_PAIR, chunk=pchunk)), sync)
+    print(json.dumps({"sparse_pair_stages_ms": "s1_dense_queries",
+                      "chunk": pchunk, **st}), flush=True)
+
+
 def device_times(f, qd, serve, sel, impl, on_card, metric="l2"):
     """Wall ms of one whole call under ``torch.profiler`` and its kernels'
     device ms, the largest eight by name."""
@@ -857,6 +939,8 @@ def main():
             capture_output=True, text=True, check=True, timeout=60).stdout
         print(smi.strip().splitlines()[0], flush=True)
         torch.backends.cuda.matmul.allow_tf32 = False
+    if "--sparse" in sys.argv[1:]:  # phase 9's cell alone
+        return sparse_stages(rp, fm, og, tk, dev, sync, on_card)
     if "--shared-10m" in sys.argv[1:]:  # phase 8b's cell alone
         from rptree_tpu_torch.ops import fused_gather as fg
         return shared_10m_stages(rp, fm, fg, og, rr, tk, dev, sync, on_card)

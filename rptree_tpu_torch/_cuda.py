@@ -66,6 +66,13 @@ _SIGNATURES = {
     # gsel, lsel, lens, tb, tp, slot, lens_t, needed, scratch, scratch_len,
     # n, g, nt, tile_m, stream
     "rpt_tile_tables": [_P] * 9 + [_L, _L, _I, _L, _I, _P],
+    # cols, vals, sq, tb, tp, lens, q, qq, out, nt, g, tile_m, lmax, k, v,
+    # b, p, metric, stream
+    "rpt_ell_score_f32": [_P] * 9 + [_I] * 9 + [_P],
+    "rpt_ell_score_bf16": [_P] * 9 + [_I] * 9 + [_P],
+    # x, ldx, r, out, scratch, n, l, d, stream
+    "rpt_project": [_P, _L, _P, _P, _P, _L, _I, _I, _P],
+    "rpt_project_segments": [_I],
 }
 
 _lib = None

@@ -52,9 +52,16 @@ into ``sub_block`` spatially ordered sub-blocks, and the shared-row store
 by kernel 6's shared-row mode per pair and by :func:`..ops.shared.
 fetch_blocks` in the grouped XLA form).
 
-Not ported yet (ROADMAP.md): ELL layouts and sparse query batches,
-streaming and the sharded forests.  The ``approx`` selection tail is not
-to be ported.
+Sparse datasets (an :class:`..ops.sparse.EllMatrix`) build by gathered
+projections, pack into :class:`..ops.sparse.EllBlocks` (f32 or bf16
+values) and serve on every query path; the grouped and per-pair paths
+score their blocks with kernel 10 (:mod:`..ops.ell_kernel`).  Query
+batches may be sparse too: :meth:`RPForest.knn_batched` and
+:meth:`RPForest.knn_grouped` densify one chunk of an ``EllMatrix`` at a
+time, and every surface densifies an ``SVec`` or a small ``EllMatrix``.
+
+Not ported yet (ROADMAP.md): streaming and the sharded forests.  The
+``approx`` selection tail is not to be ported.
 """
 
 from __future__ import annotations
@@ -67,6 +74,7 @@ import torch
 from .._cuda import resolve_device
 from ..config import ForestConfig
 from ..ops.build import TreeArrays, build_forest_arrays, ieee_fp32
+from ..ops.ell_kernel import ell_score_tiles
 from ..ops.fused_gather import gather_score, gather_score_ok
 from ..ops.grouped import (grouped_distances, grouped_distances_kernel,
                            grouped_topk_kernel)
@@ -77,16 +85,18 @@ from ..ops.rerank import (dedup_ids, distances_from_dots, gather_leaf_points,
 from ..ops.scan import MAX_K as SCAN_MAX_K
 from ..ops.scan import SCAN_METRICS, scan_rows, scan_topk, stream_topk
 from ..ops.shared import SharedRows, fetch_blocks
+from ..ops.sparse import (EllBlocks, EllMatrix, ell_sq_norms, ell_take,
+                          ell_to_dense)
 from ..ops.topk_kernel import topk_dedup_kernel, topk_kernel_ok
 from ..ops.traverse import (node_table, project_queries, select_probes,
                              traverse_kernel)
+from ..ops.vector import SVec, to_dense
 from ..utils import gen as rgen
 from .plan import TreePlan, make_plan
 
 __all__ = ["RPForest", "forest_batch", "tree_batch", "DEFAULT_BUDGET"]
 
 DEFAULT_BUDGET = 32
-_SPARSE_TODO = "ROADMAP.md queue 1 item 14 (sparse ELL data)"
 _DATA_DTYPES_TODO = "ROADMAP.md queue 1 item 22 (datasets of other types)"
 _PRECISIONS = ("highest", "default", "fastest")
 _BLOCK_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
@@ -301,23 +311,39 @@ def _check_selection(selection, k, min_votes):
                          "selection='sort'")
 
 
-def _pad_to_chunk(qb: torch.Tensor, chunk: int):
-    """Pad a ``[B, D]`` batch with zero rows up to a multiple of ``chunk``
-    rows; returns ``(padded batch, original B, effective chunk)``."""
+def _pad_to_chunk(qb, chunk: int):
+    """Pad a ``[B, D]`` batch (or an :class:`EllMatrix` batch, with empty
+    rows) with zero rows up to a multiple of ``chunk`` rows; returns
+    ``(padded batch, original B, effective chunk)``."""
     b = qb.shape[0]
     ch = max(1, min(int(chunk), b))
     pad = (-b) % ch
-    if pad:
+    if pad and isinstance(qb, EllMatrix):
+        qb = EllMatrix(qb.dim, torch.cat([qb.cols, qb.cols.new_zeros(
+            (pad, qb.k))]), torch.cat([qb.vals, qb.vals.new_zeros((pad, qb.k))]))
+    elif pad:
         qb = torch.cat([qb, qb.new_zeros((pad, qb.shape[1]))])
     return qb, b, ch
 
 
+def _query_chunks(qb, chunk: int):
+    """The ``chunk``-row slices of a batch whose rows are a multiple of
+    ``chunk``, as dense ``f32[chunk, D]``: an :class:`EllMatrix` batch is
+    densified one slice at a time, so ``[B, D]`` never exists."""
+    ell = isinstance(qb, EllMatrix)
+    for s in range(0, qb.shape[0], chunk):
+        yield (ell_to_dense(ell_take(qb, slice(s, s + chunk)), torch.float32)
+               if ell else qb[s:s + chunk])
+
+
 def _as_dense_queries(q, dim: int, device) -> torch.Tensor:
     """Queries as ``f32[B, D]`` on ``device``; a single vector becomes a
-    batch of one.  Sparse (ELL) query batches are not ported."""
-    if hasattr(q, "cols") and hasattr(q, "vals"):
-        raise NotImplementedError(f"sparse (ELL) query batches: "
-                                  f"{_SPARSE_TODO}")
+    batch of one, and a sparse query (an :class:`SVec`, or an
+    :class:`EllMatrix` batch) is densified."""
+    if isinstance(q, SVec):
+        q = to_dense(q)
+    elif isinstance(q, EllMatrix):
+        q = ell_to_dense(q.to(device))
     q = torch.as_tensor(q, dtype=torch.float32, device=device)
     if q.dim() == 1:
         q = q[None, :]
@@ -421,8 +447,8 @@ def _grouped_use_kernel(impl, x_leaf, metric, block_center=None) -> bool:
     if impl in ("kernel", "kernel_full", "kernel_topk") and not ok:
         raise ValueError(
             f"impl={impl!r} needs dense f32/bf16/int8 blocks (not centered, "
-            f"not shared rows) and metric l2 / sql2, got {metric!r}; use "
-            f"impl='auto' or 'xla'")
+            f"not shared rows, not ELL) and metric l2 / sql2, got "
+            f"{metric!r}; use impl='auto' or 'xla'")
     return ok
 
 
@@ -474,12 +500,12 @@ def _knn_grouped(f, q, k, budget, probes, metric, dedup, tile_m, nt,
 
 def _knn_grouped_many(f, q, chunk, **kw):
     """The grouped path over ``chunk``-query slices of ``q`` (a multiple of
-    ``chunk`` rows); ``kw`` are :func:`_knn_grouped`'s arguments, its
-    ``nt`` the per-chunk capacity.  The returned ``needed`` is the
-    maximum over chunks."""
+    ``chunk`` rows; :func:`_query_chunks`); ``kw`` are
+    :func:`_knn_grouped`'s arguments, its ``nt`` the per-chunk capacity.
+    The returned ``needed`` is the maximum over chunks."""
     ds, ids, needs = [], [], []
-    for s in range(0, q.shape[0], chunk):
-        d, i, n = _knn_grouped(f, q[s:s + chunk], **kw)
+    for qc in _query_chunks(q, chunk):
+        d, i, n = _knn_grouped(f, qc, **kw)
         ds.append(d)
         ids.append(i)
         needs.append(n)
@@ -543,11 +569,17 @@ def _score_blocks(f, rows_sel, lsel, q, k, kk, metric, dedup, min_votes=1,
     bf16 rows, are fetched and multiplied by kernel 6
     (:func:`gather_score`); int8 blocks, plain and centered, by plain
     torch, as the JAX package leaves them to an XLA einsum; a callable
-    ``metric`` gets the fetched rows as f32 (not on int8 blocks)."""
+    ``metric`` gets the fetched rows as f32 (not on int8 blocks).  ELL
+    blocks are scored by kernel 10, each pair a tile of one
+    (:func:`_score_ell_pairs`)."""
     x_leaf, sq_leaf, id_leaf = f._packed
     b, p = rows_sel.shape
     lmax = x_leaf.shape[1]
     sel = rows_sel.long()
+    if isinstance(x_leaf, EllBlocks):
+        d = _score_ell_pairs(f, rows_sel, lsel, q, metric)
+        return _selection_tail(d, id_leaf, rows_sel, k, kk, dedup, min_votes,
+                               selection)
     if callable(metric):
         if x_leaf.dtype == torch.int8:
             raise NotImplementedError(
@@ -571,6 +603,24 @@ def _score_blocks(f, rows_sel, lsel, q, k, kk, metric, dedup, min_votes=1,
                            selection)
 
 
+def _score_ell_pairs(f, rows_sel, lsel, q, metric):
+    """Distances ``f32[B, P * lmax]`` of each query to the slots of its
+    selected ELL blocks: the pairs in their own order as tiles of one
+    (``tb = rows_sel``, ``tp`` the pair index, -1 where ``lsel < 0``)
+    through :func:`..ops.ell_kernel.ell_score_tiles`, +inf past each
+    block's occupancy."""
+    x_leaf, sq_leaf, _ = f._packed
+    b, p = rows_sel.shape
+    tb = rows_sel.reshape(b * p).contiguous()
+    tp = torch.where(lsel.reshape(b * p) >= 0,
+                     torch.arange(b * p, dtype=torch.int32, device=q.device),
+                     -1).reshape(b * p, 1)
+    lens_t = f._lens_global()[tb.long()]
+    d = ell_score_tiles(x_leaf, sq_leaf, tb, tp, lens_t, q, (q * q).sum(-1),
+                        p, metric)
+    return d.reshape(b, p * x_leaf.shape[1])
+
+
 def _knn_packed(f, q, k, budget, probes, metric, dedup, min_votes=1,
                 selection="sort", bucket_stop=False):
     """One chunk of the per-pair path: each query's ``probes``
@@ -587,9 +637,9 @@ def _knn_packed(f, q, k, budget, probes, metric, dedup, min_votes=1,
 
 def _knn_packed_many(f, q, chunk, **kw):
     """The per-pair path over ``chunk``-query slices of ``q`` (a multiple
-    of ``chunk`` rows); ``kw`` are :func:`_knn_packed`'s arguments."""
-    outs = [_knn_packed(f, q[s:s + chunk], **kw)
-            for s in range(0, q.shape[0], chunk)]
+    of ``chunk`` rows; :func:`_query_chunks`); ``kw`` are
+    :func:`_knn_packed`'s arguments."""
+    outs = [_knn_packed(f, qc, **kw) for qc in _query_chunks(q, chunk)]
     return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
 
@@ -607,7 +657,13 @@ def _brute_force(x, sq_norms, q, k, metric, precision="highest", rows=None):
     f32 rows at every precision.  Every form selects exactly: the JAX
     package's ``"fastest"`` selects with the TPU's approximate
     ``lax.approx_max_k``.  ``rows``: kernel 5's bf16 copy of ``(x,
-    sq_norms)`` (:func:`scan_rows`), where the caller made one."""
+    sq_norms)`` (:func:`scan_rows`), where the caller made one.
+
+    Sparse rows (an :class:`EllMatrix`) stream in row chunks, each slot
+    gathering the query at its column, in fp32 at every precision, as in
+    the JAX package; callables raise there."""
+    if isinstance(x, EllMatrix):
+        return _brute_force_ell(x, sq_norms, q, k, metric)
     k = min(int(k), x.shape[0])
     fast = precision in ("default", "fastest") and not callable(metric)
     if _uses_scan(fast, metric, k):
@@ -624,6 +680,25 @@ def _brute_force(x, sq_norms, q, k, metric, precision="highest", rows=None):
                                    q, metric)
 
     return stream_topk(x, q, k, dist)
+
+
+def _brute_force_ell(x, sq_norms, q, k, metric):
+    """:func:`_brute_force` over ELL rows: row chunks of the gather form
+    (the one-shot form would make ``[B, n, K]``) and a running exact
+    selection, ties to the lower index."""
+    if callable(metric):
+        raise NotImplementedError("custom distance callables need dense "
+                                  "data rows")
+    b, kz = q.shape[0], x.k
+    vals = x.vals.float()
+
+    def dist(cc, s):
+        c = cc.shape[0]
+        qg = q[:, cc.reshape(c * kz).long()].reshape(b, c, kz)
+        dots = (vals[s:s + c][None] * qg).sum(-1)
+        return distances_from_dots(dots, sq_norms[s:s + c][None], q, metric)
+
+    return stream_topk(x.cols, q, min(int(k), x.n), dist, width=kz)
 
 
 def _uses_scan(fast, metric, k):
@@ -732,6 +807,21 @@ def _ranks(g_row: np.ndarray) -> np.ndarray:
     return rank
 
 
+def _ell_slots(rows, kz: int):
+    """Dense rows ``f32[M, D]`` of at most ``kz`` nonzeros each as ELL slot
+    lists ``(cols int32[M, kz], vals f32[M, kz])``: the nonzero columns in
+    ascending order, then padding ``(0, 0)``."""
+    nz = rows != 0
+    at = nz.cumsum(1, dtype=torch.int32) - 1       # each nonzero's slot
+    r, c = (nz & (at < kz)).nonzero(as_tuple=True)
+    cols = torch.zeros((rows.shape[0], kz), dtype=torch.int32,
+                       device=rows.device)
+    vals = torch.zeros((rows.shape[0], kz), device=rows.device)
+    cols[r, at[r, c]] = c.to(torch.int32)
+    vals[r, at[r, c]] = rows[r, c]
+    return cols, vals
+
+
 def _keep_rows(x, payloads, dead):
     """``x`` and its payload list without the rows where the bool mask
     ``dead`` is set."""
@@ -746,8 +836,8 @@ class RPForest:
     Attributes:
       plan: static tree shape (shared by all trees).
       arrays: :class:`TreeArrays` with a leading ``[T]`` axis.
-      x: the dataset ``f32[n, D]`` on the forest's device (None after
-        :meth:`drop_dataset`).
+      x: the dataset ``f32[n, D]``, or an :class:`EllMatrix` of sparse
+        rows, on the forest's device (None after :meth:`drop_dataset`).
       sq_norms: ``f32[n]`` squared norms.
       config: the :class:`ForestConfig` it was built with.
       payloads: an optional host-side sequence of per-point payloads
@@ -802,8 +892,19 @@ class RPForest:
     @property
     def dim(self) -> int:
         if self.x is None:  # serve-only: the packed blocks' width
-            return int(self._packed[0].shape[-1])
-        return int(self.x.shape[1])
+            blocks = self._packed[0]
+            return (blocks.dim if isinstance(blocks, EllBlocks)
+                    else int(blocks.shape[-1]))
+        return (self.x.dim if isinstance(self.x, EllMatrix)
+                else int(self.x.shape[1]))
+
+    @property
+    def _is_ell(self) -> bool:
+        """Whether the dataset is sparse (ELL), also after
+        :meth:`drop_dataset`."""
+        return isinstance(self.x, EllMatrix) or (
+            self._packed is not None and isinstance(self._packed[0],
+                                                    EllBlocks))
 
     @property
     def device(self) -> torch.device:
@@ -898,16 +999,31 @@ class RPForest:
                 for s, m in zip(self.plan.leaf_start, self.plan.leaf_len)]
 
     def points(self) -> torch.Tensor:
-        """The indexed dataset (reference ``points``), with the rows
-        :meth:`fold` appended after it, so that row ``i`` is the point of
-        id ``i``: ``f32[n + n_folded, D]`` on the forest's device."""
+        """The indexed dataset (reference ``points``), densified, with the
+        rows :meth:`fold` appended after it, so that row ``i`` is the point
+        of id ``i``: ``f32[n + n_folded, D]`` on the forest's device."""
         self._require_x("points()")
+        if isinstance(self.x, EllMatrix):
+            return torch.cat([ell_to_dense(self.x), *self._folded_x])
         return self._with_folded()[0]
+
+    def _merge_folded(self, qb, d, ids, k, metric, precision):
+        """Merge an exact scan of the folded rows (dense, ids after the
+        indexed points') into a ``(dists, ids)`` result over sparse rows,
+        which cannot be concatenated with them."""
+        xf = torch.cat(self._folded_x)
+        df, idf = _brute_force(xf, (xf * xf).sum(-1), qb,
+                               min(int(k), xf.shape[0]), metric, precision)
+        idf = torch.where(idf >= 0, idf + self.plan.n, -1)
+        return merge_top_k(torch.cat([d, df], dim=1),
+                           torch.cat([ids, idf.to(ids.dtype)], dim=1), k,
+                           dedup=False)
 
     def _with_folded(self):
         """``(x, sq_norms)`` with the folded rows appended (their ids
-        continue after the indexed points'): what the exact scan covers.
-        The concatenation is kept until the next fold."""
+        continue after the indexed points'): what the exact scan covers,
+        on dense rows (sparse ones take :meth:`_merge_folded`).  The
+        concatenation is kept until the next fold."""
         if not self.n_folded:
             return self.x, self.sq_norms
         nf = self.n_folded
@@ -934,6 +1050,9 @@ class RPForest:
                              f"got {store!r}")
         int8 = dtype is not None and dtype == torch.int8
         if store == "shared":
+            if self._is_ell:
+                raise ValueError("store='shared' applies to dense datasets "
+                                 "(ELL rows already pack by value)")
             if slack:
                 raise ValueError("store='shared' keeps no row blocks for "
                                  "fold() to write into; slack requires "
@@ -945,6 +1064,19 @@ class RPForest:
                 raise ValueError("quantized blocks require the blocked "
                                  "layout (store='blocks'); shared rows "
                                  "serve the dataset's own f32/bf16 rows")
+        if self._is_ell:
+            if centered:
+                raise ValueError("centered quantization applies to dense "
+                                 "blocks only")
+            if s > 1:
+                raise ValueError("sub_block applies to dense blocks only")
+            if int8:
+                raise ValueError("int8 quantization applies to dense "
+                                 "blocks; ELL blocks pack f32/bf16 values")
+            _sub_split_of(sub_split, s)
+            bf16 = dtype is not None and dtype == torch.bfloat16
+            return _PackCfg("bf16" if bf16 else "f32", int(slack), False, 1,
+                            None, store)
         if s > 1 and slack:
             raise ValueError("sub_block and slack are mutually exclusive "
                              "(fold() addresses whole-leaf blocks)")
@@ -1009,6 +1141,12 @@ class RPForest:
         Shared rows exclude ``slack``, int8 and ``sub_block``; sub-blocks
         exclude ``slack``.
 
+        Sparse (ELL) datasets pack into :class:`EllBlocks` of ``lmax =
+        max leaf length + slack`` slots (no alignment, as in the JAX
+        package), with f32 values, or bf16 for ``dtype=torch.bfloat16``;
+        any other ``dtype`` but int8 packs f32.  They refuse int8,
+        ``centered``, ``sub_block`` and ``store="shared"``.
+
         ``r_sub`` (the port's own, keyword-only): the ordering direction
         ``f32[D]`` of sub-blocks; by default drawn from the forest's seed
         (:func:`_sub_r`, not the JAX package's threefry draw).
@@ -1026,6 +1164,8 @@ class RPForest:
         with ieee_fp32():
             if cfg.store == "shared":
                 self._pack_shared(cfg)
+            elif isinstance(self.x, EllMatrix):
+                self._pack_ell(cfg)
             else:
                 self._pack_blocks(cfg, r_sub)
         self._pack_cfg = cfg
@@ -1071,6 +1211,32 @@ class RPForest:
         rows = (self.x if cfg.dtype == "f32"
                 else self.x.to(_BLOCK_DTYPES[cfg.dtype]))
         self._packed = (SharedRows(rows, ids), sq.reshape(t * nl, lmax), ids)
+
+    def _pack_ell(self, cfg: _PackCfg) -> None:
+        """The ELL layout, one tree at a time: each leaf's rows' (col, val)
+        slot lists, padding slots ``(0, 0)``, the slot norms from the
+        dataset's (0 in empty slots) and the ids (-1 there)."""
+        plan, x = self.plan, self.x
+        lmax = max(plan.max_leaf_len, 1) + cfg.slack
+        pos, in_leaf = self._slot_positions(lmax)
+        t, nl, kz = self.n_trees, plan.n_leaves, x.k
+        dev = self.device
+        cols = torch.empty((t, nl, lmax, kz), dtype=torch.int32, device=dev)
+        vals = torch.empty((t, nl, lmax, kz), dtype=_BLOCK_DTYPES[cfg.dtype],
+                           device=dev)
+        sq = torch.empty((t, nl, lmax), device=dev)
+        ids = torch.empty((t, nl, lmax), dtype=torch.int32, device=dev)
+        for ti in range(t):
+            tid = torch.where(in_leaf, self.arrays.perm[ti].long()[pos], -1)
+            safe = tid.clamp_min(0)
+            cols[ti] = torch.where(in_leaf[..., None], x.cols[safe], 0)
+            vals[ti] = torch.where(in_leaf[..., None], x.vals[safe], 0.0)
+            sq[ti] = torch.where(in_leaf, self.sq_norms[safe], 0.0)
+            ids[ti] = tid
+        g = t * nl
+        self._packed = (EllBlocks(self.dim, cols.reshape(g, lmax, kz),
+                                  vals.reshape(g, lmax, kz)),
+                        sq.reshape(g, lmax), ids.reshape(g, lmax))
 
     def _pack_blocks(self, cfg: _PackCfg, r_sub) -> None:
         """The blocked layouts, one tree at a time (which bounds the f32
@@ -1258,9 +1424,10 @@ class RPForest:
         forest's device; the ranks on the host, as in the JAX package.
         Needs :meth:`pack_leaves` (``slack=...`` reserves room) with
         whole-leaf blocks: shared rows and sub-blocks refuse, as in the
-        JAX package.  The layouts JAX also folds arrive with their items
-        (ELL blocks, ROADMAP.md queue 1 item 14; the sharded forests,
-        item 20)."""
+        JAX package.  Into ELL blocks each point goes as its nonzero
+        columns, ascending, in the blocks' K slots; a point with more
+        nonzeros than K stays pending.  The sharded forests, which JAX
+        also folds, arrive with ROADMAP.md queue 1 item 20."""
         if self._packed is None:
             raise ValueError("pack_leaves(slack=...) first: fold inserts "
                              "into the packed blocks' slack slots")
@@ -1287,14 +1454,16 @@ class RPForest:
         t, nl = self.n_trees, self.plan.n_leaves
         x_leaf, sq_leaf, id_leaf = self._packed
         lmax = x_leaf.shape[1]
+        ell = isinstance(x_leaf, EllBlocks)
         bl = (np.tile(np.asarray(self.plan.leaf_len, np.int32), t)
               if self._block_len is None else self._block_len.copy())
         leaf = _descend(self.plan, self.arrays, xp).cpu().numpy()  # [T, M]
         g = leaf + np.arange(t, dtype=np.int32)[:, None] * nl
         # pass 1: acceptance with conservative ranks over all candidates
         # (rejecting a point only frees slots, so pass 2's ranks are
-        # never larger)
-        fits = np.ones(m, bool)
+        # never larger); into ELL blocks only rows that fit the K slots
+        fits = (((xp != 0).sum(1) <= x_leaf.shape[2]).cpu().numpy() if ell
+                else np.ones(m, bool))
         for tt in range(t):
             fits &= bl[g[tt]] + _ranks(g[tt]) < lmax
         sel = np.flatnonzero(fits)
@@ -1310,22 +1479,15 @@ class RPForest:
                                  device=dev)
             si = torch.as_tensor(slots.reshape(-1), dtype=torch.int64,
                                  device=dev)
-            if self._block_scale is None:
-                vals = rows.repeat(t, 1)
+            if ell:
+                rc, rv = _ell_slots(rows, x_leaf.shape[2])
+                x_leaf.cols.index_put_((gi, si), rc.repeat(t, 1))
+                x_leaf.vals.index_put_((gi, si),
+                                       rv.repeat(t, 1).to(x_leaf.dtype))
             else:
-                sc = self._block_scale[gi].reshape(t, msel, 1)
-                if self._block_center is None:
-                    vals = torch.round(rows[None] / sc).clamp(-127, 127)
-                else:
-                    mu, mudr = self._block_center
-                    mu_sel = mu[gi].reshape(t, msel, -1)
-                    vals = torch.round((rows[None] - mu_sel) / sc).clamp(
-                        -127, 127)
-                    mudr.index_put_((gi, si), ((vals * sc) * mu_sel).sum(
-                        -1).reshape(-1))
-                vals = vals.reshape(t * msel, -1)
+                x_leaf.index_put_((gi, si), self._fold_rows(rows, gi, si, t)
+                                  .to(x_leaf.dtype))
             base = self.plan.n + self.n_folded
-            x_leaf.index_put_((gi, si), vals.to(x_leaf.dtype))
             sq_leaf.index_put_((gi, si), (rows * rows).sum(-1).repeat(t))
             id_leaf.index_put_((gi, si), torch.arange(
                 base, base + msel, dtype=torch.int32, device=dev).repeat(t))
@@ -1348,10 +1510,33 @@ class RPForest:
                                   if rest.size else [])
         return self
 
+    def _fold_rows(self, rows, gi, si, t):
+        """The dense blocks' values of folded ``rows f32[M, D]`` for the
+        slots ``(gi, si)`` (tree-major, ``T * M``): the rows as they are,
+        or int8 codes by each target block's scale (on centered blocks the
+        residual around the block's mean, whose ``mudr`` is written
+        here)."""
+        if self._block_scale is None:
+            return rows.repeat(t, 1)
+        m = rows.shape[0]
+        sc = self._block_scale[gi].reshape(t, m, 1)
+        if self._block_center is None:
+            vals = torch.round(rows[None] / sc).clamp(-127, 127)
+        else:
+            mu, mudr = self._block_center
+            mu_sel = mu[gi].reshape(t, m, -1)
+            vals = torch.round((rows[None] - mu_sel) / sc).clamp(-127, 127)
+            mudr.index_put_((gi, si), ((vals * sc) * mu_sel).sum(-1)
+                            .reshape(-1))
+        return vals.reshape(t * m, -1)
+
     def _rebuild_rows(self):
         """The live dataset for a rebuild: the indexed, folded and pending
-        rows, less the removed ones; ``(x_all, payloads or None)``."""
-        x_old = self.x
+        rows, less the removed ones; ``(x_all, payloads or None)``.  Sparse
+        rows are densified, as in the JAX package: the rebuilt index is
+        dense."""
+        x_old = (ell_to_dense(self.x) if isinstance(self.x, EllMatrix)
+                 else self.x)
         pays = (list(self.payloads) if self.payloads is not None
                 else [None] * self.plan.n)
         if self.n_folded:
@@ -1379,7 +1564,9 @@ class RPForest:
         arrays fed is dropped: the node table (kernel 7 reads its records,
         not ``arrays``), the occupancy table (kernels 1, 2, 4, 6, 8 and 9)
         and the learned tile capacities (a stale one would mask pairs
-        under ``check=False``)."""
+        under ``check=False``).  A sparse forest rebuilds over its rows
+        densified, as the JAX package's does, and packs them as dense
+        blocks of its layout's value type and slack."""
         if not self._pending and self.n_deleted == 0 and self.n_folded == 0:
             return self
         self._require_x("rebuild()")
@@ -1496,7 +1683,12 @@ class RPForest:
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The per-pair path of :meth:`knn` over a large batch, ``chunk``
         queries at a time, so its rerank buffers stay per chunk.  Requires
-        :meth:`pack_leaves`; results equal chunked :meth:`knn` calls."""
+        :meth:`pack_leaves`; results equal chunked :meth:`knn` calls.
+
+        An :class:`EllMatrix` batch stays sparse: each chunk densifies
+        only its own ``[chunk, dim]`` rows.  It takes no pending merge,
+        which needs dense query rows: with points pending it raises
+        (``fold()`` or ``rebuild()`` first)."""
         if self._packed is None:
             raise ValueError("pack_leaves() first: knn_batched runs the "
                              "leaf-blocked pipeline")
@@ -1506,13 +1698,28 @@ class RPForest:
         _check_selection(selection, k, min_votes)
         budget = self._budget(budget)
         probes = int(self.n_trees * budget if probes is None else probes)
-        qb, b, chunk = _pad_to_chunk(
-            _as_dense_queries(q, self.dim, self.device), chunk)
+        qb, b, chunk = _pad_to_chunk(self._query_batch(q), chunk)
         d, ids = _knn_packed_many(self, qb, chunk, k=k, budget=budget,
                                   probes=probes, metric=metric, dedup=dedup,
                                   min_votes=min_votes, selection=selection)
-        return self._apply_update_hooks(qb[:b], d[:b], ids[:b], k, metric,
-                                        precision)
+        return self._apply_update_hooks(
+            None if isinstance(qb, EllMatrix) else qb[:b], d[:b], ids[:b], k,
+            metric, precision)
+
+    def _query_batch(self, q):
+        """A batch for the chunked paths: an :class:`EllMatrix` stays
+        sparse (on the forest's device; it refuses pending points, whose
+        merge needs dense query rows), anything else becomes dense rows
+        (:func:`_as_dense_queries`)."""
+        if not isinstance(q, EllMatrix):
+            return _as_dense_queries(q, self.dim, self.device)
+        if q.dim != self.dim:
+            raise ValueError(f"query dim {q.dim} != index dim {self.dim}")
+        if self._pending:
+            raise ValueError("sparse-query batches do not support the exact "
+                             "pending merge (it needs dense query rows); "
+                             "fold() or rebuild() first")
+        return q.to(self.device)
 
     @torch.no_grad()
     def candidates(self, q, budget: Optional[int] = None,
@@ -1648,7 +1855,9 @@ class RPForest:
         needed tile count back once a capacity for this shape is known
         (overflow then masks candidates, see :meth:`grouped_overflow`).
         ``chunk`` serves the batch ``chunk`` queries at a time (default:
-        all at once), with ``nt`` and the cached capacity per chunk.
+        all at once; 4,096 for an :class:`EllMatrix` batch, which stays
+        sparse as in :meth:`knn_batched`), with ``nt`` and the cached
+        capacity per chunk.
         """
         if self._packed is None:
             raise ValueError("pack_leaves() first: knn_grouped runs on the "
@@ -1659,6 +1868,10 @@ class RPForest:
         _check_selection(selection, k, min_votes)
         if impl not in _IMPLS:
             raise ValueError(f"unknown impl {impl!r}")
+        if callable(metric) and isinstance(self._packed[0], EllBlocks):
+            raise NotImplementedError(
+                "custom distance callables need dense data rows (ELL-sparse "
+                "datasets support the builtin metrics only)")
         if callable(metric) and self._packed[0].dtype == torch.int8:
             raise NotImplementedError(
                 "custom distance callables are unsupported on int8-"
@@ -1667,9 +1880,10 @@ class RPForest:
                             self._block_center)  # raises early
         budget = self._budget(budget)
         probes = int(self.n_trees * budget if probes is None else probes)
-        qb = _as_dense_queries(q, self.dim, self.device)
-        qb, b, chunk = _pad_to_chunk(qb, qb.shape[0] if chunk is None
-                                     else chunk)
+        qb = self._query_batch(q)
+        ell = isinstance(qb, EllMatrix)
+        qb, b, chunk = _pad_to_chunk(qb, (4096 if ell else qb.shape[0])
+                                     if chunk is None else chunk)
 
         def run(cap):
             d, ids, needed = _knn_grouped_many(
@@ -1683,8 +1897,8 @@ class RPForest:
         d, ids = _grouped_auto_capacity(self, key,
                                         chunk * probes * self._sub_block,
                                         tile_m, nt, run, check=check)
-        return self._apply_update_hooks(qb[:b], d[:b], ids[:b], k, metric,
-                                        precision)
+        return self._apply_update_hooks(None if ell else qb[:b], d[:b],
+                                        ids[:b], k, metric, precision)
 
     def grouped_overflow(self) -> Optional[dict]:
         """Overflow telemetry of the most recent :meth:`knn_grouped` call:
@@ -1710,13 +1924,23 @@ class RPForest:
         and queries to bf16 and sum in fp32 (kernel 5 for l2 / sql2 / dot
         and k <= 128; see :func:`_brute_force`), and select exactly.
         ``query_chunk`` scans the batch that many queries at a time; kernel
-        5's bf16 copy of the rows is made once a call, for all of them."""
+        5's bf16 copy of the rows is made once a call, for all of them.
+        Sparse rows are scanned in fp32 at every precision, and the folded
+        rows' scan is merged in (:meth:`_merge_folded`)."""
         _check_precision(precision)
         self._require_x("brute force")
         qb = _as_dense_queries(q, self.dim, self.device)
         k = self._check_k(k)
-        x, sq = self._with_folded()
         step = int(query_chunk) if query_chunk else qb.shape[0]
+        if isinstance(self.x, EllMatrix):
+            outs = [_brute_force(self.x, self.sq_norms, qb[s:s + step], k,
+                                 metric) for s in range(0, qb.shape[0], step)]
+            d, ids = (torch.cat([o[0] for o in outs]),
+                      torch.cat([o[1] for o in outs]))
+            if self.n_folded:
+                d, ids = self._merge_folded(qb, d, ids, k, metric, precision)
+            return d, ids
+        x, sq = self._with_folded()
         fast = precision in ("default", "fastest")
         rows = (scan_rows(x, sq)
                 if _uses_scan(fast, metric, min(k, x.shape[0])) else None)
@@ -1731,12 +1955,15 @@ class RPForest:
 
 
 def _prepare_data(data, dtype, device):
-    if hasattr(data, "cols") and hasattr(data, "vals"):
-        raise NotImplementedError(f"sparse (ELL) datasets: {_SPARSE_TODO}")
+    """``(x, sq_norms, dim, n)`` on ``device``: dense rows, or an
+    :class:`EllMatrix` with f32 values and its rows' norms."""
     if dtype != torch.float32:
         raise NotImplementedError(
             f"forest_batch(dtype={dtype}): the port builds on f32 data only; "
             f"{_DATA_DTYPES_TODO}")
+    if isinstance(data, EllMatrix):
+        x = data.to(resolve_device(device), dtype)
+        return x, ell_sq_norms(x), x.dim, x.n
     x = torch.as_tensor(data, dtype=dtype, device=resolve_device(device))
     if x.dim() != 2:
         raise ValueError(f"dataset must be [n, dim], got shape {tuple(x.shape)}")
@@ -1755,8 +1982,9 @@ def forest_batch(seed, max_depth: int, min_leaf: int, n_trees: int,
     builder tree by tree.  The parameters are the JAX package's, in its
     order; ``device`` and ``r`` are the port's own.
 
-    ``payloads`` is an optional host-side sequence of one payload per
-    point (:meth:`RPForest.payload_of`).  ``dtype`` is the type the data
+    ``data`` is ``[n, D]`` dense rows or an :class:`EllMatrix` of sparse
+    ones.  ``payloads`` is an optional host-side sequence of one payload
+    per point (:meth:`RPForest.payload_of`).  ``dtype`` is the type the data
     are cast to, as in the JAX package; only ``torch.float32`` is ported.
     ``pack=True`` (or a block dtype, ``torch.bfloat16`` or ``torch.int8``)
     packs the leaves at build (:meth:`RPForest.pack_leaves`).  Builds on

@@ -23,10 +23,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import _cuda
 from ..models.plan import TreePlan
+from .sparse import EllMatrix, ell_project
 
 __all__ = ["TreeArrays", "build_tree_arrays", "build_forest_arrays",
-           "project_dataset", "ieee_fp32"]
+           "project_dataset", "project_rows", "project_rows_error_bound",
+           "project_rows_reference", "ieee_fp32"]
 
 
 class TreeArrays(NamedTuple):
@@ -71,12 +74,77 @@ def ieee_fp32():
             torch.set_float32_matmul_precision(prev)
 
 
-def project_dataset(x: torch.Tensor, r_l: torch.Tensor) -> torch.Tensor:
-    """``x [n, D] @ r_l [L, D].T`` in IEEE fp32.  The JAX package runs this
-    product outside any kernel at HIGHEST precision; the port leaves it to
-    ``torch.matmul`` under :func:`ieee_fp32`."""
+def project_rows_reference(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`project_rows`: ``r @ x.T`` by
+    ``torch.matmul`` in IEEE fp32."""
     with ieee_fp32():
-        return torch.matmul(x, r_l.T)
+        return torch.matmul(r, x.T)
+
+
+def project_rows(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Projections ``f32[L, n]`` of the rows ``x f32[n, D]`` (rows may be
+    strided, columns contiguous) onto ``r f32[L, D]``, ``out[l, i] = x[i]
+    . r[l]``: kernel 11 on the card (``csrc/project.cu``), whose order of
+    summation depends on D alone, so that the build, the fold and every
+    query chunk give a row the same bits whatever their shapes (cuBLAS
+    picks its kernel by shape, and its products differ in the last bits
+    between the served build and query shapes).  On the CPU the plain
+    version, ``torch.matmul``, whose build and query products agree.
+    ``project_rows.launches`` counts launches."""
+    if x.device.type == "cpu":
+        return project_rows_reference(x, r)
+    name = "project_rows"
+    for key, t in (("x", x), ("r", r)):
+        if t.device != x.device or t.dtype != torch.float32 or t.dim() != 2:
+            raise ValueError(f"{name}: {key} must be a 2-D float32 tensor on "
+                             f"{x.device}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    if r.shape[1] != x.shape[1] or x.stride(1) != 1 or not r.is_contiguous():
+        raise ValueError(f"{name}: x {tuple(x.shape)} (strides {x.stride()}) "
+                         f"and r {tuple(r.shape)} must share D, with "
+                         f"contiguous rows")
+    n, d = x.shape
+    nl = r.shape[0]
+    out = torch.empty((nl, n), dtype=torch.float32, device=x.device)
+    if n == 0 or nl == 0:
+        return out
+    lib = _cuda.lib()
+    segs = lib.rpt_project_segments(d)
+    scratch = (torch.empty((segs, nl, n), dtype=torch.float32,
+                           device=x.device) if segs > 1 else None)
+    with torch.cuda.device(x.device):
+        code = lib.rpt_project(
+            _cuda.ptr(x), max(x.stride(0), d), _cuda.ptr(r), _cuda.ptr(out),
+            None if scratch is None else _cuda.ptr(scratch), n, nl, d,
+            _cuda.stream_of(x))
+    _cuda.check(code, name)
+    project_rows.launches += 1
+    return out
+
+
+project_rows.launches = 0
+
+PROJECT_SEGMENT = 1024  # columns a partial sum in kernel 11 (csrc/project.cu kSeg)
+
+
+def project_rows_error_bound(d: int) -> float:
+    """Kernel 11's error bound as a share of ``sum_d |x_d r_d|``: a sum of
+    at most ``PROJECT_SEGMENT`` fused multiply-adds a segment, each one
+    rounding, then one addition a further segment, ``gamma_k = k u / (1 -
+    k u)`` with ``u = 2**-24`` and ``k = min(D, 1024) + ceil(D / 1024)``."""
+    k = min(d, PROJECT_SEGMENT) + -(-d // PROJECT_SEGMENT)
+    u = 2.0 ** -24
+    return k * u / (1.0 - k * u)
+
+
+def project_dataset(x, r_l: torch.Tensor) -> torch.Tensor:
+    """``x [n, D] @ r_l [L, D].T`` in IEEE fp32: :func:`project_rows`,
+    transposed.  The JAX package runs this product outside any kernel at
+    HIGHEST precision.  Sparse rows (an :class:`.sparse.EllMatrix`)
+    project by :func:`.sparse.ell_project`."""
+    if isinstance(x, EllMatrix):
+        return ell_project(x, r_l)
+    return project_rows(x, r_l).T
 
 
 def _stacked_plan_constants(plan: TreePlan, device):
@@ -119,8 +187,9 @@ def _level_order(seg_key: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def build_tree_arrays(plan: TreePlan, x: torch.Tensor, r: torch.Tensor,
                       consts=None) -> TreeArrays:
-    """Build one tree's arrays from ``x f32[n, D]`` and ``r f32[depth, D]``
-    (both on the same device); ``consts`` is the plan's
+    """Build one tree's arrays from ``x f32[n, D]`` (or an
+    :class:`.sparse.EllMatrix`) and ``r f32[depth, D]`` (both on the same
+    device); ``consts`` is the plan's
     :func:`_stacked_plan_constants`, built here when not given.  The
     permutation starts in dataset order so that stable-sort tie-breaking
     matches the reference's stable merge sort over the same order."""

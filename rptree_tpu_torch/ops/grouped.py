@@ -11,7 +11,8 @@ the XLA-form scorer ``grouped_distances`` and the kernel forms
    ``tile_chunk`` tiles at a time (the JAX package's einsum, here
    ``torch.bmm``), which serves every metric (``l2``, ``sql2``,
    ``cosine``, ``dot``, a callable) on f32, bf16, int8 and centered int8
-   blocks and on shared rows (:func:`.shared.fetch_blocks`).  Each
+   blocks and on shared rows (:func:`.shared.fetch_blocks`); ELL blocks
+   take kernel 10 (:mod:`.ell_kernel`) for the XLA form's ELL step.  Each
    distinct probed block is read once per tile instead of once per pair.
 4. Gather each pair's distance row back to its slot through the inverse
    permutation that rides the tile tables.
@@ -32,10 +33,12 @@ import torch
 
 from .. import _cuda
 from .build import ieee_fp32
+from .ell_kernel import ell_score_tiles
 from .grouped_kernel import (_int8_dots, _quantize_rows, grouped_score_tiles,
                              grouped_score_tiles_int8, grouped_score_topk)
 from .rerank import distances_from_dots
 from .shared import fetch_blocks
+from .sparse import EllBlocks
 
 __all__ = ["grouped_distances", "grouped_distances_kernel",
            "grouped_topk_kernel", "tile_tables", "tile_tables_reference"]
@@ -205,8 +208,9 @@ def grouped_distances(x_leaf, sq_leaf, lens_of_block, gsel, lsel, q, metric,
 
     Args:
       x_leaf/sq_leaf: packed blocks ``f32, bf16 or int8 [G, lmax, D]`` (or
-        :class:`.shared.SharedRows`) and ``f32[G, lmax]`` slot squared
-        norms.
+        :class:`.shared.SharedRows`, or :class:`.sparse.EllBlocks`, scored
+        by kernel 10 for the builtin metrics) and ``f32[G, lmax]`` slot
+        squared norms.
       lens_of_block: ``int32[G]`` occupancy per block.
       gsel/lsel: probe selection ``int32[B, P]`` (block id / leaf id, -1 =
         masked) from ``_select_probes``.
@@ -234,6 +238,9 @@ def grouped_distances(x_leaf, sq_leaf, lens_of_block, gsel, lsel, q, metric,
     """
     b, p = gsel.shape
     lmax = x_leaf.shape[1]
+    if isinstance(x_leaf, EllBlocks):
+        return _grouped_ell(x_leaf, sq_leaf, lens_of_block, gsel, lsel, q,
+                            metric, tile_m, nt, tile_chunk)
     int8 = x_leaf.dtype == torch.int8
     if callable(metric) and int8:
         raise NotImplementedError(
@@ -276,6 +283,20 @@ def grouped_distances(x_leaf, sq_leaf, lens_of_block, gsel, lsel, q, metric,
                 col < lens_t[s:s + c, None, None])
             d_all[s * tile_m:(s + c) * tile_m] = torch.where(
                 valid, d, float("inf")).reshape(c * tile_m, lmax)
+    return _pair_rows(d_all, inv, float("inf"), b, p), needed
+
+
+def _grouped_ell(blocks, sq_leaf, lens_of_block, gsel, lsel, q, metric,
+                 tile_m, nt, tile_chunk):
+    """:func:`grouped_distances` on ELL blocks: the tile tables, then every
+    tile scored by :func:`.ell_kernel.ell_score_tiles` (kernel 10 on the
+    card, reading the query rows in place; its plain version, the XLA
+    form's gather, on the CPU)."""
+    b, p = gsel.shape
+    tb, tp, needed, inv, lens_t = tile_tables(gsel, lsel, lens_of_block,
+                                              tile_m, nt)
+    d_all = ell_score_tiles(blocks, sq_leaf, tb, tp, lens_t, q,
+                            (q * q).sum(-1), p, metric, tile_chunk)
     return _pair_rows(d_all, inv, float("inf"), b, p), needed
 
 

@@ -1,7 +1,8 @@
 """Candidate gather, union / dedup, exact rerank and merging
 (``rptree_tpu/ops/rerank.py``): ``leaf_positions``, ``gather_leaf_points``,
 ``dedup_ids``, ``merge_top_k``, ``distances_from_dots``,
-``candidate_distances`` and ``rerank_top_k``, for dense data.
+``candidate_distances`` and ``rerank_top_k``, for dense and sparse (ELL)
+data.
 
 JAX's multi-operand ``lax.sort((keys, payload), num_keys=1)`` becomes a
 stable ``torch.sort`` of the keys and a gather of the payload by the
@@ -22,9 +23,10 @@ from __future__ import annotations
 import torch
 
 from ..models.plan import TreePlan
+from .sparse import EllMatrix
 
 __all__ = ["leaf_positions", "gather_leaf_points", "distances_from_dots",
-           "dedup_ids", "merge_top_k", "candidate_distances",
+           "distances_from_norms", "dedup_ids", "merge_top_k", "candidate_distances",
            "rerank_top_k", "METRICS"]
 
 METRICS = ("l2", "sql2", "cosine", "dot")
@@ -117,13 +119,20 @@ def distances_from_dots(dots: torch.Tensor, sqx: torch.Tensor,
     """Distances from inner products ``dots[..., C]`` and candidate
     squared norms ``sqx[..., C]`` (``q [B, D]`` broadcast against the
     trailing query axes of ``dots``)."""
+    return distances_from_norms(dots, sqx, (q * q).sum(-1)[..., None],
+                                metric)
+
+
+def distances_from_norms(dots: torch.Tensor, sqx: torch.Tensor,
+                         sqq: torch.Tensor, metric: str = "l2"
+                         ) -> torch.Tensor:
+    """:func:`distances_from_dots` with the queries' squared norms ``sqq``
+    given, broadcast against ``dots``."""
     if metric in ("l2", "sql2"):
-        sqq = (q * q).sum(-1)[..., None]
         d = (sqx - 2.0 * dots + sqq).clamp_min(0.0)
         return d.sqrt() if metric == "l2" else d
     if metric == "cosine":
-        nq = (q * q).sum(-1).sqrt()[..., None]
-        return 1.0 - dots / (sqx.sqrt() * nq).clamp_min(1e-30)
+        return 1.0 - dots / (sqx.sqrt() * sqq.sqrt()).clamp_min(1e-30)
     if metric == "dot":
         return -dots
     raise ValueError(f"unknown metric {metric!r}; one of {sorted(METRICS)}")
@@ -135,14 +144,25 @@ def candidate_distances(x: torch.Tensor, sq_norms: torch.Tensor,
     """Exact distances ``f32[B, C]`` from each query ``q [B, D]`` to its
     candidate rows ``x[ids]`` (``ids int32[B, C]``, -1 for none: +inf),
     with the squared norms ``sq_norms [n]`` precomputed.  Inner products
-    are fp32."""
+    are fp32.  ``x`` is dense ``[n, D]`` or an :class:`.sparse.EllMatrix`,
+    whose rows' slots gather the query at their columns (builtin metrics
+    only)."""
     valid = ids >= 0
     safe = ids.long().clamp_min(0)
-    rows = x[safe]                                          # [B, C, D]
-    if callable(metric):
-        d = metric(rows, q[:, None, :])
+    if isinstance(x, EllMatrix):
+        if callable(metric):
+            raise NotImplementedError(
+                "custom distance callables need dense data rows "
+                "(ELL-sparse datasets support the builtin metrics only)")
+        cols, vals = x.cols[safe].long(), x.vals[safe]      # [B, C, K]
+        b, c, k = cols.shape
+        qg = q.gather(1, cols.reshape(b, c * k)).reshape(b, c, k)
+        dots = (vals.float() * qg).sum(-1)
+        d = distances_from_dots(dots, sq_norms[safe], q, metric)
+    elif callable(metric):
+        d = metric(x[safe], q[:, None, :])
     else:
-        dots = torch.einsum("bcd,bd->bc", rows, q)
+        dots = torch.einsum("bcd,bd->bc", x[safe], q)
         d = distances_from_dots(dots, sq_norms[safe], q, metric)
     return torch.where(valid, d, float("inf"))
 

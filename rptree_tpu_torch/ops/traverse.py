@@ -58,7 +58,7 @@ import torch
 
 from .. import _cuda
 from ..models.plan import TreePlan
-from .build import ieee_fp32
+from .build import project_rows
 
 __all__ = ["traverse_tree", "traverse_tree_reference", "traverse_kernel",
            "traverse_route", "node_table", "NodeTable", "project_queries",
@@ -82,12 +82,13 @@ _GLOBAL_BLOCKS = 264
 def project_queries(q: torch.Tensor, r: torch.Tensor,
                     n_levels: int) -> torch.Tensor:
     """Query projections ``f32[T, L, B]`` (``R[T * L, D] @ q.T``, in IEEE
-    fp32): laid out so that one level's values of neighbouring queries
-    are neighbours in memory.  ``r`` is ``[T, depth, D]``."""
+    fp32, by :func:`.build.project_rows`: kernel 11 on the card, the
+    build's order of summation): laid out so that one level's values of
+    neighbouring queries are neighbours in memory.  ``r`` is ``[T, depth,
+    D]``."""
     t, _, d = r.shape
-    rl = r[:, :n_levels].reshape(t * n_levels, d)
-    with ieee_fp32():
-        return torch.matmul(rl, q.T).reshape(t, n_levels, q.shape[0])
+    rl = r[:, :n_levels].reshape(t * n_levels, d).contiguous()
+    return project_rows(q, rl).reshape(t, n_levels, q.shape[0])
 
 
 class NodeTable(NamedTuple):

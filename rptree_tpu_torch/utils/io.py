@@ -1,9 +1,10 @@
 """Loading a forest built by the JAX package (``rptree_tpu/utils/io.py``,
-``_unpack`` and ``load_forest``, dense datasets).
+``_unpack`` and ``load_forest``).
 
 A JAX checkpoint is an npz archive of the forest's arrays (``r``, ``thr``,
-``mgl``, ``mgh``, ``perm``, ``x``) plus a JSON header with the plan
-parameters.  Both functions here rebuild the port's :class:`RPForest`
+``mgl``, ``mgh``, ``perm``, and the dataset: ``x``, or for a sparse one,
+header ``"sparse"``, its ELL tables ``x_cols`` and ``x_vals``) plus a JSON
+header with the plan parameters.  Both functions here rebuild the port's :class:`RPForest`
 from those arrays on a chosen device, so a forest built once by the JAX
 package serves through the port with no JAX at run time.
 """
@@ -20,6 +21,7 @@ from ..config import ForestConfig
 from ..models.forest import RPForest
 from ..models.plan import make_plan
 from ..ops.build import TreeArrays
+from ..ops.sparse import EllMatrix, ell_sq_norms
 
 __all__ = ["forest_from_numpy", "load_forest"]
 
@@ -31,13 +33,10 @@ def forest_from_numpy(header: dict, arrays: dict, device=None,
     """Build an :class:`RPForest` on ``device`` (default: the card; the CPU
     only with ``device="cpu"``) from a JAX forest's header (as
     ``save_forest`` writes it) and its arrays ``r, thr, mgl, mgh, perm, x``
-    as numpy arrays.  ``payloads``: the forest's per-point payloads, a
-    list the caller holds (a checkpoint stores them pickled, which this
-    module never reads).  The seed is the header's.  Sparse (ELL)
-    datasets are not ported."""
-    if header.get("sparse"):
-        raise NotImplementedError("ELL-sparse forests: ROADMAP.md queue 1 "
-                                  "item 14")
+    as numpy arrays (a sparse forest, header ``"sparse"``: ``x_cols`` and
+    ``x_vals`` for ``x``).  ``payloads``: the forest's per-point payloads,
+    a list the caller holds (a checkpoint stores them pickled, which this
+    module never reads).  The seed is the header's."""
     device = resolve_device(device)
     plan = make_plan(header["n"], header["max_depth"], header["min_leaf"])
     if plan.n_levels != header["n_levels"]:
@@ -50,10 +49,16 @@ def forest_from_numpy(header: dict, arrays: dict, device=None,
         k: torch.as_tensor(np.asarray(arrays[k]), dtype=dt.get(k, torch.float32),
                            device=device)
         for k in _ARRAYS})
-    x = torch.as_tensor(np.asarray(arrays["x"]), dtype=torch.float32,
-                        device=device).contiguous()
+    if header.get("sparse"):
+        x = EllMatrix(header["dim"], np.asarray(arrays["x_cols"]),
+                      np.asarray(arrays["x_vals"])).to(device)
+        sq = ell_sq_norms(x)
+    else:
+        x = torch.as_tensor(np.asarray(arrays["x"]), dtype=torch.float32,
+                            device=device).contiguous()
+        sq = (x * x).sum(-1)
     cfg = ForestConfig(**header["config"])
-    return RPForest(plan, tree, x, (x * x).sum(-1), cfg, payloads=payloads,
+    return RPForest(plan, tree, x, sq, cfg, payloads=payloads,
                     seed=header.get("seed"))
 
 
@@ -65,5 +70,6 @@ def load_forest(path: str, device=None, payloads=None) -> RPForest:
     ``payloads``."""
     with np.load(path, allow_pickle=False) as z:
         header = json.loads(z["header"].tobytes().decode())
-        return forest_from_numpy(header, {k: z[k] for k in (*_ARRAYS, "x")},
+        data = ("x_cols", "x_vals") if header.get("sparse") else ("x",)
+        return forest_from_numpy(header, {k: z[k] for k in (*_ARRAYS, *data)},
                                  device=device, payloads=payloads)

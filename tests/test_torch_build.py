@@ -164,10 +164,14 @@ def test_forest_batch_unported_parameters_raise():
     f = torch_forest_batch(1, 3, 16, 2, 1.0, x, list(range(300)),
                            device="cpu")
     assert f.payloads == list(range(300)) and f.seed == 1
-    with pytest.raises(NotImplementedError, match="item 14"):
-        torch_forest_batch(1, 3, 16, 2, 1.0,
-                           type("Ell", (), {"cols": 0, "vals": 0})(),
-                           device="cpu")
+    # sparse (ELL) datasets are ported: the same rows as one (col, val)
+    # slot each build the same trees
+    from rptree_tpu_torch import EllMatrix
+
+    cols = np.argmax(x != 0, axis=1)
+    fe = torch_forest_batch(1, 3, 16, 2, 1.0, EllMatrix(
+        4, cols[:, None], x[np.arange(300), cols][:, None]), device="cpu")
+    assert fe.dim == 4 and torch.equal(fe.arrays.perm, f.arrays.perm)
     with pytest.raises(NotImplementedError, match="item 22"):
         torch_forest_batch(1, 3, 16, 2, 1.0, x, None, torch.bfloat16,
                            device="cpu")

@@ -1159,3 +1159,227 @@ def test_layouts_on_the_card_equal_the_cpu(dev, layout):
     _agree(fd.knn_h(qd, 10, budget=2), fc.knn_h(q, 10, budget=2), rtol)
     assert (fg.gather_score.launches_shared > n6) == layout.startswith(
         "shared")
+
+
+# -- kernel 10: ELL tile scoring -------------------------------------------
+
+def _ell_case(dev, g, lmax, kz, v, b, p, nt, tile_m, seed, masked=0.2):
+    """ELL blocks over ``v`` columns with a quarter of the slots padding
+    ``(0, 0)``, runs of equal columns (duplicates add), occupancy below
+    ``lmax`` (empty slots all padding), f32 norms; queries, their norms
+    and tiles over ``b * p`` pairs, a share of the rows empty."""
+    from rptree_tpu_torch.ops.sparse import EllBlocks
+
+    gen = torch.Generator().manual_seed(seed)
+    cols = torch.randint(0, v, (g, lmax, kz), generator=gen,
+                         dtype=torch.int32)
+    cols[..., 1::3] = cols[..., ::3][..., :cols[..., 1::3].shape[-1]]
+    vals = torch.randn(g, lmax, kz, generator=gen)
+    lens = torch.randint(0, lmax + 1, (g,), generator=gen, dtype=torch.int32)
+    pad = ((torch.rand(g, lmax, kz, generator=gen) < 0.25)
+           | (torch.arange(lmax)[None, :, None] >= lens[:, None, None]))
+    cols[pad], vals[pad] = 0, 0.0
+    sq = (vals * vals).sum(-1)
+    q = torch.randn(b, v, generator=gen)
+    tb = torch.randint(0, g, (nt,), generator=gen, dtype=torch.int32)
+    tb[: nt // 3] = tb[0]
+    tp = torch.randint(0, b * p, (nt, tile_m), generator=gen,
+                       dtype=torch.int32)
+    tp[torch.rand(nt, tile_m, generator=gen) < masked] = -1
+    dv = [t.to(dev) for t in (cols, vals, sq, tb, tp, lens[tb.long()], q)]
+    return (EllBlocks(v, dv[0], dv[1]), dv[2], dv[3], dv[4], dv[5], dv[6],
+            (dv[6] * dv[6]).sum(-1))
+
+
+_ELL_SHAPES = {  # g, lmax, K, V, B, P, tiles, tile_m
+    "cell_grouped": (64, 128, 32, 65_536, 64, 16, 300, 8),
+    "cell_pairs": (64, 128, 32, 65_536, 256, 16, 4096, 1),
+    "tile_m_16": (40, 96, 20, 4000, 60, 10, 200, 16),
+    "k1": (20, 40, 1, 300, 30, 5, 50, 8),
+    "ragged": (16, 24, 5, 97, 20, 3, 33, 3),
+    "long_blocks": (8, 300, 7, 500, 10, 4, 20, 8),
+    "wide_k": (6, 50, 2000, 3000, 8, 2, 10, 4),   # slots staged in chunks
+}
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("metric", ["l2", "sql2", "cosine", "dot"])
+@pytest.mark.parametrize("shape", list(_ELL_SHAPES))
+def test_ell_score_tiles(dev, shape, metric, bf16):
+    """Kernel 10 against its plain version: padding, duplicate columns, K
+    1, V 65,536, tile_m 1 to 16, blocks past the threads and K past one
+    staging of the slots; distances within 1e-4 (the dots sum in other
+    orders), +inf at the same places."""
+    from rptree_tpu_torch.ops import ell_kernel as ek
+
+    blocks, sq, tb, tp, lens, q, qq = _ell_case(dev, *_ELL_SHAPES[shape], 3)
+    if bf16:
+        blocks.vals = blocks.vals.bfloat16()
+    p = _ELL_SHAPES[shape][5]
+    n0 = ek.ell_score_tiles.launches
+    got = ek.ell_score_tiles(blocks, sq, tb, tp, lens, q, qq, p, metric)
+    want = ek.ell_score_tiles_reference(blocks, sq, tb, tp, lens, q, qq, p,
+                                        metric)
+    torch.cuda.synchronize()
+    assert ek.ell_score_tiles.launches == n0 + 1
+    _close(got, want)
+    assert torch.isfinite(got).any()
+
+
+def test_ell_score_tiles_all_masked_and_refusals(dev):
+    """Every row empty: all +inf.  The wrapper raises on what the kernel
+    does not take: a non-contiguous operand, a CPU operand, other types,
+    tile_m past 32, a callable metric."""
+    from rptree_tpu_torch.ops import ell_kernel as ek
+    from rptree_tpu_torch.ops.sparse import EllBlocks
+
+    blocks, sq, tb, tp, lens, q, qq = _ell_case(dev, 10, 16, 4, 64, 8, 2, 12,
+                                                4, 5)
+    out = ek.ell_score_tiles(blocks, sq, tb, torch.full_like(tp, -1), lens,
+                             q, qq, 2, "l2")
+    assert torch.isinf(out).all()
+    args = (blocks, sq, tb, tp, lens, q, qq, 2, "l2")
+    bad = {5: q.T.contiguous().T, 3: tp.cpu(), 1: sq.double(),
+           6: qq.repeat(2)[::2]}
+    for i, t in bad.items():
+        with pytest.raises((ValueError, TypeError)):
+            ek.ell_score_tiles(*args[:i], t, *args[i + 1:])
+    with pytest.raises(ValueError):
+        ek.ell_score_tiles(EllBlocks(64, blocks.cols.transpose(1, 2)
+                                     .contiguous().transpose(1, 2),
+                                     blocks.vals), *args[1:])
+    with pytest.raises(ValueError):
+        ek.ell_score_tiles(blocks, sq, tb[:1],
+                           tp[:1].repeat(1, 9)[:, :33].contiguous(),
+                           lens[:1], q, qq, 2, "l2")
+    with pytest.raises(NotImplementedError):
+        ek.ell_score_tiles(*args[:8], lambda x, y: x)
+
+
+def _ell_forest(dev, n=5000, dim=512, nnz=12, seed=8):
+    """A sparse forest built on the CPU and its twin on the card."""
+    from rptree_tpu_torch import RPForest, forest_batch
+    from rptree_tpu_torch.ops.build import TreeArrays
+    from rptree_tpu_torch.ops.sparse import EllMatrix
+
+    rng = np.random.default_rng(seed)
+    topic = rng.integers(0, 16, size=(n, 1))
+    cols = np.sort(topic * (dim // 16) + rng.integers(0, dim // 16,
+                                                      size=(n, nnz)), 1)
+    vals = (np.abs(rng.normal(size=(n, nnz))) + 0.1).astype(np.float32)
+    fc = forest_batch(seed, 6, 32, 4, 1.0, EllMatrix(dim, cols, vals),
+                      device="cpu")
+    fd = RPForest(fc.plan, TreeArrays(*(a.to(dev) for a in fc.arrays)),
+                  fc.x.to(dev), fc.sq_norms.to(dev), fc.config)
+    q = fc.x.to(dev)
+    qi = torch.as_tensor(rng.integers(0, n, 300), device=dev)
+    return fc, fd, EllMatrix(dim, q.cols[qi], q.vals[qi] * 1.25)
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_ell_paths_on_the_card_equal_the_cpu(dev, dtype):
+    """A sparse forest on the card and on the CPU: the same slot norms and
+    packed blocks, and every query path (per pair and grouped through
+    kernel 10, sparse and dense query batches, the ELL scan, the fold)
+    alike; kernel 10 launched once per chunk, never on a dense path."""
+    from rptree_tpu_torch.ops import ell_kernel as ek
+    from rptree_tpu_torch.ops.sparse import ell_to_dense
+
+    fc, fd, qe = _ell_forest(dev)
+    assert torch.equal(fd.sq_norms.cpu(), fc.sq_norms)
+    for f in (fc, fd):
+        f.pack_leaves(dtype=dtype, slack=8)
+    for a, b in zip((fd._packed[0].cols, fd._packed[0].vals, *fd._packed[1:]),
+                    (fc._packed[0].cols, fc._packed[0].vals, *fc._packed[1:])):
+        assert torch.equal(a.cpu(), b)
+    qd = ell_to_dense(qe, torch.float32)
+    n0 = ek.ell_score_tiles.launches
+    runs = {"pair": lambda f, q: f.knn_batched(q, 10, budget=2, chunk=100),
+            "grouped": lambda f, q: f.knn_grouped(q, 10, budget=2, chunk=100,
+                                                  tile_m=8),
+            "kernel_tail": lambda f, q: f.knn_grouped(
+                q, 10, budget=2, selection="kernel", tile_m=16),
+            "cosine": lambda f, q: f.knn_grouped(q, 10, budget=2,
+                                                 metric="cosine"),
+            "brute": lambda f, q: f.brute_force_knn(q, 10)}
+    for name, run in runs.items():
+        _agree(run(fd, qd), run(fc, qd.cpu()))
+        if name in ("pair", "grouped"):
+            sparse = run(fd, qe)
+            assert all(torch.equal(a, b) for a, b in zip(sparse, run(fd, qd)))
+    assert ek.ell_score_tiles.launches > n0
+    xa = qd[:50] * 0.5   # other points than the queries
+    for f in (fc, fd):
+        f.add(xa.to(f.device))
+        f.fold()
+    assert fd.n_folded == fc.n_folded > 0
+    assert torch.equal(fd._packed[0].cols.cpu(), fc._packed[0].cols)
+    _agree(runs["grouped"](fd, qd), runs["grouped"](fc, qd.cpu()))
+    _agree(runs["brute"](fd, qd), runs["brute"](fc, qd.cpu()))
+
+
+# -- projections: the build's and the queries' bits --------------------------
+
+_PROJ_CELLS = {  # n, D, trees, levels, query chunk: the cells' shapes
+    "clustered_1m": (1_000_000, 128, 8, 13, 65_536),
+    "iid_100k": (100_000, 128, 8, 10, 32_768),
+    "bracket": (100_000, 128, 32, 5, 32),
+    "per_pair": (1_000_000, 128, 8, 13, 2_048),
+    "shared_10m_rows": (2_000_000, 128, 8, 16, 8_192),
+}
+
+
+@pytest.mark.parametrize("cell", list(_PROJ_CELLS))
+def test_build_and_query_projections_bit_equal(dev, cell):
+    """The build's projection of every row (``project_dataset``, one
+    product per tree) and a query's projection of the same row
+    (``project_queries``, all trees at once, a chunk of queries) are the
+    same bits on the card, at the cells' shapes: a folded point and a
+    query at its place then reach the same leaves (``_descend``)."""
+    from rptree_tpu_torch.ops.build import project_dataset
+    from rptree_tpu_torch.ops.traverse import project_queries
+
+    n, d, t, lv, chunk = _PROJ_CELLS[cell]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(n, d, device=dev, generator=gen)
+    r = torch.randn(t, lv, d, device=dev, generator=gen)
+    starts = (0, n // 2 - 17, n - chunk)
+    for s in starts:
+        pq = project_queries(x[s:s + chunk], r, lv)         # [T, L, B]
+        for ti in range(t):
+            full = project_dataset(x, r[ti])[s:s + chunk]     # [B, L]
+            assert torch.equal(full.T.contiguous().view(torch.int32),
+                               pq[ti].view(torch.int32)), (cell, s, ti)
+
+
+@pytest.mark.parametrize("n,d,nl,ldx", [
+    (5000, 128, 13, 128), (777, 24, 40, 24), (300, 65_536, 88, 65_536),
+    (129, 1500, 5, 1600), (1, 3, 1, 3)])
+def test_project_rows(dev, n, d, nl, ldx):
+    """Kernel 11 against the exact product (float64), within the error
+    bound of its own order of summation (``project_rows_error_bound``:
+    one rounding a column of a 1,024-column segment, one a segment), a
+    bound that a segment dropped or doubled breaks; and within that bound
+    plus ``torch.matmul``'s own (``D * 2**-24``) of its plain version;
+    strided rows; D past one segment; one launch a call."""
+    from rptree_tpu_torch.ops import build as ob
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(n, ldx, device=dev, generator=gen)[:, :d]
+    r = torch.randn(nl, d, device=dev, generator=gen)
+    n0 = ob.project_rows.launches
+    got = ob.project_rows(x, r)
+    want = ob.project_rows_reference(x, r)
+    torch.cuda.synchronize()
+    assert ob.project_rows.launches == n0 + 1 and got.shape == (nl, n)
+    exact = r.double() @ x.double().T
+    terms = r.abs().double() @ x.abs().double().T
+    own = (ob.project_rows_error_bound(d) + d * 2.0 ** -53) * terms
+    assert bool(((got.double() - exact).abs() <= own).all())
+    assert bool(((got - want).abs().double()
+                 <= own + d * 2.0 ** -24 * terms).all())
+    # the same rows in another batch: the same bits
+    sub = ob.project_rows(x[n // 3:].contiguous(), r)
+    assert torch.equal(sub.view(torch.int32), got[:, n // 3:].view(torch.int32))
+    with pytest.raises(ValueError):
+        ob.project_rows(x.T, r.T)

@@ -7,7 +7,6 @@ within 1e-5, the noise of two correct fp32 summation orders at this
 data's scale (sigma 0.5: neighbour distances within a few times the
 norms), and ids equal outside near-ties."""
 
-import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -189,6 +188,11 @@ def test_per_pair_raises(data):
         ft.knn_batched(q, K, precision="exact")
     with pytest.raises(ValueError):
         ft.knn(q[:, :5], K)
-    ell = types.SimpleNamespace(cols=q.astype(np.int32), vals=q, dim=16)
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        ft.knn_batched(ell, K)  # sparse query batches are not ported
+    # sparse query batches are ported: an EllMatrix of the same rows gives
+    # the dense rows' result
+    from rptree_tpu_torch import EllMatrix
+
+    cols = np.tile(np.arange(16, dtype=np.int32), (q.shape[0], 1))
+    (d0, i0), (d1, i1) = (ft.knn_batched(qq, K) for qq in (
+        q, EllMatrix(16, cols, q)))
+    assert torch.equal(i0, i1) and torch.equal(d0, d1)

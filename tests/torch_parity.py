@@ -47,7 +47,11 @@ def carry(fj, device="cpu"):
     seed."""
     arrays = {k: np.array(getattr(fj.arrays, k))
               for k in ("r", "thr", "mgl", "mgh", "perm")}
-    arrays["x"] = np.array(fj.x)
+    if hasattr(fj.x, "cols"):  # an ELL dataset
+        arrays["x_cols"], arrays["x_vals"] = (np.array(fj.x.cols),
+                                              np.array(fj.x.vals))
+    else:
+        arrays["x"] = np.array(fj.x)
     return forest_from_numpy(_header(fj), arrays, device=device,
                              payloads=fj.payloads)
 
