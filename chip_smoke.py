@@ -954,6 +954,7 @@ SPARSE_N, SPARSE_V, SPARSE_NNZ, SPARSE_TOPICS = 262_144, 65_536, 32, 256
 SPARSE_PAIR = dict(budget=2, precision="default", chunk=512)
 SPARSE_GROUPED = dict(budget=2, tile_m=8, chunk=4096, selection="kernel")
 SPARSE_PROBES = 16         # T 8 x budget 2
+WIDE_V = 2 * SPARSE_V      # past kernel 10's room for a quad of rows' support
 
 
 def sparse_rows(n, seed, v=SPARSE_V, nnz=SPARSE_NNZ, topics=SPARSE_TOPICS):
@@ -1002,21 +1003,29 @@ def ell_bound(blocks, tb, tp, lens, q, p):
 
 
 def ell_tiles_inputs(device, b, p, tile_m, seed, g=16_384, lmax=128,
-                     bf16=False):
+                     bf16=False, banded=False, v=None):
     """ELL blocks at the cell's shapes (``g`` blocks of ``lmax`` slots of
     ``SPARSE_NNZ``, occupancy from half to all of ``lmax``, padding past
     it), ``b`` dense query rows of the cell's kind and their norms, and the
     tile tables of ``b * p`` pairs (kernel 9; a fifth masked, queries of a
     topic probing that topic's blocks) at a capacity of 90% of the tiles
-    needed.  Returns ``(blocks, sq, tb, tp, lens_t, q, qq, needed,
-    capacity)``."""
+    needed.  A block's documents are of any topic, or with ``banded`` of
+    the block's one topic (a window of 1,024 columns); ``v`` columns (the
+    cell's 65,536 by default).  Returns ``(blocks, sq, tb, tp, lens_t, q,
+    qq, needed, capacity)``."""
     import torch
 
     from rptree_tpu_torch.ops import grouped as og
     from rptree_tpu_torch.ops.sparse import EllBlocks, EllMatrix, ell_to_dense
 
+    v = v or SPARSE_V
     gen = torch.Generator(device="cpu").manual_seed(seed)
-    cols, vals = sparse_rows(g * lmax, seed)
+    cols, vals = sparse_rows(g * lmax, seed, v=v)
+    if banded:
+        band = v // SPARSE_TOPICS
+        topic = np.arange(g * lmax)[:, None] // lmax % SPARSE_TOPICS
+        cols = np.sort(np.minimum(topic * band + cols % (v // 64), v - 1),
+                       axis=1).astype(np.int32)
     cols = torch.as_tensor(cols).reshape(g, lmax, SPARSE_NNZ)
     vals = torch.as_tensor(vals).reshape(g, lmax, SPARSE_NNZ)
     lens = torch.randint(lmax // 2, lmax + 1, (g,), generator=gen,
@@ -1024,11 +1033,11 @@ def ell_tiles_inputs(device, b, p, tile_m, seed, g=16_384, lmax=128,
     empty = torch.arange(lmax)[None, :] >= lens[:, None]
     cols[empty], vals[empty] = 0, 0.0
     sq = (vals * vals).sum(-1)
-    qc, qv = sparse_rows(b, seed + 1)
-    q = ell_to_dense(EllMatrix(SPARSE_V, qc, qv).to(device), torch.float32)
+    qc, qv = sparse_rows(b, seed + 1, v=v)
+    q = ell_to_dense(EllMatrix(v, qc, qv).to(device), torch.float32)
     # a query probes blocks whose rows share its band
-    band = torch.as_tensor(qc[:, :1] // (SPARSE_V // SPARSE_TOPICS))
-    blk_band = cols[:, 0, 0] // (SPARSE_V // SPARSE_TOPICS)
+    band = torch.as_tensor(qc[:, :1] // (v // SPARSE_TOPICS))
+    blk_band = cols[:, 0, 0] // (v // SPARSE_TOPICS)
     order = torch.argsort(blk_band)
     start = torch.searchsorted(blk_band[order], band)
     pick = (start + torch.randint(0, 64, (b, p), generator=gen)) % g
@@ -1042,23 +1051,28 @@ def ell_tiles_inputs(device, b, p, tile_m, seed, g=16_384, lmax=128,
     tb, tp, _, _, lens_t = og.tile_tables(gsel, lsel, lens_d, tile_m, cap)
     if bf16:
         vals = vals.bfloat16()
-    blocks = EllBlocks(SPARSE_V, cols.to(**to), vals.to(**to))
+    blocks = EllBlocks(v, cols.to(**to), vals.to(**to))
     return (blocks, sq.to(**to), tb, tp, lens_t, q, (q * q).sum(-1),
             int(needed), cap)
 
 
-def ell_agree(name, got, want, sq, qq, tb, tp, p, metric):
+def ell_agree(name, got, want, sq, qq, tb, tp, p, metric, by_norms=False):
     """Kernel 10 against its plain version: infinite at the same places;
     ``sql2`` within ``SUM_RTOL`` of ``|x|^2 + |q|^2``, the other metrics
-    within ``DIST_RTOL``.  Returns the error."""
+    within ``DIST_RTOL``.  With ``by_norms`` (queries that meet documents of
+    their own band, as the cell's own chunk does: near a query's like an
+    l2 distance is the square root of fp32 cancellation alone) l2 is held
+    as sql2 is, by its square.  Returns the error."""
     import torch
 
     abs_err, rel_err = _rel_err(got, want)
-    if metric != "sql2":
+    if metric != "sql2" and not (by_norms and metric == "l2"):
         if rel_err > DIST_RTOL:
             raise AssertionError(f"{name} ({metric}): relative error "
                                  f"{rel_err} > {DIST_RTOL}")
         return abs_err, rel_err
+    if metric == "l2":
+        got, want = got * got, want * want
     qn = torch.where(tp >= 0, qq[(tp.long() // p).clamp_min(0)], 0.0)
     scale = sq[tb.long()][:, None, :] + qn[..., None]
     fin = torch.isfinite(want.reshape(scale.shape))
@@ -1070,12 +1084,37 @@ def ell_agree(name, got, want, sq, qq, tb, tp, p, metric):
     return abs_err, err
 
 
+def ell_route_share(args, tb):
+    """The share of tiles on each of kernel 10's routes (``ELL_ROUTES``),
+    counted by the kernel on ``ell_score_tiles`` arguments ``args``;
+    raises unless the counts are ``ell_tile_routes``' rule's."""
+    import torch
+
+    from rptree_tpu_torch.ops import ell_kernel as ek
+
+    _, routes = ek.ell_score_tiles_routes(*args)
+    rule = torch.bincount(ek.ell_tile_routes(args[0], args[3], args[4]),
+                          minlength=len(ek.ELL_ROUTES))
+    if routes.tolist() != rule.tolist():
+        raise AssertionError(f"kernel 10's routes {routes.tolist()} are not "
+                             f"the rule's {rule.tolist()}")
+    return {k: int(v) / tb.shape[0] for k, v in zip(ek.ELL_ROUTES,
+                                                     routes.tolist())}
+
+
 def check_ell(device, reps):
     """Kernel 10 against its plain version at the sparse cell's shapes (K
     32, lmax 128, V 65,536): a grouped chunk (4,096 queries x 16 probes,
     tile_m 8) and a per-pair chunk (512 x 16, tiles of one), f32 and bf16
     values, every metric, with masked pairs and a capacity below the tiles
-    needed; both times, the device time and the bound on those tiles."""
+    needed; both times, the device time, the bound and the share of tiles
+    on each route on those tiles (the support route at V 65,536).  Then
+    the grouped chunk on banded blocks (one topic a block, ``_banded``),
+    held the same way but l2 by its square (its queries meet documents of
+    their own band: near a query's like an l2 distance is fp32
+    cancellation), and a grouped chunk of 1,024 queries over a vocabulary
+    of 131,072 (``_l2``: past the support's room, so the queries are read
+    through L2)."""
     import torch
 
     from rptree_tpu_torch.ops import ell_kernel as ek
@@ -1084,12 +1123,17 @@ def check_ell(device, reps):
                      "grouped": [4096, SPARSE_PROBES, 8],
                      "per_pair": [512, SPARSE_PROBES, 1]}}
     worst = 0.0
-    for label, b, tile_m in (("", 4096, 8), ("_pairs", 512, 1)):
+    for label, b, tile_m, banded, v in (("", 4096, 8, False, SPARSE_V),
+                                        ("_pairs", 512, 1, False, SPARSE_V),
+                                        ("_banded", 4096, 8, True, SPARSE_V),
+                                        ("_l2", 1024, 8, False, WIDE_V)):
         for bf16 in (False, True):
+            if label in ("_banded", "_l2") and bf16:
+                continue
             sfx = label + ("_bf16" if bf16 else "")
             (blocks, sq, tb, tp, lens, q, qq, needed,
              cap) = ell_tiles_inputs(device, b, SPARSE_PROBES, tile_m, 7,
-                                     bf16=bf16)
+                                     bf16=bf16, banded=banded, v=v)
             p = SPARSE_PROBES
             for metric in ("l2", "sql2", "cosine", "dot"):
                 args = (blocks, sq, tb, tp, lens, q, qq, p, metric)
@@ -1097,11 +1141,16 @@ def check_ell(device, reps):
                 want = ek.ell_score_tiles_reference(*args)
                 torch.cuda.synchronize()
                 a, r = ell_agree(f"ell_score_tiles{sfx}", got, want, sq, qq,
-                                 tb, tp, p, metric)
+                                 tb, tp, p, metric, by_norms=banded)
                 worst = max(worst, a)
                 rec[f"max_err_{metric}{sfx}"] = r
                 del got, want
             args = (blocks, sq, tb, tp, lens, q, qq, p, "l2")
+            rec[f"route_share{sfx}"] = ell_route_share(args, tb)
+            want = "l2" if label == "_l2" else "support"
+            if rec[f"route_share{sfx}"][want] < 0.5:
+                raise AssertionError(f"kernel 10{sfx}: most tiles not on the "
+                                     f"{want} route {rec[f'route_share{sfx}']}")
             rec[f"ms{sfx}"] = cuda_ms(lambda: ek.ell_score_tiles(*args), reps)
             rec[f"device_ms{sfx}"] = graph_ms(
                 lambda: ek.ell_score_tiles(*args), reps=5)
@@ -1117,26 +1166,45 @@ def check_ell(device, reps):
     return {"ell_score_tiles": rec}
 
 
+# kernel 11 at the main path's projections: (label, rows, D, L, rows are
+# the sparse cell's documents made dense)
+PROJECTIONS = (("", 65_536, 128, 104, False),        # clustered query chunk
+               ("_iid", 32_768, 128, 80, False),     # iid query chunk
+               ("_pairs", 2048, 128, 104, False),    # a per-pair chunk
+               ("_bracket", 32, 128, 160, False),    # the bracket, T 32
+               ("_build", 1_000_000, 128, 13, False),  # a tree of the 1M build
+               ("_sparse", 4096, SPARSE_V, 88, False),   # sparse query chunk
+               ("_sparse_rows", 4096, SPARSE_V, 88, True))
+
+
 def check_project(device, reps):
-    """Kernel 11 at the main path's projections: the clustered chunk's
-    queries (65,536 x 128, T 8 x 13 levels), the 1M build's tree (13
-    levels), the sparse cell's query chunk (4,096 x 65,536, T 8 x 11
-    levels).  Held against the exact product (float64) within the error
-    bound of its own order of summation, ``project_rows_error_bound(D) *
-    sum |x_d r_d|`` (2.7 at 65,536 columns, where a segment of 1,024
-    columns dropped or doubled moves an entry by ~32); ``max_abs_err`` is
-    its distance from the plain version, ``torch.matmul``; the same bits
-    for a row in any batch."""
+    """Kernel 11 at the main path's projections (``PROJECTIONS``): the
+    clustered, iid and per-pair query chunks, the bracket's 32 queries at
+    T 32, the 1M build's tree (13 levels), the sparse cell's query chunk
+    (4,096 x 65,536, T 8 x 11 levels) with random rows and with the cell's
+    own sparse rows.  At each: held against the exact product (float64)
+    within the error bound of its own order of summation,
+    ``project_rows_error_bound(D) * sum |x_d r_d|`` (2.7 at 65,536
+    columns, where a segment of 1,024 columns dropped or doubled moves an
+    entry by ~32); the same bits for a row in another batch;
+    ``max_abs_err`` its distance from the plain version, ``torch.matmul``,
+    which is also the library call.  Every shape's numbers are under
+    ``by_shape``; the clustered chunk's are the record's."""
     import torch
 
     from rptree_tpu_torch.ops import build as ob
+    from rptree_tpu_torch.ops.sparse import EllMatrix, ell_to_dense
 
-    rec, worst = {}, 0.0
+    rec, worst = {"by_shape": {}}, 0.0
     gen = torch.Generator(device=device).manual_seed(3)
-    for label, n, d, nl in (("", 65_536, 128, 104), ("_build", 1_000_000,
-                                                     128, 13),
-                            ("_sparse", 4096, SPARSE_V, 88)):
-        x = torch.randn(n, d, device=device, generator=gen)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for label, n, d, nl, docs in PROJECTIONS:
+        if docs:
+            cols, vals = sparse_rows(n, SEED + 5, v=d)
+            x = ell_to_dense(EllMatrix(d, cols, vals).to(device),
+                             torch.float32)
+        else:
+            x = torch.randn(n, d, device=device, generator=gen)
         r = torch.randn(nl, d, device=device, generator=gen)
         got = ob.project_rows(x, r)
         want = ob.project_rows_reference(x, r)
@@ -1149,24 +1217,28 @@ def check_project(device, reps):
         if bool((err > tol).any()):
             raise AssertionError(f"project_rows{label}: past the bound of "
                                  "its order of summation")
-        part = ob.project_rows(x[n // 3:n // 2].contiguous(), r)
+        part = ob.project_rows(x[n // 3:n // 2 + 1].contiguous(), r)
         if not torch.equal(part.view(torch.int32),
-                           got[:, n // 3:n // 2].view(torch.int32)):
+                           got[:, n // 3:n // 2 + 1].view(torch.int32)):
             raise AssertionError(f"project_rows{label}: a row's bits depend "
                                  "on its batch")
         diff = float((got - want).abs().max())
         worst = max(worst, diff)
-        rec[f"max_abs_err{label}"] = diff
-        rec[f"max_abs_err_vs_f64{label}"] = float(err.max())
-        rec[f"max_share_of_bound{label}"] = float((err / tol).max())
-        rec[f"ms{label}"] = cuda_ms(lambda: ob.project_rows(x, r), reps)
-        rec[f"device_ms{label}"] = graph_ms(lambda: ob.project_rows(x, r),
-                                            reps=5)
-        rec[f"plain_ms{label}"] = cuda_ms(
-            lambda: ob.project_rows_reference(x, r), reps)
-        rec[f"shape{label}"] = {"rows": n, "D": d, "projections": nl}
-        b_rec = bound(4 * (n * d + nl * d + nl * n), 2 * n * d * nl, "f32")
-        rec.update({f"{k}{label}": v for k, v in b_rec.items()})
+        plain = cuda_ms(lambda: ob.project_rows_reference(x, r), reps)
+        one = {"rows": n, "D": d, "projections": nl,
+               "tile": ob.project_plan(n, nl, d, sms),
+               "max_abs_err": diff, "max_abs_err_vs_f64": float(err.max()),
+               "max_share_of_bound": float((err / tol).max()),
+               "ms": cuda_ms(lambda: ob.project_rows(x, r), reps),
+               "device_ms": graph_ms(lambda: ob.project_rows(x, r), reps=5),
+               "plain_ms": plain, "library_ms": plain,
+               "library_device_ms": graph_ms(
+                   lambda: ob.project_rows_reference(x, r), reps=5),
+               **bound(4 * (n * d + nl * d + nl * n), 2 * n * d * nl, "f32")}
+        rec["by_shape"][label.lstrip("_") or "clustered_chunk"] = one
+        if not label:
+            rec.update({k: one[k] for k in ("ms", "device_ms", "plain_ms",
+                                            "bound_ms", "bound_by")})
         del x, r, got, want, x64, r64, exact, terms, tol, err, part
         torch.cuda.empty_cache()
     rec["max_abs_err"] = worst
@@ -2330,6 +2402,7 @@ def check_ell_chunk(f, qc, serve, reps=5):
             rec["l2_max_abs_err"] = _rel_err(got, want)[0]
         del got, want
     args = (blocks, sq, tb, tp, lens, qc, qq, SPARSE_PROBES, "l2")
+    rec["route_share"] = ell_route_share(args, tb)
     return {**rec, "ms": cuda_ms(lambda: ek.ell_score_tiles(*args), reps),
             "device_ms": graph_ms(lambda: ek.ell_score_tiles(*args), reps=5),
             "plain_ms": cuda_ms(lambda: ek.ell_score_tiles_reference(*args),
@@ -2695,7 +2768,8 @@ def main():
     extra = ("ms_no_dedup", "library_call", "gemm_ms", "cast_ms",
              "device_ms", "by_shape", "blocked_ms", "blocked_same_bits",
              "ms_pairs", "device_ms_pairs", "bound_ms_pairs", "ms_bf16",
-             "bound_ms_bf16", "ms_sparse", "bound_ms_sparse")
+             "bound_ms_bf16", "route_share", "route_share_pairs",
+             "ms_banded", "route_share_banded", "ms_l2", "route_share_l2")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **{key: kern[r][key] for key in keys},

@@ -20,7 +20,10 @@ plain-torch query operands its wrapper made and as its launch alone, and
 the operands apart), and kernels 1, 3 and 4 on the clustered chunk's own
 operands, each also checked for the same bits; kernels 5 and 6 where
 ``scan_topk.cu`` and ``gather_score.cu`` of an earlier commit sit there
-too, at the phase-2 shapes and the 1M scan chunk.
+too, at the phase-2 shapes and the 1M scan chunk.  With ``--turns``,
+kernels 10 and 11 of the commit whose ``project.cu`` and ``ell_score.cu``
+sit there (``git show a42fc83:rptree_tpu_torch/csrc/<name>``), at the
+served shapes (``sparse_turns``), each checked for the same bits.
 
     python3 chip_stages.py            # on the card
     python3 chip_stages.py --cpu      # a tiny rehearsal on the CPU
@@ -28,6 +31,8 @@ too, at the phase-2 shapes and the 1M scan chunk.
                                           # (add --cpu to rehearse it)
     python3 chip_stages.py --sparse       # only the bag-of-words ELL cell
                                           # (add --cpu to rehearse it)
+    python3 chip_stages.py --turns        # only kernels 10 and 11 against
+                                          # an earlier build's (below)
 
 Each stage runs as the serving path runs it (``_knn_grouped``), between
 two ``torch.cuda.synchronize`` calls, seven times; the line gives the
@@ -503,6 +508,242 @@ def compare_base(src):
         torch.cuda.empty_cache()
 
 
+SPARSE_BASE = ("project.cu", "ell_score.cu")
+
+
+def base_sparse_lib(src):
+    """An earlier commit's kernels 10 and 11 (their sources at ``src``:
+    ``git show a42fc83:rptree_tpu_torch/csrc/<name>`` for each of
+    ``SPARSE_BASE``) built into one library under other symbol names."""
+    import ctypes
+
+    from rptree_tpu_torch import _cuda
+
+    out = os.path.join(src, "libbase_sparse.so")
+    renames = [f"-D{n}={n}_base" for n in (
+        "rpt_project", "rpt_project_segments", "rpt_ell_score_f32",
+        "rpt_ell_score_bf16")]
+    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, *renames, "-I",
+                    str(_cuda._CSRC), "-shared", "-o", out,
+                    *(os.path.join(src, n) for n in SPARSE_BASE)],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(out)
+    p, i, l_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+    lib.rpt_project_base.argtypes = [p, l_, p, p, p, l_, i, i, p]
+    lib.rpt_project_segments_base.argtypes = [i]
+    for name in ("rpt_ell_score_f32_base", "rpt_ell_score_bf16_base"):
+        getattr(lib, name).argtypes = [p] * 9 + [i] * 9 + [p]
+    return lib
+
+
+def base_project(lib, x, r):
+    """The earlier kernel 11, as its wrapper called it."""
+    from rptree_tpu_torch import _cuda
+
+    (n, d), nl = x.shape, r.shape[0]
+    out = torch.empty((nl, n), device=x.device)
+    segs = lib.rpt_project_segments_base(d)
+    scratch = (torch.empty((segs, nl, n), device=x.device) if segs > 1
+               else None)
+    code = lib.rpt_project_base(
+        _cuda.ptr(x), max(x.stride(0), d), _cuda.ptr(r), _cuda.ptr(out),
+        None if scratch is None else _cuda.ptr(scratch), n, nl, d,
+        _cuda.stream_of(x))
+    assert code == 0, code
+    return out
+
+
+def base_ell(lib, blocks, sq, tb, tp, lens, q, qq, p, metric):
+    """The earlier kernel 10, as its wrapper called it."""
+    from rptree_tpu_torch import _cuda
+    from rptree_tpu_torch.ops.ell_kernel import ELL_METRICS
+
+    g, lmax, k = blocks.shape
+    nt, m = tp.shape
+    out = torch.empty((nt * m, lmax), device=q.device)
+    fn = (lib.rpt_ell_score_bf16_base if blocks.vals.dtype == torch.bfloat16
+          else lib.rpt_ell_score_f32_base)
+    code = fn(*map(_cuda.ptr, (blocks.cols, blocks.vals, sq, tb, tp, lens, q,
+                               qq, out)),
+              nt, g, m, lmax, k, blocks.dim, q.shape[0], int(p),
+              ELL_METRICS[metric], _cuda.stream_of(q))
+    assert code == 0, code
+    return out
+
+
+def host_us(fn, calls=20):
+    """Microseconds of host time a call of ``fn`` takes to return (the
+    card may still be running it), over ``calls`` calls after a
+    synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return us
+
+
+def project_turns(lib, label, x, r):
+    """Kernel 11, the earlier build against this tree's and against
+    ``torch.matmul(r, x.T)`` in IEEE fp32, in turns (old, new, matmul,
+    matmul, new, old) by CUDA events and by device time, with whether the
+    two builds give the same bits, each call's host time, this tree's
+    tile and the bound.  One JSON line."""
+    from rptree_tpu_torch.ops import build as ob
+
+    new, old = ob.project_rows(x, r), base_project(lib, x, r)
+    same = same_bits(new, old)
+    fns = (lambda: base_project(lib, x, r), lambda: ob.project_rows(x, r),
+           lambda: ob.project_rows_reference(x, r))
+    o, n, mm, raw = turns(*fns)
+    do, dn, dmm, draw = device_turns(*fns)
+    (rows, d), nl = x.shape, r.shape[0]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    b = cs.bound(4 * (rows * d + nl * d + nl * rows), 2 * rows * d * nl,
+                 "f32")
+    print(json.dumps({
+        "base_vs_tree": "project_rows", "shape": label, "rows": rows, "D": d,
+        "projections": nl, "tile": ob.project_plan(rows, nl, d, sms),
+        "base_ms": o, "tree_ms": n, "matmul_ms": mm, "speedup": o / n,
+        "vs_matmul": mm / n, "turns_ms": raw, "base_device_ms": do,
+        "tree_device_ms": dn, "matmul_device_ms": dmm,
+        "device_turns_ms": draw,
+        "host_us": {"base": host_us(fns[0]), "tree": host_us(fns[1]),
+                    "matmul": host_us(fns[2])},
+        "same_bits": same, **b}), flush=True)
+    return same
+
+
+def window_share(blocks, tb, tp, lens, budget=40 * 1024):
+    """The share of the non-empty tiles whose rows over their block's
+    window of columns (those of its occupied slots with a nonzero value;
+    four rows to a column up to the quad of the last live row) would fit
+    ``budget`` bytes of shared memory: how many tiles a kernel 10 that
+    staged the query rows over the window, not their support, could
+    serve."""
+    g, lmax, _ = blocks.shape
+    ln = lens.long().clamp(0, lmax)
+    nz = blocks.vals != 0
+    cols = blocks.cols.long().clamp(0, blocks.dim - 1)
+    first = torch.where(nz, cols, blocks.dim).amin(-1).cummin(-1).values
+    last = torch.where(nz, cols, -1).amax(-1).cummax(-1).values
+    blk, at = tb.long().clamp(0, g - 1), (ln - 1).clamp_min(0)
+    width = (last[blk, at] - first[blk, at] + 1).clamp_min(0)
+    row = torch.arange(tp.shape[1], device=tp.device)
+    last_row = torch.where(tp >= 0, row, -1).amax(-1)
+    rows = 1 if tp.shape[1] == 1 else 4 * (last_row // 4 + 1)
+    live = (last_row >= 0) & (ln > 0)
+    fits = live & (rows * width * 4 <= budget)
+    return float(fits.sum()) / max(int(live.sum()), 1)
+
+
+def ell_turns(lib, label, blocks, sq, tb, tp, lens, q, qq, p):
+    """Kernel 10 (l2), the earlier build against this tree's in turns (old,
+    new, new, old) by CUDA events and by device time, with whether the two
+    give the same bits on every metric, the share of tiles on each of the
+    kernel's routes, the first pass's device time, the share of tiles
+    whose query rows over the block's window would fit shared memory
+    (``window_share``) and the bound.  One JSON line."""
+    from rptree_tpu_torch.ops import ell_kernel as ek
+
+    same = True
+    for metric in ek.ELL_METRICS:
+        args = (blocks, sq, tb, tp, lens, q, qq, p, metric)
+        same &= same_bits(ek.ell_score_tiles(*args), base_ell(lib, *args))
+    args = (blocks, sq, tb, tp, lens, q, qq, p, "l2")
+    _, routes = ek.ell_score_tiles_routes(*args)
+    routes = routes.tolist()
+    mirror = torch.bincount(ek.ell_tile_routes(blocks, tp, lens),
+                            minlength=3).tolist()
+    fns = (lambda: base_ell(lib, *args), lambda: ek.ell_score_tiles(*args))
+    o, n, raw = turns(*fns)
+    do, dn, draw = device_turns(*fns)
+    nt = tb.shape[0]
+    print(json.dumps({
+        "base_vs_tree": "ell_score_tiles", "tiles": label, "nt": nt,
+        "tile_m": tp.shape[1], "vals": str(blocks.vals.dtype),
+        "base_ms": o, "tree_ms": n, "speedup": o / n, "turns_ms": raw,
+        "base_device_ms": do, "tree_device_ms": dn,
+        "device_speedup": do / dn, "device_turns_ms": draw,
+        "tree_support_device_ms": cs.graph_ms(lambda: ek._ell_support(q)),
+        "same_bits": same, "routes": dict(zip(ek.ELL_ROUTES, routes)),
+        "route_share": {k: v / nt for k, v in zip(ek.ELL_ROUTES, routes)},
+        "routes_as_mirror": routes == mirror,
+        "window_fits_share": window_share(blocks, tb, tp, lens),
+        **cs.ell_bound(blocks, tb, tp, lens, q, p)}), flush=True)
+    return same
+
+
+def sparse_turns(lib):
+    """Kernels 10 and 11 of ``a42fc83`` (or whichever earlier build sits in
+    ``_checkout/base``) against this tree's at the served shapes: kernel
+    11 on the clustered chunk, the iid chunk, a per-pair chunk, the
+    bracket's 32 queries at T 32, the 1M build's tree and the sparse
+    chunk (random dense rows, then the bag-of-words cell's own densified
+    rows); kernel 10 on ``chip_smoke.py`` phase 2's grouped and per-pair
+    chunks, f32 and bf16 values, its banded grouped chunk (through L2) and
+    (s2)'s own chunk."""
+    import rptree_tpu_torch as rp
+    from rptree_tpu_torch.ops import grouped as og
+    from rptree_tpu_torch.ops.sparse import EllMatrix, ell_take, ell_to_dense
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    same = True
+    for label, n, d, nl in (("clustered_chunk", 65_536, 128, 104),
+                            ("iid_chunk", 32_768, 128, 80),
+                            ("per_pair_chunk", 2048, 128, 104),
+                            ("bracket", 32, 128, 160),
+                            ("build_1m_tree", 1_000_000, 128, 13),
+                            ("sparse_chunk_random", 4096, cs.SPARSE_V, 88)):
+        x = torch.randn(n, d, device=dev, generator=gen)
+        r = torch.randn(nl, d, device=dev, generator=gen)
+        same &= project_turns(lib, label, x, r)
+        del x, r
+        torch.cuda.empty_cache()
+    for label, b, tile_m, banded in (("phase2_grouped", 4096, 8, False),
+                                     ("phase2_per_pair", 512, 1, False),
+                                     ("phase2_banded", 4096, 8, True)):
+        for bf16 in (False, True):
+            if banded and bf16:
+                continue
+            (blocks, sq, tb, tp, lens, q, qq, _,
+             _) = cs.ell_tiles_inputs(dev, b, cs.SPARSE_PROBES, tile_m, 7,
+                                      bf16=bf16, banded=banded)
+            same &= ell_turns(lib, label, blocks, sq, tb, tp, lens, q, qq,
+                              cs.SPARSE_PROBES)
+            del blocks, q
+            torch.cuda.empty_cache()
+    # the bag-of-words cell: (s2)'s own first chunk
+    n, chunk, p = cs.SPARSE_N, 4096, cs.SPARSE_PROBES
+    cols, vals = cs.sparse_rows(n, cs.SEED)
+    cfg = rp.rp_tree_cfg(128, n, cs.SPARSE_V)
+    f = rp.forest_batch(cs.SEED, cfg.max_depth, 128, 8, cfg.proj_nz_density,
+                        EllMatrix(cs.SPARSE_V, cols, vals), device=dev)
+    f.pack_leaves()
+    qi = np.random.default_rng(cs.SEED + 11).integers(0, n, size=8192)
+    qe = ell_take(f.x, torch.as_tensor(qi, device=dev))
+    serve = dict(cs.SPARSE_GROUPED, chunk=chunk)
+    f.knn_grouped(qe, K, **serve)  # learn the capacity
+    cap = max(f._grouped_nt.values())
+    qc = ell_to_dense(ell_take(qe, slice(0, chunk)), torch.float32)
+    nl = f.plan.n_levels
+    rl = f.arrays.r[:, :nl].reshape(-1, cs.SPARSE_V).contiguous()
+    same &= project_turns(lib, "sparse_chunk_cell_rows", qc, rl)
+    from rptree_tpu_torch.models import forest as fm
+
+    gsel, lsel = fm._probe_pairs(f, qc, serve["budget"], p, K)
+    blocks, sq_leaf, _ = f._packed
+    tb, tp, _, _, lens_t = og.tile_tables(gsel, lsel, f._lens_global(),
+                                          serve["tile_m"], cap)
+    same &= ell_turns(lib, "s2_own_chunk", blocks, sq_leaf, tb, tp, lens_t,
+                      qc, (qc * qc).sum(-1), p)
+    if not same:
+        raise AssertionError("kernel 10 or 11 differs from a42fc83's bits")
+
+
 def descent_turns(label, f, fm, qc, budget, probes, sync, on_card, calls=4):
     """The traversal + probe stage of the chunk ``qc`` as the path runs it
     (``_select_probes``: the projections, kernels 7 and 8) against its
@@ -818,8 +1059,8 @@ def sparse_stages(rp, fm, og, tk, dev, sync, on_card):
     probes (kernels 11, 7, 8; the projections also apart), tile tables
     (kernel 9), the queries' norms, kernel 10, pair reorder, id gather,
     kernel 3; and of one per-pair chunk of 512 (s1): traversal + probes,
-    kernel 10 as tiles of one, the sort tail; each beside its whole
-    call."""
+    kernel 10 as tiles of one, the sort tail; each beside its whole call,
+    and the same chunk as sparse queries (s4), its densify apart."""
     from rptree_tpu_torch.ops import ell_kernel as ek
     from rptree_tpu_torch.ops import traverse as tv
     from rptree_tpu_torch.ops.sparse import EllMatrix, ell_take, ell_to_dense
@@ -887,6 +1128,11 @@ def sparse_stages(rp, fm, og, tk, dev, sync, on_card):
     st["sum"] = sum(st.values())
     _, st["whole_call"] = timed(lambda: f.knn_batched(
         qc, K, **dict(cs.SPARSE_PAIR, chunk=pchunk)), sync)
+    # (s4): the same chunk as an EllMatrix, densified inside the call
+    qs = ell_take(qe, slice(0, pchunk))
+    _, st["s4_densify"] = timed(lambda: ell_to_dense(qs, torch.float32), sync)
+    _, st["s4_whole_call"] = timed(lambda: f.knn_batched(
+        qs, K, **dict(cs.SPARSE_PAIR, chunk=pchunk)), sync)
     print(json.dumps({"sparse_pair_stages_ms": "s1_dense_queries",
                       "chunk": pchunk, **st}), flush=True)
 
@@ -941,6 +1187,13 @@ def main():
         torch.backends.cuda.matmul.allow_tf32 = False
     if "--sparse" in sys.argv[1:]:  # phase 9's cell alone
         return sparse_stages(rp, fm, og, tk, dev, sync, on_card)
+    if "--turns" in sys.argv[1:]:  # kernels 10 and 11 against a42fc83's
+        src = "_checkout/base"
+        if not on_card or not all(os.path.exists(os.path.join(src, n))
+                                  for n in SPARSE_BASE):
+            raise SystemExit(f"chip_stages --turns: needs the card and "
+                             f"{SPARSE_BASE} of an earlier commit in {src}")
+        return sparse_turns(base_sparse_lib(src))
     if "--shared-10m" in sys.argv[1:]:  # phase 8b's cell alone
         from rptree_tpu_torch.ops import fused_gather as fg
         return shared_10m_stages(rp, fm, fg, og, rr, tk, dev, sync, on_card)

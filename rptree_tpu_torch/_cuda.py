@@ -16,6 +16,7 @@ imported.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -27,7 +28,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["build", "lib", "check", "ptr", "stream_of", "resolve_device"]
+__all__ = ["build", "lib", "check", "ptr", "stream_of", "raw_stream", "on",
+           "resolve_device"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
@@ -66,12 +68,14 @@ _SIGNATURES = {
     # gsel, lsel, lens, tb, tp, slot, lens_t, needed, scratch, scratch_len,
     # n, g, nt, tile_m, stream
     "rpt_tile_tables": [_P] * 9 + [_L, _L, _I, _L, _I, _P],
-    # cols, vals, sq, tb, tp, lens, q, qq, out, nt, g, tile_m, lmax, k, v,
-    # b, p, metric, stream
-    "rpt_ell_score_f32": [_P] * 9 + [_I] * 9 + [_P],
-    "rpt_ell_score_bf16": [_P] * 9 + [_I] * 9 + [_P],
-    # x, ldx, r, out, scratch, n, l, d, stream
-    "rpt_project": [_P, _L, _P, _P, _P, _L, _I, _I, _P],
+    # cols, vals, sq, tb, tp, lens, q, qq, bits, out, nt, g, tile_m, lmax,
+    # k, v, b, p, metric, routes, stream
+    "rpt_ell_score_f32": [_P] * 10 + [_I] * 9 + [_P, _P],
+    "rpt_ell_score_bf16": [_P] * 10 + [_I] * 9 + [_P, _P],
+    # q, b, v, bits, stream
+    "rpt_ell_support": [_P, _L, _I, _P, _P],
+    # x, ldx, r, out, scratch, n, l, d, tile, lt, stream
+    "rpt_project": [_P, _L, _P, _P, _P, _L, _I, _I, _I, _I, _P],
     "rpt_project_segments": [_I],
 }
 
@@ -174,3 +178,22 @@ def resolve_device(device) -> torch.device:
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
     """PyTorch's current stream on ``t``'s device."""
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def raw_stream(device: torch.device) -> int:
+    """The handle of PyTorch's current stream on ``device``, by the call
+    that skips building a ``torch.cuda.Stream`` (a few microseconds a
+    launch, which a wrapper of a short kernel pays on every call)."""
+    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if get is None:
+        return torch.cuda.current_stream(device).cuda_stream
+    return get(device.index if device.index is not None
+               else torch.cuda.current_device())
+
+
+def on(device: torch.device):
+    """A context that makes ``device`` current for a launch, and does
+    nothing where it already is."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

@@ -18,6 +18,7 @@ compare ``-0.0`` and ``+0.0`` as equal.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -29,7 +30,7 @@ from .sparse import EllMatrix, ell_project
 
 __all__ = ["TreeArrays", "build_tree_arrays", "build_forest_arrays",
            "project_dataset", "project_rows", "project_rows_error_bound",
-           "project_rows_reference", "ieee_fp32"]
+           "project_rows_reference", "project_plan", "ieee_fp32"]
 
 
 class TreeArrays(NamedTuple):
@@ -91,32 +92,36 @@ def project_rows(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     between the served build and query shapes).  On the CPU the plain
     version, ``torch.matmul``, whose build and query products agree.
     ``project_rows.launches`` counts launches."""
-    if x.device.type == "cpu":
+    dev = x.device
+    if dev.type == "cpu":
         return project_rows_reference(x, r)
     name = "project_rows"
     for key, t in (("x", x), ("r", r)):
-        if t.device != x.device or t.dtype != torch.float32 or t.dim() != 2:
+        if t.dtype != torch.float32 or t.dim() != 2 or t.device != dev:
             raise ValueError(f"{name}: {key} must be a 2-D float32 tensor on "
-                             f"{x.device}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{dev}, got {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}")
-    if r.shape[1] != x.shape[1] or x.stride(1) != 1 or not r.is_contiguous():
+    n, d = x.shape
+    nl = r.shape[0]
+    if r.shape[1] != d or x.stride(1) != 1 or not r.is_contiguous():
         raise ValueError(f"{name}: x {tuple(x.shape)} (strides {x.stride()}) "
                          f"and r {tuple(r.shape)} must share D, with "
                          f"contiguous rows")
-    n, d = x.shape
-    nl = r.shape[0]
-    out = torch.empty((nl, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((nl, n), dtype=torch.float32, device=dev)
     if n == 0 or nl == 0:
         return out
-    lib = _cuda.lib()
-    segs = lib.rpt_project_segments(d)
-    scratch = (torch.empty((segs, nl, n), dtype=torch.float32,
-                           device=x.device) if segs > 1 else None)
-    with torch.cuda.device(x.device):
-        code = lib.rpt_project(
-            _cuda.ptr(x), max(x.stride(0), d), _cuda.ptr(r), _cuda.ptr(out),
-            None if scratch is None else _cuda.ptr(scratch), n, nl, d,
-            _cuda.stream_of(x))
+    segs = -(-d // PROJECT_SEGMENT)  # csrc/project.cu rpt_project_segments
+    scratch = (torch.empty((segs, nl, n), dtype=torch.float32, device=dev)
+               if segs > 1 else None)
+    tile, lt = project_plan(n, nl, d, _sm_count(dev))
+    # plain ints for the pointers and the stream: this wrapper runs once a
+    # query chunk, and its host time counts where the chunk's kernels are
+    # short
+    with _cuda.on(dev):
+        code = _cuda.lib().rpt_project(
+            x.data_ptr(), max(x.stride(0), d), r.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), n, nl, d, tile,
+            lt, _cuda.raw_stream(dev))
     _cuda.check(code, name)
     project_rows.launches += 1
     return out
@@ -125,6 +130,47 @@ def project_rows(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 project_rows.launches = 0
 
 PROJECT_SEGMENT = 1024  # columns a partial sum in kernel 11 (csrc/project.cu kSeg)
+# kernel 11's tiles (csrc/project.cu rpt_project): sums a thread (rows,
+# projections) and threads along the rows; at most PROJECT_THREADS a block.
+# Tiles 3-6 keep 8 threads along the projections, a block spanning 80, 88,
+# 104 or 128 of them (T 8 x 10, 11, 13, 16 levels)
+PROJECT_TILES = ((8, 8, 16), (4, 4, 16), (4, 8, 32), (8, 10, 16), (8, 11, 16),
+                 (8, 13, 16), (8, 16, 16))
+PROJECT_THREADS = 256
+_FITTED = (3, 4, 5, 6)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=1024)
+def project_plan(n: int, nl: int, d: int, sms: int):
+    """Kernel 11's tile for ``n`` rows, ``nl`` projections and ``d``
+    columns on a card of ``sms`` multiprocessors: ``(tile, lt)``, an index
+    into :data:`PROJECT_TILES` and the threads a block along the
+    projections.  A block spans the fewest even shares of the projections
+    of at most 128 each: tile 2 (4 x 8 sums a thread) for at most 16
+    projections; else, where the blocks (row tiles x projection tiles x
+    1,024-column segments) are at least one a multiprocessor, the tile of
+    8 rows and the fewest projections a thread that covers a share of 65
+    to 128 with 8 threads (tiles 3-6), or tile 0 (8 x 8) for a smaller
+    share; else tile 1 (4 x 4, shares of at most 64).  The sums' order
+    depends on ``d`` alone, so the plan moves no bit."""
+    if nl <= 16:
+        return 2, -(-nl // 8)
+    segs = -(-d // PROJECT_SEGMENT)
+    per = -(-nl // -(-nl // 128))
+    if per > 64:
+        tile = next(t for t in _FITTED if 8 * PROJECT_TILES[t][1] >= per)
+        lt = 8
+    else:
+        tile, lt = 0, -(-per // 8)
+    tm, tn, rt = PROJECT_TILES[tile]
+    if -(-n // (tm * rt)) * -(-nl // (tn * lt)) * segs >= sms:
+        return tile, lt
+    return 1, -(-(-(-nl // -(-nl // 64))) // 4)
 
 
 def project_rows_error_bound(d: int) -> float:

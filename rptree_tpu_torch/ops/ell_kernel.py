@@ -19,6 +19,14 @@ binds only the plain version.  The wrapper takes the plain version for
 blocks on the CPU and launches the kernel for blocks on a CUDA device, or
 raises there: it never falls back.  ``ell_score_tiles.launches`` counts
 launches.
+
+The kernel takes one of two routes a tile (:data:`ELL_ROUTES`), with the
+same bits: it stages the rows' support (a bit a column: the value is not
++0.0, from a first pass over the queries) and reads only the values whose
+bit is set; or, where the vocabulary is too wide for a quad of rows'
+support in shared memory, it reads every value through L2.
+:func:`ell_tile_routes` is its rule in plain torch, and
+:func:`ell_score_tiles_routes` returns the kernel's own count.
 """
 
 from __future__ import annotations
@@ -30,10 +38,18 @@ from .rerank import distances_from_norms
 from .sparse import EllBlocks
 
 __all__ = ["ell_score_tiles", "ell_score_tiles_reference",
-           "ell_tile_chunk_cap", "ELL_METRICS"]
+           "ell_score_tiles_routes", "ell_tile_routes", "ell_support_reference",
+           "ell_tile_chunk_cap",
+           "ELL_METRICS", "ELL_ROUTES"]
 
 ELL_METRICS = {"sql2": 0, "l2": 1, "cosine": 2, "dot": 3}
 _MAX_TILE_M = 32
+# kernel 10's routes (csrc/ell_score.cu): the rows' support bitmaps staged,
+# four rows at a time; the query read through L2 (a vocabulary too wide
+# for the support); nothing to score
+ELL_ROUTES = ("support", "l2", "empty")
+ELL_SUPPORT_BYTES = 40 * 1024      # kSupportBytes: a quad of rows' support
+ELL_SUPPORT_BYTES_ONE = 16 * 1024  # kSupportBytesOne, tile_m 1
 
 
 def ell_tile_chunk_cap(lmax: int, k: int, dim: int, tile_m: int,
@@ -145,6 +161,32 @@ def ell_score_tiles(blocks, sq_leaf, tb, tp, lens_t, q, qq, p, metric,
     if blocks.device.type == "cpu":
         return ell_score_tiles_reference(blocks, sq_leaf, tb, tp, lens_t, q,
                                          qq, p, metric, tile_chunk)
+    out = _launch(blocks, sq_leaf, tb, tp, lens_t, q, qq, p, metric, None)
+    ell_score_tiles.launches += 1
+    return out
+
+
+ell_score_tiles.launches = 0
+
+
+def ell_score_tiles_routes(blocks, sq_leaf, tb, tp, lens_t, q, qq, p,
+                           metric):
+    """:func:`ell_score_tiles` with the kernel's count of the tiles on each
+    route: ``(d, int32[3])``, indexed as :data:`ELL_ROUTES`.  For checks
+    and measurements: it does not add to ``ell_score_tiles.launches``.
+    On the CPU the plain version and :func:`ell_tile_routes`' counts."""
+    _check_metric(metric)
+    if blocks.device.type == "cpu":
+        return (ell_score_tiles_reference(blocks, sq_leaf, tb, tp, lens_t, q,
+                                          qq, p, metric),
+                torch.bincount(ell_tile_routes(blocks, tp, lens_t),
+                               minlength=3).to(torch.int32))
+    routes = torch.zeros(3, dtype=torch.int32, device=q.device)
+    out = _launch(blocks, sq_leaf, tb, tp, lens_t, q, qq, p, metric, routes)
+    return out, routes
+
+
+def _launch(blocks, sq_leaf, tb, tp, lens_t, q, qq, p, metric, routes):
     name = "ell_score_tiles"
     _check_shapes(blocks, sq_leaf, tb, tp, lens_t, q, qq, p)
     f32, i32 = (torch.float32,), (torch.int32,)
@@ -163,14 +205,57 @@ def ell_score_tiles(blocks, sq_leaf, tb, tp, lens_t, q, qq, p, metric,
     lib = _cuda.lib()
     bf16 = blocks.vals.dtype == torch.bfloat16
     fn = lib.rpt_ell_score_bf16 if bf16 else lib.rpt_ell_score_f32
+    # the queries' support, one bit a column (the kernel's first pass)
+    bits = torch.empty((q.shape[0], -(-blocks.dim // 32)), dtype=torch.int32,
+                       device=q.device)
     with torch.cuda.device(q.device):
         code = fn(*map(_cuda.ptr, (blocks.cols, blocks.vals, sq_leaf, tb, tp,
-                                   lens_t, q, qq, out)),
+                                   lens_t, q, qq, bits, out)),
                   nt, g, m, lmax, k, blocks.dim, q.shape[0], int(p),
-                  ELL_METRICS[metric], _cuda.stream_of(q))
+                  ELL_METRICS[metric],
+                  None if routes is None else _cuda.ptr(routes),
+                  _cuda.stream_of(q))
     _cuda.check(code, name)
-    ell_score_tiles.launches += 1
     return out
 
 
-ell_score_tiles.launches = 0
+def ell_support_reference(q: torch.Tensor) -> torch.Tensor:
+    """The queries' support as kernel 10's first pass makes it: ``int32[B,
+    ceil(V / 32)]``, bit ``i`` of word ``w`` set where ``q[:, 32 w + i]``
+    is not +0.0 (any other bits: a nonzero, -0.0, inf, NaN)."""
+    b, v = q.shape
+    words = -(-v // 32)
+    nz = q.contiguous().view(torch.int32) != 0
+    nz = torch.nn.functional.pad(nz, (0, words * 32 - v)).reshape(b, words, 32)
+    w = (nz.long() << torch.arange(32, device=q.device)).sum(-1)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def _ell_support(q: torch.Tensor) -> torch.Tensor:
+    """Kernel 10's first pass alone on the card (for checks and timing)."""
+    bits = torch.empty((q.shape[0], -(-q.shape[1] // 32)), dtype=torch.int32,
+                       device=q.device)
+    with torch.cuda.device(q.device):
+        code = _cuda.lib().rpt_ell_support(_cuda.ptr(q), q.shape[0],
+                                           q.shape[1], _cuda.ptr(bits),
+                                           _cuda.stream_of(q))
+    _cuda.check(code, "ell_support")
+    return bits
+
+
+@torch.no_grad()
+def ell_tile_routes(blocks, tp, lens_t):
+    """The route kernel 10 takes for each tile, ``int64[nt]`` indexed as
+    :data:`ELL_ROUTES`, by the kernel's own rule in plain torch (any
+    device): 2 (``empty``) where the tile has no row or no occupied slot;
+    else 0 (``support``) where a quad of rows' support, ``ceil(V / 32)``
+    words a row (one row at ``tile_m`` 1), fits ``ELL_SUPPORT_BYTES``
+    (``ELL_SUPPORT_BYTES_ONE``) of shared memory, and 1 (``l2``) where
+    it does not."""
+    lmax = blocks.shape[1]
+    m = tp.shape[1]
+    words = -(-blocks.dim // 32)
+    fits = (words * 4 <= ELL_SUPPORT_BYTES_ONE if m == 1
+            else 4 * words * 4 <= ELL_SUPPORT_BYTES)
+    empty = ~(tp >= 0).any(-1) | (lens_t.long().clamp(0, lmax) == 0)
+    return torch.where(empty, 2, 0 if fits else 1)

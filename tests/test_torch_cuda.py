@@ -1383,3 +1383,175 @@ def test_project_rows(dev, n, d, nl, ldx):
     assert torch.equal(sub.view(torch.int32), got[:, n // 3:].view(torch.int32))
     with pytest.raises(ValueError):
         ob.project_rows(x.T, r.T)
+
+
+def _project_tile(x, r, tile, lt):
+    """Kernel 11 launched on a tile the caller names (``project_plan``'s
+    choice set aside)."""
+    from rptree_tpu_torch import _cuda
+
+    (n, d), nl = x.shape, r.shape[0]
+    lib = _cuda.lib()
+    out = torch.empty((nl, n), device=x.device)
+    segs = lib.rpt_project_segments(d)
+    scratch = torch.empty((segs, nl, n), device=x.device) if segs > 1 else None
+    code = lib.rpt_project(
+        _cuda.ptr(x), max(x.stride(0), d), _cuda.ptr(r), _cuda.ptr(out),
+        None if scratch is None else _cuda.ptr(scratch), n, nl, d, tile, lt,
+        _cuda.stream_of(x))
+    assert code == 0, code
+    return out
+
+
+def _project_holds(x, r, tiles=True):
+    """Kernel 11 on ``x``, ``r``: within its own order's bound of the
+    float64 product, a row's bits the same in another batch and, with
+    ``tiles``, on each of the three tiles."""
+    from rptree_tpu_torch.ops import build as ob
+
+    (n, d), nl = x.shape, r.shape[0]
+    n0 = ob.project_rows.launches
+    got = ob.project_rows(x, r)
+    torch.cuda.synchronize()
+    assert ob.project_rows.launches == n0 + 1 and got.shape == (nl, n)
+    exact = r.double() @ x.double().T
+    terms = r.abs().double() @ x.abs().double().T
+    own = (ob.project_rows_error_bound(d) + d * 2.0 ** -53) * terms
+    assert bool(((got.double() - exact).abs() <= own).all())
+    del exact, terms, own
+    s = n // 3
+    sub = ob.project_rows(x[s:], r)
+    assert torch.equal(sub.view(torch.int32), got[:, s:].view(torch.int32))
+    if tiles:
+        for tile, (_, tn, rt) in enumerate(ob.PROJECT_TILES):
+            lt = 8 if tile >= 3 else min(-(-nl // tn), ob.PROJECT_THREADS // rt)
+            assert torch.equal(_project_tile(x, r, tile, lt).view(torch.int32),
+                               got.view(torch.int32)), tile
+
+
+@pytest.mark.parametrize("nl", [1, 13, 88, 104, 160, 200])
+@pytest.mark.parametrize("n", [1, 31, 129, 2048])
+@pytest.mark.parametrize("d", [1, 31, 32, 33, 1023, 1024, 1025, 3000,
+                               65_536])
+def test_project_rows_shapes(dev, d, n, nl):
+    """Kernel 11 at D on both sides of a 32-column stage and of a
+    1,024-column segment, up to the sparse cell's 65,536; from one row to
+    a per-pair chunk; from one projection through a tree's 13 levels and
+    the served 88 and 104 to two projection tiles (160, 200): within its
+    own order's bound of the float64 product, a row's bits the same in
+    another batch and on every tile (the order depends on D alone)."""
+    gen = torch.Generator(device=dev).manual_seed(d + n + nl)
+    x = torch.randn(n, d, device=dev, generator=gen)
+    r = torch.randn(nl, d, device=dev, generator=gen)
+    _project_holds(x, r)
+
+
+@pytest.mark.parametrize("nl", [13, 104])
+@pytest.mark.parametrize("aligned", [False, True])
+@pytest.mark.parametrize("d", [1, 31, 33, 1025, 3000])
+def test_project_rows_strided(dev, d, aligned, nl):
+    """Rows with a stride past D: 16-byte aligned rows (the 16-byte
+    copies) and odd strides (the 4-byte copies), beside D not a multiple
+    of 4 (r's 4-byte copies)."""
+    ldx = (-(-d // 4) * 4 + 4) if aligned else d + 1
+    gen = torch.Generator(device=dev).manual_seed(d + ldx)
+    x = torch.randn(129, ldx, device=dev, generator=gen)[:, :d]
+    r = torch.randn(nl, d, device=dev, generator=gen)
+    assert x.stride(0) == ldx
+    _project_holds(x, r)
+
+
+def _ell_window_case(dev, tile_m, kz, seed, v, g=24, lmax=40, b=50, p=6,
+                     nt=60):
+    """ELL blocks of which the even ones keep their columns in a band of
+    256 (a narrow window) and the odd ones spread them over ``v`` (a wide
+    one), with duplicate columns, padding ``(0, 0)`` and occupancy 0, 1,
+    ``lmax`` and between; sparse queries (a fifth of their values 0.0, a
+    few -0.0) and tiles of ``tile_m`` rows masked anywhere, a few tiles
+    all masked."""
+    from rptree_tpu_torch.ops.sparse import EllBlocks
+
+    gen = torch.Generator().manual_seed(seed)
+    band = torch.randint(0, v - 256, (g, 1, 1), generator=gen)
+    cols = torch.where(torch.arange(g)[:, None, None] % 2 == 0,
+                       band + torch.randint(0, 256, (g, lmax, kz),
+                                            generator=gen),
+                       torch.randint(0, v, (g, lmax, kz), generator=gen))
+    cols = cols.to(torch.int32)
+    cols[..., 1::3] = cols[..., ::3][..., :cols[..., 1::3].shape[-1]]
+    vals = torch.randn(g, lmax, kz, generator=gen)
+    lens = torch.randint(0, lmax + 1, (g,), generator=gen, dtype=torch.int32)
+    lens[:6] = torch.tensor([0, 1, lmax, 0, 1, lmax], dtype=torch.int32)
+    pad = ((torch.rand(g, lmax, kz, generator=gen) < 0.25)
+           | (torch.arange(lmax)[None, :, None] >= lens[:, None, None]))
+    cols[pad], vals[pad] = 0, 0.0
+    sq = (vals * vals).sum(-1)
+    q = torch.randn(b, v, generator=gen)
+    q[torch.rand(b, v, generator=gen) < 0.8] = 0.0
+    q[torch.rand(b, v, generator=gen) < 0.01] = -0.0
+    tb = torch.randint(0, g, (nt,), generator=gen, dtype=torch.int32)
+    tp = torch.randint(0, b * p, (nt, tile_m), generator=gen,
+                       dtype=torch.int32)
+    tp[torch.rand(nt, tile_m, generator=gen) < 0.2] = -1
+    tp[:3] = -1
+    dv = [t.to(dev) for t in (cols, vals, sq, tb, tp, lens[tb.long()], q)]
+    return (EllBlocks(v, dv[0], dv[1]), dv[2], dv[3], dv[4], dv[5], dv[6],
+            (dv[6] * dv[6]).sum(-1))
+
+
+@pytest.mark.parametrize("v", [20_000, 140_000])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("metric", ["l2", "sql2", "cosine", "dot"])
+@pytest.mark.parametrize("kz", [1, 32, 64])
+@pytest.mark.parametrize("tile_m", [1, 3, 8, 16, 32])
+def test_ell_score_tiles_routes(dev, tile_m, kz, metric, bf16, v):
+    """Kernel 10 with narrow and wide windows of columns in one launch and
+    sparse queries (-0.0 among their values): within 1e-4 of its plain
+    version, +inf at the same places; each tile on the route of
+    ``ell_tile_routes`` (the counts the kernel keeps equal the rule's):
+    the support route at V 20,000, L2 at V 140,000 (past the support's
+    room in shared memory), the empty tiles; the counting launch the same
+    bits as the served one."""
+    from rptree_tpu_torch.ops import ell_kernel as ek
+
+    blocks, sq, tb, tp, lens, q, qq = _ell_window_case(
+        dev, tile_m, kz, tile_m * 100 + kz, v)
+    if bf16:
+        blocks.vals = blocks.vals.bfloat16()
+    args = (blocks, sq, tb, tp, lens, q, qq, 6, metric)
+    n0 = ek.ell_score_tiles.launches
+    got = ek.ell_score_tiles(*args)
+    counted, routes = ek.ell_score_tiles_routes(*args)
+    want = ek.ell_score_tiles_reference(*args)
+    torch.cuda.synchronize()
+    assert ek.ell_score_tiles.launches == n0 + 1
+    _close(got, want)
+    assert torch.equal(counted.view(torch.int32), got.view(torch.int32))
+    rule = torch.bincount(ek.ell_tile_routes(blocks, tp, lens), minlength=3)
+    assert routes.tolist() == rule.tolist() and routes[2] > 0
+    assert (routes[0] > 0, routes[1] > 0) == (v == 20_000, v != 20_000)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("b,v", [(1, 1), (3, 31), (3, 32), (50, 97),
+                                 (50, 4096), (7, 65_536)])
+def test_ell_support_bits(dev, b, v, aligned):
+    """Kernel 10's first pass, the queries' support, equals its plain
+    version bit for bit: +0.0 clear; nonzeros, -0.0, inf and NaN set; the
+    16-byte route (V a multiple of 32, q aligned) and the word-a-warp
+    route."""
+    from rptree_tpu_torch.ops import ell_kernel as ek
+
+    gen = torch.Generator(device=dev).manual_seed(b * v)
+    q = torch.randn(b, v, device=dev, generator=gen)
+    q[torch.rand(b, v, device=dev, generator=gen) < 0.9] = 0.0
+    q.view(-1)[::7] = -0.0
+    q.view(-1)[::11] = float("nan")
+    q.view(-1)[::13] = float("inf")
+    if not aligned:
+        buf = torch.empty(b * v + 1, device=dev)
+        buf[1:] = q.reshape(-1)
+        q = buf[1:].view(b, v)
+    got = ek._ell_support(q)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ek.ell_support_reference(q))
