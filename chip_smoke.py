@@ -26,7 +26,8 @@ its launch counts):
    version; the descent (kernel 7) and the probe selection (kernel 8) at
    the descents the main path runs (``DESCENTS``: the clustered and iid
    chunks, the bracket's, and unpacked ``knn`` at budget 32), leaves,
-   priorities and probes bit-equal; the tile tables (kernel 9) bit-equal
+   priorities and probes bit-equal, with each wrapper's host time a call
+   (``host_us``); the tile tables (kernel 9) bit-equal
    to their twin, all five outputs, on the pairs of ``TABLES`` (the
    clustered and iid chunks' shapes, a hot block that every query probes,
    all pairs masked, a capacity below the tiles needed, tile_m 1 and 16,
@@ -250,6 +251,24 @@ def graph_ms(fn, reps=20, replays=5):
     torch.cuda.synchronize()
     del graph
     return start.elapsed_time(end) / (reps * replays)
+
+
+def host_us(fn, calls=20, batches=5):
+    """Microseconds of host time a call of ``fn`` takes to return (the
+    card may still be running it): the median over ``batches`` of
+    ``calls`` calls each, every batch after a synchronise."""
+    import torch
+
+    fn()
+    per = []
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per.append((time.perf_counter() - t0) * 1e6 / calls)
+    torch.cuda.synchronize()
+    return float(np.median(per))
 
 
 # -- phase 2: kernels against their plain versions -------------------------
@@ -548,8 +567,10 @@ def check_descent(device, reps):
     bit-equal, probes equal with the
     bucket stop off (as served) and on; both times, device times, bounds,
     and for kernel 8 the one PyTorch call that orders the same entries
-    (a stable ``torch.sort`` over ``[B, T * F]``).  The first shape is the
-    record's; every shape's numbers are under ``by_shape``."""
+    (a stable ``torch.sort`` over ``[B, T * F]``); each wrapper's host time
+    a call (``host_us``: the call returns before the card ends), and each
+    kernel's route.  The first shape is the record's; every shape's
+    numbers are under ``by_shape``."""
     import torch
 
     from rptree_tpu_torch.ops import traverse as tv
@@ -571,6 +592,7 @@ def check_descent(device, reps):
         s7 = {"max_abs_err": 0.0, "route": tv.traverse_route(f)[0],
               "ms": cuda_ms(lambda: tv.traverse_kernel(*args), reps),
               "device_ms": graph_ms(lambda: tv.traverse_kernel(*args)),
+              "host_us": host_us(lambda: tv.traverse_kernel(*args)),
               "plain_ms": cuda_ms(lambda: tv.traverse_tree_reference(*args),
                                   reps),
               "library_ms": None,
@@ -596,9 +618,10 @@ def check_descent(device, reps):
         keys = pri.transpose(0, 1).reshape(b, t * f)
         p = min(probes, t * f)
         rec8["by_shape"][name] = {
-            "max_abs_err": 0.0,
+            "max_abs_err": 0.0, "route": tv.probe_route(t, f)[0],
             "ms": cuda_ms(lambda: tv.select_probes(*pargs), reps),
             "device_ms": graph_ms(lambda: tv.select_probes(*pargs)),
+            "host_us": host_us(lambda: tv.select_probes(*pargs)),
             "plain_ms": cuda_ms(lambda: tv.select_probes_reference(*pargs),
                                 reps),
             "library_ms": cuda_ms(lambda: torch.sort(keys, dim=1,

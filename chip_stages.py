@@ -23,7 +23,13 @@ operands, each also checked for the same bits; kernels 5 and 6 where
 too, at the phase-2 shapes and the 1M scan chunk.  With ``--turns``,
 kernels 10 and 11 of the commit whose ``project.cu`` and ``ell_score.cu``
 sit there (``git show a42fc83:rptree_tpu_torch/csrc/<name>``), at the
-served shapes (``sparse_turns``), each checked for the same bits.
+served shapes (``sparse_turns``), each checked for the same bits; and
+kernels 7 and 8 of the commit whose ``traverse.cu`` and ``common.cuh``
+sit there (``git show 15c5dfb:...``) behind that commit's wrappers, at
+every ``DESCENTS`` shape and on the cells' own chunks
+(``descent_base_turns``): CUDA events, device time, each wrapper's host
+time a call, the same bits; then each wrapper's host time item by item
+beside kernel 11's and the stable sort's (``host_breakdown``).
 
     python3 chip_stages.py            # on the card
     python3 chip_stages.py --cpu      # a tiny rehearsal on the CPU
@@ -31,8 +37,8 @@ served shapes (``sparse_turns``), each checked for the same bits.
                                           # (add --cpu to rehearse it)
     python3 chip_stages.py --sparse       # only the bag-of-words ELL cell
                                           # (add --cpu to rehearse it)
-    python3 chip_stages.py --turns        # only kernels 10 and 11 against
-                                          # an earlier build's (below)
+    python3 chip_stages.py --turns        # only kernels 7, 8, 10 and 11
+                                          # against an earlier build's
 
 Each stage runs as the serving path runs it (``_knn_grouped``), between
 two ``torch.cuda.synchronize`` calls, seven times; the line gives the
@@ -571,20 +577,6 @@ def base_ell(lib, blocks, sq, tb, tp, lens, q, qq, p, metric):
     return out
 
 
-def host_us(fn, calls=20):
-    """Microseconds of host time a call of ``fn`` takes to return (the
-    card may still be running it), over ``calls`` calls after a
-    synchronise."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    us = (time.perf_counter() - t0) * 1e6 / calls
-    torch.cuda.synchronize()
-    return us
-
-
 def project_turns(lib, label, x, r):
     """Kernel 11, the earlier build against this tree's and against
     ``torch.matmul(r, x.T)`` in IEEE fp32, in turns (old, new, matmul,
@@ -610,8 +602,8 @@ def project_turns(lib, label, x, r):
         "vs_matmul": mm / n, "turns_ms": raw, "base_device_ms": do,
         "tree_device_ms": dn, "matmul_device_ms": dmm,
         "device_turns_ms": draw,
-        "host_us": {"base": host_us(fns[0]), "tree": host_us(fns[1]),
-                    "matmul": host_us(fns[2])},
+        "host_us": {"base": cs.host_us(fns[0]), "tree": cs.host_us(fns[1]),
+                    "matmul": cs.host_us(fns[2])},
         "same_bits": same, **b}), flush=True)
     return same
 
@@ -742,6 +734,367 @@ def sparse_turns(lib):
                       qc, (qc * qc).sum(-1), p)
     if not same:
         raise AssertionError("kernel 10 or 11 differs from a42fc83's bits")
+
+
+DESCENT_BASE = ("traverse.cu", "common.cuh")
+
+
+def base_descent_lib(src):
+    """An earlier commit's kernels 7 and 8 (``git show
+    15c5dfb:rptree_tpu_torch/csrc/<name>`` for each of ``DESCENT_BASE``
+    into ``src``: the source includes its own ``common.cuh``) built into
+    one library under other symbol names."""
+    import ctypes
+
+    from rptree_tpu_torch import _cuda
+
+    out = os.path.join(src, "libbase_descent.so")
+    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS,
+                    "-Drpt_traverse=rpt_traverse_base",
+                    "-Drpt_select_probes=rpt_select_probes_base", "-shared",
+                    "-o", out, os.path.join(src, "traverse.cu")],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(out)
+    p, i, l_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+    lib.rpt_traverse_base.argtypes = [p] * 6 + [i] * 4 + [l_] + [i] * 4 + [p]
+    lib.rpt_select_probes_base.argtypes = [p] * 5 + [i] * 5 + [l_, i, p]
+    return lib
+
+
+def _base_check(name, device, **tensors):
+    """The earlier wrappers' operand checks, as they ran them."""
+    for key, (t, dtype) in tensors.items():
+        if t.device != device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name}: {key}")
+
+
+def base_traverse(lib, plan, table, projq, budget):
+    """The earlier kernel 7 behind the earlier wrapper's host work (its
+    checks, ``torch.cuda.device``, ``ctypes`` pointers, the stream object;
+    routes: registers up to F 8, shared memory up to 16,384 entries)."""
+    from rptree_tpu_torch import _cuda
+    from rptree_tpu_torch.ops import traverse as tv
+
+    tv._check_traverse_args(plan, table, projq, budget)
+    _base_check("traverse_kernel", projq.device,
+                projq=(projq, torch.float32), rec=(table.rec, torch.int32),
+                level_off=(table.level_off, torch.int32))
+    t, nl, b = projq.shape
+    f = int(budget)
+    leaf = torch.empty((t, b, f), dtype=torch.int32, device=projq.device)
+    pri = torch.empty((t, b, f), dtype=torch.float32, device=projq.device)
+    m = tv._next_pow2(2 * f)
+    route = 0 if f <= 8 else (1 if m <= tv.SMEM_MAX_ENTRIES else 2)
+    grid, scratch = 0, None
+    if route == 2:
+        grid = min(t * b, tv._GLOBAL_BLOCKS)
+        scratch = torch.empty((grid, m, 2), dtype=torch.int32,
+                              device=projq.device)
+    with torch.cuda.device(projq.device):
+        code = lib.rpt_traverse_base(
+            _cuda.ptr(projq), _cuda.ptr(table.rec), _cuda.ptr(table.level_off),
+            _cuda.ptr(leaf), _cuda.ptr(pri),
+            None if scratch is None else _cuda.ptr(scratch), plan.root_enc, t,
+            b, nl, table.rec.shape[1], f, f if route == 0 else m, route, grid,
+            _cuda.stream_of(projq))
+    assert code == 0, code
+    return leaf, pri
+
+
+def base_select_probes(lib, leaf_ids, prio, n_leaves, probes, lens, k,
+                       bucket_stop):
+    """The earlier kernel 8 behind the earlier wrapper's host work."""
+    from rptree_tpu_torch import _cuda
+    from rptree_tpu_torch.ops import traverse as tv
+
+    tv._check_probe_args(leaf_ids, prio, n_leaves, lens, k, bucket_stop)
+    _base_check("select_probes", leaf_ids.device,
+                leaf_ids=(leaf_ids, torch.int32), prio=(prio, torch.float32),
+                lens=(lens, torch.int32))
+    t, b, f = leaf_ids.shape
+    p = min(int(probes), t * f)
+    gsel = torch.empty((b, p), dtype=torch.int32, device=leaf_ids.device)
+    lsel = torch.empty((b, p), dtype=torch.int32, device=leaf_ids.device)
+    with torch.cuda.device(leaf_ids.device):
+        code = lib.rpt_select_probes_base(
+            _cuda.ptr(leaf_ids), _cuda.ptr(prio), _cuda.ptr(lens),
+            _cuda.ptr(gsel), _cuda.ptr(lsel), t, b, f, p, int(n_leaves),
+            int(k) if bucket_stop else 0, int(bool(bucket_stop)),
+            _cuda.stream_of(leaf_ids))
+    assert code == 0, code
+    return gsel, lsel
+
+
+def kernel_pair_turns(lib, label, plan, table, projq, budget, probes, lens):
+    """Kernels 7 and 8 of the earlier build against this tree's on one
+    descent, in turns (old, new, new, old) by CUDA events and by device
+    time (``graph_ms``), each wrapper's host time a call, whether the two
+    give the same bits (leaves, priorities as int32 bits; ``gsel``,
+    ``lsel`` with the bucket stop off and on, k 10), the routes and the
+    bounds.  Two JSON lines (one without probes); returns whether every
+    output matched."""
+    from rptree_tpu_torch.ops import traverse as tv
+
+    t, nl, b = projq.shape
+    f = budget
+    args = (plan, table, projq, budget)
+    new, old = tv.traverse_kernel(*args), base_traverse(lib, *args)
+    same = same_bits(new[0], old[0]) and same_bits(new[1], old[1])
+    fns = (lambda: base_traverse(lib, *args), lambda: tv.traverse_kernel(*args))
+    o, n, raw = turns(*fns)
+    do, dn, draw = device_turns(*fns)
+    print(json.dumps({
+        "base_vs_tree": "traverse", "descent": label, "T": t, "L": nl,
+        "B": b, "F": f, "route": tv.traverse_route(f)[0], "base_ms": o,
+        "tree_ms": n, "turns_ms": raw, "base_device_ms": do,
+        "tree_device_ms": dn, "device_turns_ms": draw, "speedup": o / n,
+        "device_speedup": do / dn,
+        "host_us": {"base": cs.host_us(fns[0]), "tree": cs.host_us(fns[1])},
+        "same_bits": same,
+        **cs.bound(projq.numel() * 4 + table.rec.numel() * 4 + t * b * f * 8,
+                   8 * t * b * f * nl, "f32")}), flush=True)
+    if probes is None:
+        return same
+    leaf, pri = new
+    p = min(probes, t * f)
+    for stop in (False, True):
+        pargs = (leaf, pri, plan.n_leaves, probes, lens, cs.K, stop)
+        got, was = tv.select_probes(*pargs), base_select_probes(lib, *pargs)
+        same &= all(same_bits(a, c) for a, c in zip(got, was))
+    pargs = (leaf, pri, plan.n_leaves, probes, lens, cs.K, False)
+    keys = pri.transpose(0, 1).reshape(b, t * f)
+    fns = (lambda: base_select_probes(lib, *pargs),
+           lambda: tv.select_probes(*pargs),
+           lambda: torch.sort(keys, dim=1, stable=True))
+    o, n, srt, raw = turns(*fns)
+    do, dn, dsrt, draw = device_turns(*fns)
+    print(json.dumps({
+        "base_vs_tree": "select_probes", "descent": label, "T": t, "B": b,
+        "F": f, "P": p, "route": tv.probe_route(t, f),
+        "base_ms": o, "tree_ms": n, "stable_sort_ms": srt, "turns_ms": raw,
+        "base_device_ms": do, "tree_device_ms": dn,
+        "stable_sort_device_ms": dsrt, "device_turns_ms": draw,
+        "speedup": o / n, "device_speedup": do / dn,
+        "host_us": {"base": cs.host_us(fns[0]), "tree": cs.host_us(fns[1])},
+        "same_bits": same,
+        **cs.bound(t * b * f * 8 + b * p * 8, b * t * f * t, "f32")}),
+        flush=True)
+    return same
+
+
+def host_breakdown(lib):
+    """Each wrapper's host time a call (``cs.host_us``), item by item, at
+    the iid chunk's and the bracket's descents: kernels 8 and 7 of this
+    tree and of the earlier build in ``lib`` (behind that build's
+    wrappers), kernel 11's wrapper at the iid chunk's projections, the
+    stable ``torch.sort`` of kernel 8's keys, and the units (one
+    ``torch.empty``, one view).  Items: ``checks`` (the wrapper's argument
+    checks), ``alloc`` (its outputs), ``launch`` (the C entry point through
+    ``ctypes``, its arguments made as the wrapper makes them, the launch
+    included), ``ctypes`` (the same call with an argument on which the
+    entry point returns before launching: the conversion floor), and
+    ``rest``, the call less checks, alloc and launch; ``alloc_other``
+    times the outputs' other form (one allocation and views of it against
+    two allocations) in turns with ``alloc``.  Each the median of 9
+    batches of 100 calls (the host's clock is noisy at a few
+    microseconds).  One JSON line a shape."""
+    import ctypes
+
+    from rptree_tpu_torch import _cuda
+    from rptree_tpu_torch.ops import build as bd
+    from rptree_tpu_torch.ops import traverse as tv
+
+    dev = torch.device("cuda", 0)
+    new = _cuda.lib()
+    def hu(fn):
+        return cs.host_us(fn, calls=100, batches=9)
+
+    def alloc_turns(rec_, form, other):
+        first = hu(form), hu(other)
+        last = hu(other), hu(form)
+        rec_["alloc"] = (first[0] + last[1]) / 2
+        rec_["alloc_other"] = (first[1] + last[0]) / 2
+
+    for i, (label, n, min_leaf, trees, b, budget, probes) in enumerate(
+            cs.DESCENTS):
+        if label not in ("iid_chunk", "bracket_chunk"):
+            continue
+        plan, table, projq = cs.descent_inputs(n, min_leaf, trees, b, dev,
+                                               seed=11 + i)
+        rec, off = table.rec, table.level_off
+        t, nl, _ = projq.shape
+        f = budget
+        leaf, pri = tv.traverse_kernel(plan, table, projq, f)
+        lens = torch.as_tensor(np.tile(plan.leaf_len, trees), device=dev)
+        nlv = plan.n_leaves
+        p = min(probes, t * f)
+        gsel, lsel = leaf.new_empty((b, p)), leaf.new_empty((b, p))
+        route, width = tv.probe_route(t, f)
+        m = tv.traverse_route(f)[1]
+
+        def probes_launch(pp=p, check=True):
+            with _cuda.on(dev):
+                code = new.rpt_select_probes(tv._PROBES_ARGS.pack(
+                    leaf.data_ptr(), pri.data_ptr(), lens.data_ptr(),
+                    gsel.data_ptr(), lsel.data_ptr(), t, b, f, pp, nlv, 0, 0,
+                    tv._PROBE_ROUTES[route], width, _cuda.raw_stream(dev)))
+            if check:
+                _cuda.check(code, "select_probes")
+
+        def traverse_launch(ff=f, check=True):
+            with _cuda.on(dev):
+                code = new.rpt_traverse(tv._TRAVERSE_ARGS.pack(
+                    projq.data_ptr(), rec.data_ptr(), off.data_ptr(),
+                    leaf.data_ptr(), pri.data_ptr(), 0, plan.root_enc, t, b,
+                    nl, rec.shape[1], ff, m, 0, 0, _cuda.raw_stream(dev)))
+            if check:
+                _cuda.check(code, "traverse_kernel")
+
+        def base_traverse_launch(ff=f):
+            with torch.cuda.device(dev):
+                return lib.rpt_traverse_base(
+                    _cuda.ptr(projq), _cuda.ptr(rec), _cuda.ptr(off),
+                    _cuda.ptr(leaf), _cuda.ptr(pri), None, plan.root_enc, t,
+                    b, nl, rec.shape[1], ff, ff, 0, 0, _cuda.stream_of(projq))
+
+        def base_probes_launch():
+            with torch.cuda.device(dev):
+                return lib.rpt_select_probes_base(
+                    _cuda.ptr(leaf), _cuda.ptr(pri), _cuda.ptr(lens),
+                    _cuda.ptr(gsel), _cuda.ptr(lsel), t, b, f, p, nlv, 0, 0,
+                    _cuda.stream_of(leaf))
+
+        pargs = (leaf, pri, nlv, probes, lens, cs.K, False)
+        targs = (plan, table, projq, f)
+        k8 = {"call": hu(lambda: tv.select_probes(*pargs)),
+              "checks": hu(lambda: (
+                  tv._check_probe_args(leaf, pri, nlv, lens, cs.K, False),
+                  tv._check_cuda("select_probes", dev,
+                                 ("leaf_ids", leaf, torch.int32),
+                                 ("prio", pri, torch.float32),
+                                 ("lens", lens, torch.int32)))),
+              "launch": hu(probes_launch),
+              "ctypes": hu(lambda: probes_launch(0, False))}
+        k7 = {"call": hu(lambda: tv.traverse_kernel(*targs)),
+              "checks": hu(lambda: (
+                  tv._check_traverse_args(*targs),
+                  tv._check_cuda("traverse_kernel", dev,
+                                 ("projq", projq, torch.float32),
+                                 ("rec", rec, torch.int32),
+                                 ("level_off", off, torch.int32)))),
+              "launch": hu(traverse_launch),
+              "ctypes": hu(lambda: traverse_launch(0, False))}
+        alloc_turns(k8, lambda: (leaf.new_empty((b, p)),
+                                 leaf.new_empty((b, p))),
+                    lambda: leaf.new_empty((2, b, p)).unbind(0))
+
+        def one_alloc7():
+            out = projq.new_empty((2, t, b, f), dtype=torch.int32)
+            return out[0], out[1].view(torch.float32)
+
+        alloc_turns(k7, lambda: (projq.new_empty((t, b, f),
+                                                 dtype=torch.int32),
+                                 projq.new_empty((t, b, f))), one_alloc7)
+        for rec_ in (k8, k7):
+            rec_["rest"] = (rec_["call"] - rec_["checks"] - rec_["alloc"]
+                            - rec_["launch"])
+        keys = pri.transpose(0, 1).reshape(b, t * f)
+        line = {
+            "host_breakdown_us": label, "T": t, "B": b, "F": f, "P": p,
+            "select_probes": k8, "traverse_kernel": k7,
+            "base": {
+                "select_probes": {
+                    "call": hu(lambda: base_select_probes(lib, *pargs)),
+                    "launch": hu(base_probes_launch)},
+                "traverse_kernel": {
+                    "call": hu(lambda: base_traverse(lib, *targs)),
+                    "launch": hu(base_traverse_launch),
+                    "ctypes": hu(lambda: base_traverse_launch(0))}},
+            "stable_sort": hu(lambda: torch.sort(keys, dim=1, stable=True)),
+            "units": {"empty": hu(lambda: leaf.new_empty((b, p))),
+                      "view": hu(lambda: gsel[0])}}
+        if label == "iid_chunk":
+            # kernel 11's wrapper at this chunk's projections (T * L rows
+            # of r, 32,768 queries of D 128), the same items
+            x = torch.randn(b, 128, device=dev)
+            r = torch.randn(t * nl, 128, device=dev)
+            out = torch.empty((t * nl, b), device=dev)
+            tile, lt = bd.project_plan(b, t * nl, 128, bd._sm_count(dev))
+
+            def project_launch(nn=b, check=True):
+                with _cuda.on(dev):
+                    code = new.rpt_project(
+                        x.data_ptr(), 128, r.data_ptr(), out.data_ptr(), None,
+                        nn, t * nl, 128, tile, lt, _cuda.raw_stream(dev))
+                if check:
+                    _cuda.check(code, "project_rows")
+
+            k11 = {"call": hu(lambda: bd.project_rows(x, r)),
+                   "alloc": hu(lambda: torch.empty((t * nl, b),
+                                                   dtype=torch.float32,
+                                                   device=dev)),
+                   "launch": hu(project_launch),
+                   "ctypes": hu(lambda: project_launch(0, False))}
+            k11["rest"] = k11["call"] - k11["alloc"] - k11["launch"]
+            line["project_rows"] = k11
+        print(json.dumps(line), flush=True)
+        del table, projq
+
+
+def descent_base_turns(lib, on_card=True):
+    """Kernels 7 and 8 of ``15c5dfb`` (or whichever earlier build sits in
+    ``_checkout/base``) against this tree's: at every ``DESCENTS`` shape
+    of ``chip_smoke.py``, then on the cells' own first chunks (the
+    clustered 1M chunk of 65,536 and its per-pair chunk of 2,048, the iid
+    100k chunk of 32,768, the bracket's 32 queries on 32 trees), each with
+    the traversal + probe stage as the path runs it (``descent_turns``)."""
+    import rptree_tpu_torch as rp
+    from rptree_tpu_torch.models import forest as fm
+
+    dev = torch.device("cuda", 0) if on_card else torch.device("cpu")
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    same = True
+    for i, (label, n, min_leaf, trees, b, budget, probes) in enumerate(
+            cs.DESCENTS):
+        plan, table, projq = cs.descent_inputs(n, min_leaf, trees, b, dev,
+                                               seed=11 + i)
+        lens = torch.as_tensor(np.tile(plan.leaf_len, trees), device=dev)
+        same &= kernel_pair_turns(lib, label, plan, table, projq, budget,
+                                  probes, lens)
+        del table, projq
+    for cell, (x, q), min_leaf, trees, chunks in (
+            ("clustered", cs.clustered_data(1_000_000, 128, 4_000, 0.15,
+                                            65_536), 128, 8,
+             (("clustered_chunk", 65_536, 1, 8),
+              ("per_pair_chunk", 2048, 1, 8))),
+            ("iid", cs.iid_data(100_000, 128, 32_768), 64, 8,
+             (("iid_chunk", 32_768, 2, 10),)),
+            ("bracket", cs.iid_data(100_000, 128, 32), 4096, 32,
+             (("bracket_chunk", 32, 2, 32),))):
+        cfg = rp.rp_tree_cfg(min_leaf, *x.shape)
+        f = rp.forest_batch(cs.SEED, cfg.max_depth, min_leaf, trees,
+                            cfg.proj_nz_density, torch.as_tensor(x, device=dev),
+                            device=dev)
+        qd = torch.as_tensor(q, device=dev)
+        del x, q
+        for label, chunk, budget, probes in chunks:
+            qc = qd[:chunk]
+            nl = f.plan.n_levels
+            projq = fm.project_queries(qc, f.arrays.r, nl)
+            same &= kernel_pair_turns(lib, label, f.plan, f._table(), projq,
+                                      budget, probes, f._leaf_lens())
+            # kernel 11's wrapper on the same chunk, the host-time yardstick
+            print(json.dumps({"host_us_yardstick": label,
+                              "project_queries_us": cs.host_us(
+                                  lambda: fm.project_queries(qc, f.arrays.r,
+                                                             nl))}),
+                  flush=True)
+            descent_turns(label, f, fm, qc, budget, probes, sync, on_card)
+        del f, qd
+        torch.cuda.empty_cache()
+    if not same:
+        raise AssertionError("kernel 7 or 8 differs from the earlier build's "
+                             "bits")
 
 
 def descent_turns(label, f, fm, qc, budget, probes, sync, on_card, calls=4):
@@ -1187,13 +1540,21 @@ def main():
         torch.backends.cuda.matmul.allow_tf32 = False
     if "--sparse" in sys.argv[1:]:  # phase 9's cell alone
         return sparse_stages(rp, fm, og, tk, dev, sync, on_card)
-    if "--turns" in sys.argv[1:]:  # kernels 10 and 11 against a42fc83's
+    if "--turns" in sys.argv[1:]:  # kernels 7, 8, 10, 11 against a base's
         src = "_checkout/base"
-        if not on_card or not all(os.path.exists(os.path.join(src, n))
-                                  for n in SPARSE_BASE):
+        has = [all(os.path.exists(os.path.join(src, n)) for n in names)
+               for names in (DESCENT_BASE, SPARSE_BASE)]
+        if not on_card or not any(has):
             raise SystemExit(f"chip_stages --turns: needs the card and "
-                             f"{SPARSE_BASE} of an earlier commit in {src}")
-        return sparse_turns(base_sparse_lib(src))
+                             f"{DESCENT_BASE} or {SPARSE_BASE} of an earlier "
+                             f"commit in {src}")
+        if has[0]:
+            lib = base_descent_lib(src)
+            descent_base_turns(lib)
+            host_breakdown(lib)
+        if has[1]:
+            sparse_turns(base_sparse_lib(src))
+        return None
     if "--shared-10m" in sys.argv[1:]:  # phase 8b's cell alone
         from rptree_tpu_torch.ops import fused_gather as fg
         return shared_10m_stages(rp, fm, fg, og, rr, tk, dev, sync, on_card)

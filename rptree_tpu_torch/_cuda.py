@@ -10,7 +10,9 @@ served by a stale build.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on a nonzero code.  Pointers and the stream are
-passed as ``ctypes.c_void_p``.  Nothing here runs when the module is
+passed as ``ctypes.c_void_p`` or plain ints; the descent's and the probe
+selection's entry points take their arguments packed as int64 in one
+buffer (``ops/traverse.py``).  Nothing here runs when the module is
 imported.
 """
 
@@ -60,11 +62,10 @@ _SIGNATURES = {
     "rpt_scan_plan": [_L, _I, _I, _I, ctypes.POINTER(_I)],
     # xb, sq, qb, pd, pi, od, oi, np, dp, b, k, dot, splits, tps, stream
     "rpt_scan_topk": [_P] * 7 + [_L] + [_I] * 6 + [_P],
-    # projq, rec, off, leaf, pri, scratch, root, t, b, l, n, f, m, route,
-    # grid, stream
-    "rpt_traverse": [_P] * 6 + [_I] * 4 + [_L] + [_I] * 4 + [_P],
-    # leaf, pri, lens, gsel, lsel, t, b, f, p, nl, k, bucket_stop, stream
-    "rpt_select_probes": [_P] * 5 + [_I] * 5 + [_L, _I, _P],
+    # the arguments packed as int64 (ops/traverse.py _TRAVERSE_ARGS,
+    # _PROBES_ARGS)
+    "rpt_traverse": [ctypes.c_char_p],
+    "rpt_select_probes": [ctypes.c_char_p],
     # gsel, lsel, lens, tb, tp, slot, lens_t, needed, scratch, scratch_len,
     # n, g, nt, tile_m, stream
     "rpt_tile_tables": [_P] * 9 + [_L, _L, _I, _L, _I, _P],

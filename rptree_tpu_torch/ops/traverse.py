@@ -36,9 +36,10 @@ the JAX package's bitonic network over the same table.
 Probe selection (kernel 8, :func:`select_probes`) keeps each query's
 ``probes`` lowest-priority leaves over all trees: a stable sort by
 priority over ``[B, T * F]`` in (tree, slot) order, then the reference
-``knnH`` bucket stop.  Each tree's list is already in ascending
-priority, so the kernel merges the T lists; its plain twin,
-:func:`select_probes_reference`, sorts.
+``knnH`` bucket stop.  The kernel places each entry at its rank, the
+count of entries before it in (key, tree, slot) order
+(:func:`select_probes_by_rank` is that rule in plain torch); its plain
+twin, :func:`select_probes_reference`, sorts.
 
 Encoding: an entry ``>= 0`` is a split-segment index at the current level,
 ``< 0`` (but not ``INVALID_ENC``) is the leaf ``-(enc + 1)``, and
@@ -51,6 +52,8 @@ kernel for CUDA tensors, or raise there; ``traverse_kernel.launches`` and
 
 from __future__ import annotations
 
+import functools
+import struct
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -62,7 +65,8 @@ from .build import project_rows
 
 __all__ = ["traverse_tree", "traverse_tree_reference", "traverse_kernel",
            "traverse_route", "node_table", "NodeTable", "project_queries",
-           "select_probes", "select_probes_reference",
+           "select_probes", "select_probes_reference", "select_probes_by_rank",
+           "probe_route", "probe_keys",
            "bitonic_sort_kv", "INVALID_ENC", "VALID_PRIO_CAP"]
 
 INVALID_ENC = -(2 ** 31)
@@ -72,11 +76,18 @@ VALID_PRIO_CAP = 3.0e38
 # frontier in registers up to this budget: the JAX package's
 # _FK_MAX_BUDGET, which covers budgets 1 and 2 of the served cells
 _REG_MAX_BUDGET = 8
+# the next_pow2(2F) entries of a (tree, query) in a warp's registers (two
+# a lane) up to this many
+WARP_MAX_ENTRIES = 64
 # the shared-memory route holds next_pow2(2F) entries of 8 bytes per
 # (tree, query); past this many, the frontier lives in global scratch
 SMEM_MAX_ENTRIES = 16384
 # thread blocks of the global-scratch route (each with its own scratch)
 _GLOBAL_BLOCKS = 264
+# kernel 8: a group of next_pow2(T * F) lanes a query up to this many
+# entries, one warp (ceil(T * F / 32) entries a lane) up to PROBE_WARP_MAX
+PROBE_LANES_MAX = 32
+PROBE_WARP_MAX = 1024
 
 
 def project_queries(q: torch.Tensor, r: torch.Tensor,
@@ -254,32 +265,52 @@ def traverse_tree_reference(plan: TreePlan, table: NodeTable,
     return leaf_ids, fpri
 
 
+@functools.lru_cache(maxsize=None)
 def traverse_route(budget: int) -> Tuple[str, int]:
     """Kernel 7's route for frontier width ``budget`` and the entries it
     sorts per level: ``("registers", F)`` for ``F <= 8`` (one thread per
-    (tree, query)); ``("shared", M)`` with ``M = next_pow2(2F)`` while
-    ``M <= SMEM_MAX_ENTRIES`` (a warp or more per (tree, query), the
-    frontier in shared memory); else ``("global", M)``, the frontier in
-    global scratch."""
+    (tree, query)); with ``M = next_pow2(2F)``, ``("warp", M)`` while ``M
+    <= WARP_MAX_ENTRIES`` (one warp per (tree, query), a lane a frontier
+    slot, the entries in registers, sorted by shuffles); ``("shared", M)``
+    while ``M <= SMEM_MAX_ENTRIES`` (a group of M / 2 threads, the entries
+    in shared memory); else ``("global", M)``, the entries in global
+    scratch."""
     f = int(budget)
     if f <= _REG_MAX_BUDGET:
         return "registers", f
     m = _next_pow2(2 * f)
+    if m <= WARP_MAX_ENTRIES:
+        return "warp", m
     return ("shared" if m <= SMEM_MAX_ENTRIES else "global"), m
 
 
-_ROUTES = {"registers": 0, "shared": 1, "global": 2}
+_ROUTES = {"registers": 0, "shared": 1, "global": 2, "warp": 3}
 
 
-def _check_cuda(name, device, **tensors):
-    for key, (t, dtype) in tensors.items():
+def _check_cuda(name, device, *tensors):
+    """Raise unless each ``(key, tensor, dtype)`` is a contiguous tensor of
+    that dtype on ``device``: one test an operand, which a wrapper of a
+    short kernel pays on every call, and the reason only on failure."""
+    for key, t, dtype in tensors:
+        if t.device == device and t.dtype == dtype and t.is_contiguous():
+            continue
         if t.device != device:
             raise ValueError(f"{name}: {key} is on {t.device}, expected "
                              f"{device}")
         if t.dtype != dtype:
             raise TypeError(f"{name}: {key} must be {dtype}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {key} must be contiguous")
+        raise ValueError(f"{name}: {key} must be contiguous")
+
+
+# The C entry points' arguments, an int64 each in their order
+# (csrc/traverse.cu rpt_traverse, rpt_select_probes): one packed argument
+# costs the host a fraction of what ctypes takes to convert fifteen.
+# projq, rec, off, leaf, pri, scratch, root, t, b, l, n, f, m, route, grid,
+# stream
+_TRAVERSE_ARGS = struct.Struct("16q")
+# leaf, pri, lens, gsel, lsel, t, b, f, p, nl, k, bucket_stop, route,
+# width, stream
+_PROBES_ARGS = struct.Struct("15q")
 
 
 def traverse_kernel(plan: TreePlan, table: NodeTable, projq: torch.Tensor,
@@ -296,35 +327,31 @@ def traverse_kernel(plan: TreePlan, table: NodeTable, projq: torch.Tensor,
     ``prio f32[T, B, F])``, each (tree, query) in ascending ``(priority,
     encoding)`` order: the reference's ``candidatesH`` margin priority.
     """
-    if projq.device.type == "cpu":
+    dev = projq.device
+    if dev.type == "cpu":
         return traverse_tree_reference(plan, table, projq, budget)
     _check_traverse_args(plan, table, projq, budget)
-    name = "traverse_kernel"
-    _check_cuda(name, projq.device, projq=(projq, torch.float32),
-                rec=(table.rec, torch.int32),
-                level_off=(table.level_off, torch.int32))
+    rec, off = table.rec, table.level_off
+    _check_cuda("traverse_kernel", dev, ("projq", projq, torch.float32),
+                ("rec", rec, torch.int32), ("level_off", off, torch.int32))
     t, nl, b = projq.shape
     f = int(budget)
-    leaf = torch.empty((t, b, f), dtype=torch.int32, device=projq.device)
-    pri = torch.empty((t, b, f), dtype=torch.float32, device=projq.device)
+    leaf = projq.new_empty((t, b, f), dtype=torch.int32)
+    pri = projq.new_empty((t, b, f))
     if t * b == 0:
         return leaf, pri
     route, m = traverse_route(f)
-    grid = 0
-    scratch = None
+    grid, scratch = 0, None
     if route == "global":
         grid = min(t * b, _GLOBAL_BLOCKS)
-        scratch = torch.empty((grid, m, 2), dtype=torch.int32,
-                              device=projq.device)
-    lib = _cuda.lib()
-    with torch.cuda.device(projq.device):
-        code = lib.rpt_traverse(
-            _cuda.ptr(projq), _cuda.ptr(table.rec), _cuda.ptr(table.level_off),
-            _cuda.ptr(leaf), _cuda.ptr(pri),
-            None if scratch is None else _cuda.ptr(scratch),
-            plan.root_enc, t, b, nl, table.rec.shape[1], f, m, _ROUTES[route],
-            grid, _cuda.stream_of(projq))
-    _cuda.check(code, name)
+        scratch = torch.empty((grid, m, 2), dtype=torch.int32, device=dev)
+    with _cuda.on(dev):
+        code = _cuda.lib().rpt_traverse(_TRAVERSE_ARGS.pack(
+            projq.data_ptr(), rec.data_ptr(), off.data_ptr(), leaf.data_ptr(),
+            pri.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
+            plan.root_enc, t, b, nl, rec.shape[1], f, m, _ROUTES[route], grid,
+            _cuda.raw_stream(dev)))
+    _cuda.check(code, "traverse_kernel")
     traverse_kernel.launches += 1
     return leaf, pri
 
@@ -397,13 +424,83 @@ def select_probes_reference(leaf_ids, prio, n_leaves: int, probes: int,
     return gsel.to(torch.int32), lsel.to(torch.int32)
 
 
+def probe_keys(leaf_ids, prio) -> torch.Tensor:
+    """Kernel 8's sort keys ``int64[B, T * F]`` in (tree, slot) order: the
+    priority (+inf where a slot holds no leaf) as orderable bits, unsigned
+    order being float order, -0 as +0 and every NaN last (after +inf, as
+    ``torch.sort`` puts it)."""
+    t, b, f = leaf_ids.shape
+    p = torch.where(leaf_ids >= 0, prio, float("inf"))
+    p = p.transpose(0, 1).reshape(b, t * f)
+    bits = (p + 0.0).view(torch.int32).to(torch.int64)
+    key = (bits & 0xFFFFFFFF) ^ torch.where(bits < 0, 0xFFFFFFFF, 0x80000000)
+    return torch.where(torch.isnan(p), 0xFFFFFFFF, key)
+
+
+@torch.no_grad()
+def select_probes_by_rank(leaf_ids, prio, n_leaves: int, probes: int, lens,
+                          k: Optional[int] = None, bucket_stop: bool = False):
+    """Kernel 8's rule in plain torch, the same function as
+    :func:`select_probes_reference`: each entry goes to its rank, the
+    count of entries before it in (key, tree, slot) order (:func:`probe_keys`;
+    the stable sort's place), if that is below ``P``; entries of infinite
+    priority are masked; then the bucket stop's running 64-bit size over
+    the ranks.  An ``[B, T * F, T * F]`` comparison: for tests."""
+    _check_probe_args(leaf_ids, prio, n_leaves, lens, k, bucket_stop)
+    t, b, f = leaf_ids.shape
+    n, nl, dev = t * f, int(n_leaves), leaf_ids.device
+    p = min(int(probes), n)
+    key = probe_keys(leaf_ids, prio)
+    idx = torch.arange(n, device=dev)
+    before = (key[:, None, :] < key[:, :, None]) | (
+        (key[:, None, :] == key[:, :, None]) & (idx[None, :] < idx[:, None]))
+    rank = before.sum(-1)  # [B, n]: entry i's place
+    lf = leaf_ids.transpose(0, 1).reshape(b, n).long()
+    inf = torch.isinf(torch.where(leaf_ids >= 0, prio, float("inf"))
+                      ).transpose(0, 1).reshape(b, n)
+    lf = torch.where(inf, -1, lf)
+    gid = torch.where(lf >= 0, (idx // f)[None, :] * nl + lf, 0)
+    gsel = torch.zeros((b, n), dtype=torch.int64, device=dev)
+    lsel = torch.zeros((b, n), dtype=torch.int64, device=dev)
+    gsel.scatter_(1, rank, gid)
+    lsel.scatter_(1, rank, lf)
+    gsel, lsel = gsel[:, :p], lsel[:, :p]
+    if bucket_stop:
+        sizes = torch.where(lsel >= 0, lens.long()[gsel], 0)
+        keep = (torch.cumsum(sizes, -1) <= k) | (
+            torch.arange(p, device=dev) == 0)
+        lsel = torch.where(keep, lsel, -1)
+        gsel = torch.where(keep, gsel, 0)
+    return gsel.to(torch.int32), lsel.to(torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def probe_route(n_trees: int, budget: int) -> Tuple[str, int]:
+    """Kernel 8's lanes for ``n = n_trees * budget`` entries a query:
+    ``("lanes", G)``, a group of ``G = next_pow2(n)`` lanes a query (32 / G
+    queries a warp), while ``n <= PROBE_LANES_MAX``; ``("warp", E)``, one
+    warp a query with ``E = next_pow2(ceil(n / 32))`` entries a lane, while
+    ``n <= PROBE_WARP_MAX``; else ``("merge", 0)``, a merge of the trees'
+    ascending lists (a lane an entry, binary searches in global memory)."""
+    n = int(n_trees) * int(budget)
+    if n <= PROBE_LANES_MAX:
+        return "lanes", _next_pow2(n)
+    if n <= PROBE_WARP_MAX:
+        return "warp", _next_pow2(-(-n // 32))
+    return "merge", 0
+
+
+_PROBE_ROUTES = {"lanes": 0, "warp": 1, "merge": 2}
+
+
 def select_probes(leaf_ids, prio, n_leaves: int, probes: int, lens,
                   k: Optional[int] = None, bucket_stop: bool = False):
     """Each query's ``probes`` lowest-priority leaves over all trees.
 
     Args:
       leaf_ids / prio: ``[T, B, F]``, each (tree, query) in ascending
-        priority, as :func:`traverse_kernel` returns them.
+        priority, as :func:`traverse_kernel` returns them (the merge route,
+        past ``PROBE_WARP_MAX`` entries a query, relies on it).
       n_leaves: leaves per tree.
       lens: ``int32[T * n_leaves]`` occupancy of each global block (the
         plan's leaf lengths tiled over trees, or the packed blocks').
@@ -413,27 +510,26 @@ def select_probes(leaf_ids, prio, n_leaves: int, probes: int, lens,
     Returns ``(gsel int32[B, P], lsel int32[B, P])``, ``P = min(probes, T
     * F)``: global block index (tree * n_leaves + leaf; masked entries
     point at block 0) and leaf id (-1 where masked)."""
-    if leaf_ids.device.type == "cpu":
+    dev = leaf_ids.device
+    if dev.type == "cpu":
         return select_probes_reference(leaf_ids, prio, n_leaves, probes,
                                        lens, k, bucket_stop)
     _check_probe_args(leaf_ids, prio, n_leaves, lens, k, bucket_stop)
-    name = "select_probes"
-    _check_cuda(name, leaf_ids.device, leaf_ids=(leaf_ids, torch.int32),
-                prio=(prio, torch.float32), lens=(lens, torch.int32))
+    _check_cuda("select_probes", dev, ("leaf_ids", leaf_ids, torch.int32),
+                ("prio", prio, torch.float32), ("lens", lens, torch.int32))
     t, b, f = leaf_ids.shape
     p = min(int(probes), t * f)
-    gsel = torch.empty((b, p), dtype=torch.int32, device=leaf_ids.device)
-    lsel = torch.empty((b, p), dtype=torch.int32, device=leaf_ids.device)
+    gsel, lsel = leaf_ids.new_empty((b, p)), leaf_ids.new_empty((b, p))
     if b * p == 0:
         return gsel, lsel
-    lib = _cuda.lib()
-    with torch.cuda.device(leaf_ids.device):
-        code = lib.rpt_select_probes(
-            _cuda.ptr(leaf_ids), _cuda.ptr(prio), _cuda.ptr(lens),
-            _cuda.ptr(gsel), _cuda.ptr(lsel), t, b, f, p, int(n_leaves),
+    route, width = probe_route(t, f)
+    with _cuda.on(dev):
+        code = _cuda.lib().rpt_select_probes(_PROBES_ARGS.pack(
+            leaf_ids.data_ptr(), prio.data_ptr(), lens.data_ptr(),
+            gsel.data_ptr(), lsel.data_ptr(), t, b, f, p, int(n_leaves),
             int(k) if bucket_stop else 0, int(bool(bucket_stop)),
-            _cuda.stream_of(leaf_ids))
-    _cuda.check(code, name)
+            _PROBE_ROUTES[route], width, _cuda.raw_stream(dev)))
+    _cuda.check(code, "select_probes")
     select_probes.launches += 1
     return gsel, lsel
 

@@ -654,6 +654,151 @@ def test_every_path_traverses_on_the_card(dev, monkeypatch):
                          f._lens_global())
 
 
+def _random_plan(levels, width, seed):
+    """A plan-shaped DAG of ``levels`` levels (level l has min(2^l,
+    ``width``) split segments; a child is a segment of the next level or,
+    one time in five and at the last level always, a leaf of 64), for
+    descents at any depth without building a forest."""
+    import types
+
+    from rptree_tpu_torch.models.plan import _encode_leaf
+
+    rng = np.random.default_rng(seed)
+    segs = [min(2 ** l, width) for l in range(levels)]
+    lvls = []
+    for l, ns in enumerate(segs):
+        nxt = segs[l + 1] if l + 1 < levels else 0
+        enc = rng.integers(0, max(nxt, 1), size=(ns, 2))
+        leafy = (rng.random((ns, 2)) < 0.2) | (nxt == 0)
+        enc = np.where(leafy, _encode_leaf(rng.integers(0, 64, size=(ns, 2))),
+                       enc).astype(np.int32)
+        lvls.append(types.SimpleNamespace(n_segs=ns, child_enc=enc))
+    return types.SimpleNamespace(levels=lvls, n_levels=levels, n_leaves=64,
+                                 root_enc=0 if levels else _encode_leaf(0))
+
+
+def _dyadic_table(dev, plan, trees, b, seed):
+    """Dyadic thresholds, margins and projections (ties at every level; a
+    query in 16 all zeros) for :func:`_random_plan`."""
+    from rptree_tpu_torch.ops import traverse as tv
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    nl = plan.n_levels
+    smax = max([lp.n_segs for lp in plan.levels], default=1)
+
+    def dyadic(*shape):
+        return torch.round(16 * torch.randn(*shape, generator=gen,
+                                            device=dev)) / 16
+
+    thr = dyadic(trees, max(nl, 1), smax)[:, :nl]
+    mgl = thr - dyadic(*thr.shape).abs()
+    mgh = thr + dyadic(*thr.shape).abs()
+    projq = dyadic(trees, nl, b)
+    projq[..., ::16] = 0.0
+    return tv.node_table(plan, thr, mgl, mgh), projq.contiguous()
+
+
+@pytest.mark.parametrize("levels", [0, 1, 13, 20])
+@pytest.mark.parametrize("budget", [1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 32, 33])
+def test_traverse_routes_at_depth(dev, levels, budget):
+    """Kernel 7 bit-equal to its plain twin on every route (registers; one
+    warp at M 32 and 64; shared memory past it) at L 0, 1, 13 and 20, on
+    70 queries of 3 trees (no multiple of a block's items)."""
+    from rptree_tpu_torch.ops import traverse as tv
+
+    plan = _random_plan(levels, 48, seed=levels)
+    table, projq = _dyadic_table(dev, plan, 3, 70, seed=budget)
+    leaf, _ = _same_descent(plan, table, projq, budget)
+    assert bool((leaf[..., 0] >= 0).all())
+    assert tv.traverse_route(budget)[0] == (
+        "registers" if budget <= 8 else "warp" if budget <= 32 else "shared")
+
+
+def _probe_case(dev, t, f, b, nl, seed, sort):
+    """Adversarial kernel-8 inputs on the card: ties across and within
+    trees, -0.0 and +0.0, NaN, +inf, empty slots (leaf -1); with ``sort``
+    each (tree, query) list ascending, as kernel 7 returns it."""
+    rng = np.random.default_rng(seed)
+    pool = np.array([0.0, -0.0, 0.25, 0.25, 1.0, 3.0e38, np.inf, np.nan,
+                     0.5], np.float32)
+    prio = rng.choice(pool, size=(t, b, f))
+    leaf = rng.integers(-1, nl, size=(t, b, f)).astype(np.int32)
+    if sort:
+        order = np.argsort(np.where(leaf >= 0, prio, np.inf), axis=-1,
+                           kind="stable")
+        prio = np.take_along_axis(prio, order, -1)
+        leaf = np.take_along_axis(leaf, order, -1)
+    lens = rng.integers(0, 4, size=t * nl).astype(np.int32)
+    return (torch.as_tensor(leaf, device=dev),
+            torch.as_tensor(prio, device=dev),
+            torch.as_tensor(lens, device=dev))
+
+
+@pytest.mark.parametrize("t,f", [(1, 1), (8, 1), (8, 2), (31, 1), (16, 2),
+                                 (11, 3), (32, 2), (13, 5), (32, 32)])
+@pytest.mark.parametrize("sort", [False, True])
+def test_select_probes_routes(dev, t, f, sort):
+    """Kernel 8 bit-equal to its plain twin and to its rank rule on every
+    lanes and warp route (T * F = 1, 8, 16, 31, 32, 33, 64, 65, 1,024), on
+    37 queries (no multiple of the queries a block takes), for P from 1
+    past T * F, with the bucket stop off and on (k 6: it fires early; k
+    40: past entry 32 where there are that many)."""
+    from rptree_tpu_torch.ops import traverse as tv
+
+    nl = 7
+    leaf, prio, lens = _probe_case(dev, t, f, 37, nl, t * 64 + f, sort)
+    n = t * f
+    for probes in sorted({1, max(1, n // 2), n, n + 3}):
+        for k, stop in ((None, False), (6, True), (40, True)):
+            args = (leaf, prio, nl, probes, lens, k, stop)
+            got = tv.select_probes(*args)
+            want = tv.select_probes_reference(*args)
+            rank = tv.select_probes_by_rank(*args)
+            torch.cuda.synchronize()
+            for g, w, r in zip(got, want, rank):
+                assert torch.equal(g, w) and torch.equal(g, r), (probes, k)
+
+
+def test_select_probes_merge_route(dev):
+    """Past 1,024 entries a query the merge of ascending lists: bit-equal
+    on sorted adversarial lists, bucket stop off and on."""
+    from rptree_tpu_torch.ops import traverse as tv
+
+    t, f, nl = 3, 400, 9
+    assert tv.probe_route(t, f)[0] == "merge"
+    leaf, prio, lens = _probe_case(dev, t, f, 21, nl, 5, sort=True)
+    for k, stop in ((None, False), (50, True)):
+        args = (leaf, prio, nl, 700, lens, k, stop)
+        got, want = tv.select_probes(*args), tv.select_probes_reference(*args)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_descent_wrappers_refuse_mixed_devices_and_count(dev):
+    """Both wrappers raise on a CPU operand beside CUDA ones (no plain
+    fallback on the card) and count each launch once."""
+    from rptree_tpu_torch.ops import traverse as tv
+
+    plan = _random_plan(6, 16, seed=1)
+    table, projq = _dyadic_table(dev, plan, 2, 40, seed=2)
+    n7 = tv.traverse_kernel.launches
+    leaf, pri = tv.traverse_kernel(plan, table, projq, 2)
+    tv.traverse_kernel(plan, table, projq, 20)
+    assert tv.traverse_kernel.launches - n7 == 2
+    with pytest.raises(ValueError):
+        tv.traverse_kernel(plan, table._replace(
+            level_off=table.level_off.cpu()), projq, 2)
+    lens = torch.ones(2 * plan.n_leaves, dtype=torch.int32, device=dev)
+    n8 = tv.select_probes.launches
+    tv.select_probes(leaf, pri, plan.n_leaves, 3, lens, 2, True)
+    assert tv.select_probes.launches - n8 == 1
+    with pytest.raises(ValueError):
+        tv.select_probes(leaf, pri.cpu(), plan.n_leaves, 3, lens)
+    with pytest.raises(ValueError):
+        tv.select_probes(leaf, pri, plan.n_leaves, 3, lens.cpu())
+    assert tv.traverse_kernel.launches - n7 == 2
+    assert tv.select_probes.launches - n8 == 1
+
+
 @pytest.mark.parametrize("switch", ["allow_tf32", "precision"])
 def test_projections_ignore_tf32(dev, switch):
     """The build and query projections run in IEEE fp32 whatever the
