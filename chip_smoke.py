@@ -692,6 +692,7 @@ def tables_record(name, gsel, lsel, lens, tile_m, nt, reps):
             raise AssertionError(f"tile_tables {name}: {key} differs from "
                                  "the plain version")
     e, g = gsel.numel(), lens.shape[0]
+    plan = og.tile_tables_plan(e, g)
     keys = torch.where(lsel >= 0, gsel.long(), og._BIG).reshape(e)
     return {"max_abs_err": 0.0, "bit_equal": True,
             "ms": cuda_ms(lambda: og.tile_tables(*args), reps),
@@ -702,7 +703,9 @@ def tables_record(name, gsel, lsel, lens, tile_m, nt, reps):
             **bound(8 * e + 4 * g + 4 * nt * (tile_m + 2) + 4 + 8 * e, e,
                     "int8"),
             "shape": {"pairs": e, "G": g, "tile_m": tile_m, "nt": nt,
-                      "needed": int(want[2])}}
+                      "needed": int(want[2])},
+            # the grids one call launches: the upsweep, the scan, a pass each
+            "grids": 2 + plan.passes, "digit_bits": list(plan.bits)}
 
 
 def check_tables(device, reps):
@@ -829,20 +832,61 @@ def gather_shared_bound(xs, sel, b, p):
     """:func:`bound` of kernel 6's shared-row mode on these pairs: each
     distinct row that a filled slot of a selected block names, read once
     (empty slots read no row), the selected blocks' ids and slot norms,
-    the queries and block rows, and the two outputs."""
+    the queries and block rows, and the two outputs.  Also what it reads:
+    the named filled slots, the distinct rows, the rows each route reads
+    (the query route each query's distinct rows, the block route each
+    item's block's filled slots) and the bytes each moves."""
     import torch
 
-    _, lmax, d = xs.shape
-    blocks = torch.unique(sel)
-    ids = xs.ids[blocks.long()]
+    from rptree_tpu_torch.ops import fused_gather as fg
+
+    g, lmax, d = xs.shape
+    sel_c = sel.long().clamp(0, g - 1)
+    blocks = torch.unique(sel_c)
+    ids = xs.ids[blocks]
     rows = int(torch.unique(ids[ids >= 0]).numel())
-    nbytes = (rows * d * xs.rows.element_size()
-              + blocks.numel() * lmax * (4 + 4)
+    elem = xs.rows.element_size()
+    nbytes = (rows * d * elem + blocks.numel() * lmax * (4 + 4)
               + b * d * 4 + sel.numel() * 4 + 2 * b * p * lmax * 4)
     rec = bound(nbytes, 2 * b * p * lmax * d,
                 "bf16" if xs.dtype == torch.bfloat16 else "f32")
-    rec["distinct_rows"] = rows
+    named = xs.ids[sel_c].reshape(b, -1)
+    n = xs.rows.shape[0]
+    named = torch.where(named >= 0, named.clamp_max(n - 1), -1)
+    srt = torch.sort(named, dim=1).values
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    per_query = int((first & (srt >= 0)).sum())
+    filled = (xs.ids >= 0).sum(1)
+    pairs = torch.bincount(sel_c.reshape(-1), minlength=g)
+    items = (pairs + fg.MAX_PAIRS - 1) // fg.MAX_PAIRS
+    per_item = int((items * filled).sum())
+    slots = b * p * lmax
+    rec.update({
+        "distinct_rows": rows, "named_filled_slots": int((named >= 0).sum()),
+        "query_route_rows": per_query, "block_route_rows": per_item,
+        "shared_route": fg.shared_route(p, lmax, d, elem)[0],
+        "moved_bytes": {
+            "query": per_query * d * elem + slots * 16 + b * d * 4
+            + sel.numel() * 4,
+            "block": per_item * d * elem + int(items.sum()) * lmax * 8
+            + slots * 8 + 2 * slots * 4 + sel.numel() * 4 * 3}})
     return rec
+
+
+def shared_routes_same(xs, sq, q, sel, dots, sqx):
+    """Whether kernel 6's shared-row mode gives ``(dots, sqx)`` bit for bit
+    by both its routes (the query route and the block route's items)."""
+    import torch
+
+    from rptree_tpu_torch.ops import fused_gather as fg
+
+    ok = True
+    for route in ("query", "block"):
+        d, s = fg._gather_score(xs, sq, q, sel, route=route)
+        ok &= torch.equal(d.view(torch.int32), dots.view(torch.int32))
+        ok &= torch.equal(s, sqx)
+    return bool(ok)
 
 
 def check_gather_shared(device, reps, n=1_000_000, g=65_536, lmax=128,
@@ -868,12 +912,17 @@ def check_gather_shared(device, reps, n=1_000_000, g=65_536, lmax=128,
                          xs.rows[xs.ids.long().clamp_min(0)], 0.0)
     blocked = fg.gather_score(blocks, sq, q, sel)[0]
     same = torch.equal(got.view(torch.int32), blocked.view(torch.int32))
-    if not same:
+    routes = shared_routes_same(xs, sq, q, sel, got, gsq)
+    if not same or not routes:
         raise AssertionError("gather_score_shared: dots differ from the "
-                             "blocked route's over the same rows")
+                             "blocked route's over the same rows, or the "
+                             "shared mode's routes from each other")
     rec = {"max_abs_err": abs_err, "max_rel_err": rel_err,
-           "blocked_same_bits": same,
+           "blocked_same_bits": same, "routes_same_bits": routes,
            "ms": cuda_ms(lambda: fg.gather_score(xs, sq, q, sel), reps),
+           "device_ms": graph_ms(lambda: fg.gather_score(xs, sq, q, sel)),
+           "block_route_ms": cuda_ms(
+               lambda: fg._gather_score(xs, sq, q, sel, route="block"), reps),
            "blocked_ms": cuda_ms(lambda: fg.gather_score(blocks, sq, q, sel),
                                  reps),
            "plain_ms": cuda_ms(
@@ -914,6 +963,15 @@ def check_gather_chunk(f, qc, serve):
                reps=2)}
     if isinstance(x_leaf, SharedRows):
         rec.update(gather_shared_bound(x_leaf, sel, b, p))
+        rec["routes_same_bits"] = shared_routes_same(x_leaf, sq_leaf, qc, sel,
+                                                     gd, gs)
+        if not rec["routes_same_bits"]:
+            raise AssertionError("gather_score_shared on the chunk: the "
+                                 "routes differ")
+        rec["block_route_ms"] = cuda_ms(lambda: fg._gather_score(
+            x_leaf, sq_leaf, qc, sel, route="block"))
+        rec["device_ms"] = graph_ms(
+            lambda: fg.gather_score(x_leaf, sq_leaf, qc, sel))
     del gd, gs, wd, ws
     return rec
 
@@ -2792,7 +2850,10 @@ def main():
              "device_ms", "by_shape", "blocked_ms", "blocked_same_bits",
              "ms_pairs", "device_ms_pairs", "bound_ms_pairs", "ms_bf16",
              "bound_ms_bf16", "route_share", "route_share_pairs",
-             "ms_banded", "route_share_banded", "ms_l2", "route_share_l2")
+             "ms_banded", "route_share_banded", "ms_l2", "route_share_l2",
+             "grids", "digit_bits", "block_route_ms", "routes_same_bits",
+             "distinct_rows", "named_filled_slots", "moved_bytes",
+             "shared_route")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **{key: kern[r][key] for key in keys},

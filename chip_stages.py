@@ -29,7 +29,18 @@ sit there (``git show 15c5dfb:...``) behind that commit's wrappers, at
 every ``DESCENTS`` shape and on the cells' own chunks
 (``descent_base_turns``): CUDA events, device time, each wrapper's host
 time a call, the same bits; then each wrapper's host time item by item
-beside kernel 11's and the stable sort's (``host_breakdown``).
+beside kernel 11's and the stable sort's (``host_breakdown``); and
+kernels 9 and 6 of the commit whose ``tile_tables.cu``, ``gather_score.cu``
+and ``common.cuh`` sit there (``git show d31cc2c:...``) behind that
+commit's wrappers: kernel 9 at every ``TABLES`` shape and on the cells'
+chunks' own pairs (the clustered, iid and 10M grouped chunks), kernel 6's
+shared-row mode by both this tree's routes at phase 2's shape and on (n)'s
+and the 10M cell's per-pair chunks (``shared_base_turns``), with kernel
+9's host time item by item (``tables_host_breakdown``).  ``--turns
+--tune`` instead gives the design readings: kernel 9's device time by
+kernel, and kernel 6's query route at other ring plans beside an
+``index_select`` of the same rows (``tune``; ``--tables-only`` stops after
+kernel 9).
 
     python3 chip_stages.py            # on the card
     python3 chip_stages.py --cpu      # a tiny rehearsal on the CPU
@@ -37,8 +48,8 @@ beside kernel 11's and the stable sort's (``host_breakdown``).
                                           # (add --cpu to rehearse it)
     python3 chip_stages.py --sparse       # only the bag-of-words ELL cell
                                           # (add --cpu to rehearse it)
-    python3 chip_stages.py --turns        # only kernels 7, 8, 10 and 11
-                                          # against an earlier build's
+    python3 chip_stages.py --turns        # only kernels 6-11 against an
+                                          # earlier build's
 
 Each stage runs as the serving path runs it (``_knn_grouped``), between
 two ``torch.cuda.synchronize`` calls, seven times; the line gives the
@@ -1187,6 +1198,518 @@ def tables_turns(label, f, fm, og, qc, budget, probes, cap, sync, on_card,
     print(json.dumps(rec), flush=True)
 
 
+TABLES_BASE = ("tile_tables.cu", "gather_score.cu", "common.cuh")
+
+
+def base_tables_lib(src):
+    """An earlier commit's kernels 9 and 6 (``git show
+    d31cc2c:rptree_tpu_torch/csrc/<name>`` for each of ``TABLES_BASE``
+    into ``src``; ``gather_score.cu`` includes this tree's
+    ``grouped_tile.cuh``) built into one library under other symbol
+    names."""
+    import ctypes
+
+    from rptree_tpu_torch import _cuda
+
+    out = os.path.join(src, "libbase_tables.so")
+    names = ("rpt_tile_tables", "rpt_pair_runs", "rpt_gather_score_f32",
+             "rpt_gather_score_bf16", "rpt_gather_score_shared_f32",
+             "rpt_gather_score_shared_bf16")
+    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS,
+                    *[f"-D{n}={n}_base" for n in names], "-I", src, "-I",
+                    str(_cuda._CSRC), "-shared", "-o", out,
+                    os.path.join(src, "tile_tables.cu"),
+                    os.path.join(src, "gather_score.cu")],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(out)
+    p, i, l_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+    lib.rpt_tile_tables_base.argtypes = [p] * 9 + [l_, l_, i, l_, i, p]
+    lib.rpt_pair_runs_base.argtypes = [p, l_, i, p, p, p, l_, p]
+    for name in ("rpt_gather_score_shared_f32_base",
+                 "rpt_gather_score_shared_bf16_base"):
+        getattr(lib, name).argtypes = [p, p, l_] + [p] * 5 + [i] * 5 + [p]
+    return lib
+
+
+def base_tile_tables(lib, gsel, lsel, lens, tile_m, nt):
+    """The earlier kernel 9 behind the earlier wrapper's host work (its
+    checks, five outputs and a scratch allocated apart, 15 ``ctypes``
+    arguments, ``torch.cuda.device``, the stream object)."""
+    from rptree_tpu_torch import _cuda
+    from rptree_tpu_torch.ops import grouped as og
+
+    og._check_tables(gsel, lsel, lens, tile_m, nt)
+    _base_check("tile_tables", gsel.device, gsel=(gsel, torch.int32),
+                lsel=(lsel, torch.int32), lens=(lens, torch.int32))
+    dev = gsel.device
+    e, g = gsel.numel(), lens.shape[0]
+    tb = torch.empty(nt, dtype=torch.int32, device=dev)
+    tp = torch.empty((nt, tile_m), dtype=torch.int32, device=dev)
+    needed = torch.empty((), dtype=torch.int32, device=dev)
+    slot = torch.empty(e, dtype=torch.int64, device=dev)
+    lens_t = torch.empty(nt, dtype=torch.int32, device=dev)
+    chunks = max(1, -(-e // 2048))
+    segs = -(-g // 1024)
+    scratch = torch.empty(3 * g + 257 * (chunks + 1) + 4 * e + 2 * segs + 1,
+                          dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        code = lib.rpt_tile_tables_base(
+            *map(_cuda.ptr, (gsel, lsel, lens, tb, tp, slot, lens_t, needed,
+                             scratch)),
+            scratch.numel(), e, g, nt, tile_m, _cuda.stream_of(gsel))
+    assert code == 0, code
+    return tb, tp, needed, slot, lens_t
+
+
+def tables_pair_turns(lib, label, gsel, lsel, lens, tile_m, nt):
+    """Kernel 9 of the earlier build against this tree's on one chunk's
+    pairs: all five outputs of both and of the twin compared
+    (``same_bits``), in turns by CUDA events and by device time, each
+    wrapper's host time a call, the grids each launches; and this tree's
+    kernel at the other digit plan (8 bits beside 11, or 11 beside 8)
+    where it has another number of passes (device time in turns).
+    One JSON line; returns whether every output matched."""
+    from rptree_tpu_torch.ops import grouped as og
+
+    args = (gsel, lsel, lens, tile_m, nt)
+    new, old = og.tile_tables(*args), base_tile_tables(lib, *args)
+    want = og.tile_tables_reference(*args)
+    same = all(same_bits(a, b) for a, b in zip(new, old)) and all(
+        same_bits(a, b) for a, b in zip(new, want))
+    fns = (lambda: base_tile_tables(lib, *args), lambda: og.tile_tables(*args))
+    o, n, raw = turns(*fns)
+    do, dn, draw = device_turns(*fns)
+    e, g = gsel.numel(), lens.shape[0]
+    bits = og.table_digit_bits(e)
+    other = 11 if bits == 8 else 8  # the other digit plan
+    plan, plan_o = og.tile_tables_plan(e, g), og.tile_tables_plan(e, g, other)
+    rec = {
+        "base_vs_tree": "tile_tables", "shape": label, "pairs": e, "G": g,
+        "tile_m": tile_m, "nt": nt, "needed": int(want[2]),
+        "base_ms": o, "tree_ms": n, "turns_ms": raw, "base_device_ms": do,
+        "tree_device_ms": dn, "device_turns_ms": draw, "speedup": o / n,
+        "device_speedup": do / dn,
+        "host_us": {"base": cs.host_us(fns[0]), "tree": cs.host_us(fns[1])},
+        "grids": {"base": 9 if g <= 65_536 else 11, "tree": 2 + plan.passes},
+        "digit_bits": {str(bits): list(plan.bits),
+                       str(other): list(plan_o.bits)},
+        "same_bits": same,
+        **cs.bound(8 * e + 4 * g + 4 * nt * (tile_m + 2) + 4 + 8 * e, e,
+                   "int8")}
+    if plan_o.passes != plan.passes:
+        got_o = og._tables_on_card(*args, max_bits=other)
+        rec["same_bits"] = same = same and all(
+            same_bits(a, b) for a, b in zip(got_o, want))
+        _, d_o, draw_o = device_turns(
+            fns[1], lambda: og._tables_on_card(*args, max_bits=other))
+        rec.update({f"tree_device_ms_{other}_bits": d_o,
+                    "bits_turns_ms": draw_o})
+    print(json.dumps(rec), flush=True)
+    return same
+
+
+def base_gather_shared(lib, xs, sq, q, sel):
+    """The earlier kernel 6's shared-row mode behind the earlier wrapper:
+    the card's pair runs (``rpt_pair_runs``, which also rounds a bf16
+    store's queries), then the blocked route's items over the id tables."""
+    from rptree_tpu_torch import _cuda
+
+    g, lmax, d = xs.shape
+    b, p = sel.shape
+    bf16 = xs.dtype == torch.bfloat16
+    dots = torch.empty((b, p, lmax), device=q.device)
+    sqx = torch.empty((b, p, lmax), device=q.device)
+    flat = sel.reshape(-1)
+    n = flat.numel()
+    runs = torch.empty(3 * g + 4 * n + 1, dtype=torch.int32, device=q.device)
+    qr = torch.empty_like(q) if bf16 else None
+    with torch.cuda.device(q.device):
+        code = lib.rpt_pair_runs_base(
+            _cuda.ptr(flat), n, g, _cuda.ptr(runs),
+            _cuda.ptr(q) if bf16 else None, _cuda.ptr(qr) if bf16 else None,
+            q.numel() if bf16 else 0, _cuda.stream_of(q))
+        assert code == 0, code
+        fn = (lib.rpt_gather_score_shared_bf16_base if bf16
+              else lib.rpt_gather_score_shared_f32_base)
+        code = fn(_cuda.ptr(xs.rows), _cuda.ptr(xs.ids), xs.rows.shape[0],
+                  _cuda.ptr(sq), _cuda.ptr(q if qr is None else qr),
+                  _cuda.ptr(runs), _cuda.ptr(dots), _cuda.ptr(sqx), b, p, g,
+                  lmax, d, _cuda.stream_of(q))
+    assert code == 0, code
+    return dots, sqx
+
+
+def gather_pair_turns(lib, label, xs, sq, q, sel):
+    """Kernel 6's shared-row mode of the earlier build against this
+    tree's query route and its block route on one chunk's pairs: dots and
+    norms of all three compared bit for bit (``same_bits``) and against
+    the plain twin within 1e-4; in turns by CUDA events and device time;
+    the earlier build's pair runs alone; what each route reads and the
+    bytes the query route moves.  One JSON line; returns whether every
+    output matched."""
+    from rptree_tpu_torch.ops import fused_gather as fg
+
+    g, lmax, d = xs.shape
+    b, p = sel.shape
+    args = (xs, sq, q, sel)
+    got = fg._gather_score(*args, route="query")
+    blk = fg._gather_score(*args, route="block")
+    old = base_gather_shared(lib, *args)
+    same = all(same_bits(a, c) for a, c in zip(got, old)) and all(
+        same_bits(a, c) for a, c in zip(got, blk))
+    want_d, want_s = fg.gather_score_reference(*args)
+    abs_err, rel_err = cs._rel_err(got[0], want_d)
+    same &= rel_err <= cs.DIST_RTOL and torch.equal(got[1], want_s)
+    del want_d, want_s
+    fns = (lambda: base_gather_shared(lib, *args),
+           lambda: fg._gather_score(*args, route="query"),
+           lambda: fg._gather_score(*args, route="block"))
+    o, nq, nb, raw = turns(*fns)
+    do, dq, db, draw = device_turns(*fns)
+    flat = sel.reshape(-1)
+    runs = torch.empty(3 * g + 4 * flat.numel() + 1, dtype=torch.int32,
+                       device=q.device)
+
+    def pair_runs():
+        from rptree_tpu_torch import _cuda
+
+        lib.rpt_pair_runs_base(_cuda.ptr(flat), flat.numel(), g,
+                               _cuda.ptr(runs), None, None, 0,
+                               _cuda.stream_of(q))
+
+    elem = xs.rows.element_size()
+    print(json.dumps({
+        "base_vs_tree": "gather_score_shared", "shape": label, "B": b, "P": p,
+        "G": g, "lmax": lmax, "D": d, "rows": xs.rows.shape[0],
+        "dtype": str(xs.dtype), "route": fg.shared_route(p, lmax, d, elem),
+        "base_ms": o, "tree_query_ms": nq, "tree_block_ms": nb,
+        "turns_ms": raw, "base_device_ms": do, "tree_query_device_ms": dq,
+        "tree_block_device_ms": db, "device_turns_ms": draw,
+        "device_speedup": do / dq, "base_pair_runs_device_ms":
+            cs.graph_ms(pair_runs),
+        "max_abs_err": abs_err, "max_rel_err": rel_err, "same_bits": same,
+        **(bound := cs.gather_shared_bound(xs, sel, b, p)),
+        "query_route_tb_per_s": bound["moved_bytes"]["query"] / (dq * 1e-3)
+        / 1e12}), flush=True)
+    return same
+
+
+def shared_base_turns(lib):
+    """Kernels 9 and 6 of ``d31cc2c`` (or whichever earlier build sits in
+    ``_checkout/base``) against this tree's: kernel 9 at every ``TABLES``
+    shape, on the clustered 1M and iid 100k chunks' own pairs and on the
+    10M grouped chunk's (G 524,288, tile_m 16); kernel 6's shared-row mode
+    at phase 2's shape (f32 and bf16), on (n)'s per-pair chunk of 2,048
+    (the clustered 1M forest, shared rows) and on the 10M chunk of 8,192
+    (``examples/scale_10m.py``'s cell)."""
+    import rptree_tpu_torch as rp
+    from rptree_tpu_torch.models import forest as fm
+    from rptree_tpu_torch.ops import grouped as og
+    from rptree_tpu_torch.ops.shared import SharedRows
+
+    dev = torch.device("cuda", 0)
+    same = True
+    for i, (name, g, trees, b, p, tile_m, hot, masked, share) in enumerate(
+            cs.TABLES):
+        gsel, lsel, lens = cs.table_pairs(g, trees, b, p, hot, masked, dev,
+                                          seed=21 + i)
+        need = int(og.tile_tables_reference(gsel, lsel, lens, tile_m, 1)[2])
+        nt = max(1, need + need // 8 if share is None else int(need * share))
+        same &= tables_pair_turns(lib, name, gsel, lsel, lens, tile_m, nt)
+    xs, sq, q, sel = cs.shared_inputs(1_000_000, 65_536, 128, 128, 2048, 8,
+                                      dev, seed=17)
+    same &= gather_pair_turns(lib, "phase2_f32", xs, sq, q, sel)
+    xs = SharedRows(xs.rows.bfloat16(), xs.ids)
+    same &= gather_pair_turns(lib, "phase2_bf16", xs, sq, q, sel)
+    del xs, sq, q, sel
+
+    def chunk_tables(label, f, qc, budget, probes, tile_m):
+        lens = f._lens_global()
+        gsel, lsel = fm._probe_pairs(f, qc, budget, probes, K)
+        need = int(og.tile_tables_reference(gsel, lsel, lens, tile_m, 1)[2])
+        return tables_pair_turns(lib, label, gsel, lsel, lens, tile_m,
+                                 need + need // 8)
+
+    x, q = cs.clustered_data(1_000_000, 128, 4_000, 0.15, 65_536)
+    cfg = rp.rp_tree_cfg(128, *x.shape)
+    f = rp.forest_batch(cs.SEED, cfg.max_depth, 128, 8, cfg.proj_nz_density,
+                        torch.as_tensor(x, device=dev), device=dev)
+    qd = torch.as_tensor(q, device=dev)
+    del x, q
+    f.pack_leaves()
+    same &= chunk_tables("clustered_chunk_own_pairs", f, qd, 1, 8, TILE_M)
+    f.pack_leaves(store="shared")
+    rows, sq_leaf, _ = f._packed
+    sel, _ = fm._probe_pairs(f, qd[:2048], 1, 8, K)
+    same &= gather_pair_turns(lib, "n_chunk", rows, sq_leaf, qd[:2048], sel)
+    del f, qd, rows, sq_leaf
+    torch.cuda.empty_cache()
+    x, q = cs.iid_data(100_000, 128, 32_768)
+    cfg = rp.rp_tree_cfg(64, *x.shape)
+    f = rp.forest_batch(cs.SEED, cfg.max_depth, 64, 8, cfg.proj_nz_density,
+                        torch.as_tensor(x, device=dev), device=dev)
+    f.pack_leaves(dtype=torch.int8, slack=8)
+    same &= chunk_tables("iid_chunk_own_pairs", f,
+                         torch.as_tensor(q, device=dev), IID_BUDGET,
+                         IID_PROBES, TILE_M)
+    del f, x, q
+    torch.cuda.empty_cache()
+    x, q = cs.clustered_on_card(10_000_000, 128, 40_000, 0.15, 65_536, dev)
+    q = q[:8192]
+    cfg = rp.rp_tree_cfg_clustered(10_000_000, 128, centers=40_000)
+    f = rp.forest_batch(cs.SEED, cfg.max_depth, cfg.min_leaf, 8,
+                        cfg.proj_nz_density, x, device=dev)
+    f.pack_leaves(store="shared")
+    same &= chunk_tables("shared_10m_grouped_chunk", f, q, 1, 8, 16)
+    rows, sq_leaf, _ = f._packed
+    sel, _ = fm._probe_pairs(f, q, 1, 8, K)
+    same &= gather_pair_turns(lib, "shared_10m_chunk", rows, sq_leaf, q, sel)
+    del f, x, q, rows, sq_leaf, sel
+    torch.cuda.empty_cache()
+    if not same:
+        raise AssertionError("kernel 9 or kernel 6's shared-row mode differs "
+                             "from the earlier build's bits or its twin")
+
+
+def kernel_device_us(fn, calls=10):
+    """Device microseconds a call of ``fn`` spends in each kernel, by name
+    (``torch.profiler``, ``calls`` calls after a warm-up)."""
+    def self_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:70]: [self_us(e) / calls, e.count / calls]
+            for e in prof.key_averages() if self_us(e) > 0}
+
+
+def query_route_sweep(label, xs, sq, q, sel, plans):
+    """Kernel 6's query route on one chunk's pairs at other ring plans
+    (stages, rows a stage): device ms of each (``graph_ms``), bit-equal to
+    the wrapper's plan; an ``index_select`` of the rows the route reads
+    (each query's distinct rows) as the gather's yardstick; the kernel's
+    and the earlier build's device time by kernel."""
+    from rptree_tpu_torch import _cuda
+    from rptree_tpu_torch.ops import fused_gather as fg
+
+    g, lmax, d = xs.shape
+    b, p = sel.shape
+    bf16 = xs.dtype == torch.bfloat16
+    lib = _cuda.lib()
+    fn = (lib.rpt_gather_score_shared_query_bf16 if bf16
+          else lib.rpt_gather_score_shared_query_f32)
+    _, (stages0, rs0, hbits) = fg.shared_route(p, lmax, d,
+                                               xs.rows.element_size())
+    want = fg._gather_score(xs, sq, q, sel, route="query")
+    dots = torch.empty_like(want[0])
+    sqx = torch.empty_like(want[1])
+
+    def run(stages, rs):
+        code = fn(_cuda.ptr(xs.rows), _cuda.ptr(xs.ids), xs.rows.shape[0],
+                  _cuda.ptr(sq), _cuda.ptr(q), _cuda.ptr(sel),
+                  _cuda.ptr(dots), _cuda.ptr(sqx), b, p, g, lmax, d, stages,
+                  rs, hbits, _cuda.stream_of(q))
+        assert code == 0, (stages, rs, code)
+
+    rec = {"query_route_sweep": label, "plan": [stages0, rs0, hbits],
+           "device_ms": {}}
+    for stages, rs in plans:
+        run(stages, rs)
+        torch.cuda.synchronize()
+        if not same_bits(dots, want[0]):
+            raise AssertionError(f"{label}: plan {stages, rs} differs")
+        rec["device_ms"][f"{stages}x{rs}"] = cs.graph_ms(
+            lambda: run(stages, rs))
+    ids = xs.ids[sel.long().clamp(0, g - 1)].reshape(b, -1)
+    ids = torch.where(ids >= 0, ids.clamp_max(xs.rows.shape[0] - 1), -1)
+    srt = torch.sort(ids, dim=1).values
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    union = srt[first & (srt >= 0)].long()
+    rec["union_rows"] = union.numel()
+    rec["index_select_device_ms"] = cs.graph_ms(
+        lambda: xs.rows.index_select(0, union))
+    shuffled = union[torch.randperm(union.numel(), device=union.device)]
+    rec["index_select_shuffled_device_ms"] = cs.graph_ms(
+        lambda: xs.rows.index_select(0, shuffled))
+    rec["index_select_tb_per_s"] = (union.numel() * d * xs.rows.element_size()
+                                    / rec["index_select_device_ms"] / 1e9)
+    rec["kernels_us"] = kernel_device_us(
+        lambda: fg._gather_score(xs, sq, q, sel, route="query"))
+    print(json.dumps(rec), flush=True)
+
+
+def tune(lib):
+    """Design readings for kernels 9 and 6 (``--tune``): kernel 9's device
+    time by kernel, this tree's (its digit plan, and digits of at most 8
+    and 11 bits) and the
+    earlier build's, at the clustered chunk's, the iid chunk's and the hot
+    block's ``TABLES`` shapes, at G 524,288 (the 10M grouped chunk's G) and
+    at the sub-block chunks' pairs (32 and 64 a query);
+    kernel
+    6's query route at other ring plans at phase 2's shape and on the 10M
+    chunk, beside an ``index_select`` of the same rows."""
+    import rptree_tpu_torch as rp
+    from rptree_tpu_torch.models import forest as fm
+    from rptree_tpu_torch.ops import grouped as og
+
+    dev = torch.device("cuda", 0)
+    shapes = {name: row for name, *row in cs.TABLES}
+    shapes["g_524288"] = (524_288, 8, 8192, 8, 16, True, 0.0, None)
+    # the pairs of sub-blocks of 4 and 8 on the clustered 1M forest's
+    # chunk ((j) and (m) of phase 8): 32 and 64 a query
+    shapes["g_262144_p32"] = (262_144, 8, 65_536, 32, 8, False, 0.0, None)
+    shapes["g_524288_p64"] = (524_288, 8, 65_536, 64, 8, False, 0.0, None)
+    for name in ("clustered_chunk", "iid_chunk", "hot_block", "g_524288",
+                 "g_262144_p32", "g_524288_p64"):
+        g, trees, b, p, tile_m, hot, masked, share = shapes[name]
+        gsel, lsel, lens = cs.table_pairs(g, trees, b, p, hot, masked, dev,
+                                          seed=21)
+        need = int(og.tile_tables_reference(gsel, lsel, lens, tile_m, 1)[2])
+        nt = need + need // 8
+        args = (gsel, lsel, lens, tile_m, nt)
+        print(json.dumps({
+            "kernel9_by_kernel_us": name, "pairs": gsel.numel(), "G": g,
+            "tree": kernel_device_us(lambda: og.tile_tables(*args)),
+            "tree_8_bits": kernel_device_us(
+                lambda: og._tables_on_card(*args, max_bits=8)),
+            "tree_11_bits": kernel_device_us(
+                lambda: og._tables_on_card(*args, max_bits=11)),
+            "base": kernel_device_us(lambda: base_tile_tables(lib, *args)),
+            "tree_device_ms": cs.graph_ms(lambda: og.tile_tables(*args)),
+            "base_device_ms": cs.graph_ms(
+                lambda: base_tile_tables(lib, *args))}), flush=True)
+    if "--tables-only" in sys.argv[1:]:
+        return
+    plans = [(2, 24), (2, 28), (2, 32), (2, 40), (2, 48), (3, 28)]
+    xs, sq, q, sel = cs.shared_inputs(1_000_000, 65_536, 128, 128, 2048, 8,
+                                      dev, seed=17)
+    query_route_sweep("phase2_f32", xs, sq, q, sel, plans)
+    del xs, sq, q, sel
+    x, q = cs.clustered_data(1_000_000, 128, 4_000, 0.15, 2048)
+    cfg = rp.rp_tree_cfg(128, *x.shape)
+    f = rp.forest_batch(cs.SEED, cfg.max_depth, 128, 8, cfg.proj_nz_density,
+                        torch.as_tensor(x, device=dev), device=dev)
+    f.pack_leaves(store="shared")
+    rows, sq_leaf, _ = f._packed
+    q = torch.as_tensor(q, device=dev)
+    sel, _ = fm._probe_pairs(f, q, 1, 8, K)
+    query_route_sweep("n_chunk", rows, sq_leaf, q, sel.contiguous(), plans)
+    del f, x, q, rows, sq_leaf, sel
+    torch.cuda.empty_cache()
+    x, q = cs.clustered_on_card(10_000_000, 128, 40_000, 0.15, 65_536, dev)
+    q = q[:8192]
+    cfg = rp.rp_tree_cfg_clustered(10_000_000, 128, centers=40_000)
+    f = rp.forest_batch(cs.SEED, cfg.max_depth, cfg.min_leaf, 8,
+                        cfg.proj_nz_density, x, device=dev)
+    f.pack_leaves(store="shared")
+    rows, sq_leaf, _ = f._packed
+    sel, _ = fm._probe_pairs(f, q, 1, 8, K)
+    query_route_sweep("shared_10m_chunk", rows, sq_leaf, q, sel.contiguous(),
+                      plans)
+    print(json.dumps({"base_kernel6_by_kernel_us": "shared_10m_chunk",
+                      "base": kernel_device_us(lambda: base_gather_shared(
+                          lib, rows, sq_leaf, q, sel.contiguous()))}),
+          flush=True)
+
+
+def tables_host_breakdown(lib):
+    """Kernel 9's wrapper's host time a call (``cs.host_us``), item by item,
+    at the iid and clustered chunks' ``TABLES`` shapes, beside the earlier
+    build's wrapper and kernel 11's (``project_rows`` at the iid chunk's
+    projections): ``checks``, ``alloc`` (one allocation cut by one
+    ``split``), in turns with ``alloc_other`` (the scratch and five
+    outputs apart) and ``alloc_slices_three_of_six`` (three of the six
+    sliced from one allocation), ``launch`` (the packed ``ctypes`` call,
+    the launches included), ``ctypes`` (the same call refused before any
+    launch: the conversion floor) and ``rest``.  Each the median of 9
+    batches of 100 calls."""
+    from rptree_tpu_torch import _cuda
+    from rptree_tpu_torch.ops import build as bd
+    from rptree_tpu_torch.ops import grouped as og
+
+    dev = torch.device("cuda", 0)
+    new = _cuda.lib()
+
+    def hu(fn):
+        return cs.host_us(fn, calls=100, batches=9)
+
+    for i, (name, g, trees, b, p, tile_m, hot, masked, share) in enumerate(
+            cs.TABLES):
+        if name not in ("iid_chunk", "clustered_chunk"):
+            continue
+        gsel, lsel, lens = cs.table_pairs(g, trees, b, p, hot, masked, dev,
+                                          seed=21 + i)
+        need = int(og.tile_tables_reference(gsel, lsel, lens, tile_m, 1)[2])
+        nt = need + need // 8
+        e = gsel.numel()
+        length = og.tile_tables_plan(e, g).length
+        bufs = og._tables_buffers(dev, e, nt, tile_m, length)
+
+        def launch(gg=g, check=True):
+            scratch, tb, tp, needed, slot, lens_t = bufs
+            with _cuda.on(dev):
+                code = new.rpt_tile_tables(og._TABLES_ARGS.pack(
+                    gsel.data_ptr(), lsel.data_ptr(), lens.data_ptr(),
+                    tb.data_ptr(), tp.data_ptr(), slot.data_ptr(),
+                    lens_t.data_ptr(), needed.data_ptr(), scratch.data_ptr(),
+                    length, e, gg, nt, tile_m, og.table_digit_bits(e),
+                    _cuda.raw_stream(dev)))
+            if check:
+                _cuda.check(code, "tile_tables")
+
+        def apart():
+            return (torch.empty(length, dtype=torch.int32, device=dev),
+                    torch.empty(nt, dtype=torch.int32, device=dev),
+                    torch.empty((nt, tile_m), dtype=torch.int32, device=dev),
+                    torch.empty((), dtype=torch.int32, device=dev),
+                    torch.empty(e, dtype=torch.int64, device=dev),
+                    torch.empty(nt, dtype=torch.int32, device=dev))
+
+        rec = {"call": hu(lambda: og.tile_tables(gsel, lsel, lens, tile_m,
+                                                 nt)),
+               "checks": hu(lambda: (
+                   og._check_tables(gsel, lsel, lens, tile_m, nt),
+                   og._check_cuda("tile_tables", dev,
+                                  ("gsel", gsel, torch.int32),
+                                  ("lsel", lsel, torch.int32),
+                                  ("lens_of_block", lens, torch.int32)))),
+               "launch": hu(launch),
+               "ctypes": hu(lambda: launch(0, False))}
+        def slices():  # one allocation, a slice and view an output
+            at = length + (length & 1)
+            buf = torch.empty(at + 2 * e + nt * (tile_m + 2) + 1,
+                              dtype=torch.int32, device=dev)
+            return (buf[:length], buf[at + 2 * e:at + 2 * e + nt],
+                    buf[at:at + 2 * e].view(torch.int64))
+
+        forms = (lambda: og._tables_buffers(dev, e, nt, tile_m, length),
+                 apart, slices)
+        first = [hu(fn) for fn in forms]
+        last = [hu(fn) for fn in reversed(forms)][::-1]
+        rec["alloc"] = (first[0] + last[0]) / 2
+        rec["alloc_other"] = (first[1] + last[1]) / 2
+        rec["alloc_slices_three_of_six"] = (first[2] + last[2]) / 2
+        rec["rest"] = rec["call"] - rec["checks"] - rec["alloc"] - rec["launch"]
+        x = torch.randn(32_768, 128, device=dev)
+        r = torch.randn(640, 128, device=dev)
+        print(json.dumps({
+            "host_breakdown_us": "tile_tables", "shape": name, "pairs": e,
+            "G": g, "nt": nt, "tile_tables": rec,
+            "base": {"call": hu(lambda: base_tile_tables(
+                lib, gsel, lsel, lens, tile_m, nt))},
+            "project_rows_iid_chunk": hu(lambda: bd.project_rows(x, r)),
+            "units": {"empty": hu(lambda: torch.empty(
+                nt, dtype=torch.int32, device=dev)),
+                "view": hu(lambda: gsel[0])}}), flush=True)
+
+
 def stages(f, fm, og, gk, tk, rr, qc, cap, sync, budget, probes, base=None):
     """Stage times of one chunk ``qc`` at tile capacity ``cap``, probed
     with ``budget`` and ``probes``.  The scoring stage is named by the
@@ -1540,14 +2063,21 @@ def main():
         torch.backends.cuda.matmul.allow_tf32 = False
     if "--sparse" in sys.argv[1:]:  # phase 9's cell alone
         return sparse_stages(rp, fm, og, tk, dev, sync, on_card)
-    if "--turns" in sys.argv[1:]:  # kernels 7, 8, 10, 11 against a base's
+    if "--turns" in sys.argv[1:]:  # kernels 6-11 against a base's
         src = "_checkout/base"
         has = [all(os.path.exists(os.path.join(src, n)) for n in names)
-               for names in (DESCENT_BASE, SPARSE_BASE)]
+               for names in (DESCENT_BASE, SPARSE_BASE, TABLES_BASE)]
         if not on_card or not any(has):
             raise SystemExit(f"chip_stages --turns: needs the card and "
-                             f"{DESCENT_BASE} or {SPARSE_BASE} of an earlier "
-                             f"commit in {src}")
+                             f"{DESCENT_BASE}, {SPARSE_BASE} or {TABLES_BASE} "
+                             f"of an earlier commit in {src}")
+        if has[2] and "--tune" in sys.argv[1:]:
+            tune(base_tables_lib(src))
+            return None
+        if has[2]:
+            lib = base_tables_lib(src)
+            tables_host_breakdown(lib)
+            shared_base_turns(lib)
         if has[0]:
             lib = base_descent_lib(src)
             descent_base_turns(lib)

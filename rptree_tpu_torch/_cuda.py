@@ -10,10 +10,10 @@ served by a stale build.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on a nonzero code.  Pointers and the stream are
-passed as ``ctypes.c_void_p`` or plain ints; the descent's and the probe
-selection's entry points take their arguments packed as int64 in one
-buffer (``ops/traverse.py``).  Nothing here runs when the module is
-imported.
+passed as ``ctypes.c_void_p`` or plain ints; the descent's, the probe
+selection's and the tile tables' entry points take their arguments
+packed as int64 in one buffer (``ops/traverse.py``, ``ops/grouped.py``).
+Nothing here runs when the module is imported.
 """
 
 from __future__ import annotations
@@ -58,6 +58,12 @@ _SIGNATURES = {
     # rows, ids, n, sq, q, runs, dots, sqx, b, p, g, lmax, d, stream
     "rpt_gather_score_shared_f32": [_P, _P, _L] + [_P] * 5 + [_I] * 5 + [_P],
     "rpt_gather_score_shared_bf16": [_P, _P, _L] + [_P] * 5 + [_I] * 5 + [_P],
+    # rows, ids, n, sq, q, sel, dots, sqx, b, p, g, lmax, d, stages, rs,
+    # hbits, stream
+    "rpt_gather_score_shared_query_f32": [_P, _P, _L] + [_P] * 5 + [_I] * 8
+    + [_P],
+    "rpt_gather_score_shared_query_bf16": [_P, _P, _L] + [_P] * 5 + [_I] * 8
+    + [_P],
     # np, dp, b, k, out[3]
     "rpt_scan_plan": [_L, _I, _I, _I, ctypes.POINTER(_I)],
     # xb, sq, qb, pd, pi, od, oi, np, dp, b, k, dot, splits, tps, stream
@@ -66,9 +72,8 @@ _SIGNATURES = {
     # _PROBES_ARGS)
     "rpt_traverse": [ctypes.c_char_p],
     "rpt_select_probes": [ctypes.c_char_p],
-    # gsel, lsel, lens, tb, tp, slot, lens_t, needed, scratch, scratch_len,
-    # n, g, nt, tile_m, stream
-    "rpt_tile_tables": [_P] * 9 + [_L, _L, _I, _L, _I, _P],
+    # the arguments packed as int64 (ops/grouped.py _TABLES_ARGS)
+    "rpt_tile_tables": [ctypes.c_char_p],
     # cols, vals, sq, tb, tp, lens, q, qq, bits, out, nt, g, tile_m, lmax,
     # k, v, b, p, metric, routes, stream
     "rpt_ell_score_f32": [_P] * 10 + [_I] * 9 + [_P, _P],
@@ -147,6 +152,8 @@ def lib():
             fn = getattr(handle, name)
             fn.argtypes = args
             fn.restype = ctypes.c_int
+        handle.rpt_tile_tables_scratch.argtypes = [_L, _I, _I]
+        handle.rpt_tile_tables_scratch.restype = _L
         handle.rpt_error_string.argtypes = [ctypes.c_int]
         handle.rpt_error_string.restype = ctypes.c_char_p
         _lib = handle

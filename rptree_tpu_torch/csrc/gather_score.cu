@@ -307,6 +307,231 @@ gather_score_kernel(const T* __restrict__ x, const int* __restrict__ ids, long n
   }
 }
 
+// -- the query route of the shared-row mode --------------------------------
+
+constexpr int kQThreads = 128;
+constexpr int kSegChunks = 4;  // 128-byte chunks a staged row segment, at most
+constexpr int kMaxStages = 6;
+
+// One 128-byte column chunk of a staged row against the query's: four FMA
+// chains over the chunk, added as a tree (the blocked route's order).
+template <typename T>
+__device__ __forceinline__ float chunk_dot(const T* xr, const float* qc, int kw) {
+  using S = Shape<T>;
+  float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int e = 0; e < kw; e += S::V) {
+    float v[S::V];
+    load_row(xr + e, v);
+#pragma unroll
+    for (int h = 0; h < S::V / 4; ++h) {
+      const float4 qv = *reinterpret_cast<const float4*>(qc + e + 4 * h);
+      part[0] = fmaf(qv.x, v[4 * h], part[0]);
+      part[1] = fmaf(qv.y, v[4 * h + 1], part[1]);
+      part[2] = fmaf(qv.z, v[4 * h + 2], part[2]);
+      part[3] = fmaf(qv.w, v[4 * h + 3], part[3]);
+    }
+  }
+  return (part[0] + part[1]) + (part[2] + part[3]);
+}
+
+// The same for a row of zeros (an empty slot), the blocked route's bits.
+__device__ __forceinline__ float zero_chunk_dot(const float* qc, int kw) {
+  float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int e = 0; e < kw; e += 4)
+#pragma unroll
+    for (int h = 0; h < 4; ++h) part[h] = fmaf(qc[e + h], 0.0f, part[h]);
+  return (part[0] + part[1]) + (part[2] + part[3]);
+}
+
+__device__ __forceinline__ void cp_async_wait_dyn(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    default: cp_async_wait<5>(); break;
+  }
+}
+
+// The columns a staged row segment covers, and its stride in elements: an
+// odd count of 16 bytes, so that the row reads do not collide in banks.
+template <typename T>
+struct QueryShape {
+  int nchunk, cps, segw, nseg, stride;
+  __host__ __device__ QueryShape(int d) {
+    using S = Shape<T>;
+    nchunk = (d + S::DC - 1) / S::DC;
+    cps = nchunk < kSegChunks ? nchunk : kSegChunks;
+    segw = cps * S::DC;
+    nseg = (nchunk + cps - 1) / cps;
+    stride = segw + S::V;
+  }
+};
+
+template <typename T>
+size_t query_smem(int p, int lmax, int d, int stages, int rs, int hbits) {
+  const QueryShape<T> qs(d);
+  return (size_t)stages * rs * qs.stride * sizeof(T) + sizeof(float) * qs.nchunk * Shape<T>::DC +
+         sizeof(int) * ((size_t)2 * ((size_t)1 << hbits) + 2 * (size_t)p * lmax + p);
+}
+
+// The entry of row id in the query's hash: linear probing from its hash.
+__device__ __forceinline__ int hash_slot(const int* keys, int id, int hbits) {
+  int h = (int)(((unsigned)id * 0x9E3779B1u) >> (32 - hbits));
+  while (keys[h] != id) h = (h + 1) & ((1 << hbits) - 1);
+  return h;
+}
+
+// One thread block a query b: its P blocks' slots (ids and norms read once, as one batch of
+// loads), the distinct rows they name by a hash in shared memory (empty
+// slots name none), each distinct row streamed once, whole (up to 512
+// bytes a segment, 16-byte cp.async copies, a warp on a row) through a
+// ring of `stages` stages of `rs` rows, one thread a row summing its dot
+// with q[b]; then every slot's dot from its row's, zdot for an empty one.
+template <typename T>
+__global__ void __launch_bounds__(kQThreads)
+gather_query_kernel(const T* __restrict__ x, const int* __restrict__ ids, long nrows,
+                    const float* __restrict__ sq, const float* __restrict__ q,
+                    const int* __restrict__ sel, float* __restrict__ dots,
+                    float* __restrict__ sqx, int p, int g, int lmax, int d, int vec, int stages,
+                    int rs, int hbits) {
+  using S = Shape<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int nd;
+  __shared__ float zdot;
+  const QueryShape<T> sh(d);
+  const int nslots = p * lmax, hmask = (1 << hbits) - 1;
+  T* ring = reinterpret_cast<T*>(smem);
+  float* qs = reinterpret_cast<float*>(smem + (size_t)stages * rs * sh.stride * sizeof(T));
+  int* keys = reinterpret_cast<int*>(qs + sh.nchunk * S::DC);
+  float* vals = reinterpret_cast<float*>(keys + hmask + 1);  // a distinct row's dot
+  int* pos = reinterpret_cast<int*>(vals + hmask + 1);       // a slot's id, then entry
+  int* list = pos + nslots;                                  // the distinct rows' ids
+  int* bsel = list + nslots;
+  const int b = blockIdx.x;
+  for (int i = threadIdx.x; i <= hmask; i += kQThreads) keys[i] = -1;
+  if (threadIdx.x == 0) nd = 0;
+  for (int j = threadIdx.x; j < p; j += kQThreads)
+    bsel[j] = min(max(sel[(size_t)b * p + j], 0), g - 1);
+  for (int c = threadIdx.x; c < sh.nchunk * S::DC; c += kQThreads) {
+    float v = c < d ? q[(size_t)b * d + c] : 0.0f;
+    if (sizeof(T) == 2) v = __bfloat162float(__float2bfloat16_rn(v));
+    qs[c] = v;
+  }
+  __syncthreads();
+  const size_t out0 = (size_t)b * nslots;
+  // the slots' ids and norms as one batch of loads, then the hash: a
+  // thread hashes the slots it loaded
+  for (int s = threadIdx.x; s < nslots; s += kQThreads) {
+    const int pp = s / lmax;
+    const size_t off = (size_t)bsel[pp] * lmax + (s - pp * lmax);
+    pos[s] = ids[off];
+    sqx[out0 + s] = sq[off];
+  }
+  for (int s = threadIdx.x; s < nslots; s += kQThreads) {
+    int id = pos[s], h = -1;
+    if (id >= 0) {
+      id = id < nrows ? id : (int)(nrows - 1);
+      h = (int)(((unsigned)id * 0x9E3779B1u) >> (32 - hbits));
+      while (true) {
+        const int old = atomicCAS(keys + h, -1, id);
+        if (old == -1) {
+          list[atomicAdd(&nd, 1)] = id;
+          break;
+        }
+        if (old == id) break;
+        h = (h + 1) & hmask;
+      }
+    }
+    pos[s] = h;
+  }
+  if (threadIdx.x == 0) {
+    float acc = 0.0f;
+    for (int c = 0; c < sh.nchunk; ++c) {
+      const int w = min(S::DC, d - c * S::DC);
+      acc += zero_chunk_dot(qs + c * S::DC, (w + S::V - 1) / S::V * S::V);
+    }
+    zdot = acc;
+  }
+  __syncthreads();
+  const int n = nd;
+  const int nsteps = (n + rs - 1) / rs * sh.nseg;  // (row group, segment)
+  auto ring_at = [&](int step) { return ring + (size_t)(step % stages) * rs * sh.stride; };
+  auto stage = [&](int step) {  // an empty group past the last step
+    if (step < nsteps) {
+      const int gi = step / sh.nseg, si = step - gi * sh.nseg;
+      const int r0 = gi * rs, rows_n = min(rs, n - r0);
+      const int c0 = si * sh.segw, w = min(sh.segw, d - c0);
+      T* xs = ring_at(step);
+      if (vec) {
+        const int upr = w / S::V;
+        for (int i = threadIdx.x; i < rows_n * upr; i += kQThreads) {
+          const int r = i / upr, u = i - r * upr;
+          const size_t id = (size_t)list[r0 + r];
+          cp_async16(xs + r * sh.stride + u * S::V, x + id * d + c0 + u * S::V);
+        }
+      } else {
+        const int wp = (w + S::V - 1) / S::V * S::V;
+        for (int i = threadIdx.x; i < rows_n * wp; i += kQThreads) {
+          const int r = i / wp, c = i - r * wp;
+          const size_t id = (size_t)list[r0 + r];
+          xs[r * sh.stride + c] = c < w ? x[id * d + c0 + c] : T(0.0f);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  float acc = 0.0f;
+  for (int s = 0; s < stages - 1; ++s) stage(s);
+  for (int step = 0; step < nsteps; ++step) {
+    stage(step + stages - 1);
+    cp_async_wait_dyn(stages - 1);  // the group of this step has landed
+    __syncthreads();
+    const int gi = step / sh.nseg, si = step - gi * sh.nseg;
+    const int r0 = gi * rs;
+    if (threadIdx.x < min(rs, n - r0)) {
+      const T* xr = ring_at(step) + threadIdx.x * sh.stride;
+      const int c1 = min(sh.nchunk, (si + 1) * sh.cps);
+      for (int c = si * sh.cps; c < c1; ++c) {
+        const int w = min(S::DC, d - c * S::DC);
+        acc += chunk_dot(xr + (c - si * sh.cps) * S::DC, qs + c * S::DC,
+                         (w + S::V - 1) / S::V * S::V);
+      }
+      if (si == sh.nseg - 1) {
+        vals[hash_slot(keys, list[r0 + threadIdx.x], hbits)] = acc;
+        acc = 0.0f;
+      }
+    }
+    __syncthreads();  // the stage is refilled stages - 1 steps on
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int s = threadIdx.x; s < nslots; s += kQThreads) {
+    const int h = pos[s];
+    dots[out0 + s] = h < 0 ? zdot : vals[h];
+  }
+}
+
+template <typename T>
+int launch_query(const T* x, const int* ids, long nrows, const float* sq, const float* q,
+                 const int* sel, float* dots, float* sqx, int b, int p, int g, int lmax, int d,
+                 int stages, int rs, int hbits, void* stream) {
+  if (b < 0 || p < 1 || g < 1 || lmax < 1 || d < 1 || nrows < 1 || stages < 2 ||
+      stages > kMaxStages || rs < 1 || rs > kQThreads || hbits < 6 || hbits > 16 ||
+      (1L << hbits) < (long)p * lmax + 1)
+    return (int)cudaErrorInvalidValue;
+  if (b == 0) return 0;
+  const size_t smem = query_smem<T>(p, lmax, d, stages, rs, hbits);
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  const int vec = d % Shape<T>::V == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  cudaError_t e = rpt::allow_smem(gather_query_kernel<T>, smem);
+  if (e != cudaSuccess) return (int)e;
+  gather_query_kernel<T><<<(unsigned)b, kQThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, ids, nrows, sq, q, sel, dots, sqx, p, g, lmax, d, vec, stages, rs, hbits);
+  return (int)cudaGetLastError();
+}
+
 // -- the work items --------------------------------------------------------
 
 constexpr int kScanThreads = 1024;
@@ -478,6 +703,27 @@ int rpt_gather_score_shared_bf16(const __nv_bfloat16* rows, const int* ids, long
                                  float* sqx, int b, int p, int g, int lmax, int d, void* stream) {
   return launch<__nv_bfloat16, true>(rows, ids, n, sq, q, runs, dots, sqx, b, p, g, lmax, d,
                                      stream);
+}
+
+// The shared-row mode's query route (no pair runs): sel the int32 [b, p]
+// block rows; stages, rs and hbits the plan (ops/fused_gather.py
+// shared_route): the ring's stages and rows a stage, and log2 of the hash
+// size (more than p lmax).  cudaErrorInvalidValue for a plan outside the
+// kernel's bounds or past the shared memory of a block.
+int rpt_gather_score_shared_query_f32(const float* rows, const int* ids, long n,
+                                      const float* sq, const float* q, const int* sel,
+                                      float* dots, float* sqx, int b, int p, int g, int lmax,
+                                      int d, int stages, int rs, int hbits, void* stream) {
+  return launch_query<float>(rows, ids, n, sq, q, sel, dots, sqx, b, p, g, lmax, d, stages, rs,
+                             hbits, stream);
+}
+
+int rpt_gather_score_shared_query_bf16(const __nv_bfloat16* rows, const int* ids, long n,
+                                       const float* sq, const float* q, const int* sel,
+                                       float* dots, float* sqx, int b, int p, int g, int lmax,
+                                       int d, int stages, int rs, int hbits, void* stream) {
+  return launch_query<__nv_bfloat16>(rows, ids, n, sq, q, sel, dots, sqx, b, p, g, lmax, d,
+                                     stages, rs, hbits, stream);
 }
 
 }  // extern "C"

@@ -21,66 +21,169 @@
 // needed is the sum of ceil(c_g / tile_m).  Pairs whose tile lies at or
 // past nt overflow: they fill no tile and point at nt * tile_m.
 //
-// What bounds it on an H100: bytes, a few MB (the pairs' blocks and
-// masks read once, the tables written once), which the card moves in
-// microseconds; the launches, the passes over the pairs and the scans'
-// latency set its pace.  The pairs' ranks need a stable sort, and a sort
-// by atomic cursors (as kernel 6's rpt_pair_runs does) is not stable;
-// per-block counters for every block of the chunk do not fit in shared
-// memory (G is 65,536 on the clustered cell).  So the design is an LSD
-// radix sort of the pair ids keyed by block, 8 bits a pass (2 passes up
-// to G = 65,536, 3 up to 2^24), that holds at any skew, even one block
-// that every query probes.  Pairs go in chunks of 2,048, one thread
-// block each:
+// What bounds it on an H100: bytes, a few MB (the pairs read, the tables
+// written), which the card moves in microseconds; what sets its pace is
+// the number of dependent grids, each a few microseconds of ramp and
+// drain at these sizes, and the passes of the sort.  So the design is an
+// LSD radix sort of the valid pairs' ids keyed by block, in the manner of
+// Adinets and Merrill's Onesweep, in 2 + passes grids with no memset:
 //
-// - hist_kernel: each chunk counts its digits (257 bins: the masked
-//   pairs take a bin of their own, last in every pass, so they end behind
-//   every valid pair); the first pass also adds each pair to its block's
-//   count c_g (a global atomic) and fills every tile with the empty
-//   tile's values;
-// - scan_kernel: one thread block per digit scans that digit's counts
-//   over the chunks (its row of the digit-major table) and keeps the
-//   digit's total; on the first pass one more block per 1,024 blocks g
-//   scans c_g and ceil(c_g / tile_m), packed in one 64-bit sum, and keeps
-//   the segment's totals; seg_kernel then scans the segment totals and
-//   writes needed.  The scans run side by side, none on one block alone;
-// - scatter_kernel: each warp owns 128 consecutive pairs of its chunk and
-//   counts their digits; the warps' counts are scanned in warp order, the
-//   digits' chunk totals in digit order, and the digit totals (every
-//   block does this 257-entry scan itself); then each warp walks its
-//   pairs again, 32 at a time in order, and a pair's place in the chunk
-//   is its digit's start, the earlier warps' and rounds' pairs of that
-//   digit, and its lanes below it with the same digit (a mask of 9
-//   ballots, one a bit of the digit): a stable order, no atomics.  The
-//   chunk is staged in that order in shared memory and written out in
-//   runs of one digit, so consecutive threads store to consecutive
-//   places;
-// - hist_kernel and scan_kernel again for each later pass;
-// - final_kernel: for each sorted position its pair's rank, tile and row,
-//   written to tp, slot, tb and lens_t.
+// - upsweep_kernel, a block a chunk of 2,048 pairs, reads the pairs once:
+//   it counts the chunk's digits of every pass (a column of the digit
+//   table), writes the masked pairs' slot, fills every tile with the
+//   empty tile's values, and zeroes what the later grids count into: the
+//   block counts c_g, the look-back words, the segment states.
+// - scan_kernel, 32 digit rows a block of 1,024 threads: the first
+//   pass's rows to each chunk's exclusive prefix (in place), every row to
+//   its digit's total; with one pass it also counts c_g (atomics over
+//   the pairs).
+// - scatter_kernel, one grid a pass, a block a chunk: it ranks the chunk's
+//   pairs by digit in shared memory (each warp owns 256 consecutive pairs,
+//   peers by ballots over the digit's bits; stable, no atomics), takes
+//   the earlier chunks' counts of each digit from the table (first pass)
+//   or by decoupled look-back (later passes: a 32-bit word a chunk and
+//   digit, 0 not yet, count + 1, or the top bit and the inclusive prefix),
+//   stages the chunk in sorted order and writes it out in runs of one
+//   digit.  Masked pairs are not sorted.  With two passes or more the
+//   first pass counts c_g.  The last pass's grid also scans c_g and
+//   ceil(c_g / tile_m) over g, in segments of 4,096 blocks with a
+//   look-back of their own, into each block's first sorted place and
+//   first tile; its segment blocks come first, its chunk blocks wait for
+//   them, then write tp, slot, tb and lens_t from each pair's sorted
+//   place.  A block only ever waits on blocks of lower index, which
+//   the card starts first.  Every block loads its pairs first, as one
+//   batch.
 //
-// No value is read back to the host, so the stage never stalls it.
+// Digits are up to max_bits (8 to 11) a pass, the bins in shared memory,
+// the key's bits split evenly over the fewest passes: at 11 bits G 65,536
+// sorts in two passes of 8 bits, G 524,288 in two of 10 and 9; at 8 in
+// three of 7, 7 and 5.  The wrapper asks for 11 up to 524,288 pairs and
+// for 8 past them, where the wider digits' shorter runs spread the
+// writes (ops/grouped.py table_digit_bits).  No value is read back to
+// the host, so the stage never stalls it.
+
+#include <string.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRounds = 4;                      // 32-pair rounds a warp
+constexpr int kRounds = 8;                      // 32-pair rounds a warp
 constexpr int kChunk = kWarps * kRounds * 32;   // pairs a block: 2,048
-constexpr int kBins = 257;                      // 256 digits, then masked
-constexpr int kSeg = 1024;                      // blocks g a scan block
-constexpr int kScanThreads = 256;
-constexpr int kSegThreads = 1024;
-constexpr int kFinalThreads = 256;
+constexpr int kScanThreads = 1024;
+constexpr int kMinBits = 8, kMaxBits = 11;      // the widest digit's bits: the caller's choice
+constexpr int kMaxPasses = 4;                   // 4 x 8 bits cover any int32 G
+constexpr int kSeg = 4096;                      // blocks g a segment of the c_g scan
+constexpr int kSegPer = kSeg / kThreads;
+constexpr int kWindow = 8;                      // earlier chunks a look-back step reads
 constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kIncl = 0x80000000u;
 constexpr long long kLow = 0xffffffffLL;
+
+// The digit plan and the scratch layout (ops/grouped.py tile_tables_plan
+// mirrors both), in int32 units.
+struct Plan {
+  int passes;
+  int shift[kMaxPasses], bits[kMaxPasses], row0[kMaxPasses];
+  int rows;       // digit rows: the passes' bins summed
+  long chunks;    // of kChunk pairs
+  long segs;      // segments of the c_g scan
+  // offsets: segstate[segs], flags[chunks * (rows - 2^bits[0])] (the later
+  // passes' look-back words), counts[g] and done[1] (the segments done):
+  // the region the upsweep zeroes, from 0; then table[chunks][rows],
+  // totals[rows], and 8-byte aligned segagg, seginc (int64[segs] each),
+  // base (int64[g]: a block's first sorted place << 32 | its first tile)
+  // and the keys / values buffers
+  long segstate, flags, counts, done, zero_len, table, totals;
+  long segagg, seginc, base, bufs, len;
+};
+
+Plan plan_of(long n, int g, int max_bits) {
+  Plan pl{};
+  int bits = 1;
+  while (bits < 31 && ((long)(g - 1) >> bits) > 0) ++bits;
+  pl.passes = (bits + max_bits - 1) / max_bits;
+  const int w = (bits + pl.passes - 1) / pl.passes;
+  int shift = 0;
+  pl.rows = 0;
+  for (int p = 0; p < pl.passes; ++p) {
+    pl.shift[p] = shift;
+    pl.bits[p] = min(w, bits - shift);
+    pl.row0[p] = pl.rows;
+    pl.rows += 1 << pl.bits[p];
+    shift += pl.bits[p];
+  }
+  pl.chunks = n > 0 ? (n + kChunk - 1) / kChunk : 1;
+  pl.segs = ((long)g + kSeg - 1) / kSeg;
+  long at = 0;
+  pl.segstate = at;
+  at += pl.segs;
+  pl.flags = at;
+  at += pl.chunks * (pl.rows - (1 << pl.bits[0]));
+  pl.counts = at;
+  at += g;
+  pl.done = at;
+  at += 1;
+  pl.zero_len = at;
+  pl.table = at;
+  at += (long)pl.rows * pl.chunks;
+  pl.totals = at;
+  at += pl.rows;
+  at = (at + 1) & ~1L;
+  pl.segagg = at;
+  at += 2 * pl.segs;
+  pl.seginc = at;
+  at += 2 * pl.segs;
+  pl.base = at;
+  at += 2L * g;
+  pl.bufs = at;
+  at += 2 * n * min(pl.passes - 1, 2);
+  pl.len = at;
+  return pl;
+}
 
 __device__ __forceinline__ unsigned lanes_below() {
   unsigned m;
   asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
   return m;
+}
+
+// Look-back words, segment states and values, coherent at the scope of
+// the card.
+__device__ __forceinline__ unsigned ld_relaxed(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_relaxed(unsigned* p, unsigned v) {
+  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+__device__ __forceinline__ long long ld_relaxed64(const long long* p) {
+  long long v;
+  asm volatile("ld.relaxed.gpu.global.s64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_relaxed64(long long* p, long long v) {
+  asm volatile("st.relaxed.gpu.global.s64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+__device__ __forceinline__ int ld_relaxed_s32(const int* p) {
+  int v;
+  asm volatile("ld.relaxed.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+// Waits until *p reaches at least v: spins on relaxed loads (an acquire
+// load invalidates the SM's L1 each time), then one fence for what the
+// writer published before it.
+__device__ __forceinline__ int wait_at_least(const int* p, int v) {
+  int got;
+  while ((got = ld_relaxed_s32(p)) < v) __nanosleep(64);
+  __threadfence();
+  return got;
+}
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
 // A pair's key: its block clamped into [0, g), or -1 where it is masked.
@@ -89,311 +192,463 @@ __device__ __forceinline__ int key_of(const int* __restrict__ gsel, const int* _
   return lsel[i] < 0 ? -1 : min(max(gsel[i], 0), g - 1);
 }
 
-__device__ __forceinline__ int digit_of(int key, int shift) {
-  return key < 0 ? kBins - 1 : (key >> shift) & 255;
-}
-
-// The key of pair slot i of a pass: from the pairs on the first pass, from
-// the previous pass's output after it; -2 past the end.
-template <bool FIRST>
-__device__ __forceinline__ int load_key(const int* __restrict__ gsel,
-                                        const int* __restrict__ lsel,
-                                        const int* __restrict__ keys, long i, long n, int g) {
-  if (i >= n) return -2;
-  return FIRST ? key_of(gsel, lsel, i, g) : keys[i];
-}
-
-// The lanes of the warp whose digit equals this lane's, d in [-1, 256]
-// (-1 past the end), from one ballot per bit of d + 1.
-__device__ __forceinline__ unsigned peers_of(int d) {
+// The lanes of the warp whose digit equals this lane's, d in [-1, 2^bits)
+// (-1: no pair), from one ballot a bit of d + 1.
+__device__ __forceinline__ unsigned peers_of(int d, int bits) {
   const unsigned v = (unsigned)(d + 1);
   unsigned m = kFull;
-#pragma unroll
-  for (int b = 0; b < 9; ++b) {
+  for (int b = 0; b <= bits; ++b) {
     const unsigned bal = __ballot_sync(kFull, (v >> b) & 1u);
     m &= ((v >> b) & 1u) ? bal : ~bal;
   }
   return m;
 }
 
-__device__ __forceinline__ long long warp_incl_scan(long long x, int lane) {
+template <typename V>
+__device__ __forceinline__ V warp_incl_scan(V x, int lane) {
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
-    const long long o = __shfl_up_sync(kFull, x, off);
+    const V o = __shfl_up_sync(kFull, x, off);
     if (lane >= off) x += o;
   }
   return x;
 }
 
-// Exclusive prefix sums of the n values v(i) by one block of T threads:
-// warp w owns one contiguous segment and reads it 32 consecutive values
-// at a time; put(i, prefix) for every i.  Returns the total.  Every
-// thread of the block calls it: it starts and ends with a block barrier,
-// so what the block wrote before is read and what put writes is seen.
-template <int T, typename V, typename P>
-__device__ long long block_scan(long n, V v, P put) {
-  constexpr int kW = T / 32;
-  __shared__ long long part[kW];
+// The exclusive prefix of each thread's x in thread order, and the block's
+// total.  Every thread calls it; it starts and ends with a barrier.
+template <typename V>
+__device__ V block_excl_scan(V x, V* total) {
+  __shared__ V part[kWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long seg = ((n + kW - 1) / kW + 31) / 32 * 32;
-  const long lo = min(n, (long)warp * seg), hi = min(n, lo + seg);
   __syncthreads();
-  long long sum = 0;
-#pragma unroll 4
-  for (long i = lo + lane; i < hi; i += 32) sum += v(i);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(kFull, sum, off);
-  if (lane == 0) part[warp] = sum;
+  const V incl = warp_incl_scan(x, lane);
+  if (lane == 31) part[warp] = incl;
   __syncthreads();
   if (warp == 0) {
-    const long long x = lane < kW ? part[lane] : 0;
-    const long long incl = warp_incl_scan(x, lane);
-    if (lane < kW) part[lane] = incl;
+    const V t = warp_incl_scan(lane < kWarps ? part[lane] : V(0), lane);
+    if (lane < kWarps) part[lane] = t;
   }
   __syncthreads();
-  long long run = warp ? part[warp - 1] : 0;
-  const long long total = part[kW - 1];
-#pragma unroll 4
-  for (long b = lo; b < hi; b += 32) {
-    const long i = b + lane;
-    const long long x = i < hi ? v(i) : 0;
-    const long long incl = warp_incl_scan(x, lane);
-    if (i < hi) put(i, run + incl - x);
-    run += __shfl_sync(kFull, incl, 31);
-  }
+  const V before = warp ? part[warp - 1] : V(0);
+  *total = part[kWarps - 1];
   __syncthreads();
-  return total;
+  return before + incl - x;
 }
 
-// Digit counts of each chunk, stored digit-major: hist[d * chunks + c].
-// The first pass also counts the pairs of each block and fills the
-// tiles with the empty tile's values (tiles past `needed` keep them).
-template <bool FIRST>
+// Grid 1.  Blocks below pl.chunks count their chunk's digits (a table
+// column); every block zeroes a share of the counted region and fills a
+// share of the tiles with the empty tile's values (the last pass
+// overwrites the slots and tiles that hold pairs).
 __global__ void __launch_bounds__(kThreads)
-hist_kernel(const int* __restrict__ gsel, const int* __restrict__ lsel,
-            const int* __restrict__ keys, long n, int g, int shift, int* __restrict__ hist,
-            int chunks, int* __restrict__ counts, const int* __restrict__ lens, long nt,
-            int tile_m, int* __restrict__ tb, int* __restrict__ tp, int* __restrict__ lens_t) {
-  __shared__ int h[kBins];
-  for (int i = threadIdx.x; i < kBins; i += kThreads) h[i] = 0;
-  __syncthreads();
-  const long base = (long)blockIdx.x * kChunk + threadIdx.x;
-#pragma unroll
-  for (int r = 0; r < kRounds; ++r) {  // a count: any order of the pairs
-    const int key = load_key<FIRST>(gsel, lsel, keys, base + (long)r * kThreads, n, g);
-    if (FIRST && key >= 0) atomicAdd(counts + key, 1);
-    if (key != -2) atomicAdd(h + digit_of(key, shift), 1);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kBins; i += kThreads) hist[(long)i * chunks + blockIdx.x] = h[i];
-  if (!FIRST) return;
+upsweep_kernel(const int* __restrict__ gsel, const int* __restrict__ lsel,
+               const int* __restrict__ lens, long n, int g, long nt, int tile_m,
+               int* __restrict__ tb, int* __restrict__ tp, long long* __restrict__ slot,
+               int* __restrict__ lens_t, int* __restrict__ scratch, Plan pl) {
+  extern __shared__ int h[];  // [pl.rows]
   const long stride = (long)gridDim.x * kThreads;
+  const long t0 = (long)blockIdx.x * kThreads + threadIdx.x;
+  for (long i = t0; i < pl.zero_len; i += stride) scratch[i] = 0;
   const int empty_len = lens[0];
-  for (long t = (long)blockIdx.x * kThreads + threadIdx.x; t < nt * tile_m; t += stride) {
+  for (long t = t0; t < nt * tile_m; t += stride) {
     tp[t] = -1;
     if (t < nt) {
       tb[t] = 0;
       lens_t[t] = empty_len;
     }
   }
-}
-
-// Blocks [0, 257): digit d's row of hist, in place, to the offsets of its
-// pairs in each chunk among the digit's pairs; the digit's total to
-// dtot[d].  Blocks past them (first pass): segment s of the blocks g to
-// the offsets of their pairs and tiles within the segment (start,
-// tile_base), and the segment's totals, packed, to seg[s].
-__global__ void __launch_bounds__(kScanThreads)
-scan_kernel(int* __restrict__ hist, int chunks, int* __restrict__ dtot,
-            const int* __restrict__ counts, int g, int tile_m, int* __restrict__ start,
-            int* __restrict__ tile_base, long long* __restrict__ seg) {
-  if (blockIdx.x < kBins) {
-    int* row = hist + (long)blockIdx.x * chunks;
-    const long long total = block_scan<kScanThreads>(
-        chunks, [&](long i) { return (long long)row[i]; },
-        [&](long i, long long pre) { row[i] = (int)pre; });
-    if (threadIdx.x == 0) dtot[blockIdx.x] = (int)total;
-    return;
-  }
-  const int s = blockIdx.x - kBins;
-  const int lo = s * kSeg;
-  // (pairs << 32) + tiles: both sums stay below 2^31, so neither carries
-  const long long total = block_scan<kScanThreads>(
-      min(kSeg, g - lo),
-      [&](long i) {
-        const int c = counts[lo + i];
-        return ((long long)c << 32) + (c + tile_m - 1) / tile_m;
-      },
-      [&](long i, long long pre) {
-        start[lo + i] = (int)(pre >> 32);
-        tile_base[lo + i] = (int)(pre & kLow);
-      });
-  if (threadIdx.x == 0) seg[s] = total;
-}
-
-// The segments' packed totals to their offsets, in place; needed.
-__global__ void __launch_bounds__(kSegThreads)
-seg_kernel(long long* __restrict__ seg, int nseg, int* __restrict__ needed) {
-  const long long total = block_scan<kSegThreads>(
-      nseg, [&](long i) { return seg[i]; }, [&](long i, long long pre) { seg[i] = pre; });
-  if (threadIdx.x == 0) *needed = (int)(total & kLow);
-}
-
-// One stable pass: each pair to its place by digit (see the top).
-template <bool FIRST>
-__global__ void __launch_bounds__(kThreads)
-scatter_kernel(const int* __restrict__ gsel, const int* __restrict__ lsel,
-               const int* __restrict__ keys, const int* __restrict__ vals, long n, int g,
-               int shift, const int* __restrict__ offs, const int* __restrict__ dtot, int chunks,
-               int* __restrict__ keys_out, int* __restrict__ vals_out) {
-  __shared__ int cnt[kWarps][kBins];
-  __shared__ int lstart[kBins], gbase[kBins];
-  __shared__ int skey[kChunk], sval[kChunk];
-  for (int i = threadIdx.x; i < kWarps * kBins; i += kThreads) (&cnt[0][0])[i] = 0;
-  // each digit's first place in the output: the earlier digits' totals
-  block_scan<kThreads>(kBins, [&](long i) { return (long long)dtot[i]; },
-                       [&](long i, long long pre) { gbase[i] = (int)pre; });
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long c0 = (long)blockIdx.x * kChunk;
-  const long base = c0 + (long)warp * kRounds * 32 + lane;
-  int key[kRounds], dig[kRounds];
+  if (blockIdx.x >= pl.chunks) return;
+  int key[kRounds];
+  const long c0 = (long)blockIdx.x * kChunk + threadIdx.x;
 #pragma unroll
   for (int r = 0; r < kRounds; ++r) {
-    key[r] = load_key<FIRST>(gsel, lsel, keys, base + r * 32, n, g);
-    dig[r] = key[r] == -2 ? -1 : digit_of(key[r], shift);
-    const unsigned peers = peers_of(dig[r]);
-    // one writer per digit and round: no other warp touches this row
-    if (dig[r] >= 0 && (peers & lanes_below()) == 0) cnt[warp][dig[r]] += __popc(peers);
-    __syncwarp();
+    const long i = c0 + (long)r * kThreads;
+    key[r] = i < n ? key_of(gsel, lsel, i, g) : -2;
+  }
+  for (int i = threadIdx.x; i < pl.rows; i += kThreads) h[i] = 0;
+  __syncthreads();
+  const long long trash = (long long)nt * tile_m;
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    if (key[r] == -1) slot[c0 + (long)r * kThreads] = trash;
+    if (key[r] < 0) continue;
+#pragma unroll
+    for (int p = 0; p < kMaxPasses; ++p)
+      if (p < pl.passes)
+        atomicAdd(h + pl.row0[p] + ((key[r] >> pl.shift[p]) & ((1 << pl.bits[p]) - 1)), 1);
   }
   __syncthreads();
-  for (int d = threadIdx.x; d < kBins; d += kThreads) {
-    int run = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      const int c = cnt[w][d];
-      cnt[w][d] = run;
-      run += c;
+  int* table = scratch + pl.table + (long)blockIdx.x * pl.rows;
+  for (int i = threadIdx.x; i < pl.rows; i += kThreads) table[i] = h[i];
+}
+
+// Grid 2.  Blocks [0, row_blocks): 32 digit rows a block, a lane a row,
+// each of its 32 warps a thirty-second of the chunks: every row's total,
+// and the first pass's rows to each chunk's exclusive prefix, in place.
+// Blocks past them (one pass only): c_g over the pairs.
+__global__ void __launch_bounds__(kScanThreads)
+scan_kernel(const int* __restrict__ gsel, const int* __restrict__ lsel, long n, int g,
+            int* __restrict__ scratch, Plan pl, int row_blocks) {
+  constexpr int kScanWarps = kScanThreads / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (blockIdx.x < row_blocks) {
+    __shared__ int part[kScanWarps][32];
+    const int row = blockIdx.x * 32 + lane;
+    const bool ok = row < pl.rows;
+    int* table = scratch + pl.table;
+    const long per = (pl.chunks + kScanWarps - 1) / kScanWarps;
+    const long lo = min(pl.chunks, warp * per), hi = min(pl.chunks, lo + per);
+    int sum = 0;
+    if (ok)
+      for (long c = lo; c < hi; ++c) sum += table[c * pl.rows + row];
+    part[warp][lane] = sum;
+    __syncthreads();
+    int run = 0, total = 0;
+    for (int w = 0; w < kScanWarps; ++w) {
+      run += w < warp ? part[w][lane] : 0;
+      total += part[w][lane];
     }
-    lstart[d] = run;  // the digit's pairs in this chunk, for now
+    if (ok && row < (1 << pl.bits[0]))
+      for (long c = lo; c < hi; ++c) {
+        const int v = table[c * pl.rows + row];
+        table[c * pl.rows + row] = run;
+        run += v;
+      }
+    if (ok && warp == 0) scratch[pl.totals + row] = total;
+    return;
   }
-  block_scan<kThreads>(kBins, [&](long i) { return (long long)lstart[i]; },
-                       [&](long i, long long pre) { lstart[i] = (int)pre; });
-  // an output place is gbase[digit] + the place in the chunk's order
-  for (int d = threadIdx.x; d < kBins; d += kThreads)
-    gbase[d] += offs[(long)d * chunks + blockIdx.x] - lstart[d];
+  int* counts = scratch + pl.counts;
+  for (long i = (long)(blockIdx.x - row_blocks) * kChunk + threadIdx.x;
+       i < min(n, (long)(blockIdx.x - row_blocks + 1) * kChunk); i += kScanThreads) {
+    const int key = key_of(gsel, lsel, i, g);
+    if (key >= 0) atomicAdd(counts + key, 1);
+  }
+}
+
+// The segment blocks of the last scatter grid (states: 1 aggregate, 2
+// inclusive prefix): segment s of c_g, packed (pairs << 32) +
+// ceil(c_g / tile_m) (both sums stay below 2^31, so neither carries),
+// scanned within the segment; the segment's aggregate and, by look-back,
+// its exclusive prefix; then each block's first sorted place and first
+// tile, packed, into base, and one more segment done.  The last segment
+// writes needed.
+__device__ void segment_scan(long s, int g, int tile_m, int* __restrict__ scratch,
+                             int* __restrict__ needed, const Plan& pl) {
+  __shared__ long long excl_s;
+  const long lo = s * kSeg + (long)threadIdx.x * kSegPer;
+  const int* counts = scratch + pl.counts;
+  long long v[kSegPer];
+  long long sum = 0;
+#pragma unroll
+  for (int i = 0; i < kSegPer; ++i) {
+    const int c = lo + i < g ? counts[lo + i] : 0;
+    v[i] = ((long long)c << 32) + (c + tile_m - 1) / tile_m;
+    sum += v[i];
+  }
+  long long agg;
+  const long long run = block_excl_scan(sum, &agg);
+  if (threadIdx.x < 32) {  // the look-back, 32 segments a step, a lane each
+    const int lane = threadIdx.x;
+    int* state = scratch + pl.segstate;
+    long long* segagg = reinterpret_cast<long long*>(scratch + pl.segagg);
+    long long* seginc = reinterpret_cast<long long*>(scratch + pl.seginc);
+    long long excl = 0;
+    if (s > 0) {
+      if (lane == 0) {
+        st_relaxed64(segagg + s, agg);
+        st_release(state + s, 1);
+      }
+      for (long top = s - 1;; top -= 32) {
+        const long j = top - lane;  // before segment 0: an inclusive 0
+        const int st = j >= 0 ? wait_at_least(state + j, 1) : 2;
+        long long v = j < 0 ? 0 : ld_relaxed64((st == 2 ? seginc : segagg) + j);
+        const unsigned incl = __ballot_sync(kFull, st == 2);
+        if (incl != 0 && lane > __ffs(incl) - 1) v = 0;  // past the nearest inclusive
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+        excl += v;
+        if (incl != 0) break;
+      }
+    }
+    if (lane == 0) {
+      st_relaxed64(seginc + s, excl + agg);
+      st_release(state + s, 2);
+      if (s == pl.segs - 1) *needed = (int)((excl + agg) & kLow);
+      excl_s = excl;
+    }
+  }
+  __syncthreads();
+  long long at = excl_s + run;
+  long long* base = reinterpret_cast<long long*>(scratch + pl.base);
+#pragma unroll
+  for (int i = 0; i < kSegPer; ++i) {
+    if (lo + i < g) base[lo + i] = at;
+    at += v[i];
+  }
+  __syncthreads();  // then one fence for the block's writes, as a grid barrier does
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(scratch + pl.done, 1);
+  }
+}
+
+// Grid 3 + p: pass p of the sort (see the top).  kFirst: keys from the
+// pairs, values their index, the chunk's digit offsets from the table;
+// kLast: the segment blocks first, then the tables out.
+template <bool kFirst, bool kLast>
+__global__ void __launch_bounds__(kThreads)
+scatter_kernel(const int* __restrict__ gsel, const int* __restrict__ lsel,
+               const int* __restrict__ lens, long n, int g, long nt, int tile_m,
+               int* __restrict__ tb, int* __restrict__ tp, long long* __restrict__ slot,
+               int* __restrict__ lens_t, int* __restrict__ needed, int* __restrict__ scratch,
+               Plan pl, int p, const int* __restrict__ keys_in, const int* __restrict__ vals_in,
+               int* __restrict__ keys_out, int* __restrict__ vals_out) {
+  extern __shared__ __align__(16) int sm[];
+  const int bins = 1 << pl.bits[p], shift = pl.shift[p], mask = bins - 1;
+  int* cnt = sm;                          // [kWarps][bins]
+  int* tot = cnt + kWarps * bins;         // the chunk's count of each digit
+  int* lstart = tot + bins;               // its exclusive scan over digits
+  int* gbase = lstart + bins;             // a digit's first output place, less lstart
+  int* skey = gbase + bins;               // [kChunk], the chunk in sorted order
+  int* sval = skey + kChunk;
+  long id = blockIdx.x;
+  if (kLast) {
+    if (id < pl.segs) {
+      segment_scan(id, g, tile_m, scratch, needed, pl);
+      return;
+    }
+    id -= pl.segs;
+  }
+  // the chunk's pairs first, as one batch of loads (a later pass reads
+  // past its valid pairs and drops them below)
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long c0 = id * kChunk;
+  const long base = c0 + (long)warp * kRounds * 32 + lane;
+  int key[kRounds], dig[kRounds], val[kRounds];
+  unsigned peers[kRounds];
 #pragma unroll
   for (int r = 0; r < kRounds; ++r) {
     const long i = base + r * 32;
-    const int d = dig[r];
-    const unsigned peers = peers_of(d);
-    int first = 0;
-    if (d >= 0) {
-      first = cnt[warp][d];
-      const int pos = lstart[d] + first + __popc(peers & lanes_below());
-      skey[pos] = key[r];
-      sval[pos] = FIRST ? (int)i : vals[i];
+    key[r] = -1;
+    val[r] = 0;
+    if (i < n) {
+      key[r] = kFirst ? key_of(gsel, lsel, i, g) : keys_in[i];
+      val[r] = kFirst ? (int)i : vals_in[i];
     }
-    __syncwarp();
-    if (d >= 0 && (peers & lanes_below()) == 0) cnt[warp][d] = first + __popc(peers);
+  }
+  for (int i = threadIdx.x; i < kWarps * bins; i += kThreads) cnt[i] = 0;
+  const int* totals = scratch + pl.totals + pl.row0[p];
+  // each digit's first place in the pass's output (the earlier digits'
+  // totals); the total is the valid pairs
+  const int dpt = (bins + kThreads - 1) / kThreads;  // digits a thread
+  const int d0 = threadIdx.x * dpt;
+  int dsum = 0;
+  for (int i = 0; i < dpt; ++i) dsum += d0 + i < bins ? totals[d0 + i] : 0;
+  int nvalid;
+  int drun = block_excl_scan(dsum, &nvalid);
+  for (int i = 0; i < dpt && d0 + i < bins; ++i) {
+    gbase[d0 + i] = drun;
+    drun += totals[d0 + i];
+  }
+  if (!kFirst && c0 >= nvalid && !kLast) return;  // no later chunk holds a pair either
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    if (!kFirst && base + r * 32 >= nvalid) key[r] = -1;
+    if (kFirst && !kLast && key[r] >= 0) atomicAdd(scratch + pl.counts + key[r], 1);
+    dig[r] = key[r] < 0 ? -1 : (key[r] >> shift) & mask;
+    peers[r] = peers_of(dig[r], pl.bits[p]);
+    // one writer a digit and round: no other warp touches this row
+    if (dig[r] >= 0 && (peers[r] & lanes_below()) == 0)
+      cnt[warp * bins + dig[r]] += __popc(peers[r]);
     __syncwarp();
   }
   __syncthreads();
-  const int m = (int)min((long)kChunk, n - c0);
-  for (int t = threadIdx.x; t < m; t += kThreads) {
-    const int k = skey[t];
-    const int pos = gbase[digit_of(k, shift)] + t;
-    keys_out[pos] = k;
-    vals_out[pos] = sval[t];
+  int lsum = 0;
+  for (int i = 0; i < dpt && d0 + i < bins; ++i) {
+    const int d = d0 + i;
+    int run = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = cnt[w * bins + d];
+      cnt[w * bins + d] = run;
+      run += c;
+    }
+    tot[d] = run;
+    lsum += run;
   }
-}
-
-__global__ void __launch_bounds__(kFinalThreads)
-final_kernel(const int* __restrict__ keys, const int* __restrict__ vals, long n,
-             const int* __restrict__ start, const int* __restrict__ tile_base,
-             const long long* __restrict__ seg, const int* __restrict__ lens, long nt,
-             int tile_m, int* __restrict__ tb, int* __restrict__ tp,
-             long long* __restrict__ slot, int* __restrict__ lens_t) {
-  const long i = (long)blockIdx.x * kFinalThreads + threadIdx.x;
-  if (i >= n) return;
-  const int key = keys[i], pair = vals[i];
-  long long s = (long long)nt * tile_m;
-  if (key >= 0) {
-    const long long off = seg[key / kSeg];
-    const int rank = (int)(i - start[key] - (off >> 32));
-    const long long tile = tile_base[key] + (off & kLow) + rank / tile_m;
-    const int row = rank % tile_m;
-    if (tile < nt) {
-      s = tile * tile_m + row;
-      tp[s] = pair;
-      if (row == 0) {
-        tb[tile] = key;
-        lens_t[tile] = lens[key];
+  if (kFirst) {  // the earlier chunks' counts: the table's prefix
+    const int* prefix = scratch + pl.table + id * pl.rows;
+    for (int i = 0; i < dpt && d0 + i < bins; ++i) gbase[d0 + i] += prefix[d0 + i];
+  } else if (c0 < nvalid) {
+    // this chunk's counts out, the earlier chunks' in: aggregates first,
+    // so that the next chunk never waits on a digit this one has not
+    // reached
+    unsigned* flags = reinterpret_cast<unsigned*>(scratch + pl.flags) +
+                      (long)(pl.row0[p] - (1 << pl.bits[0])) * pl.chunks + id * bins;
+    for (int i = 0; i < dpt && d0 + i < bins; ++i)
+      st_relaxed(flags + d0 + i, id == 0 ? kIncl | tot[d0 + i] : tot[d0 + i] + 1u);
+    if (id > 0) {
+      for (int i = 0; i < dpt && d0 + i < bins; ++i) {
+        const int d = d0 + i;
+        unsigned run = 0;
+        // kWindow earlier chunks' words a step, read together (before
+        // chunk 0: an inclusive 0)
+        for (long top = id - 1;; top -= kWindow) {
+          unsigned w[kWindow];
+#pragma unroll
+          for (int k = 0; k < kWindow; ++k)
+            w[k] = top - k >= 0 ? ld_relaxed(flags - (id - top + k) * bins + d) : kIncl;
+          bool found = false;
+#pragma unroll
+          for (int k = 0; k < kWindow && !found; ++k) {
+            while (w[k] == 0) w[k] = ld_relaxed(flags - (id - top + k) * bins + d);
+            if (w[k] & kIncl) {
+              run += w[k] & ~kIncl;
+              found = true;
+            } else {
+              run += w[k] - 1;
+            }
+          }
+          if (found) break;
+        }
+        st_relaxed(flags + d, kIncl | (run + tot[d]));
+        gbase[d] += (int)run;
       }
     }
   }
-  slot[pair] = s;
+  int m;
+  int lrun = block_excl_scan(lsum, &m);
+  for (int i = 0; i < dpt && d0 + i < bins; ++i) {
+    lstart[d0 + i] = lrun;
+    gbase[d0 + i] -= lrun;
+    lrun += tot[d0 + i];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const int d = dig[r];
+    int first = 0;
+    if (d >= 0) {
+      first = cnt[warp * bins + d];
+      const int pos = lstart[d] + first + __popc(peers[r] & lanes_below());
+      skey[pos] = key[r];
+      sval[pos] = val[r];
+    }
+    __syncwarp();
+    if (d >= 0 && (peers[r] & lanes_below()) == 0) cnt[warp * bins + d] = first + __popc(peers[r]);
+    __syncwarp();
+  }
+  if (kLast && threadIdx.x == 0)  // every block's first place and tile
+    wait_at_least(scratch + pl.done, (int)pl.segs);
+  __syncthreads();
+  if (!kLast) {
+    for (int t = threadIdx.x; t < m; t += kThreads) {
+      const int k = skey[t];
+      const int pos = gbase[(k >> shift) & mask] + t;
+      keys_out[pos] = k;
+      vals_out[pos] = sval[t];
+    }
+    return;
+  }
+  const long long* start_of = reinterpret_cast<const long long*>(scratch + pl.base);
+  for (int t = threadIdx.x; t < m; t += kThreads) {
+    const int k = skey[t], v = sval[t];
+    const int pos = gbase[(k >> shift) & mask] + t;
+    const long long at = __ldcg(start_of + k);  // the block's first place and tile
+    const int rank = pos - (int)(at >> 32);
+    const long long tile = (at & kLow) + rank / tile_m;
+    const int row = rank % tile_m;
+    long long s = (long long)nt * tile_m;
+    if (tile < nt) {
+      s = tile * tile_m + row;
+      tp[s] = v;
+      if (row == 0) {
+        tb[tile] = k;
+        lens_t[tile] = lens[k];
+      }
+    }
+    slot[v] = s;
+  }
+}
+
+size_t scatter_smem(int bits) {
+  return sizeof(int) * ((size_t)(kWarps + 3) * (1 << bits) + 2 * kChunk);
+}
+
+int tile_tables_launch(const int* gsel, const int* lsel, const int* lens, int* tb, int* tp,
+                       long long* slot, int* lens_t, int* needed, int* scratch, long scratch_len,
+                       long n, int g, long nt, int tile_m, int max_bits, cudaStream_t stream) {
+  if (g < 1 || tile_m < 1 || nt < 0 || n < 0 || n >= (1L << 31) || max_bits < kMinBits ||
+      max_bits > kMaxBits || reinterpret_cast<uintptr_t>(scratch) % 8)
+    return cudaErrorInvalidValue;
+  const Plan pl = plan_of(n, g, max_bits);
+  if (pl.passes > kMaxPasses || scratch_len < pl.len) return cudaErrorInvalidValue;
+  // grid 1: a block a chunk, and enough blocks to zero and fill
+  const long work = max(pl.zero_len, nt * tile_m);
+  const long up_grid = max(pl.chunks, min(1024L, (work + 16L * kThreads - 1) / (16L * kThreads)));
+  upsweep_kernel<<<(unsigned)up_grid, kThreads, sizeof(int) * pl.rows, stream>>>(
+      gsel, lsel, lens, n, g, nt, tile_m, tb, tp, slot, lens_t, scratch, pl);
+  const int row_blocks = (pl.rows + 31) / 32;
+  const long count_blocks = pl.passes == 1 ? (n + kChunk - 1) / kChunk : 0;
+  scan_kernel<<<(unsigned)(row_blocks + count_blocks), kScanThreads, 0, stream>>>(
+      gsel, lsel, n, g, scratch, pl, row_blocks);
+  int* bufs = scratch + pl.bufs;
+  int* buf[2][2] = {{bufs, bufs + n}, {bufs + 2 * n, bufs + 3 * n}};
+  for (int p = 0; p < pl.passes; ++p) {
+    const bool first = p == 0, last = p == pl.passes - 1;
+    const size_t smem = scatter_smem(pl.bits[p]);
+    const int* ki = first ? nullptr : buf[(p - 1) & 1][0];
+    const int* vi = first ? nullptr : buf[(p - 1) & 1][1];
+    int* ko = last ? nullptr : buf[p & 1][0];
+    int* vo = last ? nullptr : buf[p & 1][1];
+    const unsigned grid = (unsigned)((last ? pl.segs : 0) + pl.chunks);
+    cudaError_t e = cudaSuccess;
+#define RPT_SCATTER(F, L)                                                                      \
+  e = rpt::allow_smem(scatter_kernel<F, L>, smem);                                            \
+  if (e == cudaSuccess)                                                                       \
+    scatter_kernel<F, L><<<grid, kThreads, smem, stream>>>(gsel, lsel, lens, n, g, nt, tile_m, \
+                                                           tb, tp, slot, lens_t, needed,       \
+                                                           scratch, pl, p, ki, vi, ko, vo);
+    if (first && last) {
+      RPT_SCATTER(true, true)
+    } else if (first) {
+      RPT_SCATTER(true, false)
+    } else if (last) {
+      RPT_SCATTER(false, true)
+    } else {
+      RPT_SCATTER(false, false)
+    }
+#undef RPT_SCATTER
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// gsel, lsel: int32[n] pairs; lens: int32[g]; outputs tb int32[nt], tp
-// int32[nt * tile_m], slot int64[n], lens_t int32[nt], needed int32[1];
-// scratch: int32[scratch_len] of at least 3 * g + 257 * (chunks + 1) +
-// 4 * n + 2 * segs + 1, chunks = max(1, ceil(n / 2048)), segs =
-// ceil(g / 1024), 8-byte aligned.
-int rpt_tile_tables(const int* gsel, const int* lsel, const int* lens, int* tb, int* tp,
-                    long long* slot, int* lens_t, int* needed, int* scratch, long scratch_len,
-                    long n, int g, long nt, int tile_m, cudaStream_t stream) {
-  const long chunks = n > 0 ? (n + kChunk - 1) / kChunk : 1;
-  const long segs = ((long)g + kSeg - 1) / kSeg;
-  if (g < 1 || tile_m < 1 || nt < 0 || n < 0 || n >= (1L << 31) || chunks > INT32_MAX ||
-      scratch_len < 3L * g + kBins * (chunks + 1) + 4 * n + 2 * segs + 1 ||
-      reinterpret_cast<uintptr_t>(scratch) % 8)
-    return cudaErrorInvalidValue;
-  int* counts = scratch;
-  int* start = counts + g;
-  int* tile_base = start + g;
-  int* hist = tile_base + g;
-  int* dtot = hist + kBins * chunks;
-  int* bufs = dtot + kBins;
-  int* buf[2][2] = {{bufs, bufs + n}, {bufs + 2 * n, bufs + 3 * n}};
-  // the packed segment totals, on the next 8-byte boundary
-  const long at = (3L * g + kBins * (chunks + 1) + 4 * n + 1) & ~1L;
-  long long* seg = reinterpret_cast<long long*>(scratch + at);
-  int passes = 1;
-  while (passes < 4 && ((long)(g - 1) >> (8 * passes)) > 0) ++passes;
-  cudaError_t err = cudaMemsetAsync(counts, 0, sizeof(int) * (size_t)g, stream);
-  if (err != cudaSuccess) return err;
-  const unsigned grid = (unsigned)chunks;
-  hist_kernel<true><<<grid, kThreads, 0, stream>>>(gsel, lsel, nullptr, n, g, 0, hist, (int)chunks,
-                                                   counts, lens, nt, tile_m, tb, tp, lens_t);
-  scan_kernel<<<(unsigned)(kBins + segs), kScanThreads, 0, stream>>>(
-      hist, (int)chunks, dtot, counts, g, tile_m, start, tile_base, seg);
-  seg_kernel<<<1, kSegThreads, 0, stream>>>(seg, (int)segs, needed);
-  scatter_kernel<true><<<grid, kThreads, 0, stream>>>(gsel, lsel, nullptr, nullptr, n, g, 0, hist,
-                                                      dtot, (int)chunks, buf[0][0], buf[0][1]);
-  for (int p = 1; p < passes; ++p) {
-    const int* ki = buf[(p - 1) & 1][0];
-    const int* vi = buf[(p - 1) & 1][1];
-    hist_kernel<false><<<grid, kThreads, 0, stream>>>(nullptr, nullptr, ki, n, g, 8 * p, hist,
-                                                      (int)chunks, nullptr, nullptr, 0, tile_m,
-                                                      nullptr, nullptr, nullptr);
-    scan_kernel<<<kBins, kScanThreads, 0, stream>>>(hist, (int)chunks, dtot, nullptr, g, tile_m,
-                                                    nullptr, nullptr, nullptr);
-    scatter_kernel<false><<<grid, kThreads, 0, stream>>>(nullptr, nullptr, ki, vi, n, g, 8 * p,
-                                                         hist, dtot, (int)chunks, buf[p & 1][0],
-                                                         buf[p & 1][1]);
-  }
-  if (n > 0) {
-    const int* keys = buf[(passes - 1) & 1][0];
-    const int* vals = buf[(passes - 1) & 1][1];
-    final_kernel<<<(unsigned)((n + kFinalThreads - 1) / kFinalThreads), kFinalThreads, 0,
-                   stream>>>(keys, vals, n, start, tile_base, seg, lens, nt, tile_m, tb, tp,
-                             slot, lens_t);
-  }
-  return cudaGetLastError();
+// The wrapper passes the arguments packed, an int64 each in the order of
+// tile_tables_launch's parameters (ops/grouped.py _TABLES_ARGS): gsel,
+// lsel int32[n] pairs; lens int32[g]; outputs tb int32[nt], tp int32[nt *
+// tile_m], slot int64[n], lens_t int32[nt], needed int32[1]; scratch
+// int32[scratch_len], 8-byte aligned, of at least the plan's length
+// (tile_tables_plan); max_bits the widest digit, 8 to 11.
+int rpt_tile_tables(const long long* packed) {
+  long long a[16];
+  memcpy(a, packed, sizeof a);
+  return tile_tables_launch(
+      reinterpret_cast<const int*>(a[0]), reinterpret_cast<const int*>(a[1]),
+      reinterpret_cast<const int*>(a[2]), reinterpret_cast<int*>(a[3]),
+      reinterpret_cast<int*>(a[4]), reinterpret_cast<long long*>(a[5]),
+      reinterpret_cast<int*>(a[6]), reinterpret_cast<int*>(a[7]),
+      reinterpret_cast<int*>(a[8]), a[9], a[10], (int)a[11], a[12], (int)a[13], (int)a[14],
+      reinterpret_cast<cudaStream_t>(a[15]));
+}
+
+// The scratch int32s tile_tables_launch needs for n pairs over g blocks at
+// digits of at most max_bits; -1 for arguments it refuses.
+long rpt_tile_tables_scratch(long n, int g, int max_bits) {
+  if (g < 1 || n < 0 || max_bits < kMinBits || max_bits > kMaxBits) return -1;
+  return plan_of(n, g, max_bits).len;
 }
 
 }  // extern "C"

@@ -20,12 +20,18 @@ launch (once per ``MAX_PAIRS`` pairs of a longer run).  The ordering
 counts in the kernel's time and launch: ``gather_score`` launches both.
 
 On the shared-row layout (:class:`.shared.SharedRows`: one row store and
-each block's id table) the kernel's shared-row mode, a compile-time
-variant, stages row ``rows[ids[g, j]]`` for slot ``j`` of block ``g``
-where the blocked route stages ``x_leaf[g, j]``, and zeros for an empty
-slot (id -1) without reading a row; the rest (the runs, the items, the
-ring, the order of the sums) is the blocked route's, so its dots are
-bit-equal to the blocked route's over the same rows.
+each block's id table) the kernel's shared-row mode has two routes
+(:func:`shared_route`, from the shapes alone).  The query route (one
+launch, no runs) serves one query a thread block: it takes the union of
+the rows that its P blocks' filled slots name, streams each distinct row
+once, whole, through a ring of ``cp.async`` stages, sums its one dot
+with the query, and writes it to every slot that names the row; an empty
+slot gets a row of zeros' dot.  The block route, for a query whose
+slots or row do not fit the query route's shared memory, is the blocked
+route's items reading row ``rows[ids[g, j]]`` for slot ``j`` of block
+``g``.  Both sum a dot in the blocked
+route's order (four FMA chains a 128-byte chunk, added as a tree, the
+chunks in order), so their dots are bit-equal to it over the same rows.
 
 The wrapper takes the plain version for a tensor on the CPU and launches
 the kernel for a tensor on a CUDA device, or raises there: it never falls
@@ -44,7 +50,8 @@ import torch
 from .. import _cuda
 from .shared import SharedRows, fetch_blocks
 
-__all__ = ["gather_score", "gather_score_reference", "gather_score_ok"]
+__all__ = ["gather_score", "gather_score_reference", "gather_score_ok",
+           "shared_route", "shared_union_reference"]
 
 _FLOAT_BLOCKS = (torch.float32, torch.bfloat16)
 # (query, probe) pairs per step of the plain version (bounds its gathered
@@ -53,6 +60,12 @@ _REF_PAIRS = 1 << 14
 # pairs the kernel serves from one read of a block (csrc/gather_score.cu),
 # at most
 MAX_PAIRS = 8
+# the shared-row query route (csrc/gather_score.cu gather_query_kernel): a
+# query's slots P * lmax and row width D it takes, at most; the bytes of a
+# staged row segment (kSegChunks 128-byte chunks) and of a ring stage; the
+# ring's stages
+QUERY_MAX_SLOTS, QUERY_MAX_D = 2048, 2048
+_SEG_BYTES, _STAGE_BYTES, QUERY_STAGES = 512, 14 << 10, 2
 
 
 def gather_score_ok(x_leaf, probes: int) -> bool:
@@ -181,6 +194,53 @@ def _pair_runs(rows_sel, g):
     return runs
 
 
+def shared_route(p: int, lmax: int, d: int, itemsize: int):
+    """The shared-row mode's route for P probes of blocks of ``lmax``
+    slots over rows of ``D`` values of ``itemsize`` bytes: ``("query",
+    (stages, rows a stage, log2 hash size))`` where a query's slots and
+    its row fit the query route's shared memory, else ``("block",
+    None)``.  The query route stages a row in segments of up to 512
+    bytes, about 14 KB a stage in a ring of two, and hashes the slots
+    into at least one and a half times their count."""
+    slots = p * lmax
+    if slots > QUERY_MAX_SLOTS or d > QUERY_MAX_D:
+        return "block", None
+    chunk = 128 // itemsize                    # columns a 128-byte chunk
+    seg = min(-(-d // chunk), _SEG_BYTES // 128) * chunk
+    rows = min(128, max(8, _STAGE_BYTES // (seg * itemsize)))
+    hbits = max(6, (-(-3 * slots // 2) - 1).bit_length())
+    return "query", (QUERY_STAGES, rows, hbits)
+
+
+@torch.no_grad()
+def shared_union_reference(xs, sq_leaf, q, rows_sel):
+    """The query route's rule in plain torch: for each query, the distinct
+    rows that its blocks' filled slots name (ids clamped below N), one dot
+    each with the query rounded to the row type, written to every slot
+    that names the row; an empty slot takes a zero row's dot.  Returns
+    ``(dots, sqx, distinct)``, ``distinct[b]`` the rows query b reads.
+    (The kernel sums each dot in the blocked route's order; this rule
+    leaves the order to ``torch.mv``.)"""
+    _check_shapes(xs, sq_leaf, q, rows_sel)
+    g, lmax, d = xs.shape
+    b, p = rows_sel.shape
+    sel = rows_sel.long().clamp(0, g - 1)
+    qr = q.to(xs.dtype).float()
+    n = xs.rows.shape[0]
+    dots = torch.empty((b, p * lmax), dtype=torch.float32, device=q.device)
+    distinct = torch.empty(b, dtype=torch.int64)
+    zero = torch.zeros(d, dtype=torch.float32, device=q.device)
+    for i in range(b):
+        ids = xs.ids[sel[i]].reshape(-1).long()
+        filled = ids >= 0
+        uniq, inv = torch.unique(ids[filled].clamp_max(n - 1),
+                                 return_inverse=True)
+        distinct[i] = uniq.numel()
+        dots[i] = torch.dot(zero, qr[i])
+        dots[i, filled] = torch.mv(xs.rows[uniq].float(), qr[i])[inv]
+    return dots.reshape(b, p, lmax), sq_leaf[sel], distinct
+
+
 def gather_score(x_leaf, sq_leaf, q, rows_sel):
     """``dots[b, p, :] = x_leaf[rows_sel[b, p]] @ q[b]`` and ``sqx[b, p, :]
     = sq_leaf[rows_sel[b, p]]``.
@@ -193,6 +253,13 @@ def gather_score(x_leaf, sq_leaf, q, rows_sel):
     Returns two ``f32[B, P, lmax]``."""
     if x_leaf.device.type == "cpu":
         return gather_score_reference(x_leaf, sq_leaf, q, rows_sel)
+    return _gather_score(x_leaf, sq_leaf, q, rows_sel)
+
+
+def _gather_score(x_leaf, sq_leaf, q, rows_sel, route=None):
+    """:func:`gather_score` on the card; on shared rows by ``route``
+    (``"query"`` or ``"block"``; None: :func:`shared_route`'s), which
+    the chip scripts set to time one route where the other runs."""
     name = "gather_score"
     _check_shapes(x_leaf, sq_leaf, q, rows_sel)
     shared = isinstance(x_leaf, SharedRows)
@@ -217,6 +284,23 @@ def gather_score(x_leaf, sq_leaf, q, rows_sel):
         return dots, sqx
     bf16 = x_leaf.dtype == torch.bfloat16
     lib = _cuda.lib()
+    if shared:
+        auto, plan = shared_route(p, lmax, d, x_leaf.rows.element_size())
+        if (route or auto) == "query":
+            if plan is None:
+                raise ValueError(f"{name}: {p} x {lmax} slots or D {d} past "
+                                 f"the query route's shared memory")
+            fn = (lib.rpt_gather_score_shared_query_bf16 if bf16
+                  else lib.rpt_gather_score_shared_query_f32)
+            with torch.cuda.device(x_leaf.device):
+                code = fn(_cuda.ptr(x_leaf.rows), _cuda.ptr(x_leaf.ids),
+                          x_leaf.rows.shape[0], _cuda.ptr(sq_leaf),
+                          _cuda.ptr(q), _cuda.ptr(rows_sel), _cuda.ptr(dots),
+                          _cuda.ptr(sqx), b, p, g, lmax, d, *plan,
+                          _cuda.stream_of(q))
+            _cuda.check(code, name)
+            gather_score.launches_shared += 1
+            return dots, sqx
     with torch.cuda.device(x_leaf.device):
         # with bf16 blocks the kernel multiplies the query rounded to bf16
         runs, qr = _runs_on_card(rows_sel, g, q=q if bf16 else None)

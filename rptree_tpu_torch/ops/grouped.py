@@ -29,6 +29,10 @@ exact whenever ``needed <= nt``, and the caller
 
 from __future__ import annotations
 
+import functools
+import struct
+from typing import NamedTuple, Tuple
+
 import torch
 
 from .. import _cuda
@@ -39,6 +43,7 @@ from .grouped_kernel import (_int8_dots, _quantize_rows, grouped_score_tiles,
 from .rerank import distances_from_dots
 from .shared import fetch_blocks
 from .sparse import EllBlocks
+from .traverse import _check_cuda
 
 __all__ = ["grouped_distances", "grouped_distances_kernel",
            "grouped_topk_kernel", "tile_tables", "tile_tables_reference"]
@@ -49,9 +54,20 @@ _BIG = 1 << 30  # sentinel block id for masked pairs (sorts to the end)
 # them on the clustered cell's small l2 distances, so the XLA form sums
 # four partial products over quarters of the row the same way.
 _PARTS = 4
-# csrc/tile_tables.cu's pairs a thread block (kChunk), digit bins (kBins)
-# and blocks g a scan block (kSeg): its scratch is sized by them
-_TT_CHUNK, _TT_BINS, _TT_SEG = 2048, 257, 1024
+# csrc/tile_tables.cu's pairs a block (kChunk), blocks g a segment of the
+# c_g scan (kSeg) and the widest digit's bounds (kMinBits, kMaxBits): its
+# digit plan and scratch layout follow from them (:func:`tile_tables_plan`)
+_TT_CHUNK, _TT_SEG, _TT_MIN_BITS, _TT_MAX_BITS = 2048, 4096, 8, 11
+# kernel 9's widest digit: 11 bits (two passes to G 4,194,304) up to
+# 524,288 pairs, 8 past them, where the wider digits' short runs spread
+# the writes (chip_stages.py --turns --tune, PERF.md)
+_TT_WIDE_PAIRS = 1 << 19
+
+
+def table_digit_bits(n: int) -> int:
+    """The widest digit kernel 9 sorts ``n`` pairs by on the card."""
+    return _TT_MAX_BITS if n <= _TT_WIDE_PAIRS else _TT_MIN_BITS
+_TT_INCL = 1 << 31  # a look-back word's flag: the inclusive prefix
 
 
 @torch.no_grad()
@@ -102,18 +118,169 @@ def tile_tables_reference(gsel, lsel, lens_of_block, tile_m: int, nt: int):
     return tb, tp, needed, slot, lens_of_block[tb.long()].to(torch.int32)
 
 
+class TablesPlan(NamedTuple):
+    """Kernel 9's digit plan and scratch layout for ``n`` pairs over ``g``
+    blocks (``csrc/tile_tables.cu`` ``plan_of``): ``passes`` LSD passes,
+    pass p sorting ``bits[p]`` bits from ``shifts[p]`` (the key's
+    ``max(1, bit_length(g - 1))`` bits split evenly over the fewest passes
+    of at most ``max_bits``, by default :func:`table_digit_bits`);
+    ``chunks`` of 2,048 pairs, a block each;
+    ``segs`` segments of 4,096 blocks in the ``c_g`` scan; ``layout``
+    each scratch region's ``(offset, int32s)`` in the kernel's order,
+    ``length`` their sum."""
+
+    passes: int
+    shifts: Tuple[int, ...]
+    bits: Tuple[int, ...]
+    chunks: int
+    segs: int
+    layout: dict
+    length: int
+
+
+@functools.lru_cache(maxsize=256)
+def tile_tables_plan(n: int, g: int, max_bits: int = None) -> TablesPlan:
+    """:class:`TablesPlan` of ``n`` pairs over ``g`` blocks.  The regions:
+    ``segstate`` (a state a segment of the ``c_g`` scan), ``flags`` (the
+    later passes' look-back words: pass p's ``chunks * 2**bits[p]`` from
+    ``chunks * sum(2**bits[1:p])``, chunk-major), ``counts`` (``c_g``) and
+    ``done`` (the segments scanned), which the upsweep zeroes, then
+    ``table`` (a row a chunk, a column a digit of every pass; the first
+    pass's columns become each chunk's exclusive prefix), ``totals``, the
+    int64 ``segagg``, ``seginc`` (8-byte aligned, two int32 an entry),
+    ``base`` (int64 a block: its first sorted place << 32 | its first
+    tile) and ``bufs`` (the keys and values between passes, two or four
+    ``n``)."""
+    if max_bits is None:
+        max_bits = table_digit_bits(n)
+    if not _TT_MIN_BITS <= max_bits <= _TT_MAX_BITS:
+        raise ValueError(f"tile_tables: max_bits {max_bits} outside "
+                         f"[{_TT_MIN_BITS}, {_TT_MAX_BITS}]")
+    key_bits = max(1, (g - 1).bit_length())
+    passes = -(-key_bits // max_bits)
+    w = -(-key_bits // passes)
+    bits = tuple(min(w, key_bits - w * p) for p in range(passes))
+    shifts = tuple(w * p for p in range(passes))
+    rows = sum(1 << b for b in bits)
+    chunks = max(1, -(-n // _TT_CHUNK))
+    segs = -(-g // _TT_SEG)
+    sizes = (("segstate", segs), ("flags", chunks * (rows - (1 << bits[0]))),
+             ("counts", g), ("done", 1), ("table", rows * chunks),
+             ("totals", rows))
+    layout, at = {}, 0
+    for name, size in sizes:
+        layout[name] = (at, size)
+        at += size
+    at += at & 1
+    for name, size in (("segagg", 2 * segs), ("seginc", 2 * segs),
+                       ("base", 2 * g), ("bufs", 2 * n * min(passes - 1, 2))):
+        layout[name] = (at, size)
+        at += size
+    return TablesPlan(passes, shifts, bits, chunks, segs, layout, at)
+
+
+@torch.no_grad()
+def tile_tables_by_plan(gsel, lsel, lens_of_block, tile_m: int, nt: int,
+                        max_bits: int = None):
+    """Kernel 9's algorithm in plain torch (CPU): the plan's LSD passes
+    over the valid pairs (masked ones are not sorted; they point at ``nt *
+    tile_m``), each pair placed by its digit's start, its digit's count in
+    earlier chunks (the table's prefix on the first pass, the look-back
+    sum after it) and its rank in its chunk; then ``c_g`` scanned in
+    segments of 4,096 blocks and each pair's tile and row from its sorted
+    place.  Returns the five tables and the scratch as the kernel leaves
+    it (``int64`` per layout entry; ``bufs`` the keys then values of every
+    pass but the last; the first segment's ``segagg``, which the kernel
+    never writes, 0)."""
+    b, p = gsel.shape
+    e, g = b * p, lens_of_block.shape[0]
+    plan = tile_tables_plan(e, g, max_bits)
+    scratch = torch.zeros(plan.length, dtype=torch.int64)
+
+    def region(name):
+        off, size = plan.layout[name]
+        return scratch[off:off + size]
+
+    key = torch.where(lsel.reshape(-1) >= 0,
+                      gsel.reshape(-1).long().clamp(0, g - 1), -1)
+    valid = key >= 0
+    keys, vals = key[valid], torch.nonzero(valid).reshape(-1)
+    counts = torch.bincount(keys, minlength=g)
+    region("counts").copy_(counts)
+    table = region("table").view(plan.chunks, -1)
+    flags = region("flags")
+    rows0 = 0
+    for i, (shift, bits) in enumerate(zip(plan.shifts, plan.bits)):
+        bins = 1 << bits
+        # the upsweep's table: each chunk's digits of every pass, in pair
+        # order; the first pass's rows then each chunk's exclusive prefix
+        dig = (keys >> shift) & (bins - 1)
+        up = torch.bincount(dig * plan.chunks + vals // _TT_CHUNK,
+                            minlength=bins * plan.chunks).view(bins,
+                                                               plan.chunks)
+        table[:, rows0:rows0 + bins] = (up.cumsum(1) - up if i == 0
+                                        else up).T
+        region("totals")[rows0:rows0 + bins] = up.sum(1)
+        # the pass's chunks: every pair's place in pair order on the first
+        # pass, the earlier pass's output after it
+        ch = (vals if i == 0 else torch.arange(keys.numel())) // _TT_CHUNK
+        hist = torch.bincount(ch * bins + dig, minlength=plan.chunks * bins)
+        hist = hist.reshape(plan.chunks, bins)
+        if i > 0:  # the look-back words of the chunks that hold pairs
+            ran = -(-keys.numel() // _TT_CHUNK)
+            lo = plan.chunks * (rows0 - (1 << plan.bits[0]))
+            flags[lo:lo + plan.chunks * bins].view(plan.chunks, bins)[:ran] \
+                = hist.cumsum(0)[:ran] | _TT_INCL
+        before = hist.cumsum(0) - hist
+        dstart = hist.sum(0).cumsum(0) - hist.sum(0)
+        order = torch.sort(ch * bins + dig, stable=True).indices
+        grp = (ch * bins + dig)[order]
+        rank = torch.empty_like(keys)
+        rank[order] = torch.arange(keys.numel()) - torch.searchsorted(grp, grp)
+        pos = dstart[dig] + before[ch, dig] + rank
+        new_k, new_v = torch.empty_like(keys), torch.empty_like(vals)
+        new_k[pos], new_v[pos] = keys, vals
+        keys, vals = new_k, new_v
+        if i < plan.passes - 1:
+            off = plan.layout["bufs"][0] + 2 * e * (i & 1)
+            scratch[off:off + keys.numel()] = keys
+            scratch[off + e:off + e + keys.numel()] = vals
+        rows0 += bins
+    # c_g and ceil(c_g / tile_m), packed (pairs << 32) + tiles, scanned in
+    # segments of 4,096 blocks: each block's first sorted place and tile
+    packed = (counts << 32) + (counts + tile_m - 1) // tile_m
+    first = packed.cumsum(0) - packed
+    seg_total = torch.zeros(plan.segs, dtype=torch.int64).index_add_(
+        0, torch.arange(g) // _TT_SEG, packed)
+    region("segstate").fill_(2)
+    region("done").fill_(plan.segs)
+    for name, val in (("segagg", seg_total), ("seginc", seg_total.cumsum(0)),
+                      ("base", first)):
+        r = region(name).view(-1, 2)
+        r[:, 0], r[:, 1] = val & 0xFFFFFFFF, val >> 32
+    region("segagg")[:2] = 0  # the first segment publishes its prefix only
+    needed = int(seg_total.sum() & 0xFFFFFFFF)
+    # the last pass's output: each pair's tile and row
+    rank = torch.arange(keys.numel()) - (first[keys] >> 32)
+    tile = (first[keys] & 0xFFFFFFFF) + rank // tile_m
+    row = rank % tile_m
+    ok = tile < nt
+    tb = torch.zeros(nt, dtype=torch.int32)
+    tp = torch.full((nt * tile_m,), -1, dtype=torch.int32)
+    slot = torch.full((e,), nt * tile_m, dtype=torch.int64)
+    s = tile * tile_m + row
+    tp[s[ok]] = vals[ok].to(torch.int32)
+    slot[vals[ok]] = s[ok]
+    head = ok & (row == 0)
+    tb[tile[head]] = keys[head].to(torch.int32)
+    lens_t = lens_of_block[tb.long()].to(torch.int32)
+    return (tb, tp.view(nt, tile_m), torch.tensor(needed, dtype=torch.int32),
+            slot, lens_t, scratch)
+
+
 def _check_tables(gsel, lsel, lens_of_block, tile_m, nt):
     name = "tile_tables"
-    for key, t in (("gsel", gsel), ("lsel", lsel), ("lens_of_block",
-                                                     lens_of_block)):
-        if t.device != gsel.device:
-            raise ValueError(f"{name}: {key} is on {t.device}, gsel on "
-                             f"{gsel.device}")
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name}: {key} must be int32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {key} must be contiguous")
-    if gsel.dim() != 2 or tuple(lsel.shape) != tuple(gsel.shape):
+    if gsel.dim() != 2 or lsel.shape != gsel.shape:
         raise ValueError(f"{name}: gsel and lsel must be [B, P] alike, got "
                          f"{tuple(gsel.shape)} and {tuple(lsel.shape)}")
     if lens_of_block.dim() != 1 or lens_of_block.shape[0] < 1:
@@ -124,6 +291,25 @@ def _check_tables(gsel, lsel, lens_of_block, tile_m, nt):
     if gsel.numel() >= 1 << 31:
         raise ValueError(f"{name}: {gsel.numel()} pairs; int32 ids hold "
                          f"fewer than 2**31")
+
+
+# The C entry point's arguments, an int64 each in their order
+# (csrc/tile_tables.cu rpt_tile_tables): gsel, lsel, lens, tb, tp, slot,
+# lens_t, needed, scratch, scratch_len, n, g, nt, tile_m, max_bits, stream
+_TABLES_ARGS = struct.Struct("16q")
+
+
+def _tables_buffers(dev, e, nt, tile_m, length):
+    """Kernel 9's scratch and five outputs as views of one int32
+    allocation, cut by one ``split``: ``(scratch, tb, tp, needed, slot,
+    lens_t)``; the scratch first and ``slot`` at an even offset, so both
+    are 8-byte aligned."""
+    at = length + (length & 1)
+    scratch, slot, tb, lens_t, tp, needed = torch.empty(
+        at + 2 * e + nt * (tile_m + 2) + 1, dtype=torch.int32,
+        device=dev).split([at, 2 * e, nt, nt, nt * tile_m, 1])
+    return (scratch, tb, tp.view(nt, tile_m), needed.view(()),
+            slot.view(torch.int64), lens_t)
 
 
 def tile_tables(gsel, lsel, lens_of_block, tile_m: int, nt: int):
@@ -141,27 +327,35 @@ def tile_tables(gsel, lsel, lens_of_block, tile_m: int, nt: int):
     tile slot (``nt * tile_m`` for a masked pair and one past the
     capacity), ``lens_t`` each tile's occupancy ``lens_of_block[tb]``.
     Tiles past ``needed`` hold block 0 and no pair.  On the card block
-    ids outside ``[0, G)`` are clamped into it."""
+    ids outside ``[0, G)`` are clamped into it.  The five tables are views
+    of one allocation with the kernel's scratch."""
     if gsel.device.type == "cpu":
         return tile_tables_reference(gsel, lsel, lens_of_block, tile_m, nt)
+    return _tables_on_card(gsel, lsel, lens_of_block, tile_m, nt)
+
+
+def _tables_on_card(gsel, lsel, lens_of_block, tile_m, nt, max_bits=None):
+    """:func:`tile_tables` on the card with digits of at most
+    ``max_bits`` (None: :func:`table_digit_bits`'s; the tests and the chip
+    scripts run the other plan through it)."""
     tile_m, nt = int(tile_m), int(nt)
     _check_tables(gsel, lsel, lens_of_block, tile_m, nt)
     dev = gsel.device
+    _check_cuda("tile_tables", dev, ("gsel", gsel, torch.int32),
+                ("lsel", lsel, torch.int32),
+                ("lens_of_block", lens_of_block, torch.int32))
     e, g = gsel.numel(), lens_of_block.shape[0]
-    tb = torch.empty(nt, dtype=torch.int32, device=dev)
-    tp = torch.empty((nt, tile_m), dtype=torch.int32, device=dev)
-    needed = torch.empty((), dtype=torch.int32, device=dev)
-    slot = torch.empty(e, dtype=torch.int64, device=dev)
-    lens_t = torch.empty(nt, dtype=torch.int32, device=dev)
-    chunks = max(1, -(-e // _TT_CHUNK))
-    segs = -(-g // _TT_SEG)
-    scratch = torch.empty(3 * g + _TT_BINS * (chunks + 1) + 4 * e + 2 * segs
-                          + 1, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        code = _cuda.lib().rpt_tile_tables(
-            *map(_cuda.ptr, (gsel, lsel, lens_of_block, tb, tp, slot, lens_t,
-                             needed, scratch)),
-            scratch.numel(), e, g, nt, tile_m, _cuda.stream_of(gsel))
+    if max_bits is None:
+        max_bits = table_digit_bits(e)
+    length = tile_tables_plan(e, g, max_bits).length
+    scratch, tb, tp, needed, slot, lens_t = _tables_buffers(dev, e, nt,
+                                                            tile_m, length)
+    with _cuda.on(dev):
+        code = _cuda.lib().rpt_tile_tables(_TABLES_ARGS.pack(
+            gsel.data_ptr(), lsel.data_ptr(), lens_of_block.data_ptr(),
+            tb.data_ptr(), tp.data_ptr(), slot.data_ptr(), lens_t.data_ptr(),
+            needed.data_ptr(), scratch.data_ptr(), length, e, g, nt, tile_m,
+            max_bits, _cuda.raw_stream(dev)))
     _cuda.check(code, "tile_tables")
     tile_tables.launches += 1
     return tb, tp, needed, slot, lens_t

@@ -895,6 +895,36 @@ def test_tile_tables(dev, case):
         assert need > nt
 
 
+@pytest.mark.parametrize("g,b,p,tile_m,hot,masked", [
+    (1, 40, 3, 8, False, 0.2), (256, 300, 8, 8, True, 0.2),
+    (65_536, 3000, 8, 8, False, 0.1), (65_537, 700, 8, 8, True, 0.1),
+    (524_288, 8192, 8, 16, True, 0.05), (300, 999, 5, 8, True, 1.0),
+])
+@pytest.mark.parametrize("max_bits", [8, 11])
+def test_tile_tables_digit_plans(dev, g, b, p, tile_m, hot, masked, max_bits):
+    """Kernel 9 at digits of at most 8 and 11 bits (one to three passes,
+    2 + passes grids) bit-equal to the twin and to the plan's rule in
+    plain torch; the C entry point sizes the scratch as the plan does."""
+    from rptree_tpu_torch import _cuda
+    from rptree_tpu_torch.ops import grouped as og
+
+    gsel, lsel, lens = _pairs(dev, g, b, p, seed=g + p, hot=hot,
+                              masked=masked)
+    need = int(og.tile_tables_reference(gsel, lsel, lens, tile_m, 1)[2])
+    nt = max(1, need + need // 8)
+    got = og._tables_on_card(gsel, lsel, lens, tile_m, nt, max_bits=max_bits)
+    want = og.tile_tables_reference(gsel, lsel, lens, tile_m, nt)
+    rule = og.tile_tables_by_plan(gsel.cpu(), lsel.cpu(), lens.cpu(), tile_m,
+                                  nt, max_bits)
+    torch.cuda.synchronize()
+    for name, a, w, r in zip(("tb", "tp", "needed", "slot", "lens_t"), got,
+                             want, rule):
+        assert a.dtype == w.dtype and torch.equal(a, w), name
+        assert torch.equal(a.cpu(), r), name
+    assert _cuda.lib().rpt_tile_tables_scratch(b * p, g, max_bits) == \
+        og.tile_tables_plan(b * p, g, max_bits).length
+
+
 def test_tile_tables_refuse_what_they_do_not_serve(dev):
     from rptree_tpu_torch.ops import grouped as og
 
@@ -1186,6 +1216,41 @@ def test_gather_score_shared_bit_equal_to_blocked(dev, bf16):
     want, wsq = fg.gather_score(blocks, sq, q, sel)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert torch.equal(gsq, wsq)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("n,g,lmax,d,b,p", [
+    (5000, 300, 160, 128, 64, 8), (900, 40, 24, 20, 9, 3),
+    (700, 17, 40, 130, 33, 5), (300, 6, 200, 72, 40, 8),
+    (4000, 64, 128, 600, 16, 8), (60, 12, 16, 8, 50, 4),
+])
+def test_gather_score_shared_routes_bit_equal(dev, bf16, n, g, lmax, d, b, p):
+    """The shared-row mode's query route and block route on the same pairs,
+    and the blocked route over the blocks the rows make: dots bit-equal,
+    norms equal; rows named by several slots of a query (few rows, the
+    hot block), ids past N clamped, rows off the 16-byte grid (the element
+    loads), D past one 512-byte segment; and the query route's rule in
+    plain torch within 1e-4 of the kernel."""
+    xs, sq, q, sel = _shared_case(dev, n, g, lmax, d, b, p, bf16, seed=n + b)
+    xs.ids[1, :3] = n + 5                  # clamped below N
+    assert fg.shared_route(p, lmax, d, xs.rows.element_size())[0] == "query"
+    got = fg._gather_score(xs, sq, q, sel, route="query")
+    blk = fg._gather_score(xs, sq, q, sel, route="block")
+    blocks = xs.rows[xs.ids.long().clamp(0, n - 1)]
+    blocks = torch.where((xs.ids >= 0)[..., None], blocks, 0).contiguous()
+    dense = fg.gather_score(blocks, sq, q, sel)
+    for other in (blk, dense):
+        assert torch.equal(got[0].view(torch.int32), other[0].view(torch.int32))
+        assert torch.equal(got[1], other[1])
+    off = _misaligned(xs.rows)
+    from rptree_tpu_torch.ops.shared import SharedRows
+    moved = fg._gather_score(SharedRows(off, xs.ids), sq, q, sel,
+                             route="query")
+    assert torch.equal(moved[0].view(torch.int32), got[0].view(torch.int32))
+    rule, rsq, distinct = fg.shared_union_reference(xs, sq, q, sel)
+    torch.cuda.synchronize()
+    _close(got[0], rule)
+    assert torch.equal(got[1], rsq) and int(distinct.min()) >= 0
 
 
 def test_gather_score_shared_refuses(dev):
