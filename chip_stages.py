@@ -1290,7 +1290,8 @@ def tables_pair_turns(lib, label, gsel, lsel, lens, tile_m, nt):
         "tree_device_ms": dn, "device_turns_ms": draw, "speedup": o / n,
         "device_speedup": do / dn,
         "host_us": {"base": cs.host_us(fns[0]), "tree": cs.host_us(fns[1])},
-        "grids": {"base": 9 if g <= 65_536 else 11, "tree": 2 + plan.passes},
+        "grids": {"base": grid_count(fns[0]),
+                  "tree": grid_count(fns[1])},
         "digit_bits": {str(bits): list(plan.bits),
                        str(other): list(plan_o.bits)},
         "same_bits": same,
@@ -1472,8 +1473,9 @@ def shared_base_turns(lib):
 
 
 def kernel_device_us(fn, calls=10):
-    """Device microseconds a call of ``fn`` spends in each kernel, by name
-    (``torch.profiler``, ``calls`` calls after a warm-up)."""
+    """Device microseconds and launches a call of ``fn`` spends in each
+    kernel, by name (``torch.profiler``, ``calls`` calls after a warm-up):
+    ``{name: [us, launches]}``."""
     def self_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0))
@@ -1489,10 +1491,28 @@ def kernel_device_us(fn, calls=10):
             for e in prof.key_averages() if self_us(e) > 0}
 
 
+def grid_count(fn, calls=4):
+    """The grids (kernels, memsets) one call of ``fn`` runs on the card:
+    the device events of a ``torch.profiler`` trace of ``calls`` calls
+    after a warm-up, over ``calls``; None where the trace holds no device
+    event.  (Kernel 9's own count is ``chip_smoke.tables_grids``; this
+    one also counts an earlier build's.)"""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(e.device_type == torch.autograd.DeviceType.CUDA
+            for e in prof.events())
+    return round(n / calls) if n else None
+
+
 def query_route_sweep(label, xs, sq, q, sel, plans):
     """Kernel 6's query route on one chunk's pairs at other ring plans
-    (stages, rows a stage): device ms of each (``graph_ms``), bit-equal to
-    the wrapper's plan; an ``index_select`` of the rows the route reads
+    (rows a stage of its two): device ms of each (``graph_ms``), bit-equal
+    to the wrapper's plan; an ``index_select`` of the rows the route reads
     (each query's distinct rows) as the gather's yardstick; the kernel's
     and the earlier build's device time by kernel."""
     from rptree_tpu_torch import _cuda
@@ -1504,28 +1524,25 @@ def query_route_sweep(label, xs, sq, q, sel, plans):
     lib = _cuda.lib()
     fn = (lib.rpt_gather_score_shared_query_bf16 if bf16
           else lib.rpt_gather_score_shared_query_f32)
-    _, (stages0, rs0, hbits) = fg.shared_route(p, lmax, d,
-                                               xs.rows.element_size())
+    _, (rs0, hbits) = fg.shared_route(p, lmax, d, xs.rows.element_size())
     want = fg._gather_score(xs, sq, q, sel, route="query")
     dots = torch.empty_like(want[0])
     sqx = torch.empty_like(want[1])
 
-    def run(stages, rs):
+    def run(rs):
         code = fn(_cuda.ptr(xs.rows), _cuda.ptr(xs.ids), xs.rows.shape[0],
                   _cuda.ptr(sq), _cuda.ptr(q), _cuda.ptr(sel),
-                  _cuda.ptr(dots), _cuda.ptr(sqx), b, p, g, lmax, d, stages,
-                  rs, hbits, _cuda.stream_of(q))
-        assert code == 0, (stages, rs, code)
+                  _cuda.ptr(dots), _cuda.ptr(sqx), b, p, g, lmax, d, rs,
+                  hbits, _cuda.stream_of(q))
+        assert code == 0, (rs, code)
 
-    rec = {"query_route_sweep": label, "plan": [stages0, rs0, hbits],
-           "device_ms": {}}
-    for stages, rs in plans:
-        run(stages, rs)
+    rec = {"query_route_sweep": label, "plan": [rs0, hbits], "device_ms": {}}
+    for rs in plans:
+        run(rs)
         torch.cuda.synchronize()
         if not same_bits(dots, want[0]):
-            raise AssertionError(f"{label}: plan {stages, rs} differs")
-        rec["device_ms"][f"{stages}x{rs}"] = cs.graph_ms(
-            lambda: run(stages, rs))
+            raise AssertionError(f"{label}: {rs} rows a stage differ")
+        rec["device_ms"][f"2x{rs}"] = cs.graph_ms(lambda: run(rs))
     ids = xs.ids[sel.long().clamp(0, g - 1)].reshape(b, -1)
     ids = torch.where(ids >= 0, ids.clamp_max(xs.rows.shape[0] - 1), -1)
     srt = torch.sort(ids, dim=1).values
@@ -1587,7 +1604,7 @@ def tune(lib):
                 lambda: base_tile_tables(lib, *args))}), flush=True)
     if "--tables-only" in sys.argv[1:]:
         return
-    plans = [(2, 24), (2, 28), (2, 32), (2, 40), (2, 48), (3, 28)]
+    plans = [24, 28, 32, 40, 48]
     xs, sq, q, sel = cs.shared_inputs(1_000_000, 65_536, 128, 128, 2048, 8,
                                       dev, seed=17)
     query_route_sweep("phase2_f32", xs, sq, q, sel, plans)
@@ -1623,13 +1640,13 @@ def tables_host_breakdown(lib):
     """Kernel 9's wrapper's host time a call (``cs.host_us``), item by item,
     at the iid and clustered chunks' ``TABLES`` shapes, beside the earlier
     build's wrapper and kernel 11's (``project_rows`` at the iid chunk's
-    projections): ``checks``, ``alloc`` (one allocation cut by one
-    ``split``), in turns with ``alloc_other`` (the scratch and five
-    outputs apart) and ``alloc_slices_three_of_six`` (three of the six
-    sliced from one allocation), ``launch`` (the packed ``ctypes`` call,
-    the launches included), ``ctypes`` (the same call refused before any
-    launch: the conversion floor) and ``rest``.  Each the median of 9
-    batches of 100 calls."""
+    projections): ``checks``, ``alloc`` (the five outputs from one
+    allocation cut by one ``split``, the scratch apart), in turns with
+    ``alloc_six`` (the scratch and five outputs apart) and ``alloc_one``
+    (the scratch and the outputs from one allocation), ``launch`` (the
+    packed ``ctypes`` call, the launches included), ``ctypes`` (the same
+    call refused before any launch: the conversion floor) and ``rest``.
+    Each the median of 9 batches of 100 calls."""
     from rptree_tpu_torch import _cuda
     from rptree_tpu_torch.ops import build as bd
     from rptree_tpu_torch.ops import grouped as og
@@ -1649,22 +1666,22 @@ def tables_host_breakdown(lib):
         need = int(og.tile_tables_reference(gsel, lsel, lens, tile_m, 1)[2])
         nt = need + need // 8
         e = gsel.numel()
-        length = og.tile_tables_plan(e, g).length
-        bufs = og._tables_buffers(dev, e, nt, tile_m, length)
+        bits = og.table_digit_bits(e)
+        length = og._tables_scratch(e, g, bits)
+        tb, tp, needed, slot, lens_t = og._tables_buffers(dev, e, nt, tile_m)
+        scratch = torch.empty(length, dtype=torch.int32, device=dev)
 
         def launch(gg=g, check=True):
-            scratch, tb, tp, needed, slot, lens_t = bufs
             with _cuda.on(dev):
                 code = new.rpt_tile_tables(og._TABLES_ARGS.pack(
                     gsel.data_ptr(), lsel.data_ptr(), lens.data_ptr(),
                     tb.data_ptr(), tp.data_ptr(), slot.data_ptr(),
                     lens_t.data_ptr(), needed.data_ptr(), scratch.data_ptr(),
-                    length, e, gg, nt, tile_m, og.table_digit_bits(e),
-                    _cuda.raw_stream(dev)))
+                    length, e, gg, nt, tile_m, bits, _cuda.raw_stream(dev)))
             if check:
                 _cuda.check(code, "tile_tables")
 
-        def apart():
+        def six():
             return (torch.empty(length, dtype=torch.int32, device=dev),
                     torch.empty(nt, dtype=torch.int32, device=dev),
                     torch.empty((nt, tile_m), dtype=torch.int32, device=dev),
@@ -1672,30 +1689,34 @@ def tables_host_breakdown(lib):
                     torch.empty(e, dtype=torch.int64, device=dev),
                     torch.empty(nt, dtype=torch.int32, device=dev))
 
+        def one():
+            at = length + (length & 1)
+            sc, sl, t_b, l_t, t_p, nd = torch.empty(
+                at + 2 * e + nt * (tile_m + 2) + 1, dtype=torch.int32,
+                device=dev).split([at, 2 * e, nt, nt, nt * tile_m, 1])
+            return (sc, t_b, t_p.view(nt, tile_m), nd.view(()),
+                    sl.view(torch.int64), l_t)
+
         rec = {"call": hu(lambda: og.tile_tables(gsel, lsel, lens, tile_m,
                                                  nt)),
                "checks": hu(lambda: (
                    og._check_tables(gsel, lsel, lens, tile_m, nt),
-                   og._check_cuda("tile_tables", dev,
-                                  ("gsel", gsel, torch.int32),
-                                  ("lsel", lsel, torch.int32),
-                                  ("lens_of_block", lens, torch.int32)))),
+                   _cuda.check_operands("tile_tables", dev,
+                                        ("gsel", gsel, torch.int32),
+                                        ("lsel", lsel, torch.int32),
+                                        ("lens_of_block", lens,
+                                         torch.int32)))),
                "launch": hu(launch),
                "ctypes": hu(lambda: launch(0, False))}
-        def slices():  # one allocation, a slice and view an output
-            at = length + (length & 1)
-            buf = torch.empty(at + 2 * e + nt * (tile_m + 2) + 1,
-                              dtype=torch.int32, device=dev)
-            return (buf[:length], buf[at + 2 * e:at + 2 * e + nt],
-                    buf[at:at + 2 * e].view(torch.int64))
-
-        forms = (lambda: og._tables_buffers(dev, e, nt, tile_m, length),
-                 apart, slices)
+        forms = (lambda: (og._tables_buffers(dev, e, nt, tile_m),
+                          torch.empty(length, dtype=torch.int32,
+                                      device=dev)),
+                 six, one)
         first = [hu(fn) for fn in forms]
         last = [hu(fn) for fn in reversed(forms)][::-1]
         rec["alloc"] = (first[0] + last[0]) / 2
-        rec["alloc_other"] = (first[1] + last[1]) / 2
-        rec["alloc_slices_three_of_six"] = (first[2] + last[2]) / 2
+        rec["alloc_six"] = (first[1] + last[1]) / 2
+        rec["alloc_one"] = (first[2] + last[2]) / 2
         rec["rest"] = rec["call"] - rec["checks"] - rec["alloc"] - rec["launch"]
         x = torch.randn(32_768, 128, device=dev)
         r = torch.randn(640, 128, device=dev)

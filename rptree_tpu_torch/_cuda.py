@@ -30,8 +30,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["build", "lib", "check", "ptr", "stream_of", "raw_stream", "on",
-           "resolve_device"]
+__all__ = ["build", "lib", "check", "check_operands", "ptr", "stream_of",
+           "raw_stream", "on", "resolve_device"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
@@ -58,11 +58,11 @@ _SIGNATURES = {
     # rows, ids, n, sq, q, runs, dots, sqx, b, p, g, lmax, d, stream
     "rpt_gather_score_shared_f32": [_P, _P, _L] + [_P] * 5 + [_I] * 5 + [_P],
     "rpt_gather_score_shared_bf16": [_P, _P, _L] + [_P] * 5 + [_I] * 5 + [_P],
-    # rows, ids, n, sq, q, sel, dots, sqx, b, p, g, lmax, d, stages, rs,
-    # hbits, stream
-    "rpt_gather_score_shared_query_f32": [_P, _P, _L] + [_P] * 5 + [_I] * 8
+    # rows, ids, n, sq, q, sel, dots, sqx, b, p, g, lmax, d, rs, hbits,
+    # stream
+    "rpt_gather_score_shared_query_f32": [_P, _P, _L] + [_P] * 5 + [_I] * 7
     + [_P],
-    "rpt_gather_score_shared_query_bf16": [_P, _P, _L] + [_P] * 5 + [_I] * 8
+    "rpt_gather_score_shared_query_bf16": [_P, _P, _L] + [_P] * 5 + [_I] * 7
     + [_P],
     # np, dp, b, k, out[3]
     "rpt_scan_plan": [_L, _I, _I, _I, ctypes.POINTER(_I)],
@@ -154,6 +154,8 @@ def lib():
             fn.restype = ctypes.c_int
         handle.rpt_tile_tables_scratch.argtypes = [_L, _I, _I]
         handle.rpt_tile_tables_scratch.restype = _L
+        handle.rpt_tile_tables_grids.argtypes = []
+        handle.rpt_tile_tables_grids.restype = ctypes.c_longlong
         handle.rpt_error_string.argtypes = [ctypes.c_int]
         handle.rpt_error_string.restype = ctypes.c_char_p
         _lib = handle
@@ -165,6 +167,21 @@ def check(code: int, name: str) -> None:
     if code != 0:
         msg = lib().rpt_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA launch failed ({code}): {msg}")
+
+
+def check_operands(name, device, *tensors):
+    """Raise unless each ``(key, tensor, dtype)`` is a contiguous tensor of
+    that dtype on ``device``: one test an operand, which a wrapper of a
+    short kernel pays on every call, and the reason only on failure."""
+    for key, t, dtype in tensors:
+        if t.device == device and t.dtype == dtype and t.is_contiguous():
+            continue
+        if t.device != device:
+            raise ValueError(f"{name}: {key} is on {t.device}, expected "
+                             f"{device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {key} must be {dtype}, got {t.dtype}")
+        raise ValueError(f"{name}: {key} must be contiguous")
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -311,7 +311,6 @@ gather_score_kernel(const T* __restrict__ x, const int* __restrict__ ids, long n
 
 constexpr int kQThreads = 128;
 constexpr int kSegChunks = 4;  // 128-byte chunks a staged row segment, at most
-constexpr int kMaxStages = 6;
 
 // One 128-byte column chunk of a staged row against the query's: four FMA
 // chains over the chunk, added as a tree (the blocked route's order).
@@ -343,17 +342,6 @@ __device__ __forceinline__ float zero_chunk_dot(const float* qc, int kw) {
   return (part[0] + part[1]) + (part[2] + part[3]);
 }
 
-__device__ __forceinline__ void cp_async_wait_dyn(int n) {
-  switch (n) {
-    case 0: cp_async_wait<0>(); break;
-    case 1: cp_async_wait<1>(); break;
-    case 2: cp_async_wait<2>(); break;
-    case 3: cp_async_wait<3>(); break;
-    case 4: cp_async_wait<4>(); break;
-    default: cp_async_wait<5>(); break;
-  }
-}
-
 // The columns a staged row segment covers, and its stride in elements: an
 // odd count of 16 bytes, so that the row reads do not collide in banks.
 template <typename T>
@@ -370,9 +358,9 @@ struct QueryShape {
 };
 
 template <typename T>
-size_t query_smem(int p, int lmax, int d, int stages, int rs, int hbits) {
+size_t query_smem(int p, int lmax, int d, int rs, int hbits) {
   const QueryShape<T> qs(d);
-  return (size_t)stages * rs * qs.stride * sizeof(T) + sizeof(float) * qs.nchunk * Shape<T>::DC +
+  return (size_t)kStages * rs * qs.stride * sizeof(T) + sizeof(float) * qs.nchunk * Shape<T>::DC +
          sizeof(int) * ((size_t)2 * ((size_t)1 << hbits) + 2 * (size_t)p * lmax + p);
 }
 
@@ -387,15 +375,15 @@ __device__ __forceinline__ int hash_slot(const int* keys, int id, int hbits) {
 // loads), the distinct rows they name by a hash in shared memory (empty
 // slots name none), each distinct row streamed once, whole (up to 512
 // bytes a segment, 16-byte cp.async copies, a warp on a row) through a
-// ring of `stages` stages of `rs` rows, one thread a row summing its dot
+// ring of kStages stages of `rs` rows, one thread a row summing its dot
 // with q[b]; then every slot's dot from its row's, zdot for an empty one.
 template <typename T>
 __global__ void __launch_bounds__(kQThreads)
 gather_query_kernel(const T* __restrict__ x, const int* __restrict__ ids, long nrows,
                     const float* __restrict__ sq, const float* __restrict__ q,
                     const int* __restrict__ sel, float* __restrict__ dots,
-                    float* __restrict__ sqx, int p, int g, int lmax, int d, int vec, int stages,
-                    int rs, int hbits) {
+                    float* __restrict__ sqx, int p, int g, int lmax, int d, int vec, int rs,
+                    int hbits) {
   using S = Shape<T>;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int nd;
@@ -403,7 +391,7 @@ gather_query_kernel(const T* __restrict__ x, const int* __restrict__ ids, long n
   const QueryShape<T> sh(d);
   const int nslots = p * lmax, hmask = (1 << hbits) - 1;
   T* ring = reinterpret_cast<T*>(smem);
-  float* qs = reinterpret_cast<float*>(smem + (size_t)stages * rs * sh.stride * sizeof(T));
+  float* qs = reinterpret_cast<float*>(smem + (size_t)kStages * rs * sh.stride * sizeof(T));
   int* keys = reinterpret_cast<int*>(qs + sh.nchunk * S::DC);
   float* vals = reinterpret_cast<float*>(keys + hmask + 1);  // a distinct row's dot
   int* pos = reinterpret_cast<int*>(vals + hmask + 1);       // a slot's id, then entry
@@ -457,7 +445,7 @@ gather_query_kernel(const T* __restrict__ x, const int* __restrict__ ids, long n
   __syncthreads();
   const int n = nd;
   const int nsteps = (n + rs - 1) / rs * sh.nseg;  // (row group, segment)
-  auto ring_at = [&](int step) { return ring + (size_t)(step % stages) * rs * sh.stride; };
+  auto ring_at = [&](int step) { return ring + (size_t)(step % kStages) * rs * sh.stride; };
   auto stage = [&](int step) {  // an empty group past the last step
     if (step < nsteps) {
       const int gi = step / sh.nseg, si = step - gi * sh.nseg;
@@ -483,10 +471,10 @@ gather_query_kernel(const T* __restrict__ x, const int* __restrict__ ids, long n
     cp_async_commit();
   };
   float acc = 0.0f;
-  for (int s = 0; s < stages - 1; ++s) stage(s);
+  for (int s = 0; s < kStages - 1; ++s) stage(s);
   for (int step = 0; step < nsteps; ++step) {
-    stage(step + stages - 1);
-    cp_async_wait_dyn(stages - 1);  // the group of this step has landed
+    stage(step + kStages - 1);
+    cp_async_wait<kStages - 1>();  // the group of this step has landed
     __syncthreads();
     const int gi = step / sh.nseg, si = step - gi * sh.nseg;
     const int r0 = gi * rs;
@@ -503,7 +491,7 @@ gather_query_kernel(const T* __restrict__ x, const int* __restrict__ ids, long n
         acc = 0.0f;
       }
     }
-    __syncthreads();  // the stage is refilled stages - 1 steps on
+    __syncthreads();  // the stage is refilled kStages - 1 steps on
   }
   cp_async_wait<0>();
   __syncthreads();
@@ -516,19 +504,19 @@ gather_query_kernel(const T* __restrict__ x, const int* __restrict__ ids, long n
 template <typename T>
 int launch_query(const T* x, const int* ids, long nrows, const float* sq, const float* q,
                  const int* sel, float* dots, float* sqx, int b, int p, int g, int lmax, int d,
-                 int stages, int rs, int hbits, void* stream) {
-  if (b < 0 || p < 1 || g < 1 || lmax < 1 || d < 1 || nrows < 1 || stages < 2 ||
-      stages > kMaxStages || rs < 1 || rs > kQThreads || hbits < 6 || hbits > 16 ||
+                 int rs, int hbits, void* stream) {
+  if (b < 0 || p < 1 || g < 1 || lmax < 1 || d < 1 || nrows < 1 || rs < 1 ||
+      rs > kQThreads || hbits < 6 || hbits > 16 ||
       (1L << hbits) < (long)p * lmax + 1)
     return (int)cudaErrorInvalidValue;
   if (b == 0) return 0;
-  const size_t smem = query_smem<T>(p, lmax, d, stages, rs, hbits);
+  const size_t smem = query_smem<T>(p, lmax, d, rs, hbits);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   const int vec = d % Shape<T>::V == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   cudaError_t e = rpt::allow_smem(gather_query_kernel<T>, smem);
   if (e != cudaSuccess) return (int)e;
   gather_query_kernel<T><<<(unsigned)b, kQThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, ids, nrows, sq, q, sel, dots, sqx, p, g, lmax, d, vec, stages, rs, hbits);
+      x, ids, nrows, sq, q, sel, dots, sqx, p, g, lmax, d, vec, rs, hbits);
   return (int)cudaGetLastError();
 }
 
@@ -706,24 +694,24 @@ int rpt_gather_score_shared_bf16(const __nv_bfloat16* rows, const int* ids, long
 }
 
 // The shared-row mode's query route (no pair runs): sel the int32 [b, p]
-// block rows; stages, rs and hbits the plan (ops/fused_gather.py
-// shared_route): the ring's stages and rows a stage, and log2 of the hash
-// size (more than p lmax).  cudaErrorInvalidValue for a plan outside the
+// block rows; rs and hbits the plan (ops/fused_gather.py shared_route):
+// the ring's rows a stage, and log2 of the hash size (more than p lmax).
+// The ring has kStages stages.  cudaErrorInvalidValue for a plan outside the
 // kernel's bounds or past the shared memory of a block.
 int rpt_gather_score_shared_query_f32(const float* rows, const int* ids, long n,
                                       const float* sq, const float* q, const int* sel,
                                       float* dots, float* sqx, int b, int p, int g, int lmax,
-                                      int d, int stages, int rs, int hbits, void* stream) {
-  return launch_query<float>(rows, ids, n, sq, q, sel, dots, sqx, b, p, g, lmax, d, stages, rs,
-                             hbits, stream);
+                                      int d, int rs, int hbits, void* stream) {
+  return launch_query<float>(rows, ids, n, sq, q, sel, dots, sqx, b, p, g, lmax, d, rs, hbits,
+                             stream);
 }
 
 int rpt_gather_score_shared_query_bf16(const __nv_bfloat16* rows, const int* ids, long n,
                                        const float* sq, const float* q, const int* sel,
                                        float* dots, float* sqx, int b, int p, int g, int lmax,
-                                       int d, int stages, int rs, int hbits, void* stream) {
-  return launch_query<__nv_bfloat16>(rows, ids, n, sq, q, sel, dots, sqx, b, p, g, lmax, d,
-                                     stages, rs, hbits, stream);
+                                       int d, int rs, int hbits, void* stream) {
+  return launch_query<__nv_bfloat16>(rows, ids, n, sq, q, sel, dots, sqx, b, p, g, lmax, d, rs,
+                                     hbits, stream);
 }
 
 }  // extern "C"

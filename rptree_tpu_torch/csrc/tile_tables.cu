@@ -64,6 +64,8 @@
 
 #include <string.h>
 
+#include <atomic>
+
 #include "common.cuh"
 
 namespace {
@@ -78,6 +80,10 @@ constexpr int kMaxPasses = 4;                   // 4 x 8 bits cover any int32 G
 constexpr int kSeg = 4096;                      // blocks g a segment of the c_g scan
 constexpr int kSegPer = kSeg / kThreads;
 constexpr int kWindow = 8;                      // earlier chunks a look-back step reads
+
+// The grids tile_tables_launch has launched in this process
+// (rpt_tile_tables_grids: the chip scripts log a call's count).
+std::atomic<long long> g_grids{0};
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kIncl = 0x80000000u;
 constexpr long long kLow = 0xffffffffLL;
@@ -586,10 +592,12 @@ int tile_tables_launch(const int* gsel, const int* lsel, const int* lens, int* t
   const long up_grid = max(pl.chunks, min(1024L, (work + 16L * kThreads - 1) / (16L * kThreads)));
   upsweep_kernel<<<(unsigned)up_grid, kThreads, sizeof(int) * pl.rows, stream>>>(
       gsel, lsel, lens, n, g, nt, tile_m, tb, tp, slot, lens_t, scratch, pl);
+  g_grids.fetch_add(1, std::memory_order_relaxed);
   const int row_blocks = (pl.rows + 31) / 32;
   const long count_blocks = pl.passes == 1 ? (n + kChunk - 1) / kChunk : 0;
   scan_kernel<<<(unsigned)(row_blocks + count_blocks), kScanThreads, 0, stream>>>(
       gsel, lsel, n, g, scratch, pl, row_blocks);
+  g_grids.fetch_add(1, std::memory_order_relaxed);
   int* bufs = scratch + pl.bufs;
   int* buf[2][2] = {{bufs, bufs + n}, {bufs + 2 * n, bufs + 3 * n}};
   for (int p = 0; p < pl.passes; ++p) {
@@ -618,6 +626,7 @@ int tile_tables_launch(const int* gsel, const int* lsel, const int* lens, int* t
     }
 #undef RPT_SCATTER
     if (e != cudaSuccess) return (int)e;
+    g_grids.fetch_add(1, std::memory_order_relaxed);
   }
   return (int)cudaGetLastError();
 }
@@ -631,7 +640,7 @@ extern "C" {
 // lsel int32[n] pairs; lens int32[g]; outputs tb int32[nt], tp int32[nt *
 // tile_m], slot int64[n], lens_t int32[nt], needed int32[1]; scratch
 // int32[scratch_len], 8-byte aligned, of at least the plan's length
-// (tile_tables_plan); max_bits the widest digit, 8 to 11.
+// (rpt_tile_tables_scratch); max_bits the widest digit, 8 to 11.
 int rpt_tile_tables(const long long* packed) {
   long long a[16];
   memcpy(a, packed, sizeof a);
@@ -650,5 +659,8 @@ long rpt_tile_tables_scratch(long n, int g, int max_bits) {
   if (g < 1 || n < 0 || max_bits < kMinBits || max_bits > kMaxBits) return -1;
   return plan_of(n, g, max_bits).len;
 }
+
+// The grids rpt_tile_tables has launched in this process.
+long long rpt_tile_tables_grids() { return g_grids.load(std::memory_order_relaxed); }
 
 }  // extern "C"

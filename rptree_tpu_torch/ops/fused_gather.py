@@ -62,10 +62,10 @@ _REF_PAIRS = 1 << 14
 MAX_PAIRS = 8
 # the shared-row query route (csrc/gather_score.cu gather_query_kernel): a
 # query's slots P * lmax and row width D it takes, at most; the bytes of a
-# staged row segment (kSegChunks 128-byte chunks) and of a ring stage; the
-# ring's stages
+# staged row segment (kSegChunks 128-byte chunks) and of one of the ring's
+# two stages (kStages)
 QUERY_MAX_SLOTS, QUERY_MAX_D = 2048, 2048
-_SEG_BYTES, _STAGE_BYTES, QUERY_STAGES = 512, 14 << 10, 2
+_SEG_BYTES, _STAGE_BYTES = 512, 14 << 10
 
 
 def gather_score_ok(x_leaf, probes: int) -> bool:
@@ -197,7 +197,7 @@ def _pair_runs(rows_sel, g):
 def shared_route(p: int, lmax: int, d: int, itemsize: int):
     """The shared-row mode's route for P probes of blocks of ``lmax``
     slots over rows of ``D`` values of ``itemsize`` bytes: ``("query",
-    (stages, rows a stage, log2 hash size))`` where a query's slots and
+    (rows a stage, log2 hash size))`` where a query's slots and
     its row fit the query route's shared memory, else ``("block",
     None)``.  The query route stages a row in segments of up to 512
     bytes, about 14 KB a stage in a ring of two, and hashes the slots
@@ -209,7 +209,7 @@ def shared_route(p: int, lmax: int, d: int, itemsize: int):
     seg = min(-(-d // chunk), _SEG_BYTES // 128) * chunk
     rows = min(128, max(8, _STAGE_BYTES // (seg * itemsize)))
     hbits = max(6, (-(-3 * slots // 2) - 1).bit_length())
-    return "query", (QUERY_STAGES, rows, hbits)
+    return "query", (rows, hbits)
 
 
 @torch.no_grad()

@@ -43,7 +43,6 @@ from .grouped_kernel import (_int8_dots, _quantize_rows, grouped_score_tiles,
 from .rerank import distances_from_dots
 from .shared import fetch_blocks
 from .sparse import EllBlocks
-from .traverse import _check_cuda
 
 __all__ = ["grouped_distances", "grouped_distances_kernel",
            "grouped_topk_kernel", "tile_tables", "tile_tables_reference"]
@@ -56,7 +55,9 @@ _BIG = 1 << 30  # sentinel block id for masked pairs (sorts to the end)
 _PARTS = 4
 # csrc/tile_tables.cu's pairs a block (kChunk), blocks g a segment of the
 # c_g scan (kSeg) and the widest digit's bounds (kMinBits, kMaxBits): its
-# digit plan and scratch layout follow from them (:func:`tile_tables_plan`)
+# digit plan and scratch layout follow from them (:func:`tile_tables_plan`,
+# the rule the tests hold the kernel's algorithm to; the wrapper takes the
+# scratch's length from the kernel library)
 _TT_CHUNK, _TT_SEG, _TT_MIN_BITS, _TT_MAX_BITS = 2048, 4096, 8, 11
 # kernel 9's widest digit: 11 bits (two passes to G 4,194,304) up to
 # 524,288 pairs, 8 past them, where the wider digits' short runs spread
@@ -138,7 +139,6 @@ class TablesPlan(NamedTuple):
     length: int
 
 
-@functools.lru_cache(maxsize=256)
 def tile_tables_plan(n: int, g: int, max_bits: int = None) -> TablesPlan:
     """:class:`TablesPlan` of ``n`` pairs over ``g`` blocks.  The regions:
     ``segstate`` (a state a segment of the ``c_g`` scan), ``flags`` (the
@@ -299,17 +299,22 @@ def _check_tables(gsel, lsel, lens_of_block, tile_m, nt):
 _TABLES_ARGS = struct.Struct("16q")
 
 
-def _tables_buffers(dev, e, nt, tile_m, length):
-    """Kernel 9's scratch and five outputs as views of one int32
-    allocation, cut by one ``split``: ``(scratch, tb, tp, needed, slot,
-    lens_t)``; the scratch first and ``slot`` at an even offset, so both
-    are 8-byte aligned."""
-    at = length + (length & 1)
-    scratch, slot, tb, lens_t, tp, needed = torch.empty(
-        at + 2 * e + nt * (tile_m + 2) + 1, dtype=torch.int32,
-        device=dev).split([at, 2 * e, nt, nt, nt * tile_m, 1])
-    return (scratch, tb, tp.view(nt, tile_m), needed.view(()),
-            slot.view(torch.int64), lens_t)
+@functools.lru_cache(maxsize=256)
+def _tables_scratch(n: int, g: int, max_bits: int) -> int:
+    """The int32s of kernel 9's scratch for ``n`` pairs over ``g`` blocks
+    (``csrc/tile_tables.cu`` ``rpt_tile_tables_scratch``)."""
+    return _cuda.lib().rpt_tile_tables_scratch(n, g, max_bits)
+
+
+def _tables_buffers(dev, e, nt, tile_m):
+    """Kernel 9's five outputs as views of one int32 allocation, cut by
+    one ``split``: ``(tb, tp, needed, slot, lens_t)``; ``slot`` first, so
+    it is 8-byte aligned."""
+    slot, tb, lens_t, tp, needed = torch.empty(
+        2 * e + nt * (tile_m + 2) + 1, dtype=torch.int32,
+        device=dev).split([2 * e, nt, nt, nt * tile_m, 1])
+    return (tb, tp.view(nt, tile_m), needed.view(()), slot.view(torch.int64),
+            lens_t)
 
 
 def tile_tables(gsel, lsel, lens_of_block, tile_m: int, nt: int):
@@ -327,8 +332,8 @@ def tile_tables(gsel, lsel, lens_of_block, tile_m: int, nt: int):
     tile slot (``nt * tile_m`` for a masked pair and one past the
     capacity), ``lens_t`` each tile's occupancy ``lens_of_block[tb]``.
     Tiles past ``needed`` hold block 0 and no pair.  On the card block
-    ids outside ``[0, G)`` are clamped into it.  The five tables are views
-    of one allocation with the kernel's scratch."""
+    ids outside ``[0, G)`` are clamped into it, and the five tables are
+    views of one allocation."""
     if gsel.device.type == "cpu":
         return tile_tables_reference(gsel, lsel, lens_of_block, tile_m, nt)
     return _tables_on_card(gsel, lsel, lens_of_block, tile_m, nt)
@@ -341,15 +346,20 @@ def _tables_on_card(gsel, lsel, lens_of_block, tile_m, nt, max_bits=None):
     tile_m, nt = int(tile_m), int(nt)
     _check_tables(gsel, lsel, lens_of_block, tile_m, nt)
     dev = gsel.device
-    _check_cuda("tile_tables", dev, ("gsel", gsel, torch.int32),
-                ("lsel", lsel, torch.int32),
-                ("lens_of_block", lens_of_block, torch.int32))
+    _cuda.check_operands("tile_tables", dev, ("gsel", gsel, torch.int32),
+                         ("lsel", lsel, torch.int32),
+                         ("lens_of_block", lens_of_block, torch.int32))
     e, g = gsel.numel(), lens_of_block.shape[0]
     if max_bits is None:
         max_bits = table_digit_bits(e)
-    length = tile_tables_plan(e, g, max_bits).length
-    scratch, tb, tp, needed, slot, lens_t = _tables_buffers(dev, e, nt,
-                                                            tile_m, length)
+    length = _tables_scratch(e, g, max_bits)
+    if length < 0:
+        raise ValueError(f"tile_tables: max_bits {max_bits} outside "
+                         f"[{_TT_MIN_BITS}, {_TT_MAX_BITS}]")
+    tb, tp, needed, slot, lens_t = _tables_buffers(dev, e, nt, tile_m)
+    # the scratch apart from the outputs, so that it returns to the
+    # allocator when the call does
+    scratch = torch.empty(length, dtype=torch.int32, device=dev)
     with _cuda.on(dev):
         code = _cuda.lib().rpt_tile_tables(_TABLES_ARGS.pack(
             gsel.data_ptr(), lsel.data_ptr(), lens_of_block.data_ptr(),

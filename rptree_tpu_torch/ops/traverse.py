@@ -60,6 +60,7 @@ import numpy as np
 import torch
 
 from .. import _cuda
+from .._cuda import check_operands as _check_cuda
 from ..models.plan import TreePlan
 from .build import project_rows
 
@@ -285,21 +286,6 @@ def traverse_route(budget: int) -> Tuple[str, int]:
 
 
 _ROUTES = {"registers": 0, "shared": 1, "global": 2, "warp": 3}
-
-
-def _check_cuda(name, device, *tensors):
-    """Raise unless each ``(key, tensor, dtype)`` is a contiguous tensor of
-    that dtype on ``device``: one test an operand, which a wrapper of a
-    short kernel pays on every call, and the reason only on failure."""
-    for key, t, dtype in tensors:
-        if t.device == device and t.dtype == dtype and t.is_contiguous():
-            continue
-        if t.device != device:
-            raise ValueError(f"{name}: {key} is on {t.device}, expected "
-                             f"{device}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name}: {key} must be {dtype}, got {t.dtype}")
-        raise ValueError(f"{name}: {key} must be contiguous")
 
 
 # The C entry points' arguments, an int64 each in their order

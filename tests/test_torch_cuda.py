@@ -925,6 +925,22 @@ def test_tile_tables_digit_plans(dev, g, b, p, tile_m, hot, masked, max_bits):
         og.tile_tables_plan(b * p, g, max_bits).length
 
 
+@pytest.mark.parametrize("g,max_bits", [(1, 11), (65_536, 11), (65_537, 8),
+                                        (524_288, 11), (524_288, 8)])
+def test_tile_tables_launch_two_plus_passes_grids(dev, g, max_bits):
+    """A call launches the upsweep, the scan and one scatter a pass, by the
+    library's own count."""
+    from rptree_tpu_torch import _cuda
+    from rptree_tpu_torch.ops import grouped as og
+
+    gsel, lsel, lens = _pairs(dev, g, 256, 8, seed=g)
+    before = _cuda.lib().rpt_tile_tables_grids()
+    og._tables_on_card(gsel, lsel, lens, 8, 512, max_bits=max_bits)
+    torch.cuda.synchronize()
+    assert _cuda.lib().rpt_tile_tables_grids() - before == \
+        2 + og.tile_tables_plan(256 * 8, g, max_bits).passes
+
+
 def test_tile_tables_refuse_what_they_do_not_serve(dev):
     from rptree_tpu_torch.ops import grouped as og
 

@@ -231,15 +231,15 @@ def test_look_back_words_and_scans():
 
 
 @pytest.mark.parametrize("p,lmax,d,itemsize,want", [
-    (8, 160, 128, 4, ("query", (2, 28, 11))),   # the 10M cell's chunk
-    (8, 128, 128, 4, ("query", (2, 28, 11))),   # (n)'s chunk, phase 2
-    (8, 128, 128, 2, ("query", (2, 56, 11))),   # bf16 rows
-    (3, 24, 20, 4, ("query", (2, 112, 7))),     # one 128-byte chunk a row
-    (1, 4, 8, 4, ("query", (2, 112, 6))),
-    (8, 256, 600, 4, ("query", (2, 28, 12))),   # 2,048 slots, segments
-    (8, 257, 128, 4, ("block", None)),          # past the query's room
+    (8, 160, 128, 4, ("query", (28, 11))),   # the 10M cell's chunk
+    (8, 128, 128, 4, ("query", (28, 11))),   # (n)'s chunk, phase 2
+    (8, 128, 128, 2, ("query", (56, 11))),   # bf16 rows
+    (3, 24, 20, 4, ("query", (112, 7))),     # one 128-byte chunk a row
+    (1, 4, 8, 4, ("query", (112, 6))),
+    (8, 256, 600, 4, ("query", (28, 12))),   # 2,048 slots, segments
+    (8, 257, 128, 4, ("block", None)),       # past the query's room
     (8, 128, 2049, 4, ("block", None)),
-    (32, 3128, 128, 2, ("block", None)),        # the bracket's blocks
+    (32, 3128, 128, 2, ("block", None)),     # the bracket's blocks
 ])
 def test_shared_route(p, lmax, d, itemsize, want):
     """The query route up to 2,048 slots a query and rows of 2,048 values;
@@ -250,7 +250,7 @@ def test_shared_route(p, lmax, d, itemsize, want):
     got = fg.shared_route(p, lmax, d, itemsize)
     assert got == want
     if got[0] == "query":
-        stages, rows, hbits = got[1]
+        rows, hbits = got[1]
         assert 2 * (1 << hbits) >= 3 * p * lmax and 8 <= rows <= 128
 
 
@@ -287,21 +287,20 @@ def test_union_rule_on_shared_rows(shared_forest, dtype):
     assert bool((distinct <= filled).all()) and bool((distinct < filled).any())
 
 
-@pytest.mark.parametrize("e,nt,tile_m,length", [(0, 0, 8, 7), (10, 5, 8, 101),
-                                                 (524_288, 104_049, 8, 4096)])
-def test_tables_buffers(e, nt, tile_m, length):
-    """Kernel 9's scratch and five outputs cut from one allocation: the
-    scratch first, ``slot`` int64 at an even int32 offset (8-byte aligned
-    on the card), the shapes and dtypes of the twin's tables, no two
-    views overlapping."""
-    scratch, tb, tp, needed, slot, lens_t = og._tables_buffers(
-        torch.device("cpu"), e, nt, tile_m, length)
-    assert scratch.storage_offset() == 0 and scratch.numel() >= length
+@pytest.mark.parametrize("e,nt,tile_m", [(0, 0, 8), (10, 5, 8),
+                                          (524_288, 104_049, 8)])
+def test_tables_buffers(e, nt, tile_m):
+    """Kernel 9's five outputs cut from one allocation, its scratch apart:
+    ``slot`` int64 first (8-byte aligned on the card), the shapes and
+    dtypes of the twin's tables, no two views overlapping."""
+    tb, tp, needed, slot, lens_t = og._tables_buffers(torch.device("cpu"), e,
+                                                      nt, tile_m)
     assert slot.dtype == torch.int64 and slot.shape == (e,)
-    assert (slot.data_ptr() - scratch.data_ptr()) % 8 == 0
+    assert slot.storage_offset() == 0
     assert tb.shape == lens_t.shape == (nt,) and tp.shape == (nt, tile_m)
     assert needed.shape == () and needed.dtype == torch.int32
     spans = sorted((t.storage_offset() * t.element_size(),
                     (t.storage_offset() + t.numel()) * t.element_size())
-                   for t in (scratch, tb, tp, needed, slot, lens_t))
+                   for t in (tb, tp, needed, slot, lens_t))
     assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert spans[-1][1] == (2 * e + nt * (tile_m + 2) + 1) * 4
