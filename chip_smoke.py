@@ -122,7 +122,31 @@ its launch counts):
    (s2)'s first chunk; then a repack with slack 8 and 4,096 documents
    folded: no row past the blocks' K slots folded, >= 99% of the folded
    documents found by themselves through (s3)'s path;
-10. the kernels' launch counts over phases 3-9, each of which must be > 0.
+10. the user surface (``surface_*`` lines), run in two parts: 10a on
+   phase 3's forest before phase 8a, 10b on phase 4's after phase 6.
+   (u1) ``rp.forest`` over phase 3's 1M rows in 16 chunks from the host
+   with phase 3's parameters: the trees ``torch.equal`` to phase 3's;
+   packed f32 and served grouped with the kernel tail on 65,536 queries,
+   bit-equal to (a).  (u4) ``rp.tune`` on phase 3's forest packed f32,
+   measured, ``serving="grouped"`` and ``"batched"`` on 1,024 queries
+   (budgets 1, 2, 4; probes 1 and 2 a tree), and grouped again on 8,192
+   (timed in chunks of 8,192): the target 0.9 met, the returned recall
+   that of ``rp.knn`` (or of the scan) at the returned knobs, every
+   frontier point timed.  (u5) ``rp.data_batch`` of 1M ``normal_dense2``
+   rows at D 128 on the card, its mixture share and component means
+   within 5 standard errors; ``circle2d2`` within radius 1 of its
+   centres.  (u2) ``ForestBuilder(anytime_slack=8)`` over the iid 100k
+   rows in 4 chunks: after each, the partial index per pair on 8,192
+   queries drawn from the rows seen (a seen point plus 0.1 noise),
+   recall@10 >= 0.10 against the exact scan of the rows seen,
+   the pending count printed; ``build()`` ``torch.equal`` to phase 4's
+   batch build.  (u3) ``save_forest`` / ``load_forest`` of phase 4's
+   forest (arrays ``torch.equal``; repacked int8 with slack 8, 32,768
+   queries with the kernel tail bit-equal to the original's), the
+   per-tree blobs in order and reversed, ``save_forest`` refused after
+   ``add``; bytes and host-clock seconds.  (u4) ``rp.tune_build`` on the
+   iid rows, ``measure=False``, target 0.10: a forest meets it;
+11. the kernels' launch counts over phases 3-10, each of which must be > 0.
 
 Each scan of phases 3, 5, 6 and 8 is also held, on its first chunk of
 queries, against the scan kernel's plain version at that shape; kernels
@@ -2614,6 +2638,316 @@ def sparse_phase(device, launches, card, n=SPARSE_N, n_queries=SPARSE_QUERIES,
                              f"find themselves < {SPARSE_MIN_FOUND}")
 
 
+# -- phase 10: the user surface ---------------------------------------------
+
+STREAM_CHUNKS = 16                  # (u1) phase 3's rows, streamed from the host
+STREAM_QUERIES = 65_536             # (u1) (a)'s first chunk
+ANYTIME_CHUNKS, ANYTIME_SLACK = 4, 8
+ANYTIME_QUERIES = 8_192
+ANYTIME_SERVE = dict(budget=2, probes=10, precision="default", chunk=2048)
+CHECKPOINT_QUERIES = 32_768
+TUNE_QUERIES, TUNE_WIDE_QUERIES, TUNE_TARGET = 1_024, 8_192, 0.9
+TUNE_SWEEP = dict(budgets=(1, 2, 4), probes_per_tree=(1.0, 2.0))
+GEN_ROWS, GEN_SIGMAS = 1_000_000, 5
+
+
+def check_ran(name, counts, must, may=()):
+    """Every kernel of ``must`` launched in ``counts`` (a :func:`counted`
+    reading), none outside ``must`` and ``may``."""
+    must = with_projections(must)
+    bad = {k: n for k, n in counts.items()
+           if (k in must and n < 1) or (k not in must and k not in may
+                                         and n)}
+    if bad:
+        raise AssertionError(f"{name}: launches {bad} (must {sorted(must)})")
+
+
+def surface_stream(f, qd, truth, out, launches, card):
+    """(u1) ``rp.forest`` over phase 3's rows, 16 chunks from the host,
+    with phase 3's parameters: the trees ``torch.equal`` to phase 3's; then
+    packed f32 and served grouped with the kernel tail on (a)'s first
+    chunk, bit-equal to (a)."""
+    import torch
+
+    import rptree_tpu_torch as rp
+
+    x = f.x.cpu().numpy()
+    n, dim = x.shape
+    step = -(-n // STREAM_CHUNKS)
+    cfg = f.config
+    source = (x[s:s + step] for s in range(0, n, step))
+    (fs, build_s), n_build = counted(lambda: sync_time(lambda: rp.forest(
+        SEED, cfg.max_depth, cfg.min_leaf, cfg.n_trees, 65_536,
+        cfg.proj_nz_density, dim, source, device=f.device)))
+    check_ran("u1 build", n_build, {"project_rows"})
+    add_launches(launches, "u1_stream_build", n_build)
+    del x
+    same = {k: bool(torch.equal(getattr(fs.arrays, k), getattr(f.arrays, k)))
+            for k in ("r", "perm", "thr", "mgl", "mgh")}
+    if not all(same.values()) or not torch.equal(fs.x, f.x):
+        raise AssertionError(f"u1: streamed forest differs from phase 3's: "
+                             f"{same}")
+    serve = dict(budget=1, probes=8, tile_m=8, chunk=STREAM_QUERIES,
+                 selection="kernel")
+    q = qd[:STREAM_QUERIES]
+    rec, res = serve_variant(
+        "u1_streamed_f32_kernel_tail", fs, q, truth, {}, serve,
+        {"traverse", "select_probes", "tile_tables", "grouped_score_tiles",
+         "topk_dedup_kernel"})
+    add_launches(launches, "u1_streamed_f32_kernel_tail", rec["launches"])
+    a = tuple(t[:STREAM_QUERIES] for t in out["a"])
+    if not bits_equal(res, a):
+        raise AssertionError("u1: the streamed forest's results differ from "
+                             "(a)'s")
+    log("surface_u1_stream", card=card, chunks=STREAM_CHUNKS, chunk_rows=step,
+        stream_build_s=build_s, trees_equal=same, bits_equal_a=True, **rec)
+    del fs, res
+
+
+def surface_tune(f, qd, launches, card):
+    """(u4) ``rp.tune`` on phase 3's forest packed f32, measured, grouped
+    and per pair: met, every frontier point timed, the returned recall
+    that of ``rp.knn`` (or of the scan) at the returned knobs."""
+    import torch
+
+    import rptree_tpu_torch as rp
+
+    f.pack_leaves()
+    grouped = {"traverse", "select_probes", "tile_tables",
+               "grouped_score_tiles", "gather_score", "scan_topk"}
+    for serving, nq, must in (
+            ("grouped", TUNE_QUERIES, grouped),
+            ("batched", TUNE_QUERIES, {"traverse", "select_probes",
+                                       "gather_score", "scan_topk"}),
+            # the same sweep timed on chunks of 8,192 (the timed batch is
+            # the validation set, chunked by its own size)
+            ("grouped", TUNE_WIDE_QUERIES, grouped)):
+        q = qd[:nq]
+        exact = f.brute_force_knn(q, K)[1]
+        (best, tune_s), n = counted(lambda: sync_time(lambda: rp.tune(
+            f, q, K, TUNE_TARGET, serving=serving, **TUNE_SWEEP)))
+        name = f"u4_tune_{serving}" + ("" if nq == TUNE_QUERIES else
+                                       f"_{nq}")
+        check_ran(name, n, must)
+        add_launches(launches, name, n)
+        if best.get("scan"):
+            ids = f.brute_force_knn(q, K, precision="fastest")[1]
+        else:
+            ids = rp.knn(f, q, K, budget=best["budget"],
+                         probes=best["probes"])[1]
+        again = recall(ids, exact)
+        frontier = [{k: p.get(k) for k in ("budget", "probes", "recall",
+                                           "cost", "qps", "scan")}
+                    for p in best["frontier"]]
+        log(f"surface_{name}", card=card, queries=nq,
+            target=TUNE_TARGET, **TUNE_SWEEP, tune_s=tune_s,
+            best={k: v for k, v in best.items() if k != "frontier"},
+            recall_again=again, frontier=frontier)
+        if not best["met"]:
+            raise AssertionError(f"{name}: target not met")
+        if again != best["recall"]:
+            raise AssertionError(f"{name}: recall {best['recall']}"
+                                 f" but knn at its knobs {again}")
+        if not all(p["qps"] > 0 for p in best["frontier"]):
+            raise AssertionError(f"{name}: a point without QPS")
+        del ids
+    torch.cuda.empty_cache()
+
+
+def surface_generators(device, card):
+    """(u5) ``rp.data_batch`` on the card: ``normal_dense2`` at D 128, its
+    mixture share and component means within 5 standard errors;
+    ``circle2d2`` within radius 1 of its centres, half in each disk."""
+    import torch
+
+    import rptree_tpu_torch as rp
+
+    (x, s), n = counted(lambda: sync_time(lambda: rp.data_batch(
+        SEED, GEN_ROWS, lambda k, m: rp.normal_dense2(k, m, 128),
+        device=device)))
+    check_ran("u5 generators", n, set())
+    if x.device.type != device.type or tuple(x.shape) != (GEN_ROWS, 128):
+        raise AssertionError(f"u5: data_batch gave {tuple(x.shape)} on "
+                             f"{x.device}")
+    high = x.mean(1) > 1.0
+    m_high = int(high.sum())
+    share = m_high / GEN_ROWS
+    se_share = (0.25 / GEN_ROWS) ** 0.5
+    means = (float(x[~high].double().mean()), float(x[high].double().mean()))
+    se = (0.5 / ((GEN_ROWS - m_high) * 128) ** 0.5,
+          0.5 / (m_high * 128) ** 0.5)
+    c = rp.data_batch(SEED, GEN_ROWS, rp.circle2d2, device=device)
+    cs = torch.stack([c.norm(dim=1), (c - torch.tensor(
+        [2.0, 3.0], device=device)).norm(dim=1)])
+    radius = float(cs.min(0).values.max())
+    first = int((cs[0] <= cs[1]).sum()) / GEN_ROWS
+    rec = {"rows": GEN_ROWS, "dim": 128, "draw_s": s, "share_high": share,
+           "share_se": se_share, "means": means, "means_se": se,
+           "circle_max_radius": radius, "circle_first_share": first}
+    log("surface_u5_generators", card=card, **rec)
+    if (abs(share - 0.5) > GEN_SIGMAS * se_share
+            or abs(means[0]) > GEN_SIGMAS * se[0]
+            or abs(means[1] - 2.0) > GEN_SIGMAS * se[1]):
+        raise AssertionError(f"u5: normal_dense2 off its distribution: {rec}")
+    if radius > 1.0 + 1e-6 or abs(first - 0.5) > GEN_SIGMAS * se_share:
+        raise AssertionError(f"u5: circle2d2 off its disks: {rec}")
+    del x, c, cs
+
+
+def surface_anytime(f, launches, card):
+    """(u2) ``ForestBuilder(anytime_slack=8)`` over the iid 100k rows in 4
+    chunks: after each, the partial index served per pair on 8,192
+    queries drawn from the rows seen (each a seen point plus 0.1 noise,
+    the iid cell's queries), recall@10 >= 0.10 against the exact scan of
+    the rows seen;
+    ``build()`` ``torch.equal`` to phase 4's batch build of all rows."""
+    import torch
+
+    import rptree_tpu_torch as rp
+
+    cfg, x = f.config, f.x
+    n, dim = x.shape
+    step = n // ANYTIME_CHUNKS
+    rng = np.random.default_rng(SEED + 10)
+    b = rp.ForestBuilder(SEED, cfg.max_depth, cfg.min_leaf, cfg.n_trees,
+                         cfg.proj_nz_density, dim,
+                         anytime_slack=ANYTIME_SLACK, device=f.device)
+    host = x.cpu().numpy()
+    steps = []
+    for i in range(ANYTIME_CHUNKS):
+        lo = i * step
+        (_, insert_s), n_ins = counted(lambda: sync_time(lambda: b.insert_chunk(
+            host[lo:lo + step], payloads=range(lo, lo + step))))
+        add_launches(launches, f"u2_insert_{i}", n_ins)
+        p = b.partial_index
+        # the iid cell's queries (dataset points plus 0.1 noise), drawn
+        # from the rows seen so far
+        pick = torch.as_tensor(rng.integers(0, lo + step,
+                                            size=ANYTIME_QUERIES),
+                               device=x.device)
+        q = x[pick] + torch.as_tensor(0.1 * rng.standard_normal(
+            (ANYTIME_QUERIES, dim), dtype=np.float32), device=x.device)
+        (res, serve_s), n_q = counted(lambda: sync_time(
+            lambda: p.knn_batched(q, K, **ANYTIME_SERVE)))
+        check_ran(f"u2 chunk {i}", n_q,
+                  {"traverse", "select_probes", "gather_score"},
+                  may={"scan_topk"})
+        add_launches(launches, f"u2_serve_{i}", n_q)
+        check_result(f"u2 chunk {i}", res, q.shape[0])
+        truth = live_truth(p, x, np.zeros(0, np.int64), q)
+        step_rec = {"rows_seen": lo + step, "pending": p.n_pending,
+                    "folded": p.n_folded, "insert_s": insert_s,
+                    "serve_s": serve_s, "qps": q.shape[0] / serve_s,
+                    "recall_at_10": recall(res[1], truth)}
+        steps.append(step_rec)
+        log("surface_u2_anytime_chunk", card=card, chunk=i, **step_rec)
+        if step_rec["recall_at_10"] < IID_MIN_RECALL:
+            raise AssertionError(f"u2 chunk {i}: recall "
+                                 f"{step_rec['recall_at_10']}")
+        del res, truth
+    (fb, build_s), n_b = counted(lambda: sync_time(b.build))
+    add_launches(launches, "u2_build", n_b)
+    same = {k: bool(torch.equal(getattr(fb.arrays, k), getattr(f.arrays, k)))
+            for k in ("r", "perm", "thr", "mgl", "mgh")}
+    log("surface_u2_anytime", card=card, chunks=ANYTIME_CHUNKS, slack=ANYTIME_SLACK,
+        queries=ANYTIME_QUERIES, **ANYTIME_SERVE, build_s=build_s,
+        build_equals_batch=same)
+    if not all(same.values()) or not torch.equal(fb.x, x):
+        raise AssertionError(f"u2: build() differs from the batch build: "
+                             f"{same}")
+    del b, p, fb
+    torch.cuda.empty_cache()
+
+
+def surface_checkpoints(f, qd, launches, card):
+    """(u3) ``save_forest`` / ``load_forest`` of phase 4's iid forest onto
+    the card (arrays ``torch.equal``; repacked int8 with slack 8 and
+    served with the kernel tail, bit-equal to the original), the per-tree
+    blobs in order and reversed, and the refusal after ``add``.  Save,
+    load and (de)serialise times are host-clock seconds."""
+    import os
+    import tempfile
+
+    import torch
+
+    import rptree_tpu_torch as rp
+
+    names = ("r", "perm", "thr", "mgl", "mgh")
+
+    def same_as(g, order=None):
+        order = list(range(f.n_trees)) if order is None else order
+        return all(torch.equal(getattr(g.arrays, k),
+                               getattr(f.arrays, k)[order]) for k in names) \
+            and torch.equal(g.x, f.x) and torch.equal(g.sq_norms, f.sq_norms)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=root) as td:
+        path = os.path.join(td, "iid_100k.npz")
+        _, save_s = sync_time(lambda: rp.save_forest(path, f))
+        nbytes = os.path.getsize(path)
+        g, load_s = sync_time(lambda: rp.load_forest(path, device=f.device))
+        loaded_equal = same_as(g)
+        serve = dict(budget=2, probes=10, tile_m=8, chunk=CHECKPOINT_QUERIES,
+                     selection="kernel")
+        q = qd[:CHECKPOINT_QUERIES]
+        runs = {"traverse", "select_probes", "tile_tables",
+                "grouped_score_tiles_int8", "topk_dedup_kernel"}
+        truth = f.brute_force_knn(q[:1024], K)[1]
+        want, n = counted(lambda: f.knn_grouped(q, K, **serve))
+        check_ran("u3 original", n, runs)
+        add_launches(launches, "u3_original_int8", n)
+        rec, got = serve_variant("u3_loaded_int8", g, q, truth,
+                                 dict(dtype=torch.int8, slack=8), serve,
+                                 runs)
+        add_launches(launches, "u3_loaded_int8", rec["launches"])
+        served_equal = bits_equal(got, want)
+        g.add(f.x[:1] + 0.5)
+        try:
+            rp.save_forest(os.path.join(td, "refused.npz"), g)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        del g, got, want
+    blobs, ser_s = sync_time(lambda: rp.serialise_rp_forest(f))
+    g, des_s = sync_time(lambda: rp.deserialise_rp_forest(blobs,
+                                                          device=f.device))
+    blobs_equal = same_as(g)
+    g = rp.deserialise_rp_forest(blobs[::-1], device=f.device)
+    reversed_equal = same_as(g, list(range(f.n_trees))[::-1])
+    del g
+    log("surface_u3_checkpoints", card=card, bytes=nbytes, save_s=save_s,
+        load_s=load_s, blob_bytes=sum(len(b) for b in blobs),
+        serialise_s=ser_s, deserialise_s=des_s,
+        clock="host (synchronised): compression and file reads included",
+        loaded_equal=loaded_equal, served_bits_equal=served_equal,
+        blobs_equal=blobs_equal, reversed_equal=reversed_equal,
+        refused_after_add=refused, **rec)
+    if not (loaded_equal and served_equal and blobs_equal and reversed_equal):
+        raise AssertionError("u3: a checkpoint round trip differs")
+    if refused is None:
+        raise AssertionError("u3: save_forest after add() did not refuse")
+
+
+def surface_tune_build(f, qd, launches, card):
+    """(u4) ``rp.tune_build`` on the iid 100k rows, ``measure=False``, the
+    iid cell's recall floor as the target: a forest configuration meets
+    it."""
+    import rptree_tpu_torch as rp
+
+    (best, s), n = counted(lambda: sync_time(lambda: rp.tune_build(
+        f.x, qd[:TUNE_QUERIES], K, IID_MIN_RECALL, device=f.device)))
+    check_ran("u4 tune_build", n, {"traverse", "select_probes",
+                                   "gather_score", "scan_topk"})
+    add_launches(launches, "u4_tune_build", n)
+    log("surface_u4_tune_build", card=card, target=IID_MIN_RECALL, tune_build_s=s,
+        best={k: v for k, v in best.items() if k != "frontier"},
+        grid=[(p["n_trees"], p["min_leaf"], p["recall"], p["met"])
+              for p in best["frontier"]])
+    if not best["met"] or best.get("scan"):
+        raise AssertionError(f"u4 tune_build: no forest met "
+                             f"{IID_MIN_RECALL}")
+
+
 def main():
     import torch
 
@@ -2715,6 +3049,13 @@ def main():
     scan_phase("clustered_1m_scan", f, qd[:16384], truth, 2048,
                SCAN_MIN_RECALL["clustered"], launches,
                JAX_RECALL["clustered_scan"])
+    # -- phase 10a: the user surface on this forest (u1, u4, u5) -----------
+    t_surface = time.perf_counter()
+    surface_stream(f, qd, truth, out, launches, card)
+    surface_tune(f, qd, launches, card)
+    surface_generators(device, card)
+    surface_s = time.perf_counter() - t_surface
+    torch.cuda.empty_cache()
     # -- phase 8a: the other dense layouts on this forest, before phase 7
     # repacks it --------------------------------------------------------
     layouts_phase(f, qd, truth, out, launches, kern)
@@ -2787,6 +3128,15 @@ def main():
     scan_phase("iid_1m_scan", f1, q1, exact, 1024, SCAN_MIN_RECALL["1m"],
                launches, JAX_RECALL["scan_1m"])
     del f1, x1, qd
+    torch.cuda.empty_cache()
+
+    # -- phase 10b: the user surface on the iid cell (u2, u3, u4) ---------
+    t_surface = time.perf_counter()
+    surface_anytime(f_iid, launches, card)
+    surface_checkpoints(f_iid, qd_iid, launches, card)
+    surface_tune_build(f_iid, qd_iid, launches, card)
+    log("surface", card=card,
+        seconds=surface_s + time.perf_counter() - t_surface)
     torch.cuda.empty_cache()
 
     # -- phase 7: online updates on the clustered and iid forests ---------

@@ -60,8 +60,9 @@ batches may be sparse too: :meth:`RPForest.knn_batched` and
 :meth:`RPForest.knn_grouped` densify one chunk of an ``EllMatrix`` at a
 time, and every surface densifies an ``SVec`` or a small ``EllMatrix``.
 
-Not ported yet (ROADMAP.md): streaming and the sharded forests.  The
-``approx`` selection tail is not to be ported.
+Streaming construction is :mod:`..streaming`.  Not ported yet
+(ROADMAP.md): the sharded forests.  The ``approx`` selection tail is
+not to be ported.
 """
 
 from __future__ import annotations

@@ -1,17 +1,41 @@
-"""Loading a forest built by the JAX package (``rptree_tpu/utils/io.py``,
-``_unpack`` and ``load_forest``).
+"""Index serialization / checkpointing (``rptree_tpu/utils/io.py``).
 
-A JAX checkpoint is an npz archive of the forest's arrays (``r``, ``thr``,
-``mgl``, ``mgh``, ``perm``, and the dataset: ``x``, or for a sparse one,
-header ``"sparse"``, its ELL tables ``x_cols`` and ``x_vals``) plus a JSON
-header with the plan parameters.  Both functions here rebuild the port's :class:`RPForest`
-from those arrays on a chosen device, so a forest built once by the JAX
-package serves through the port with no JAX at run time.
+Checkpoints are the JAX package's: npz archives of the forest's arrays
+(``r``, ``thr``, ``mgl``, ``mgh``, ``perm``, and the dataset: ``x``, or for
+a sparse one, header ``"sparse"``, its ELL tables ``x_cols`` and
+``x_vals``) plus a JSON header with the plan parameters
+(``format_version`` 1).  A checkpoint either package writes, the other
+reads.
+
+Two surfaces, as in the JAX package:
+
+* :func:`save_forest` / :func:`load_forest` -- one file for the whole
+  forest (the dataset is stored once);
+* :func:`serialise_rp_forest` / :func:`deserialise_rp_forest` -- the
+  reference's per-tree blobs (``src/Data/RPTree/Internal.hs:185-196``),
+  each embedding the dataset, restored in any order with trees re-keyed
+  ``0..T-1``.
+
+:func:`forest_from_numpy` builds the port's forest from a header and
+arrays, so a forest built once by the JAX package serves through the port
+with no JAX at run time.
+
+Payloads are written as the JAX package writes them (``payloads``, a
+pickled list), so that it reads them back; the port never unpickles
+(``allow_pickle=False``): its readers take ``payloads=`` from the caller.
+The learned grouped tile capacities (the JAX package's optional
+``grouped_nt`` header) are neither written nor read: their key omits
+``tile_chunk`` (ROADMAP.md queue 3).  The sharded checkpoints wait for the
+port's sharded forests.
 """
 
 from __future__ import annotations
 
+import io
 import json
+import pickle
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -23,20 +47,86 @@ from ..models.plan import make_plan
 from ..ops.build import TreeArrays
 from ..ops.sparse import EllMatrix, ell_sq_norms
 
-__all__ = ["forest_from_numpy", "load_forest"]
+__all__ = ["save_forest", "load_forest", "serialise_rp_forest",
+           "deserialise_rp_forest", "save_forest_sharded",
+           "load_forest_sharded", "forest_from_numpy"]
 
+_FORMAT_VERSION = 1
 _ARRAYS = ("r", "thr", "mgl", "mgh", "perm")
+_SHARDED_TODO = ("sharded checkpoints need the port's sharded forests: "
+                 "ROADMAP.md queue 1 item 20")
+
+
+def _check_clean(forest: RPForest):
+    if (getattr(forest, "_pending", None) or getattr(forest, "n_deleted", 0)
+            or getattr(forest, "n_folded", 0)):
+        raise ValueError(
+            "forest has pending inserts or tombstoned deletions; call "
+            "rebuild() before serialising so the checkpoint is complete"
+        )
+    forest._require_x("a checkpoint")
+
+
+def _header(forest: RPForest) -> dict:
+    """The JAX package's header, less its optional ``grouped_nt``."""
+    return {
+        "format_version": _FORMAT_VERSION,
+        "n": forest.plan.n,
+        "max_depth": forest.plan.max_depth,
+        "min_leaf": forest.plan.min_leaf,
+        "n_levels": forest.plan.n_levels,
+        "n_trees": forest.n_trees,
+        "dim": forest.dim,
+        "sparse": isinstance(forest.x, EllMatrix),
+        "config": {
+            "n_trees": forest.config.n_trees,
+            "max_depth": forest.config.max_depth,
+            "min_leaf": forest.config.min_leaf,
+            "proj_nz_density": forest.config.proj_nz_density,
+            "dim": forest.config.dim,
+            "chunk_size": forest.config.chunk_size,
+            "dtype": forest.config.dtype,
+        },
+        "seed": forest.seed if isinstance(forest.seed, int) else None,
+    }
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _arrays(forest: RPForest) -> dict:
+    """The forest's arrays, ``[T, ...]`` each, on the host."""
+    return {k: _host(getattr(forest.arrays, k)) for k in _ARRAYS}
+
+
+def _dataset(forest: RPForest) -> dict:
+    """The dataset's arrays and the pickled payloads, as npz entries."""
+    if isinstance(forest.x, EllMatrix):
+        arrs = {"x_cols": _host(forest.x.cols), "x_vals": _host(forest.x.vals)}
+    else:
+        arrs = {"x": _host(forest.x)}
+    if forest.payloads is not None:
+        arrs["payloads"] = np.frombuffer(
+            pickle.dumps(list(forest.payloads)), dtype=np.uint8
+        )
+    return arrs
+
+
+def _with_header(arrs: dict, header: dict) -> dict:
+    return {**arrs, "header": np.frombuffer(json.dumps(header).encode(),
+                                            dtype=np.uint8)}
 
 
 def forest_from_numpy(header: dict, arrays: dict, device=None,
                       payloads=None) -> RPForest:
     """Build an :class:`RPForest` on ``device`` (default: the card; the CPU
-    only with ``device="cpu"``) from a JAX forest's header (as
-    ``save_forest`` writes it) and its arrays ``r, thr, mgl, mgh, perm, x``
-    as numpy arrays (a sparse forest, header ``"sparse"``: ``x_cols`` and
-    ``x_vals`` for ``x``).  ``payloads``: the forest's per-point payloads,
-    a list the caller holds (a checkpoint stores them pickled, which this
-    module never reads).  The seed is the header's."""
+    only with ``device="cpu"``) from a forest's header (as
+    :func:`save_forest` writes it) and its arrays ``r, thr, mgl, mgh,
+    perm, x`` as numpy arrays (a sparse forest, header ``"sparse"``:
+    ``x_cols`` and ``x_vals`` for ``x``).  ``payloads``: the forest's
+    per-point payloads, a list the caller holds (a checkpoint stores them
+    pickled, which this module never reads).  The seed is the header's."""
     device = resolve_device(device)
     plan = make_plan(header["n"], header["max_depth"], header["min_leaf"])
     if plan.n_levels != header["n_levels"]:
@@ -62,14 +152,87 @@ def forest_from_numpy(header: dict, arrays: dict, device=None,
                     seed=header.get("seed"))
 
 
+def save_forest(path: str, forest: RPForest) -> None:
+    """Save the whole forest index (arrays + dataset + payloads) to one
+    npz file with a JSON header, in the JAX package's format.  Refuses a
+    forest with pending, folded or removed points: ``rebuild()`` first."""
+    _check_clean(forest)
+    arrs = _with_header({**_arrays(forest), **_dataset(forest)},
+                        _header(forest))
+    with open(path, "wb") as fh:
+        np.savez_compressed(fh, **arrs)
+
+
 def load_forest(path: str, device=None, payloads=None) -> RPForest:
-    """Restore a forest saved by the JAX package's ``save_forest`` onto
-    ``device`` (default: the card, as :func:`forest_from_numpy`), with
-    the seed its header names.  Reads no pickled payloads
-    (``allow_pickle=False``): a caller that has them passes
-    ``payloads``."""
+    """Restore a forest saved by :func:`save_forest` (or by the JAX
+    package's) onto ``device`` (default: the card, as
+    :func:`forest_from_numpy`), with the seed its header names.  Reads no
+    pickled payloads (``allow_pickle=False``): a caller that has them
+    passes ``payloads``."""
     with np.load(path, allow_pickle=False) as z:
         header = json.loads(z["header"].tobytes().decode())
         data = ("x_cols", "x_vals") if header.get("sparse") else ("x",)
         return forest_from_numpy(header, {k: z[k] for k in (*_ARRAYS, *data)},
                                  device=device, payloads=payloads)
+
+
+def serialise_rp_forest(forest: RPForest) -> List[bytes]:
+    """One standalone blob per tree (reference ``serialiseRPForest``,
+    Internal.hs:185-188).  Each blob embeds the dataset, mirroring the
+    reference where leaf data lives inside every serialized tree; prefer
+    :func:`save_forest` to store the dataset once.  The blobs compress
+    in parallel threads (zlib runs outside the interpreter lock)."""
+    _check_clean(forest)
+    header = {**_header(forest), "n_trees": 1}
+    arrays, data = _arrays(forest), _dataset(forest)
+
+    def blob(t: int) -> bytes:
+        arrs = {k: v[t:t + 1] for k, v in arrays.items()}
+        buf = io.BytesIO()
+        np.savez_compressed(buf, **_with_header({**arrs, **data}, header))
+        return buf.getvalue()
+
+    with ThreadPoolExecutor() as ex:
+        return list(ex.map(blob, range(forest.n_trees)))
+
+
+def deserialise_rp_forest(blobs: Sequence[bytes], payloads=None, *,
+                          device=None) -> RPForest:
+    """Reassemble a forest from per-tree blobs in any order (reference
+    ``deserialiseRPForest``, Internal.hs:191-196: trees are re-keyed
+    ``[0..]``) onto ``device`` (default: the card).  Raises ``ValueError``
+    on malformed or inconsistent blobs (the reference's ``Either String``
+    surface).  Reads no pickled payloads: ``payloads`` comes from the
+    caller, as in :func:`load_forest`."""
+    if not blobs:
+        raise ValueError("no blobs to deserialise")
+    headers, parts = [], []
+    for blob in blobs:
+        try:
+            with np.load(io.BytesIO(blob), allow_pickle=False) as z:
+                header = json.loads(z["header"].tobytes().decode())
+                data = ("x_cols", "x_vals") if header.get("sparse") else ("x",)
+                parts.append({k: z[k] for k in (*_ARRAYS, *data)})
+        except Exception as e:  # noqa: BLE001 - every read failure, as JAX's
+            raise ValueError(f"deserialise failed: {e}") from e
+        headers.append(header)
+    h0 = headers[0]
+    key = ("n", "max_depth", "min_leaf", "dim", "sparse")
+    if any(tuple(h.get(k) for k in key) != tuple(h0.get(k) for k in key)
+           for h in headers[1:]):
+        raise ValueError("inconsistent tree blobs")
+    merged = {k: np.concatenate([p[k] for p in parts]) for k in _ARRAYS}
+    merged.update({k: v for k, v in parts[0].items() if k not in _ARRAYS})
+    header = {**h0, "n_trees": len(parts),
+              "config": {**h0["config"], "n_trees": len(parts)}}
+    return forest_from_numpy(header, merged, device=device, payloads=payloads)
+
+
+def save_forest_sharded(dirpath: str, forest) -> None:
+    """Per-shard checkpoints of a data-parallel forest: not ported yet."""
+    raise NotImplementedError(_SHARDED_TODO)
+
+
+def load_forest_sharded(dirpath: str, mesh=None):
+    """Restore a per-shard checkpoint: not ported yet."""
+    raise NotImplementedError(_SHARDED_TODO)

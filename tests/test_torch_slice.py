@@ -261,7 +261,9 @@ def test_unported_options_raise(data):
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, rptree_tpu_torch; "
+    code = ("import sys, rptree_tpu_torch, rptree_tpu_torch.streaming, "
+            "rptree_tpu_torch.tuning, rptree_tpu_torch.utils.io, "
+            "rptree_tpu_torch.utils.gen; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'rptree_tpu' not in sys.modules, 'rptree_tpu imported'")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
