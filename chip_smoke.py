@@ -146,7 +146,37 @@ its launch counts):
    per-tree blobs in order and reversed, ``save_forest`` refused after
    ``add``; bytes and host-clock seconds.  (u4) ``rp.tune_build`` on the
    iid rows, ``measure=False``, target 0.10: a forest meets it;
-11. the kernels' launch counts over phases 3-10, each of which must be > 0.
+11. the kernels' launch counts over phases 3-10 and 12, each of which
+   must be > 0;
+12. the side layers (``side_*`` lines), run in two parts: 12a on phase
+   3's forest after 10a, 12b on phase 4's after 10b.  (p1)
+   ``rp.profiling.trace`` around one grouped chunk of phase 3's forest
+   (f32 blocks, kernel tail, 65,536 queries): the Chrome trace read back
+   holds the query scopes (``rpt_candidates``, ``rpt_tile_tables``,
+   ``rpt_grouped_score``, ``rpt_pair_reorder``, ``rpt_topk_tail``) and
+   kernels 11, 7, 8, 9, 1 and 3 as CUDA kernel events, the result
+   bit-equal to the untraced call's, each scope's summed CUDA time
+   printed; then one ``knn_batched`` chunk (``rpt_rerank``), a build of
+   phase 4's rows (``rpt_project``, ``rpt_partition_at_median``) and a
+   fold of 1,000 rows (``rpt_insert``), each scope present;
+   ``region()``'s host cost with no profiler running.  (p2)
+   ``rp.device_time`` of the grouped chunk, > 0 and at most 1.1 times
+   the synchronised host-clock median of the same call.  (p6)
+   ``forest_batch(dtype=torch.bfloat16)`` on phase 3's rows: the trees
+   ``torch.equal`` to an f32 build over the bf16-rounded rows; packed
+   (bf16 blocks) and served grouped with the kernel tail, recall@10 >=
+   0.90 against its own exact scan; ``save_forest`` (``x`` a ``|V2``
+   array) / ``load_forest`` bit-equal.  (p3) ``rptree_tpu_torch.demo``:
+   its four files, 10,000 rows each (the knn files plus hits labelled
+   -1), a dot leaf label per plan leaf.  (p4) the native ingest library
+   loaded; phase 4's rows through ``write_fvecs`` / ``read_fvecs``
+   ``torch.equal``, and ``rp.forest`` over ``fvecs_source`` (chunks of
+   25,000) equal to phase 4's build; MB/s.  (p5)
+   ``bench_grid(REFERENCE_SCALE_GRID)``: five rows, dense, sparse (ELL)
+   and streaming, recall > 0.  (p7) ``examples/torch_sift_pipeline.py``
+   on three files written by ``write_fvecs`` / ``write_ivecs`` (20,000 x
+   64 synthetic rows) and ``examples/torch_clustered_scatter.py``, each a
+   process of its own, exit 0.
 
 Each scan of phases 3, 5, 6 and 8 is also held, on its first chunk of
 queries, against the scan kernel's plain version at that shape; kernels
@@ -1438,9 +1468,8 @@ def chunk_tiles(f, qc, budget, probes, tile_m):
     lens = f._lens_global()
     gsel, lsel = fm._probe_pairs(f, qc, budget, probes, K)
     cap = max(f._grouped_nt.values())  # per chunk of serve["chunk"]
-    tb, lens_t, qt, _, _ = og._tile_operands(gsel, lsel, lens, qc, tile_m,
-                                             cap)
-    return tb, lens_t, qt
+    tb, lens_t, qi, _, _ = og._tile_operands(gsel, lsel, lens, tile_m, cap)
+    return tb, lens_t, qc[qi]
 
 
 def check_tiles_chunk(f, qc, serve, reps=5, clustered=False):
@@ -2948,6 +2977,423 @@ def surface_tune_build(f, qd, launches, card):
                              f"{IID_MIN_RECALL}")
 
 
+SIDE_QUERIES = 65_536        # (p1, p2, p6) one grouped chunk of phase 3's forest
+SIDE_SERVE = dict(budget=1, probes=8, tile_m=8, chunk=SIDE_QUERIES,
+                  selection="kernel")
+SIDE_PAIR_SERVE = dict(budget=1, probes=8, precision="default", chunk=2048)
+SIDE_FOLD = 1_000            # (p1) rows folded under rpt_insert
+REGION_CALLS = 100_000       # (p1) region() entries timed, no profiler running
+DEVICE_TIME_SLACK = 1.1      # (p2) device_time <= 1.1 x the host-clock median
+INGEST_CHUNK = 25_000        # (p4) rows a chunk of fvecs_source
+SIFT_ROWS, SIFT_DIM, SIFT_QUERIES = 20_000, 64, 256  # (p7) the original's data
+QUERY_SCOPES = ("rpt_candidates", "rpt_tile_tables", "rpt_grouped_score",
+                "rpt_pair_reorder", "rpt_topk_tail")
+# (p1) each kernel of the grouped chunk by the names of its CUDA functions
+TRACE_KERNELS = {
+    "project_rows": ("project_kernel",),
+    "traverse": ("traverse_regs", "traverse_warp", "traverse_wide"),
+    "select_probes": ("probes_lanes", "probes_warp", "probes_merge"),
+    "tile_tables": ("upsweep_kernel",),
+    "grouped_score_tiles": ("grouped_score_kernel",),
+    "topk_dedup_kernel": ("topk_regs_kernel", "topk_wide_kernel"),
+}
+
+
+def read_trace(logdir):
+    """The Chrome trace that :func:`rptree_tpu_torch.profiling.trace` wrote
+    into ``logdir``: ``(the range names, the CUDA kernel names, each
+    range's summed span on the card in ms)``."""
+    import os
+
+    files = [n for n in os.listdir(logdir) if n.endswith(".json")]
+    if len(files) != 1:
+        raise AssertionError(f"trace: {len(files)} traces in {logdir}")
+    with open(os.path.join(logdir, files[0])) as fh:
+        events = json.load(fh)["traceEvents"]
+    ranges, kernels, gpu_ms = set(), [], {}
+    for e in events:
+        cat = e.get("cat")
+        if cat in ("user_annotation", "gpu_user_annotation"):
+            ranges.add(e["name"])
+        if cat == "gpu_user_annotation":
+            gpu_ms[e["name"]] = gpu_ms.get(e["name"], 0.0) + e["dur"] / 1e3
+        elif cat == "kernel":
+            kernels.append(e["name"])
+    return ranges, kernels, gpu_ms
+
+
+def traced(name, fn, root, scopes):
+    """``fn()`` under ``rp.profiling.trace`` (its outputs synchronised
+    inside), and the trace read back: each of ``scopes`` must be a range
+    in it.  Returns ``(result, kernel names, record)``; the record has
+    each scope's summed CUDA time by ``key_averages()`` and its span on
+    the card in the trace."""
+    import os
+
+    import torch
+
+    import rptree_tpu_torch as rp
+
+    logdir = os.path.join(root, name)
+    with rp.profiling.trace(logdir) as prof:
+        res = fn()
+        outs = res if isinstance(res, tuple) else (res,)
+        rp.profiling.sync(*[t for t in outs if torch.is_tensor(t)])
+        torch.cuda.synchronize()  # a build or a fold returns no tensor
+    ranges, kernels, gpu_ms = read_trace(logdir)
+    missing = sorted(set(scopes) - ranges)
+    if missing:
+        raise AssertionError(f"{name}: scopes {missing} not in the trace")
+    cuda_ms = {}
+    for e in prof.key_averages():
+        if e.key in scopes:
+            total = getattr(e, "device_time_total", None)
+            cuda_ms[e.key] = (e.cuda_time_total if total is None
+                              else total) / 1e3
+    return res, kernels, {
+        "scopes_cuda_ms": {s: cuda_ms.get(s) for s in scopes},
+        "scopes_span_ms": {s: gpu_ms.get(s) for s in scopes},
+        "kernel_events": len(kernels)}
+
+
+def region_host_us(calls=REGION_CALLS):
+    """Host microseconds of one ``region()`` entry and exit with no
+    profiler running."""
+    from rptree_tpu_torch.utils.profiling import region
+
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        with region("rpt_candidates"):
+            pass
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def side_query_phase(f, qd, truth, launches, card):
+    """Phase 12 on phase 3's forest (after 10a): (p1) traces of one
+    grouped chunk (f32 blocks, kernel tail, 65,536 queries) and one
+    per-pair ``knn_batched`` chunk, (p2) ``device_time`` of the grouped
+    chunk against the host clock, (p6) a bf16 dataset of the same rows.
+    Returns each step's host-clock seconds."""
+    import os
+    import tempfile
+
+    import torch
+
+    import rptree_tpu_torch as rp
+
+    walk, probe, tables = "traverse", "select_probes", "tile_tables"
+    f.pack_leaves()
+    q = qd[:SIDE_QUERIES]
+    grouped = {walk, probe, tables, "grouped_score_tiles",
+               "topk_dedup_kernel"}
+    # the checked call learns the tile capacity; the untraced twin
+    f.knn_grouped(q, K, **SIDE_SERVE)
+    plain = f.knn_grouped(q, K, check=False, **SIDE_SERVE)
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=root) as td:
+        (got, kernels, rec), n = counted(lambda: traced(
+            "p1_grouped", lambda: f.knn_grouped(q, K, check=False,
+                                                **SIDE_SERVE),
+            td, QUERY_SCOPES))
+        check_ran("p1 grouped", n, grouped)
+        add_launches(launches, "p1_trace_grouped", n)
+        found = {k: sorted({e for e in kernels for s in subs if s in e})
+                 for k, subs in TRACE_KERNELS.items()}
+        if not all(found.values()):
+            raise AssertionError(f"p1: kernels not in the trace: "
+                                 f"{[k for k, v in found.items() if not v]}")
+        if not bits_equal(got, plain):
+            raise AssertionError("p1: the traced chunk differs from the "
+                                 "untraced one")
+        log("side_p1_trace_grouped", card=card, queries=SIDE_QUERIES,
+            **SIDE_SERVE, bits_equal_untraced=True, kernels=found, **rec,
+            region_host_us_no_profiler=region_host_us())
+        qp = qd[:SIDE_PAIR_SERVE["chunk"]]
+        (_, _, rec), n = counted(lambda: traced(
+            "p1_per_pair", lambda: f.knn_batched(qp, K, **SIDE_PAIR_SERVE),
+            td, ("rpt_candidates", "rpt_rerank", "rpt_topk_tail")))
+        check_ran("p1 per pair", n, {walk, probe, "gather_score"})
+        add_launches(launches, "p1_trace_per_pair", n)
+        log("side_p1_trace_per_pair", card=card, **SIDE_PAIR_SERVE, **rec)
+
+    steps = {"p1_traces_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+
+    # (p2) device_time of the grouped chunk beside the host clock
+    def step(qq):
+        return f.knn_grouped(qq, K, check=False, **SIDE_SERVE)
+
+    (dt, host), n = counted(lambda: (
+        rp.device_time(step, q, reps=20),
+        float(np.median([sync_time(lambda: step(q))[1] for _ in range(7)]))))
+    check_ran("p2 device_time", n, grouped)
+    add_launches(launches, "p2_device_time", n)
+    log("side_p2_device_time", card=card, device_time_ms=dt * 1e3,
+        host_clock_median_ms=host * 1e3, ratio=dt / host,
+        limit=DEVICE_TIME_SLACK)
+    if not 0 < dt <= DEVICE_TIME_SLACK * host:
+        raise AssertionError(f"p2: device_time {dt} s against the host "
+                             f"clock's {host} s")
+    steps["p2_device_time_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    side_bf16(f, qd, truth, launches, card)
+    steps["p6_bf16_s"] = time.perf_counter() - t0
+    return steps
+
+
+def side_bf16(f, qd, truth, launches, card):
+    """(p6) ``forest_batch(dtype=torch.bfloat16)`` on phase 3's rows: the
+    trees of an f32 build over the bf16-rounded rows, packed (bf16 blocks)
+    and served grouped with the kernel tail, recall@10 >= 0.90 against its
+    own exact scan; ``save_forest`` / ``load_forest`` bit-equal."""
+    import os
+    import tempfile
+
+    import torch
+
+    import rptree_tpu_torch as rp
+
+    cfg = f.config
+    args = (SEED, cfg.max_depth, cfg.min_leaf, cfg.n_trees,
+            cfg.proj_nz_density)
+    (fb, build_s), n = counted(lambda: sync_time(lambda: rp.forest_batch(
+        *args, f.x, dtype=torch.bfloat16, device=f.device)))
+    check_ran("p6 build", n, {"project_rows"})
+    add_launches(launches, "p6_bf16_build", n)
+    xr = f.x.to(torch.bfloat16).float()
+    fr, n = counted(lambda: rp.forest_batch(*args, xr, device=f.device))
+    add_launches(launches, "p6_f32_rounded_build", n)
+    names = ("r", "perm", "thr", "mgl", "mgh")
+    same = {k: bool(torch.equal(getattr(fb.arrays, k), getattr(fr.arrays, k)))
+            for k in names}
+    if fb.x.dtype != torch.bfloat16 or fb.sq_norms.dtype != torch.bfloat16 \
+            or not torch.equal(fb.x.float(), xr) or not all(same.values()):
+        raise AssertionError(f"p6: the bf16 build differs from the f32 "
+                             f"build over the rounded rows: {same}")
+    nr = truth.shape[0]
+    # its own exact scan (fp32 products, the stored bf16 norms), and the
+    # f32 scan of the rounded rows with f32 norms beside it
+    own = fb.brute_force_knn(qd[:nr], K)[1]
+    f32_norms = fr.brute_force_knn(qd[:nr], K)[1]
+    del fr, xr
+    q = qd[:SIDE_QUERIES]
+    rec, res = serve_variant(
+        "p6_bf16_dataset", fb, q, own, {}, SIDE_SERVE,
+        {"traverse", "select_probes", "tile_tables",
+         "grouped_score_tiles_bf16", "topk_dedup_kernel"})
+    add_launches(launches, "p6_bf16_dataset", rec["launches"])
+    ids = res[1][:nr]
+    rec["recall_vs_f32_norms_scan"] = recall(ids, f32_norms)
+    rec["recall_vs_phase3_truth"] = recall(ids, truth)
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=root) as td:
+        path = os.path.join(td, "clustered_1m_bf16.npz")
+        _, save_s = sync_time(lambda: rp.save_forest(path, fb))
+        with np.load(path, allow_pickle=False) as z:
+            stored = str(z["x"].dtype)
+        g, load_s = sync_time(lambda: rp.load_forest(path, device=f.device))
+        nbytes = os.path.getsize(path)
+    loaded = (g.x.dtype == torch.bfloat16
+              and torch.equal(g.x.view(torch.int16), fb.x.view(torch.int16))
+              and torch.equal(g.sq_norms.view(torch.int16),
+                              fb.sq_norms.view(torch.int16))
+              and all(torch.equal(getattr(g.arrays, k), getattr(fb.arrays, k))
+                      for k in names))
+    del g
+    d = res[0]
+    log("side_p6_bf16", card=card, build_s=build_s, trees_equal=same,
+        distances_dtype=str(d.dtype), checkpoint_x=stored, bytes=nbytes,
+        save_s=save_s, load_s=load_s, loaded_bits_equal=loaded, **rec)
+    if d.dtype != torch.float32 or stored != "|V2" or not loaded:
+        raise AssertionError("p6: f32 distances, a |V2 checkpoint and a "
+                             "bit-equal load expected")
+    if rec["recall_at_10"] < CLUSTERED_MIN_RECALL:
+        raise AssertionError(f"p6: recall {rec['recall_at_10']} < "
+                             f"{CLUSTERED_MIN_RECALL}")
+    del fb
+    torch.cuda.empty_cache()
+
+
+def side_layers_phase(f, device, launches, card):
+    """Phase 12 on phase 4's iid forest (after 10b): (p1) traces of a
+    build of its rows and of a fold of 1,000 rows, (p3) the demo, (p4)
+    ingest, (p5) ``bench_grid(REFERENCE_SCALE_GRID)``, (p7) the examples.
+    Returns each step's host-clock seconds."""
+    import os
+    import tempfile
+
+    import torch
+
+    import rptree_tpu_torch as rp
+
+    cfg = f.config
+    args = (SEED, cfg.max_depth, cfg.min_leaf, cfg.n_trees,
+            cfg.proj_nz_density)
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=root) as td:
+        # (p1) the build's and the fold's regions
+        (fb, _, rec_b), n = counted(lambda: traced(
+            "p1_build", lambda: rp.forest_batch(*args, f.x, device=device),
+            td, ("rpt_project", "rpt_partition_at_median")))
+        check_ran("p1 build", n, {"project_rows"})
+        add_launches(launches, "p1_trace_build", n)
+        fb.pack_leaves(slack=8)
+        gen = torch.Generator(device=device).manual_seed(SEED + 12)
+        fb.add(torch.randn(SIDE_FOLD, f.dim, generator=gen, device=device))
+        (_, _, rec_f), n = counted(lambda: traced(
+            "p1_fold", fb.fold, td, ("rpt_insert",)))
+        check_ran("p1 fold", n, set(), may={"project_rows"})
+        add_launches(launches, "p1_trace_fold", n)
+        log("side_p1_trace_build_fold", card=card, build=rec_b, fold=rec_f,
+            folded=fb.n_folded, pending=fb.n_pending)
+        del fb
+        steps = {"p1_build_fold_s": time.perf_counter() - t0}
+        for name, step in (
+                ("p3_demo_s", lambda: side_demo(td, device, launches, card)),
+                ("p4_ingest_s", lambda: side_ingest(f, td, args, device,
+                                                    launches, card))):
+            t0 = time.perf_counter()
+            step()
+            steps[name] = time.perf_counter() - t0
+    for name, step in (
+            ("p5_bench_s", lambda: side_bench(device, launches, card)),
+            ("p7_examples_s", lambda: side_examples(device, card))):
+        t0 = time.perf_counter()
+        step()
+        steps[name] = time.perf_counter() - t0
+    return steps
+
+
+def side_demo(td, device, launches, card):
+    """(p3) ``rptree_tpu_torch.demo.main`` on the card into a temporary
+    directory: its four files, 10,000 rows each (the knn files plus
+    their hits, labelled -1), a labelled dot leaf per plan leaf."""
+    import os
+
+    from rptree_tpu_torch import demo
+    from rptree_tpu_torch.models.plan import make_plan
+
+    out = os.path.join(td, "demo")
+    (_, s), n = counted(lambda: sync_time(lambda: demo.main(out,
+                                                            device=device)))
+    check_ran("p3 demo", n, {"traverse"}, may={"select_probes"})
+    add_launches(launches, "p3_demo", n)
+    rows = {}
+    for name in ("scatter.csv", "knn.csv", "knn_h.csv"):
+        with open(os.path.join(out, name)) as fh:
+            labels = [line.rsplit(",", 1)[1] for line in fh.read().split()]
+        rows[name] = (len(labels), labels.count("-1"))
+    with open(os.path.join(out, "tree.dot")) as fh:
+        dot = fh.read()
+    leaves = make_plan(demo.N, demo.MAX_DEPTH, demo.MIN_LEAF).n_leaves
+    log("side_p3_demo", card=card, demo_s=s, rows=rows,
+        dot_leaves=dot.count("label="), plan_leaves=leaves)
+    if rows["scatter.csv"] != (demo.N, 0) or dot.count("label=") != leaves \
+            or any(rows[k][0] - rows[k][1] != demo.N or rows[k][1] < 1
+                   for k in ("knn.csv", "knn_h.csv")):
+        raise AssertionError(f"p3: demo files {rows}, dot leaves "
+                             f"{dot.count('label=')} of {leaves}")
+
+
+def side_ingest(f, td, args, device, launches, card):
+    """(p4) the native reader: phase 4's rows written with ``write_fvecs``
+    read back equal, and ``rp.forest`` over ``fvecs_source`` equal to
+    phase 4's batch build."""
+    import os
+
+    import torch
+
+    import rptree_tpu_torch as rp
+
+    ingest = rp.ingest
+    if not ingest.native_available():
+        raise AssertionError("p4: the native ingest library did not load")
+    path = os.path.join(td, "iid_100k.fvecs")
+    ingest.write_fvecs(path, f.x)
+    t0 = time.perf_counter()
+    back = ingest.read_fvecs(path)
+    read_s = time.perf_counter() - t0
+    equal = bool(torch.equal(torch.from_numpy(back), f.x.cpu()))
+    (fs, s), n = counted(lambda: sync_time(lambda: rp.forest(
+        *args[:4], INGEST_CHUNK, args[4], f.dim,
+        ingest.fvecs_source(path, chunk_size=INGEST_CHUNK), device=device)))
+    check_ran("p4 stream", n, {"project_rows"})
+    add_launches(launches, "p4_fvecs_stream", n)
+    same = {k: bool(torch.equal(getattr(fs.arrays, k), getattr(f.arrays, k)))
+            for k in ("r", "perm", "thr", "mgl", "mgh")}
+    mb = os.path.getsize(path) / 1e6
+    log("side_p4_ingest", card=card, native=True, bytes=int(mb * 1e6),
+        read_s=read_s, read_mb_s=mb / read_s, read_equal=equal,
+        stream_build_s=s, chunk=INGEST_CHUNK, trees_equal=same)
+    if not equal or not all(same.values()) or not torch.equal(fs.x, f.x):
+        raise AssertionError(f"p4: ingest round trip {equal}, trees {same}")
+
+
+def side_bench(device, launches, card):
+    """(p5) ``bench_grid(REFERENCE_SCALE_GRID)`` on the card: all five
+    configurations (dense, sparse ELL, streaming) served, recall > 0."""
+    from rptree_tpu_torch import benchmarks
+
+    (res, s), n = counted(lambda: sync_time(lambda: benchmarks.bench_grid(
+        benchmarks.REFERENCE_SCALE_GRID, device=device)))
+    check_ran("p5 bench_grid", n, {"traverse", "select_probes",
+                                   "gather_score", "ell_score_tiles"})
+    add_launches(launches, "p5_bench_grid", n)
+    rows = [{k: v for k, v in r.items() if k != "config"} for r in res]
+    log("side_p5_bench_grid", card=card, seconds=s, results=rows)
+    if len(rows) != 5 or not all(r["recall_at_10"] > 0 for r in rows):
+        raise AssertionError(f"p5: {rows}")
+
+
+def side_examples(device, card):
+    """(p7) ``examples/torch_sift_pipeline.py`` on three files that
+    ``write_fvecs`` / ``write_ivecs`` made (the original's 20,000 x 64
+    synthetic rows), then ``examples/torch_clustered_scatter.py``, each a
+    process of its own on the card; each must exit 0."""
+    import os
+    import tempfile
+
+    import torch
+
+    import rptree_tpu_torch as rp
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    rng = np.random.default_rng(7)
+    xb = rng.normal(size=(SIFT_ROWS, SIFT_DIM)).astype(np.float32)
+    xq = (xb[rng.integers(0, SIFT_ROWS, SIFT_QUERIES)]
+          + 0.05 * rng.normal(size=(SIFT_QUERIES, SIFT_DIM)).astype(
+              np.float32))
+    xd, qd = torch.as_tensor(xb, device=device), torch.as_tensor(xq,
+                                                                 device=device)
+    gt = torch.cdist(qd, xd).topk(K, largest=False).indices
+    env = {**os.environ, "RPTREE_EXAMPLE_FAST": "1"}
+    out = {}
+    with tempfile.TemporaryDirectory(dir=root) as td:
+        files = [os.path.join(td, n) for n in ("base.fvecs", "query.fvecs",
+                                               "gt.ivecs")]
+        rp.ingest.write_fvecs(files[0], xb)
+        rp.ingest.write_fvecs(files[1], xq)
+        rp.ingest.write_ivecs(files[2], gt)
+        # both at once: each process spends seconds reaching the card
+        t0 = time.perf_counter()
+        procs = {name: subprocess.Popen(
+            [sys.executable, os.path.join(root, "examples", name + ".py"),
+             *argv], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=env, cwd=root)
+            for name, argv in (("torch_sift_pipeline", files),
+                               ("torch_clustered_scatter", [td]))}
+        for name, p in procs.items():
+            stdout, stderr = p.communicate(timeout=300)
+            out[name] = {"rc": p.returncode, "s": time.perf_counter() - t0,
+                         "tail": stdout.strip().splitlines()[-2:]}
+            if p.returncode != 0:
+                raise AssertionError(f"p7 {name}: rc {p.returncode}\n"
+                                     f"{stdout[-2000:]}{stderr[-4000:]}")
+    log("side_p7_examples", card=card, **out)
+
+
 def main():
     import torch
 
@@ -3056,6 +3502,10 @@ def main():
     surface_generators(device, card)
     surface_s = time.perf_counter() - t_surface
     torch.cuda.empty_cache()
+    # -- phase 12a: the side layers on this forest (p1, p2, p6) -----------
+    t_side = time.perf_counter()
+    side_steps = side_query_phase(f, qd, truth, launches, card)
+    side_s = time.perf_counter() - t_side
     # -- phase 8a: the other dense layouts on this forest, before phase 7
     # repacks it --------------------------------------------------------
     layouts_phase(f, qd, truth, out, launches, kern)
@@ -3137,6 +3587,12 @@ def main():
     surface_tune_build(f_iid, qd_iid, launches, card)
     log("surface", card=card,
         seconds=surface_s + time.perf_counter() - t_surface)
+    torch.cuda.empty_cache()
+    # -- phase 12b: the side layers on the iid cell (p1, p3, p4, p5, p7) --
+    t_side = time.perf_counter()
+    side_steps.update(side_layers_phase(f_iid, device, launches, card))
+    log("side", card=card, seconds=side_s + time.perf_counter() - t_side,
+        **side_steps)
     torch.cuda.empty_cache()
 
     # -- phase 7: online updates on the clustered and iid forests ---------

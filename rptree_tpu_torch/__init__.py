@@ -21,8 +21,13 @@ Validation:              ``tree_stats``, ``tree_size``, ``leaf_sizes``
 Vector types:            :class:`SVec` (sparse), dense = ndarray;
                          batched sparse datasets: :class:`EllMatrix`
 Vector ops (``Inner``):  :func:`inner`, :func:`metric_l2`, ...
+Rendering:               :func:`write_csv`, :func:`knn_write_csv`,
+                         :func:`write_dot`, :func:`draw`
 Testing / generation:    :class:`BenchConfig`, :func:`rand_seed`,
                          :func:`data_batch`, :func:`data_source`, samplers
+Profiling / ingest:      :mod:`profiling` (named ``rpt_*`` regions,
+                         ``trace``, ``sync``), :func:`device_time`,
+                         :mod:`ingest` (fvecs / bvecs / ivecs / idx)
 
 The forest packs (:meth:`RPForest.pack_leaves`), serves on the grouped,
 per-pair and unpacked paths and by the exact scan
@@ -34,8 +39,7 @@ on the card unless the caller passes ``device="cpu"``.
 Modules keep the JAX package's names.  The CUDA kernels (``csrc/``) are
 compiled with nvcc on first use; on CPU tensors their plain torch versions
 run instead.  This package never imports JAX.  Not ported yet
-(ROADMAP.md queue 1): profiling, the sharded forests and the side layers
-(rendering, ingest).
+(ROADMAP.md queue 1): the sharded forests.
 """
 
 from .config import (BenchConfig, ForestConfig, RPTreeConfig, rp_tree_cfg,
@@ -47,9 +51,13 @@ from .ops.sparse import (EllMatrix, ell_from_scipy_like, ell_from_svecs,
 from .ops.vector import (SVec, add, from_list_dv, from_list_sv,
                          from_vector_sv, inner, inner_dd, inner_sd, inner_ss,
                          metric_dd_l2, metric_l2, metric_sd_l2, metric_ss_l2,
-                         norm2, normalize, scale, sub, to_dense)
+                         normalize, scale, sub, to_dense)
 from .streaming import ForestBuilder, forest, tree
 from .tuning import tune, tune_build
+from .utils import ingest  # fvecs/bvecs/ivecs/idx readers + chunk sources
+from .utils import profiling  # named rpt_* regions + trace()/sync() helpers
+from .utils.draw import (draw, knn_write_csv, leaf_label_of_points, to_dot,
+                         tree_to_string, write_csv, write_dot)
 from .utils.gen import (circle2d, circle2d2, data_batch, data_source, dense,
                         mixture, mixture2, normal2, normal_dense2,
                         normal_sparse2, rand_seed, sample_projections,
@@ -58,6 +66,7 @@ from .utils.io import (deserialise_rp_forest, forest_from_numpy, load_forest,
                        load_forest_sharded, save_forest, save_forest_sharded,
                        serialise_rp_forest)
 from .utils.median import StreamingMedian
+from .utils.profiling import device_time
 from .version import __version__
 
 

@@ -60,6 +60,11 @@ batches may be sparse too: :meth:`RPForest.knn_batched` and
 :meth:`RPForest.knn_grouped` densify one chunk of an ``EllMatrix`` at a
 time, and every surface densifies an ``SVec`` or a small ``EllMatrix``.
 
+A dataset may be f32, bf16 or f16 (``forest_batch(dtype=...)``): the rows
+and their squared norms stay in that type, the projections are made in
+f32 on the rows raised to f32, every query path returns f32 distances,
+and ``pack_leaves()`` keeps bf16 blocks for a bf16 dataset.
+
 Streaming construction is :mod:`..streaming`.  Not ported yet
 (ROADMAP.md): the sharded forests.  The ``approx`` selection tail is
 not to be ported.
@@ -74,7 +79,8 @@ import torch
 
 from .._cuda import resolve_device
 from ..config import ForestConfig
-from ..ops.build import TreeArrays, build_forest_arrays, ieee_fp32
+from ..ops.build import (CAST_ROWS, TreeArrays, build_forest_arrays,
+                         ieee_fp32)
 from ..ops.ell_kernel import ell_score_tiles
 from ..ops.fused_gather import gather_score, gather_score_ok
 from ..ops.grouped import (grouped_distances, grouped_distances_kernel,
@@ -93,12 +99,14 @@ from ..ops.traverse import (node_table, project_queries, select_probes,
                              traverse_kernel)
 from ..ops.vector import SVec, to_dense
 from ..utils import gen as rgen
+from ..utils.profiling import region
 from .plan import TreePlan, make_plan
 
 __all__ = ["RPForest", "forest_batch", "tree_batch", "DEFAULT_BUDGET"]
 
 DEFAULT_BUDGET = 32
-_DATA_DTYPES_TODO = "ROADMAP.md queue 1 item 22 (datasets of other types)"
+# the dataset types a forest holds; distances are f32 on every path
+_DATA_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _PRECISIONS = ("highest", "default", "fastest")
 _BLOCK_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
                  "int8": torch.int8}
@@ -355,15 +363,24 @@ def _as_dense_queries(q, dim: int, device) -> torch.Tensor:
     return q.contiguous()
 
 
+def _descent_inputs(plan: TreePlan, arrays: TreeArrays, q: torch.Tensor,
+                    table=None):
+    """The descent's operands: the forest's node table (built here when
+    not given) and the query projections (kernel 11 on the card)."""
+    if table is None:
+        table = node_table(plan, arrays.thr, arrays.mgl, arrays.mgh)
+    return table, project_queries(q, arrays.r, plan.n_levels)
+
+
 def _traverse_forest(plan: TreePlan, arrays: TreeArrays, q: torch.Tensor,
                      budget: int, table=None):
     """All-tree traversal (kernel 7 on the card): ``(leaf_ids int32[T, B,
     F], prio f32[T, B, F])``.  ``table``: the forest's node table, built
-    here when not given."""
-    if table is None:
-        table = node_table(plan, arrays.thr, arrays.mgl, arrays.mgh)
-    projq = project_queries(q, arrays.r, plan.n_levels)
-    return traverse_kernel(plan, table, projq, budget)
+    here when not given.  The descent is the ``rpt_candidates`` region;
+    the query projections precede it, as in the JAX package."""
+    table, projq = _descent_inputs(plan, arrays, q, table)
+    with region("rpt_candidates"):
+        return traverse_kernel(plan, table, projq, budget)
 
 
 @torch.no_grad()
@@ -376,14 +393,17 @@ def _select_probes(plan, arrays, q, budget, probes, k=None,
     (tree * n_leaves + leaf; masked entries point at block 0) and leaf id
     (-1 where masked).  With ``bucket_stop`` the reference knnH rule masks
     buckets beyond the first ``k`` collected points, counting ``block_len``
-    (each global block's occupancy) or else the plan's leaf sizes."""
-    leaf_ids, prio = _traverse_forest(plan, arrays, q, budget, table)
-    if block_len is None:
-        block_len = torch.as_tensor(
-            np.tile(np.asarray(plan.leaf_len, np.int32), leaf_ids.shape[0]),
-            device=leaf_ids.device)
-    return select_probes(leaf_ids, prio, plan.n_leaves, probes, block_len,
-                         k=k, bucket_stop=bucket_stop)
+    (each global block's occupancy) or else the plan's leaf sizes.  The
+    descent and the selection are one ``rpt_candidates`` region."""
+    table, projq = _descent_inputs(plan, arrays, q, table)
+    with region("rpt_candidates"):
+        leaf_ids, prio = traverse_kernel(plan, table, projq, budget)
+        if block_len is None:
+            block_len = torch.as_tensor(
+                np.tile(np.asarray(plan.leaf_len, np.int32),
+                        leaf_ids.shape[0]), device=leaf_ids.device)
+        return select_probes(leaf_ids, prio, plan.n_leaves, probes,
+                             block_len, k=k, bucket_stop=bucket_stop)
 
 
 def _probe_pairs(f, q, budget, probes, k, bucket_stop=False):
@@ -403,11 +423,12 @@ def _selection_tail(d, id_leaf, rows_sel, k, kk, dedup, min_votes=1,
                     selection="sort"):
     """Candidate-selection tail over ``d f32[B, P * lmax]`` (+inf in masked
     slots): the ids are fetched as whole leaf blocks with the rows' ``[B,
-    P]`` pattern, then :func:`_selection_tail_ids` selects."""
-    b = d.shape[0]
-    ids_flat = id_leaf[rows_sel.long()].reshape(b, -1)
-    return _selection_tail_ids(d, ids_flat, k, kk, dedup, min_votes,
-                               selection)
+    P]`` pattern, then :func:`_selection_tail_ids` selects; both in one
+    ``rpt_topk_tail`` region."""
+    with region("rpt_topk_tail"):
+        b = d.shape[0]
+        ids_flat = id_leaf[rows_sel.long()].reshape(b, -1)
+        return _tail(d, ids_flat, k, kk, dedup, min_votes, selection)
 
 
 def _selection_tail_ids(d, ids_flat, k, kk, dedup, min_votes=1,
@@ -419,7 +440,14 @@ def _selection_tail_ids(d, ids_flat, k, kk, dedup, min_votes=1,
     (kernel 3).  Otherwise the sort tail: a stable sort of the row by
     distance, its first ``kk`` entries (ids -1 at +inf), then
     :func:`merge_top_k`.  Vote counting is exact only over the full
-    candidate list, so ``min_votes > 1`` takes ``kk = W``."""
+    candidate list, so ``min_votes > 1`` takes ``kk = W``.  The
+    ``rpt_topk_tail`` region."""
+    with region("rpt_topk_tail"):
+        return _tail(d, ids_flat, k, kk, dedup, min_votes, selection)
+
+
+def _tail(d, ids_flat, k, kk, dedup, min_votes, selection):
+    """:func:`_selection_tail_ids`'s body."""
     w = d.shape[1]
     kk = w if min_votes > 1 else min(int(kk), w)
     if selection == "kernel" and min_votes == 1:
@@ -572,7 +600,16 @@ def _score_blocks(f, rows_sel, lsel, q, k, kk, metric, dedup, min_votes=1,
     torch, as the JAX package leaves them to an XLA einsum; a callable
     ``metric`` gets the fetched rows as f32 (not on int8 blocks).  ELL
     blocks are scored by kernel 10, each pair a tile of one
-    (:func:`_score_ell_pairs`)."""
+    (:func:`_score_ell_pairs`).  The fetch, the scores and the tail are
+    one ``rpt_rerank`` region."""
+    with region("rpt_rerank"):
+        return _score_blocks_body(f, rows_sel, lsel, q, k, kk, metric, dedup,
+                                  min_votes, selection)
+
+
+def _score_blocks_body(f, rows_sel, lsel, q, k, kk, metric, dedup,
+                       min_votes, selection):
+    """:func:`_score_blocks`'s body."""
     x_leaf, sq_leaf, id_leaf = f._packed
     b, p = rows_sel.shape
     lmax = x_leaf.shape[1]
@@ -662,21 +699,24 @@ def _brute_force(x, sq_norms, q, k, metric, precision="highest", rows=None):
 
     Sparse rows (an :class:`EllMatrix`) stream in row chunks, each slot
     gathering the query at its column, in fp32 at every precision, as in
-    the JAX package; callables raise there."""
+    the JAX package; callables raise there.  Rows and norms of a bf16 or
+    f16 dataset are raised to f32 a chunk at a time (kernel 5 reads its
+    bf16 copy)."""
     if isinstance(x, EllMatrix):
         return _brute_force_ell(x, sq_norms, q, k, metric)
     k = min(int(k), x.shape[0])
+    sq_norms = sq_norms.float()
     fast = precision in ("default", "fastest") and not callable(metric)
     if _uses_scan(fast, metric, k):
         return scan_topk(x, sq_norms, q, k, metric, rows=rows)
-    if callable(metric):  # the callable sees [B, c, D] rows
-        return stream_topk(x, q, k, lambda xc, s: metric(xc[None], q[:, None]),
-                           width=x.shape[1])
+    if callable(metric):  # the callable sees [B, c, D] f32 rows
+        return stream_topk(
+            x, q, k, lambda xc, s: metric(xc.float()[None], q[:, None]),
+            width=x.shape[1])
     qf = q.to(torch.bfloat16).float() if fast else q
 
     def dist(xc, s):
-        if fast:
-            xc = xc.to(torch.bfloat16).float()
+        xc = xc.to(torch.bfloat16).float() if fast else xc.float()
         return distances_from_dots(qf @ xc.T, sq_norms[s:s + xc.shape[0]][None],
                                    q, metric)
 
@@ -691,7 +731,7 @@ def _brute_force_ell(x, sq_norms, q, k, metric):
         raise NotImplementedError("custom distance callables need dense "
                                   "data rows")
     b, kz = q.shape[0], x.k
-    vals = x.vals.float()
+    vals, sq_norms = x.vals.float(), sq_norms.float()
 
     def dist(cc, s):
         c = cc.shape[0]
@@ -1002,7 +1042,8 @@ class RPForest:
     def points(self) -> torch.Tensor:
         """The indexed dataset (reference ``points``), densified, with the
         rows :meth:`fold` appended after it, so that row ``i`` is the point
-        of id ``i``: ``f32[n + n_folded, D]`` on the forest's device."""
+        of id ``i``: ``[n + n_folded, D]`` on the forest's device, in the
+        dataset's type (f32 once folded rows join a bf16 / f16 one)."""
         self._require_x("points()")
         if isinstance(self.x, EllMatrix):
             return torch.cat([ell_to_dense(self.x), *self._folded_x])
@@ -1117,14 +1158,18 @@ class RPForest:
                     store: str = "blocks", *, r_sub=None) -> "RPForest":
         """Copy each leaf's points into one contiguous block: ``x_leaf
         [T * n_leaves, lmax, D]``, with the slot squared norms ``sq_leaf``
-        (exact, from the f32 rows), the point ids ``id_leaf`` (-1 in empty
+        (exact, from the f32 rows; on a bf16 / f16 dataset rounded to its
+        type, as its norms are), the point ids ``id_leaf`` (-1 in empty
         slots) and, for ``dtype=torch.int8``, one scale per block
         (``max |row| / 127``; rows divided by it and rounded half to even).
         ``dtype=torch.bfloat16`` rounds the rows to nearest even and
         halves the blocks' memory and read bytes; distances are then
-        computed from the bf16 rows.  ``slack`` adds empty slots per
-        block for :meth:`fold`; the slot axis is aligned as in the JAX
-        package.  The parameters are the JAX package's, in its order.
+        computed from the bf16 rows.  ``dtype=None`` (or f32) keeps the
+        dataset's type as the JAX package does: bf16 blocks for a bf16
+        dataset, f32 otherwise (f16 rows as exact f32).  ``slack`` adds
+        empty slots per block for :meth:`fold`; the slot axis is aligned
+        as in the JAX package.  The parameters are the JAX package's, in
+        its order.
 
         ``centered=True`` (int8 only) quantizes each row's residual around
         its block's f32 mean, and keeps per slot the mean's dot with the
@@ -1188,10 +1233,29 @@ class RPForest:
 
     def _tree_rows(self, ti: int, pos: torch.Tensor, in_leaf: torch.Tensor):
         """Tree ``ti``'s leaves as blocks: the ids ``[nl, lmax]`` (-1 in
-        empty slots) and the f32 rows ``[nl, lmax, D]`` (zeros there)."""
+        empty slots) and the rows ``[nl, lmax, D]`` (zeros there), raised
+        to f32."""
         ids = torch.where(in_leaf, self.arrays.perm[ti].long()[pos], -1)
         rows = torch.where(in_leaf[..., None], self.x[ids.clamp_min(0)], 0.0)
-        return ids, rows
+        return ids, rows.float()
+
+    def _slot_norms(self, rows: torch.Tensor) -> torch.Tensor:
+        """The slot squared norms of f32 ``rows [..., D]``: summed in f32,
+        rounded to the dataset's type as its norms are (the bits of the JAX
+        package's slot norms on a bf16 dataset), returned as f32."""
+        sq = (rows * rows).sum(-1)
+        return sq if self.x.dtype == torch.float32 else sq.to(
+            self.x.dtype).float()
+
+    def _block_dtype(self, cfg: _PackCfg) -> torch.dtype:
+        """The blocks' value type: bf16 or int8 where asked; otherwise
+        (``"f32"``, the JAX package's "keep the dataset's type") bf16 on a
+        bf16 dataset and f32 on the others (an f16 dataset packs exact f32
+        blocks: the kernels read f32 or bf16)."""
+        if cfg.dtype != "f32":
+            return _BLOCK_DTYPES[cfg.dtype]
+        vals = self.x.vals if isinstance(self.x, EllMatrix) else self.x
+        return torch.bfloat16 if vals.dtype == torch.bfloat16 else torch.float32
 
     def _pack_shared(self, cfg: _PackCfg) -> None:
         """The shared-row layout: per tree the blocks' ids and slot norms
@@ -1206,11 +1270,11 @@ class RPForest:
         sq = torch.empty((t, nl, lmax), device=self.device)
         for ti in range(t):
             tid, rows = self._tree_rows(ti, pos, in_leaf)
-            ids[ti], sq[ti] = tid, (rows * rows).sum(-1)
+            ids[ti], sq[ti] = tid, self._slot_norms(rows)
             del rows
         ids = ids.reshape(t * nl, lmax)
-        rows = (self.x if cfg.dtype == "f32"
-                else self.x.to(_BLOCK_DTYPES[cfg.dtype]))
+        dt = self._block_dtype(cfg)
+        rows = self.x if self.x.dtype == dt else self.x.to(dt)
         self._packed = (SharedRows(rows, ids), sq.reshape(t * nl, lmax), ids)
 
     def _pack_ell(self, cfg: _PackCfg) -> None:
@@ -1223,7 +1287,7 @@ class RPForest:
         t, nl, kz = self.n_trees, plan.n_leaves, x.k
         dev = self.device
         cols = torch.empty((t, nl, lmax, kz), dtype=torch.int32, device=dev)
-        vals = torch.empty((t, nl, lmax, kz), dtype=_BLOCK_DTYPES[cfg.dtype],
+        vals = torch.empty((t, nl, lmax, kz), dtype=self._block_dtype(cfg),
                            device=dev)
         sq = torch.empty((t, nl, lmax), device=dev)
         ids = torch.empty((t, nl, lmax), dtype=torch.int32, device=dev)
@@ -1265,7 +1329,7 @@ class RPForest:
                                                 device=self.device)
             self._r_sub = r_sub
         int8 = cfg.dtype == "int8"
-        x_leaf = torch.empty((t, nb, ls, d), dtype=_BLOCK_DTYPES[cfg.dtype],
+        x_leaf = torch.empty((t, nb, ls, d), dtype=self._block_dtype(cfg),
                              device=self.device)
         sq_leaf = torch.empty((t, nb, ls), device=self.device)
         id_leaf = torch.empty((t, nb, ls), dtype=torch.int32,
@@ -1288,7 +1352,7 @@ class RPForest:
                                    0.0)
                 ids = torch.where(valid, ids, -1)
             id_leaf[ti] = ids.to(torch.int32)
-            sq_leaf[ti] = (rows * rows).sum(-1)
+            sq_leaf[ti] = self._slot_norms(rows)
             if cfg.centered:
                 x_leaf[ti], sc, mu[ti], mudr[ti] = _center_quantize(rows,
                                                                     valid)
@@ -1452,6 +1516,12 @@ class RPForest:
         if m == 0:
             self._pending, self._pending_payloads = [], []
             return self
+        with region("rpt_insert"):
+            return self._fold_pending(xp, pays, m)
+
+    def _fold_pending(self, xp, pays, m) -> "RPForest":
+        """:meth:`fold`'s placement and writes of the live pending rows
+        ``xp f32[m, D]`` (the ``rpt_insert`` region)."""
         t, nl = self.n_trees, self.plan.n_leaves
         x_leaf, sq_leaf, id_leaf = self._packed
         lmax = x_leaf.shape[1]
@@ -1576,7 +1646,7 @@ class RPForest:
         self.plan = make_plan(int(x_all.shape[0]), cfg.max_depth,
                               cfg.min_leaf)
         self.arrays = build_forest_arrays(self.plan, x_all, self.arrays.r)
-        self.x, self.sq_norms = x_all, (x_all * x_all).sum(-1)
+        self.x, self.sq_norms = x_all, _sq_norms(x_all)
         self.payloads = payloads
         self._reset_updates()
         self._nodes = self._lens_dev = self._grouped_last = None
@@ -1955,21 +2025,49 @@ class RPForest:
                 f"dim={self.dim}, device={self.device}, {self.plan!r})")
 
 
+def _check_data_dtype(dtype) -> torch.dtype:
+    """``dtype`` if the port builds on it (f32, bf16, f16), else raises:
+    ``ValueError`` for an integer type, whose rows wrap when cast and whose
+    squared norms wrap too (the JAX package takes ``jnp.int8`` and returns
+    wrong neighbours; ROADMAP.md queue 3)."""
+    if dtype in _DATA_DTYPES:
+        return dtype
+    if isinstance(dtype, torch.dtype) and not dtype.is_floating_point:
+        raise ValueError(
+            f"forest_batch(dtype={dtype}): integer datasets are refused; the "
+            f"rows wrap when cast and their squared norms wrap in the "
+            f"integer type (quantize the packed blocks instead: "
+            f"pack_leaves(dtype=torch.int8))")
+    raise ValueError(f"forest_batch(dtype={dtype}): the dataset type must be "
+                     f"torch.float32, torch.bfloat16 or torch.float16")
+
+
+def _sq_norms(x: torch.Tensor) -> torch.Tensor:
+    """Squared norms of the rows of ``x [n, D]``, summed in f32 and stored
+    in ``x``'s type (as the JAX package stores them), over bf16 / f16 rows
+    ``CAST_ROWS`` at a time, so that no f32 copy of the dataset exists."""
+    if x.dtype == torch.float32:
+        return (x * x).sum(-1)
+    out = torch.empty(x.shape[0], dtype=x.dtype, device=x.device)
+    for s in range(0, x.shape[0], CAST_ROWS):
+        rows = x[s:s + CAST_ROWS].float()
+        out[s:s + rows.shape[0]] = (rows * rows).sum(-1)
+    return out
+
+
 def _prepare_data(data, dtype, device):
     """``(x, sq_norms, dim, n)`` on ``device``: dense rows, or an
-    :class:`EllMatrix` with f32 values and its rows' norms."""
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            f"forest_batch(dtype={dtype}): the port builds on f32 data only; "
-            f"{_DATA_DTYPES_TODO}")
+    :class:`EllMatrix`, with values of ``dtype`` (f32, bf16 or f16) and
+    the rows' norms in that type."""
+    dtype = _check_data_dtype(dtype)
     if isinstance(data, EllMatrix):
         x = data.to(resolve_device(device), dtype)
-        return x, ell_sq_norms(x), x.dim, x.n
+        return x, ell_sq_norms(x).to(dtype), x.dim, x.n
     x = torch.as_tensor(data, dtype=dtype, device=resolve_device(device))
     if x.dim() != 2:
         raise ValueError(f"dataset must be [n, dim], got shape {tuple(x.shape)}")
     x = x.contiguous()
-    return x, (x * x).sum(-1), int(x.shape[1]), int(x.shape[0])
+    return x, _sq_norms(x), int(x.shape[1]), int(x.shape[0])
 
 
 @torch.no_grad()
@@ -1986,7 +2084,11 @@ def forest_batch(seed, max_depth: int, min_leaf: int, n_trees: int,
     ``data`` is ``[n, D]`` dense rows or an :class:`EllMatrix` of sparse
     ones.  ``payloads`` is an optional host-side sequence of one payload
     per point (:meth:`RPForest.payload_of`).  ``dtype`` is the type the data
-    are cast to, as in the JAX package; only ``torch.float32`` is ported.
+    are cast to and stored in, as in the JAX package: ``torch.float32``,
+    ``torch.bfloat16`` or ``torch.float16`` (the squared norms too; the
+    projections are made in f32 on the rows raised to f32, so the trees
+    are those of an f32 build over the rounded rows, and every query path
+    returns f32 distances).  An integer ``dtype`` raises ``ValueError``.
     ``pack=True`` (or a block dtype, ``torch.bfloat16`` or ``torch.int8``)
     packs the leaves at build (:meth:`RPForest.pack_leaves`).  Builds on
     ``device`` (default: the card; it raises where CUDA is absent, and the

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from .. import _cuda
+from ..utils.profiling import region
 from ..models.plan import TreePlan
 from .sparse import EllMatrix, ell_project
 
@@ -183,14 +184,29 @@ def project_rows_error_bound(d: int) -> float:
     return k * u / (1.0 - k * u)
 
 
+CAST_ROWS = 1 << 16  # rows of a bf16 / f16 dataset raised to f32 a step
+
+
 def project_dataset(x, r_l: torch.Tensor) -> torch.Tensor:
     """``x [n, D] @ r_l [L, D].T`` in IEEE fp32: :func:`project_rows`,
     transposed.  The JAX package runs this product outside any kernel at
-    HIGHEST precision.  Sparse rows (an :class:`.sparse.EllMatrix`)
-    project by :func:`.sparse.ell_project`."""
+    HIGHEST precision.  Rows of another float type (bf16, f16) are raised
+    to f32 ``CAST_ROWS`` at a time, so that no f32 copy of the
+    whole dataset exists (the JAX package's ``bf16 @ f32`` product
+    promotes the same way); on the card kernel 11 gives a row the same
+    bits in any batch, so the trees are those of an f32 build over the
+    rounded rows.  Sparse rows (an :class:`.sparse.EllMatrix`) project by
+    :func:`.sparse.ell_project`."""
     if isinstance(x, EllMatrix):
         return ell_project(x, r_l)
-    return project_rows(x, r_l).T
+    if x.dtype == torch.float32:
+        return project_rows(x, r_l).T
+    out = torch.empty((x.shape[0], r_l.shape[0]), dtype=torch.float32,
+                      device=x.device)
+    for s in range(0, x.shape[0], CAST_ROWS):
+        rows = x[s:s + CAST_ROWS].float()
+        out[s:s + rows.shape[0]] = project_rows(rows, r_l).T
+    return out
 
 
 def _stacked_plan_constants(plan: TreePlan, device):
@@ -247,25 +263,29 @@ def build_tree_arrays(plan: TreePlan, x: torch.Tensor, r: torch.Tensor,
         z = torch.zeros((0, 1), dtype=torch.float32, device=dev)
         return TreeArrays(r=r, thr=z, mgl=z, mgh=z, perm=ids.to(torch.int32))
 
-    proj = project_dataset(x, r[:nl]).to(torch.float32).T.contiguous()
+    # profiler regions named after the reference's SCC cost centres
+    # ({-# SCC partitionAtMedian #-}, Internal.hs:484)
+    with region("rpt_project"):
+        proj = project_dataset(x, r[:nl]).to(torch.float32).T.contiguous()
     reg_starts, thr_pos, mgl_pos, mgr_pos = (
         consts or _stacked_plan_constants(plan, dev))
     thr = torch.empty(thr_pos.shape, dtype=torch.float32, device=dev)
     mgl = torch.empty_like(thr)
     mgh = torch.empty_like(thr)
-    for l in range(nl):
-        # per-position segment key = largest region start <= position
-        starts = reg_starts[l]
-        mark = torch.zeros(n, dtype=torch.int64, device=dev)
-        mark.scatter_reduce_(0, starts, starts, "amax")
-        seg_key = torch.cummax(mark, 0).values
-        p = proj[l][ids]
-        order = _level_order(seg_key, p)
-        ids = ids[order]
-        p_sorted = p[order]
-        thr[l] = p_sorted[thr_pos[l]]
-        mgl[l] = p_sorted[mgl_pos[l]]
-        mgh[l] = p_sorted[mgr_pos[l]]
+    with region("rpt_partition_at_median"):
+        for l in range(nl):
+            # per-position segment key = largest region start <= position
+            starts = reg_starts[l]
+            mark = torch.zeros(n, dtype=torch.int64, device=dev)
+            mark.scatter_reduce_(0, starts, starts, "amax")
+            seg_key = torch.cummax(mark, 0).values
+            p = proj[l][ids]
+            order = _level_order(seg_key, p)
+            ids = ids[order]
+            p_sorted = p[order]
+            thr[l] = p_sorted[thr_pos[l]]
+            mgl[l] = p_sorted[mgl_pos[l]]
+            mgh[l] = p_sorted[mgr_pos[l]]
     return TreeArrays(r=r, thr=thr, mgl=mgl, mgh=mgh,
                       perm=ids.to(torch.int32))
 

@@ -36,6 +36,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from .. import _cuda
+from ..utils.profiling import region
 from .build import ieee_fp32
 from .ell_kernel import ell_score_tiles
 from .grouped_kernel import (_int8_dots, _quantize_rows, grouped_score_tiles,
@@ -334,9 +335,11 @@ def tile_tables(gsel, lsel, lens_of_block, tile_m: int, nt: int):
     Tiles past ``needed`` hold block 0 and no pair.  On the card block
     ids outside ``[0, G)`` are clamped into it, and the five tables are
     views of one allocation."""
-    if gsel.device.type == "cpu":
-        return tile_tables_reference(gsel, lsel, lens_of_block, tile_m, nt)
-    return _tables_on_card(gsel, lsel, lens_of_block, tile_m, nt)
+    with region("rpt_tile_tables"):
+        if gsel.device.type == "cpu":
+            return tile_tables_reference(gsel, lsel, lens_of_block, tile_m,
+                                         nt)
+        return _tables_on_card(gsel, lsel, lens_of_block, tile_m, nt)
 
 
 def _tables_on_card(gsel, lsel, lens_of_block, tile_m, nt, max_bits=None):
@@ -374,23 +377,27 @@ def _tables_on_card(gsel, lsel, lens_of_block, tile_m, nt, max_bits=None):
 tile_tables.launches = 0
 
 
-def _tile_operands(gsel, lsel, lens_of_block, q, tile_m, nt):
-    """Tile tables and kernel operands of a chunk's pairs: ``(tb, lens_t,
-    qt, needed, inv)``, with ``qt f32[nt * tile_m, D]`` the query rows in
-    tile-slot order and ``inv`` each pair's flat tile slot."""
+def _tile_operands(gsel, lsel, lens_of_block, tile_m, nt):
+    """Tile tables of a chunk's pairs and the kernels' query-row index:
+    ``(tb, lens_t, qi, needed, inv)``, with ``qi int64[nt * tile_m]`` the
+    query of each tile slot (``q[qi]``, the query rows in tile-slot order,
+    is gathered in the ``rpt_grouped_score`` region) and ``inv`` each
+    pair's flat tile slot."""
     p = gsel.shape[1]
     tb, tp, needed, inv, lens_t = tile_tables(gsel, lsel, lens_of_block,
                                               tile_m, nt)
     qi = torch.where(tp >= 0, tp // p, 0).reshape(-1).long()
-    return tb, lens_t, q[qi], needed, inv
+    return tb, lens_t, qi, needed, inv
 
 
 def _pair_rows(rows, inv, fill, b, p):
     """Pair reorder: each pair's tile-slot row of ``rows [nt * tile_m,
-    w]``, with pairs in no tile reading a pad row of ``fill``."""
-    pad = torch.full((1, rows.shape[1]), fill, dtype=rows.dtype,
-                     device=rows.device)
-    return torch.cat([rows, pad])[inv].reshape(b, p, rows.shape[1])
+    w]``, with pairs in no tile reading a pad row of ``fill`` (the
+    ``rpt_pair_reorder`` region)."""
+    with region("rpt_pair_reorder"):
+        pad = torch.full((1, rows.shape[1]), fill, dtype=rows.dtype,
+                         device=rows.device)
+        return torch.cat([rows, pad])[inv].reshape(b, p, rows.shape[1])
 
 
 def _float_dots(qr, blk):
@@ -456,7 +463,7 @@ def grouped_distances(x_leaf, sq_leaf, lens_of_block, gsel, lsel, q, metric,
     col = torch.arange(lmax, device=q.device)
     d_all = torch.empty((nt * tile_m, lmax), dtype=torch.float32,
                         device=q.device)
-    with ieee_fp32():
+    with region("rpt_grouped_score"), ieee_fp32():
         for s in range(0, nt, step):
             c = min(step, nt - s)
             rows = tb[s:s + c].long()
@@ -499,8 +506,9 @@ def _grouped_ell(blocks, sq_leaf, lens_of_block, gsel, lsel, q, metric,
     b, p = gsel.shape
     tb, tp, needed, inv, lens_t = tile_tables(gsel, lsel, lens_of_block,
                                               tile_m, nt)
-    d_all = ell_score_tiles(blocks, sq_leaf, tb, tp, lens_t, q,
-                            (q * q).sum(-1), p, metric, tile_chunk)
+    with region("rpt_grouped_score"):
+        d_all = ell_score_tiles(blocks, sq_leaf, tb, tp, lens_t, q,
+                                (q * q).sum(-1), p, metric, tile_chunk)
     return _pair_rows(d_all, inv, float("inf"), b, p), needed
 
 
@@ -525,14 +533,16 @@ def grouped_distances_kernel(x_leaf, sq_leaf, lens_of_block, gsel, lsel, q,
     probes, occupancy padding, capacity overflow) carry +inf.
     """
     b, p = gsel.shape
-    tb, lens_t, qt, needed, inv = _tile_operands(gsel, lsel, lens_of_block,
-                                                 q, tile_m, nt)
-    if x_leaf.dtype == torch.int8:
-        d_all = grouped_score_tiles_int8(x_leaf, sq_leaf, block_scale, tb,
-                                         lens_t, qt, metric, tile_m)
-    else:
-        d_all = grouped_score_tiles(x_leaf, sq_leaf, tb, lens_t, qt, metric,
-                                    tile_m)
+    tb, lens_t, qi, needed, inv = _tile_operands(gsel, lsel, lens_of_block,
+                                                 tile_m, nt)
+    with region("rpt_grouped_score"):
+        qt = q[qi]
+        if x_leaf.dtype == torch.int8:
+            d_all = grouped_score_tiles_int8(x_leaf, sq_leaf, block_scale,
+                                             tb, lens_t, qt, metric, tile_m)
+        else:
+            d_all = grouped_score_tiles(x_leaf, sq_leaf, tb, lens_t, qt,
+                                        metric, tile_m)
     return _pair_rows(d_all, inv, float("inf"), b, p), needed
 
 
@@ -548,9 +558,10 @@ def grouped_topk_kernel(x_leaf, sq_leaf, id_leaf, lens_of_block, gsel, lsel,
     masked and overflow pairs carry ``(+inf, -1)``.
     """
     b, p = gsel.shape
-    tb, lens_t, qt, needed, inv = _tile_operands(gsel, lsel, lens_of_block,
-                                                 q, tile_m, nt)
-    d_all, i_all = grouped_score_topk(x_leaf, sq_leaf, id_leaf, tb, lens_t,
-                                      qt, metric, tile_m, kp)
+    tb, lens_t, qi, needed, inv = _tile_operands(gsel, lsel, lens_of_block,
+                                                 tile_m, nt)
+    with region("rpt_grouped_score"):
+        d_all, i_all = grouped_score_topk(x_leaf, sq_leaf, id_leaf, tb,
+                                          lens_t, q[qi], metric, tile_m, kp)
     return (_pair_rows(d_all, inv, float("inf"), b, p),
             _pair_rows(i_all, inv, -1, b, p), needed)

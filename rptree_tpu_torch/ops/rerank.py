@@ -144,8 +144,9 @@ def candidate_distances(x: torch.Tensor, sq_norms: torch.Tensor,
     """Exact distances ``f32[B, C]`` from each query ``q [B, D]`` to its
     candidate rows ``x[ids]`` (``ids int32[B, C]``, -1 for none: +inf),
     with the squared norms ``sq_norms [n]`` precomputed.  Inner products
-    are fp32.  ``x`` is dense ``[n, D]`` or an :class:`.sparse.EllMatrix`,
-    whose rows' slots gather the query at their columns (builtin metrics
+    are fp32 (rows of a bf16 or f16 dataset raised to f32 as gathered).
+    ``x`` is dense ``[n, D]`` or an :class:`.sparse.EllMatrix`, whose
+    rows' slots gather the query at their columns (builtin metrics
     only)."""
     valid = ids >= 0
     safe = ids.long().clamp_min(0)
@@ -158,12 +159,12 @@ def candidate_distances(x: torch.Tensor, sq_norms: torch.Tensor,
         b, c, k = cols.shape
         qg = q.gather(1, cols.reshape(b, c * k)).reshape(b, c, k)
         dots = (vals.float() * qg).sum(-1)
-        d = distances_from_dots(dots, sq_norms[safe], q, metric)
+        d = distances_from_dots(dots, sq_norms[safe].float(), q, metric)
     elif callable(metric):
-        d = metric(x[safe], q[:, None, :])
+        d = metric(x[safe].float(), q[:, None, :])
     else:
-        dots = torch.einsum("bcd,bd->bc", x[safe], q)
-        d = distances_from_dots(dots, sq_norms[safe], q, metric)
+        dots = torch.einsum("bcd,bd->bc", x[safe].float(), q)
+        d = distances_from_dots(dots, sq_norms[safe].float(), q, metric)
     return torch.where(valid, d, float("inf"))
 
 

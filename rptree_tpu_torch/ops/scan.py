@@ -160,9 +160,10 @@ def scan_topk(x, sq, q, k: int, metric: str = "l2", rows=None):
     ids int32[B, k'])``, ``k' = min(k, N)``, in ascending order, ties to
     the lower data index.
 
-    ``x f32[N, D]`` rows, ``sq f32[N]`` their squared norms, ``q f32[B,
-    D]``.  Metrics ``l2`` / ``sql2`` (factored form) and ``dot`` (``sq``
-    taken as 0, the result halved); ``k`` up to 128.  The kernel reads
+    ``x f32[N, D]`` rows (or bf16 / f16 ones: the kernel reads its bf16
+    copy either way), ``sq f32[N]`` their squared norms, ``q f32[B, D]``.
+    Metrics ``l2`` / ``sql2`` (factored form) and ``dot`` (``sq`` taken as
+    0, the result halved); ``k`` up to 128.  The kernel reads
     ``rows``, the bf16 copy :func:`scan_rows` makes of ``(x, sq)``; a
     caller that scans one dataset many times makes it once and passes it,
     otherwise it is made here."""
@@ -196,8 +197,10 @@ def _scan_partial(x, sq, q, k, metric, rows=None):
         if t.device != x.device:
             raise ValueError(f"{name}: {key} is on {t.device}, expected "
                              f"{x.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {key} must be float32, got {t.dtype}")
+        if t.dtype != torch.float32 and (key != "x" or t.dtype not in (
+                torch.bfloat16, torch.float16)):
+            raise TypeError(f"{name}: {key} must be float32 (x also bf16 or "
+                            f"f16), got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
     if rows is None:

@@ -42,7 +42,7 @@ import torch
 
 from .._cuda import resolve_device
 from ..config import ForestConfig
-from ..models.forest import RPForest
+from ..models.forest import RPForest, _sq_norms
 from ..models.plan import make_plan
 from ..ops.build import TreeArrays
 from ..ops.sparse import EllMatrix, ell_sq_norms
@@ -92,7 +92,27 @@ def _header(forest: RPForest) -> dict:
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+    """``t`` on the host; bf16 values as the JAX package's ``np.savez``
+    writes them: their 16-bit patterns in a ``|V2`` array (numpy has no
+    bf16 type)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
+    return t.numpy()
+
+
+def _values(a, device) -> torch.Tensor:
+    """A checkpoint's dataset values on ``device`` in their own type: a
+    2-byte void array (``|V2``, as ``np.savez`` writes bf16) or an
+    ``ml_dtypes`` bfloat16 array as bf16 bits, float16 as f16, anything
+    else cast to f32."""
+    a = np.asarray(a)
+    if a.dtype.itemsize == 2 and (a.dtype.kind == "V"
+                                  or a.dtype.name == "bfloat16"):
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16))
+        return t.view(torch.bfloat16).to(device)
+    dt = torch.float16 if a.dtype == np.float16 else torch.float32
+    return torch.as_tensor(a, dtype=dt, device=device)
 
 
 def _arrays(forest: RPForest) -> dict:
@@ -126,7 +146,12 @@ def forest_from_numpy(header: dict, arrays: dict, device=None,
     perm, x`` as numpy arrays (a sparse forest, header ``"sparse"``:
     ``x_cols`` and ``x_vals`` for ``x``).  ``payloads``: the forest's
     per-point payloads, a list the caller holds (a checkpoint stores them
-    pickled, which this module never reads).  The seed is the header's."""
+    pickled, which this module never reads).  The seed is the header's.
+    The dataset keeps its type: bf16 (a ``|V2`` array of bf16 bits, as the
+    JAX package writes it, or an ``ml_dtypes`` bfloat16 array), f16 or
+    f32 (any other type is cast to f32); its squared norms are summed in
+    f32 and stored in that type, as :func:`..models.forest.forest_batch`
+    stores them."""
     device = resolve_device(device)
     plan = make_plan(header["n"], header["max_depth"], header["min_leaf"])
     if plan.n_levels != header["n_levels"]:
@@ -141,12 +166,11 @@ def forest_from_numpy(header: dict, arrays: dict, device=None,
         for k in _ARRAYS})
     if header.get("sparse"):
         x = EllMatrix(header["dim"], np.asarray(arrays["x_cols"]),
-                      np.asarray(arrays["x_vals"])).to(device)
-        sq = ell_sq_norms(x)
+                      _values(arrays["x_vals"], "cpu")).to(device)
+        sq = ell_sq_norms(x).to(x.vals.dtype)
     else:
-        x = torch.as_tensor(np.asarray(arrays["x"]), dtype=torch.float32,
-                            device=device).contiguous()
-        sq = (x * x).sum(-1)
+        x = _values(arrays["x"], device).contiguous()
+        sq = _sq_norms(x)
     cfg = ForestConfig(**header["config"])
     return RPForest(plan, tree, x, sq, cfg, payloads=payloads,
                     seed=header.get("seed"))

@@ -172,8 +172,14 @@ def test_forest_batch_unported_parameters_raise():
     fe = torch_forest_batch(1, 3, 16, 2, 1.0, EllMatrix(
         4, cols[:, None], x[np.arange(300), cols][:, None]), device="cpu")
     assert fe.dim == 4 and torch.equal(fe.arrays.perm, f.arrays.perm)
-    with pytest.raises(NotImplementedError, match="item 22"):
-        torch_forest_batch(1, 3, 16, 2, 1.0, x, None, torch.bfloat16,
+    # datasets of other types are ported (the one-hot rows are exact in
+    # bf16: the same trees); integer ones are refused
+    fb = torch_forest_batch(1, 3, 16, 2, 1.0, x, None, torch.bfloat16,
+                            device="cpu")
+    assert fb.x.dtype == torch.bfloat16
+    assert torch.equal(fb.arrays.perm, f.arrays.perm)
+    with pytest.raises(ValueError, match="squared norms wrap"):
+        torch_forest_batch(1, 3, 16, 2, 1.0, x, None, torch.int8,
                            device="cpu")
     with pytest.raises(TypeError):  # device is keyword-only
         torch_forest_batch(1, 3, 16, 2, 1.0, x, None, torch.float32, False,

@@ -16,6 +16,7 @@ import torch
 
 import rptree_tpu as rt
 import rptree_tpu_torch as rp
+from rptree_tpu_torch.ops import vector as rp_vector
 
 from torch_parity import carry, clustered, jax_forest, one_torch_thread  # noqa: F401
 from torch_parity import knn_agree
@@ -47,18 +48,20 @@ SLICE_EXPORTS = (
     # the earlier slices' surface
     "ForestConfig", "RPForest", "RPTreeConfig", "TreePlan", "forest_batch",
     "make_plan", "rp_tree_cfg", "rp_tree_cfg_clustered", "tree_batch",
+    # profiling, rendering, ingest
+    "profiling", "device_time", "draw", "ingest", "write_csv",
+    "knn_write_csv", "write_dot", "to_dot", "tree_to_string",
+    "leaf_label_of_points",
 )
-# left for later items of ROADMAP.md queue 1: [19] profiling, [21] the side
-# layers
-LATER = ("profiling", "device_time", "draw", "ingest", "write_csv",
-         "knn_write_csv", "write_dot", "to_dot", "tree_to_string",
-         "leaf_label_of_points")
 
 
 def test_exports_cover_the_slice():
+    """The port exports every name the JAX package does, and one more:
+    ``forest_from_numpy``, which carries a forest across."""
     assert set(SLICE_EXPORTS) <= set(rt.__all__)
     assert set(SLICE_EXPORTS) <= set(rp.__all__)
-    assert not set(LATER) & set(rp.__all__)
+    assert set(rt.__all__) <= set(rp.__all__)
+    assert set(rp.__all__) - set(rt.__all__) == {"forest_from_numpy"}
     assert rp.__version__ == rt.__version__
 
 
@@ -166,7 +169,7 @@ def test_vector_ops_bit_equal_to_jax(name, kinds, seed):
     want_args = _as(rt.ops.vector, dim, sv, dv, kinds)
     if name == "scale":
         got_args, want_args = [1.5, *got_args], [1.5, *want_args]
-    got = getattr(rp, name)(*got_args)
+    got = getattr(rp_vector, name)(*got_args)
     want = getattr(rt.ops.vector, name)(*want_args)
     assert type(got).__name__ == type(want).__name__
     assert _bits(got) == _bits(want)
@@ -229,7 +232,7 @@ def _hspec_scale_normalize():
     np.testing.assert_allclose(rp.scale(2.0, V1), [2, 4, 6, 8, 10])
     np.testing.assert_allclose(rp.scale(-1.0, VS0).val, [-3.4, -2.1])
     nv = rp.normalize(V1)
-    assert rp.norm2(nv) == pytest.approx(1.0)
+    assert rp_vector.norm2(nv) == pytest.approx(1.0)
 
 
 def _hspec_invariants():
