@@ -146,8 +146,8 @@ its launch counts):
    per-tree blobs in order and reversed, ``save_forest`` refused after
    ``add``; bytes and host-clock seconds.  (u4) ``rp.tune_build`` on the
    iid rows, ``measure=False``, target 0.10: a forest meets it;
-11. the kernels' launch counts over phases 3-10 and 12, each of which
-   must be > 0;
+11. the kernels' launch counts over phases 3-10, 12 and 13, each of
+   which must be > 0;
 12. the side layers (``side_*`` lines), run in two parts: 12a on phase
    3's forest after 10a, 12b on phase 4's after 10b.  (p1)
    ``rp.profiling.trace`` around one grouped chunk of phase 3's forest
@@ -176,7 +176,26 @@ its launch counts):
    and streaming, recall > 0.  (p7) ``examples/torch_sift_pipeline.py``
    on three files written by ``write_fvecs`` / ``write_ivecs`` (20,000 x
    64 synthetic rows) and ``examples/torch_clustered_scatter.py``, each a
-   process of its own, exit 0.
+   process of its own, exit 0;
+13. the tree- and query-sharded forests (``sharded_*`` lines), four
+   shards on the one card (``forest_mesh(..., devices=[card] * 4)``), in
+   two parts: 13a on phase 3's forest after 12a, 13b on phase 4's right
+   after it is served.  (d1) ``forest_batch_distributed`` on
+   ``forest_mesh(4, 1)``: the trees ``torch.equal`` to phase 3's, the
+   dataset shared.  (d2) leaf-sharded f32 blocks served grouped at phase
+   3's settings, with the kernel tail and with ``kernel_topk``, held
+   against (a) and (c): distances within 1e-4 relative (the entries
+   whose bits differ counted), ids outside near-ties, recall within
+   0.001 of (a)'s.  (d3) ``distribute`` onto ``forest_mesh(2, 2)``,
+   tree-sharded f32 blocks: per pair (kernel 6) against (f), then
+   ``knn_h`` (the global bucket stop) on 16,384 queries against the
+   single-device ``knn_h``.  (d4) phase 4's forest on ``forest_mesh(4,
+   1)``, leaf-sharded int8 blocks with slack 8 served as phase 4 serves
+   them, against phase 4's result; then 2,000 points added to it and to
+   a single-device twin, served pending at ``precision="default"``
+   (kernel 5), folded, ``recall_with`` within 1e-6 and served again,
+   each against the twin.  Each sharded variant's kernels launch once a
+   chunk on each shard.  QPS beside the single-device variant's.
 
 Each scan of phases 3, 5, 6 and 8 is also held, on its first chunk of
 queries, against the scan kernel's plain version at that shape; kernels
@@ -1624,14 +1643,16 @@ def check_launches(name, runs, warm, steady, chunks, passes):
                 f"{passes * chunks if kern in runs else 0}")
 
 
-def serve_variant(name, f, qd, truth, pack, serve, runs, n_passes=3):
+def serve_variant(name, f, qd, truth, pack, serve, runs, n_passes=3,
+                  per_chunk=1):
     """Pack ``f`` as ``pack`` asks and serve ``qd`` with ``serve``: one
     checked call that learns the tile capacity, then ``n_passes``
     steady-state ``check=False`` passes that must return the same.  The
     launch counts are read around each of the two and must show that the
-    kernels ``runs`` served the variant and no other kernel did.  Returns
-    the record (recall@10 against ``truth``, QPS of the median pass,
-    launches) and the last pass's ``(dists, ids)``."""
+    kernels ``runs`` served the variant, ``per_chunk`` times a chunk (a
+    sharded forest's shards each launch them), and no other kernel did.
+    Returns the record (recall@10 against ``truth``, QPS of the median
+    pass, launches) and the last pass's ``(dists, ids)``."""
     import torch
 
     _, pack_s = sync_time(lambda: f.pack_leaves(**pack))
@@ -1640,7 +1661,7 @@ def serve_variant(name, f, qd, truth, pack, serve, runs, n_passes=3):
     passes, steady_n = counted(lambda: [sync_time(
         lambda: f.knn_grouped(qd, K, check=False, **serve))
         for _ in range(n_passes)])
-    chunks = -(-qd.shape[0] // serve["chunk"])
+    chunks = -(-qd.shape[0] // serve["chunk"]) * per_chunk
     check_launches(name, runs, warm_n, steady_n, chunks, n_passes)
     serve_s = float(np.median([s for _, s in passes]))
     dist, ids = passes[-1][0]
@@ -1752,6 +1773,7 @@ def serve_grouped(variants, f, qd, truth, launches, out):
     for name, pack, serve, runs, floor in variants:
         rec, out[name[0]] = serve_variant(name, f, qd, truth, pack, serve,
                                           runs)
+        out.setdefault("qps", {})[name[0]] = rec["qps"]
         add_launches(launches, name, rec["launches"])
         if name[0] in "ce":
             twin = chr(ord(name[0]) - 1)
@@ -3394,6 +3416,206 @@ def side_examples(device, card):
     log("side_p7_examples", card=card, **out)
 
 
+# -- phase 13: the tree- and query-sharded forests --------------------------
+
+SHARDED_RECALL_GAP = 0.001       # (d2) against (a)'s recall
+SHARDED_H_QUERIES = 16_384       # (d3) knn_h
+SHARDED_PAIR = dict(budget=1, precision="default", chunk=2048)   # (f)'s
+SHARDED_ADD = 2_000              # 13b: points added, then folded
+SHARDED_UPDATE_QUERIES = 8_192
+
+
+def one_card_mesh(device, tree, query):
+    """A ``tree x query`` mesh of one card repeated: the port's stand-in
+    for a mesh of several cards, whose shards' launches then run in
+    turn."""
+    from rptree_tpu_torch.parallel import forest_mesh
+
+    return forest_mesh(tree, query, devices=[device] * (tree * query))
+
+
+def bits_differ(got, want):
+    """Entries whose distance bits differ between two ``(dists, ids)``."""
+    import torch
+
+    return int((got[0].view(torch.int32) != want[0].view(torch.int32)).sum())
+
+
+def sharded_clustered_phase(f, qd, truth, out, launches, card):
+    """Phase 13a on phase 3's clustered 1M forest, four shards on the one
+    card: (d1) ``forest_batch_distributed`` on ``forest_mesh(4, 1)``, its
+    trees ``torch.equal`` to phase 3's; (d2) its blocks leaf-sharded
+    (f32) and served grouped at phase 3's settings with the kernel tail
+    and with ``kernel_topk``, each held against (a) / (c): distances
+    within 1e-4 relative (their differing bits counted), ids equal
+    outside near-ties, recall within 0.001 of (a)'s; (d3) ``distribute``
+    onto ``forest_mesh(2, 2)``, tree-sharded f32 blocks, per pair against
+    (f), then ``knn_h`` (the global bucket stop) against the forest's own
+    on 16,384 queries.  QPS beside the single-device variant's."""
+    import torch
+
+    from rptree_tpu_torch.parallel import distribute, forest_batch_distributed
+
+    t_phase = time.perf_counter()
+    dev, cfg = f.device, f.config
+    walk, probe, tables = "traverse", "select_probes", "tile_tables"
+    # (d1) the tree-parallel build
+    (fd, build_s), n = counted(lambda: sync_time(
+        lambda: forest_batch_distributed(
+            SEED, cfg.max_depth, cfg.min_leaf, cfg.n_trees,
+            cfg.proj_nz_density, f.x, mesh=one_card_mesh(dev, 4, 1))))
+    check_ran("d1 build", n, {"project_rows"})
+    add_launches(launches, "d1_sharded_build", n)
+    same = {k: bool(torch.equal(getattr(fd.arrays, k), getattr(f.arrays, k)))
+            for k in ("r", "perm", "thr", "mgl", "mgh")}
+    if not all(same.values()):
+        raise AssertionError(f"d1: sharded trees differ from phase 3's: "
+                             f"{same}")
+    if fd.x.data_ptr() != f.x.data_ptr():
+        raise AssertionError("d1: the sharded forest copied the dataset")
+    log("sharded_d1_build", card=card, shards=4, build_s=build_s,
+        trees_equal=same, dataset_shared=True)
+    # (d2) leaf-sharded f32 blocks, grouped
+    serve = dict(budget=1, probes=8, tile_m=8, chunk=65536)
+    n_truth = truth.shape[0]
+    a_recall = recall(out["a"][1][:n_truth], truth)
+    for name, extra, twin, runs in (
+            ("d2_leaf_f32_kernel_tail", {"selection": "kernel"}, "a",
+             {walk, probe, tables, "grouped_score_tiles",
+              "topk_dedup_kernel"}),
+            ("d2_leaf_f32_kernel_topk", {"selection": "sort",
+                                         "impl": "kernel_topk"}, "c",
+             {walk, probe, tables, "grouped_score_topk"})):
+        rec, res = serve_variant(name, fd, qd, truth, dict(shard_by="leaf"),
+                                 {**serve, **extra}, runs, per_chunk=4)
+        add_launches(launches, name, rec["launches"])
+        rec["same_as_untied_ids"] = close_results(name, res, out[twin])
+        rec["bits_differ"] = bits_differ(res, out[twin])
+        rec["single_device_qps"] = out["qps"][twin]
+        log(f"sharded_{name}", card=card, twin=twin, shards=4, **rec,
+            a_recall_at_10=a_recall)
+        if abs(rec["recall_at_10"] - a_recall) > SHARDED_RECALL_GAP:
+            raise AssertionError(f"{name}: recall {rec['recall_at_10']} vs "
+                                 f"(a)'s {a_recall}")
+        del res
+    del fd
+    torch.cuda.empty_cache()
+    # (d3) tree-sharded f32 blocks on the 2 x 2 mesh: per pair, then knn_h
+    f.pack_leaves()
+    fd = distribute(f, one_card_mesh(dev, 2, 2))
+    _, pack_s = sync_time(lambda: fd.pack_leaves(shard_by="tree"))
+    name = "d3_tree_f32_per_pair"
+    calls = 2 * 2 * -(-(qd.shape[0] // 2) // SHARDED_PAIR["chunk"])
+    res, s, n = counted_calls(name, lambda: fd.knn_batched(
+        qd, K, **SHARDED_PAIR), dict.fromkeys(
+            {walk, probe, "gather_score"}, calls), 2)
+    check_result(name, res, qd.shape[0])
+    add_launches(launches, name, n)
+    log(f"sharded_{name}", card=card, mesh="2x2", **SHARDED_PAIR,
+        pack_s=pack_s, queries=qd.shape[0], serve_s=s,
+        qps=qd.shape[0] / s, single_device_qps=out["qps"]["f"],
+        recall_at_10=recall(res[1][:n_truth], truth),
+        same_as_f_untied_ids=close_results(name, res, out["f"]),
+        bits_differ=bits_differ(res, out["f"]))
+    del res
+    qh = qd[:SHARDED_H_QUERIES]
+    name = "d3_tree_knn_h"
+    (got, s), n = counted(lambda: sync_time(lambda: fd.knn_h(qh, K,
+                                                             budget=1)))
+    check_ran(name, n, {walk, "gather_score"})
+    add_launches(launches, name, n)
+    (want, s1), n1 = counted(lambda: sync_time(lambda: f.knn_h(qh, K,
+                                                               budget=1)))
+    check_ran(f"{name} single device", n1, {walk, probe, "gather_score"})
+    check_result(name, got, qh.shape[0])
+    log(f"sharded_{name}", card=card, mesh="2x2", queries=qh.shape[0],
+        budget=1, serve_s=s, qps=qh.shape[0] / s,
+        single_device_qps=qh.shape[0] / s1,
+        same_as_single_untied_ids=close_results(name, got, want),
+        bits_differ=bits_differ(got, want))
+    del fd, got, want
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t_phase
+
+
+def sharded_iid_phase(f, qd, served, serve, truth, launches, card):
+    """Phase 13b on phase 4's iid 100k forest, ``forest_mesh(4, 1)`` on the
+    one card: leaf-sharded int8 blocks with slack 8, served as phase 4
+    serves (kernels 2 and 3) and held against phase 4's result; then
+    2,000 points added to it and to a single-device twin built and packed
+    alike (its trees ``torch.equal`` to phase 4's): 8,192 queries with the
+    points pending at ``precision="default"`` (the pending merge through
+    kernel 5), ``fold``, ``recall_with`` (within 1e-6) and the served
+    result after the fold, each held against the twin's."""
+    import torch
+
+    import rptree_tpu_torch as rp
+    from rptree_tpu_torch.parallel import distribute
+
+    t_phase = time.perf_counter()
+    walk, probe, tables = "traverse", "select_probes", "tile_tables"
+    runs = {walk, probe, tables, "grouped_score_tiles_int8",
+            "topk_dedup_kernel"}
+    pack = dict(dtype=torch.int8, slack=8)
+    fd = distribute(f, one_card_mesh(f.device, 4, 1))
+    name = "d4_iid_int8_leaf"
+    rec, res = serve_variant(name, fd, qd, truth, {**pack, "shard_by": "leaf"},
+                             serve, runs, per_chunk=4)
+    add_launches(launches, name, rec["launches"])
+    rec["same_as_phase4_untied_ids"] = close_results(name, res, served[:2])
+    rec["bits_differ"] = bits_differ(res, served[:2])
+    log(f"sharded_{name}", card=card, shards=4, **rec,
+        single_device_qps=served[2])
+    del res
+    cfg = f.config
+    twin = rp.forest_batch(SEED, cfg.max_depth, cfg.min_leaf, cfg.n_trees,
+                           cfg.proj_nz_density, f.x, device=f.device)
+    if not torch.equal(twin.arrays.perm, f.arrays.perm):
+        raise AssertionError("13b: the twin's trees differ from phase 4's")
+    twin.pack_leaves(**pack)
+    rng = np.random.default_rng(SEED + 13)
+    new = torch.as_tensor(rng.normal(size=(SHARDED_ADD, f.dim)).astype(
+        np.float32), device=f.device)
+    q = qd[:SHARDED_UPDATE_QUERIES]
+    steps = {}
+    for g in (fd, twin):
+        g.add(new)
+    pend = {**serve, "chunk": SHARDED_UPDATE_QUERIES, "precision": "default"}
+    name = "d4_pending"
+    (got, s), n = counted(lambda: sync_time(lambda: fd.knn_grouped(
+        q, K, **pend)))
+    check_ran(name, n, runs | {"scan_topk"})
+    add_launches(launches, name, n)
+    steps["pending_same_untied_ids"] = close_results(
+        name, got, twin.knn_grouped(q, K, **pend))
+    steps["pending_serve_s"] = s
+    (_, steps["fold_s"]), n = counted(lambda: sync_time(fd.fold))
+    add_launches(launches, "d4_fold", n)
+    twin.fold()
+    if fd.n_folded != twin.n_folded or fd.n_pending != twin.n_pending:
+        raise AssertionError(f"13b: folded {fd.n_folded} / {twin.n_folded}")
+    (rec_d, recall_s), n = counted(lambda: sync_time(
+        lambda: fd.recall_with(q[:1024], K)))
+    add_launches(launches, "d4_recall_with", n)
+    gap = float((rec_d - twin.recall_with(q[:1024], K)).abs().max())
+    if gap > 1e-6:
+        raise AssertionError(f"13b: recall_with differs by {gap}")
+    (got, s), n = counted(lambda: sync_time(lambda: fd.knn_grouped(
+        q, K, **{**serve, "chunk": SHARDED_UPDATE_QUERIES})))
+    check_ran("d4_folded", n, runs)
+    add_launches(launches, "d4_folded", n)
+    steps["folded_same_untied_ids"] = close_results(
+        "d4_folded", got, twin.knn_grouped(
+            q, K, **{**serve, "chunk": SHARDED_UPDATE_QUERIES}))
+    log("sharded_d4_updates", card=card, added=SHARDED_ADD,
+        folded=fd.n_folded, pending=fd.n_pending,
+        recall_with_mean=float(rec_d.mean()), recall_with_gap=gap,
+        recall_with_s=recall_s, folded_serve_s=s, **steps)
+    del fd, twin, got
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t_phase
+
+
 def main():
     import torch
 
@@ -3479,6 +3701,7 @@ def main():
         (out["f"][0][:n_truth], out["f"][1][:n_truth]))
     log("clustered_1m_f_f32_per_pair", **rec,
         jax_recall=JAX_RECALL["clustered"])
+    out["qps"]["f"] = rec["qps"]
     if rec["recall_at_10"] < CLUSTERED_MIN_RECALL:
         raise AssertionError(f"per-pair recall {rec['recall_at_10']}")
     xla_variants(f, qd, truth, serve, launches, out)
@@ -3506,6 +3729,8 @@ def main():
     t_side = time.perf_counter()
     side_steps = side_query_phase(f, qd, truth, launches, card)
     side_s = time.perf_counter() - t_side
+    # -- phase 13a: the sharded forests on this forest --------------------
+    sharded_s = sharded_clustered_phase(f, qd, truth, out, launches, card)
     # -- phase 8a: the other dense layouts on this forest, before phase 7
     # repacks it --------------------------------------------------------
     layouts_phase(f, qd, truth, out, launches, kern)
@@ -3520,8 +3745,8 @@ def main():
     del x, q
     iid_serve = dict(budget=2, probes=10, tile_m=8, chunk=32768,
                      selection="kernel")
-    rec, _ = serve_variant("iid", f, qd, truth, dict(dtype=torch.int8, slack=8),
-                           iid_serve,
+    rec, iid_res = serve_variant("iid", f, qd, truth,
+                                 dict(dtype=torch.int8, slack=8), iid_serve,
                            {walk, probe, tables, "grouped_score_tiles_int8",
                             "topk_dedup_kernel"})
     add_launches(launches, "iid_100k_int8", rec["launches"])
@@ -3536,6 +3761,11 @@ def main():
     if rec["recall_at_10"] < IID_MIN_RECALL:
         raise AssertionError(f"iid recall {rec['recall_at_10']} < "
                              f"{IID_MIN_RECALL}")
+    # -- phase 13b: the sharded forests on this forest ---------------------
+    sharded_s += sharded_iid_phase(f, qd, (*iid_res, rec["qps"]), iid_serve,
+                                   truth, launches, card)
+    log("sharded", card=card, seconds=sharded_s)
+    del iid_res
 
     # -- phase 5: the iid 100k bracket (bench.py's >= 0.9 recall points) --
     xd = f.x

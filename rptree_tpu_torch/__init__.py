@@ -38,8 +38,10 @@ on the card unless the caller passes ``device="cpu"``.
 
 Modules keep the JAX package's names.  The CUDA kernels (``csrc/``) are
 compiled with nvcc on first use; on CPU tensors their plain torch versions
-run instead.  This package never imports JAX.  Not ported yet
-(ROADMAP.md queue 1): the sharded forests.
+run instead.  The tree- and query-sharded forests are
+:mod:`rptree_tpu_torch.parallel` (one process over a mesh of devices).
+This package never imports JAX.  Not ported yet (ROADMAP.md queue 1 item
+20b): the data-parallel forests.
 """
 
 from .config import (BenchConfig, ForestConfig, RPTreeConfig, rp_tree_cfg,

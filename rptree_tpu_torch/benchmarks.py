@@ -19,8 +19,9 @@ Beside the reference: batched-query QPS (the reference queries one point
 at a time).  Every timed call is bracketed by ``torch.cuda.synchronize()``
 on the card.  The data come from the port's generators on the forest's
 device (``torch.Generator``: JAX's distributions, not its bits).  The
-config's mesh fields (``n_tree_shards``, ``n_query_shards``) need the
-sharded forests, which are not ported yet (ROADMAP.md queue 1 item 20).
+config's mesh fields (``n_tree_shards``, ``n_query_shards``) or a
+``mesh`` shard the forest (:func:`..parallel.distribute`) before it is
+packed and served.
 
 Run: ``python -m rptree_tpu_torch.benchmarks [--reference-scale]`` (on
 the card).
@@ -42,9 +43,9 @@ from .utils import gen as rgen
 __all__ = ["benchmark", "run_bench", "bench_grid", "DEFAULT_GRID",
            "REFERENCE_SCALE_GRID", "dense_to_ell"]
 
-_SHARDED_TODO = ("sharded benchmark runs (mesh, n_tree_shards, "
-                 "n_query_shards) need the port's sharded forests: "
-                 "ROADMAP.md queue 1 item 20")
+_DATA_PARALLEL_TODO = ("benchmark runs on a data-parallel mesh need the "
+                       "port's data-parallel forests: ROADMAP.md queue 1 "
+                       "item 20b")
 
 
 def benchmark(fn: Callable[[], object], reps: int = 2) -> Tuple[float, object]:
@@ -95,11 +96,24 @@ def run_bench(cfg: BenchConfig, seed: int = 1234,
     ``data_nz`` is the data's nonzero density (the reference grid uses
     0.8).  ``cfg.sparse_input`` routes the dataset through the padded-ELL
     path (SVector semantics); ``cfg.streaming`` builds through the
-    chunked-ingest pipeline.  ``mesh`` and the config's shard counts raise
-    (ROADMAP.md queue 1 item 20)."""
-    if mesh is not None or cfg.n_tree_shards * cfg.n_query_shards > 1:
-        raise NotImplementedError(_SHARDED_TODO)
+    chunked-ingest pipeline.  With ``mesh`` (a
+    :func:`..parallel.forest_mesh`) or shard counts in the config the
+    forest is distributed over the mesh (by default ``forest_mesh(
+    n_tree_shards, n_query_shards)`` over the visible cards, or over
+    ``device`` repeated where one is named) before it is packed; any other
+    mesh raises (the data-parallel forests, ROADMAP.md queue 1 item
+    20b)."""
+    from .parallel.distributed import distribute
+    from .parallel.mesh import ForestMesh, forest_mesh
+
+    if mesh is not None and not isinstance(mesh, ForestMesh):
+        raise NotImplementedError(_DATA_PARALLEL_TODO)
     dev = resolve_device(device)
+    n_shards = cfg.n_tree_shards * cfg.n_query_shards
+    if mesh is None and n_shards > 1:
+        mesh = forest_mesh(cfg.n_tree_shards, cfg.n_query_shards,
+                           devices=None if device is None
+                           else [dev] * n_shards)
     if data_nz is None:
         data_nz = cfg.data_nz
     gen = lambda key, n: rgen.normal_sparse2(  # noqa: E731
@@ -122,6 +136,8 @@ def run_bench(cfg: BenchConfig, seed: int = 1234,
         else:
             f = forest_batch(seed, cfg.max_depth, cfg.min_leaf,
                              cfg.num_trees, cfg.nz_density, data, device=dev)
+        if mesh is not None:
+            f = distribute(f, mesh)
         f.pack_leaves()  # serving layout (dense blocks, or EllBlocks for
         #                  sparse bag-of-words datasets)
         _sync(dev)

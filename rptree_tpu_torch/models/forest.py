@@ -65,9 +65,11 @@ and their squared norms stay in that type, the projections are made in
 f32 on the rows raised to f32, every query path returns f32 distances,
 and ``pack_leaves()`` keeps bf16 blocks for a bf16 dataset.
 
-Streaming construction is :mod:`..streaming`.  Not ported yet
-(ROADMAP.md): the sharded forests.  The ``approx`` selection tail is
-not to be ported.
+Streaming construction is :mod:`..streaming`; the tree- and
+query-sharded forests are :mod:`..parallel`, whose shards call this
+module's serving functions on their own tables.  Not ported yet
+(ROADMAP.md queue 1 item 20b): the data-parallel forests.  The ``approx``
+selection tail is not to be ported.
 """
 
 from __future__ import annotations
@@ -498,25 +500,38 @@ def _knn_grouped(f, q, k, budget, probes, metric, dedup, tile_m, nt,
     :func:`_selection_tail`.  Where it does not, the XLA form
     (:func:`grouped_distances`, ``tile_chunk`` tiles a step) scores and
     the same tail selects."""
+    gsel, lsel = _probe_pairs(f, q, budget, probes, k, bucket_stop)
+    kk = k * f.n_trees if dedup else k
+    return _grouped_pairs(f, gsel, lsel, q, k, kk, metric, dedup, tile_m, nt,
+                          tile_chunk, min_votes, selection, impl)
+
+
+def _grouped_pairs(f, gsel, lsel, q, k, kk, metric, dedup, tile_m, nt,
+                   tile_chunk, min_votes, selection, impl, topk_tail=None):
+    """:func:`_knn_grouped` from its (query, block) pairs on: ``gsel``
+    rows of ``f``'s packed tables, ``lsel`` leaf ids (-1 to skip), ``kk``
+    the sort tail's width.  Kernel 4 (``impl="kernel_topk"``) is followed
+    by the sort tail, and runs only with ``selection="sort"``; a sharded
+    forest's shard passes ``topk_tail=selection``, as the JAX package's
+    sharded scorer runs kernel 4 under either tail."""
     x_leaf, sq_leaf, id_leaf = f._packed
     lens = f._lens_global()
-    gsel, lsel = _probe_pairs(f, q, budget, probes, k, bucket_stop)
     b, p = gsel.shape
-    kk = k * f.n_trees if dedup else k
     kp = -(-max(k, 8) // 8) * 8
     if not _grouped_use_kernel(impl, x_leaf, metric, f._block_center):
         d, needed = grouped_distances(
             x_leaf, sq_leaf, lens, gsel, lsel, q, metric, tile_m, nt,
             tile_chunk, block_scale=f._block_scale,
             block_center=f._block_center)
-    elif (impl == "kernel_topk" and min_votes == 1 and selection == "sort"
+    elif (impl == "kernel_topk" and min_votes == 1
+            and (selection == "sort" or topk_tail is not None)
             and 2 * kp <= x_leaf.shape[1] and x_leaf.dtype != torch.int8):
         d_t, i_t, needed = grouped_topk_kernel(
             x_leaf, sq_leaf, id_leaf, lens, gsel, lsel, q, metric, tile_m,
             nt, kp)
         d_out, i_out = _selection_tail_ids(
             d_t.reshape(b, p * kp), i_t.reshape(b, p * kp), k,
-            min(kk, p * kp), dedup)
+            min(kk, p * kp), dedup, selection=topk_tail or "sort")
         return d_out, i_out, needed
     else:
         d, needed = grouped_distances_kernel(
@@ -804,7 +819,8 @@ def _knn_h_ids_packed(f, q, k, budget):
     sel = gsel.long()
     slots = torch.arange(id_leaf.shape[1], device=q.device)
     valid = (lsel >= 0)[..., None] & (slots < lens[sel][..., None])
-    return torch.where(valid, id_leaf[sel], -1).reshape(q.shape[0], -1)
+    ids = id_leaf[f._fold_row_of(sel)]
+    return torch.where(valid, ids, -1).reshape(q.shape[0], -1)
 
 
 @torch.no_grad()
@@ -1006,6 +1022,15 @@ class RPForest:
         the device table :meth:`_lens_global` returns."""
         self._block_len = bl
         self._lens_dev = torch.as_tensor(bl, device=self.device)
+
+    _index_axis = None  # the sharded subclass names its mesh axis
+
+    def _fold_row_of(self, g):
+        """The storage row of global block ``g`` (a numpy array or an
+        integer tensor) in the packed tables: ``g`` itself here; the
+        leaf-sharded layout of :class:`..parallel.DistributedForest` stores
+        it elsewhere."""
+        return g
 
     # -- introspection (reference Internal.hs / RPTree.hs accessors) ------
 
@@ -1491,8 +1516,9 @@ class RPForest:
         whole-leaf blocks: shared rows and sub-blocks refuse, as in the
         JAX package.  Into ELL blocks each point goes as its nonzero
         columns, ascending, in the blocks' K slots; a point with more
-        nonzeros than K stays pending.  The sharded forests, which JAX
-        also folds, arrive with ROADMAP.md queue 1 item 20."""
+        nonzeros than K stays pending.  A sharded forest folds into its
+        shards' blocks (:meth:`_fold_row_of` maps a block to its storage
+        row)."""
         if self._packed is None:
             raise ValueError("pack_leaves(slack=...) first: fold inserts "
                              "into the packed blocks' slack slots")
@@ -1546,8 +1572,10 @@ class RPForest:
                               for tt in range(t)])
             dev = self.device
             rows = xp[torch.as_tensor(sel, device=dev)]
-            gi = torch.as_tensor(gsel.reshape(-1), dtype=torch.int64,
-                                 device=dev)
+            # the blocks' storage rows (the leaf-sharded layout keeps
+            # block g elsewhere: _fold_row_of)
+            gi = torch.as_tensor(self._fold_row_of(gsel.reshape(-1)),
+                                 dtype=torch.int64, device=dev)
             si = torch.as_tensor(slots.reshape(-1), dtype=torch.int64,
                                  device=dev)
             if ell:
@@ -1645,20 +1673,28 @@ class RPForest:
         cfg = self.config
         self.plan = make_plan(int(x_all.shape[0]), cfg.max_depth,
                               cfg.min_leaf)
-        self.arrays = build_forest_arrays(self.plan, x_all, self.arrays.r)
+        self.arrays = self._build_arrays(self.plan, x_all, self.arrays.r)
         self.x, self.sq_norms = x_all, _sq_norms(x_all)
         self.payloads = payloads
         self._reset_updates()
         self._nodes = self._lens_dev = self._grouped_last = None
         self._grouped_nt = {}
         if self._packed is not None:  # the whole remembered layout
-            cfg = self._pack_cfg
-            self._drop_pack()
-            self.pack_leaves(_BLOCK_DTYPES[cfg.dtype], cfg.slack,
-                             cfg.centered, cfg.sub_block,
-                             cfg.sub_split or "kmeans", cfg.store,
-                             r_sub=self._r_sub)
+            self._replay_pack(self._pack_cfg)
         return self
+
+    def _build_arrays(self, plan, x, r) -> TreeArrays:
+        """The trees of ``x`` under ``r`` (the sharded forest builds them
+        tree-parallel)."""
+        return build_forest_arrays(plan, x, r)
+
+    def _replay_pack(self, cfg: _PackCfg) -> None:
+        """Pack again in the layout ``cfg`` (the sharded forest in its
+        shard mode too)."""
+        self._drop_pack()
+        self.pack_leaves(_BLOCK_DTYPES[cfg.dtype], cfg.slack, cfg.centered,
+                         cfg.sub_block, cfg.sub_split or "kmeans", cfg.store,
+                         r_sub=self._r_sub)
 
     def drop_dataset(self) -> "RPForest":
         """Serve-only mode: release the dataset and its norms and keep the

@@ -208,7 +208,7 @@ def _launch(blocks, sq_leaf, tb, tp, lens_t, q, qq, p, metric, routes):
     # the queries' support, one bit a column (the kernel's first pass)
     bits = torch.empty((q.shape[0], -(-blocks.dim // 32)), dtype=torch.int32,
                        device=q.device)
-    with torch.cuda.device(q.device):
+    with _cuda.on(q.device):
         code = fn(*map(_cuda.ptr, (blocks.cols, blocks.vals, sq_leaf, tb, tp,
                                    lens_t, q, qq, bits, out)),
                   nt, g, m, lmax, k, blocks.dim, q.shape[0], int(p),
@@ -235,7 +235,7 @@ def _ell_support(q: torch.Tensor) -> torch.Tensor:
     """Kernel 10's first pass alone on the card (for checks and timing)."""
     bits = torch.empty((q.shape[0], -(-q.shape[1] // 32)), dtype=torch.int32,
                        device=q.device)
-    with torch.cuda.device(q.device):
+    with _cuda.on(q.device):
         code = _cuda.lib().rpt_ell_support(_cuda.ptr(q), q.shape[0],
                                            q.shape[1], _cuda.ptr(bits),
                                            _cuda.stream_of(q))

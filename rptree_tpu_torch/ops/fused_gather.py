@@ -159,11 +159,12 @@ def _runs_on_card(rows_sel, g, q=None):
     n = flat.numel()
     buf = torch.empty(3 * g + 4 * n + 1, dtype=torch.int32, device=flat.device)
     qr = None if q is None else torch.empty_like(q)
-    code = _cuda.lib().rpt_pair_runs(
-        _cuda.ptr(flat), n, g, _cuda.ptr(buf),
-        None if q is None else _cuda.ptr(q),
-        None if qr is None else _cuda.ptr(qr), 0 if q is None else q.numel(),
-        _cuda.stream_of(flat))
+    with _cuda.on(flat.device):
+        code = _cuda.lib().rpt_pair_runs(
+            _cuda.ptr(flat), n, g, _cuda.ptr(buf),
+            None if q is None else _cuda.ptr(q),
+            None if qr is None else _cuda.ptr(qr),
+            0 if q is None else q.numel(), _cuda.stream_of(flat))
     _cuda.check(code, "gather_score")
     return buf, qr
 
@@ -292,7 +293,7 @@ def _gather_score(x_leaf, sq_leaf, q, rows_sel, route=None):
                                  f"the query route's shared memory")
             fn = (lib.rpt_gather_score_shared_query_bf16 if bf16
                   else lib.rpt_gather_score_shared_query_f32)
-            with torch.cuda.device(x_leaf.device):
+            with _cuda.on(x_leaf.device):
                 code = fn(_cuda.ptr(x_leaf.rows), _cuda.ptr(x_leaf.ids),
                           x_leaf.rows.shape[0], _cuda.ptr(sq_leaf),
                           _cuda.ptr(q), _cuda.ptr(rows_sel), _cuda.ptr(dots),
@@ -301,7 +302,7 @@ def _gather_score(x_leaf, sq_leaf, q, rows_sel, route=None):
             _cuda.check(code, name)
             gather_score.launches_shared += 1
             return dots, sqx
-    with torch.cuda.device(x_leaf.device):
+    with _cuda.on(x_leaf.device):
         # with bf16 blocks the kernel multiplies the query rounded to bf16
         runs, qr = _runs_on_card(rows_sel, g, q=q if bf16 else None)
         tail = (_cuda.ptr(sq_leaf), _cuda.ptr(q if qr is None else qr),

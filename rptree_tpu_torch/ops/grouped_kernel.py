@@ -163,7 +163,7 @@ def grouped_score_tiles(x_leaf, sq_leaf, tb, lens_t, qt, metric,
     lib = _cuda.lib()
     bf16 = x_leaf.dtype == torch.bfloat16
     fn = lib.rpt_grouped_score_bf16 if bf16 else lib.rpt_grouped_score_f32
-    with torch.cuda.device(x_leaf.device):
+    with _cuda.on(x_leaf.device):
         code = fn(_cuda.ptr(x_leaf), _cuda.ptr(sq_leaf), _cuda.ptr(tb),
                   _cuda.ptr(lens_t), _cuda.ptr(qt), _cuda.ptr(out), nt, g,
                   tile_m, lmax, d, int(metric == "l2"),
@@ -240,7 +240,7 @@ def grouped_score_topk(x_leaf, sq_leaf, id_leaf, tb, lens_t, qt, metric,
     lib = _cuda.lib()
     fn = (lib.rpt_grouped_topk_bf16 if x_leaf.dtype == torch.bfloat16
           else lib.rpt_grouped_topk_f32)
-    with torch.cuda.device(x_leaf.device):
+    with _cuda.on(x_leaf.device):
         code = fn(_cuda.ptr(x_leaf), _cuda.ptr(sq_leaf), _cuda.ptr(id_leaf),
                   _cuda.ptr(tb), _cuda.ptr(lens_t), _cuda.ptr(qt),
                   _cuda.ptr(od), _cuda.ptr(oi), nt, g, tile_m, lmax, d,
@@ -349,7 +349,7 @@ def grouped_score_tiles_int8(x_leaf, sq_leaf, scale, tb, lens_t, qt, metric,
     if nt == 0:
         return out
     lib = _cuda.lib()
-    with torch.cuda.device(x_leaf.device):
+    with _cuda.on(x_leaf.device):
         code = lib.rpt_grouped_score_i8(
             _cuda.ptr(x_leaf), _cuda.ptr(sq_leaf), _cuda.ptr(scale),
             _cuda.ptr(tb), _cuda.ptr(lens_t), _cuda.ptr(qt), _cuda.ptr(out),

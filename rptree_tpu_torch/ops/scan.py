@@ -212,7 +212,7 @@ def _scan_partial(x, sq, q, k, metric, rows=None):
         return od, oi
     np_, dp = rows.x.shape
     lib = _cuda.lib()
-    with torch.cuda.device(x.device):
+    with _cuda.on(x.device):
         plan = (ctypes.c_int * 3)()
         _cuda.check(lib.rpt_scan_plan(np_, dp, b, k, plan), name)
         bq, splits, tps = plan

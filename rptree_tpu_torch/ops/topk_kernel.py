@@ -102,7 +102,7 @@ def topk_dedup_kernel(d, ids, k: int, dedup: bool = True):
     if b == 0:
         return od, oi
     lib = _cuda.lib()
-    with torch.cuda.device(d.device):
+    with _cuda.on(d.device):
         code = lib.rpt_topk_dedup(_cuda.ptr(d), _cuda.ptr(ids), _cuda.ptr(od),
                                   _cuda.ptr(oi), b, w, k, int(bool(dedup)),
                                   topk_route(w), _cuda.stream_of(d))

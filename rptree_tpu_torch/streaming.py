@@ -20,7 +20,8 @@ index that absorbs every chunk online (:meth:`RPForest.add` then
 :meth:`RPForest.fold` into the leaves' slack slots).
 
 Not ported yet: the data-parallel mode (``mesh=`` / ``data_parallel=``),
-which needs the port's sharded forests (ROADMAP.md queue 1 item 20).
+which needs the port's data-parallel forests (ROADMAP.md queue 1 item
+20b).
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ from .models.forest import RPForest, forest_batch
 __all__ = ["ForestBuilder", "tree", "forest"]
 
 _SHARDED_TODO = ("streaming onto a mesh (mesh= / data_parallel=) needs the "
-                 "port's sharded forests: ROADMAP.md queue 1 item 20")
+                 "port's data-parallel forests: ROADMAP.md queue 1 item "
+                 "20b")
 
 
 class ForestBuilder:

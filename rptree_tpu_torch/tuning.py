@@ -218,8 +218,10 @@ def tune_build(data, queries, k: int = 10, target_recall: float = 0.9,
 
     ``data`` is ``[n, D]`` rows, numpy or a tensor (a tensor subsamples
     on its own device, its rows kept in order, as the JAX package does a
-    device array).  ``min_leaf_grid`` defaults to {1/2x, 1x, 2x} of
-    ``sample / centers_estimate`` when an estimate is given, else a coarse
+    device array), or a :class:`..parallel.DistributedForest`, whose
+    dataset is then sampled on the mesh's first device.
+    ``min_leaf_grid`` defaults to {1/2x, 1x, 2x} of ``sample /
+    centers_estimate`` when an estimate is given, else a coarse
     power-of-four ladder.  The forests build on ``device`` (the port's
     own, keyword-only; default: the card).  Returns ``{"n_trees",
     "min_leaf", "min_leaf_full", "budget", "probes", "recall", "met",
@@ -228,11 +230,17 @@ def tune_build(data, queries, k: int = 10, target_recall: float = 0.9,
     """
     from .config import rp_tree_cfg
     from .models.forest import forest_batch
+    from .parallel.distributed import DistributedForest
 
-    if hasattr(data, "mesh") and hasattr(data, "x"):
+    if isinstance(data, DistributedForest):
+        # a sharded forest handle: sample its dataset where it lies
+        if data.x is None:
+            raise ValueError("dataset dropped; tune_build samples rows")
+        data = data.x
+    elif hasattr(data, "mesh") and hasattr(data, "x"):
         raise NotImplementedError(
-            "tune_build on a sharded forest needs the port's sharded "
-            "forests: ROADMAP.md queue 1 item 20")
+            "tune_build on a data-parallel forest needs the port's "
+            "data-parallel forests: ROADMAP.md queue 1 item 20b")
     x = data if torch.is_tensor(data) else np.asarray(data, dtype=np.float32)
     n = int(x.shape[0])
     m = min(int(sample), n)

@@ -25,8 +25,9 @@ pickled list), so that it reads them back; the port never unpickles
 (``allow_pickle=False``): its readers take ``payloads=`` from the caller.
 The learned grouped tile capacities (the JAX package's optional
 ``grouped_nt`` header) are neither written nor read: their key omits
-``tile_chunk`` (ROADMAP.md queue 3).  The sharded checkpoints wait for the
-port's sharded forests.
+``tile_chunk`` (ROADMAP.md queue 3).  The sharded checkpoints, which the
+JAX package writes for its data-parallel forests, wait for the port's
+(ROADMAP.md queue 1 item 20b); a tree-sharded forest saves as one forest.
 """
 
 from __future__ import annotations
@@ -53,8 +54,8 @@ __all__ = ["save_forest", "load_forest", "serialise_rp_forest",
 
 _FORMAT_VERSION = 1
 _ARRAYS = ("r", "thr", "mgl", "mgh", "perm")
-_SHARDED_TODO = ("sharded checkpoints need the port's sharded forests: "
-                 "ROADMAP.md queue 1 item 20")
+_SHARDED_TODO = ("sharded checkpoints need the port's data-parallel "
+                 "forests: ROADMAP.md queue 1 item 20b")
 
 
 def _check_clean(forest: RPForest):

@@ -85,12 +85,18 @@ def test_run_bench_sparse_and_streaming(kind):
 
 
 def test_run_bench_refuses_a_mesh():
-    cfg = dataclasses.replace(benchmarks.DEFAULT_GRID[0], n_tree_shards=2)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        benchmarks.run_bench(cfg, device="cpu")
+    """A mesh that is not a ``forest_mesh`` (the data-parallel forests'
+    are not ported) is refused; the config's tree shards run the
+    sharded forest, with the single-device run's recall."""
     with pytest.raises(NotImplementedError, match="item 20"):
         benchmarks.run_bench(benchmarks.DEFAULT_GRID[0], mesh=object(),
                              device="cpu")
+    cfg = dataclasses.replace(benchmarks.DEFAULT_GRID[0], num_trees=4)
+    one = benchmarks.run_bench(cfg, reps=1, device="cpu")
+    two = benchmarks.run_bench(dataclasses.replace(cfg, n_tree_shards=2),
+                               reps=1, device="cpu")
+    assert two["recall_at_10"] == one["recall_at_10"]
+    assert two["recall_per_tree"] == one["recall_per_tree"]
 
 
 @pytest.mark.parametrize("seed", [0, 1])
