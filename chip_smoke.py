@@ -146,7 +146,7 @@ its launch counts):
    per-tree blobs in order and reversed, ``save_forest`` refused after
    ``add``; bytes and host-clock seconds.  (u4) ``rp.tune_build`` on the
    iid rows, ``measure=False``, target 0.10: a forest meets it;
-11. the kernels' launch counts over phases 3-10, 12 and 13, each of
+11. the kernels' launch counts over phases 3-10 and 12-14, each of
    which must be > 0;
 12. the side layers (``side_*`` lines), run in two parts: 12a on phase
    3's forest after 10a, 12b on phase 4's after 10b.  (p1)
@@ -195,7 +195,39 @@ its launch counts):
    a single-device twin, served pending at ``precision="default"``
    (kernel 5), folded, ``recall_with`` within 1e-6 and served again,
    each against the twin.  Each sharded variant's kernels launch once a
-   chunk on each shard.  QPS beside the single-device variant's.
+   chunk on each shard.  QPS beside the single-device variant's;
+14. the data-parallel forests (``dataparallel_*`` lines), the dataset
+   sharded over four shards of the one card (``data_mesh(devices=[card]
+   * 4)``), in three parts.  14a on phase 3's forest after 13a: (e1)
+   ``forest_batch_data_parallel`` over views of phase 3's rows with its
+   projections: thresholds and margins bit-equal to phase 3's on the live
+   segments, every leaf phase 3's member set; its seconds and kernel
+   launches (``torch.profiler``) against a single-device build's;
+   (e2) packed f32 from the sharded rows, served like (a) and like (c):
+   distances within 1e-4 relative of theirs (differing bits counted), ids
+   outside near-ties, recall within 0.001 of (a)'s; (e3)
+   ``brute_force_knn_sharded`` on 1,024 queries against the fp32 scan;
+   (e4) ``recall_with`` within 1e-6 of one device's; (e5) the rows in 16
+   chunks through ``ForestBuilder(mesh=...)``: the batch build's trees.
+   14b on phase 4's forest after 13b: (e6) the data-parallel trees are
+   phase 4's; int8 blocks with slack 8 served as phase 4 serves them,
+   against its result; (e7) ``save_forest_sharded`` then
+   ``load_forest_sharded`` onto a two-shard mesh: the same bits served;
+   (e8) two processes of a gloo group, two shards of the card each,
+   each ingesting only its half of the rows from an fvecs file
+   (``examples/torch_multihost_bench.py``): ``perm`` equal to the
+   four-shard build's, its grouped ids too; (e9) 2,000 points added,
+   served pending, folded, ``recall_with`` and served again against a
+   single-device twin.  14c inside phase 8b, on its 10M rows before its
+   forest is freed: (e10) the data-parallel build's trees are phase 8b's;
+   ``pack_leaves(store="shared")`` (each shard's rows its row store, the
+   ``all_probes`` mode) served per pair like ``shared_10m_per_pair_sort``
+   (kernel 6's shared-row mode, the sort tail) and grouped with the
+   kernel tail (the XLA form, kernel 3): distances within 1e-4 relative
+   of phase 8b's per-pair ones (differing bits counted), recall within
+   0.001; each shard's slot-table bytes beside the blocked layout's and
+   phase 8b's shared tables'.
+   Bytes a shard, peak memory and the phase's seconds stand with each.
 
 Each scan of phases 3, 5, 6 and 8 is also held, on its first chunk of
 queries, against the scan kernel's plain version at that shape; kernels
@@ -2520,8 +2552,11 @@ def shared_10m_phase(device, launches, kern, card):
         raise AssertionError(f"shared 10M: recall per pair {rp_}, grouped "
                              f"{rg}: needs >= {SHARED_MIN_RECALL}, within "
                              f"{SHARED_GROUPED_GAP}")
+    # -- phase 14c: the data-parallel forest on these rows ---------------
+    dp_s = dp_shared_10m(f, x, q, truth, res_p, rec_p, launches, card)
     del f, x, q, truth, res_p
     torch.cuda.empty_cache()
+    return dp_s
 
 
 # -- phase 9: sparse (ELL) data, the bag-of-words cell ----------------------
@@ -3616,6 +3651,404 @@ def sharded_iid_phase(f, qd, served, serve, truth, launches, card):
     return time.perf_counter() - t_phase
 
 
+# -- phase 14: the data-parallel forests --------------------------------------
+
+DP_SHARDS = 4
+DP_BF_QUERIES = 1_024            # (e3) the sharded scan
+DP_STREAM_CHUNKS = 16            # (e5)
+DP_MP_QUERIES = 1_024            # (e8) the two-process run's queries
+DP_ADD = 2_000                   # (e9)
+DP_UPDATE_QUERIES = 8_192
+
+
+def one_card_data_mesh(device, shards=DP_SHARDS):
+    """A data mesh of ``shards`` shards of one card."""
+    from rptree_tpu_torch.parallel import data_mesh
+
+    return data_mesh(devices=[device] * shards)
+
+
+def leaf_keys(f):
+    """Each tree's ``(leaf, point)`` pairs as sorted int64 keys ``[T, N]``:
+    equal for two forests exactly where every leaf holds the same points
+    (whatever their order within it)."""
+    import torch
+
+    plan, n = f.plan, f.plan.n
+    leaf = torch.as_tensor(np.repeat(np.arange(plan.n_leaves),
+                                     plan.leaf_len), device=f.device)
+    return torch.sort(leaf[None] * n + f.arrays.perm.long(), dim=1).values
+
+
+def same_trees(name, got, want):
+    """``got``'s thresholds and margins bit-equal to ``want``'s on every
+    level's live segments and every leaf ``want``'s point set, else it
+    raises; returns the comparison's record."""
+    import torch
+
+    for key in ("thr", "mgl", "mgh"):
+        a, b = getattr(got.arrays, key), getattr(want.arrays, key)
+        for lvl, lp in enumerate(want.plan.levels):
+            if not torch.equal(a[:, lvl, :lp.n_segs], b[:, lvl, :lp.n_segs]):
+                raise AssertionError(f"{name}: {key} differs at level {lvl}")
+    if not torch.equal(leaf_keys(got), leaf_keys(want)):
+        raise AssertionError(f"{name}: a leaf holds other points")
+    return {"thresholds_margins_bit_equal": True, "leaf_sets_equal": True}
+
+
+def profiled_kernels(fn):
+    """``(fn(), CUDA kernels launched)`` by ``torch.profiler`` (None where
+    it records no device event)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res = fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return res, n or None
+
+
+def shard_bytes(f):
+    """Bytes a shard: its dataset rows, its packed blocks (rows, norms, ids
+    and scales) or slot tables (local rows, global ids, norms)."""
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    rows = nbytes(f.x.parts[0])
+    out = {"rows_bytes": rows}
+    if f._packed is None:
+        return out
+    blocks, sq, ids = f._packed
+    tables = nbytes(sq.parts[0]) + nbytes(ids.parts[0])
+    if hasattr(blocks, "rows"):  # shared rows: the row store is the dataset
+        out["slot_table_bytes"] = tables + nbytes(blocks.ids.parts[0])
+    else:
+        out["block_bytes"] = nbytes(blocks.parts[0]) + tables + (
+            nbytes(f._block_scale.parts[0]) if f._block_scale is not None
+            else 0)
+    return out
+
+
+def dp_clustered_phase(f, qd, truth, out, launches, card):
+    """Phase 14a on phase 3's clustered 1M forest, four data shards on the
+    one card: (e1) the build, (e2) leaf-sharded f32 blocks grouped like (a)
+    and (c), (e3) the sharded exact scan, (e4) ``recall_with``, (e5) the
+    streamed build onto the data mesh."""
+    import torch
+
+    import rptree_tpu_torch as rp
+    from rptree_tpu_torch.parallel import (brute_force_knn_sharded,
+                                           forest_batch_data_parallel)
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    dev, cfg = f.device, f.config
+    mesh = one_card_data_mesh(dev)
+    walk, probe, tables = "traverse", "select_probes", "tile_tables"
+    args = (SEED, cfg.max_depth, cfg.min_leaf, cfg.n_trees,
+            cfg.proj_nz_density)
+
+    def dp_build():
+        return forest_batch_data_parallel(*args, f.x, mesh=mesh,
+                                          r=f.arrays.r)
+
+    def one_build():
+        return rp.forest_batch(*args, f.x, device=dev, r=f.arrays.r)
+
+    # (e1) the build, its seconds and launches against one device's
+    (fd, build_s), n = counted(lambda: sync_time(dp_build))
+    check_ran("e1 build", n, {"project_rows"})
+    add_launches(launches, "e1_dataparallel_build", n)
+    _, one_s = sync_time(one_build)
+    _, dp_kernels = profiled_kernels(dp_build)
+    _, one_kernels = profiled_kernels(one_build)
+    trees = same_trees("e1", fd, f)
+    if any(p.data_ptr() != f.x[i * p.shape[0]:].data_ptr()
+           for i, p in enumerate(fd.x.parts)):
+        raise AssertionError("e1: the shards copied the dataset")
+    log("dataparallel_e1_build", card=card, shards=DP_SHARDS,
+        build_s=build_s, single_device_build_s=one_s,
+        project_rows_launches=n["project_rows"],
+        cuda_kernels=dp_kernels, single_device_cuda_kernels=one_kernels,
+        kernels_by="torch.profiler", dataset_views=True, **trees)
+    # (e2) leaf-sharded f32 blocks packed from the sharded rows, grouped
+    serve = dict(budget=1, probes=8, tile_m=8, chunk=65536)
+    a_recall = recall(out["a"][1][:truth.shape[0]], truth)
+    for name, extra, twin, runs in (
+            ("e2_dp_f32_kernel_tail", {"selection": "kernel"}, "a",
+             {walk, probe, tables, "grouped_score_tiles",
+              "topk_dedup_kernel"}),
+            ("e2_dp_f32_kernel_topk", {"selection": "sort",
+                                       "impl": "kernel_topk"}, "c",
+             {walk, probe, tables, "grouped_score_topk"})):
+        rec, res = serve_variant(name, fd, qd, truth, {}, {**serve, **extra},
+                                 runs, per_chunk=DP_SHARDS)
+        add_launches(launches, name, rec["launches"])
+        rec["same_as_untied_ids"] = close_results(name, res, out[twin])
+        rec["bits_differ"] = bits_differ(res, out[twin])
+        rec["single_device_qps"] = out["qps"][twin]
+        log(f"dataparallel_{name}", card=card, twin=twin, shards=DP_SHARDS,
+            **rec, a_recall_at_10=a_recall, **shard_bytes(fd))
+        if abs(rec["recall_at_10"] - a_recall) > SHARDED_RECALL_GAP:
+            raise AssertionError(f"{name}: recall {rec['recall_at_10']} vs "
+                                 f"(a)'s {a_recall}")
+        del res
+    # (e3) the sharded exact scan, (e4) recall_with
+    q = qd[:DP_BF_QUERIES]
+    (got, bf_s), n = counted(lambda: sync_time(lambda: (
+        brute_force_knn_sharded(f.x, q, K, mesh=mesh))))
+    check_ran("e3 scan", n, set())
+    want, one_bf_s = sync_time(lambda: f.brute_force_knn(q, K))
+    checked = close_results("e3_sharded_scan", got, want)
+    (rec_d, recall_s), n = counted(lambda: sync_time(
+        lambda: fd.recall_with(q, K)))
+    add_launches(launches, "e4_dp_recall_with", n)
+    gap = float((rec_d - f.recall_with(q, K)).abs().max())
+    if gap > 1e-6:
+        raise AssertionError(f"e4: recall_with differs by {gap}")
+    log("dataparallel_e3_e4", card=card, queries=q.shape[0],
+        scan_s=bf_s, single_device_scan_s=one_bf_s, scan_untied_ids=checked,
+        scan_bits_differ=bits_differ(got, want), recall_with_gap=gap,
+        recall_with_s=recall_s, recall_with_mean=float(rec_d.mean()))
+    del fd, got, want
+    torch.cuda.empty_cache()
+    # (e5) the rows streamed in 16 chunks onto the data mesh
+    n_rows, dim = f.x.shape
+    step = -(-n_rows // DP_STREAM_CHUNKS)
+
+    def stream():
+        b = rp.ForestBuilder(*args[:4], cfg.proj_nz_density, dim, mesh=mesh)
+        for s in range(0, n_rows, step):
+            b.insert_chunk(f.x[s:s + step])
+        return b.build()
+
+    (fs, stream_s), n = counted(lambda: sync_time(stream))
+    check_ran("e5 stream", n, {"project_rows"})
+    add_launches(launches, "e5_dp_stream_build", n)
+    fb = dp_build()
+    same = {k: bool(torch.equal(getattr(fs.arrays, k).view(torch.int32),
+                                getattr(fb.arrays, k).view(torch.int32)))
+            for k in ("r", "perm", "thr", "mgl", "mgh")}
+    if not all(same.values()):
+        raise AssertionError(f"e5: the streamed trees differ: {same}")
+    log("dataparallel_e5_stream", card=card, chunks=DP_STREAM_CHUNKS,
+        chunk_rows=step, stream_build_s=stream_s, trees_bit_equal=same,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        phase_s=time.perf_counter() - t_phase)
+    del fs, fb
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t_phase
+
+
+def dp_iid_phase(f, qd, served, serve, truth, launches, card):
+    """Phase 14b on phase 4's iid 100k forest: (e6) the data-parallel trees
+    and int8 blocks with slack 8 served as phase 4 serves them, (e7) the
+    sharded checkpoint reloaded onto two shards, (e8) the two-process
+    build, (e9) the updates against a single-device twin."""
+    import importlib.util
+    import os
+    import tempfile
+
+    import torch
+
+    import rptree_tpu_torch as rp
+    from rptree_tpu_torch.parallel import forest_batch_data_parallel
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    dev, cfg = f.device, f.config
+    args = (SEED, cfg.max_depth, cfg.min_leaf, cfg.n_trees,
+            cfg.proj_nz_density)
+    runs = {"traverse", "select_probes", "tile_tables",
+            "grouped_score_tiles_int8", "topk_dedup_kernel"}
+    pack = dict(dtype=torch.int8, slack=8)
+    # (e6)
+    (fd, build_s), n = counted(lambda: sync_time(
+        lambda: forest_batch_data_parallel(*args, f.x,
+                                           mesh=one_card_data_mesh(dev))))
+    add_launches(launches, "e6_dp_iid_build", n)
+    trees = same_trees("e6", fd, f)
+    name = "e6_dp_iid_int8"
+    rec, res = serve_variant(name, fd, qd, truth, pack, serve, runs,
+                             per_chunk=DP_SHARDS)
+    add_launches(launches, name, rec["launches"])
+    rec["same_as_phase4_untied_ids"] = close_results(name, res, served[:2])
+    rec["bits_differ"] = bits_differ(res, served[:2])
+    log(f"dataparallel_{name}", card=card, shards=DP_SHARDS, build_s=build_s,
+        **trees, **rec, single_device_qps=served[2], **shard_bytes(fd))
+    del res
+    # (e7) the sharded checkpoint, reloaded onto two shards
+    root = os.path.dirname(os.path.abspath(__file__))
+    q = qd[:DP_UPDATE_QUERIES]
+    chunked = {**serve, "chunk": DP_UPDATE_QUERIES}
+    want = fd.knn_grouped(q, K, **chunked)
+    with tempfile.TemporaryDirectory(dir=root) as td:
+        _, save_s = sync_time(lambda: rp.save_forest_sharded(td, fd))
+        nbytes = sum(os.path.getsize(os.path.join(td, p))
+                     for p in os.listdir(td))
+        g, load_s = sync_time(lambda: rp.load_forest_sharded(
+            td, one_card_data_mesh(dev, 2)))
+    g.pack_leaves(**pack)
+    got, n = counted(lambda: g.knn_grouped(q, K, **chunked))
+    check_ran("e7 reloaded", n, runs)
+    add_launches(launches, "e7_dp_reloaded_int8", n)
+    checked = same_results("e7_reloaded", got, want)
+    log("dataparallel_e7_checkpoint", card=card, files=DP_SHARDS + 1,
+        bytes=nbytes, save_s=save_s, load_s=load_s, reloaded_shards=2,
+        served_bits_equal=True, untied_ids=checked,
+        clock="host (synchronised): compression and file reads included")
+    del g, got
+    # (e8) two processes, two shards of the card each, each its own rows
+    spec = importlib.util.spec_from_file_location(
+        "torch_multihost_bench",
+        os.path.join(root, "examples", "torch_multihost_bench.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    qm = qd[:DP_MP_QUERIES]
+    mp_serve = {**serve, "chunk": DP_MP_QUERIES}
+    t0 = time.perf_counter()
+    records, mp = example.run(
+        f.x.cpu().numpy(), nproc=2, shards=2, device=str(dev), seed=SEED,
+        depth=cfg.max_depth, min_leaf=cfg.min_leaf, trees=cfg.n_trees,
+        pnz=cfg.proj_nz_density, queries=qm.cpu().numpy(), k=K, budget=1,
+        pack={"dtype": "int8", "slack": 8}, serve=mp_serve, timeout=300,
+        tmp_root=root)
+    mp_s = time.perf_counter() - t0
+    if not np.array_equal(mp["perm"], fd.arrays.perm.cpu().numpy()):
+        raise AssertionError("e8: the two-process perm differs")
+    one = fd.knn_grouped(qm, K, **mp_serve)
+    mp_res = (torch.as_tensor(mp["dists_grouped"], device=dev),
+              torch.as_tensor(mp["ids_grouped"], device=dev))
+    checked = close_results("e8_two_process_grouped", mp_res, one)
+    if len({(r["thr_sha"], r["perm_sha"]) for r in records}) != 1 or not all(
+            r["jax_free"] for r in records):
+        raise AssertionError(f"e8: the processes disagree: {records}")
+    log("dataparallel_e8_two_processes", card=card, processes=2,
+        shards_each=2, backend="gloo (collectives staged through the host: "
+        "a stand-in for NCCL, which refuses two ranks on one card)",
+        perm_equal=True, grouped_untied_ids=checked,
+        grouped_bits_differ=bits_differ(mp_res, one), wall_s=mp_s,
+        processes_records=records)
+    # (e9) updates against a single-device twin
+    twin = rp.forest_batch(*args, f.x, device=dev)
+    twin.pack_leaves(**pack)
+    rng = np.random.default_rng(SEED + 14)
+    new = torch.as_tensor(rng.normal(size=(DP_ADD, f.dim)).astype(
+        np.float32), device=dev)
+    for g in (fd, twin):
+        g.add(new)
+    pend = {**chunked, "precision": "default"}
+    steps = {}
+    (got, s), n = counted(lambda: sync_time(lambda: fd.knn_grouped(
+        q, K, **pend)))
+    check_ran("e9 pending", n, runs | {"scan_topk"})
+    add_launches(launches, "e9_dp_pending", n)
+    steps["pending_same_untied_ids"] = close_results(
+        "e9_pending", got, twin.knn_grouped(q, K, **pend))
+    steps["pending_serve_s"] = s
+    (_, steps["fold_s"]), n = counted(lambda: sync_time(fd.fold))
+    add_launches(launches, "e9_dp_fold", n)
+    twin.fold()
+    if fd.n_folded != twin.n_folded or fd.n_pending != twin.n_pending:
+        raise AssertionError(f"e9: folded {fd.n_folded} / {twin.n_folded}")
+    (rec_d, recall_s), n = counted(lambda: sync_time(
+        lambda: fd.recall_with(q[:1024], K)))
+    add_launches(launches, "e9_dp_recall_with", n)
+    gap = float((rec_d - twin.recall_with(q[:1024], K)).abs().max())
+    if gap > 1e-6:
+        raise AssertionError(f"e9: recall_with differs by {gap}")
+    (got, s), n = counted(lambda: sync_time(lambda: fd.knn_grouped(
+        q, K, **chunked)))
+    check_ran("e9 folded", n, runs)
+    add_launches(launches, "e9_dp_folded", n)
+    steps["folded_same_untied_ids"] = close_results(
+        "e9_folded", got, twin.knn_grouped(q, K, **chunked))
+    steps["folded_bits_differ"] = bits_differ(
+        got, twin.knn_grouped(q, K, **chunked))
+    log("dataparallel_e9_updates", card=card, added=DP_ADD,
+        folded=fd.n_folded, pending=fd.n_pending, recall_with_gap=gap,
+        recall_with_s=recall_s, folded_serve_s=s, **steps,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        phase_s=time.perf_counter() - t_phase)
+    del fd, twin, got
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t_phase
+
+
+def dp_shared_10m(f, x, q, truth, res_p, rec_p, launches, card):
+    """Phase 14c, inside phase 8b on its 10M rows: (e10) the data-parallel
+    build over views of them, its trees phase 8b's; shared rows from the
+    sharded dataset (``all_probes``), served per pair (the sort tail) and
+    grouped (the kernel tail), against phase 8b's per-pair result."""
+    import torch
+
+    from rptree_tpu_torch.parallel import forest_batch_data_parallel
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = f.config
+    walk, probe = "traverse", "select_probes"
+    (fd, build_s), n = counted(lambda: sync_time(
+        lambda: forest_batch_data_parallel(
+            SEED, cfg.max_depth, cfg.min_leaf, cfg.n_trees,
+            cfg.proj_nz_density, x, mesh=one_card_data_mesh(x.device),
+            r=f.arrays.r)))
+    check_ran("e10 build", n, {"project_rows"})
+    add_launches(launches, "e10_dp_10m_build", n)
+    trees = same_trees("e10", fd, f)
+    _, pack_s = sync_time(lambda: fd.pack_leaves(store="shared"))
+    if not fd._shared_all_probes:
+        raise AssertionError("e10: the shared pack did not set all_probes")
+    g_blocks, lmax, dim = f._packed[0].shape
+    lmax_loc = int(fd._packed[0].ids.parts[0].shape[1])
+    pair = dict(budget=1, probes=8, precision="default", chunk=8192)
+    grouped = dict(budget=1, probes=8, precision="default", chunk=8192,
+                   tile_m=16, selection="kernel")
+    name = "e10_dp_shared_10m_per_pair_sort"
+    chunks = -(-q.shape[0] // pair["chunk"]) * DP_SHARDS
+    res, s, n = counted_calls(name, lambda: fd.knn_batched(q, K, **pair),
+                              dict.fromkeys({walk, probe,
+                                             "gather_score_shared"}, chunks),
+                              3)
+    check_result(name, res, q.shape[0])
+    add_launches(launches, name, n)
+    per_pair = {"qps": q.shape[0] / s, "serve_s": s,
+                "recall_at_10": recall(res[1][:truth.shape[0]], truth)}
+    name = "e10_dp_shared_10m_grouped_kernel"
+    rec_g, res_g = serve_variant(name, fd, q, truth, dict(store="shared"),
+                                 grouped, {walk, probe, "tile_tables",
+                                           "topk_dedup_kernel"},
+                                 per_chunk=DP_SHARDS)
+    add_launches(launches, name, rec_g.pop("launches"))
+    rec_s = {}
+    for name, rec, got in (("per_pair_sort", per_pair, res),
+                           ("grouped_kernel", rec_g, res_g)):
+        rec["same_as_8b_per_pair_untied_ids"] = close_results(name, got,
+                                                              res_p)
+        rec["bits_differ"] = bits_differ(got, res_p)
+        rec_s[name] = rec
+        if abs(rec["recall_at_10"] - rec_p["recall_at_10"]) > \
+                SHARDED_RECALL_GAP:
+            raise AssertionError(f"e10 {name}: recall {rec} vs phase "
+                                 f"8b's {rec_p['recall_at_10']}")
+    del res, res_g
+    log("dataparallel_e10_shared_10m", card=card, shards=DP_SHARDS,
+        build_s=build_s, pack_s=pack_s, **trees, lmax=int(lmax),
+        lmax_loc=lmax_loc, **shard_bytes(fd),
+        blocked_t8_bytes=g_blocks * lmax * dim * 4,
+        blocked_t8_bytes_a_shard=g_blocks * lmax * dim * 4 // DP_SHARDS,
+        single_device_shared_table_bytes=2 * g_blocks * lmax * 4,
+        served=rec_s, single_device_per_pair_qps=rec_p["qps"],
+        single_device_recall_at_10=rec_p["recall_at_10"],
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        phase_s=time.perf_counter() - t_phase)
+    del fd
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t_phase
+
+
 def main():
     import torch
 
@@ -3731,6 +4164,8 @@ def main():
     side_s = time.perf_counter() - t_side
     # -- phase 13a: the sharded forests on this forest --------------------
     sharded_s = sharded_clustered_phase(f, qd, truth, out, launches, card)
+    # -- phase 14a: the data-parallel forests on this forest --------------
+    dataparallel_s = dp_clustered_phase(f, qd, truth, out, launches, card)
     # -- phase 8a: the other dense layouts on this forest, before phase 7
     # repacks it --------------------------------------------------------
     layouts_phase(f, qd, truth, out, launches, kern)
@@ -3765,6 +4200,9 @@ def main():
     sharded_s += sharded_iid_phase(f, qd, (*iid_res, rec["qps"]), iid_serve,
                                    truth, launches, card)
     log("sharded", card=card, seconds=sharded_s)
+    # -- phase 14b: the data-parallel forests on this forest --------------
+    dataparallel_s += dp_iid_phase(f, qd, (*iid_res, rec["qps"]), iid_serve,
+                                   truth, launches, card)
     del iid_res
 
     # -- phase 5: the iid 100k bracket (bench.py's >= 0.9 recall points) --
@@ -3832,8 +4270,10 @@ def main():
     del f_iid, qd_iid
     torch.cuda.empty_cache()
 
-    # -- phase 8b: the 10M shared-row cell, every earlier forest freed ----
-    shared_10m_phase(device, launches, kern, card)
+    # -- phase 8b: the 10M shared-row cell, every earlier forest freed, with
+    # phase 14c on it ------------------------------------------------------
+    dataparallel_s += shared_10m_phase(device, launches, kern, card)
+    log("dataparallel", card=card, seconds=dataparallel_s)
     torch.cuda.empty_cache()
 
     # -- phase 9: sparse (ELL) data, the bag-of-words cell ----------------

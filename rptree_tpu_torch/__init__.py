@@ -14,7 +14,9 @@ Queries:                 :meth:`RPForest.knn`, ``knn_h``, ``knn_pq``,
 Tuning:                  :func:`tune`, :func:`tune_build`
 I/O:                     :func:`save_forest`, :func:`load_forest`,
                          :func:`serialise_rp_forest`,
-                         :func:`deserialise_rp_forest`
+                         :func:`deserialise_rp_forest`,
+                         :func:`save_forest_sharded`,
+                         :func:`load_forest_sharded`
 Statistics:              :meth:`RPForest.recall_with`
 Access:                  ``leaves``, ``levels``, ``points``, ``candidates``
 Validation:              ``tree_stats``, ``tree_size``, ``leaf_sizes``
@@ -38,10 +40,10 @@ on the card unless the caller passes ``device="cpu"``.
 
 Modules keep the JAX package's names.  The CUDA kernels (``csrc/``) are
 compiled with nvcc on first use; on CPU tensors their plain torch versions
-run instead.  The tree- and query-sharded forests are
-:mod:`rptree_tpu_torch.parallel` (one process over a mesh of devices).
-This package never imports JAX.  Not ported yet (ROADMAP.md queue 1 item
-20b): the data-parallel forests.
+run instead.  The tree- and query-sharded forests and the data-parallel
+ones (the dataset sharded over points) are :mod:`rptree_tpu_torch.parallel`
+(one process over a mesh of devices, or the processes of a
+``torch.distributed`` group).  This package never imports JAX.
 """
 
 from .config import (BenchConfig, ForestConfig, RPTreeConfig, rp_tree_cfg,

@@ -43,11 +43,6 @@ from .utils import gen as rgen
 __all__ = ["benchmark", "run_bench", "bench_grid", "DEFAULT_GRID",
            "REFERENCE_SCALE_GRID", "dense_to_ell"]
 
-_DATA_PARALLEL_TODO = ("benchmark runs on a data-parallel mesh need the "
-                       "port's data-parallel forests: ROADMAP.md queue 1 "
-                       "item 20b")
-
-
 def benchmark(fn: Callable[[], object], reps: int = 2) -> Tuple[float, object]:
     """Mean wall seconds of ``fn`` over ``reps`` runs, running-mean
     accumulation (reference ``benchmark``/``mean``,
@@ -100,14 +95,18 @@ def run_bench(cfg: BenchConfig, seed: int = 1234,
     :func:`..parallel.forest_mesh`) or shard counts in the config the
     forest is distributed over the mesh (by default ``forest_mesh(
     n_tree_shards, n_query_shards)`` over the visible cards, or over
-    ``device`` repeated where one is named) before it is packed; any other
-    mesh raises (the data-parallel forests, ROADMAP.md queue 1 item
-    20b)."""
+    ``device`` repeated where one is named) before it is packed.  As in the
+    JAX package, whose ``run_bench`` distributes over the tree axis, any
+    other mesh (a data mesh among them) raises."""
     from .parallel.distributed import distribute
-    from .parallel.mesh import ForestMesh, forest_mesh
+    from .parallel.mesh import TREE_AXIS, ForestMesh, forest_mesh
 
-    if mesh is not None and not isinstance(mesh, ForestMesh):
-        raise NotImplementedError(_DATA_PARALLEL_TODO)
+    if mesh is not None and not (isinstance(mesh, ForestMesh)
+                                 and TREE_AXIS in mesh.shape):
+        raise ValueError("run_bench shards over a forest_mesh (the tree "
+                         "axis), as the JAX package's does; build a "
+                         "data-parallel forest with "
+                         "forest_batch_data_parallel")
     dev = resolve_device(device)
     n_shards = cfg.n_tree_shards * cfg.n_query_shards
     if mesh is None and n_shards > 1:

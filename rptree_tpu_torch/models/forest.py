@@ -66,10 +66,9 @@ f32 on the rows raised to f32, every query path returns f32 distances,
 and ``pack_leaves()`` keeps bf16 blocks for a bf16 dataset.
 
 Streaming construction is :mod:`..streaming`; the tree- and
-query-sharded forests are :mod:`..parallel`, whose shards call this
-module's serving functions on their own tables.  Not ported yet
-(ROADMAP.md queue 1 item 20b): the data-parallel forests.  The ``approx``
-selection tail is not to be ported.
+query-sharded forests and the data-parallel ones are :mod:`..parallel`,
+whose shards call this module's serving functions on their own tables.
+The ``approx`` selection tail is not to be ported.
 """
 
 from __future__ import annotations
@@ -1366,36 +1365,51 @@ class RPForest:
                 else None)
         for ti in range(t):
             ids, rows = self._tree_rows(ti, pos, in_leaf)
-            if s > 1:
-                order = (_sub_order_kmeans(rows, in_leaf, r_sub, s)
-                         if cfg.sub_split == "kmeans" else torch.argsort(
-                             torch.where(in_leaf, rows @ r_sub, float("inf")),
-                             dim=-1, stable=True))
-                ids = ids.gather(1, order).reshape(nb, ls)
-                rows = rows.gather(1, order[..., None].expand(-1, -1, d))
-                rows = torch.where(valid[..., None], rows.reshape(nb, ls, d),
-                                   0.0)
-                ids = torch.where(valid, ids, -1)
-            id_leaf[ti] = ids.to(torch.int32)
-            sq_leaf[ti] = self._slot_norms(rows)
+            (x_leaf[ti], sq_leaf[ti], id_leaf[ti], sc, m,
+             md) = self._block_values(cfg, ids, rows, in_leaf, valid, r_sub)
+            if int8:
+                scale[ti] = sc
             if cfg.centered:
-                x_leaf[ti], sc, mu[ti], mudr[ti] = _center_quantize(rows,
-                                                                    valid)
-                scale[ti] = sc.reshape(nb)
-            elif int8:
-                sc = rows.abs().amax(dim=(-2, -1), keepdim=True).clamp_min(
-                    1e-30) * INV_127
-                x_leaf[ti] = torch.round(rows / sc).clamp(-127, 127).to(
-                    torch.int8)
-                scale[ti] = sc.reshape(nb)
-            else:
-                x_leaf[ti] = rows  # bf16: the copy rounds to nearest even
+                mu[ti], mudr[ti] = m, md
         g = t * nb
         self._packed = (x_leaf.reshape(g, ls, d), sq_leaf.reshape(g, ls),
                         id_leaf.reshape(g, ls))
         self._block_scale = None if scale is None else scale.reshape(g)
         self._block_center = (None if mu is None else
                               (mu.reshape(g, d), mudr.reshape(g, ls)))
+
+    def _block_values(self, cfg: _PackCfg, ids, rows, in_leaf, valid, r_sub):
+        """The packed values of leaf blocks ``rows f32[nb, lmax, D]`` with
+        point ids ``ids [nb, lmax]`` (-1 in empty slots) and slot validity
+        ``in_leaf``: ordered and cut into ``s`` sub-blocks where the layout
+        has them (``valid bool[nb * s, ls]``, their validity; ``in_leaf``
+        itself at ``s`` 1), then stored as f32, bf16, int8 or centered
+        int8.  Returns ``(x_leaf, sq_leaf, id_leaf int32, scale f32[nb *
+        s] or None, mu or None, mudr or None)``."""
+        s = cfg.sub_block
+        nb, lmax, d = rows.shape
+        if s > 1:
+            ls = lmax // s
+            order = (_sub_order_kmeans(rows, in_leaf, r_sub, s)
+                     if cfg.sub_split == "kmeans" else torch.argsort(
+                         torch.where(in_leaf, rows @ r_sub, float("inf")),
+                         dim=-1, stable=True))
+            ids = ids.gather(1, order).reshape(nb * s, ls)
+            rows = rows.gather(1, order[..., None].expand(-1, -1, d))
+            rows = torch.where(valid[..., None], rows.reshape(nb * s, ls, d),
+                               0.0)
+            ids = torch.where(valid, ids, -1)
+        sq = self._slot_norms(rows)
+        ids = ids.to(torch.int32)
+        if cfg.centered:
+            q8, sc, mu, mudr = _center_quantize(rows, valid)
+            return q8, sq, ids, sc.reshape(-1), mu, mudr
+        if cfg.dtype == "int8":
+            sc = rows.abs().amax(dim=(-2, -1), keepdim=True).clamp_min(
+                1e-30) * INV_127
+            q8 = torch.round(rows / sc).clamp(-127, 127).to(torch.int8)
+            return q8, sq, ids, sc.reshape(-1), None, None
+        return rows, sq, ids, None, None, None
 
     # -- online updates (the freshness layer) --------------------------------
 
@@ -1629,22 +1643,28 @@ class RPForest:
                             .reshape(-1))
         return vals.reshape(t * m, -1)
 
+    def _indexed_rows(self) -> torch.Tensor:
+        """The indexed rows as one dense tensor on the forest's device, for
+        a rebuild (sparse rows densified, as in the JAX package)."""
+        return (ell_to_dense(self.x) if isinstance(self.x, EllMatrix)
+                else self.x)
+
     def _rebuild_rows(self):
         """The live dataset for a rebuild: the indexed, folded and pending
         rows, less the removed ones; ``(x_all, payloads or None)``.  Sparse
         rows are densified, as in the JAX package: the rebuilt index is
         dense."""
-        x_old = (ell_to_dense(self.x) if isinstance(self.x, EllMatrix)
-                 else self.x)
+        x_old = self._indexed_rows()
         pays = (list(self.payloads) if self.payloads is not None
                 else [None] * self.plan.n)
         if self.n_folded:
-            x_old = torch.cat([x_old, *self._folded_x])
+            x_old = torch.cat([x_old, *(f.to(x_old.device)
+                                        for f in self._folded_x)])
             pays = pays + list(self._folded_payloads)
         if self._deleted is not None and self._deleted.any():
             x_old, pays = _keep_rows(x_old, pays, self._deleted)
         if self._pending:
-            xp = torch.cat(self._pending)
+            xp = torch.cat(self._pending).to(x_old.device)
             pp = sum(self._pending_payloads, [])
             if self._pending_deleted:
                 xp, pp = _keep_rows(xp, pp, np.isin(

@@ -10,36 +10,77 @@ index.  A body that calls a collective in its middle becomes two passes
 over the shards, one on each side of it.  Nothing here reads a value back
 to the host, so the shards' launches on separate cards overlap.
 
+Where a mesh spans the processes of a ``torch.distributed`` group
+(``span``, a :class:`.mesh.ProcessSpan`), ``parts`` are this process's
+shards' and a collective takes two steps: the reduction over them, then
+one call over the group (``all_reduce`` for :func:`psum` and
+:func:`pmax`, ``all_gather`` for :func:`all_gather`), every process
+receiving the result.  The gloo backend takes host tensors, so a card's
+payload is staged through the host there; NCCL takes them on the card.
+
 :class:`Sharded` is a global tensor as the shards hold it: contiguous
 parts along its first axis, each on its own shard's device.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
 __all__ = ["all_gather", "psum", "pmax", "Sharded"]
 
 
-def all_gather(parts: Sequence[torch.Tensor], device) -> torch.Tensor:
+def _over_group(t: torch.Tensor, span, op) -> torch.Tensor:
+    """``op(tensor)`` of ``torch.distributed`` over ``span``'s group on a
+    copy of ``t`` (on the host for gloo), returned on ``t``'s device."""
+    staged = t.cpu() if span.backend == "gloo" else t.contiguous().clone()
+    return op(staged).to(t.device)
+
+
+def all_gather(parts: Sequence[torch.Tensor], device, span=None
+               ) -> torch.Tensor:
     """``lax.all_gather``: the shards' tensors stacked ``[S, ...]`` on
     ``device`` (the receiving shard's; a shard already there is not
-    copied)."""
-    return torch.stack([p.to(device, non_blocking=True) for p in parts])
+    copied), across ``span``'s processes in rank order where given (every
+    process's parts of one shape)."""
+    local = torch.stack([p.to(device, non_blocking=True) for p in parts])
+    if span is None:
+        return local
+    import torch.distributed as dist
+
+    def gather(t):
+        out = [torch.empty_like(t) for _ in range(span.world)]
+        dist.all_gather(out, t)
+        return torch.cat(out)
+
+    return _over_group(local, span, gather)
 
 
-def psum(parts: Sequence[torch.Tensor], device) -> torch.Tensor:
+def _reduce(local: torch.Tensor, span, op: str) -> torch.Tensor:
+    """``local`` reduced by ``op`` ("SUM" or "MAX") over ``span``'s
+    processes (itself without a span)."""
+    if span is None:
+        return local
+    import torch.distributed as dist
+
+    def reduce(t):
+        dist.all_reduce(t, op=getattr(dist.ReduceOp, op))
+        return t
+
+    return _over_group(local, span, reduce)
+
+
+def psum(parts: Sequence[torch.Tensor], device, span=None) -> torch.Tensor:
     """``lax.psum``: the shards' tensors summed, in shard order, on
-    ``device``."""
-    return all_gather(parts, device).sum(0)
+    ``device`` (then over ``span``'s processes)."""
+    return _reduce(all_gather(parts, device).sum(0), span, "SUM")
 
 
-def pmax(parts: Sequence[torch.Tensor], device) -> torch.Tensor:
+def pmax(parts: Sequence[torch.Tensor], device, span=None) -> torch.Tensor:
     """``lax.pmax``: the elementwise maximum over the shards, on
-    ``device``."""
-    return all_gather(parts, device).amax(0)
+    ``device`` (then over ``span``'s processes)."""
+    return _reduce(all_gather(parts, device).amax(0), span, "MAX")
 
 
 class Sharded:
@@ -50,10 +91,26 @@ class Sharded:
     and the two operations that the single-device code applies to a
     whole table (:meth:`__getitem__` by a tensor of global rows and
     :meth:`index_put_`), so that an update written for one device writes
-    through to the shards; the serving paths read the parts directly."""
+    through to the shards; the serving paths read the parts directly.
 
-    def __init__(self, parts: Sequence[torch.Tensor]):
+    On a mesh that spans processes a process holds its own shards' parts
+    only: ``first`` is the global index of its first, ``n_parts`` the
+    global count; the whole-table operations then raise."""
+
+    def __init__(self, parts: Sequence[torch.Tensor], first: int = 0,
+                 n_parts: Optional[int] = None):
         self.parts: List[torch.Tensor] = list(parts)
+        self.first = int(first)
+        self.n_parts = len(self.parts) if n_parts is None else int(n_parts)
+
+    def part(self, i: int) -> torch.Tensor:
+        """The part of global shard ``i`` (one this process holds)."""
+        return self.parts[i - self.first]
+
+    def _whole_table(self, what: str) -> None:
+        if len(self.parts) != self.n_parts:
+            raise ValueError(f"{what} needs every shard's part in this "
+                             "process; the mesh spans processes")
 
     @property
     def part_rows(self) -> int:
@@ -63,7 +120,7 @@ class Sharded:
     @property
     def shape(self) -> torch.Size:
         p = self.parts[0]
-        return torch.Size((len(self.parts) * self.part_rows, *p.shape[1:]))
+        return torch.Size((self.n_parts * self.part_rows, *p.shape[1:]))
 
     @property
     def dtype(self) -> torch.dtype:
@@ -81,11 +138,13 @@ class Sharded:
 
     def whole(self) -> torch.Tensor:
         """The global tensor gathered on the first part's device."""
+        self._whole_table("whole()")
         return torch.cat([p.to(self.device) for p in self.parts])
 
     def __getitem__(self, idx: torch.Tensor) -> torch.Tensor:
         """Rows ``idx`` (an integer tensor of global rows, any shape) on
         ``idx``'s device: each part gathers the rows it holds."""
+        self._whole_table("a row gather")
         idx = idx.long()
         r = self.part_rows
         out = None
@@ -100,6 +159,7 @@ class Sharded:
     def index_put_(self, indices, values) -> "Sharded":
         """``tensor.index_put_`` with ``indices[0]`` global rows: each
         part takes the writes to its rows."""
+        self._whole_table("a row write")
         rows = indices[0].long()
         r = self.part_rows
         for s, p in enumerate(self.parts):

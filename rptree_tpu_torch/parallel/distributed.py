@@ -26,8 +26,10 @@ round-robin by leaf (``shard_by="leaf"``: leaf block ``g`` on shard ``g %
 S`` at row ``g // S``).  The single-device code that updates a whole table
 (``fold``) writes through to the shards.
 
-Not ported yet (ROADMAP.md queue 1 item 20b): the data-parallel forests,
-whose shared-row mode (``all_probes``) this module refuses.
+The data-parallel forests (:mod:`.data_parallel`) serve their leaf-sharded
+blocks through this module's leaf-sharded pipeline over the data axis,
+and their shared-row layout through its ``all_probes`` mode, a state of
+the forest (``_shared_all_probes``) that their pack sets.
 """
 
 from __future__ import annotations
@@ -59,11 +61,6 @@ __all__ = [
     "merge_top_k",
 ]
 
-_DATA_PARALLEL_TODO = ("the data-parallel shared-row mode (all_probes) "
-                       "belongs to the data-parallel forests: ROADMAP.md "
-                       "queue 1 item 20b")
-
-
 def _pad_k(dists: torch.Tensor, ids: torch.Tensor, k: int):
     """Right-pad a ``(dists, ids)`` pair to width ``k`` with ``(inf, -1)``
     (or cut it there), so that every shard gives the gather a block of
@@ -75,17 +72,18 @@ def _pad_k(dists: torch.Tensor, ids: torch.Tensor, k: int):
             F.pad(ids, (0, k - w), value=-1))
 
 
-def _merge(outs, k_eff, k, dedup, min_votes, device):
+def _merge(outs, k_eff, k, dedup, min_votes, device, span=None):
     """The cross-shard merge: each shard's ``(dists, ids) [B, <= k_eff]``
-    padded to ``k_eff``, gathered on ``device`` in shard order, ordered by
+    padded to ``k_eff``, gathered on ``device`` in shard order (across
+    ``span``'s processes where the mesh spans them), ordered by
     distance (stable) and re-selected by :func:`merge_top_k` (duplicates
     masked; with ``min_votes > 1`` the copies counted as votes).  The
     order makes a point's nearest copy the one kept: on quantized blocks
     its copies in two shards' blocks differ, and the result is then one
     device's (the JAX package keeps the first shard's copy)."""
     padded = [_pad_k(d, i, k_eff) for d, i in outs]
-    d_all = all_gather([p[0] for p in padded], device)      # [S, B, k_eff]
-    i_all = all_gather([p[1] for p in padded], device)
+    d_all = all_gather([p[0] for p in padded], device, span)  # [S, B, k_eff]
+    i_all = all_gather([p[1] for p in padded], device, span)
     s, b = d_all.shape[:2]
     d_all, order = torch.sort(d_all.transpose(0, 1).reshape(b, s * k_eff),
                               dim=1, stable=True)
@@ -151,7 +149,10 @@ class _Shard:
     they take a shard where they take a forest.  ``arrays``, ``table`` and
     ``leaf_lens`` are the shard's trees'; ``small_*`` the whole forest's
     structure, which the leaf-sharded layout replicates; ``_packed`` and
-    its tables the shard's storage rows, ``lens`` their occupancy."""
+    its tables the shard's storage rows, ``lens`` their occupancy (on the
+    data-parallel shared rows, the shard's own members of every block);
+    ``x`` and ``sq_norms`` the dataset the shard reranks from (a
+    data-parallel shard's own rows)."""
 
     def __init__(self, **fields):
         self.__dict__.update(fields)
@@ -184,14 +185,22 @@ class DistributedForest(RPForest):
         super().__init__(plan, arrays, x, sq_norms, config,
                          payloads=payloads, seed=seed)
         self.mesh = mesh
-        n_shards = mesh.shape[TREE_AXIS]
-        if self.n_trees % n_shards:
-            raise ValueError(f"n_trees={self.n_trees} not divisible by tree "
-                             f"shards {n_shards}")
+        if self._index_axis == TREE_AXIS:
+            n_shards = mesh.shape[TREE_AXIS]
+            if self.n_trees % n_shards:
+                raise ValueError(f"n_trees={self.n_trees} not divisible by "
+                                 f"tree shards {n_shards}")
         self._packed_mode = None  # "tree" or "leaf" once packed
         self._row_block = None    # leaf layout: global block of each row
         self._cells = None        # per query shard, the tree shards' cells
         self._lens_rows = None    # occupancy in storage-row order
+        self._shared_all_probes = False  # data-parallel shared rows
+        self._shared_len_loc = None      # their per-shard occupancy
+
+    @property
+    def _s_q(self) -> int:
+        """Query shards (1 where the mesh names no query axis)."""
+        return self.mesh.shape.get(QUERY_AXIS, 1)
 
     # -- the shards' views ------------------------------------------------
 
@@ -205,6 +214,8 @@ class DistributedForest(RPForest):
         super()._drop_pack()
         self._packed_mode = None
         self._row_block = None
+        self._shared_all_probes = False
+        self._shared_len_loc = None
         self._invalidate()
 
     def _store_block_len(self, bl: np.ndarray) -> None:
@@ -248,10 +259,20 @@ class DistributedForest(RPForest):
             self._cells = self._make_cells()
         return self._cells[j]
 
+    def _cell_data(self, i, put, dev):
+        """Shard ``i``'s dataset and norms on ``dev`` for the unpacked
+        paths: the whole dataset (``put``: a view or a cached copy); none
+        once packed, where the blocks serve."""
+        if self._packed is not None:
+            return None, None
+        return put(self.x, dev), put(self.sq_norms, dev)
+
     def _make_cells(self):
         mesh = self.mesh
-        s_t, s_q = mesh.shape[TREE_AXIS], mesh.shape[QUERY_AXIS]
-        tl, nl = self.n_trees // s_t, self.plan.n_leaves
+        s_t, s_q = mesh.shape[self._index_axis], self._s_q
+        by_tree = self._index_axis == TREE_AXIS
+        tl, nl = (self.n_trees // s_t if by_tree else self.n_trees,
+                  self.plan.n_leaves)
         leaf = self._packed_mode == "leaf"
         packed = self._packed is not None
         copies = {}
@@ -279,35 +300,39 @@ class DistributedForest(RPForest):
             if isinstance(obj, tuple):
                 return tuple(part(o, i, dev) for o in obj)
             if isinstance(obj, SharedRows):
-                return SharedRows(put(obj.rows, dev), part(obj.ids, i, dev))
+                rows = (part(obj.rows, i, dev) if isinstance(obj.rows, Sharded)
+                        else put(obj.rows, dev))
+                return SharedRows(rows, part(obj.ids, i, dev))
             if isinstance(obj, EllBlocks):
                 return EllBlocks(obj.dim, part(obj.cols, i, dev),
                                  part(obj.vals, i, dev))
-            return put(obj.parts[i], dev)
+            return put(obj.part(i), dev)
 
         a, table = self.arrays, self._table()
         leaf_lens = self._leaf_lens()
-        lens = self._storage_lens() if packed else None
+        local_lens = self._shared_len_loc
+        lens = (self._storage_lens() if packed and local_lens is None
+                else None)
         rows = int(self._packed[0].shape[0]) // s_t if packed else 0
         cells = []
         for j in range(s_q):
             col = []
-            for i in range(s_t):
+            for i in mesh.local:
                 dev = mesh.device(i, j)
-                t0, t1 = i * tl, (i + 1) * tl
+                t0, t1 = (i * tl, (i + 1) * tl) if by_tree else (0, tl)
+                x, sq = self._cell_data(i, put, dev)
                 cell = _Shard(
                     index=i, device=dev, plan=self.plan, n_trees=tl,
                     arrays=TreeArrays(*(put(t, dev, t0, t1) for t in a)),
                     table=NodeTable(put(table.rec, dev, t0, t1),
                                     put(table.level_off, dev), table.offsets),
                     leaf_lens=put(leaf_lens, dev, t0 * nl, t1 * nl),
-                    # the dataset serves the unpacked paths only
-                    x=None if packed else put(self.x, dev),
-                    sq_norms=None if packed else put(self.sq_norms, dev),
+                    x=x, sq_norms=sq,
                     _packed=part(self._packed, i, dev),
                     _block_scale=part(self._block_scale, i, dev),
                     _block_center=part(self._block_center, i, dev),
-                    lens=(put(lens, dev, i * rows, (i + 1) * rows)
+                    lens=(part(local_lens, i, dev) if local_lens is not None
+                          else put(lens, dev, i * rows, (i + 1) * rows)
                           if packed else None),
                     _sub_block=self._sub_block)
                 if leaf:
@@ -331,7 +356,7 @@ class DistributedForest(RPForest):
         cells.  The chunks' ``(dists, ids)`` are concatenated in query
         order on the first device; a third output (the tile count a
         chunk needed) is reduced to its maximum."""
-        s_q = self.mesh.shape[QUERY_AXIS]
+        s_q = self._s_q
         bl = qb.shape[0] // s_q
         step = bl if chunk is None else max(1, int(chunk))
         outs = []
@@ -349,7 +374,7 @@ class DistributedForest(RPForest):
     def _pad_queries(self, qb: torch.Tensor):
         """``qb`` padded with zero rows to a multiple of the query shards,
         and its own row count."""
-        s = self.mesh.shape[QUERY_AXIS]
+        s = self._s_q
         b = qb.shape[0]
         pad = (-b) % s
         if pad:
@@ -456,9 +481,18 @@ class DistributedForest(RPForest):
         compacted in priority order, and scores them per pair or, with
         ``grouped = (tile_m, nt, tile_chunk, impl, selection)``, grouped
         (``nt`` a shard's tile capacity); then the merge.  Grouped, the
-        third output is the most tiles a shard needed."""
-        n_sh, sub = len(cells), self._sub_block
-        pps = int(probes_per_shard)
+        third output is the most tiles a shard needed.
+
+        In the ``all_probes`` mode (the data-parallel shared rows,
+        ``_shared_all_probes``) every shard holds a table of its own
+        members for every block, so there is no ownership filter: each
+        shard scores every selected probe against its part of the block
+        (``rows = gsel``, its occupancy the shard's local counts), and the
+        merge is exact, each member row being one shard's."""
+        n_sh, sub = self.mesh.shape[self._index_axis], self._sub_block
+        span = self.mesh.span
+        all_probes = self._shared_all_probes
+        pps = int(probes) if all_probes else int(probes_per_shard)
         if min_votes > 1:
             # the full owned-probe width: vote copies must not be cut
             k_eff = pps * sub * int(self._packed[0].shape[1])
@@ -474,15 +508,19 @@ class DistributedForest(RPForest):
                 bucket_stop=bucket_stop, block_len=c.small_leaf_lens,
                 table=c.small_table)
             m = gsel.shape[-1]
-            mine = (lsel >= 0) & (gsel % n_sh == c.index)
-            keep = mine & (torch.cumsum(mine.to(torch.int32), dim=-1) <= pps)
-            # my highest-priority owned probes, compacted to the front in
-            # their priority order
-            key = torch.where(keep, torch.arange(m, device=c.device), m)
-            key_s, order = torch.sort(key, dim=-1, stable=True)
-            order, pad = order[:, :pps], key_s[:, :pps] >= m
-            l_s = torch.where(pad, -1, lsel.gather(1, order))
-            rows = torch.where(pad, 0, gsel.gather(1, order) // n_sh)
+            if all_probes:
+                rows, l_s = torch.where(lsel >= 0, gsel, 0), lsel
+            else:
+                mine = (lsel >= 0) & (gsel % n_sh == c.index)
+                keep = mine & (torch.cumsum(mine.to(torch.int32), dim=-1)
+                               <= pps)
+                # my highest-priority owned probes, compacted to the front
+                # in their priority order
+                key = torch.where(keep, torch.arange(m, device=c.device), m)
+                key_s, order = torch.sort(key, dim=-1, stable=True)
+                order, pad = order[:, :pps], key_s[:, :pps] >= m
+                l_s = torch.where(pad, -1, lsel.gather(1, order))
+                rows = torch.where(pad, 0, gsel.gather(1, order) // n_sh)
             if sub > 1:
                 # a leaf's sub-blocks are the sub contiguous rows under
                 # its local leaf row
@@ -500,10 +538,10 @@ class DistributedForest(RPForest):
             outs.append((d, i))
             needs.append(need)
         dev = cells[0].device
-        out = _merge(outs, k_eff, k, dedup, min_votes, dev)
+        out = _merge(outs, k_eff, k, dedup, min_votes, dev, span)
         if grouped is None:
             return out
-        return out + (pmax(needs, dev).reshape(1),)
+        return out + (pmax(needs, dev, span).reshape(1),)
 
     # -- packing ----------------------------------------------------------
 
@@ -665,8 +703,7 @@ class DistributedForest(RPForest):
         min_votes = int(min_votes)
         qb, b = self._queries(q)
         if chunk is not None:
-            chunk = max(1, min(chunk, qb.shape[0]
-                               // self.mesh.shape[QUERY_AXIS]))
+            chunk = max(1, min(chunk, qb.shape[0] // self._s_q))
         budget = self._budget(budget)
         if self._packed_mode == "leaf":
             probes = self.n_trees * budget if probes is None else int(probes)
@@ -691,8 +728,7 @@ class DistributedForest(RPForest):
                     min_votes: int = 1, tile_m: int = 16,
                     nt: Optional[int] = None, tile_chunk: int = 2048,
                     chunk: Optional[int] = None, impl: str = "auto",
-                    check: bool = True, selection: str = "sort", *,
-                    all_probes: bool = False):
+                    check: bool = True, selection: str = "sort"):
         """Query-grouped kNN on the leaf-sharded blocks: each shard tiles
         its owned (query, probe) pairs by block and scores them as
         :meth:`RPForest.knn_grouped` does (kernels 9, then 1 / 2, or 4 with
@@ -701,9 +737,8 @@ class DistributedForest(RPForest):
         sized automatically as on one device (the most tiles any shard
         needed is read once a call, unless ``check=False``).
         ``selection="kernel"`` takes the sort tail when ``min_votes > 1``.
-        ``all_probes`` (the data-parallel shared-row mode) is refused."""
-        if all_probes:
-            raise NotImplementedError(_DATA_PARALLEL_TODO)
+        On the data-parallel shared rows every shard scores every probe
+        (the ``all_probes`` mode) and ``probes_per_shard`` is ignored."""
         if self._packed_mode != "leaf":
             raise ValueError("pack_leaves(shard_by='leaf') first: the "
                              "sharded knn_grouped serves the leaf-sharded "
@@ -729,9 +764,10 @@ class DistributedForest(RPForest):
         qb, b = self._queries(q)
         budget = self._budget(budget)
         probes = self.n_trees * budget if probes is None else int(probes)
-        pps = probes if probes_per_shard is None else int(probes_per_shard)
+        pps = (probes if probes_per_shard is None or self._shared_all_probes
+               else int(probes_per_shard))
         sub = self._sub_block
-        b_local = qb.shape[0] // self.mesh.shape[QUERY_AXIS]
+        b_local = qb.shape[0] // self._s_q
         step = b_local if chunk is None else max(1, min(int(chunk), b_local))
 
         def run(cap):

@@ -5,6 +5,8 @@ mesh.py``).
   the candidate generation; only the final top-k merge of a query couples
   them, which becomes a gather of each shard's k best and a re-top-k.
 * ``"query"``: the query batch, embarrassingly parallel.
+* ``"data"``: the dataset's rows (:func:`data_mesh`), for the
+  data-parallel forests of :mod:`.data_parallel`.
 
 The mesh is a grid of ``torch.device`` s driven by one process: each shard's
 work is a call on its own device, and the collectives are plain functions
@@ -12,6 +14,11 @@ over the shards' tensors (:mod:`.collectives`).  A device may repeat in the
 grid.  That is how one device stands in for several: the CPU tests pass
 ``[torch.device("cpu")] * 8`` where the JAX package's tests take eight
 virtual CPU devices, and one card runs four shards with ``[cuda:0] * 4``.
+
+A data mesh may also span the processes of an initialised
+``torch.distributed`` process group: each process drives its own devices'
+shards, and the collectives reduce over them and then over the group
+(:mod:`.collectives`).
 """
 
 from __future__ import annotations
@@ -25,25 +32,45 @@ __all__ = ["forest_mesh", "ForestMesh", "TREE_AXIS", "QUERY_AXIS"]
 
 TREE_AXIS = "tree"
 QUERY_AXIS = "query"
+DATA_AXIS = "data"
+
+
+class ProcessSpan:
+    """The processes a mesh spans: this process's ``rank`` in a
+    ``torch.distributed`` group of ``world`` processes, each driving the
+    same number of shards, rank ``r`` the ``r``-th run of them."""
+
+    def __init__(self, rank: int, world: int, backend: str):
+        self.rank, self.world, self.backend = int(rank), int(world), backend
 
 
 class ForestMesh:
-    """A ``[tree, query]`` grid of devices: ``devices`` (an object array of
-    ``torch.device``, so ``devices.flatten()`` lists them) and ``shape``
-    (``{"tree": S_t, "query": S_q}``), the two fields the JAX package's
-    code reads of its ``Mesh``."""
+    """A grid of devices over two axes (``axes``: ``("tree", "query")``,
+    or a data mesh's, whose query axis is named only where it has more
+    than one shard): ``devices`` (an object array of ``torch.device``, so
+    ``devices.flatten()`` lists them) and ``shape`` (``{"tree": S_t,
+    "query": S_q}``), the two fields the JAX package's code reads of its
+    ``Mesh``.  ``span``: the processes the mesh spans (None: this one
+    alone), whose shards ``local`` (a range of the first axis) this
+    process drives; ``devices`` lists theirs only."""
 
-    def __init__(self, grid):
+    def __init__(self, grid, axes=(TREE_AXIS, QUERY_AXIS),
+                 span: Optional[ProcessSpan] = None):
         self.devices = np.empty((len(grid), len(grid[0])), dtype=object)
         for i, row in enumerate(grid):
             for j, dev in enumerate(row):
                 self.devices[i, j] = torch.device(dev)
-        self.shape = {TREE_AXIS: self.devices.shape[0],
-                      QUERY_AXIS: self.devices.shape[1]}
+        rows, cols = self.devices.shape
+        self.span = span
+        lo = 0 if span is None else span.rank * rows
+        self.local = range(lo, lo + rows)
+        total = rows if span is None else rows * span.world
+        self.shape = dict(zip(axes, (total, cols)))
 
     def device(self, i: int, j: int = 0) -> torch.device:
-        """The device of tree shard ``i`` and query shard ``j``."""
-        return self.devices[i, j]
+        """The device of shard ``i`` (of the first axis, one this process
+        drives) and query shard ``j``."""
+        return self.devices[i - self.local.start, j]
 
     @property
     def first(self) -> torch.device:
@@ -51,9 +78,11 @@ class ForestMesh:
         return self.devices[0, 0]
 
     def __repr__(self):
-        return (f"ForestMesh(tree={self.shape[TREE_AXIS]}, "
-                f"query={self.shape[QUERY_AXIS]}, "
-                f"devices={[str(d) for d in self.devices.flatten()]})")
+        axes = ", ".join(f"{a}={n}" for a, n in self.shape.items())
+        procs = "" if self.span is None else (
+            f", process {self.span.rank} of {self.span.world}")
+        return (f"ForestMesh({axes}, "
+                f"devices={[str(d) for d in self.devices.flatten()]}{procs})")
 
 
 def forest_mesh(n_tree_shards: Optional[int] = None, n_query_shards: int = 1,

@@ -19,9 +19,12 @@ partial index mid-stream; ``anytime_slack > 0`` keeps a queryable partial
 index that absorbs every chunk online (:meth:`RPForest.add` then
 :meth:`RPForest.fold` into the leaves' slack slots).
 
-Not ported yet: the data-parallel mode (``mesh=`` / ``data_parallel=``),
-which needs the port's data-parallel forests (ROADMAP.md queue 1 item
-20b).
+In the data-parallel mode (``mesh=``, a :func:`..parallel.data_mesh`, or
+``data_parallel=True``) the chunks go round-robin over the mesh's devices,
+the finalize re-chunks them into the shards' contiguous ``N / S`` rows in
+ingest order and runs :func:`..parallel.forest_batch_data_parallel`, and
+the anytime index is a :class:`..parallel.DataParallelForest` with
+leaf-sharded slack blocks: no device holds more than its share.
 """
 
 from __future__ import annotations
@@ -36,10 +39,6 @@ from .config import ForestConfig
 from .models.forest import RPForest, forest_batch
 
 __all__ = ["ForestBuilder", "tree", "forest"]
-
-_SHARDED_TODO = ("streaming onto a mesh (mesh= / data_parallel=) needs the "
-                 "port's data-parallel forests: ROADMAP.md queue 1 item "
-                 "20b")
 
 
 class ForestBuilder:
@@ -57,16 +56,31 @@ class ForestBuilder:
     The parameters are the JAX package's, in its order.  ``device`` (the
     port's own, keyword-only) is where the chunks and the index live:
     the card unless the caller names the CPU; without a card and without
-    ``device="cpu"`` the builder raises."""
+    ``device="cpu"`` it raises.  ``mesh`` (a data mesh) or
+    ``data_parallel=True`` (default mesh :func:`..parallel.data_mesh`)
+    builds a :class:`..parallel.DataParallelForest` instead, the chunks
+    on the mesh's devices; the streamed rows must then be divisible by the
+    shard count (and, with ``anytime_slack``, the first chunk's)."""
 
     def __init__(self, seed, max_depth: int, min_leaf: int, n_trees: int,
                  pnz: float, dim: int, chunk_size: int = 0,
                  periodic_rebuild_every: int = 0, mesh=None,
                  data_parallel: bool = False, anytime_slack: int = 0, *,
                  device=None):
-        if mesh is not None or data_parallel:
-            raise NotImplementedError(_SHARDED_TODO)
-        self.device = resolve_device(device)
+        self.data_parallel = bool(data_parallel) or mesh is not None
+        if self.data_parallel:
+            from .parallel.data_parallel import data_mesh
+
+            self.mesh = mesh if mesh is not None else data_mesh()
+            if self.mesh.span is not None:
+                raise ValueError("streaming onto a mesh of several processes "
+                                 "is not supported: build each process's "
+                                 "rows with parallel.data_parallel."
+                                 "process_local_rows")
+            self.device = self.mesh.first
+        else:
+            self.mesh = None
+            self.device = resolve_device(device)
         # produce-anytime refinement: with anytime_slack > 0 a queryable
         # partial index absorbs every chunk online (fold into the leaves'
         # slack slots, no mid-stream rebuilds); build() is still the exact
@@ -101,15 +115,30 @@ class ForestBuilder:
         return self._anytime
 
     def _batch(self, x, payloads) -> RPForest:
+        if self.data_parallel:
+            from .parallel.data_parallel import forest_batch_data_parallel
+
+            return forest_batch_data_parallel(
+                self.seed, self.max_depth, self.min_leaf, self.n_trees,
+                self.pnz, x, mesh=self.mesh, payloads=payloads)
         return forest_batch(self.seed, self.max_depth, self.min_leaf,
                             self.n_trees, self.pnz, x, payloads=payloads,
                             device=self.device)
 
+    def _chunk_device(self) -> torch.device:
+        """Where the next chunk goes: this ``ForestBuilder``'s device, or
+        round-robin over the mesh's devices."""
+        if not self.data_parallel:
+            return self.device
+        devs = list(self.mesh.devices.flatten())
+        return devs[len(self._chunks) % len(devs)]
+
     def _to_device(self, chunk) -> torch.Tensor:
-        """``chunk`` as f32 rows on the builder's device, always a copy (a
-        caller may reuse its buffer for the next chunk).  A host chunk is
-        copied by a ``non_blocking`` copy from its own (pageable) memory,
-        which returns once the host buffer has been read."""
+        """``chunk`` as f32 rows on its device (:meth:`_chunk_device`),
+        always a copy (a caller may reuse its buffer for the next chunk).
+        A host chunk is copied by a ``non_blocking`` copy from its own
+        (pageable) memory, which returns once the host buffer has been
+        read."""
         if torch.is_tensor(chunk):
             c = chunk.to(dtype=torch.float32)
         else:
@@ -119,7 +148,8 @@ class ForestBuilder:
         if c.dim() != 2 or c.shape[1] != self.dim:
             raise ValueError(f"chunk dim {c.shape[-1]} != builder dim "
                              f"{self.dim}")
-        return c.to(self.device, non_blocking=True, copy=True).contiguous()
+        return c.to(self._chunk_device(), non_blocking=True,
+                    copy=True).contiguous()
 
     def insert_chunk(self, chunk, payloads: Optional[Sequence] = None):
         """Fold one data chunk into the builder (reference ``insertC``,
@@ -136,7 +166,17 @@ class ForestBuilder:
         if self.anytime_slack:
             if self._anytime is None:
                 # seed the partial index from the first chunk; slack slots
-                # absorb later chunks without rebuild
+                # absorb later chunks without rebuild (leaf-sharded ones in
+                # the data-parallel mode)
+                if self.data_parallel:
+                    from .parallel.mesh import DATA_AXIS
+
+                    s = self.mesh.shape[DATA_AXIS]
+                    if c.shape[0] % s:
+                        raise ValueError(
+                            f"anytime_slack with data_parallel needs the "
+                            f"first chunk ({c.shape[0]} rows) to divide the "
+                            f"{s} data shards")
                 self._anytime = self._batch(
                     c, list(payloads) if payloads is not None else None)
                 self._anytime.pack_leaves(slack=self.anytime_slack)
@@ -154,14 +194,40 @@ class ForestBuilder:
             out.extend(p if p is not None else [None] * c.shape[0])
         return out
 
+    def _sharded_rows(self):
+        """The streamed chunks re-chunked into the mesh's contiguous shards
+        in ingest order (each part assembled on its shard's device from
+        slices of the chunks), as the data-parallel build takes them."""
+        from .parallel.collectives import Sharded
+        from .parallel.mesh import DATA_AXIS
+
+        s = self.mesh.shape[DATA_AXIS]
+        if self._n % s:
+            raise ValueError(f"streamed rows ({self._n}) must divide the "
+                             f"data-shard count ({s}) for the sharded "
+                             f"finalize")
+        per = self._n // s
+        parts = [[] for _ in range(s)]
+        off = 0
+        for c in self._chunks:
+            a = off
+            while a < off + c.shape[0]:
+                d = a // per
+                e = min(off + c.shape[0], (d + 1) * per)
+                parts[d].append(c[a - off:e - off].to(self.mesh.device(d)))
+                a = e
+            off += c.shape[0]
+        return Sharded([torch.cat(p) for p in parts])
+
     def build(self) -> RPForest:
         """Finalize: exact level-synchronous rebuild over everything seen."""
         if self._n == 0:
             raise ValueError("streaming source was empty (the reference "
                              "requires a non-empty source, Conduit.hs:52)")
         if self._index is None:
-            self._index = self._batch(torch.cat(self._chunks),
-                                      self._all_payloads())
+            self._index = self._batch(
+                self._sharded_rows() if self.data_parallel
+                else torch.cat(self._chunks), self._all_payloads())
             self._index.config = ForestConfig(
                 n_trees=self.n_trees, max_depth=self.max_depth,
                 min_leaf=self.min_leaf, proj_nz_density=self.pnz,

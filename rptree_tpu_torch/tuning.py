@@ -219,7 +219,10 @@ def tune_build(data, queries, k: int = 10, target_recall: float = 0.9,
     ``data`` is ``[n, D]`` rows, numpy or a tensor (a tensor subsamples
     on its own device, its rows kept in order, as the JAX package does a
     device array), or a :class:`..parallel.DistributedForest`, whose
-    dataset is then sampled on the mesh's first device.
+    dataset is then sampled on the mesh's first device; a
+    :class:`..parallel.DataParallelForest` gives its sample by one gather
+    a shard, onto the mesh's first device, and never makes its dataset
+    whole.
     ``min_leaf_grid`` defaults to {1/2x, 1x, 2x} of ``sample /
     centers_estimate`` when an estimate is given, else a coarse
     power-of-four ladder.  The forests build on ``device`` (the port's
@@ -230,6 +233,7 @@ def tune_build(data, queries, k: int = 10, target_recall: float = 0.9,
     """
     from .config import rp_tree_cfg
     from .models.forest import forest_batch
+    from .parallel.collectives import Sharded
     from .parallel.distributed import DistributedForest
 
     if isinstance(data, DistributedForest):
@@ -237,14 +241,21 @@ def tune_build(data, queries, k: int = 10, target_recall: float = 0.9,
         if data.x is None:
             raise ValueError("dataset dropped; tune_build samples rows")
         data = data.x
-    elif hasattr(data, "mesh") and hasattr(data, "x"):
-        raise NotImplementedError(
-            "tune_build on a data-parallel forest needs the port's "
-            "data-parallel forests: ROADMAP.md queue 1 item 20b")
-    x = data if torch.is_tensor(data) else np.asarray(data, dtype=np.float32)
+    x = (data if torch.is_tensor(data) or isinstance(data, Sharded)
+         else np.asarray(data, dtype=np.float32))
     n = int(x.shape[0])
     m = min(int(sample), n)
-    if m < n:
+    if isinstance(x, Sharded):
+        # one gather a shard of its own sampled rows, in row order
+        idx = (np.sort(np.random.default_rng(seed).choice(
+            n, size=m, replace=False)) if m < n else np.arange(n))
+        per = x.part_rows
+        x = torch.cat([p[torch.as_tensor(
+            idx[(idx >= i * per) & (idx < (i + 1) * per)] - i * per,
+            device=p.device)].to(x.device)
+            for i, p in zip(range(x.first, x.first + len(x.parts)),
+                            x.parts)])
+    elif m < n:
         idx = np.random.default_rng(seed).choice(n, size=m, replace=False)
         # a device array keeps its rows in order (the JAX package's gather
         # on device), host rows take the draw's order

@@ -25,9 +25,13 @@ pickled list), so that it reads them back; the port never unpickles
 (``allow_pickle=False``): its readers take ``payloads=`` from the caller.
 The learned grouped tile capacities (the JAX package's optional
 ``grouped_nt`` header) are neither written nor read: their key omits
-``tile_chunk`` (ROADMAP.md queue 3).  The sharded checkpoints, which the
-JAX package writes for its data-parallel forests, wait for the port's
-(ROADMAP.md queue 1 item 20b); a tree-sharded forest saves as one forest.
+``tile_chunk`` (ROADMAP.md queue 3).
+
+A data-parallel forest (:class:`..parallel.DataParallelForest`) also
+checkpoints a shard at a time (:func:`save_forest_sharded` /
+:func:`load_forest_sharded`, the JAX package's layout: ``common.npz`` and
+``shard_<i>.npz``), so that no host buffer ever holds its whole dataset;
+a tree-sharded forest saves as one forest.
 """
 
 from __future__ import annotations
@@ -37,6 +41,8 @@ import json
 import pickle
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence
+
+import os
 
 import numpy as np
 import torch
@@ -54,8 +60,6 @@ __all__ = ["save_forest", "load_forest", "serialise_rp_forest",
 
 _FORMAT_VERSION = 1
 _ARRAYS = ("r", "thr", "mgl", "mgh", "perm")
-_SHARDED_TODO = ("sharded checkpoints need the port's data-parallel "
-                 "forests: ROADMAP.md queue 1 item 20b")
 
 
 def _check_clean(forest: RPForest):
@@ -92,10 +96,13 @@ def _header(forest: RPForest) -> dict:
     }
 
 
-def _host(t: torch.Tensor) -> np.ndarray:
-    """``t`` on the host; bf16 values as the JAX package's ``np.savez``
-    writes them: their 16-bit patterns in a ``|V2`` array (numpy has no
-    bf16 type)."""
+def _host(t) -> np.ndarray:
+    """``t`` on the host (a :class:`Sharded` table gathered there a part
+    at a time); bf16 values as the JAX package's ``np.savez`` writes them:
+    their 16-bit patterns in a ``|V2`` array (numpy has no bf16 type)."""
+    if not torch.is_tensor(t):  # a parallel.collectives.Sharded table
+        t._whole_table("a host copy")
+        t = torch.cat([p.detach().cpu() for p in t.parts])
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.dtype("V2"))
@@ -121,6 +128,11 @@ def _arrays(forest: RPForest) -> dict:
     return {k: _host(getattr(forest.arrays, k)) for k in _ARRAYS}
 
 
+def _payload_bytes(payloads) -> np.ndarray:
+    """Payloads as the JAX package stores them: a pickled list, as bytes."""
+    return np.frombuffer(pickle.dumps(list(payloads)), dtype=np.uint8)
+
+
 def _dataset(forest: RPForest) -> dict:
     """The dataset's arrays and the pickled payloads, as npz entries."""
     if isinstance(forest.x, EllMatrix):
@@ -128,9 +140,7 @@ def _dataset(forest: RPForest) -> dict:
     else:
         arrs = {"x": _host(forest.x)}
     if forest.payloads is not None:
-        arrs["payloads"] = np.frombuffer(
-            pickle.dumps(list(forest.payloads)), dtype=np.uint8
-        )
+        arrs["payloads"] = _payload_bytes(forest.payloads)
     return arrs
 
 
@@ -254,10 +264,111 @@ def deserialise_rp_forest(blobs: Sequence[bytes], payloads=None, *,
 
 
 def save_forest_sharded(dirpath: str, forest) -> None:
-    """Per-shard checkpoints of a data-parallel forest: not ported yet."""
-    raise NotImplementedError(_SHARDED_TODO)
+    """Checkpoint a :class:`..parallel.DataParallelForest` (dense or ELL
+    rows) as one npz a data shard plus a common file, the JAX package's
+    layout: ``<dirpath>/common.npz`` (the header, ``kind
+    "data_parallel"`` and ``n_shards``, the structure arrays and the
+    pickled payloads) and ``<dirpath>/shard_<i>.npz`` (shard ``i``'s rows,
+    ``x`` or ``x_cols`` / ``x_vals``, and their first row ``row_start``).
+    The host buffers one shard's rows at a time.  Refuses other forests
+    (a tree-sharded one saves with :func:`save_forest`), and pending,
+    folded or removed points (``rebuild()`` first).  Restore with
+    :func:`load_forest_sharded`."""
+    from ..parallel.data_parallel import DataParallelForest
+    from ..parallel.mesh import DATA_AXIS
+
+    if not isinstance(forest, DataParallelForest):
+        raise ValueError("save_forest_sharded checkpoints DataParallelForest; "
+                         "use save_forest (+ distribute() on restore) for "
+                         "other forests")
+    _check_clean(forest)
+    os.makedirs(dirpath, exist_ok=True)
+    header = {**_header(forest), "kind": "data_parallel",
+              "n_shards": int(forest.mesh.shape[DATA_AXIS])}
+    sparse = isinstance(forest.x, EllMatrix)
+    rows = forest.x.cols if sparse else forest.x
+    if rows.first == 0:  # the process of shard 0 writes the common part
+        common = _with_header(_arrays(forest), header)
+        if forest.payloads is not None:
+            common["payloads"] = _payload_bytes(forest.payloads)
+        with open(os.path.join(dirpath, "common.npz"), "wb") as fh:
+            np.savez_compressed(fh, **common)
+    per = rows.part_rows
+    for j, i in enumerate(range(rows.first, rows.first + len(rows.parts))):
+        arrs = {"row_start": np.asarray([i * per], np.int64)}
+        if sparse:
+            arrs["x_cols"] = _host(forest.x.cols.parts[j])
+            arrs["x_vals"] = _host(forest.x.vals.parts[j])
+        else:
+            arrs["x"] = _host(forest.x.parts[j])
+        with open(os.path.join(dirpath, f"shard_{i}.npz"), "wb") as fh:
+            np.savez_compressed(fh, **arrs)
 
 
-def load_forest_sharded(dirpath: str, mesh=None):
-    """Restore a per-shard checkpoint: not ported yet."""
-    raise NotImplementedError(_SHARDED_TODO)
+def load_forest_sharded(dirpath: str, mesh=None, *, payloads=None):
+    """Restore a :func:`save_forest_sharded` checkpoint (the port's or the
+    JAX package's) into a :class:`..parallel.DataParallelForest` on
+    ``mesh`` (default :func:`..parallel.data_mesh`), resharded to its
+    shard count where that differs: the files are read one at a time and
+    each shard's rows go straight to its device, so no host or device
+    buffer holds the whole dataset.  Reads no pickled payloads
+    (``allow_pickle=False``): a caller that has them passes ``payloads``
+    (the port's own, keyword-only)."""
+    from ..parallel.data_parallel import (DataParallelForest, _sharded_ell,
+                                          _sq_norms_sharded, data_mesh)
+    from ..parallel.mesh import DATA_AXIS
+
+    with np.load(os.path.join(dirpath, "common.npz"),
+                 allow_pickle=False) as z:
+        header = json.loads(z["header"].tobytes().decode())
+        common = {k: z[k] for k in _ARRAYS}
+    if header.get("kind") != "data_parallel":
+        raise ValueError("not a sharded checkpoint (kind != data_parallel)")
+    if mesh is None:
+        mesh = data_mesh()
+    n, s_all = header["n"], mesh.shape[DATA_AXIS]
+    if n % s_all:
+        raise ValueError(f"checkpoint rows ({n}) do not divide the target "
+                         f"mesh ({s_all} shards)")
+    if payloads is not None and len(payloads) != n:
+        raise ValueError(f"{len(payloads)} payloads for {n} points")
+    per = n // s_all
+    keys = ("x_cols", "x_vals") if header.get("sparse") else ("x",)
+    blocks = {key: {i: [] for i in mesh.local} for key in keys}
+    for f in range(header["n_shards"]):
+        with np.load(os.path.join(dirpath, f"shard_{f}.npz"),
+                     allow_pickle=False) as z:
+            start = int(z["row_start"][0])
+            for key in keys:
+                rows = z[key]
+                for i in mesh.local:
+                    lo, hi = max(start, i * per), min(start + rows.shape[0],
+                                                      (i + 1) * per)
+                    if lo < hi:
+                        blocks[key][i].append(_values(
+                            rows[lo - start:hi - start], mesh.device(i))
+                            if key != "x_cols" else torch.as_tensor(
+                                rows[lo - start:hi - start],
+                                device=mesh.device(i)))
+
+    def sharded(key):
+        from ..parallel.collectives import Sharded
+
+        return Sharded([torch.cat(blocks[key][i]).contiguous()
+                        for i in mesh.local], mesh.local.start, s_all)
+
+    if header.get("sparse"):
+        x = _sharded_ell(header["dim"], sharded("x_cols"), sharded("x_vals"))
+    else:
+        x = sharded("x")
+    plan = make_plan(n, header["max_depth"], header["min_leaf"])
+    if plan.n_levels != header["n_levels"]:
+        raise ValueError("checkpoint plan mismatch: "
+                         f"{plan.n_levels} != {header['n_levels']}")
+    dt = {"perm": torch.int32}
+    arrays = TreeArrays(**{
+        k: torch.as_tensor(common[k], dtype=dt.get(k, torch.float32),
+                           device=mesh.first) for k in _ARRAYS})
+    return DataParallelForest(plan, arrays, x, _sq_norms_sharded(x),
+                              ForestConfig(**header["config"]), mesh,
+                              payloads=payloads, seed=header.get("seed"))

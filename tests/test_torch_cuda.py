@@ -1781,3 +1781,69 @@ def test_ell_support_bits(dev, b, v, aligned):
     got = ek._ell_support(q)
     torch.cuda.synchronize()
     assert torch.equal(got, ek.ell_support_reference(q))
+
+
+def _dp_twins(dev, n=20_000, d=64, shards=4):
+    """A clustered dataset on the card, its single-device forest and the
+    data-parallel forest of the same projections on ``shards`` shards of
+    the card."""
+    import rptree_tpu_torch as rp
+    from rptree_tpu_torch.parallel import (data_mesh,
+                                           forest_batch_data_parallel)
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    c = torch.randn(40, d, generator=gen, device=dev)
+    x = c[torch.randint(0, 40, (n,), generator=gen, device=dev)]
+    x += 0.2 * torch.randn(n, d, generator=gen, device=dev)
+    q = x[:512] + 0.05 * torch.randn(512, d, generator=gen, device=dev)
+    f1 = rp.forest_batch(3, 8, 32, 4, 1.0, x, device=dev)
+    f2 = forest_batch_data_parallel(3, 8, 32, 4, 1.0, x,
+                                    mesh=data_mesh(devices=[dev] * shards),
+                                    r=f1.arrays.r)
+    return f1, f2, q
+
+
+def test_data_parallel_build_equals_single_device(dev):
+    """On the card kernel 11 gives a row the same bits in any batch, so the
+    data-parallel trees are the single-device ones: thresholds and margins
+    bit-equal on the live segments, the same leaf sets; the leaf-sharded
+    f32 blocks then serve grouped what one device serves."""
+    from rptree_tpu_torch.ops.grouped_kernel import untied
+
+    f1, f2, q = _dp_twins(dev)
+    for name in ("thr", "mgl", "mgh"):
+        a, b = getattr(f1.arrays, name), getattr(f2.arrays, name)
+        for lvl, lp in enumerate(f1.plan.levels):
+            assert torch.equal(a[:, lvl, :lp.n_segs], b[:, lvl, :lp.n_segs])
+    for t in range(f1.n_trees):
+        assert ([sorted(b) for b in f1.leaves(t)]
+                == [sorted(b) for b in f2.leaves(t)])
+    for f in (f1, f2):
+        f.pack_leaves()
+    d1, i1 = f1.knn_grouped(q, 10, budget=2, selection="kernel")
+    d2, i2 = f2.knn_grouped(q, 10, budget=2, selection="kernel")
+    _close(d2, d1, 1e-5)
+    chk = untied(d1, 1e-5)
+    chk[:, -1] = False
+    assert torch.equal(i1[chk], i2[chk])
+
+
+def test_all_probes_per_pair_equals_shared_rows(dev):
+    """The data-parallel shared rows served per pair in the ``all_probes``
+    mode (each shard's kernel 6 over its own members of every probed
+    block, then the merge) give one device's shared-row results."""
+    from rptree_tpu_torch.ops import fused_gather as fgm
+    from rptree_tpu_torch.ops.grouped_kernel import untied
+
+    f1, f2, q = _dp_twins(dev)
+    for f in (f1, f2):
+        f.pack_leaves(store="shared")
+    assert f2._shared_all_probes
+    fgm.gather_score.launches_shared = 0
+    d2, i2 = f2.knn_batched(q, 10, budget=2, chunk=256)
+    assert fgm.gather_score.launches_shared == 4 * 2
+    d1, i1 = f1.knn_batched(q, 10, budget=2, chunk=256)
+    _close(d2, d1, 1e-5)
+    chk = untied(d1, 1e-5)
+    chk[:, -1] = False
+    assert torch.equal(i1[chk], i2[chk])

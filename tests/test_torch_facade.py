@@ -283,7 +283,7 @@ EXTRA = {
     "forest": ["device"], "tune": [], "tune_build": ["device"],
     "save_forest": [], "serialise_rp_forest": [],
     "deserialise_rp_forest": ["payloads", "device"],
-    "save_forest_sharded": [], "load_forest_sharded": [],
+    "save_forest_sharded": [], "load_forest_sharded": ["payloads"],
     "data_batch": ["device"], "data_source": ["device"], "dense": [],
     "sparse": [], "mixture": [], "mixture2": [], "normal2": [],
     "normal_dense2": [], "normal_sparse2": [], "circle2d": [],
@@ -310,3 +310,85 @@ def test_parameters_match_jax(name):
     assert [p.name for p in extra] == EXTRA[name]
     assert all(p.kind is p.KEYWORD_ONLY for p in extra
                if p.name != "payloads")
+
+
+def test_parallel_exports_equal_jax():
+    """``rptree_tpu_torch.parallel`` exports the JAX package's
+    ``rptree_tpu.parallel`` names, the data-parallel ones among them."""
+    import rptree_tpu.parallel as jpar
+    import rptree_tpu_torch.parallel as tpar
+
+    assert sorted(tpar.__all__) == sorted(jpar.__all__)
+    assert tpar.DATA_AXIS == jpar.DATA_AXIS == "data"
+
+
+# the parallel entry points: the port's own parameters after JAX's
+PARALLEL_EXTRA = {
+    "data_mesh": [], "forest_batch_data_parallel": ["r"],
+    "brute_force_knn_sharded": [], "forest_batch_distributed": ["r"],
+    "forest_mesh": [],
+}
+# methods of the data-parallel forest: the port's own parameters after
+# JAX's (a method the port inherits may add its own)
+DP_METHODS = {
+    "knn": [], "knn_batched": [], "knn_grouped": [], "knn_h": [],
+    "brute_force_knn": [], "recall_with": [], "pack_leaves": ["r_sub"],
+    "rebuild": [],
+}
+
+
+@pytest.mark.parametrize("name", sorted(PARALLEL_EXTRA) + [
+    f"DataParallelForest.{m}" for m in sorted(DP_METHODS)])
+def test_parallel_parameters_match_jax(name):
+    """The parallel entry points and the data-parallel forest's methods
+    take JAX's parameters in JAX's order and with its defaults; the port's
+    own follow, keyword-only.  ``DistributedForest.knn_grouped`` has
+    JAX's signature exactly (no ``all_probes``)."""
+    import rptree_tpu.parallel as jpar
+    import rptree_tpu_torch.parallel as tpar
+
+    if "." in name:
+        cls, meth = name.split(".")
+        pj = inspect.signature(getattr(getattr(jpar, cls), meth))
+        pt = inspect.signature(getattr(getattr(tpar, cls), meth))
+        extra_names = DP_METHODS[meth]
+    else:
+        pj = inspect.signature(getattr(jpar, name))
+        pt = inspect.signature(getattr(tpar, name))
+        extra_names = PARALLEL_EXTRA[name]
+    import jax.numpy as jnp
+
+    pj, pt = list(pj.parameters.values()), list(pt.parameters.values())
+    assert [p.name for p in pt[:len(pj)]] == [p.name for p in pj]
+    for a, b in zip(pt, pj):
+        assert a.kind is b.kind, a.name
+        assert a.default == b.default or (
+            a.default is torch.float32 and b.default is jnp.float32), a.name
+    extra = pt[len(pj):]
+    assert [p.name for p in extra] == extra_names
+    assert all(p.kind is p.KEYWORD_ONLY for p in extra)
+    sj = inspect.signature(jpar.DistributedForest.knn_grouped)
+    st = inspect.signature(tpar.DistributedForest.knn_grouped)
+    assert list(st.parameters) == list(sj.parameters)
+
+
+def test_no_module_of_the_port_imports_jax():
+    """No module of the port, no port example and not ``chip_smoke.py``
+    imports ``jax`` or the JAX package (read from their sources)."""
+    import ast
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    files = [*sorted((root / "rptree_tpu_torch").rglob("*.py")),
+             *sorted((root / "examples").glob("torch_*.py")),
+             root / "chip_smoke.py"]
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom)
+                     and node.level == 0 else [])
+            bad += [f"{path.relative_to(root)}: {n}" for n in names
+                    if n.split(".")[0] in ("jax", "jaxlib", "rptree_tpu")]
+    assert len(files) > 40 and not bad, bad

@@ -4,7 +4,8 @@
 dense and ELL, with every array bit-equal; the payloads the port writes
 read back by the JAX package (the port itself never unpickles); the
 errors of malformed blobs; the ``_check_clean`` refusal; and the sharded
-checkpoints' refusal."""
+checkpoints of the data-parallel forests, written by either package and
+read by either."""
 
 import dataclasses
 import io
@@ -21,6 +22,7 @@ import rptree_tpu as rt
 from rptree_tpu.ops import sparse as js
 from rptree_tpu.utils import io as jio
 import rptree_tpu_torch as rp
+import rptree_tpu_torch.parallel  # noqa: F401  (rp.parallel)
 from rptree_tpu_torch.utils import io as tio
 
 from torch_parity import carry, clustered, one_torch_thread  # noqa: F401
@@ -224,10 +226,93 @@ def test_check_clean_refuses(update, tmp_path):
         assert rp.load_forest(path, device="cpu").n_points == f.n_points
 
 
+def _dp_mesh(s):
+    return rp.parallel.data_mesh(s, devices=["cpu"] * s)
+
+
 def test_sharded_checkpoints_name_their_item(tmp_path):
-    f = rp.forest_batch(1, 3, 8, 1, 1.0, np.ones((64, 4), np.float32),
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 20"):
-        rp.save_forest_sharded(str(tmp_path), f)
-    with pytest.raises(NotImplementedError, match="queue 1 item 20"):
-        rp.load_forest_sharded(str(tmp_path))
+    """The port's sharded checkpoint round trip: ``common.npz`` and one
+    ``shard_<i>.npz`` a data shard (each a shard's rows), loaded onto a
+    mesh of another shard count with every array and row bit-equal and
+    the same served bits; a single-device forest and a forest with
+    pending points are refused, as in the JAX package."""
+    from rptree_tpu_torch.parallel import forest_batch_data_parallel
+
+    x, q = clustered(46, 800, 8, 12, 0.5, 16)
+    pays = [f"p{i}" for i in range(800)]
+    f = forest_batch_data_parallel(3, 4, 16, 3, 1.0, x, mesh=_dp_mesh(8),
+                                   payloads=pays)
+    rp.save_forest_sharded(str(tmp_path), f)
+    names = sorted(p.name for p in tmp_path.iterdir())
+    assert names == ["common.npz"] + [f"shard_{i}.npz" for i in range(8)]
+    with np.load(tmp_path / "shard_3.npz") as z:
+        np.testing.assert_array_equal(z["x"], x[300:400])
+        assert int(z["row_start"][0]) == 300
+    g = rp.load_forest_sharded(str(tmp_path), _dp_mesh(2), payloads=pays)
+    assert isinstance(g, rp.parallel.DataParallelForest)
+    assert [p.shape[0] for p in g.x.parts] == [400, 400]
+    for k in ARRAYS:  # bit for bit (unused segments hold NaN, as JAX's)
+        assert (getattr(f.arrays, k).numpy().tobytes()
+                == getattr(g.arrays, k).numpy().tobytes()), k
+    assert torch.equal(torch.cat(g.x.parts), torch.as_tensor(x))
+    assert g.payload_of([5]) == ["p5"] and g.seed == 3
+    for h in (f, g):
+        h.pack_leaves()
+    d1, i1 = f.knn_grouped(q, 5, budget=2)
+    d2, i2 = g.knn_grouped(q, 5, budget=2)
+    assert torch.equal(i1, i2) and torch.equal(d1, d2)
+    with pytest.raises(ValueError, match="DataParallelForest"):
+        rp.save_forest_sharded(str(tmp_path / "one"), rp.forest_batch(
+            1, 3, 8, 1, 1.0, x, device="cpu"))
+    f.add(x[:2])
+    with pytest.raises(ValueError, match="rebuild"):
+        rp.save_forest_sharded(str(tmp_path / "two"), f)
+    with pytest.raises(ValueError, match="divide"):
+        rp.load_forest_sharded(str(tmp_path), _dp_mesh(3))
+
+
+@pytest.mark.parametrize("kind", ["dense", "ell"])
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_sharded_checkpoints_across_packages(tmp_path, kind, writer):
+    """A sharded checkpoint the JAX package writes loads in the port, and
+    the port's in the JAX package (its payloads too), dense and ELL, onto
+    a mesh of another shard count: every array and row bit-equal."""
+    import rptree_tpu.parallel as jpar
+    from rptree_tpu_torch.parallel import forest_batch_data_parallel
+
+    n = 400
+    pays = [f"{kind}-{i}" for i in range(n)]
+    if kind == "dense":
+        data_j = data_t = clustered(47, n, 8, 12, 0.5, 1)[0]
+    else:
+        cols, vals = _ell(48, n, 64, 6)
+        data_j, data_t = js.EllMatrix(64, cols, vals), rp.EllMatrix(64, cols,
+                                                                    vals)
+    fj = jpar.forest_batch_data_parallel(3, 4, 16, 3, 1.0, data_j,
+                                         mesh=jpar.data_mesh(8),
+                                         payloads=pays)
+    ft = forest_batch_data_parallel(3, 4, 16, 3, 1.0, data_t,
+                                    mesh=_dp_mesh(8), payloads=pays,
+                                    r=np.array(fj.arrays.r))
+    path = str(tmp_path)
+    if writer == "jax":
+        jio.save_forest_sharded(path, fj)
+        got = rp.load_forest_sharded(path, _dp_mesh(4), payloads=pays)
+        want = ft
+    else:
+        rp.save_forest_sharded(path, ft)
+        got = jio.load_forest_sharded(path, jpar.data_mesh(4))
+        assert got.payloads == pays
+        want = fj
+    # the JAX forest's arrays are its own build's: compare the written
+    # forest's against what was loaded
+    src = fj if writer == "jax" else ft
+    for k in ARRAYS:
+        a, b = _host(getattr(src.arrays, k)), _host(getattr(got.arrays, k))
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), k
+    rows = (lambda f: [np.concatenate([_host(p) for p in t.parts])
+                       if hasattr(t, "parts") else np.asarray(t)
+                       for t in ((f.x.cols, f.x.vals) if kind == "ell"
+                                 else (f.x,))])
+    for a, b in zip(rows(want), rows(got)):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()

@@ -81,10 +81,9 @@ def whole(t):
 
 
 def test_exports_are_jax_less_the_data_parallel_names():
-    assert set(tpar.__all__) <= set(jpar.__all__)
-    assert set(jpar.__all__) - set(tpar.__all__) == {
-        "DATA_AXIS", "DataParallelForest", "brute_force_knn_sharded",
-        "data_mesh", "forest_batch_data_parallel"}
+    """Every name of the JAX package's ``parallel``: since the port's
+    data-parallel forests, none less."""
+    assert set(tpar.__all__) == set(jpar.__all__)
 
 
 def test_mesh_shapes_and_refusals(monkeypatch):
@@ -276,7 +275,9 @@ def test_grouped_refusals(case):
     with pytest.raises(ValueError, match="shard_by='leaf'"):
         f.knn_grouped(case["q"], 5)
     f = port_dist(case, (8, 1), shard_by="leaf")
-    with pytest.raises(NotImplementedError, match="item 20b"):
+    # the all_probes mode is forest state (the data-parallel shared rows'),
+    # not a keyword: the JAX package's knn_grouped takes none
+    with pytest.raises(TypeError, match="all_probes"):
         f.knn_grouped(case["q"], 5, all_probes=True)
     with pytest.raises(ValueError, match="k <= 128"):
         f.knn_grouped(case["q"], 200, selection="kernel")

@@ -85,12 +85,16 @@ def test_run_bench_sparse_and_streaming(kind):
 
 
 def test_run_bench_refuses_a_mesh():
-    """A mesh that is not a ``forest_mesh`` (the data-parallel forests'
-    are not ported) is refused; the config's tree shards run the
-    sharded forest, with the single-device run's recall."""
-    with pytest.raises(NotImplementedError, match="item 20"):
-        benchmarks.run_bench(benchmarks.DEFAULT_GRID[0], mesh=object(),
-                             device="cpu")
+    """A mesh that is not a ``forest_mesh`` (a data mesh among them) is
+    refused, as the JAX package's ``run_bench`` distributes over the tree
+    axis; the config's tree shards run the sharded forest, with the
+    single-device run's recall."""
+    from rptree_tpu_torch.parallel import data_mesh
+
+    for mesh in (object(), data_mesh(2, devices=["cpu"] * 2)):
+        with pytest.raises(ValueError, match="forest_mesh"):
+            benchmarks.run_bench(benchmarks.DEFAULT_GRID[0], mesh=mesh,
+                                 device="cpu")
     cfg = dataclasses.replace(benchmarks.DEFAULT_GRID[0], num_trees=4)
     one = benchmarks.run_bench(cfg, reps=1, device="cpu")
     two = benchmarks.run_bench(dataclasses.replace(cfg, n_tree_shards=2),

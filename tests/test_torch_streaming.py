@@ -18,6 +18,7 @@ import torch
 import rptree_tpu as rt
 from rptree_tpu.utils import gen as jgen
 import rptree_tpu_torch as rp
+import rptree_tpu_torch.parallel  # noqa: F401  (rp.parallel)
 from rptree_tpu_torch.utils import gen as tgen
 
 from torch_parity import knn_agree, one_torch_thread  # noqa: F401
@@ -165,13 +166,26 @@ def test_builder_keeps_its_own_copy(kind):
                                   "no_card"])
 def test_builder_errors(case, monkeypatch):
     """JAX's errors (an empty source, a wrong chunk dim, a payload count
-    that does not match); the sharded branches name their item; without
-    a card and without ``device="cpu"`` the builder raises."""
+    that does not match; on a data mesh, streamed rows that do not divide
+    the shards at the finalize, and an ``anytime_slack`` first chunk that
+    does not); without a card and without ``device="cpu"`` (or a mesh)
+    ``ForestBuilder`` raises."""
     if case in ("mesh", "data_parallel"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 20"):
-            rp.ForestBuilder(0, 4, 5, 2, 1.0, 3, device="cpu",
-                             **({"mesh": object()} if case == "mesh"
-                                else {"data_parallel": True}))
+        mesh = rp.parallel.data_mesh(4, devices=["cpu"] * 4)
+        if case == "mesh":
+            b = rp.ForestBuilder(0, 4, 5, 2, 1.0, 3, mesh=mesh)
+            b.insert_chunk(np.ones((10, 3), np.float32))
+            with pytest.raises(ValueError, match=r"streamed rows \(10\) "
+                               "must divide the data-shard count"):
+                b.build()
+        else:
+            monkeypatch.setattr(rp.parallel.data_parallel, "data_mesh",
+                                lambda *a, **kw: mesh)
+            b = rp.ForestBuilder(0, 4, 5, 2, 1.0, 3, data_parallel=True,
+                                 anytime_slack=4)
+            with pytest.raises(ValueError, match=r"first chunk \(6 rows\) "
+                               "to divide the 4 data shards"):
+                b.insert_chunk(np.ones((6, 3), np.float32))
         return
     if case == "no_card":
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -188,3 +202,53 @@ def test_builder_errors(case, monkeypatch):
          "payloads": lambda: b.insert_chunk(np.ones((2, 3), np.float32),
                                             payloads=["x"])}[case]()
     assert b.n_points == 0
+
+
+@pytest.mark.parametrize("anytime", [0, 8])
+def test_streamed_data_parallel_equals_batch_and_jax(jax_r, anytime):
+    """``mesh=`` a data mesh: the chunks go round-robin over its devices,
+    the finalize re-chunks them into the shards' contiguous rows in ingest
+    order and builds data-parallel: the batch data-parallel build of the
+    concatenated rows bit for bit, and the leaf sets and (live) thresholds
+    of JAX's streamed forest (tie-heavy integer data: equal points split
+    in the single-device order).  With ``anytime_slack`` the partial index
+    is a data-parallel forest with leaf-sharded slack blocks, whose
+    counts and candidate sets are a single-device anytime index's."""
+    x = int_data(4, 800)
+    q = x[::50] + 0.5
+    depth, min_leaf, t, chunk = 6, 12, 2, 100
+    r = jax_r(17, t, depth, DIM)
+    mesh = rp.parallel.data_mesh(4, devices=["cpu"] * 4)
+    bt = rp.ForestBuilder(17, depth, min_leaf, t, 1.0, DIM, mesh=mesh,
+                          anytime_slack=anytime)
+    bs = rp.ForestBuilder(17, depth, min_leaf, t, 1.0, DIM,
+                          anytime_slack=anytime, device="cpu")
+    bj = rt.ForestBuilder(17, depth, min_leaf, t, 1.0, DIM)
+    for s in range(0, len(x), chunk):
+        for b in (bt, bs, bj):
+            b.insert_chunk(x[s:s + chunk])
+    assert [c.device for c in bt._chunks] == [torch.device("cpu")] * 8
+    if anytime:
+        pt, ps = bt.partial_index, bs.partial_index
+        assert isinstance(pt, rp.parallel.DataParallelForest)
+        assert (pt.n_pending, pt.n_folded) == (ps.n_pending, ps.n_folded)
+        ct, cs = (torch.sort(p.candidates(q, budget=2), dim=-1).values
+                  for p in (pt, ps))
+        assert torch.equal(ct, cs)
+    ft, fj = bt.build(), bj.build()
+    assert isinstance(ft, rp.parallel.DataParallelForest)
+    assert [p.shape[0] for p in ft.x.parts] == [200] * 4
+    for k in range(t):
+        assert ([sorted(b) for b in ft.leaves(k)]
+                == [sorted(b) for b in fj.leaves(k)])
+    for k in ("thr", "mgl", "mgh"):
+        a, b = getattr(ft.arrays, k).numpy(), np.asarray(getattr(fj.arrays, k))
+        for lvl, lp in enumerate(ft.plan.levels):
+            np.testing.assert_array_equal(a[:, lvl, :lp.n_segs],
+                                          b[:, lvl, :lp.n_segs])
+    fb = rp.parallel.forest_batch_data_parallel(17, depth, min_leaf, t, 1.0,
+                                                x, mesh=mesh, r=r)
+    for k in FIELDS:  # bit for bit (the unused segments hold NaN, as JAX's)
+        a, b = getattr(ft.arrays, k), getattr(fb.arrays, k)
+        assert a.numpy().tobytes() == b.numpy().tobytes(), k
+    assert torch.equal(torch.cat(ft.x.parts), torch.as_tensor(x))

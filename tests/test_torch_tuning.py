@@ -118,3 +118,58 @@ def test_tune_build_default_ladder():
     assert [r["min_leaf"] for r in best["frontier"]] == [16, 64, 256]
     ml = best["min_leaf_full"]
     assert ml & (ml - 1) == 0 and ml >= best["min_leaf"] * 1200 // 1000
+
+
+def test_tune_on_data_parallel_forest():
+    """``tune`` on a data-parallel forest (its sweep's queries and exact
+    scan run the sharded paths): the forest points of the single-device
+    forest with the same trees, and its choice; the scan point is the
+    sharded scan's, fp32 at every precision as in the JAX package (one
+    device's scans at "fastest" in bf16), so its recall is 1."""
+    from rptree_tpu_torch.parallel import (data_mesh,
+                                           forest_batch_data_parallel)
+
+    x, q = clustered(50, 1600, 8, 16, 0.3, 24)
+    fs = rp.forest_batch(3, 6, 12, 3, 1.0, x, device="cpu")
+    fd = forest_batch_data_parallel(3, 6, 12, 3, 1.0, x,
+                                    mesh=data_mesh(8, devices=["cpu"] * 8),
+                                    r=fs.arrays.r)
+    kw = dict(k=5, target_recall=0.6, budgets=(1, 2),
+              probes_per_tree=(1.0,), measure=False)
+    got, want = rp.tune(fd, q, **kw), rp.tune(fs, q, **kw)
+    forest_points = [r for r in got["frontier"] if not r.get("scan")]
+    assert forest_points == [r for r in want["frontier"]
+                             if not r.get("scan")]
+    assert [r["recall"] for r in got["frontier"] if r.get("scan")] == [1.0]
+    assert _strip(got) == _strip(want) and not got.get("scan")
+
+
+def test_tune_build_on_data_parallel_forest(monkeypatch):
+    """``tune_build`` on a data-parallel forest samples its rows by one
+    gather a shard, never making the dataset whole, and sweeps what the
+    same rows from the host sweep (JAX's
+    ``test_tune_build_on_sharded_dataset``); ``full_n`` is the sharded
+    corpus's size."""
+    from rptree_tpu_torch.parallel import (data_mesh,
+                                           forest_batch_data_parallel)
+    from rptree_tpu_torch.parallel.collectives import Sharded
+
+    x, q = clustered(51, 1600, 8, 16, 0.3, 32)
+    f = forest_batch_data_parallel(3, 6, 12, 3, 1.0, x,
+                                   mesh=data_mesh(8, devices=["cpu"] * 8))
+
+    def refuse(self):
+        raise AssertionError("the sharded dataset was made whole")
+
+    monkeypatch.setattr(Sharded, "whole", refuse)
+    kw = dict(k=5, target_recall=0.3, n_trees_grid=(3,),
+              min_leaf_grid=(16,), seed=3, budgets=(1,),
+              probes_per_tree=(1.0,), measure=False)
+    got = rp.tune_build(f, q, sample=512, device="cpu", **kw)
+    idx = np.sort(np.random.default_rng(3).choice(1600, size=512,
+                                                  replace=False))
+    want = rp.tune_build(x[idx], q, sample=512, full_n=1600, device="cpu",
+                         **kw)
+    assert got["frontier"] == want["frontier"]
+    assert _strip(got) == _strip(want)
+    assert got["min_leaf_full"] >= got["min_leaf"]

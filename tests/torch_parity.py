@@ -56,12 +56,14 @@ def carry(fj, device="cpu"):
                              payloads=fj.payloads)
 
 
-def knn_agree(got, want, rtol=1e-5):
+def knn_agree(got, want, rtol=1e-5, last=True):
     """The port's ``(dists, ids)`` against the JAX package's, both ``[B,
     k]`` in ascending order: the same shapes and padding, distances within
     ``rtol`` (relative, and absolute below 1), and ids equal wherever
     JAX's distance is apart from its row neighbours by more than ``rtol``
-    (``untied``), where two correct summation orders cannot swap them."""
+    (``untied``), where two correct summation orders cannot swap them.
+    ``last=False`` leaves the k-th id out: its neighbour past the k-th,
+    which neither result shows, may tie it."""
     (dt, it), (dj, ij) = got, want
     dt, it = dt.numpy(), it.numpy()
     dj, ij = np.array(dj), np.array(ij)
@@ -72,6 +74,8 @@ def knn_agree(got, want, rtol=1e-5):
     fin = np.isfinite(dj)
     np.testing.assert_allclose(dt[fin], dj[fin], rtol=rtol, atol=rtol)
     chk = untied(torch.as_tensor(dj), rtol).numpy()
+    if not last:
+        chk[:, -1] = False
     np.testing.assert_array_equal(it[chk], ij[chk])
     assert chk.any()
 
