@@ -146,7 +146,7 @@ its launch counts):
    per-tree blobs in order and reversed, ``save_forest`` refused after
    ``add``; bytes and host-clock seconds.  (u4) ``rp.tune_build`` on the
    iid rows, ``measure=False``, target 0.10: a forest meets it;
-11. the kernels' launch counts over phases 3-10 and 12-14, each of
+11. the kernels' launch counts over phases 3-10 and 12-15, each of
    which must be > 0;
 12. the side layers (``side_*`` lines), run in two parts: 12a on phase
    3's forest after 10a, 12b on phase 4's after 10b.  (p1)
@@ -228,6 +228,30 @@ its launch counts):
    0.001; each shard's slot-table bytes beside the blocked layout's and
    phase 8b's shared tables'.
    Bytes a shard, peak memory and the phase's seconds stand with each.
+15. the examples (``examples_*`` lines), after every other phase with
+   every forest freed: the seven ``examples/torch_*.py`` ports of
+   ``clustered_1m``, ``serving_loop``, ``scale_10m``, ``bow_sparse``,
+   ``scale_1m``, ``fold_drift`` and ``scan_ladder``, one after another,
+   each a process of its own on the card at its defaults
+   (``python3 chip_smoke.py --example NAME [args]`` runs the file as
+   ``__main__``, as ``python examples/NAME.py [args]`` does, with each
+   kernel's first launch at each new shape of its arguments held against
+   its plain version, as phase 2 holds it, then prints those checks and
+   the kernels' launch counts of that run); each must exit 0, launch the
+   kernels of its path, every one of them checked, and print its lines,
+   which are held to the repo's floors: the clustered sweep's f32 T 8 /
+   ``min_leaf`` 128 / budget 1 / probes 8 row recall@10 >= 0.90; the 10M
+   shared cell per pair and grouped >= 0.88; bag-of-words, its three
+   paths >= 0.095; the scan ladder's ``highest`` rung >= 0.999 and its
+   bf16 rungs and kernel 5 >= 0.98; the stationary fold-drift stream up
+   to 80% folded, fold-only and rebuilt recall each >= 0.99 and within
+   0.02 of each other; the serving loop's ``overflow`` False, its
+   ``check=False`` calls run under ``torch.cuda.set_sync_debug_mode(
+   "error")`` (a sync it detects raises); the 1M scale check's recall >
+   0.  Each line carries the example's seconds, its numbers and the
+   card.  Before them, ``check=False`` calls on a smaller clustered
+   forest under ``torch.profiler``: no runtime synchronize, copy to the
+   host or scalar read in the trace.
 
 Each scan of phases 3, 5, 6 and 8 is also held, on its first chunk of
 queries, against the scan kernel's plain version at that shape; kernels
@@ -246,7 +270,9 @@ exits non-zero and prints no result line.  It needs a CUDA device and
 the checkout's ``rptree_tpu_torch`` package; it never imports JAX.
 """
 
+import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1372,6 +1398,30 @@ PROJECTIONS = (("", 65_536, 128, 104, False),        # clustered query chunk
                ("_sparse_rows", 4096, SPARSE_V, 88, True))
 
 
+def project_within_bound(name, x, r, got, rows=1 << 20):
+    """Kernel 11's ``got = r @ x.T`` against the exact product (float64),
+    ``rows`` rows of ``x`` a step: past the error bound of its own order
+    of summation nowhere.  Returns ``(the largest error, its largest share
+    of the bound)``."""
+    from rptree_tpu_torch.ops import build as ob
+
+    d, worst, share = x.shape[1], 0.0, 0.0
+    r64 = r.double()
+    for s in range(0, x.shape[0], rows):
+        x64 = x[s:s + rows].double()
+        exact = r64 @ x64.T
+        # the float64 product's own error, d * 2**-53 of the terms, added
+        tol = ((ob.project_rows_error_bound(d) + d * 2.0 ** -53)
+               * (r64.abs() @ x64.abs().T))
+        err = (got[:, s:s + rows].double() - exact).abs()
+        if bool((err > tol).any()):
+            raise AssertionError(f"{name}: past the bound of its order of "
+                                 "summation")
+        worst = max(worst, float(err.max()))
+        share = max(share, float((err / tol).nan_to_num(0.0).max()))
+    return worst, share
+
+
 def check_project(device, reps):
     """Kernel 11 at the main path's projections (``PROJECTIONS``): the
     clustered, iid and per-pair query chunks, the bracket's 32 queries at
@@ -1403,15 +1453,8 @@ def check_project(device, reps):
         r = torch.randn(nl, d, device=device, generator=gen)
         got = ob.project_rows(x, r)
         want = ob.project_rows_reference(x, r)
-        x64, r64 = x.double(), r.double()
-        exact = r64 @ x64.T
-        # the float64 product's own error, d * 2**-53 of the terms, added
-        terms = r64.abs() @ x64.abs().T
-        tol = (ob.project_rows_error_bound(d) + d * 2.0 ** -53) * terms
-        err = (got.double() - exact).abs()
-        if bool((err > tol).any()):
-            raise AssertionError(f"project_rows{label}: past the bound of "
-                                 "its order of summation")
+        err_f64, share = project_within_bound(f"project_rows{label}", x, r,
+                                              got)
         part = ob.project_rows(x[n // 3:n // 2 + 1].contiguous(), r)
         if not torch.equal(part.view(torch.int32),
                            got[:, n // 3:n // 2 + 1].view(torch.int32)):
@@ -1422,8 +1465,8 @@ def check_project(device, reps):
         plain = cuda_ms(lambda: ob.project_rows_reference(x, r), reps)
         one = {"rows": n, "D": d, "projections": nl,
                "tile": ob.project_plan(n, nl, d, sms),
-               "max_abs_err": diff, "max_abs_err_vs_f64": float(err.max()),
-               "max_share_of_bound": float((err / tol).max()),
+               "max_abs_err": diff, "max_abs_err_vs_f64": err_f64,
+               "max_share_of_bound": share,
                "ms": cuda_ms(lambda: ob.project_rows(x, r), reps),
                "device_ms": graph_ms(lambda: ob.project_rows(x, r), reps=5),
                "plain_ms": plain, "library_ms": plain,
@@ -1434,7 +1477,7 @@ def check_project(device, reps):
         if not label:
             rec.update({k: one[k] for k in ("ms", "device_ms", "plain_ms",
                                             "bound_ms", "bound_by")})
-        del x, r, got, want, x64, r64, exact, terms, tol, err, part
+        del x, r, got, want, part
         torch.cuda.empty_cache()
     rec["max_abs_err"] = worst
     # the plain version is the one PyTorch call of the same function
@@ -1523,6 +1566,24 @@ def chunk_tiles(f, qc, budget, probes, tile_m):
     return tb, lens_t, qc[qi]
 
 
+def tiles_within_norms(name, got, want, sq, tb, qt, tile_m):
+    """Squared tile distances ``got`` against the plain version's ``want``:
+    infinite at the same places, elsewhere within ``SUM_RTOL`` of ``|x|^2
+    + |q|^2``, the terms the factored form cancels.  Returns that share."""
+    import torch
+
+    scale = (sq[tb.long()].repeat_interleave(tile_m, 0)
+             + (qt * qt).sum(-1)[:, None])
+    _rel_err(got, want)  # masking must agree
+    fin = torch.isfinite(want)
+    err = float(((got - want).abs()[fin] / scale[fin]).max()) \
+        if bool(fin.any()) else 0.0
+    if err > SUM_RTOL:
+        raise AssertionError(f"{name}: squared distances off by {err} of "
+                             f"|x|^2 + |q|^2 > {SUM_RTOL}")
+    return err
+
+
 def check_tiles_chunk(f, qc, serve, reps=5, clustered=False):
     """The tile kernel of ``f``'s blocks (kernel 2 on int8, kernel 1 on f32
     and bf16) against its plain version on the tiles the grouped path
@@ -1560,17 +1621,8 @@ def check_tiles_chunk(f, qc, serve, reps=5, clustered=False):
                              f"{rel_err} > {DIST_RTOL}")
     if not int8 or clustered:
         sargs = (*args[:-2], "sql2", tm)
-        got, want = fn(*sargs), ref(*sargs)
-        scale = (sq[tb.long()].repeat_interleave(tm, 0)
-                 + (qt * qt).sum(-1)[:, None])
-        _rel_err(got, want)  # masking must agree
-        fin = torch.isfinite(want)
-        rec["max_err_of_norms"] = float(
-            ((got - want).abs()[fin] / scale[fin]).max())
-        if rec["max_err_of_norms"] > SUM_RTOL:
-            raise AssertionError(f"{name} on the chunk: squared distances "
-                                 f"off by {rec['max_err_of_norms']} of "
-                                 f"|x|^2 + |q|^2 > {SUM_RTOL}")
+        rec["max_err_of_norms"] = tiles_within_norms(
+            f"{name} on the chunk", fn(*sargs), ref(*sargs), sq, tb, qt, tm)
     del got, want
     return {**rec, "ms": cuda_ms(lambda: fn(*args), reps),
             "device_ms": graph_ms(lambda: fn(*args), reps=5),
@@ -4049,9 +4101,484 @@ def dp_shared_10m(f, x, q, truth, res_p, rec_p, launches, card):
     return time.perf_counter() - t_phase
 
 
+# -- phase 15: the examples -------------------------------------------------
+
+EXAMPLE_TIMEOUT = 600           # seconds an example may take
+# the stationary stream up to 80% folded: fold-only within 0.02 of the
+# rebuild, and each at least 0.99 of the fp32 scan's neighbours (the JAX
+# example's table, BASELINE.md "Fold drift, measured", reads 0.999-1.000)
+FOLD_SAFE_GAP, FOLD_SAFE_UP_TO, FOLD_MIN_RECALL = 0.02, 0.80, 0.99
+SCAN_LADDER_MIN = {"highest": 0.999, "bf16": 0.98}
+_NUM = r"([-+]?\d+(?:\.\d+)?)"
+
+
+def _arg_key(v, tensor=None):
+    """A hashable key of a kernel argument's shape, cheap enough for every
+    call: a tensor (``tensor``, ``torch.Tensor``) by its shape and type, a
+    tuple by its parts, a plain value by itself, an object (a plan,
+    shared rows, ELL blocks: each made once a forest) by its identity."""
+    if isinstance(v, tensor):
+        return v.shape, v.dtype
+    if isinstance(v, tuple):
+        return tuple(_arg_key(u, tensor) for u in v)
+    if v is None or isinstance(v, (bool, int, float, str)):
+        return v
+    return type(v).__name__, id(v)
+
+
+def _same_bits(name, got, want):
+    """Each output tensor of a kernel equal to the plain version's, floats
+    as bits."""
+    import torch
+
+    for i, (a, w) in enumerate(zip(got, want)):
+        if a.is_floating_point():
+            a, w = a.view(torch.int32), w.view(torch.int32)
+        if a.dtype != w.dtype or not torch.equal(a, w):
+            raise AssertionError(f"{name}: output {i} differs from the plain "
+                                 "version")
+    return 0.0
+
+
+def _check_tiles(a, got):
+    from rptree_tpu_torch.ops import grouped_kernel as gk
+
+    name = "grouped_score_tiles"
+    want = gk.grouped_score_tiles_reference(**a)
+    if a["metric"] not in ("l2", "sql2"):
+        return _within(name, got, want)
+    if a["metric"] == "l2":  # held by its square, as the sql2 form is
+        got, want = got * got, want * want
+    return tiles_within_norms(name, got, want, a["sq_leaf"], a["tb"],
+                              a["qt"], a["tile_m"])
+
+
+def _within(name, got, want, rtol=DIST_RTOL):
+    abs_err, rel_err = _rel_err(got, want)
+    if rel_err > rtol:
+        raise AssertionError(f"{name}: relative error {rel_err} > {rtol}")
+    return abs_err
+
+
+def _check_gather(a, got):
+    import torch
+
+    from rptree_tpu_torch.ops import fused_gather as fg
+
+    dots, sqx = fg.gather_score_reference(**a)
+    if not torch.equal(got[1], sqx):
+        raise AssertionError("gather_score: slot norms differ")
+    return _within("gather_score", got[0], dots)
+
+
+def _check_scan(a, got):
+    from rptree_tpu_torch.ops import scan as sc
+
+    if a["rows"] is None:
+        want = sc._partial_reference(a["x"], a["sq"], a["q"], a["k"],
+                                     a["metric"])
+    else:
+        want = sc._partial_reference_rows(a["rows"], a["q"], a["k"],
+                                          a["metric"])
+    close_results("scan_topk", got, want)
+    return _rel_err(got[0], want[0])[0]
+
+
+def _check_ell(a, got):
+    from rptree_tpu_torch.ops import ell_kernel as ek
+
+    # the queries are documents' rows, near their own band (by_norms)
+    return ell_agree("ell_score_tiles", got,
+                     ek.ell_score_tiles_reference(**a), a["sq_leaf"],
+                     a["qq"], a["tb"], a["tp"], a["p"], a["metric"],
+                     by_norms=True)[0]
+
+
+def example_checks():
+    """The function that launches each kernel the examples reach, by its
+    module and name, and its check against the plain version on the
+    arguments of a launch: ``{kernel: (module, name, check)}``; a check
+    takes the bound arguments and the kernel's output, raises where they
+    disagree and returns the largest absolute error."""
+    from rptree_tpu_torch.ops import build as ob
+    from rptree_tpu_torch.ops import ell_kernel as ek
+    from rptree_tpu_torch.ops import fused_gather as fg
+    from rptree_tpu_torch.ops import grouped as og
+    from rptree_tpu_torch.ops import grouped_kernel as gk
+    from rptree_tpu_torch.ops import scan as sc
+    from rptree_tpu_torch.ops import topk_kernel as tk
+    from rptree_tpu_torch.ops import traverse as tv
+
+    def bits(name, ref):
+        return lambda a, got: _same_bits(name, got, ref(**a))
+
+    return {
+        "project_rows": (ob, "project_rows", lambda a, got:
+                         project_within_bound("project_rows", a["x"],
+                                              a["r"], got)[0]),
+        "traverse": (tv, "traverse_kernel",
+                     bits("traverse", tv.traverse_tree_reference)),
+        "select_probes": (tv, "select_probes",
+                          bits("select_probes", tv.select_probes_reference)),
+        "tile_tables": (og, "tile_tables",
+                        bits("tile_tables", og.tile_tables_reference)),
+        "grouped_score_tiles": (gk, "grouped_score_tiles", _check_tiles),
+        "topk_dedup_kernel": (tk, "topk_dedup_kernel", bits(
+            "topk_dedup_kernel", tk.topk_dedup_kernel_reference)),
+        "gather_score": (fg, "gather_score", _check_gather),
+        "scan_topk": (sc, "_scan_partial", _check_scan),
+        "ell_score_tiles": (ek, "ell_score_tiles", _check_ell),
+    }
+
+
+def hook_example_checks():
+    """Wrap each function of :func:`example_checks` wherever the port holds
+    it, so that its first launch at each shape of its arguments is held
+    against the plain version (outside any sync-debug mode the caller
+    set, whose syncs are the check's, not the port's).  The wrapper takes
+    over the function's launch counts, as the function adds to them by
+    its module's name.  Returns ``{kernel: {"shapes", "max_abs_err"}}``,
+    filled as the example runs."""
+    import functools
+    import inspect
+
+    import torch
+
+    import rptree_tpu_torch  # noqa: F401  (every module the facade loads)
+
+    seen = {}
+    for kname, (mod, attr, check) in example_checks().items():
+        fn = getattr(mod, attr)
+        rec = seen[kname] = {"shapes": 0, "max_abs_err": 0.0, "keys": set()}
+        sig = inspect.signature(fn)
+
+        def hooked(*args, _fn=fn, _sig=sig, _check=check, _rec=rec,
+                   **kwargs):
+            out = _fn(*args, **kwargs)
+            key = _arg_key((args, tuple(sorted(kwargs.items()))),
+                           torch.Tensor)
+            if key in _rec["keys"]:
+                return out
+            _rec["keys"].add(key)
+            a = _sig.bind(*args, **kwargs)
+            a.apply_defaults()
+            if any(torch.is_tensor(v) and v.is_cuda
+                   for v in a.arguments.values()):
+                mode = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode(0)
+                try:
+                    err = _check(dict(a.arguments), out)
+                    torch.cuda.synchronize()
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+                _rec["shapes"] += 1
+                _rec["max_abs_err"] = max(_rec["max_abs_err"], float(err))
+            return out
+
+        functools.update_wrapper(hooked, fn)
+        for m in list(sys.modules.values()):
+            if (getattr(m, "__name__", "") or "").startswith(
+                    "rptree_tpu_torch"):
+                for k, v in list(vars(m).items()):
+                    if v is fn:
+                        setattr(m, k, hooked)
+    return seen
+
+
+def example_child(name, argv):
+    """Run ``examples/<name>.py`` with ``argv`` as ``__main__`` in this
+    process, as ``python examples/<name>.py`` runs it (its directory
+    first on ``sys.path``), with every kernel's launch count set to 0
+    just before it and each kernel's launches held against its plain
+    version at each new shape (:func:`hook_example_checks`); then print
+    the checks as one ``EXAMPLE_CHECKS`` line and the counts as one
+    ``EXAMPLE_LAUNCHES`` line."""
+    import runpy
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", name + ".py")
+    sys.argv = [path, *argv]
+    sys.path.insert(0, os.path.dirname(path))
+    checks = hook_example_checks()
+    counts = kernel_counts()
+    for wrapper, attr in counts.values():
+        setattr(wrapper, attr, 0)
+    runpy.run_path(path, run_name="__main__")
+    print("EXAMPLE_CHECKS " + json.dumps(
+        {k: {"shapes": r["shapes"], "max_abs_err": r["max_abs_err"]}
+         for k, r in checks.items()}), flush=True)
+    print("EXAMPLE_LAUNCHES " + json.dumps(
+        {kname: getattr(wrapper, attr)
+         for kname, (wrapper, attr) in counts.items()}), flush=True)
+
+
+def run_example(name, must, launches):
+    """:func:`example_child` at the example's defaults in a process of its
+    own on the card; returns ``(its printed lines, seconds)``.  It must
+    exit 0 and launch every kernel of ``must``; its counts join
+    ``launches``."""
+    env = {k: v for k, v in os.environ.items()
+           if k != "RPTREE_EXAMPLE_DEVICE"}
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--example", name],
+        capture_output=True, text=True, env=env,
+        timeout=EXAMPLE_TIMEOUT, cwd=os.path.dirname(os.path.abspath(
+            __file__)))
+    seconds = time.perf_counter() - t0
+    if p.returncode != 0:
+        raise AssertionError(f"examples {name}: rc {p.returncode}\n"
+                             f"{p.stdout[-3000:]}{p.stderr[-5000:]}")
+    lines = p.stdout.rstrip().splitlines()
+    counts = json.loads(lines[-1].split(" ", 1)[1])
+    checks = json.loads(lines[-2].split(" ", 1)[1])
+    add_launches(launches, f"examples_{name}", counts)
+    missing = sorted(k for k in must if counts[k] < 1)
+    if missing:
+        raise AssertionError(f"examples {name}: {missing} never launched")
+    # a kernel that launched was held against its plain version
+    for kname, n in counts.items():
+        base = kname.split("_bf16")[0].split("_shared")[0]
+        if n and checks.get(base, {}).get("shapes", 0) < 1:
+            raise AssertionError(f"examples {name}: {kname} launched "
+                                 "unchecked")
+    return lines[:-2], seconds, {k: r for k, r in checks.items()
+                                 if r["shapes"]}
+
+
+def _match(pattern, lines, what):
+    import re
+
+    found = [m for m in (re.search(pattern, line) for line in lines) if m]
+    if not found:
+        raise AssertionError(f"examples: no line {what!r} ({pattern})")
+    return found
+
+
+# what a host sync leaves in a torch.profiler trace: a CUDA runtime
+# *Synchronize call, a copy to the host, a scalar read
+SYNC_EVENTS = ("Synchronize", "Memcpy DtoH", "aten::_local_scalar_dense",
+               "aten::item")
+
+
+def check_false_trace(device, card, n=262144, centers=1024, bq=32768):
+    """``knn_grouped(check=False)``, a batch and a chunked call of 4, after
+    a checked call at each shape, under ``torch.profiler`` (CPU and CUDA
+    activities) on a clustered forest of ``n`` rows (the serving loop's
+    T, ``min_leaf``, budget and probes): the events inside their range
+    must hold none of ``SYNC_EVENTS``, a check that, unlike
+    ``set_sync_debug_mode``, sees every CUDA runtime call.  A range that
+    reads one scalar back is the control: its sync must show.  Logs the
+    events seen in each range and outside them (the profiler's own)."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import rptree_tpu_torch as rp
+
+    x, q = clustered_on_card(n, 128, centers, 0.15, 4 * bq, device)
+    cfg = rp.rp_tree_cfg(128, n, 128)
+    f = rp.forest_batch(SEED, cfg.max_depth, 128, 8, cfg.proj_nz_density, x,
+                        device=device)
+    f.pack_leaves()
+    kw = dict(budget=1, probes=8, precision="default", tile_m=8)
+    f.knn_grouped(q[:bq], K, check=True, **kw)
+    f.knn_grouped(q, K, check=True, chunk=bq, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("check_false_calls"):
+            f.knn_grouped(q[:bq], K, check=False, **kw)
+            f.knn_grouped(q, K, check=False, chunk=bq, **kw)
+        with record_function("control_scalar_read"):
+            int(x[:1, 0].sum())
+    torch.cuda.synchronize()
+    events = prof.events()
+    # the ranges on the host's clock (each also has a span on the card's,
+    # which runs on past the host's while the kernels drain)
+    spans = {e.name: e.time_range for e in events
+             if e.name in ("check_false_calls", "control_scalar_read")
+             and e.device_type == torch.autograd.DeviceType.CPU}
+
+    def where(e):
+        return next((name for name, r in spans.items()
+                     if r.start <= e.time_range.start <= r.end), "outside")
+
+    syncs = collections.defaultdict(collections.Counter)
+    runtime = collections.Counter()
+    for e in events:
+        if e.name.startswith(("cuda", "cu")):
+            runtime[where(e)] += 1
+        if any(s in e.name for s in SYNC_EVENTS):
+            syncs[where(e)][e.name] += 1
+    rec = {"card": card, "rows": n, "batch": bq, "chunked_batches": 4,
+           "sync_events": {k: dict(v) for k, v in syncs.items()},
+           "runtime_calls": dict(runtime),
+           "copies": {k: c for k, c in collections.Counter(
+               e.name for e in events if where(e) == "check_false_calls"
+               and "Memcpy" in e.name).items()}}
+    log("examples_check_false_trace", **rec)
+    if syncs.get("check_false_calls") or not runtime["check_false_calls"] \
+            or not syncs.get("control_scalar_read"):
+        raise AssertionError(f"check=False trace: {rec}")
+    del f, x, q
+    torch.cuda.empty_cache()
+
+
+def examples_phase(device, launches, card):
+    """Phase 15: the seven examples of queue 1 item [24], one after
+    another (their QPS are recorded, so never two at once), each held to
+    its floor, after :func:`check_false_trace`; returns the phase's
+    seconds."""
+    t_phase = time.perf_counter()
+    check_false_trace(device, card)
+    rec = {}
+    for name, (must, check) in EXAMPLES.items():
+        lines, s, held = run_example(name, must, launches)
+        rec[name] = {"seconds": s, "lines": lines, "card": card,
+                     "kernels_held_at_shapes": held, **check(lines)}
+        log(f"examples_{name[len('torch_'):]}", **rec[name])
+    seconds = time.perf_counter() - t_phase
+    log("examples", card=card, seconds=seconds,
+        example_seconds={n: r["seconds"] for n, r in rec.items()})
+    return seconds
+
+
+def _example_clustered_1m(lines):
+    rows, shape = [], None
+    for line in lines:
+        if "built+packed" in line:
+            shape = line.split(":")[0]
+        elif line.strip().startswith("budget="):
+            b, p, qps, r = _match(
+                rf"budget={_NUM} probes={_NUM}: {_NUM} QPS @ recall {_NUM}",
+                [line], "budget")[0].groups()
+            rows.append({"shape": shape, "budget": int(b), "probes": int(p),
+                         "qps": float(qps), "recall_at_10": float(r)})
+    scan_qps, scan_rec = map(float, _match(
+        rf"^scan: {_NUM} QPS @ recall {_NUM}", lines, "scan")[0].groups())
+    pinned = [r for r in rows if r["shape"] == "T=8 ml=128 f32"
+              and (r["budget"], r["probes"]) == (1, 8)]
+    if len(rows) != 9 or not pinned or \
+            pinned[0]["recall_at_10"] < CLUSTERED_MIN_RECALL:
+        raise AssertionError(f"clustered_1m: {rows}")
+    return {"rows": rows, "scan_qps": scan_qps, "scan_recall_at_10": scan_rec,
+            "pinned_recall_at_10": pinned[0]["recall_at_10"],
+            "floor": CLUSTERED_MIN_RECALL}
+
+
+def _example_serving_loop(lines):
+    qps = {m.group(1): float(m.group(2)) for m in _match(
+        rf"^(sync|depth=\d+|chunked):\s+{_NUM} QPS wall", lines, "QPS")}
+    over = _match(r"overflow=(True|False)$", lines, "overflow")[0].group(1)
+    if over != "False" or set(qps) != {"sync", "depth=2", "depth=4",
+                                       "chunked"}:
+        raise AssertionError(f"serving_loop: overflow {over}, {qps}")
+    return {"qps": qps, "overflow": False,
+            "check_false_sync_debug_mode":
+                "error: no sync detected by set_sync_debug_mode"}
+
+
+def _example_scale_10m(lines):
+    paths = {m.group(1): (float(m.group(2)), float(m.group(3))) for m in
+             _match(rf"^(per-pair knn_batched(?: selection=kernel)?|grouped "
+                    rf"knn_grouped): {_NUM} QPS wall @ recall {_NUM}",
+                    lines, "paths")}
+    peak = max(float(m.group(1)) for m in _match(rf"peak={_NUM} GB", lines,
+                                                 "peak"))
+    if len(paths) != 3 or min(r for _, r in paths.values()) < \
+            SHARED_MIN_RECALL:
+        raise AssertionError(f"scale_10m: {paths}")
+    return {"qps_recall": paths, "peak_gib": peak,
+            "floor": SHARED_MIN_RECALL}
+
+
+def _example_bow_sparse(lines):
+    paths = {m.group(1): (float(m.group(2)), float(m.group(3))) for m in
+             _match(rf"^(per-pair knn_batched|grouped knn_grouped|grouped "
+                    rf"SPARSE queries): {_NUM} QPS wall @ recall {_NUM}",
+                    lines, "paths")}
+    scan = float(_match(rf"^exact sparse scan: {_NUM} QPS", lines,
+                        "scan")[0].group(1))
+    if len(paths) != 3 or min(r for _, r in paths.values()) < \
+            SPARSE_MIN_RECALL:
+        raise AssertionError(f"bow_sparse: {paths}")
+    return {"qps_recall": paths, "scan_qps": scan, "floor": SPARSE_MIN_RECALL,
+            "jax_recall": JAX_SPARSE_RECALL}
+
+
+def _example_scale_1m(lines):
+    build = float(_match(rf"^build device {_NUM}s", lines, "build")[0]
+                  .group(1))
+    ms, qps = map(float, _match(rf"^query device {_NUM}ms per \d+ queries "
+                                rf"\({_NUM} QPS/chip\)", lines,
+                                "query")[0].groups())
+    rec = float(_match(rf"^recall@10 = {_NUM}", lines, "recall")[0].group(1))
+    if not rec > 0:
+        raise AssertionError(f"scale_1m: recall {rec}")
+    return {"build_device_s": build, "query_device_ms": ms, "qps": qps,
+            "recall_at_10": rec}
+
+
+def _example_fold_drift(lines):
+    step = (rf"folded\s+{_NUM}%\s+pending\s+{_NUM}\s+recall fold-only "
+            rf"{_NUM}\s+rebuilt {_NUM}")
+    split = lines.index("drifting stream (centers random-walk):")
+    streams = {name: [dict(zip(("folded_pct", "pending", "fold_only",
+                                "rebuilt"), map(float, m.groups())))
+                      for m in _match(step, part, name)]
+               for name, part in (("stationary", lines[:split]),
+                                  ("drifting", lines[split:]))}
+    bad = [r for r in streams["stationary"]
+           if r["folded_pct"] <= 100 * FOLD_SAFE_UP_TO
+           and (abs(r["rebuilt"] - r["fold_only"]) > FOLD_SAFE_GAP
+                or min(r["rebuilt"], r["fold_only"]) < FOLD_MIN_RECALL)]
+    if len(streams["stationary"]) != 5 or bad:
+        raise AssertionError(f"fold_drift: {streams}")
+    return {"streams": streams, "gap_limit": FOLD_SAFE_GAP,
+            "floor": FOLD_MIN_RECALL}
+
+
+def _example_scan_ladder(lines):
+    rungs = {m.group(1): (float(m.group(2)), float(m.group(3))) for m in
+             _match(rf"^\s+(xla scan precision=\w+|cuda scan_topk)\s+{_NUM} "
+                    rf"QPS\s+recall@10 {_NUM}", lines, "rungs")}
+    highest = rungs.get("xla scan precision=highest", (0, 0))[1]
+    bf16 = [r for n, (_, r) in rungs.items() if "highest" not in n]
+    if len(rungs) != 4 or highest < SCAN_LADDER_MIN["highest"] or \
+            min(bf16) < SCAN_LADDER_MIN["bf16"]:
+        raise AssertionError(f"scan_ladder: {rungs}")
+    return {"qps_recall": rungs, "floors": SCAN_LADDER_MIN}
+
+
+# name: (kernels its run must launch, the check of its printed lines)
+EXAMPLES = {
+    "torch_clustered_1m": ({"project_rows", "traverse", "select_probes",
+                            "gather_score", "scan_topk"},
+                           _example_clustered_1m),
+    "torch_serving_loop": ({"project_rows", "traverse", "select_probes",
+                            "tile_tables", "grouped_score_tiles"},
+                           _example_serving_loop),
+    "torch_scale_10m": ({"project_rows", "traverse", "select_probes",
+                         "gather_score_shared", "topk_dedup_kernel",
+                         "tile_tables", "scan_topk"}, _example_scale_10m),
+    "torch_bow_sparse": ({"project_rows", "traverse", "select_probes",
+                          "tile_tables", "ell_score_tiles"},
+                         _example_bow_sparse),
+    "torch_scale_1m": ({"project_rows", "traverse", "select_probes",
+                        "gather_score_bf16"}, _example_scale_1m),
+    "torch_fold_drift": ({"project_rows", "traverse", "select_probes",
+                          "gather_score"}, _example_fold_drift),
+    "torch_scan_ladder": ({"scan_topk"}, _example_scan_ladder),
+}
+
+
 def main():
     import torch
 
+    if len(sys.argv) > 2 and sys.argv[1] == "--example":
+        return example_child(sys.argv[2], sys.argv[3:])
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script runs only on a CUDA device")
@@ -4278,6 +4805,11 @@ def main():
 
     # -- phase 9: sparse (ELL) data, the bag-of-words cell ----------------
     sparse_phase(device, launches, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 15: the examples, each a process of its own ----------------
+    examples_phase(device, launches, card)
 
     log("launches", variant="all", **launches)
     if min(launches.values()) < 1:

@@ -737,6 +737,27 @@ def _brute_force(x, sq_norms, q, k, metric, precision="highest", rows=None):
     return stream_topk(x, q, k, dist)
 
 
+@torch.no_grad()
+def _brute_force_many(x, sq_norms, q, k, metric, precision, chunk):
+    """The exact scan of ``q`` over the raw rows ``x`` (norms
+    ``sq_norms``), ``chunk`` queries at a time: :func:`_brute_force` a
+    chunk, ``(dists f32[B, k'], ids int32[B, k'])``.  The JAX package's
+    ``rptree_tpu/models/forest.py`` ``_brute_force_many``, one
+    ``lax.map`` over the chunks there, a loop of calls here; kernel 5's
+    bf16 copy of the rows (:func:`scan_rows`) is made once a call, for
+    every chunk.  The JAX package needs ``B`` a multiple of ``chunk``;
+    here the last chunk may be shorter."""
+    rows = None
+    if not isinstance(x, EllMatrix) and _uses_scan(
+            precision in ("default", "fastest"), metric,
+            min(int(k), x.shape[0])):
+        rows = scan_rows(x, sq_norms)
+    step = int(chunk)
+    outs = [_brute_force(x, sq_norms, q[s:s + step], k, metric, precision,
+                         rows) for s in range(0, q.shape[0], step)]
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+
 def _brute_force_ell(x, sq_norms, q, k, metric):
     """:func:`_brute_force` over ELL rows: row chunks of the gather form
     (the one-shot form would make ``[B, n, K]``) and a running exact
@@ -2059,22 +2080,12 @@ class RPForest:
         qb = _as_dense_queries(q, self.dim, self.device)
         k = self._check_k(k)
         step = int(query_chunk) if query_chunk else qb.shape[0]
-        if isinstance(self.x, EllMatrix):
-            outs = [_brute_force(self.x, self.sq_norms, qb[s:s + step], k,
-                                 metric) for s in range(0, qb.shape[0], step)]
-            d, ids = (torch.cat([o[0] for o in outs]),
-                      torch.cat([o[1] for o in outs]))
-            if self.n_folded:
-                d, ids = self._merge_folded(qb, d, ids, k, metric, precision)
-            return d, ids
-        x, sq = self._with_folded()
-        fast = precision in ("default", "fastest")
-        rows = (scan_rows(x, sq)
-                if _uses_scan(fast, metric, min(k, x.shape[0])) else None)
-        outs = [_brute_force(x, sq, qb[s:s + step], k, metric, precision,
-                             rows)
-                for s in range(0, qb.shape[0], step)]
-        return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+        ell = isinstance(self.x, EllMatrix)
+        x, sq = (self.x, self.sq_norms) if ell else self._with_folded()
+        d, ids = _brute_force_many(x, sq, qb, k, metric, precision, step)
+        if ell and self.n_folded:
+            d, ids = self._merge_folded(qb, d, ids, k, metric, precision)
+        return d, ids
 
     def __repr__(self):
         return (f"RPForest(trees={self.n_trees}, n={self.n_points}, "

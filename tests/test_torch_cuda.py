@@ -993,6 +993,38 @@ def test_grouped_steady_state_never_syncs(dev):
         assert torch.equal(gd, wd) and torch.equal(gi, wi)
 
 
+def test_serving_loop_check_false_never_syncs(dev):
+    """``examples/torch_serving_loop.py``'s calls: ``knn_grouped(...,
+    check=False)`` after one checked call at the shape, on f32 blocks with
+    the default sort tail, one batch a call and four in flight, then four
+    batches as one call of ``chunk=`` batch, make no sync that
+    ``torch.cuda.set_sync_debug_mode("error")`` detects, and return the
+    checked calls' bits."""
+    import collections
+
+    f, q = _served_forest(dev)
+    serve = dict(budget=1, probes=4, precision="default", tile_m=8)
+    batches = [q[i * 100:(i + 1) * 100] for i in range(4)]
+    want = f.knn_grouped(batches[0], 10, check=True, **serve)
+    want_big = f.knn_grouped(q, 10, check=True, chunk=100, **serve)
+    torch.cuda.synchronize()
+    window = collections.deque()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for qb in batches:
+            window.append(f.knn_grouped(qb, 10, check=False, **serve))
+        big = f.knn_grouped(q, 10, check=False, chunk=100, **serve)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(window[0][0], want[0])
+    assert torch.equal(window[0][1], want[1])
+    assert torch.equal(big[0], want_big[0]) and torch.equal(big[1],
+                                                            want_big[1])
+    for (d, i), s in zip(window, range(0, 400, 100)):
+        assert torch.equal(i, want_big[1][s:s + 100])
+    assert not f.grouped_overflow()["overflow"]
+
+
 @pytest.mark.parametrize("switch", ["allow_tf32", "precision"])
 def test_xla_form_ignores_tf32(dev, switch):
     """The XLA form multiplies f32 blocks in IEEE fp32 whatever the

@@ -2,6 +2,10 @@
 seed with numpy, JAX forests, and their carry-over into the PyTorch port
 (``rptree_tpu_torch``) through the checkpoint arrays."""
 
+import os
+import re
+import sys
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -114,3 +118,31 @@ def pack_twins(fj, ft, layout):
     fj.pack_leaves(dtype=JAX_DTYPES[dtype], **kw)
     r_sub = jax_r_sub(fj) if kw.get("sub_block", 1) > 1 else None
     ft.pack_leaves(dtype=TORCH_DTYPES[dtype], **kw, r_sub=r_sub)
+
+
+# -- the examples' tests (``test_torch_examples*.py``) -----------------------
+
+EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "examples")
+if EXAMPLES not in sys.path:
+    sys.path.insert(0, EXAMPLES)
+
+
+@pytest.fixture
+def cpu_examples(monkeypatch):
+    """The examples run on the CPU (``RPTREE_EXAMPLE_DEVICE=cpu``)."""
+    monkeypatch.setenv("RPTREE_EXAMPLE_DEVICE", "cpu")
+
+
+def labels(text):
+    """Each printed line with its numbers as ``#``, its runs of blanks as
+    one and none after a ``=`` (padding): the labels, in order."""
+    return [" ".join(re.sub(r"\d+(\.\d+)?", "#",
+                            re.sub(r"=\s+", "=", line)).split())
+            for line in text.splitlines()]
+
+
+def recalls(text):
+    """Every recall an example printed, in order."""
+    return [float(m) for m in re.findall(
+        r"recall(?:@10| fold-only| rebuilt)? (\d\.\d+)", text)]
