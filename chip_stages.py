@@ -1676,8 +1676,9 @@ def tables_host_breakdown(lib):
                 code = new.rpt_tile_tables(og._TABLES_ARGS.pack(
                     gsel.data_ptr(), lsel.data_ptr(), lens.data_ptr(),
                     tb.data_ptr(), tp.data_ptr(), slot.data_ptr(),
-                    lens_t.data_ptr(), needed.data_ptr(), scratch.data_ptr(),
-                    length, e, gg, nt, tile_m, bits, _cuda.raw_stream(dev)))
+                    lens_t.data_ptr(), needed.data_ptr(), 0,
+                    scratch.data_ptr(), length, e, gg, nt, tile_m, bits,
+                    _cuda.raw_stream(dev)))
             if check:
                 _cuda.check(code, "tile_tables")
 

@@ -13,6 +13,10 @@
 //                   (nt * tile_m for a masked or overflowing pair),
 //   lens_t[nt]      the occupancy of each tile's block, lens[tb].
 //
+// tally, where given (a profiler's count site, ops/grouped.py), is an
+// int64[2] to which the call adds its valid pairs and its tiles needed
+// past nt, max(0, needed - nt).
+//
 // They follow from a closed form.  With c_g the pairs of block g, a valid
 // pair's tile is tile_base[g] + rank / tile_m and its row rank % tile_m,
 // where tile_base is the exclusive scan of ceil(c_g / tile_m) over g and
@@ -336,9 +340,10 @@ scan_kernel(const int* __restrict__ gsel, const int* __restrict__ lsel, long n, 
 // scanned within the segment; the segment's aggregate and, by look-back,
 // its exclusive prefix; then each block's first sorted place and first
 // tile, packed, into base, and one more segment done.  The last segment
-// writes needed.
-__device__ void segment_scan(long s, int g, int tile_m, int* __restrict__ scratch,
-                             int* __restrict__ needed, const Plan& pl) {
+// writes needed, and adds to tally where given.
+__device__ void segment_scan(long s, int g, long nt, int tile_m, int* __restrict__ scratch,
+                             int* __restrict__ needed,
+                             unsigned long long* __restrict__ tally, const Plan& pl) {
   __shared__ long long excl_s;
   const long lo = s * kSeg + (long)threadIdx.x * kSegPer;
   const int* counts = scratch + pl.counts;
@@ -378,7 +383,14 @@ __device__ void segment_scan(long s, int g, int tile_m, int* __restrict__ scratc
     if (lane == 0) {
       st_relaxed64(seginc + s, excl + agg);
       st_release(state + s, 2);
-      if (s == pl.segs - 1) *needed = (int)((excl + agg) & kLow);
+      if (s == pl.segs - 1) {
+        const long long total = excl + agg, tiles = total & kLow;
+        *needed = (int)tiles;
+        if (tally != nullptr) {
+          atomicAdd(tally, (unsigned long long)(total >> 32));
+          if (tiles > nt) atomicAdd(tally + 1, (unsigned long long)(tiles - nt));
+        }
+      }
       excl_s = excl;
     }
   }
@@ -405,8 +417,9 @@ __global__ void __launch_bounds__(kThreads)
 scatter_kernel(const int* __restrict__ gsel, const int* __restrict__ lsel,
                const int* __restrict__ lens, long n, int g, long nt, int tile_m,
                int* __restrict__ tb, int* __restrict__ tp, long long* __restrict__ slot,
-               int* __restrict__ lens_t, int* __restrict__ needed, int* __restrict__ scratch,
-               Plan pl, int p, const int* __restrict__ keys_in, const int* __restrict__ vals_in,
+               int* __restrict__ lens_t, int* __restrict__ needed,
+               unsigned long long* __restrict__ tally, int* __restrict__ scratch, Plan pl,
+               int p, const int* __restrict__ keys_in, const int* __restrict__ vals_in,
                int* __restrict__ keys_out, int* __restrict__ vals_out) {
   extern __shared__ __align__(16) int sm[];
   const int bins = 1 << pl.bits[p], shift = pl.shift[p], mask = bins - 1;
@@ -419,7 +432,7 @@ scatter_kernel(const int* __restrict__ gsel, const int* __restrict__ lsel,
   long id = blockIdx.x;
   if (kLast) {
     if (id < pl.segs) {
-      segment_scan(id, g, tile_m, scratch, needed, pl);
+      segment_scan(id, g, nt, tile_m, scratch, needed, tally, pl);
       return;
     }
     id -= pl.segs;
@@ -580,7 +593,8 @@ size_t scatter_smem(int bits) {
 }
 
 int tile_tables_launch(const int* gsel, const int* lsel, const int* lens, int* tb, int* tp,
-                       long long* slot, int* lens_t, int* needed, int* scratch, long scratch_len,
+                       long long* slot, int* lens_t, int* needed, unsigned long long* tally,
+                       int* scratch, long scratch_len,
                        long n, int g, long nt, int tile_m, int max_bits, cudaStream_t stream) {
   if (g < 1 || tile_m < 1 || nt < 0 || n < 0 || n >= (1L << 31) || max_bits < kMinBits ||
       max_bits > kMaxBits || reinterpret_cast<uintptr_t>(scratch) % 8)
@@ -614,7 +628,7 @@ int tile_tables_launch(const int* gsel, const int* lsel, const int* lens, int* t
   if (e == cudaSuccess)                                                                       \
     scatter_kernel<F, L><<<grid, kThreads, smem, stream>>>(gsel, lsel, lens, n, g, nt, tile_m, \
                                                            tb, tp, slot, lens_t, needed,       \
-                                                           scratch, pl, p, ki, vi, ko, vo);
+                                                           tally, scratch, pl, p, ki, vi, ko, vo);
     if (first && last) {
       RPT_SCATTER(true, true)
     } else if (first) {
@@ -638,19 +652,20 @@ extern "C" {
 // The wrapper passes the arguments packed, an int64 each in the order of
 // tile_tables_launch's parameters (ops/grouped.py _TABLES_ARGS): gsel,
 // lsel int32[n] pairs; lens int32[g]; outputs tb int32[nt], tp int32[nt *
-// tile_m], slot int64[n], lens_t int32[nt], needed int32[1]; scratch
+// tile_m], slot int64[n], lens_t int32[nt], needed int32[1]; tally
+// int64[2] or 0 (the count site's pairs and overflow tiles); scratch
 // int32[scratch_len], 8-byte aligned, of at least the plan's length
 // (rpt_tile_tables_scratch); max_bits the widest digit, 8 to 11.
 int rpt_tile_tables(const long long* packed) {
-  long long a[16];
+  long long a[17];
   memcpy(a, packed, sizeof a);
   return tile_tables_launch(
       reinterpret_cast<const int*>(a[0]), reinterpret_cast<const int*>(a[1]),
       reinterpret_cast<const int*>(a[2]), reinterpret_cast<int*>(a[3]),
       reinterpret_cast<int*>(a[4]), reinterpret_cast<long long*>(a[5]),
       reinterpret_cast<int*>(a[6]), reinterpret_cast<int*>(a[7]),
-      reinterpret_cast<int*>(a[8]), a[9], a[10], (int)a[11], a[12], (int)a[13], (int)a[14],
-      reinterpret_cast<cudaStream_t>(a[15]));
+      reinterpret_cast<unsigned long long*>(a[8]), reinterpret_cast<int*>(a[9]), a[10], a[11],
+      (int)a[12], a[13], (int)a[14], (int)a[15], reinterpret_cast<cudaStream_t>(a[16]));
 }
 
 // The scratch int32s tile_tables_launch needs for n pairs over g blocks at

@@ -100,7 +100,7 @@ from ..ops.traverse import (node_table, project_queries, select_probes,
                              traverse_kernel)
 from ..ops.vector import SVec, to_dense
 from ..utils import gen as rgen
-from ..utils.profiling import region
+from ..utils.profiling import entry, region
 from .plan import TreePlan, make_plan
 
 __all__ = ["RPForest", "forest_batch", "tree_batch", "DEFAULT_BUDGET"]
@@ -367,10 +367,12 @@ def _as_dense_queries(q, dim: int, device) -> torch.Tensor:
 def _descent_inputs(plan: TreePlan, arrays: TreeArrays, q: torch.Tensor,
                     table=None):
     """The descent's operands: the forest's node table (built here when
-    not given) and the query projections (kernel 11 on the card)."""
+    not given) and the query projections (kernel 11 on the card, the
+    ``rpt_project`` region)."""
     if table is None:
         table = node_table(plan, arrays.thr, arrays.mgl, arrays.mgh)
-    return table, project_queries(q, arrays.r, plan.n_levels)
+    with region("rpt_project"):
+        return table, project_queries(q, arrays.r, plan.n_levels)
 
 
 def _traverse_forest(plan: TreePlan, arrays: TreeArrays, q: torch.Tensor,
@@ -1837,22 +1839,25 @@ class RPForest:
         only its own ``[chunk, dim]`` rows.  It takes no pending merge,
         which needs dense query rows: with points pending it raises
         (``fold()`` or ``rebuild()`` first)."""
-        if self._packed is None:
-            raise ValueError("pack_leaves() first: knn_batched runs the "
-                             "leaf-blocked pipeline")
-        k = self._check_k(k)
-        _check_precision(precision)
-        min_votes = int(min_votes)
-        _check_selection(selection, k, min_votes)
-        budget = self._budget(budget)
-        probes = int(self.n_trees * budget if probes is None else probes)
-        qb, b, chunk = _pad_to_chunk(self._query_batch(q), chunk)
-        d, ids = _knn_packed_many(self, qb, chunk, k=k, budget=budget,
-                                  probes=probes, metric=metric, dedup=dedup,
-                                  min_votes=min_votes, selection=selection)
-        return self._apply_update_hooks(
-            None if isinstance(qb, EllMatrix) else qb[:b], d[:b], ids[:b], k,
-            metric, precision)
+        with entry("rpt_knn_batched"):
+            if self._packed is None:
+                raise ValueError("pack_leaves() first: knn_batched runs "
+                                 "the leaf-blocked pipeline")
+            k = self._check_k(k)
+            _check_precision(precision)
+            min_votes = int(min_votes)
+            _check_selection(selection, k, min_votes)
+            budget = self._budget(budget)
+            probes = int(self.n_trees * budget if probes is None
+                         else probes)
+            qb, b, chunk = _pad_to_chunk(self._query_batch(q), chunk)
+            d, ids = _knn_packed_many(self, qb, chunk, k=k, budget=budget,
+                                      probes=probes, metric=metric,
+                                      dedup=dedup, min_votes=min_votes,
+                                      selection=selection)
+            return self._apply_update_hooks(
+                None if isinstance(qb, EllMatrix) else qb[:b], d[:b],
+                ids[:b], k, metric, precision)
 
     def _query_batch(self, q):
         """A batch for the chunked paths: an :class:`EllMatrix` stays
@@ -2007,46 +2012,49 @@ class RPForest:
         sparse as in :meth:`knn_batched`), with ``nt`` and the cached
         capacity per chunk.
         """
-        if self._packed is None:
-            raise ValueError("pack_leaves() first: knn_grouped runs on the "
-                             "leaf-blocked layout")
-        _check_precision(precision)
-        k = self._check_k(k)
-        min_votes = int(min_votes)
-        _check_selection(selection, k, min_votes)
-        if impl not in _IMPLS:
-            raise ValueError(f"unknown impl {impl!r}")
-        if callable(metric) and isinstance(self._packed[0], EllBlocks):
-            raise NotImplementedError(
-                "custom distance callables need dense data rows (ELL-sparse "
-                "datasets support the builtin metrics only)")
-        if callable(metric) and self._packed[0].dtype == torch.int8:
-            raise NotImplementedError(
-                "custom distance callables are unsupported on int8-"
-                "quantized blocks (pack with f32/bf16)")
-        _grouped_use_kernel(impl, self._packed[0], metric,
-                            self._block_center)  # raises early
-        budget = self._budget(budget)
-        probes = int(self.n_trees * budget if probes is None else probes)
-        qb = self._query_batch(q)
-        ell = isinstance(qb, EllMatrix)
-        qb, b, chunk = _pad_to_chunk(qb, (4096 if ell else qb.shape[0])
-                                     if chunk is None else chunk)
+        with entry("rpt_knn_grouped"):
+            if self._packed is None:
+                raise ValueError("pack_leaves() first: knn_grouped runs on "
+                                 "the leaf-blocked layout")
+            _check_precision(precision)
+            k = self._check_k(k)
+            min_votes = int(min_votes)
+            _check_selection(selection, k, min_votes)
+            if impl not in _IMPLS:
+                raise ValueError(f"unknown impl {impl!r}")
+            if callable(metric) and isinstance(self._packed[0], EllBlocks):
+                raise NotImplementedError(
+                    "custom distance callables need dense data rows "
+                    "(ELL-sparse datasets support the builtin metrics "
+                    "only)")
+            if callable(metric) and self._packed[0].dtype == torch.int8:
+                raise NotImplementedError(
+                    "custom distance callables are unsupported on int8-"
+                    "quantized blocks (pack with f32/bf16)")
+            _grouped_use_kernel(impl, self._packed[0], metric,
+                                self._block_center)  # raises early
+            budget = self._budget(budget)
+            probes = int(self.n_trees * budget if probes is None
+                         else probes)
+            qb = self._query_batch(q)
+            ell = isinstance(qb, EllMatrix)
+            qb, b, chunk = _pad_to_chunk(qb, (4096 if ell else qb.shape[0])
+                                         if chunk is None else chunk)
 
-        def run(cap):
-            d, ids, needed = _knn_grouped_many(
-                self, qb, chunk, k=k, budget=budget, probes=probes,
-                metric=metric, dedup=dedup, tile_m=int(tile_m), nt=cap,
-                tile_chunk=int(tile_chunk), bucket_stop=bucket_stop,
-                min_votes=min_votes, selection=selection, impl=impl)
-            return (d, ids), needed
+            def run(cap):
+                d, ids, needed = _knn_grouped_many(
+                    self, qb, chunk, k=k, budget=budget, probes=probes,
+                    metric=metric, dedup=dedup, tile_m=int(tile_m), nt=cap,
+                    tile_chunk=int(tile_chunk), bucket_stop=bucket_stop,
+                    min_votes=min_votes, selection=selection, impl=impl)
+                return (d, ids), needed
 
-        key = (qb.shape[0], probes, int(tile_m), chunk)
-        d, ids = _grouped_auto_capacity(self, key,
-                                        chunk * probes * self._sub_block,
-                                        tile_m, nt, run, check=check)
-        return self._apply_update_hooks(None if ell else qb[:b], d[:b],
-                                        ids[:b], k, metric, precision)
+            key = (qb.shape[0], probes, int(tile_m), chunk)
+            d, ids = _grouped_auto_capacity(self, key,
+                                            chunk * probes * self._sub_block,
+                                            tile_m, nt, run, check=check)
+            return self._apply_update_hooks(None if ell else qb[:b], d[:b],
+                                            ids[:b], k, metric, precision)
 
     def grouped_overflow(self) -> Optional[dict]:
         """Overflow telemetry of the most recent :meth:`knn_grouped` call:

@@ -36,6 +36,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from .. import _cuda
+from ..utils import profiling
 from ..utils.profiling import region
 from .build import ieee_fp32
 from .ell_kernel import ell_score_tiles
@@ -296,8 +297,9 @@ def _check_tables(gsel, lsel, lens_of_block, tile_m, nt):
 
 # The C entry point's arguments, an int64 each in their order
 # (csrc/tile_tables.cu rpt_tile_tables): gsel, lsel, lens, tb, tp, slot,
-# lens_t, needed, scratch, scratch_len, n, g, nt, tile_m, max_bits, stream
-_TABLES_ARGS = struct.Struct("16q")
+# lens_t, needed, tally, scratch, scratch_len, n, g, nt, tile_m, max_bits,
+# stream
+_TABLES_ARGS = struct.Struct("17q")
 
 
 @functools.lru_cache(maxsize=256)
@@ -334,18 +336,29 @@ def tile_tables(gsel, lsel, lens_of_block, tile_m: int, nt: int):
     capacity), ``lens_t`` each tile's occupancy ``lens_of_block[tb]``.
     Tiles past ``needed`` hold block 0 and no pair.  On the card block
     ids outside ``[0, G)`` are clamped into it, and the five tables are
-    views of one allocation."""
+    views of one allocation.  While a profiler runs, the chunk adds its
+    valid pairs, its tiles needed past ``nt`` and its ``nt * tile_m``
+    slots to the grouped layer's counters (``profiling.grouped_counts``;
+    kernel 9 adds the first two itself)."""
     with region("rpt_tile_tables"):
-        if gsel.device.type == "cpu":
-            return tile_tables_reference(gsel, lsel, lens_of_block, tile_m,
-                                         nt)
-        return _tables_on_card(gsel, lsel, lens_of_block, tile_m, nt)
+        tally = profiling.grouped_counts(gsel.device, int(nt) * int(tile_m))
+        if gsel.device.type != "cpu":
+            return _tables_on_card(gsel, lsel, lens_of_block, tile_m, nt,
+                                   tally=tally)
+        out = tile_tables_reference(gsel, lsel, lens_of_block, tile_m, nt)
+        if tally is not None:
+            tally += torch.stack(((lsel >= 0).sum(),
+                                   (out[2].long() - int(nt)).clamp(min=0)))
+        return out
 
 
-def _tables_on_card(gsel, lsel, lens_of_block, tile_m, nt, max_bits=None):
+def _tables_on_card(gsel, lsel, lens_of_block, tile_m, nt, max_bits=None,
+                    tally=None):
     """:func:`tile_tables` on the card with digits of at most
     ``max_bits`` (None: :func:`table_digit_bits`'s; the tests and the chip
-    scripts run the other plan through it)."""
+    scripts run the other plan through it).  ``tally``, an ``int64[2]``
+    on the card or None, gains the chunk's valid pairs and its tiles
+    needed past ``nt``."""
     tile_m, nt = int(tile_m), int(nt)
     _check_tables(gsel, lsel, lens_of_block, tile_m, nt)
     dev = gsel.device
@@ -353,6 +366,8 @@ def _tables_on_card(gsel, lsel, lens_of_block, tile_m, nt, max_bits=None):
                          ("lsel", lsel, torch.int32),
                          ("lens_of_block", lens_of_block, torch.int32))
     e, g = gsel.numel(), lens_of_block.shape[0]
+    if tally is not None:
+        _cuda.check_operands("tile_tables", dev, ("tally", tally, torch.int64))
     if max_bits is None:
         max_bits = table_digit_bits(e)
     length = _tables_scratch(e, g, max_bits)
@@ -367,8 +382,9 @@ def _tables_on_card(gsel, lsel, lens_of_block, tile_m, nt, max_bits=None):
         code = _cuda.lib().rpt_tile_tables(_TABLES_ARGS.pack(
             gsel.data_ptr(), lsel.data_ptr(), lens_of_block.data_ptr(),
             tb.data_ptr(), tp.data_ptr(), slot.data_ptr(), lens_t.data_ptr(),
-            needed.data_ptr(), scratch.data_ptr(), length, e, g, nt, tile_m,
-            max_bits, _cuda.raw_stream(dev)))
+            needed.data_ptr(),
+            0 if tally is None else tally.data_ptr(), scratch.data_ptr(),
+            length, e, g, nt, tile_m, max_bits, _cuda.raw_stream(dev)))
     _cuda.check(code, "tile_tables")
     tile_tables.launches += 1
     return tb, tp, needed, slot, lens_t

@@ -25,8 +25,9 @@ scope                          covers (reference analogue)
                                insert/insertMulti)
 ``rpt_partition_at_median``    the build's level split (SCC
                                partitionAtMedian)
-``rpt_project``                build-time projections, kernel 11 (inside
-                               partitionAtMedian)
+``rpt_project``                projections, kernel 11: the build's
+                               (inside partitionAtMedian) and the
+                               queries' ahead of every descent
 ``rpt_rerank``                 per-pair block fetch + exact distances,
                                kernels 6 and 10, and their tail
 ``rpt_tile_tables``            grouped pair sort + tile assignment, kernel 9
@@ -36,10 +37,42 @@ scope                          covers (reference analogue)
 ``rpt_topk_tail``              candidate selection tail (sort / kernel 3)
 =============================  ============================================
 
+Two more ranges, :data:`ENTRIES`, are the port's own (the JAX package has
+no such scope): ``rpt_knn_batched`` and ``rpt_knn_grouped`` each cover the
+whole of their serving entry, so that the entry's own host code (argument
+checks, padding, chunk slicing, the capacity logic, the concatenation)
+carries a name.
+
 A region costs one check of the profiler's state when no profiler is
 running: :func:`region` then returns a shared no-op context and enters no
 ``record_function`` (whose enter and exit cost microseconds a call on
 every query chunk).
+
+**Spans and counters.**  While a profiler runs, each region also reads
+the host's clock (``time.perf_counter_ns``) as it enters and leaves, and
+each name adds up ``calls``, ``total_ns`` and ``self_ns`` (the total less
+the regions directly inside it, such as ``rpt_topk_tail`` inside
+``rpt_rerank``), so that the self times of a call's regions add up to its
+entry's total.  The grouped layer counts where :func:`..ops.grouped.
+tile_tables` makes a chunk's tables, at one count site
+(:func:`grouped_counts`) that first checks the profiler's state:
+
+===========================  ==============================================
+counter                      adds up, over the chunks
+===========================  ==============================================
+``grouped.pairs``            valid (query, block) pairs
+``grouped.tiles_overflow``   tiles needed past the capacity: pairs masked
+                             (``check=False`` serves them as +inf)
+``grouped.slots_launched``   tile slots scored, ``nt * tile_m``
+===========================  ==============================================
+
+The first two add into an ``int64[2]`` on their device, kernel 9 adding a
+chunk's counts itself on the card, and are read back only by
+:func:`stats`; the slots add on the host.  The numbers cover the latest
+stretch in which a profiler ran: the first region entered under a
+profiler after a serving entry was called without one (:func:`entry`)
+starts them from zero, as :func:`trace` does.  They assume one serving
+thread.
 
 :func:`trace` wraps ``torch.profiler`` so a stage decomposition needs no
 throwaway script::
@@ -49,6 +82,8 @@ throwaway script::
     with rt.profiling.trace("rpt_trace"):
         d, i = f.knn_grouped(q, 10)
         rt.profiling.sync(d)
+    s = rt.profiling.stats()
+    s["rpt_knn_grouped"]["self_ns"], s["grouped.tiles_overflow"]
 
 then open the Chrome trace it writes (``rpt_trace/*.json``) in Perfetto
 or ``chrome://tracing`` and group the kernels by the ``rpt_*`` ranges.
@@ -64,7 +99,8 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
-__all__ = ["device_time", "trace", "sync", "region", "SCOPES"]
+__all__ = ["device_time", "trace", "sync", "region", "entry", "stats",
+           "grouped_counts", "SCOPES", "ENTRIES", "COUNTERS"]
 
 
 def _is_float_array(a) -> bool:
@@ -126,16 +162,126 @@ SCOPES = (
     "rpt_topk_tail",
 )
 
+#: The serving entries' ranges, each over a whole call (module docstring).
+ENTRIES = ("rpt_knn_batched", "rpt_knn_grouped")
+
+#: The counters a profiled stretch adds up (module docstring).
+COUNTERS = (
+    "grouped.pairs",
+    "grouped.tiles_overflow",
+    "grouped.slots_launched",
+)
+
 _NO_REGION = contextlib.nullcontext()
 _profiler_enabled = torch._C._autograd._profiler_enabled
 
 
+class _Stretch:
+    """The numbers of the latest stretch in which a profiler ran."""
+
+    def __init__(self):
+        self.spans = {}      # name -> [calls, total_ns, self_ns]
+        self.slots = 0       # grouped.slots_launched
+        self.device = {}     # torch.device -> int64[2]: the first two COUNTERS
+
+
+_stretch = _Stretch()
+_stack = []          # the open spans, innermost last
+# an entry was called without a profiler since the stretch began: the next
+# span entered under one starts a new stretch
+_stale = False
+
+
+def _restart() -> None:
+    global _stretch, _stale
+    _stretch, _stale = _Stretch(), False
+
+
+class _Span:
+    """A ``record_function`` range that also adds its host time to the
+    stretch's numbers (module docstring)."""
+
+    __slots__ = ("name", "rf", "t0", "inner")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.rf = torch.profiler.record_function(name)
+        self.inner = 0       # ns of the spans directly inside
+
+    def __enter__(self):
+        if _stale:
+            _restart()
+        self.t0 = time.perf_counter_ns()
+        self.rf.__enter__()
+        _stack.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _stack.pop()
+        self.rf.__exit__(*exc)
+        t = time.perf_counter_ns() - self.t0
+        if _stack:
+            _stack[-1].inner += t
+        s = _stretch.spans.get(self.name)
+        if s is None:
+            s = _stretch.spans[self.name] = [0, 0, 0]
+        s[0] += 1
+        s[1] += t
+        s[2] += t - self.inner
+        return None
+
+
 def region(name: str):
     """A profiler range named ``name`` (``torch.profiler.record_function``)
-    while a profiler is running, else a shared no-op context."""
+    that also times itself on the host while a profiler is running, else a
+    shared no-op context."""
     if _profiler_enabled():
-        return torch.profiler.record_function(name)
+        return _Span(name)
     return _NO_REGION
+
+
+def entry(name: str):
+    """:func:`region` for a serving entry (:data:`ENTRIES`).  Called with
+    no profiler running, it also ends the stretch, so that the next span
+    entered under a profiler starts the numbers from zero."""
+    global _stale
+    if _profiler_enabled():
+        return _Span(name)
+    _stale = True
+    return _NO_REGION
+
+
+def grouped_counts(device, slots: int):
+    """The grouped layer's count site, one a chunk (``ops/grouped.py``
+    ``tile_tables``).  With no profiler running, None, after one check.
+    Else it adds the chunk's ``slots`` launched (``nt * tile_m``) on the
+    host and returns the stretch's ``int64[2]`` on ``device`` into which
+    the chunk's valid pairs and its tiles needed past the capacity are
+    added (by kernel 9 itself on the card), with no read back."""
+    if not _profiler_enabled():
+        return None
+    st = _stretch
+    st.slots += slots
+    acc = st.device.get(device)
+    if acc is None:
+        acc = st.device[device] = torch.zeros(2, dtype=torch.int64,
+                                              device=device)
+    return acc
+
+
+def stats() -> dict:
+    """The latest profiled stretch's numbers: each region's name ->
+    ``{"calls", "total_ns", "self_ns"}``, and each of :data:`COUNTERS` ->
+    its sum (device counts read back here, one sync a device)."""
+    st = _stretch
+    out = {name: {"calls": c, "total_ns": t, "self_ns": s}
+           for name, (c, t, s) in st.spans.items()}
+    out.update(dict.fromkeys(COUNTERS[:2], 0))
+    for acc in st.device.values():
+        for name, v in zip(COUNTERS, acc.tolist()):
+            out[name] += v
+    out["grouped.slots_launched"] = st.slots
+    return out
 
 
 def sync(*arrays) -> None:
@@ -154,7 +300,8 @@ def trace(logdir: str, host: bool = False) -> Iterator[torch.profiler.profile]:
     under the ``rpt_*`` regions above -- the SCC-style stage decomposition.
     CPU activity is always recorded, CUDA activity where a card is present.
     Yields the ``torch.profiler.profile``, whose ``key_averages()`` sum each
-    region's device time.
+    region's device time; :func:`stats` then reads the block's spans and
+    counters, which start from zero here.
 
     ``host=True`` also records the Python stacks (``with_stack=True``), the
     counterpart of the JAX package's host-side Python tracer.  Remember to
@@ -165,6 +312,7 @@ def trace(logdir: str, host: bool = False) -> Iterator[torch.profiler.profile]:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
     prof = torch.profiler.profile(activities=acts, with_stack=host)
+    _restart()
     with prof:
         yield prof
     prof.export_chrome_trace(os.path.join(

@@ -925,6 +925,36 @@ def test_tile_tables_digit_plans(dev, g, b, p, tile_m, hot, masked, max_bits):
         og.tile_tables_plan(b * p, g, max_bits).length
 
 
+@pytest.mark.parametrize("g,b,p,tile_m,hot,masked,cut", [
+    (1, 40, 3, 8, False, 0.2, 1), (300, 999, 5, 8, True, 1.0, 1),
+    (300, 999, 5, 16, False, 0.2, 3), (65_537, 700, 8, 8, True, 0.1, 1),
+    (65_537, 700, 8, 8, True, 0.1, 4), (524_288, 8192, 8, 16, True, 0.05, 2),
+])
+@pytest.mark.parametrize("max_bits", [8, 11])
+def test_tile_tables_add_their_counts(dev, g, b, p, tile_m, hot, masked, cut,
+                                      max_bits):
+    """Given ``tally``, kernel 9 adds each call's valid pairs and its
+    tiles needed past ``nt`` (at a capacity of the tiles needed, and cut
+    below it), and its tables are those of a call without them."""
+    from rptree_tpu_torch.ops import grouped as og
+
+    gsel, lsel, lens = _pairs(dev, g, b, p, seed=g + b, hot=hot,
+                              masked=masked)
+    need = int(og.tile_tables_reference(gsel, lsel, lens, tile_m, 1)[2])
+    nt = max(1, need // cut)
+    want = og._tables_on_card(gsel, lsel, lens, tile_m, nt, max_bits=max_bits)
+    tally = torch.zeros(2, dtype=torch.int64, device=dev)
+    for _ in range(2):
+        got = og._tables_on_card(gsel, lsel, lens, tile_m, nt,
+                                 max_bits=max_bits, tally=tally)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("tb", "tp", "needed", "slot", "lens_t"), got,
+                          want):
+        assert torch.equal(a, w), name
+    assert tally.tolist() == [2 * int((lsel >= 0).sum()),
+                               2 * max(0, need - nt)]
+
+
 @pytest.mark.parametrize("g,max_bits", [(1, 11), (65_536, 11), (65_537, 8),
                                         (524_288, 11), (524_288, 8)])
 def test_tile_tables_launch_two_plus_passes_grids(dev, g, max_bits):

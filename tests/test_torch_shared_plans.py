@@ -85,8 +85,8 @@ def test_scratch_layout(n, g, max_bits):
 
 def test_plan_constants_match_the_source():
     """The plan's constants and the packed arguments are the kernel's
-    (``csrc/tile_tables.cu``): threads, rounds, segment, digit bounds; 16
-    int64 for the 16 parameters of the launch function; the default digit
+    (``csrc/tile_tables.cu``): threads, rounds, segment, digit bounds; 17
+    int64 for the 17 parameters of the launch function; the default digit
     plan 11 bits up to 524,288 pairs, 8 past them."""
     src = (_SRC / "tile_tables.cu").read_text()
 
