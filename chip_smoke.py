@@ -153,7 +153,7 @@ its launch counts):
    ``rp.profiling.trace`` around one grouped chunk of phase 3's forest
    (f32 blocks, kernel tail, 65,536 queries): the Chrome trace read back
    holds the query scopes (``rpt_candidates``, ``rpt_tile_tables``,
-   ``rpt_grouped_score``, ``rpt_pair_reorder``, ``rpt_topk_tail``) and
+   ``rpt_grouped_score``, ``rpt_topk_tail``) and
    kernels 11, 7, 8, 9, 1 and 3 as CUDA kernel events, the result
    bit-equal to the untraced call's, each scope's summed CUDA time
    printed; then one ``knn_batched`` chunk (``rpt_rerank``), a build of
@@ -490,12 +490,89 @@ def topk_inputs(b, w, device, seed=2):
     return d.to(device), ids.to(device)
 
 
+def pairs_bound(x, tb, lens_t, tp, slot, q, kind):
+    """:func:`bound` of kernel 1's pair form: each probed block's occupied
+    rows and norms once, each query row once, the tables, the pairs'
+    distance rows."""
+    import torch
+
+    g, lmax, d = x.shape
+    filled = tp[:, 0] >= 0
+    blocks = torch.unique(tb[filled].long())
+    nrows = int(lens_t.new_zeros(g).scatter_(
+        0, tb.long(), lens_t.clamp(0, lmax))[blocks].sum())
+    nbytes = (nrows * (d * x.element_size() + 4) + q.numel() * 4
+              + tb.numel() * 8 + tp.numel() * 4 + slot.numel() * 8
+              + slot.numel() * lmax * 4)
+    pair_lens = lens_t[:, None].expand_as(tp)[tp >= 0]
+    ops = 2 * d * int(pair_lens.clamp(0, lmax).long().sum())
+    return bound(nbytes, ops, kind)
+
+
+def check_pairs_chunk(device, b, g=65_536, lmax=128, dim=128, p=8, tile_m=8,
+                      reps=5):
+    """Kernel 1's pair form (``grouped_score_pairs``) at a SIFT cell's
+    chunk: ``b`` queries x ``p`` probes drawn uniformly over ``g`` blocks
+    of ``lmax`` x ``dim`` f32 rows, 100-128 occupied, 2% of the probes
+    masked, at the serving path's capacity (1.125 times the tiles
+    needed): bit-equal to the slot-order composition through the same
+    kernel, within ``DIST_RTOL`` of the plain version; with its times, the
+    plain version's, its block stagings and its bound."""
+    import torch
+
+    from rptree_tpu_torch.ops import grouped as og
+    from rptree_tpu_torch.ops import grouped_kernel as gk
+
+    gen = torch.Generator(device=device).manual_seed(b)
+    x = torch.randn(g, lmax, dim, generator=gen, device=device)
+    sq = (x * x).sum(-1)
+    lens = torch.randint(lmax - 28, lmax + 1, (g,), generator=gen,
+                         device=device, dtype=torch.int32)
+    q = torch.randn(b, dim, generator=gen, device=device)
+    gsel = torch.randint(0, g, (b, p), generator=gen, device=device,
+                         dtype=torch.int32)
+    lsel = torch.where(torch.rand(b, p, generator=gen, device=device) < 0.02,
+                       -1, 1).to(torch.int32)
+    need = int(og.tile_tables(gsel, lsel, lens, tile_m, 1)[2])
+    tb, tp, _, slot, lens_t = og.tile_tables(gsel, lsel, lens, tile_m,
+                                             need + need // 8)
+    args = (x, sq, tb, tp, lens_t, slot, q, "l2", tile_m)
+    got = gk.grouped_score_pairs(*args)
+    qi = torch.where(tp >= 0, tp // p, 0).reshape(-1).long()
+    slot_order = og._pair_rows(gk.grouped_score_tiles(
+        x, sq, tb, lens_t, q[qi], "l2", tile_m), slot, float("inf"), b,
+        p).reshape(b * p, lmax)
+    if not torch.equal(got.view(torch.int32), slot_order.view(torch.int32)):
+        raise AssertionError(f"grouped_score_pairs at {b} queries: differs "
+                             "from the slot-order composition")
+    abs_err, rel_err = _rel_err(got, gk.grouped_score_pairs_reference(*args))
+    if rel_err > DIST_RTOL:
+        raise AssertionError(f"grouped_score_pairs at {b} queries: relative "
+                             f"error {rel_err} > {DIST_RTOL}")
+    del got, slot_order
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    runs = int(gk.score_runs(tb, tp, lens_t, tile_m, sms))
+    return {"max_abs_err": abs_err, "max_rel_err": rel_err,
+            "ms": cuda_ms(lambda: gk.grouped_score_pairs(*args), reps),
+            "device_ms": graph_ms(lambda: gk.grouped_score_pairs(*args),
+                                  reps=5),
+            "plain_ms": cuda_ms(
+                lambda: gk.grouped_score_pairs_reference(*args), reps),
+            "library_ms": None, "block_reads": runs,
+            "pairs_per_read": int((lsel >= 0).sum()) / runs,
+            **pairs_bound(x, tb, lens_t, tp, slot, q, "f32"),
+            "shape": {"queries": b, "probes": p, "blocks": g, "lmax": lmax,
+                      "D": dim, "tile_m": tile_m, "tiles": tb.shape[0],
+                      "tiles_needed": need}}
+
+
 def check_kernels(device, g=4096, nt=4096, dim=128, reps=5):
     """Phase 2: each kernel against its plain version at the path's shapes
     (f32 and bf16 lmax 128, int8 lmax 64, tile_m 8, D 128, tile top-k kp
-    16, tiles in random and in block order; top-k W 1024 and 640, k 10,
-    65,536 x 1,024 and the wide-row route at W 3,000).  Returns one record
-    per kernel."""
+    16, tiles in random and in block order; kernel 1's pair form at the
+    grouped and online cells' chunks, :func:`check_pairs_chunk`; top-k W
+    1024 and 640, k 10, 65,536 x 1,024 and the wide-row route at W 3,000).
+    Returns one record per kernel."""
     import torch
 
     from rptree_tpu_torch.ops import grouped_kernel as gk
@@ -550,6 +627,9 @@ def check_kernels(device, g=4096, nt=4096, dim=128, reps=5):
         out[name].update({
             f"{key}_block_order": v for key, v in tile_bound(
                 x, tbo, lenso, tile_m, qt, lmax * 4, kind).items()})
+    # the pair form at the grouped and online cells' chunks
+    for b in (65_536, 8_192):
+        out[f"grouped_score_pairs_{b}"] = check_pairs_chunk(device, b)
     rec = {"shape": {**shape, "lmax": 128, "kp": KP}}
     for kind in ("f32", "bf16"):
         x, sq, _, tb, lens, qt = tile_inputs(g, 128, dim, nt, tile_m, False,
@@ -1624,6 +1704,31 @@ def check_tiles_chunk(f, qc, serve, reps=5, clustered=False):
         rec["max_err_of_norms"] = tiles_within_norms(
             f"{name} on the chunk", fn(*sargs), ref(*sargs), sq, tb, qt, tm)
     del got, want
+    if not int8:  # the serving path's pair form on the chunk's own tables
+        from rptree_tpu_torch.models import forest as fm
+        from rptree_tpu_torch.ops import grouped as og
+
+        gsel, lsel = fm._probe_pairs(f, qc, serve["budget"], serve["probes"],
+                                     K)
+        tables = og.tile_tables(gsel, lsel, f._lens_global(), tm,
+                                tb.shape[0])
+        pargs = dict(x_leaf=x, sq_leaf=sq, tb=tables[0], tp=tables[1],
+                     lens_t=tables[4], slot=tables[3], q=qc, metric="sql2",
+                     tile_m=tm)
+        pd = gk.grouped_score_pairs(**pargs)
+        qi = torch.where(tables[1] >= 0, tables[1] // gsel.shape[1], 0)
+        slot_order = og._pair_rows(fn(x, sq, tables[0], tables[4],
+                                      qc[qi.reshape(-1).long()], "sql2", tm),
+                                   tables[3], float("inf"), *gsel.shape)
+        if not torch.equal(pd.view(torch.int32),
+                           slot_order.reshape(pd.shape).view(torch.int32)):
+            raise AssertionError("grouped_score_pairs on the chunk: differs "
+                                 "from the slot-order composition")
+        rec["pairs_max_err_of_norms"] = _check_pairs(pargs, pd)
+        rec["pairs_block_reads"] = int(gk.score_runs(
+            tables[0], tables[1], tables[4], tm,
+            torch.cuda.get_device_properties(x.device).multi_processor_count))
+        del pd, slot_order
     return {**rec, "ms": cuda_ms(lambda: fn(*args), reps),
             "device_ms": graph_ms(lambda: fn(*args), reps=5),
             "plain_ms": cuda_ms(lambda: ref(*args), reps),
@@ -3095,8 +3200,9 @@ REGION_CALLS = 100_000       # (p1) region() entries timed, no profiler running
 DEVICE_TIME_SLACK = 1.1      # (p2) device_time <= 1.1 x the host-clock median
 INGEST_CHUNK = 25_000        # (p4) rows a chunk of fvecs_source
 SIFT_ROWS, SIFT_DIM, SIFT_QUERIES = 20_000, 64, 256  # (p7) the original's data
+# (kernel 1 writes each pair's row in place: no rpt_pair_reorder on f32)
 QUERY_SCOPES = ("rpt_candidates", "rpt_tile_tables", "rpt_grouped_score",
-                "rpt_pair_reorder", "rpt_topk_tail")
+                "rpt_topk_tail")
 # (p1) each kernel of the grouped chunk by the names of its CUDA functions
 TRACE_KERNELS = {
     "project_rows": ("project_kernel",),
@@ -4140,17 +4246,31 @@ def _same_bits(name, got, want):
     return 0.0
 
 
-def _check_tiles(a, got):
+def _check_pairs(a, got):
+    import torch
+
     from rptree_tpu_torch.ops import grouped_kernel as gk
 
-    name = "grouped_score_tiles"
-    want = gk.grouped_score_tiles_reference(**a)
-    if a["metric"] not in ("l2", "sql2"):
-        return _within(name, got, want)
+    name = "grouped_score_pairs"
+    a = {k: v for k, v in a.items() if k != "reads"}
+    want = gk.grouped_score_pairs_reference(**a)
     if a["metric"] == "l2":  # held by its square, as the sql2 form is
         got, want = got * got, want * want
-    return tiles_within_norms(name, got, want, a["sq_leaf"], a["tb"],
-                              a["qt"], a["tile_m"])
+    # each pair's row against |x|^2 + |q|^2 of its block and query
+    nt, m = a["tb"].shape[0], a["tile_m"]
+    e, b = a["slot"].shape[0], a["q"].shape[0]
+    tile = (a["slot"] // m).clamp(0, max(0, nt - 1))
+    blk = a["tb"][tile].long() if nt else tile
+    scale = a["sq_leaf"][blk] + (a["q"] * a["q"]).sum(-1).repeat_interleave(
+        e // max(1, b))[:, None]
+    _rel_err(got, want)  # masking must agree
+    fin = torch.isfinite(want)
+    err = float(((got - want).abs()[fin] / scale[fin]).max()) \
+        if bool(fin.any()) else 0.0
+    if err > SUM_RTOL:
+        raise AssertionError(f"{name}: squared distances off by {err} of "
+                             f"|x|^2 + |q|^2 > {SUM_RTOL}")
+    return err
 
 
 def _within(name, got, want, rtol=DIST_RTOL):
@@ -4222,7 +4342,8 @@ def example_checks():
                           bits("select_probes", tv.select_probes_reference)),
         "tile_tables": (og, "tile_tables",
                         bits("tile_tables", og.tile_tables_reference)),
-        "grouped_score_tiles": (gk, "grouped_score_tiles", _check_tiles),
+        # kernel 1 on the serving path: the pair form
+        "grouped_score_tiles": (gk, "grouped_score_pairs", _check_pairs),
         "topk_dedup_kernel": (tk, "topk_dedup_kernel", bits(
             "topk_dedup_kernel", tk.topk_dedup_kernel_reference)),
         "gather_score": (fg, "gather_score", _check_gather),

@@ -11,8 +11,9 @@ served by a stale build.
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on a nonzero code.  Pointers and the stream are
 passed as ``ctypes.c_void_p`` or plain ints; the descent's, the probe
-selection's and the tile tables' entry points take their arguments
-packed as int64 in one buffer (``ops/traverse.py``, ``ops/grouped.py``).
+selection's, the tile tables' and kernel 1's entry points take their
+arguments packed as int64 in one buffer (``ops/traverse.py``,
+``ops/grouped.py``, ``ops/grouped_kernel.py``).
 Nothing here runs when the module is imported.
 """
 
@@ -40,9 +41,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 _SIGNATURES = {
-    # x, sq, tb, lens, qt, out, nt, g, tile_m, lmax, d, l2, stream
-    "rpt_grouped_score_f32": [_P] * 6 + [_I] * 6 + [_P],
-    "rpt_grouped_score_bf16": [_P] * 6 + [_I] * 6 + [_P],
+    # the arguments packed as int64 (ops/grouped_kernel.py _SCORE_ARGS)
+    "rpt_grouped_score": [ctypes.c_char_p],
     # x, sq, scale, tb, lens, qt, out, nt, g, tile_m, lmax, d, l2, stream
     "rpt_grouped_score_i8": [_P] * 7 + [_I] * 6 + [_P],
     # d, ids, od, oi, b, w, k, dedup, regs, stream

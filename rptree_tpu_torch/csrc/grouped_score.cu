@@ -1,103 +1,545 @@
-// Grouped tile scoring for the query-grouped rerank: kernel 1.
+// Grouped scoring for the query-grouped rerank: kernel 1.
 //
 // Replaces the Pallas TPU kernel grouped_score_tiles (f32 and bf16
 // blocks; rptree_tpu/ops/grouped_kernel.py:63).  A tile is up to tile_m
-// (query, probe) pairs that probe the SAME leaf block; for every tile t
-// and slot row i of it the kernel writes
+// (query, probe) pairs that probe the SAME leaf block, as the tile tables
+// give them (kernel 9, csrc/tile_tables.cu): tb[t] the block, lens[t] its
+// occupancy, tp[t * m + i] the pair in slot i (-1 for an empty slot).
+// For every pair e in a tile, at slot i of tile t, the kernel writes
 //
-//   out[t * m + i, j] = max(sq_leaf[tb[t], j] - 2 * <qt[t * m + i], x_leaf[tb[t], j]> + |q|^2, 0)
+//   out[e, j] = max(sq_leaf[tb[t], j] - 2 * <q[e / p], x_leaf[tb[t], j]> + |q[e / p]|^2, 0)
 //
-// (square-rooted for "l2") for j < lens_t[t], and +inf for the slots past
-// the block's occupancy.  f32 and bf16 blocks share one scoring device
-// function with kernel 4 (score_tile, csrc/grouped_tile.cuh), which says
-// how bf16 rounds.  int8 blocks are kernel 2's (csrc/grouped_score_i8.cu).
+// (square-rooted for "l2") for j < lens[t], and +inf past the block's
+// occupancy; with slot given, every pair in no tile (slot[e] >= nt * m:
+// masked probes, capacity overflow) reads +inf.  The query rows are read
+// in place from q [B, D] and each distance row is written straight to the
+// pair's row of out [B * P, lmax]: no query row is copied into tile-slot
+// order and no distance row out of it.  Without tp the pair map is the
+// identity (slot t * m + i holds pair t * m + i, p 1): the JAX package's
+// slot-order contract, grouped_score_tiles.  The arithmetic is
+// grouped_tile.cuh's, shared with kernel 4 (csrc/grouped_topk.cu), so the
+// distances are bit-equal to kernel 4's and to those of the one-tile-a-
+// block design this kernel replaces.  int8 blocks are kernel 2's
+// (csrc/grouped_score_i8.cu).
 //
-// What bounds it on an H100: by its arithmetic intensity, bytes.  Each
-// tile reads one block (lmax * D * 4 = 64 KB for f32 at lmax 128, D 128;
-// 32 KB for bf16) and its m query rows, and does 2 * m * lmax * D
-// operations on them: 4 per block byte at m = 8 in f32 (8 in bf16), far
-// below the card's operations-per-byte balance, so the block read from
-// device memory is the floor.  Results are staged in shared memory so the
-// output rows are written coalesced.  Rows past a tile's occupancy are
-// not computed at all.
+// What bounds it on an H100: bytes, then shared-memory loads.  A block's
+// occupied rows (58-62 KB in f32 at the SIFT cells' 114-122 rows of D 128)
+// meet a few query rows: 2 operations per 4 block bytes per pair, so at 8
+// pairs a block the block read from device memory is the floor, and every
+// probed block read once is the least any design reads.  The design before
+// this one gave each tile (8 slots) a thread block of its own with a
+// two-stage ring: it scored the empty slots and the capacity tiles past
+// the tiles needed, read a block once a tile, and read its query rows
+// from a copy in tile-slot order into a distance copy in the same order.
+// On the grouped cell's chunk (65,536 queries x 8 probes over 65,536
+// blocks of 128 x 128) it took 3.08 ms, plus 0.50 ms for the query-row
+// copy and ~0.6 ms for the reorder, where a plain read of the 4.3 GB of
+// blocks takes 1.37 ms.  So:
 //
-// score_tile (csrc/grouped_tile.cuh): the block's occupied rows stream
-// through shared memory by cp.async, and no dot ends in a cross-lane sum.
-// f32 blocks take register-blocked fp32 FMAs, never TF32: the JAX package
-// measured a recall loss with single-pass bf16 products of f32 blocks
-// (0.9249 -> 0.860 at the clustered 1M cell).  bf16 blocks take mma.sync
-// on the tensor cores (exact bf16 products, fp32 sums).
+// - the unit of work is a run: consecutive tiles of one block (one tb and
+//   lens), at most 32 slots (32 / tile_m tiles), so one staging of the
+//   block's rows serves up to 32 pairs and a hot block's pairs spread over
+//   several runs and thread blocks;
+// - each thread block takes 32 tiles (256 / tile_m past tile_m 8; fewer
+//   where the tiles would give the SMs under about four waves of two
+//   thread blocks, ops/grouped_kernel.py range_tiles) and
+//   walks their runs with one cp.async ring, four stages of 128 slots x
+//   128 bytes deep, that runs on across runs: the next run's rows land
+//   while this run computes, and its query rows (cp.async through tp / p,
+//   two buffers) with them.  Runs break where a thread block's tiles end,
+//   so a block whose tiles straddle two such ranges is read twice (66,352
+//   runs for at most 65,536 blocks on that chunk);
+// - the per-stage work is lean: each thread's 16-byte pieces of a stage
+//   are fixed at the start, the producer walks (run, slot tile, chunk)
+//   without a division, and one barrier a stage both publishes stage s
+//   and frees stage s - 1's slot for the next copy.  The first version of
+//   this design, with a division-heavy copy loop and two barriers a stage,
+//   took 3.07 ms: it spent more instructions on the copies than on the
+//   dots;
+// - only pairs are scored: a run's rows end at its last pair, an f32
+//   thread takes ceil(rows / 2) rounded up to 1, 2, 4, 8 or 16 query rows
+//   in registers (one instantiation a count), and a tile with no pair (the
+//   capacity past the tiles needed) costs its test;
+// - each distance goes from the registers that summed it to the pair's
+//   row: a warp's 32 slots are 128 bytes of one row.
 //
-// One thread block per tile, eight warps.
+// Measured on that chunk (NVIDIA H100 80GB HBM3, 700 W): 2.06 ms, against
+// 1.66 ms with the dots left out and 1.83 ms with the copies left out.
+// The dots load shared memory for every 4 FMAs: 16 bytes of the slot row
+// and, broadcast, 16 of the query row.  Two thread blocks
+// of 256 threads an SM (f32 at D 128: four stages, two query buffers;
+// bf16 three stages).  While a profiler runs (reads not null), each thread
+// block adds its block stagings, the runs it scores, to *reads.
+
+#include <cuda_bf16.h>
 
 #include "grouped_tile.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-static_assert(kThreads == rpt::kTileThreads, "score_tile's block size");
+static_assert(kThreads == rpt::kTileThreads, "the tile scoring's block size");
+constexpr int kRunSlots = 32;    // tile slots a run holds at most
+constexpr int kRangeSlots = 256; // tile slots of a thread block's tiles, at most
+constexpr int kMaxTiles = 32;    // tiles a thread block takes, at most (a lane each)
+constexpr unsigned kFull = 0xffffffffu;
 
-template <int MT, typename T>
-__global__ void __launch_bounds__(kThreads)
-grouped_score_kernel(const T* __restrict__ x, const float* __restrict__ sq,
-                     const int* __restrict__ tb, const int* __restrict__ lens,
-                     const float* __restrict__ qt, float* __restrict__ out, int g, int m,
-                     int lmax, int d, int l2, int vec) {
-  extern __shared__ __align__(16) float smem[];  // score_tile's stages, queries, distances
-  const float* dist = rpt::tile_dist<MT, T>(smem, d);
-  const int t = blockIdx.x;
-  const long blk = min(max(tb[t], 0), g - 1);
-  const int len = min(max(lens[t], 0), lmax);
-  rpt::score_tile<MT>(x, sq, qt, t, blk, len, m, lmax, d, l2, vec, smem);
-  float* ob = out + (size_t)t * m * lmax;
-  for (int idx = threadIdx.x; idx < m * lmax; idx += blockDim.x) ob[idx] = dist[idx];
+struct Args {
+  const void* x;
+  const float* sq;
+  const int* tb;
+  const int* tp;  // null: the identity pair map
+  const int* lens;
+  const long long* slot;  // null: no pair outside the tiles
+  const float* q;
+  float* out;
+  unsigned long long* reads;  // null: not counted
+  long long e;                // pairs (slot's length)
+  int nt, g, m, lmax, d, p, l2;
+  int vec, qvec;              // 16-byte copies of block rows / query rows
+  int ring, nbuf;             // stages in flight; query-row buffers (1 or 2)
+  int range_tiles, run_tiles;
+};
+
+// A query row's stride in the f32 buffers: whole column chunks for f32
+// blocks (the dots read them), 16 bytes for bf16 ones.
+template <typename T>
+__host__ __device__ inline int qf_stride(int d) {
+  return sizeof(T) == 4 ? rpt::padded_d<T>(d) : (d + 3) / 4 * 4;
 }
 
-template <int MT, typename T>
-cudaError_t launch_tiles(const T* x, const float* sq, const int* tb, const int* lens,
-                         const float* qt, float* out, int nt, int g, int m, int lmax, int d,
-                         int l2, int vec, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * rpt::score_tile_floats<MT, T>(m, lmax, d);
-  cudaError_t e = rpt::allow_smem(grouped_score_kernel<MT, T>, smem);
-  if (e != cudaSuccess) return e;
-  grouped_score_kernel<MT, T><<<nt, kThreads, smem, stream>>>(x, sq, tb, lens, qt, out, g, m,
-                                                              lmax, d, l2, vec);
-  return cudaGetLastError();
+constexpr int kRunInts = 5 * (kMaxTiles + 1) + 2 * kMaxTiles + 2;
+
+// Shared memory in 4-byte words: the ring, the f32 query rows, the bf16
+// query rows (bf16 blocks), the norms, the tiles' pairs and the run table.
+template <typename T>
+__host__ __device__ inline size_t score_words(int d, int ring, int nbuf) {
+  using S = rpt::TileShape<T>;
+  return (size_t)ring * S::kStageFloats + (size_t)nbuf * kRunSlots * qf_stride<T>(d) +
+         (sizeof(T) == 4 ? 0 : (size_t)kRunSlots * rpt::q_stride<T>(d)) + kRunSlots +
+         kRangeSlots + kRunInts;
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+// cp.async.wait_group with a count known at run time (at most 3).
+__device__ __forceinline__ void cp_wait(int n) {
+  switch (n) {
+    case 0: rpt::tile_cp_wait<0>(); break;
+    case 1: rpt::tile_cp_wait<1>(); break;
+    case 2: rpt::tile_cp_wait<2>(); break;
+    default: rpt::tile_cp_wait<3>(); break;
+  }
+}
+
+// A compile-time count, the argument of the kernel's slot-tile lambda.
+template <int N>
+struct Rows {
+  static constexpr int value = N;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2) grouped_score_kernel(const Args a) {
+  using S = rpt::TileShape<T>;
+  constexpr bool F32 = sizeof(T) == 4;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int d = a.d, m = a.m, lmax = a.lmax, K = a.ring;
+  const int qfs = qf_stride<T>(d);
+  const int qs = rpt::q_stride<T>(d);
+  float* ring = smem;
+  float* qf = ring + (size_t)K * S::kStageFloats;  // [nbuf][32][qfs] f32 query rows
+  uint32_t* qw = reinterpret_cast<uint32_t*>(qf + (size_t)a.nbuf * kRunSlots * qfs);
+  float* qq = reinterpret_cast<float*>(qw + (F32 ? 0 : kRunSlots * qs));  // [32] |q|^2
+  int* tps = reinterpret_cast<int*>(qq + kRunSlots);  // the tiles' pairs
+  int* r_slot = tps + kRangeSlots;                    // a run's first slot in tps
+  int* r_rows = r_slot + kMaxTiles + 1;               // its slots up to its last pair
+  int* r_blk = r_rows + kMaxTiles + 1;
+  int* r_len = r_blk + kMaxTiles + 1;
+  int* r_s0 = r_len + kMaxTiles + 1;  // its first stage; r_s0[runs] = all stages
+  int* z_slot = r_s0 + kMaxTiles + 1;  // runs of blocks with no occupied row
+  int* z_rows = z_slot + kMaxTiles;
+  int* counts = z_rows + kMaxTiles;  // runs, empty-block runs
+
+  // this thread block's tiles and their pairs
+  const long long t0 = (long long)blockIdx.x * a.range_tiles;
+  const int nh = (int)max(0LL, min((long long)a.range_tiles, (long long)a.nt - t0));
+  for (int i = tid; i < nh * m; i += kThreads)
+    tps[i] = a.tp ? a.tp[t0 * m + i] : (int)(t0 * m + i);
+  if (F32 && qfs > d) {  // the f32 rows' columns past d stay zero
+    const int w = qfs - d;
+    for (int i = tid; i < a.nbuf * kRunSlots * w; i += kThreads)
+      qf[(i / w) * qfs + d + i % w] = 0.0f;
+  }
+  __syncthreads();
+
+  // the run table, a lane a tile: a run starts at the first tile, after a
+  // tile with no pair, where the block or occupancy changes, and every
+  // run_tiles tiles of one block; it ends before the next start or a tile
+  // with no pair
+  const int nk = rpt::padded_d<T>(d) / S::DC;
+  if (warp == 0) {
+    const bool in = lane < nh;
+    const int kb = in ? a.tb[t0 + lane] : 0;
+    const int kl = in ? a.lens[t0 + lane] : 0;
+    const bool ne = in && tps[lane * m] >= 0;
+    const int pkb = __shfl_up_sync(kFull, kb, 1);
+    const int pkl = __shfl_up_sync(kFull, kl, 1);
+    const int pne = __shfl_up_sync(kFull, (int)ne, 1);
+    const bool fresh = ne && (lane == 0 || !pne || pkb != kb || pkl != kl);
+    const unsigned upto = lane == 31 ? kFull : (2u << lane) - 1;  // lanes <= this one
+    const unsigned lower = (1u << lane) - 1;                       // lanes below it
+    const unsigned seg = __ballot_sync(kFull, fresh) & upto;
+    const int start = seg ? 31 - __clz(seg) : 0;
+    const bool head = ne && (lane - start) % a.run_tiles == 0;
+    const unsigned ends = __ballot_sync(kFull, head || !ne) & ~upto;
+    const int end = ends ? __ffs(ends) - 1 : 32;
+    const int len = min(max(kl, 0), lmax);
+    int rows = 0;
+    if (head) {
+      for (int i = (end - lane) * m - 1; i >= 0; --i) {
+        if (tps[lane * m + i] >= 0) {
+          rows = i + 1;
+          break;
+        }
+      }
+    }
+    const bool staged = head && len > 0;
+    const int stages = staged ? (len + rpt::kSlotTile - 1) / rpt::kSlotTile * nk : 0;
+    int incl = stages;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += v;
+    }
+    const unsigned sm = __ballot_sync(kFull, staged);
+    const unsigned zm = __ballot_sync(kFull, head && len == 0);
+    if (staged) {
+      const int r = __popc(sm & lower);
+      r_slot[r] = lane * m;
+      r_rows[r] = rows;
+      r_blk[r] = min(max(kb, 0), a.g - 1);
+      r_len[r] = len;
+      r_s0[r] = incl - stages;
+    } else if (head) {
+      const int z = __popc(zm & lower);
+      z_slot[z] = lane * m;
+      z_rows[z] = rows;
+    }
+    if (lane == 31) {
+      r_s0[__popc(sm)] = incl;
+      counts[0] = __popc(sm);
+      counts[1] = __popc(zm);
+    }
+    if (lane == 0 && a.reads && sm) atomicAdd(a.reads, (unsigned long long)__popc(sm));
+  }
+  __syncthreads();
+  const int nr = counts[0];
+  for (int z = 0; z < counts[1]; ++z) {  // blocks with no occupied row: +inf rows
+    for (int i = tid; i < z_rows[z] * lmax; i += kThreads) {
+      const int e = tps[z_slot[z] + i / lmax];
+      if (e >= 0) a.out[(size_t)e * lmax + i % lmax] = INFINITY;
+    }
+  }
+
+  // stage s holds columns [kc * DC, kc * DC + DC) of slot tile st of the run
+  // r holding it, s - r_s0[r] = st * nk + kc, in ring buffer s % K; the
+  // producer walks (r, st, kc) one stage a call
+  const int total = r_s0[nr];
+  const T* x = static_cast<const T*>(a.x);
+  int pr = 0, pst = 0, pkc = 0, pslot = 0;  // the next stage to issue and its ring slot
+  // this thread's 16-byte pieces of a stage of whole 128-byte row chunks:
+  // rows r0 + 32 k at column cv
+  const int r0 = tid / (rpt::kChunkBytes / 16);
+  const int cv = tid % (rpt::kChunkBytes / 16) * S::V;
+  auto issue = [&](int s) {
+    if (s < total) {
+      T* xs = reinterpret_cast<T*>(ring + (size_t)pslot * S::kStageFloats);
+      const int len = r_len[pr];
+      const int rows = min(rpt::kSlotTile, len - pst * rpt::kSlotTile);
+      const int c0 = pkc * S::DC;
+      const T* xb = x + (size_t)r_blk[pr] * lmax * d;
+      if (a.vec && c0 + S::DC <= d) {
+        const T* src = xb + (size_t)(pst * rpt::kSlotTile) * d + c0 + cv;
+#pragma unroll
+        for (int k = 0; k < rpt::kSlotTile * (rpt::kChunkBytes / 16) / kThreads; ++k) {
+          const int r = r0 + k * (kThreads / (rpt::kChunkBytes / 16));
+          if (r < rows) rpt::tile_cp_async16(xs + r * S::XS + cv, src + (size_t)r * d);
+        }
+      } else {
+        rpt::stage_rows(xs, xb, rows, pst * rpt::kSlotTile, d, c0, a.vec);
+      }
+      if (++pkc == nk) {
+        pkc = 0;
+        if (++pst * rpt::kSlotTile >= len) {
+          pst = 0;
+          ++pr;
+        }
+      }
+      if (++pslot == K) pslot = 0;
+    }
+    rpt::tile_cp_commit();  // an empty group past the last stage keeps the count
+  };
+  // run r's query rows into its f32 buffer (no commit: they join the next
+  // group issued)
+  auto issue_q = [&](int r) {
+    float* dst = qf + (size_t)(a.nbuf == 2 ? (r & 1) : 0) * kRunSlots * qfs;
+    const int* pt = tps + r_slot[r];
+    const int rows = r_rows[r];
+    if (a.qvec) {
+      const int ppr = d / 4;
+      for (int i = tid; i < rows * ppr; i += kThreads) {
+        const int row = i / ppr;
+        const int c = (i - row * ppr) * 4;
+        const int e = pt[row];
+        if (e >= 0)
+          rpt::tile_cp_async16(dst + row * qfs + c, a.q + (size_t)(e / a.p) * d + c);
+      }
+    } else {
+      for (int i = tid; i < rows * d; i += kThreads) {
+        const int row = i / d;
+        const int c = i - row * d;
+        const int e = pt[row];
+        if (e >= 0) cp_async4(dst + row * qfs + c, a.q + (size_t)(e / a.p) * d + c);
+      }
+    }
+  };
+  // the first K - 1 stages, the first run's query rows with the first
+  // (two buffers)
+  if (nr > 0 && a.nbuf == 2) issue_q(0);
+  for (int s = 0; s < K - 1; ++s) issue(s);
+
+  // one slot tile of run cr, stages s .. s + nk - 1, with H query rows a
+  // thread (f32) or H mma row groups a warp (bf16) in registers
+  const int jj = F32 ? tid % rpt::kSlotTile : warp * 16;
+  const int g8 = lane >> 2;  // the mma fragments' row group
+  const int t4 = lane & 3;   // and column pair
+  int s = 0;
+  int cr = 0;     // the run of stage s
+  int cslot = 0;  // and its ring slot
+  auto slot_tile = [&](auto hc) {
+    constexpr int H = decltype(hc)::value;
+    const int rows = r_rows[cr];
+    const int len = r_len[cr];
+    const int* pairs = tps + r_slot[cr];
+    const float* qb = qf + (size_t)(a.nbuf == 2 ? (cr & 1) : 0) * kRunSlots * qfs;
+    const float* sqb = a.sq + (size_t)r_blk[cr] * lmax;
+    const int j = (s - r_s0[cr]) / nk * rpt::kSlotTile + jj;
+    const int q0 = F32 ? tid / rpt::kSlotTile * H : 0;
+    // the slot norms, loaded while the stages land
+    const int ja = F32 ? j : j + g8;
+    const float sqa = ja < len ? sqb[ja] : 0.0f;
+    const float sqc = !F32 && ja + 8 < len ? sqb[ja + 8] : 0.0f;
+    float acc[H][4];
+#pragma unroll
+    for (int h = 0; h < H; ++h) acc[h][0] = acc[h][1] = acc[h][2] = acc[h][3] = 0.0f;
+    for (int kc = 0; kc < nk; ++kc, ++s) {
+      const bool first = kc == 0 && s == r_s0[cr];
+      // stage s has landed, and with it the run's query rows where they
+      // joined an older group (else a wait for every group)
+      const bool drain = first && cr > 0 && s - r_s0[cr - 1] < K - 1;
+      cp_wait(drain ? 0 : K - 2);
+      __syncthreads();  // stage s seen by all; every thread past stage s - 1
+      if (first) {
+        // the query rows: the next run's into the other buffer, or, with
+        // one buffer, this run's now
+        if (a.nbuf == 2) {
+          if (cr + 1 < nr) issue_q(cr + 1);
+        } else {
+          issue_q(cr);
+          rpt::tile_cp_commit();
+          rpt::tile_cp_wait<0>();
+          __syncthreads();
+        }
+      }
+      issue(s + K - 1);  // into stage s - 1's slot
+      if (first) {
+        for (int i = warp; i < rows; i += kThreads / 32) {
+          if (pairs[i] < 0) continue;
+          const float v = rpt::row_norm(qb + i * qfs, d);
+          if (lane == 0) qq[i] = v;
+        }
+        if constexpr (!F32) {
+          for (int i = tid; i < rows * qs; i += kThreads)
+            qw[i] = rpt::bf16_word(qb, qfs, qs, i, d);
+        }
+        const int w = lmax - len;  // +inf past the block's occupancy
+        for (int i = tid; i < rows * w; i += kThreads) {
+          const int e = pairs[i / w];
+          if (e >= 0) a.out[(size_t)e * lmax + len + i % w] = INFINITY;
+        }
+        __syncthreads();
+      }
+      const T* xs = reinterpret_cast<const T*>(ring + (size_t)cslot * S::kStageFloats);
+      if (++cslot == K) cslot = 0;
+      const int c0 = kc * S::DC;
+      if constexpr (F32) {
+        if (j < len && q0 < rows) {
+          if (c0 + S::DC <= d)  // a whole column chunk
+            rpt::f32_dots<H, H, true>(acc, xs + jj * S::XS, qb, qfs, q0, c0, S::DC / 4);
+          else
+            rpt::f32_dots<H>(acc, xs + jj * S::XS, qb, qfs, q0, c0, (d - c0 + 3) / 4);
+        }
+      } else if (j < len) {
+        rpt::bf16_dots(acc, reinterpret_cast<const uint32_t*>(xs) + (jj + g8) * (S::XS / 2) + t4,
+                       qw, qs, c0, (min(S::DC, d - c0) + 15) / 16, rows);
+      }
+    }
+    // each distance from the registers that summed it to its pair's row
+    if constexpr (F32) {
+      if (j < len) {
+#pragma unroll
+        for (int h = 0; h < H; ++h) {
+          const int i = q0 + h;
+          const int e = i < rows ? pairs[i] : -1;
+          if (e >= 0)
+            a.out[(size_t)e * lmax + j] = rpt::factored_l2(sqa, rpt::f32_dot(acc[h]), qq[i], a.l2);
+        }
+      }
+    } else if (j < len) {
+#pragma unroll
+      for (int n = 0; n < H; ++n) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = n * 8 + 2 * t4 + h;
+          const int e = i < rows ? pairs[i] : -1;
+          if (e >= 0) {
+            float* o = a.out + (size_t)e * lmax;
+            if (ja < len) o[ja] = rpt::factored_l2(sqa, acc[n][h], qq[i], a.l2);
+            if (ja + 8 < len) o[ja + 8] = rpt::factored_l2(sqc, acc[n][2 + h], qq[i], a.l2);
+          }
+        }
+      }
+    }
+  };
+  while (s < total) {
+    while (s >= r_s0[cr + 1]) ++cr;
+    const int rows = r_rows[cr];
+    if constexpr (F32) {  // ceil(rows / 2) a thread, rounded up to a power of 2
+      if (rows <= 2)
+        slot_tile(Rows<1>{});
+      else if (rows <= 4)
+        slot_tile(Rows<2>{});
+      else if (rows <= 8)
+        slot_tile(Rows<4>{});
+      else if (rows <= 16)
+        slot_tile(Rows<8>{});
+      else
+        slot_tile(Rows<16>{});
+    } else {  // ceil(rows / 8) mma row groups
+      if (rows <= 8)
+        slot_tile(Rows<1>{});
+      else if (rows <= 16)
+        slot_tile(Rows<2>{});
+      else if (rows <= 24)
+        slot_tile(Rows<3>{});
+      else
+        slot_tile(Rows<4>{});
+    }
+  }
+  rpt::tile_cp_wait<0>();
+
+  // pairs in no tile: this thread block's share of them reads +inf
+  if (a.slot) {
+    const long long lo = a.e * blockIdx.x / gridDim.x;
+    const long long hi = a.e * (blockIdx.x + 1) / gridDim.x;
+    const long long none = (long long)a.nt * m;
+    for (long long i = lo + tid; i < hi; i += kThreads) {
+      if (a.slot[i] >= none) {
+        float* o = a.out + i * lmax;
+        for (int c = 0; c < lmax; ++c) o[c] = INFINITY;
+      }
+    }
+  }
+}
+
+// The device's shared memory a block may opt into and an SM holds (cached
+// a device).
+void smem_limits(int* block, int* sm) {
+  static int cache[64][2];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) dev = 0;
+  if (cache[dev][0] == 0) {
+    cudaDeviceGetAttribute(&cache[dev][1], cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+    cudaDeviceGetAttribute(&cache[dev][0], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  *block = cache[dev][0];
+  *sm = cache[dev][1];
 }
 
 template <typename T>
-int launch_tiles_m(const T* x, const float* sq, const int* tb, const int* lens,
-                   const float* qt, float* out, int nt, int g, int tile_m, int lmax, int d,
-                   int l2, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int vec = rpt::vec_rows(x, d);
-  if (nt <= 0) return 0;
-  if (tile_m < 1) return (int)cudaErrorInvalidValue;
-  if (tile_m <= 8)
-    return launch_tiles<8>(x, sq, tb, lens, qt, out, nt, g, tile_m, lmax, d, l2, vec, s);
-  if (tile_m <= 16)
-    return launch_tiles<16>(x, sq, tb, lens, qt, out, nt, g, tile_m, lmax, d, l2, vec, s);
-  if (tile_m <= 32)
-    return launch_tiles<32>(x, sq, tb, lens, qt, out, nt, g, tile_m, lmax, d, l2, vec, s);
-  return (int)cudaErrorInvalidValue;
+int launch(Args a, cudaStream_t stream) {
+  if (a.m < 1 || a.m > kRunSlots || a.nt < 0 || a.p < 1) return (int)cudaErrorInvalidValue;
+  a.run_tiles = max(1, kRunSlots / a.m);
+  if (a.range_tiles < 1 || a.range_tiles > min(kMaxTiles, max(1, kRangeSlots / a.m)))
+    return (int)cudaErrorInvalidValue;
+  const long long grid = max(1LL, ((long long)a.nt + a.range_tiles - 1) / a.range_tiles);
+  if (a.nt == 0 && (a.slot == nullptr || a.e == 0)) return 0;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  a.vec = rpt::vec_rows(static_cast<const T*>(a.x), a.d);
+  a.qvec = a.d % 4 == 0 && (reinterpret_cast<uintptr_t>(a.q) & 15) == 0;
+  int block_max = 0, sm_max = 0;
+  smem_limits(&block_max, &sm_max);
+  // the deepest ring and query buffers at which two thread blocks share an
+  // SM, else the first that fits one
+  const int plans[5][2] = {{4, 2}, {3, 2}, {4, 1}, {3, 1}, {2, 1}};
+  int pick = -1;
+  for (int two = 1; two >= 0 && pick < 0; --two) {
+    for (int i = 0; i < 5 && pick < 0; ++i) {
+      const size_t bytes = 4 * score_words<T>(a.d, plans[i][0], plans[i][1]);
+      if (bytes <= (size_t)block_max && (!two || 2 * (bytes + 1024) <= (size_t)sm_max)) pick = i;
+    }
+  }
+  if (pick < 0) return (int)cudaErrorInvalidValue;
+  a.ring = plans[pick][0];
+  a.nbuf = plans[pick][1];
+  const size_t bytes = 4 * score_words<T>(a.d, a.ring, a.nbuf);
+  cudaError_t e = rpt::allow_smem(grouped_score_kernel<T>, bytes);
+  if (e != cudaSuccess) return (int)e;
+  grouped_score_kernel<T><<<(unsigned)grid, kThreads, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Each returns a cudaError_t code: 0 on a good launch; cudaErrorInvalidValue
-// for a tile_m outside [1, 32].
-int rpt_grouped_score_f32(const float* x, const float* sq, const int* tb, const int* lens,
-                          const float* qt, float* out, int nt, int g, int tile_m, int lmax,
-                          int d, int l2, void* stream) {
-  return launch_tiles_m(x, sq, tb, lens, qt, out, nt, g, tile_m, lmax, d, l2, stream);
-}
-
-int rpt_grouped_score_bf16(const __nv_bfloat16* x, const float* sq, const int* tb,
-                           const int* lens, const float* qt, float* out, int nt, int g,
-                           int tile_m, int lmax, int d, int l2, void* stream) {
-  return launch_tiles_m(x, sq, tb, lens, qt, out, nt, g, tile_m, lmax, d, l2, stream);
+// The arguments packed as int64 (ops/grouped_kernel.py _SCORE_ARGS): x, sq,
+// tb, tp, lens, slot, q, out, reads, pairs, nt, g, tile_m, lmax, d, p, l2,
+// bf16, the tiles a thread block takes (1 to min(32, 256 / tile_m)),
+// stream.  Returns a cudaError_t code: 0 on a good launch;
+// cudaErrorInvalidValue for a tile_m outside [1, 32], a range outside its
+// bounds or rows too wide for shared memory.
+int rpt_grouped_score(const long long* v) {
+  Args a{};
+  a.x = reinterpret_cast<const void*>(v[0]);
+  a.sq = reinterpret_cast<const float*>(v[1]);
+  a.tb = reinterpret_cast<const int*>(v[2]);
+  a.tp = reinterpret_cast<const int*>(v[3]);
+  a.lens = reinterpret_cast<const int*>(v[4]);
+  a.slot = reinterpret_cast<const long long*>(v[5]);
+  a.q = reinterpret_cast<const float*>(v[6]);
+  a.out = reinterpret_cast<float*>(v[7]);
+  a.reads = reinterpret_cast<unsigned long long*>(v[8]);
+  a.e = v[9];
+  a.nt = (int)v[10];
+  a.g = (int)v[11];
+  a.m = (int)v[12];
+  a.lmax = (int)v[13];
+  a.d = (int)v[14];
+  a.p = (int)v[15];
+  a.l2 = (int)v[16];
+  a.range_tiles = (int)v[18];
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(v[19]);
+  return v[17] ? launch<__nv_bfloat16>(a, s) : launch<float>(a, s);
 }
 
 const char* rpt_error_string(int code) {

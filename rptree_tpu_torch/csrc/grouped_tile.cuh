@@ -1,7 +1,9 @@
 // The tile scoring shared by the tile kernels of the grouped rerank:
 // grouped_score (kernel 1, csrc/grouped_score.cu) and grouped_topk
-// (kernel 4, csrc/grouped_topk.cu).  Both stage a tile's distances with
-// score_tile below, so kernel 4's distances are bit-equal to kernel 1's.
+// (kernel 4, csrc/grouped_topk.cu).  Kernel 4 stages a tile's distances
+// with score_tile below; kernel 1 scores runs of tiles with the same
+// pieces (stage_rows, f32_dots / bf16_dots, row_norm, bf16_rows,
+// factored_l2), so kernel 4's distances are bit-equal to kernel 1's.
 // Kernel 2 (int8 blocks, csrc/grouped_score_i8.cu) stages its block rows
 // with the same stage_rows and TileShape<int8_t>.
 //
@@ -18,27 +20,22 @@
 // take fp32 FMAs, never TF32: one-pass low-precision products cost the
 // clustered cell recall in the JAX package (0.9249 -> 0.860).
 //
-// What bounds it on an H100: bytes.  A tile reads its block's occupied
-// rows once and does 2 * m * len * D operations on them, 4 per f32 byte
-// at m = 8, far below the card's balance.  So the work has to stay off
-// the issue slots and the shared-memory port.  The design:
+// The arithmetic of one dot, which every user keeps bit for bit: f32
+// blocks sum four FMA chains (column % 4) in column order and add them as
+// (c0 + c1) + (c2 + c3); bf16 blocks run mma.sync m16n8k16 over 32-byte
+// column steps in column order; |q|^2 is a lane's FMA chain over the
+// columns lane, lane + 32, ..., then a warp sum.
 //
-// - the block's occupied rows stream through shared memory in stages of
-//   128 slots x 128 bytes of columns, two stages deep, by 16-byte
-//   cp.async copies (plain loads where D * sizeof(T) is not a multiple of
-//   16 or the blocks are not 16-byte aligned); a staged row's stride is
-//   144 bytes (36 words), so 16-byte reads of eight neighbouring slots,
-//   and the mma fragments' 4-byte reads of eight slots x four columns,
-//   hit distinct banks;
-// - the m query rows sit in shared memory beside them, zero past D;
-// - no dot ends in a cross-lane sum: f32 blocks give each thread one slot
-//   against half the query rows in registers (a 16-byte shared load feeds
-//   4 FMAs a query row); bf16 blocks run mma.sync on the tensor cores, a
-//   warp's 16 slots against every query row per 16 x 8 x 16 product;
-// - the epilogue (factored L2, the square root, +inf past len) runs on
-//   the mma's registers and writes the distances to shared memory once.
-//
-// Blocks of 256 threads; rows past 128 slots take further stages.
+// The staging: the block's occupied rows stream through shared memory in
+// stages of 128 slots x 128 bytes of columns by 16-byte cp.async copies
+// (plain loads where D * sizeof(T) is not a multiple of 16 or the blocks
+// are not 16-byte aligned); a staged row's stride is 144 bytes (36
+// words), so 16-byte reads of eight neighbouring slots, and the mma
+// fragments' 4-byte reads of eight slots x four columns, hit distinct
+// banks.  No dot ends in a cross-lane sum: f32 blocks give each thread one
+// slot against a share of the query rows in shared memory (a 16-byte
+// shared load feeds 4 FMAs a query row); bf16 blocks run mma.sync, a
+// warp's 16 slots against every query row per 16 x 8 x 16 product.
 
 #pragma once
 
@@ -157,23 +154,99 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Scores tile t into its shared distances (tile_dist(smem, d), [m][lmax]);
-// smem holds score_tile_floats<MT, T>(m, lmax, d) floats.  vec as
+// acc[h] += the dots of one staged slot row xr (columns [c0, c0 + 4 *
+// steps) of the stage) with query rows q0 + h, h < H, of the f32 rows qf
+// (stride qs words): a 16-byte shared load of the slot row feeds 4 FMAs
+// a query row, one chain a column % 4.  FULL: steps is a whole chunk's.
+template <int H, int NA, bool FULL = false>
+__device__ __forceinline__ void f32_dots(float (&acc)[NA][4], const float* xr, const float* qf,
+                                         int qs, int q0, int c0, int steps) {
+  static_assert(H <= NA, "accumulators");
+#pragma unroll
+  for (int u = 0; u < TileShape<float>::DC / 4; ++u) {
+    if (FULL || u < steps) {
+      const float4 xv = *reinterpret_cast<const float4*>(xr + 4 * u);
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        const float4 qv = *reinterpret_cast<const float4*>(qf + (q0 + h) * qs + c0 + 4 * u);
+        acc[h][0] = fmaf(qv.x, xv.x, acc[h][0]);
+        acc[h][1] = fmaf(qv.y, xv.y, acc[h][1]);
+        acc[h][2] = fmaf(qv.z, xv.z, acc[h][2]);
+        acc[h][3] = fmaf(qv.w, xv.w, acc[h][3]);
+      }
+    }
+  }
+}
+
+// A dot from its four chains.
+__device__ __forceinline__ float f32_dot(const float (&a)[4]) {
+  return (a[0] + a[1]) + (a[2] + a[3]);
+}
+
+// acc[n] += the mma products of a warp's 16 staged slot rows (xw: this
+// lane's fragment base, (slot + g) * 36 + t4 words into the stage) with
+// query rows [8 n, 8 n + 8) of the bf16 column pairs qw (stride qs words),
+// for the n with 8 n < rows, over columns [c0, c0 + 16 * steps).
+template <int NN>
+__device__ __forceinline__ void bf16_dots(float (&acc)[NN][4], const uint32_t* xw,
+                                          const uint32_t* qw, int qs, int c0, int steps,
+                                          int rows) {
+  constexpr int XW = TileShape<__nv_bfloat16>::XS / 2;  // staged row stride in words: 36
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int u = 0; u < TileShape<__nv_bfloat16>::DC / 16; ++u) {
+    if (u < steps) {
+      const uint32_t a[4] = {xw[8 * u], xw[8 * u + 8 * XW], xw[8 * u + 4],
+                             xw[8 * u + 8 * XW + 4]};
+#pragma unroll
+      for (int n = 0; n < NN; ++n) {
+        if (n * 8 < rows) {
+          const uint32_t* qb = qw + (n * 8 + g) * qs + c0 / 2 + 8 * u + t4;
+          mma_bf16(acc[n], a, qb[0], qb[4]);
+        }
+      }
+    }
+  }
+}
+
+// |q|^2 of the f32 row qr[0, d), summed by the calling warp: each lane's
+// FMA chain over its columns, then a warp sum.
+__device__ __forceinline__ float row_norm(const float* qr, int d) {
+  float s = 0.0f;
+  for (int c = threadIdx.x & 31; c < d; c += 32) s = fmaf(qr[c], qr[c], s);
+  return warp_sum(s);
+}
+
+// Word i of the bf16 query rows (rows of qs words, column pairs rounded to
+// nearest even, zero past d) from f32 rows qf of stride qfs.
+__device__ __forceinline__ uint32_t bf16_word(const float* qf, int qfs, int qs, int i, int d) {
+  const int r = i / qs;
+  const int c = 2 * (i - r * qs);
+  const float v0 = c < d ? qf[r * qfs + c] : 0.0f;
+  const float v1 = c + 1 < d ? qf[r * qfs + c + 1] : 0.0f;
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Kernel 4's tile scoring: scores tile t into its shared distances
+// (tile_dist(smem, d), [m][lmax]), the query rows read in tile-slot order
+// from qt; smem holds score_tile_floats<MT, T>(m, lmax, d) floats.  vec as
 // vec_rows(x, d).  Needs blockDim.x == kTileThreads.  Ends with a block
 // barrier, after which the distances are complete.
 //
-// f32 blocks: fp32 FMAs.  Thread t owns slot t % 128 of a stage and half
-// of the MT query rows; per 16 bytes of its slot row it makes one shared
-// load, MT / 2 broadcast loads of the query rows' matching columns and 4
-// FMAs a query row, into four chains a dot (column % 4) added as a tree
-// at the end (one chain a dot loses ~1e-4 relative against other orders).
+// f32 blocks: fp32 FMAs (f32_dots).  Thread t owns slot t % 128 of a
+// stage and half of the MT query rows, four chains a dot (column % 4)
+// added as a tree at the end (one chain a dot loses ~1e-4 relative
+// against other orders).
 // The tensor cores' tf32 products, even as 3xTF32, measured no faster and
 // 7x further from the plain version on the clustered chunk: their fp32
 // sums truncate.
 //
-// bf16 blocks: mma.sync m16n8k16, products exact, fp32 sums.  Warp w owns
-// slots [16 w, 16 w + 16) of a stage (the mma's M) against every query row
-// (N, MT / 8 tiles of 8); 32 bytes of columns are one k-step.
+// bf16 blocks: mma.sync m16n8k16 (bf16_dots), products exact, fp32 sums.
+// Warp w owns slots [16 w, 16 w + 16) of a stage (the mma's M) against
+// every query row (N, MT / 8 tiles of 8); 32 bytes of columns are one
+// k-step.
 template <int MT, typename T>
 __device__ void score_tile(const T* __restrict__ x, const float* __restrict__ sq,
                            const float* __restrict__ qt, int t, long blk, int len, int m,
@@ -217,17 +290,11 @@ __device__ void score_tile(const T* __restrict__ x, const float* __restrict__ sq
       const int c = i - r * qs;
       qw[i] = __float_as_uint(r < m && c < d ? qsrc[r * d + c] : 0.0f);
     } else {
-      const int c = 2 * (i - r * qs);
-      const float v0 = r < m && c < d ? qsrc[r * d + c] : 0.0f;
-      const float v1 = r < m && c + 1 < d ? qsrc[r * d + c + 1] : 0.0f;
-      const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-      qw[i] = *reinterpret_cast<const uint32_t*>(&h);
+      qw[i] = r < m ? bf16_word(qsrc, d, qs, i, d) : 0u;
     }
   }
   for (int i = warp; i < m; i += kTileThreads / 32) {
-    float s = 0.0f;
-    for (int c = lane; c < d; c += 32) s = fmaf(qsrc[i * d + c], qsrc[i * d + c], s);
-    s = warp_sum(s);
+    const float s = row_norm(qsrc + (size_t)i * d, d);
     if (lane == 0) qq[i] = s;
   }
 
@@ -254,53 +321,22 @@ __device__ void score_tile(const T* __restrict__ x, const float* __restrict__ sq
     const int c0 = kc * S::DC;  // the stage's first column
     if constexpr (F32) {
       if (j < len && q0 < m) {
-        const float* xr = xs + jj * S::XS;
-        const int steps = (min(S::DC, d - c0) + 3) / 4;
-#pragma unroll
-        for (int u = 0; u < S::DC / 4; ++u) {
-          if (u < steps) {
-            const float4 xv = *reinterpret_cast<const float4*>(xr + 4 * u);
-#pragma unroll
-            for (int h = 0; h < H; ++h) {
-              const float4 qv =
-                  *reinterpret_cast<const float4*>(qf + (q0 + h) * qs + c0 + 4 * u);
-              acc[h][0] = fmaf(qv.x, xv.x, acc[h][0]);
-              acc[h][1] = fmaf(qv.y, xv.y, acc[h][1]);
-              acc[h][2] = fmaf(qv.z, xv.z, acc[h][2]);
-              acc[h][3] = fmaf(qv.w, xv.w, acc[h][3]);
-            }
-          }
-        }
+        f32_dots<H>(acc, xs + jj * S::XS, qf, qs, q0, c0, (min(S::DC, d - c0) + 3) / 4);
         if (kc == nk - 1) {
           const float sqj = sqb[j];
 #pragma unroll
           for (int h = 0; h < H; ++h) {
             const int i = q0 + h;
             if (i < m) {
-              const float dot = (acc[h][0] + acc[h][1]) + (acc[h][2] + acc[h][3]);
-              dist[i * lmax + j] = factored_l2(sqj, dot, qq[i], l2);
+              dist[i * lmax + j] = factored_l2(sqj, f32_dot(acc[h]), qq[i], l2);
             }
           }
         }
       }
     } else if (j < len) {
       constexpr int XW = S::XS / 2;  // staged row stride in words: 36
-      const uint32_t* xw = reinterpret_cast<const uint32_t*>(xs) + (jj + g) * XW + t4;
-      const int steps = (min(S::DC, d - c0) + 15) / 16;
-#pragma unroll
-      for (int u = 0; u < S::DC / 16; ++u) {
-        if (u < steps) {
-          const uint32_t a[4] = {xw[8 * u], xw[8 * u + 8 * XW], xw[8 * u + 4],
-                                 xw[8 * u + 8 * XW + 4]};
-#pragma unroll
-          for (int n = 0; n < H; ++n) {
-            if (n * 8 < m) {
-              const uint32_t* qb = qw + (n * 8 + g) * qs + c0 / 2 + 8 * u + t4;
-              mma_bf16(acc[n], a, qb[0], qb[4]);
-            }
-          }
-        }
-      }
+      bf16_dots(acc, reinterpret_cast<const uint32_t*>(xs) + (jj + g) * XW + t4, qw, qs, c0,
+                (min(S::DC, d - c0) + 15) / 16, m);
       if (kc == nk - 1) {
         const int ja = j + g;
         const int jb = ja + 8;

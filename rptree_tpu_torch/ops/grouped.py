@@ -7,9 +7,11 @@ the XLA-form scorer ``grouped_distances`` and the kernel forms
    tile references exactly one block.  Steps 1-2 are the tile tables,
    kernel 9 on the card (:func:`tile_tables`, ``csrc/tile_tables.cu``).
 3. Score every tile against its block: in one launch of a tile kernel
-   (:mod:`.grouped_kernel`), or, in the XLA form, as batched products of
-   ``tile_chunk`` tiles at a time (the JAX package's einsum, here
-   ``torch.bmm``), which serves every metric (``l2``, ``sql2``,
+   (:mod:`.grouped_kernel`; kernel 1, on f32 and bf16 blocks, reads each
+   pair's query row in place and writes its distance row to the pair's
+   place, so steps 3 and 4 are one), or, in the XLA form, as batched
+   products of ``tile_chunk`` tiles at a time (the JAX package's einsum,
+   here ``torch.bmm``), which serves every metric (``l2``, ``sql2``,
    ``cosine``, ``dot``, a callable) on f32, bf16, int8 and centered int8
    blocks and on shared rows (:func:`.shared.fetch_blocks`); ELL blocks
    take kernel 10 (:mod:`.ell_kernel`) for the XLA form's ELL step.  Each
@@ -40,7 +42,7 @@ from ..utils import profiling
 from ..utils.profiling import region
 from .build import ieee_fp32
 from .ell_kernel import ell_score_tiles
-from .grouped_kernel import (_int8_dots, _quantize_rows, grouped_score_tiles,
+from .grouped_kernel import (_int8_dots, _quantize_rows, grouped_score_pairs,
                              grouped_score_tiles_int8, grouped_score_topk)
 from .rerank import distances_from_dots
 from .shared import fetch_blocks
@@ -347,8 +349,8 @@ def tile_tables(gsel, lsel, lens_of_block, tile_m: int, nt: int):
                                    tally=tally)
         out = tile_tables_reference(gsel, lsel, lens_of_block, tile_m, nt)
         if tally is not None:
-            tally += torch.stack(((lsel >= 0).sum(),
-                                   (out[2].long() - int(nt)).clamp(min=0)))
+            tally[:2] += torch.stack(((lsel >= 0).sum(),
+                                      (out[2].long() - int(nt)).clamp(min=0)))
         return out
 
 
@@ -545,21 +547,29 @@ def grouped_distances_kernel(x_leaf, sq_leaf, lens_of_block, gsel, lsel, q,
       nt: tile capacity.
       block_scale: ``f32[G]`` per-block scales of int8 blocks.
 
+    f32 and bf16 blocks take :func:`.grouped_kernel.grouped_score_pairs`
+    on the tile tables (query rows read in place, each pair's row written
+    in its place); int8 blocks gather the query rows into tile-slot order
+    for kernel 2 and reorder its rows to the pairs (``rpt_pair_reorder``).
+
     Returns ``(d f32[B, P, lmax], needed int32[])``: masked slots (invalid
     probes, occupancy padding, capacity overflow) carry +inf.
     """
     b, p = gsel.shape
-    tb, lens_t, qi, needed, inv = _tile_operands(gsel, lsel, lens_of_block,
-                                                 tile_m, nt)
+    if x_leaf.dtype == torch.int8:
+        tb, lens_t, qi, needed, inv = _tile_operands(gsel, lsel, lens_of_block,
+                                                     tile_m, nt)
+        with region("rpt_grouped_score"):
+            d_all = grouped_score_tiles_int8(x_leaf, sq_leaf, block_scale, tb,
+                                             lens_t, q[qi], metric, tile_m)
+        return _pair_rows(d_all, inv, float("inf"), b, p), needed
+    tb, tp, needed, slot, lens_t = tile_tables(gsel, lsel, lens_of_block,
+                                               tile_m, nt)
     with region("rpt_grouped_score"):
-        qt = q[qi]
-        if x_leaf.dtype == torch.int8:
-            d_all = grouped_score_tiles_int8(x_leaf, sq_leaf, block_scale,
-                                             tb, lens_t, qt, metric, tile_m)
-        else:
-            d_all = grouped_score_tiles(x_leaf, sq_leaf, tb, lens_t, qt,
-                                        metric, tile_m)
-    return _pair_rows(d_all, inv, float("inf"), b, p), needed
+        d = grouped_score_pairs(x_leaf, sq_leaf, tb, tp, lens_t, slot,
+                                q.contiguous(), metric, tile_m,
+                                reads=profiling.grouped_reads(q.device))
+    return d.view(b, p, x_leaf.shape[1]), needed
 
 
 @torch.no_grad()

@@ -5,12 +5,17 @@ scoring fused with a per-slot top-kp (``impl="kernel_topk"``), CUDA in
 ``csrc/grouped_topk.cu``.
 
 A tile is up to ``tile_m`` (query, probe) pairs that probe the same leaf
-block; each tile's rows are scored against its one block.  Each kernel
-has a plain torch version beside it (``*_reference``), and a wrapper that
-takes the plain version for a tensor on the CPU and launches the kernel
-for a tensor on a CUDA device, or raises there: it never falls back.
-``<wrapper>.launches`` counts kernel launches; ``grouped_score_tiles``
-counts its bf16 launches apart, in ``launches_bf16``.
+block; each tile's rows are scored against its one block.  Kernel 1
+serves two forms: :func:`grouped_score_pairs`, the serving path's, reads
+each pair's query row in place through the tile tables and writes its
+distance row straight to the pair's place; :func:`grouped_score_tiles`,
+the JAX package's slot-order contract, is the same launch through the
+identity pair map.  Each kernel has a plain torch version beside it
+(``*_reference``), and a wrapper that takes the plain version for a
+tensor on the CPU and launches the kernel for a tensor on a CUDA device,
+or raises there: it never falls back.  ``<wrapper>.launches`` counts
+kernel launches; kernel 1's, in either form, count on
+``grouped_score_tiles``, its bf16 launches apart in ``launches_bf16``.
 
 bf16 blocks are scored as the Pallas kernels' ``qm.astype(bf16)`` dot:
 the query rows are rounded to bf16 (nearest even), each product of two
@@ -24,11 +29,16 @@ tile count.
 
 from __future__ import annotations
 
+import functools
+import struct
+
 import torch
 
 from .. import _cuda
 
-__all__ = ["grouped_score_tiles", "grouped_score_tiles_reference",
+__all__ = ["grouped_score_pairs", "grouped_score_pairs_reference",
+           "score_runs", "range_tiles", "grouped_score_tiles",
+           "grouped_score_tiles_reference",
            "grouped_score_tiles_int8", "grouped_score_tiles_int8_reference",
            "grouped_score_topk", "grouped_score_topk_reference",
            "grouped_kernel_ok", "untied"]
@@ -39,6 +49,18 @@ _MAX_KP = 128
 _FLOAT_BLOCKS = (torch.float32, torch.bfloat16)
 # tiles per step of the plain versions (bounds their gathered-block buffer)
 _REF_CHUNK = 4096
+# csrc/grouped_score.cu's work units: a run of one block's tiles holds at
+# most 32 slots (kRunSlots), and a thread block takes the tiles of at most
+# 256 slots, 32 tiles at most (kRangeSlots, kMaxTiles); runs break there
+_RUN_SLOTS, _RANGE_SLOTS, _MAX_TILES = 32, 256, 32
+# thread blocks an SM holds (its shared memory) and the waves of them that
+# a launch should give the SMs before its ranges shrink (range_tiles)
+_BLOCKS_PER_SM, _WAVES = 2, 4
+# The C entry point's arguments, an int64 each in their order
+# (csrc/grouped_score.cu rpt_grouped_score): x, sq, tb, tp, lens, slot, q,
+# out, reads, pairs, nt, g, tile_m, lmax, d, p, l2, bf16, range_tiles,
+# stream
+_SCORE_ARGS = struct.Struct("20q")
 # int8 scales are ``amax / 127`` as the JAX package's compiled programs
 # compute it: XLA turns a division by a constant into a multiply by the
 # constant's f32 reciprocal, so the port multiplies too, bit for bit
@@ -108,6 +130,17 @@ def _factored_l2(sq, dots, qq, metric):
     return d.sqrt() if metric == "l2" else d
 
 
+def _tile_dists(x_leaf, sq_leaf, tbs, lens_s, qm, metric):
+    """The plain distances ``[c, m, lmax]`` of ``c`` tiles: blocks ``tbs
+    int64[c]``, occupancy ``lens_s [c]``, query rows ``qm f32[c, m, D]``."""
+    blk = x_leaf[tbs].float()                            # [c, lmax, D]
+    qr = qm.to(x_leaf.dtype).float()      # bf16 blocks: rounded rows
+    dots = torch.bmm(qr, blk.transpose(1, 2))            # [c, m, lmax]
+    qq = (qm * qm).sum(-1, keepdim=True)
+    dd = _factored_l2(sq_leaf[tbs][:, None, :], dots, qq, metric)
+    return torch.where(_occupancy(lens_s, x_leaf.shape[1]), dd, float("inf"))
+
+
 @torch.no_grad()
 def grouped_score_tiles_reference(x_leaf, sq_leaf, tb, lens_t, qt, metric,
                                   tile_m: int):
@@ -121,16 +154,50 @@ def grouped_score_tiles_reference(x_leaf, sq_leaf, tb, lens_t, qt, metric,
                       device=x_leaf.device)
     for s in range(0, nt, _REF_CHUNK):
         c = min(_REF_CHUNK, nt - s)
-        tbs = tb[s:s + c].long()
-        blk = x_leaf[tbs].float()                            # [c, lmax, D]
         qm = qt[s * tile_m:(s + c) * tile_m].reshape(c, tile_m, d)
-        qr = qm.to(x_leaf.dtype).float()      # bf16 blocks: rounded rows
-        dots = torch.bmm(qr, blk.transpose(1, 2))            # [c, m, lmax]
-        qq = (qm * qm).sum(-1, keepdim=True)
-        dd = _factored_l2(sq_leaf[tbs][:, None, :], dots, qq, metric)
-        dd = torch.where(_occupancy(lens_t[s:s + c], lmax), dd, float("inf"))
+        dd = _tile_dists(x_leaf, sq_leaf, tb[s:s + c].long(),
+                         lens_t[s:s + c], qm, metric)
         out[s * tile_m:(s + c) * tile_m] = dd.reshape(c * tile_m, lmax)
     return out
+
+
+def _launch_score(x_leaf, sq_leaf, tb, tp, lens_t, slot, q, out, reads,
+                  tile_m, p, metric):
+    """One launch of kernel 1 (``csrc/grouped_score.cu``); ``tp`` and
+    ``slot`` None for the identity pair map."""
+    g, lmax, d = x_leaf.shape
+    nt = tb.shape[0]
+    bf16 = x_leaf.dtype == torch.bfloat16
+    with _cuda.on(x_leaf.device):
+        code = _cuda.lib().rpt_grouped_score(_SCORE_ARGS.pack(
+            x_leaf.data_ptr(), sq_leaf.data_ptr(), tb.data_ptr(),
+            0 if tp is None else tp.data_ptr(), lens_t.data_ptr(),
+            0 if slot is None else slot.data_ptr(), q.data_ptr(),
+            out.data_ptr(), 0 if reads is None else reads.data_ptr(),
+            out.shape[0], nt, g, tile_m, lmax, d, p, int(metric == "l2"),
+            int(bf16), range_tiles(nt, tile_m, _sm_count(x_leaf.device)),
+            _cuda.raw_stream(x_leaf.device)))
+    _cuda.check(code, "grouped_score_tiles")
+    if bf16:
+        grouped_score_tiles.launches_bf16 += 1
+    else:
+        grouped_score_tiles.launches += 1
+
+
+@functools.lru_cache(maxsize=64)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def range_tiles(nt: int, tile_m: int, sms: int = None) -> int:
+    """The tiles each thread block of kernel 1 takes: ``min(32, 256 //
+    tile_m)``, or fewer where ``nt`` tiles would give ``sms`` SMs under
+    about four waves of two thread blocks each (``sms`` None: no such
+    limit, the plain versions' count)."""
+    cap = min(_MAX_TILES, max(1, _RANGE_SLOTS // tile_m))
+    if sms is None:
+        return cap
+    return max(1, min(cap, -(-nt // (_WAVES * _BLOCKS_PER_SM * sms))))
 
 
 def grouped_score_tiles(x_leaf, sq_leaf, tb, lens_t, qt, metric,
@@ -142,7 +209,9 @@ def grouped_score_tiles(x_leaf, sq_leaf, tb, lens_t, qt, metric,
     ``lens_t int32[nt]`` occupancy per tile, ``qt f32[nt * tile_m, D]``
     query rows in tile-slot order.  Slots at or past a tile's occupancy
     return +inf; rows of empty tile slots are junk that callers never
-    read.  Block rows are clamped into ``[0, G)`` on the card.
+    read.  Block rows are clamped into ``[0, G)`` on the card, where
+    kernel 1 scores every slot as a pair of the identity pair map (see
+    :func:`grouped_score_pairs`).
     """
     _check_metric(metric)
     if x_leaf.device.type == "cpu":
@@ -154,25 +223,119 @@ def grouped_score_tiles(x_leaf, sq_leaf, tb, lens_t, qt, metric,
                 sq_leaf=(sq_leaf, torch.float32, 2), tb=(tb, torch.int32, 1),
                 lens_t=(lens_t, torch.int32, 1), qt=(qt, torch.float32, 2))
     _check_shapes(x_leaf, sq_leaf, tb, lens_t, qt, tile_m)
-    g, lmax, d = x_leaf.shape
-    nt = tb.shape[0]
-    out = torch.empty((nt * tile_m, lmax), dtype=torch.float32,
-                      device=x_leaf.device)
-    if nt == 0:
+    out = torch.empty((tb.shape[0] * tile_m, x_leaf.shape[1]),
+                      dtype=torch.float32, device=x_leaf.device)
+    if tb.shape[0] == 0:
         return out
-    lib = _cuda.lib()
-    bf16 = x_leaf.dtype == torch.bfloat16
-    fn = lib.rpt_grouped_score_bf16 if bf16 else lib.rpt_grouped_score_f32
-    with _cuda.on(x_leaf.device):
-        code = fn(_cuda.ptr(x_leaf), _cuda.ptr(sq_leaf), _cuda.ptr(tb),
-                  _cuda.ptr(lens_t), _cuda.ptr(qt), _cuda.ptr(out), nt, g,
-                  tile_m, lmax, d, int(metric == "l2"),
-                  _cuda.stream_of(x_leaf))
-    _cuda.check(code, name)
-    if bf16:
-        grouped_score_tiles.launches_bf16 += 1
-    else:
-        grouped_score_tiles.launches += 1
+    _launch_score(x_leaf, sq_leaf, tb, None, lens_t, None, qt, out, None,
+                  tile_m, 1, metric)
+    return out
+
+
+def _check_pairs(x_leaf, sq_leaf, tb, tp, lens_t, slot, q, tile_m):
+    g, lmax, d = x_leaf.shape
+    nt, e = tb.shape[0], slot.shape[0]
+    if tuple(sq_leaf.shape) != (g, lmax):
+        raise ValueError(f"sq_leaf {tuple(sq_leaf.shape)} != {(g, lmax)}")
+    if tuple(tp.shape) != (nt, tile_m):
+        raise ValueError(f"tp {tuple(tp.shape)} != {(nt, tile_m)}")
+    if tuple(lens_t.shape) != (nt,):
+        raise ValueError(f"lens_t {tuple(lens_t.shape)} != {(nt,)}")
+    if q.dim() != 2 or q.shape[1] != d:
+        raise ValueError(f"q {tuple(q.shape)} must be [B, {d}]")
+    if e and (q.shape[0] == 0 or e % q.shape[0]):
+        raise ValueError(f"{e} pairs are not a whole number of probes for "
+                         f"each of {q.shape[0]} queries")
+    if g < 1:
+        raise ValueError("x_leaf holds no blocks")
+
+
+def score_runs(tb, tp, lens_t, tile_m: int, sms: int = None):
+    """The block stagings kernel 1 makes on these tables
+    (``csrc/grouped_score.cu``): the runs, each one block's consecutive
+    tiles (equal ``tb`` and ``lens_t``) of at most ``32 // tile_m`` (1 at
+    least), that hold a pair in their first slot and a block with an
+    occupied row; runs also break where a tile holds no pair and every
+    :func:`range_tiles` tiles (a thread block's tiles; ``sms`` the SMs of
+    the card, None for the plain versions).  ``tp`` None: the identity
+    pair map.  An int64 device scalar."""
+    nt = tb.shape[0]
+    t = torch.arange(nt, device=tb.device)
+    pair = (torch.ones(nt, dtype=torch.bool, device=tb.device)
+            if tp is None else tp[:, 0] >= 0)
+    same = torch.zeros(nt, dtype=torch.bool, device=tb.device)
+    same[1:] = pair[:-1] & (tb[1:] == tb[:-1]) & (lens_t[1:] == lens_t[:-1])
+    fresh = pair & (~same | (t % range_tiles(nt, tile_m, sms) == 0))
+    start = torch.cummax(torch.where(fresh, t, 0), 0).values
+    head = pair & ((t - start) % max(1, _RUN_SLOTS // tile_m) == 0)
+    return (head & (lens_t > 0)).sum()
+
+
+@torch.no_grad()
+def grouped_score_pairs_reference(x_leaf, sq_leaf, tb, tp, lens_t, slot, q,
+                                  metric, tile_m: int, reads=None):
+    """Plain torch version of :func:`grouped_score_pairs`: each chunk of
+    tiles scored as :func:`grouped_score_tiles_reference` scores it, the
+    query rows gathered through ``tp // p``, each pair's row put in its
+    place; ``reads`` gains :func:`score_runs`."""
+    _check_metric(metric)
+    _check_float_blocks("grouped_score_pairs", x_leaf)
+    _check_pairs(x_leaf, sq_leaf, tb, tp, lens_t, slot, q, tile_m)
+    lmax = x_leaf.shape[1]
+    nt, e = tb.shape[0], slot.shape[0]
+    p = e // max(1, q.shape[0])
+    out = torch.full((e, lmax), float("inf"), dtype=torch.float32,
+                     device=x_leaf.device)
+    for s in range(0, nt, _REF_CHUNK):
+        c = min(_REF_CHUNK, nt - s)
+        tps = tp[s:s + c].long()
+        qm = q[torch.where(tps >= 0, tps // p, 0)]          # [c, m, D]
+        dd = _tile_dists(x_leaf, sq_leaf, tb[s:s + c].long(),
+                         lens_t[s:s + c], qm, metric)
+        ok = tps >= 0
+        out[tps[ok]] = dd[ok]
+    if reads is not None:
+        reads += score_runs(tb, tp, lens_t, tile_m)
+    return out
+
+
+def grouped_score_pairs(x_leaf, sq_leaf, tb, tp, lens_t, slot, q, metric,
+                        tile_m: int, reads=None):
+    """Exact distances of every (query, probe) pair to its block's slots,
+    scored by the tiles of the tile tables: ``d f32[B * P, lmax]``, row
+    ``e`` pair ``e`` (query ``e // P``).
+
+    ``x_leaf f32 or bf16 [G, lmax, D]``, ``sq_leaf f32[G, lmax]``; ``tb
+    int32[nt]``, ``tp int32[nt, tile_m]``, ``lens_t int32[nt]`` and
+    ``slot int64[B * P]`` as :func:`.grouped.tile_tables` gives them; ``q
+    f32[B, D]`` the queries, read in place.  Slots at or past a block's
+    occupancy and pairs in no tile (``slot >= nt * tile_m``: masked
+    probes, capacity overflow) read +inf.  On the card kernel 1 stages
+    each run of one block's tiles once (:func:`score_runs` with the card's
+    SM count) and writes each pair's row in place; ``reads``, an
+    ``int64[1]`` on its device or None, gains those stagings with no read
+    back.  Each launch counts on
+    ``grouped_score_tiles.launches`` (bf16: ``launches_bf16``)."""
+    _check_metric(metric)
+    if x_leaf.device.type == "cpu":
+        return grouped_score_pairs_reference(x_leaf, sq_leaf, tb, tp, lens_t,
+                                             slot, q, metric, tile_m, reads)
+    name = "grouped_score_pairs"
+    _check_float_blocks(name, x_leaf)
+    _check_cuda(name, tile_m, x_leaf=(x_leaf, x_leaf.dtype, 3),
+                sq_leaf=(sq_leaf, torch.float32, 2), tb=(tb, torch.int32, 1),
+                tp=(tp, torch.int32, 2), lens_t=(lens_t, torch.int32, 1),
+                slot=(slot, torch.int64, 1), q=(q, torch.float32, 2),
+                **({} if reads is None else
+                   {"reads": (reads, torch.int64, 1)}))
+    _check_pairs(x_leaf, sq_leaf, tb, tp, lens_t, slot, q, tile_m)
+    e = slot.shape[0]
+    out = torch.empty((e, x_leaf.shape[1]), dtype=torch.float32,
+                      device=x_leaf.device)
+    if e == 0:
+        return out
+    _launch_score(x_leaf, sq_leaf, tb, tp, lens_t, slot, q, out, reads,
+                  tile_m, e // q.shape[0], metric)
     return out
 
 

@@ -31,9 +31,11 @@ scope                          covers (reference analogue)
 ``rpt_rerank``                 per-pair block fetch + exact distances,
                                kernels 6 and 10, and their tail
 ``rpt_tile_tables``            grouped pair sort + tile assignment, kernel 9
-``rpt_grouped_score``          grouped query-row gather + tile scoring,
-                               kernels 1, 2, 4 and 10, or the XLA form
+``rpt_grouped_score``          grouped tile scoring, kernels 1, 2, 4 and
+                               10 (and the query-row gather of 2 and 4),
+                               or the XLA form
 ``rpt_pair_reorder``           grouped inverse-permutation row reorder
+                               (kernels 2, 4 and 10, the XLA form)
 ``rpt_topk_tail``              candidate selection tail (sort / kernel 3)
 =============================  ============================================
 
@@ -63,12 +65,17 @@ counter                      adds up, over the chunks
 ``grouped.pairs``            valid (query, block) pairs
 ``grouped.tiles_overflow``   tiles needed past the capacity: pairs masked
                              (``check=False`` serves them as +inf)
-``grouped.slots_launched``   tile slots scored, ``nt * tile_m``
+``grouped.slots_launched``   tile slots launched, ``nt * tile_m``
+``grouped.block_reads``      block stagings of kernel 1: the runs of one
+                             block's tiles it scores
+                             (:func:`..ops.grouped_kernel.score_runs`)
 ===========================  ==============================================
 
-The first two add into an ``int64[2]`` on their device, kernel 9 adding a
-chunk's counts itself on the card, and are read back only by
-:func:`stats`; the slots add on the host.  The numbers cover the latest
+``grouped.pairs``, ``grouped.tiles_overflow`` and ``grouped.block_reads``
+add into an ``int64[3]`` on their device, kernel 9 adding a chunk's first
+two itself on the card and kernel 1 its stagings
+(:func:`grouped_reads`), and are read back only by :func:`stats`; the
+slots add on the host.  The numbers cover the latest
 stretch in which a profiler ran: the first region entered under a
 profiler after a serving entry was called without one (:func:`entry`)
 starts them from zero, as :func:`trace` does.  They assume one serving
@@ -100,7 +107,8 @@ import numpy as np
 import torch
 
 __all__ = ["device_time", "trace", "sync", "region", "entry", "stats",
-           "grouped_counts", "SCOPES", "ENTRIES", "COUNTERS"]
+           "grouped_counts", "grouped_reads", "SCOPES", "ENTRIES",
+           "COUNTERS"]
 
 
 def _is_float_array(a) -> bool:
@@ -170,7 +178,11 @@ COUNTERS = (
     "grouped.pairs",
     "grouped.tiles_overflow",
     "grouped.slots_launched",
+    "grouped.block_reads",
 )
+# the counters added on their device, in the order of their int64[3]
+_ON_DEVICE = ("grouped.pairs", "grouped.tiles_overflow",
+              "grouped.block_reads")
 
 _NO_REGION = contextlib.nullcontext()
 _profiler_enabled = torch._C._autograd._profiler_enabled
@@ -182,7 +194,7 @@ class _Stretch:
     def __init__(self):
         self.spans = {}      # name -> [calls, total_ns, self_ns]
         self.slots = 0       # grouped.slots_launched
-        self.device = {}     # torch.device -> int64[2]: the first two COUNTERS
+        self.device = {}     # torch.device -> int64[3]: _ON_DEVICE
 
 
 _stretch = _Stretch()
@@ -251,22 +263,37 @@ def entry(name: str):
     return _NO_REGION
 
 
+def _device_counts(device):
+    acc = _stretch.device.get(device)
+    if acc is None:
+        acc = _stretch.device[device] = torch.zeros(
+            len(_ON_DEVICE), dtype=torch.int64, device=device)
+    return acc
+
+
 def grouped_counts(device, slots: int):
     """The grouped layer's count site, one a chunk (``ops/grouped.py``
     ``tile_tables``).  With no profiler running, None, after one check.
     Else it adds the chunk's ``slots`` launched (``nt * tile_m``) on the
-    host and returns the stretch's ``int64[2]`` on ``device`` into which
-    the chunk's valid pairs and its tiles needed past the capacity are
-    added (by kernel 9 itself on the card), with no read back."""
+    host and returns the stretch's ``int64[3]`` on ``device``, into whose
+    first two the chunk's valid pairs and its tiles needed past the
+    capacity are added (by kernel 9 itself on the card), with no read
+    back."""
     if not _profiler_enabled():
         return None
-    st = _stretch
-    st.slots += slots
-    acc = st.device.get(device)
-    if acc is None:
-        acc = st.device[device] = torch.zeros(2, dtype=torch.int64,
-                                              device=device)
-    return acc
+    _stretch.slots += slots
+    return _device_counts(device)
+
+
+def grouped_reads(device):
+    """Kernel 1's count site (``ops/grouped.py``
+    ``grouped_distances_kernel``): with no profiler running, None, after
+    one check; else the stretch's ``int64[1]`` on ``device`` into which
+    the launch adds its block stagings (kernel 1 itself on the card), with
+    no read back."""
+    if not _profiler_enabled():
+        return None
+    return _device_counts(device)[2:]
 
 
 def stats() -> dict:
@@ -276,9 +303,9 @@ def stats() -> dict:
     st = _stretch
     out = {name: {"calls": c, "total_ns": t, "self_ns": s}
            for name, (c, t, s) in st.spans.items()}
-    out.update(dict.fromkeys(COUNTERS[:2], 0))
+    out.update(dict.fromkeys(_ON_DEVICE, 0))
     for acc in st.device.values():
-        for name, v in zip(COUNTERS, acc.tolist()):
+        for name, v in zip(_ON_DEVICE, acc.tolist()):
             out[name] += v
     out["grouped.slots_launched"] = st.slots
     return out

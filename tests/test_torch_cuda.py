@@ -107,6 +107,158 @@ def test_bf16_tiles(dev, metric, g, lmax, d, nt, tile_m):
                                               tile_m), got)
 
 
+def _cell_pairs(dev, g, lmax, d, b, p, tile_m, bf16, seed, ints=False,
+                hot=None):
+    """Blocks of ``lens`` in ``[lmax - 28, lmax]`` and ``b x p`` pairs
+    drawn uniformly over them (2% masked; ``hot``: every query's first
+    probe on block 7), with their tile tables at the serving path's
+    capacity, 1.125 times the tiles needed.  ``ints``: small integers, on
+    which every sum is exact, so any order of it gives the same bits."""
+    from rptree_tpu_torch.ops import grouped as og
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if ints:
+        x = torch.randint(-3, 4, (g, lmax, d), generator=gen,
+                          device=dev).float()
+        q = torch.randint(-3, 4, (b, d), generator=gen, device=dev).float()
+    else:
+        x = torch.randn(g, lmax, d, generator=gen, device=dev)
+        q = torch.randn(b, d, generator=gen, device=dev)
+    if bf16:
+        x = x.bfloat16()
+    sq = (x.float() * x.float()).sum(-1)
+    lens = torch.randint(lmax - 28, lmax + 1, (g,), generator=gen,
+                         device=dev, dtype=torch.int32)
+    gsel = torch.randint(0, g, (b, p), generator=gen, device=dev,
+                         dtype=torch.int32)
+    if hot is not None:
+        gsel[:, 0] = hot
+    lsel = torch.where(torch.rand(b, p, generator=gen, device=dev) < 0.02,
+                       -1, 1).to(torch.int32)
+    need = int(og.tile_tables(gsel, lsel, lens, tile_m, 1)[2])
+    tables = og.tile_tables(gsel, lsel, lens, tile_m, need + need // 8)
+    return x, sq, q, tables
+
+
+def _slot_order(x, sq, q, tables, metric, tile_m, p):
+    """Kernel 1 through the identity pair map on the query rows gathered
+    into tile-slot order, reordered to the pairs: the serving path's
+    composition before the pair-addressed form."""
+    from rptree_tpu_torch.ops import grouped as og
+
+    tb, tp, _, slot, lens_t = tables
+    qi = torch.where(tp >= 0, tp // p, 0).reshape(-1).long()
+    rows = gk.grouped_score_tiles(x, sq, tb, lens_t, q[qi], metric, tile_m)
+    return og._pair_rows(rows, slot, float("inf"), q.shape[0], p).reshape(
+        q.shape[0] * p, -1)
+
+
+def _pairs_launch(x, sq, q, tables, metric, tile_m):
+    """One pair-addressed launch, its launch counted on kernel 1's counts
+    and its block stagings equal to the runs the tables imply."""
+    tb, tp, _, slot, lens_t = tables
+    bf16 = x.dtype == torch.bfloat16
+    before = (gk.grouped_score_tiles.launches,
+              gk.grouped_score_tiles.launches_bf16)
+    reads = torch.zeros(1, dtype=torch.int64, device=x.device)
+    got = gk.grouped_score_pairs(x, sq, tb, tp, lens_t, slot, q, metric,
+                                 tile_m, reads=reads)
+    assert (gk.grouped_score_tiles.launches,
+            gk.grouped_score_tiles.launches_bf16) == (before[0] + (not bf16),
+                                                      before[1] + bf16)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    assert int(reads) == int(gk.score_runs(tb, tp, lens_t, tile_m, sms))
+    return got
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("metric", ["l2", "sql2"])
+@pytest.mark.parametrize("b,hot", [(65_536, None), (8_192, None),
+                                   (4_096, 7)])
+def test_pairs_at_the_cells_chunks(dev, b, hot, metric, bf16):
+    """Kernel 1's pair form at the grouped cell's chunk (65,536 queries x
+    8 probes over 65,536 blocks of 128 x 128, tile_m 8), the online
+    cell's (8,192 queries) and a hot block that every query probes:
+    bit-equal to the slot-order composition through the same kernel, to
+    the plain version within its tolerance, and, on small-integer rows
+    (sums exact in any order), to the plain version bit for bit."""
+    p, tile_m = 8, 8
+    g = 65_536 if hot is None else 1_000
+    x, sq, q, tables = _cell_pairs(dev, g, 128, 128, b, p, tile_m, bf16,
+                                   seed=b + bf16, hot=hot)
+    tb, tp, _, slot, lens_t = tables
+    got = _pairs_launch(x, sq, q, tables, metric, tile_m)
+    assert torch.equal(got.view(torch.int32), _slot_order(
+        x, sq, q, tables, metric, tile_m, p).view(torch.int32))
+    want = gk.grouped_score_pairs_reference(x, sq, tb, tp, lens_t, slot, q,
+                                            metric, tile_m)
+    torch.cuda.synchronize()
+    _close(got, want)
+    del x, got, want
+    x, sq, q, tables = _cell_pairs(dev, g, 128, 128, b, p, tile_m, bf16,
+                                   seed=b + 2, ints=True, hot=hot)
+    tb, tp, _, slot, lens_t = tables
+    got = _pairs_launch(x, sq, q, tables, metric, tile_m)
+    want = gk.grouped_score_pairs_reference(x, sq, tb, tp, lens_t, slot, q,
+                                            metric, tile_m)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("g,lmax,d,b,p,tile_m", [
+    (40, 24, 20, 300, 5, 3), (9, 300, 131, 64, 6, 16), (5, 8, 1, 50, 4, 32),
+    (30, 33, 7, 200, 8, 1), (3, 130, 64, 512, 8, 8), (6, 40, 700, 64, 4, 8),
+])
+def test_pairs_odd_shapes(dev, bf16, g, lmax, d, b, p, tile_m):
+    """Rows of a width not a multiple of 4 (4-byte query copies), blocks
+    past 128 slots, rows too wide for two query buffers (D 700), a
+    capacity cut below the tiles needed (overflow pairs +inf) and
+    misaligned blocks: the slot-order composition's bits."""
+    from rptree_tpu_torch.ops import grouped as og
+
+    x, sq, q, tables = _cell_pairs(dev, g, lmax, d, b, p, tile_m, bf16,
+                                   seed=g)
+    gsel = torch.randint(0, g, (b, p), device=dev, dtype=torch.int32)
+    lsel = torch.where(torch.rand(b, p, device=dev) < 0.1, -1, 1).to(
+        torch.int32)
+    lens = torch.randint(0, lmax + 1, (g,), device=dev, dtype=torch.int32)
+    need = int(og.tile_tables(gsel, lsel, lens, tile_m, 1)[2])
+    for nt in (need + 3, need // 3):
+        tables = og.tile_tables(gsel, lsel, lens, tile_m, nt)
+        for metric in ("l2", "sql2"):
+            got = _pairs_launch(x, sq, q, tables, metric, tile_m)
+            want = _slot_order(x, sq, q, tables, metric, tile_m, p)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+            assert bool(torch.isinf(got[tables[3] >= nt * tile_m]).all())
+            got_o = _pairs_launch(_misaligned(x), sq, q, tables, metric,
+                                  tile_m)
+            assert torch.equal(got_o, got)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("metric", ["l2", "sql2"])
+def test_tiles_bit_equal_on_dyadic_rows(dev, metric, bf16):
+    """Kernel 1 through the identity pair map (``grouped_score_tiles``),
+    tiles in random and in block order, bit-equal to its plain version on
+    small-integer rows, where every sum is exact."""
+    gen = torch.Generator().manual_seed(9)
+    g, lmax, d, nt, tile_m = 300, 128, 128, 4096, 8
+    x = torch.randint(-3, 4, (g, lmax, d), generator=gen).float()
+    qt = torch.randint(-3, 4, (nt * tile_m, d), generator=gen).float()
+    if bf16:
+        x = x.bfloat16()
+    sq = (x.float() * x.float()).sum(-1)
+    lens = torch.randint(0, lmax + 1, (nt,), generator=gen, dtype=torch.int32)
+    tb = torch.randint(0, g, (nt,), generator=gen, dtype=torch.int32)
+    x, sq, qt, lens = x.to(dev), sq.to(dev), qt.to(dev), lens.to(dev)
+    for tbs in (tb, tb.sort().values):
+        tbs = tbs.to(dev)
+        got = gk.grouped_score_tiles(x, sq, tbs, lens, qt, metric, tile_m)
+        want = gk.grouped_score_tiles_reference(x, sq, tbs, lens, qt, metric,
+                                                tile_m)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 def _topk_case(dev, g, lmax, d, nt, tile_m, bf16, seed):
     x, sq, _, tb, lens, qt = _tiles(dev, g, lmax, d, nt, tile_m, False,
                                     seed=seed, bf16=bf16)

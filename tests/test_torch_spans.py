@@ -21,9 +21,9 @@ BUDGET = 2
 LAYERS = {
     "knn_batched": ("rpt_project", "rpt_candidates", "rpt_rerank",
                     "rpt_topk_tail"),
+    # f32 blocks: kernel 1 writes each pair's row in place, no reorder
     "knn_grouped": ("rpt_project", "rpt_candidates", "rpt_tile_tables",
-                    "rpt_grouped_score", "rpt_pair_reorder",
-                    "rpt_topk_tail"),
+                    "rpt_grouped_score", "rpt_topk_tail"),
 }
 # the spans directly inside each entry (``rpt_topk_tail`` nests in
 # ``rpt_rerank`` on the per-pair path)
