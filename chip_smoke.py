@@ -510,14 +510,15 @@ def pairs_bound(x, tb, lens_t, tp, slot, q, kind):
 
 
 def check_pairs_chunk(device, b, g=65_536, lmax=128, dim=128, p=8, tile_m=8,
-                      reps=5):
-    """Kernel 1's pair form (``grouped_score_pairs``) at a SIFT cell's
-    chunk: ``b`` queries x ``p`` probes drawn uniformly over ``g`` blocks
-    of ``lmax`` x ``dim`` f32 rows, 100-128 occupied, 2% of the probes
-    masked, at the serving path's capacity (1.125 times the tiles
-    needed): bit-equal to the slot-order composition through the same
-    kernel, within ``DIST_RTOL`` of the plain version; with its times, the
-    plain version's, its block stagings and its bound."""
+                      reps=5, bf16=False):
+    """Kernel 1's pair form (``grouped_score_pairs``) at a cell's chunk:
+    ``b`` queries x ``p`` probes drawn uniformly over ``g`` blocks of
+    ``lmax`` x ``dim`` f32 (``bf16``: bf16) rows, 100-128 occupied, 2% of
+    the probes masked, at the serving path's capacity (1.125 times the
+    tiles needed): bit-equal to the slot-order composition through the
+    same kernel, within ``DIST_RTOL`` of the plain version; with its
+    times, the plain version's, its launches, its block stagings and its
+    bound."""
     import torch
 
     from rptree_tpu_torch.ops import grouped as og
@@ -525,7 +526,11 @@ def check_pairs_chunk(device, b, g=65_536, lmax=128, dim=128, p=8, tile_m=8,
 
     gen = torch.Generator(device=device).manual_seed(b)
     x = torch.randn(g, lmax, dim, generator=gen, device=device)
-    sq = (x * x).sum(-1)
+    if bf16:
+        x = x.bfloat16()
+        torch.cuda.empty_cache()
+    # the norms a slice of blocks at a time (at D 960 x is 32 GB)
+    sq = torch.cat([(c.float() * c.float()).sum(-1) for c in x.split(4096)])
     lens = torch.randint(lmax - 28, lmax + 1, (g,), generator=gen,
                          device=device, dtype=torch.int32)
     q = torch.randn(b, dim, generator=gen, device=device)
@@ -537,40 +542,58 @@ def check_pairs_chunk(device, b, g=65_536, lmax=128, dim=128, p=8, tile_m=8,
     tb, tp, _, slot, lens_t = og.tile_tables(gsel, lsel, lens, tile_m,
                                              need + need // 8)
     args = (x, sq, tb, tp, lens_t, slot, q, "l2", tile_m)
+
+    def launches():
+        return (gk.grouped_score_tiles.launches_bf16 if bf16 else
+                gk.grouped_score_tiles.launches)
+
+    before = launches()
     got = gk.grouped_score_pairs(*args)
+    if launches() != before + 1:
+        raise AssertionError(f"grouped_score_pairs at {b} queries, D {dim}: "
+                             f"{launches() - before} launches, not 1")
     qi = torch.where(tp >= 0, tp // p, 0).reshape(-1).long()
     slot_order = og._pair_rows(gk.grouped_score_tiles(
         x, sq, tb, lens_t, q[qi], "l2", tile_m), slot, float("inf"), b,
         p).reshape(b * p, lmax)
     if not torch.equal(got.view(torch.int32), slot_order.view(torch.int32)):
-        raise AssertionError(f"grouped_score_pairs at {b} queries: differs "
-                             "from the slot-order composition")
+        raise AssertionError(f"grouped_score_pairs at {b} queries, D {dim}: "
+                             "differs from the slot-order composition")
+    del slot_order
     abs_err, rel_err = _rel_err(got, gk.grouped_score_pairs_reference(*args))
     if rel_err > DIST_RTOL:
-        raise AssertionError(f"grouped_score_pairs at {b} queries: relative "
-                             f"error {rel_err} > {DIST_RTOL}")
-    del got, slot_order
+        raise AssertionError(f"grouped_score_pairs at {b} queries, D {dim}: "
+                             f"relative error {rel_err} > {DIST_RTOL}")
+    del got
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     runs = int(gk.score_runs(tb, tp, lens_t, tile_m, sms))
-    return {"max_abs_err": abs_err, "max_rel_err": rel_err,
-            "ms": cuda_ms(lambda: gk.grouped_score_pairs(*args), reps),
-            "device_ms": graph_ms(lambda: gk.grouped_score_pairs(*args),
-                                  reps=5),
-            "plain_ms": cuda_ms(
-                lambda: gk.grouped_score_pairs_reference(*args), reps),
-            "library_ms": None, "block_reads": runs,
-            "pairs_per_read": int((lsel >= 0).sum()) / runs,
-            **pairs_bound(x, tb, lens_t, tp, slot, q, "f32"),
-            "shape": {"queries": b, "probes": p, "blocks": g, "lmax": lmax,
-                      "D": dim, "tile_m": tile_m, "tiles": tb.shape[0],
-                      "tiles_needed": need}}
+    before = launches()
+    rec = {"max_abs_err": abs_err, "max_rel_err": rel_err,
+           "ms": cuda_ms(lambda: gk.grouped_score_pairs(*args), reps),
+           "device_ms": graph_ms(lambda: gk.grouped_score_pairs(*args),
+                                 reps=5),
+           "plain_ms": cuda_ms(
+               lambda: gk.grouped_score_pairs_reference(*args), reps),
+           "library_ms": None, "launches": launches() - before,
+           "block_reads": runs,
+           "pairs_per_read": int((lsel >= 0).sum()) / runs,
+           **pairs_bound(x, tb, lens_t, tp, slot, q,
+                         "bf16" if bf16 else "f32"),
+           "shape": {"queries": b, "probes": p, "blocks": g, "lmax": lmax,
+                     "D": dim, "dtype": "bf16" if bf16 else "f32",
+                     "tile_m": tile_m, "tiles": tb.shape[0],
+                     "tiles_needed": need}}
+    del x, sq, args
+    torch.cuda.empty_cache()
+    return rec
 
 
 def check_kernels(device, g=4096, nt=4096, dim=128, reps=5):
     """Phase 2: each kernel against its plain version at the path's shapes
     (f32 and bf16 lmax 128, int8 lmax 64, tile_m 8, D 128, tile top-k kp
     16, tiles in random and in block order; kernel 1's pair form at the
-    grouped and online cells' chunks, :func:`check_pairs_chunk`; top-k W
+    grouped and online cells' chunks and, f32 and bf16, at the GIST
+    cell's (D 960), :func:`check_pairs_chunk`; top-k W
     1024 and 640, k 10, 65,536 x 1,024 and the wide-row route at W 3,000).
     Returns one record per kernel."""
     import torch
@@ -627,9 +650,13 @@ def check_kernels(device, g=4096, nt=4096, dim=128, reps=5):
         out[name].update({
             f"{key}_block_order": v for key, v in tile_bound(
                 x, tbo, lenso, tile_m, qt, lmax * 4, kind).items()})
-    # the pair form at the grouped and online cells' chunks
+    # the pair form at the grouped and online cells' chunks, and at the
+    # GIST cell's (D 960), f32 and bf16 blocks
     for b in (65_536, 8_192):
         out[f"grouped_score_pairs_{b}"] = check_pairs_chunk(device, b)
+    for bf16 in (False, True):
+        out["grouped_score_pairs_gist" + "_bf16" * bf16] = check_pairs_chunk(
+            device, 65_536, dim=960, bf16=bf16)
     rec = {"shape": {**shape, "lmax": 128, "kp": KP}}
     for kind in ("f32", "bf16"):
         x, sq, _, tb, lens, qt = tile_inputs(g, 128, dim, nt, tile_m, False,

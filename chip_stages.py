@@ -50,6 +50,18 @@ kernel 9).
                                           # (add --cpu to rehearse it)
     python3 chip_stages.py --turns        # only kernels 6-11 against an
                                           # earlier build's
+    python3 chip_stages.py --wide         # only kernel 1's pair form at
+                                          # D 960 and D 128 against an
+                                          # earlier build's
+
+With ``--wide``, kernel 1's pair form of the commit whose
+``grouped_score.cu``, ``grouped_tile.cuh`` and ``common.cuh`` sit in
+``_checkout/base`` (``git show 4eb705f:rptree_tpu_torch/csrc/<name>``)
+against this tree's, in turns, at the GIST cell's chunk (65,536 queries x
+8 probes over 65,536 blocks of 128 x 960, f32) and the SIFT cells' chunks
+(65,536 and 8,192 queries over 65,536 blocks of 128 x 128, f32 and
+bf16): CUDA events and device time, the same bits, and each build's
+staged bytes a second.
 
 Each stage runs as the serving path runs it (``_knn_grouped``), between
 two ``torch.cuda.synchronize`` calls, seven times; the line gives the
@@ -2061,6 +2073,110 @@ def device_times(f, qd, serve, sel, impl, on_card, metric="l2"):
             "top": [(e.key[:60], self_ms(e)) for e in ka[:8]]}
 
 
+WIDE_BASE = ("grouped_score.cu", "grouped_tile.cuh", "common.cuh")
+# (label, blocks, slots a block, D, queries, bf16): the GIST cell's chunk,
+# then the SIFT grouped and online cells' chunks
+WIDE_CHUNKS = (("gist_grouped", 65_536, 128, 960, 65_536, False),
+               ("sift_grouped", 65_536, 128, 128, 65_536, False),
+               ("sift_online", 65_536, 128, 128, 8_192, False),
+               ("sift_grouped", 65_536, 128, 128, 65_536, True),
+               ("sift_online", 65_536, 128, 128, 8_192, True))
+
+
+def base_score_lib(src):
+    """An earlier commit's kernel 1 (``WIDE_BASE`` at ``src``) built alone
+    under other symbol names; it takes this tree's packed arguments."""
+    import ctypes
+
+    from rptree_tpu_torch import _cuda
+
+    out = os.path.join(src, "libbase_score.so")
+    renames = [f"-D{n}={n}_base" for n in (
+        "rpt_grouped_score", "rpt_error_string")]
+    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, *renames, "-shared",
+                    "-o", out, os.path.join(src, "grouped_score.cu")],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(out)
+    lib.rpt_grouped_score_base.argtypes = [ctypes.c_char_p]
+    return lib
+
+
+def base_pairs(lib, x, sq, tables, q, tile_m, reads=None):
+    """The earlier kernel 1's pair form, metric l2 (``reads``: its one
+    counter of stagings)."""
+    from rptree_tpu_torch import _cuda
+    from rptree_tpu_torch.ops import grouped_kernel as gk
+
+    tb, tp, _, slot, lens_t = tables
+    g, lmax, d = x.shape
+    nt, e = tb.shape[0], slot.shape[0]
+    out = torch.empty((e, lmax), device=x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    code = lib.rpt_grouped_score_base(gk._SCORE_ARGS.pack(
+        x.data_ptr(), sq.data_ptr(), tb.data_ptr(), tp.data_ptr(),
+        lens_t.data_ptr(), slot.data_ptr(), q.data_ptr(), out.data_ptr(),
+        0 if reads is None else reads.data_ptr(), e, nt, g, tile_m, lmax, d,
+        e // q.shape[0], 1, int(x.dtype == torch.bfloat16),
+        gk.range_tiles(nt, tile_m, sms), _cuda.raw_stream(x.device)))
+    assert code == 0, code
+    return out
+
+
+def wide_turns(lib):
+    """Kernel 1's pair form, the earlier build against this tree's in turns
+    at ``WIDE_CHUNKS``; one JSON line a chunk."""
+    from rptree_tpu_torch.ops import grouped as og
+    from rptree_tpu_torch.ops import grouped_kernel as gk
+
+    dev = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    x32 = None
+    for label, g, lmax, d, b, bf16 in WIDE_CHUNKS:
+        gen = torch.Generator(device=dev).manual_seed(d)
+        if x32 is None or x32.shape != (g, lmax, d):
+            x32 = None
+            torch.cuda.empty_cache()
+            x32 = torch.randn(g, lmax, d, generator=gen, device=dev)
+            lens = torch.randint(100, lmax + 1, (g,), generator=gen,
+                                 device=dev, dtype=torch.int32)
+        x = x32.bfloat16() if bf16 else x32
+        sq = (x.float() * x.float()).sum(-1)
+        q = torch.randn(b, d, generator=gen, device=dev)
+        gsel = torch.randint(0, g, (b, PROBES), generator=gen, device=dev,
+                             dtype=torch.int32)
+        lsel = torch.where(torch.rand(b, PROBES, generator=gen, device=dev)
+                           < 0.02, -1, 1).to(torch.int32)
+        need = int(og.tile_tables(gsel, lsel, lens, TILE_M, 1)[2])
+        tables = og.tile_tables(gsel, lsel, lens, TILE_M, need + need // 8)
+        tb, tp, _, slot, lens_t = tables
+
+        def new():
+            return gk.grouped_score_pairs(x, sq, tb, tp, lens_t, slot, q,
+                                          "l2", TILE_M)
+
+        def old():
+            return base_pairs(lib, x, sq, tables, q, TILE_M)
+
+        same = same_bits(new(), old())
+        o, n, raw = turns(old, new)
+        do, dn, draw = device_turns(old, new)
+        staged = int(gk.staged_bytes(tb, tp, lens_t, TILE_M, lmax, d,
+                                     x.element_size(), sms))
+        blocks = torch.unique(gsel[lsel >= 0])
+        block_bytes = float(lens[blocks].sum()) * d * x.element_size()
+        print(json.dumps({
+            "wide_base_vs_tree": label, "dtype": "bf16" if bf16 else "f32",
+            "d": d, "queries": b, "base_ms": o, "tree_ms": n,
+            "speedup": o / n, "turns_ms": raw, "base_device_ms": do,
+            "tree_device_ms": dn, "device_turns_ms": draw, "same_bits": same,
+            "staged_gb": staged / 1e9,
+            "tree_stage_tbps": staged / (dn * 1e-3) / 1e12,
+            "block_read_ms": block_bytes / cs.HBM_BPS * 1e3}), flush=True)
+        del x, sq, q, tables, tb, tp, slot, lens_t
+    del x32
+    torch.cuda.empty_cache()
+
+
 def main():
     import rptree_tpu_torch as rp
     from rptree_tpu_torch.models import forest as fm
@@ -2083,6 +2199,13 @@ def main():
             capture_output=True, text=True, check=True, timeout=60).stdout
         print(smi.strip().splitlines()[0], flush=True)
         torch.backends.cuda.matmul.allow_tf32 = False
+    if "--wide" in sys.argv[1:]:  # kernel 1 against a base's, wide rows
+        src = "_checkout/base"
+        if not on_card or not all(os.path.exists(os.path.join(src, n))
+                                  for n in WIDE_BASE):
+            raise SystemExit(f"chip_stages --wide: needs the card and "
+                             f"{WIDE_BASE} of an earlier commit in {src}")
+        return wide_turns(base_score_lib(src))
     if "--sparse" in sys.argv[1:]:  # phase 9's cell alone
         return sparse_stages(rp, fm, og, tk, dev, sync, on_card)
     if "--turns" in sys.argv[1:]:  # kernels 6-11 against a base's

@@ -45,10 +45,11 @@
 //   thread blocks, ops/grouped_kernel.py range_tiles) and
 //   walks their runs with one cp.async ring, four stages of 128 slots x
 //   128 bytes deep, that runs on across runs: the next run's rows land
-//   while this run computes, and its query rows (cp.async through tp / p,
-//   two buffers) with them.  Runs break where a thread block's tiles end,
-//   so a block whose tiles straddle two such ranges is read twice (66,352
-//   runs for at most 65,536 blocks on that chunk);
+//   while this run computes, and the same columns of its query rows
+//   (cp.async through tp / p) with them.  Runs break where a thread block's
+//   tiles end,
+//   so a block whose tiles straddle two such ranges is read twice
+//   (66,352 runs for at most 65,536 blocks on that chunk);
 // - the per-stage work is lean: each thread's 16-byte pieces of a stage
 //   are fixed at the start, the producer walks (run, slot tile, chunk)
 //   without a division, and one barrier a stage both publishes stage s
@@ -66,10 +67,28 @@
 // Measured on that chunk (NVIDIA H100 80GB HBM3, 700 W): 2.06 ms, against
 // 1.66 ms with the dots left out and 1.83 ms with the copies left out.
 // The dots load shared memory for every 4 FMAs: 16 bytes of the slot row
-// and, broadcast, 16 of the query row.  Two thread blocks
-// of 256 threads an SM (f32 at D 128: four stages, two query buffers;
-// bf16 three stages).  While a profiler runs (reads not null), each thread
-// block adds its block stagings, the runs it scores, to *reads.
+// and, broadcast, 16 of the query row.
+//
+// The query rows stream with the block: each stage of the ring holds, beside
+// its 128 slots x 128 bytes of block columns, the same columns of the run's
+// up to 32 query rows (f32, 4 KB for f32 blocks, 9 KB for bf16 ones), copied
+// in the same cp.async group.  So the shared memory does not grow with D:
+// 93 KB for f32 blocks and 114 KB for bf16 ones at every width, two thread
+// blocks of 256 threads an SM with a four-stage ring, and a run's query rows
+// land in flight with its block rows, never between runs.  The bound the
+// design is under is sm_90's 233,472 bytes an SM, 1,024 of them reserved a
+// thread block: two thread blocks of the four-stage ring take 188,472 bytes
+// (f32) and 229,432 (bf16), checked at compile time below.  |q|^2 is
+// summed along the stages, warp w taking rows w, w + 8, ...: lane l adds
+// column c0 + l of each chunk (c0 + 32 + l too for bf16 blocks), so each
+// lane's chain runs over its columns l, l + 32, ... in order, then a warp
+// sum, as row_norm sums it.  bf16 blocks round the f32 query columns to bf16
+// in registers as each mma fragment is read (bf16_dots_f32q), as bf16_word
+// rounds them.  So the distances keep their bits at every D.
+//
+// While a profiler runs (reads not null), each thread block adds its block
+// stagings, the runs it scores, to reads[0], and the bytes of block rows and
+// query rows it copies into shared memory to reads[1].
 
 #include <cuda_bf16.h>
 
@@ -93,32 +112,47 @@ struct Args {
   const long long* slot;  // null: no pair outside the tiles
   const float* q;
   float* out;
-  unsigned long long* reads;  // null: not counted
+  unsigned long long* reads;  // null: not counted; else stagings, staged bytes
   long long e;                // pairs (slot's length)
   int nt, g, m, lmax, d, p, l2;
-  int vec, qvec;              // 16-byte copies of block rows / query rows
-  int ring, nbuf;             // stages in flight; query-row buffers (1 or 2)
+  int vec, qvec;  // 16-byte copies of block rows / query rows
+  int ring;       // stages in flight: kRing
   int range_tiles, run_tiles;
 };
 
-// A query row's stride in the f32 buffers: whole column chunks for f32
-// blocks (the dots read them), 16 bytes for bf16 ones.
+// A stage's query columns: a run's 32 rows of DC f32 columns, the row stride
+// in words.  f32 blocks read them as broadcasts (32 words a row); bf16 blocks
+// read mma fragments of 8 rows x 2 columns as 8-byte loads, conflict-free at
+// a stride 8 past a multiple of 32.
 template <typename T>
-__host__ __device__ inline int qf_stride(int d) {
-  return sizeof(T) == 4 ? rpt::padded_d<T>(d) : (d + 3) / 4 * 4;
+__host__ __device__ constexpr int qc_stride() {
+  return sizeof(T) == 4 ? rpt::TileShape<T>::DC : rpt::TileShape<T>::DC + 8;
+}
+
+// A stage in 4-byte words: the block columns, then the query columns.
+template <typename T>
+__host__ __device__ constexpr int stage_words() {
+  return rpt::TileShape<T>::kStageFloats + kRunSlots * qc_stride<T>();
 }
 
 constexpr int kRunInts = 5 * (kMaxTiles + 1) + 2 * kMaxTiles + 2;
+constexpr int kRing = 4;  // stages in flight
 
-// Shared memory in 4-byte words: the ring, the f32 query rows, the bf16
-// query rows (bf16 blocks), the norms, the tiles' pairs and the run table.
+// Shared bytes: the ring, the norms, the tiles' pairs and their query rows,
+// and the run table.  They do not depend on D.
 template <typename T>
-__host__ __device__ inline size_t score_words(int d, int ring, int nbuf) {
-  using S = rpt::TileShape<T>;
-  return (size_t)ring * S::kStageFloats + (size_t)nbuf * kRunSlots * qf_stride<T>(d) +
-         (sizeof(T) == 4 ? 0 : (size_t)kRunSlots * rpt::q_stride<T>(d)) + kRunSlots +
-         kRangeSlots + kRunInts;
+constexpr size_t score_bytes() {
+  return 4 * ((size_t)kRing * stage_words<T>() + kRunSlots + 2 * kRangeSlots + kRunInts);
 }
+
+// sm_90: a thread block may opt into 227 KB, an SM holds 228 KB with 1 KB
+// reserved for each thread block; two thread blocks an SM at every D
+constexpr size_t kBlockSmem = 232448, kSmSmem = 233472;
+static_assert(score_bytes<float>() <= kBlockSmem && 2 * (score_bytes<float>() + 1024) <= kSmSmem,
+              "f32 blocks: two thread blocks an SM");
+static_assert(score_bytes<__nv_bfloat16>() <= kBlockSmem &&
+                  2 * (score_bytes<__nv_bfloat16>() + 1024) <= kSmSmem,
+              "bf16 blocks: two thread blocks an SM");
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
@@ -143,23 +177,56 @@ struct Rows {
   static constexpr int value = N;
 };
 
+// Pairs of f32 values rounded to a bf16 pair (round to nearest even), the
+// low half the first: bf16_word's rounding.
+__device__ __forceinline__ uint32_t bf16_pair(float2 v) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// bf16_dots with the query rows as f32 columns (a stage's, stride qs words,
+// zero past D), each fragment rounded to bf16 as it is read: the same
+// operands and the same mma order, so the same bits.
+template <int NN>
+__device__ __forceinline__ void bf16_dots_f32q(float (&acc)[NN][4], const uint32_t* xw,
+                                               const float* qc, int steps, int rows) {
+  constexpr int XW = rpt::TileShape<__nv_bfloat16>::XS / 2;  // staged row stride in words: 36
+  constexpr int QS = qc_stride<__nv_bfloat16>();
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int u = 0; u < rpt::TileShape<__nv_bfloat16>::DC / 16; ++u) {
+    if (u < steps) {
+      const uint32_t a[4] = {xw[8 * u], xw[8 * u + 8 * XW], xw[8 * u + 4],
+                             xw[8 * u + 8 * XW + 4]};
+#pragma unroll
+      for (int n = 0; n < NN; ++n) {
+        if (n * 8 < rows) {
+          const float* qr = qc + (n * 8 + g) * QS + 16 * u + 2 * t4;
+          rpt::mma_bf16(acc[n], a, bf16_pair(*reinterpret_cast<const float2*>(qr)),
+                        bf16_pair(*reinterpret_cast<const float2*>(qr + 8)));
+        }
+      }
+    }
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2) grouped_score_kernel(const Args a) {
   using S = rpt::TileShape<T>;
   constexpr bool F32 = sizeof(T) == 4;
+  constexpr int QS = qc_stride<T>();
+  constexpr int SW = stage_words<T>();
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int d = a.d, m = a.m, lmax = a.lmax, K = a.ring;
-  const int qfs = qf_stride<T>(d);
-  const int qs = rpt::q_stride<T>(d);
-  float* ring = smem;
-  float* qf = ring + (size_t)K * S::kStageFloats;  // [nbuf][32][qfs] f32 query rows
-  uint32_t* qw = reinterpret_cast<uint32_t*>(qf + (size_t)a.nbuf * kRunSlots * qfs);
-  float* qq = reinterpret_cast<float*>(qw + (F32 ? 0 : kRunSlots * qs));  // [32] |q|^2
+  float* ring = smem;  // [K][SW]: block columns, then query columns
+  float* qq = ring + (size_t)K * SW;                  // [32] |q|^2
   int* tps = reinterpret_cast<int*>(qq + kRunSlots);  // the tiles' pairs
-  int* r_slot = tps + kRangeSlots;                    // a run's first slot in tps
+  int* tqr = tps + kRangeSlots;                       // their query rows (-1: none)
+  int* r_slot = tqr + kRangeSlots;                    // a run's first slot in tps
   int* r_rows = r_slot + kMaxTiles + 1;               // its slots up to its last pair
   int* r_blk = r_rows + kMaxTiles + 1;
   int* r_len = r_blk + kMaxTiles + 1;
@@ -168,15 +235,13 @@ __global__ void __launch_bounds__(kThreads, 2) grouped_score_kernel(const Args a
   int* z_rows = z_slot + kMaxTiles;
   int* counts = z_rows + kMaxTiles;  // runs, empty-block runs
 
-  // this thread block's tiles and their pairs
+  // this thread block's tiles, their pairs and the pairs' query rows
   const long long t0 = (long long)blockIdx.x * a.range_tiles;
   const int nh = (int)max(0LL, min((long long)a.range_tiles, (long long)a.nt - t0));
-  for (int i = tid; i < nh * m; i += kThreads)
-    tps[i] = a.tp ? a.tp[t0 * m + i] : (int)(t0 * m + i);
-  if (F32 && qfs > d) {  // the f32 rows' columns past d stay zero
-    const int w = qfs - d;
-    for (int i = tid; i < a.nbuf * kRunSlots * w; i += kThreads)
-      qf[(i / w) * qfs + d + i % w] = 0.0f;
+  for (int i = tid; i < nh * m; i += kThreads) {
+    const int e = a.tp ? a.tp[t0 * m + i] : (int)(t0 * m + i);
+    tps[i] = e;
+    tqr[i] = e >= 0 ? e / a.p : -1;
   }
   __syncthreads();
 
@@ -212,7 +277,8 @@ __global__ void __launch_bounds__(kThreads, 2) grouped_score_kernel(const Args a
       }
     }
     const bool staged = head && len > 0;
-    const int stages = staged ? (len + rpt::kSlotTile - 1) / rpt::kSlotTile * nk : 0;
+    const int tiles = (len + rpt::kSlotTile - 1) / rpt::kSlotTile;
+    const int stages = staged ? tiles * nk : 0;
     int incl = stages;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
@@ -238,7 +304,22 @@ __global__ void __launch_bounds__(kThreads, 2) grouped_score_kernel(const Args a
       counts[0] = __popc(sm);
       counts[1] = __popc(zm);
     }
-    if (lane == 0 && a.reads && sm) atomicAdd(a.reads, (unsigned long long)__popc(sm));
+    if (a.reads && sm) {
+      // the bytes copied: the block's rows once, its pairs' query rows once
+      // a slot tile
+      unsigned long long bytes = 0;
+      if (staged) {
+        int pairs = 0;
+        for (int i = 0; i < rows; ++i) pairs += tps[lane * m + i] >= 0;
+        bytes = ((unsigned long long)len * sizeof(T) + (unsigned long long)pairs * tiles * 4) * d;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) bytes += __shfl_xor_sync(kFull, bytes, o);
+      if (lane == 0) {
+        atomicAdd(a.reads, (unsigned long long)__popc(sm));
+        atomicAdd(a.reads + 1, bytes);
+      }
+    }
   }
   __syncthreads();
   const int nr = counts[0];
@@ -250,8 +331,9 @@ __global__ void __launch_bounds__(kThreads, 2) grouped_score_kernel(const Args a
   }
 
   // stage s holds columns [kc * DC, kc * DC + DC) of slot tile st of the run
-  // r holding it, s - r_s0[r] = st * nk + kc, in ring buffer s % K; the
-  // producer walks (r, st, kc) one stage a call
+  // r holding it, s - r_s0[r] = st * nk + kc, and the same columns of r's
+  // query rows, in ring buffer s % K; the producer walks (r, st, kc) one
+  // stage a call
   const int total = r_s0[nr];
   const T* x = static_cast<const T*>(a.x);
   int pr = 0, pst = 0, pkc = 0, pslot = 0;  // the next stage to issue and its ring slot
@@ -259,9 +341,14 @@ __global__ void __launch_bounds__(kThreads, 2) grouped_score_kernel(const Args a
   // rows r0 + 32 k at column cv
   const int r0 = tid / (rpt::kChunkBytes / 16);
   const int cv = tid % (rpt::kChunkBytes / 16) * S::V;
+  // and of its query columns: rows q0p + 256 k / (DC / 4) at column qcv
+  constexpr int QP = S::DC / 4;  // 16-byte pieces of a query row's chunk
+  const int q0p = tid / QP;
+  const int qcv = tid % QP * 4;
   auto issue = [&](int s) {
     if (s < total) {
-      T* xs = reinterpret_cast<T*>(ring + (size_t)pslot * S::kStageFloats);
+      float* stage = ring + (size_t)pslot * SW;
+      T* xs = reinterpret_cast<T*>(stage);
       const int len = r_len[pr];
       const int rows = min(rpt::kSlotTile, len - pst * rpt::kSlotTile);
       const int c0 = pkc * S::DC;
@@ -276,6 +363,31 @@ __global__ void __launch_bounds__(kThreads, 2) grouped_score_kernel(const Args a
       } else {
         rpt::stage_rows(xs, xb, rows, pst * rpt::kSlotTile, d, c0, a.vec);
       }
+      // the run's query rows, the same columns, zero past d
+      float* qs = stage + S::kStageFloats;
+      const int* qr = tqr + r_slot[pr];
+      const int qrows = r_rows[pr];
+      if (a.qvec) {
+#pragma unroll
+        for (int k = 0; k < kRunSlots * QP / kThreads; ++k) {
+          const int row = q0p + k * (kThreads / QP);
+          const int c = c0 + qcv;
+          if (c >= d) {
+            *reinterpret_cast<float4*>(qs + row * QS + qcv) = make_float4(0.f, 0.f, 0.f, 0.f);
+          } else if (row < qrows && qr[row] >= 0) {
+            rpt::tile_cp_async16(qs + row * QS + qcv, a.q + (size_t)qr[row] * d + c);
+          }
+        }
+      } else {
+        for (int i = tid; i < kRunSlots * S::DC; i += kThreads) {
+          const int row = i / S::DC;
+          const int cc = i - row * S::DC;
+          if (c0 + cc >= d)
+            qs[row * QS + cc] = 0.0f;
+          else if (row < qrows && qr[row] >= 0)
+            cp_async4(qs + row * QS + cc, a.q + (size_t)qr[row] * d + c0 + cc);
+        }
+      }
       if (++pkc == nk) {
         pkc = 0;
         if (++pst * rpt::kSlotTile >= len) {
@@ -287,33 +399,6 @@ __global__ void __launch_bounds__(kThreads, 2) grouped_score_kernel(const Args a
     }
     rpt::tile_cp_commit();  // an empty group past the last stage keeps the count
   };
-  // run r's query rows into its f32 buffer (no commit: they join the next
-  // group issued)
-  auto issue_q = [&](int r) {
-    float* dst = qf + (size_t)(a.nbuf == 2 ? (r & 1) : 0) * kRunSlots * qfs;
-    const int* pt = tps + r_slot[r];
-    const int rows = r_rows[r];
-    if (a.qvec) {
-      const int ppr = d / 4;
-      for (int i = tid; i < rows * ppr; i += kThreads) {
-        const int row = i / ppr;
-        const int c = (i - row * ppr) * 4;
-        const int e = pt[row];
-        if (e >= 0)
-          rpt::tile_cp_async16(dst + row * qfs + c, a.q + (size_t)(e / a.p) * d + c);
-      }
-    } else {
-      for (int i = tid; i < rows * d; i += kThreads) {
-        const int row = i / d;
-        const int c = i - row * d;
-        const int e = pt[row];
-        if (e >= 0) cp_async4(dst + row * qfs + c, a.q + (size_t)(e / a.p) * d + c);
-      }
-    }
-  };
-  // the first K - 1 stages, the first run's query rows with the first
-  // (two buffers)
-  if (nr > 0 && a.nbuf == 2) issue_q(0);
   for (int s = 0; s < K - 1; ++s) issue(s);
 
   // one slot tile of run cr, stages s .. s + nk - 1, with H query rows a
@@ -329,7 +414,6 @@ __global__ void __launch_bounds__(kThreads, 2) grouped_score_kernel(const Args a
     const int rows = r_rows[cr];
     const int len = r_len[cr];
     const int* pairs = tps + r_slot[cr];
-    const float* qb = qf + (size_t)(a.nbuf == 2 ? (cr & 1) : 0) * kRunSlots * qfs;
     const float* sqb = a.sq + (size_t)r_blk[cr] * lmax;
     const int j = (s - r_s0[cr]) / nk * rpt::kSlotTile + jj;
     const int q0 = F32 ? tid / rpt::kSlotTile * H : 0;
@@ -340,58 +424,58 @@ __global__ void __launch_bounds__(kThreads, 2) grouped_score_kernel(const Args a
     float acc[H][4];
 #pragma unroll
     for (int h = 0; h < H; ++h) acc[h][0] = acc[h][1] = acc[h][2] = acc[h][3] = 0.0f;
+    // |q|^2 of rows warp + 8 w: this lane's chain over its columns
+    float nrm[kRunSlots / 8];
+#pragma unroll
+    for (int w = 0; w < kRunSlots / 8; ++w) nrm[w] = 0.0f;
     for (int kc = 0; kc < nk; ++kc, ++s) {
-      const bool first = kc == 0 && s == r_s0[cr];
-      // stage s has landed, and with it the run's query rows where they
-      // joined an older group (else a wait for every group)
-      const bool drain = first && cr > 0 && s - r_s0[cr - 1] < K - 1;
-      cp_wait(drain ? 0 : K - 2);
+      cp_wait(K - 2);   // stage s has landed, its query columns with it
       __syncthreads();  // stage s seen by all; every thread past stage s - 1
-      if (first) {
-        // the query rows: the next run's into the other buffer, or, with
-        // one buffer, this run's now
-        if (a.nbuf == 2) {
-          if (cr + 1 < nr) issue_q(cr + 1);
-        } else {
-          issue_q(cr);
-          rpt::tile_cp_commit();
-          rpt::tile_cp_wait<0>();
-          __syncthreads();
-        }
-      }
       issue(s + K - 1);  // into stage s - 1's slot
-      if (first) {
-        for (int i = warp; i < rows; i += kThreads / 32) {
-          if (pairs[i] < 0) continue;
-          const float v = rpt::row_norm(qb + i * qfs, d);
-          if (lane == 0) qq[i] = v;
-        }
-        if constexpr (!F32) {
-          for (int i = tid; i < rows * qs; i += kThreads)
-            qw[i] = rpt::bf16_word(qb, qfs, qs, i, d);
-        }
-        const int w = lmax - len;  // +inf past the block's occupancy
+      if (kc == 0 && s == r_s0[cr]) {  // +inf past the block's occupancy
+        const int w = lmax - len;
         for (int i = tid; i < rows * w; i += kThreads) {
           const int e = pairs[i / w];
           if (e >= 0) a.out[(size_t)e * lmax + len + i % w] = INFINITY;
         }
-        __syncthreads();
       }
-      const T* xs = reinterpret_cast<const T*>(ring + (size_t)cslot * S::kStageFloats);
+      const float* stage = ring + (size_t)cslot * SW;
+      const T* xs = reinterpret_cast<const T*>(stage);
+      const float* qs = stage + S::kStageFloats;
       if (++cslot == K) cslot = 0;
       const int c0 = kc * S::DC;
+#pragma unroll
+      for (int w = 0; w < kRunSlots / 8; ++w) {
+        const int i = warp + 8 * w;
+        if (i < rows) {
+#pragma unroll
+          for (int h = 0; h < S::DC / 32; ++h) {
+            const float v = qs[i * QS + 32 * h + lane];
+            if (c0 + 32 * h + lane < d) nrm[w] = fmaf(v, v, nrm[w]);
+          }
+        }
+      }
       if constexpr (F32) {
         if (j < len && q0 < rows) {
           if (c0 + S::DC <= d)  // a whole column chunk
-            rpt::f32_dots<H, H, true>(acc, xs + jj * S::XS, qb, qfs, q0, c0, S::DC / 4);
+            rpt::f32_dots<H, H, true>(acc, xs + jj * S::XS, qs, QS, q0, 0, S::DC / 4);
           else
-            rpt::f32_dots<H>(acc, xs + jj * S::XS, qb, qfs, q0, c0, (d - c0 + 3) / 4);
+            rpt::f32_dots<H>(acc, xs + jj * S::XS, qs, QS, q0, 0, (d - c0 + 3) / 4);
         }
       } else if (j < len) {
-        rpt::bf16_dots(acc, reinterpret_cast<const uint32_t*>(xs) + (jj + g8) * (S::XS / 2) + t4,
-                       qw, qs, c0, (min(S::DC, d - c0) + 15) / 16, rows);
+        bf16_dots_f32q(acc, reinterpret_cast<const uint32_t*>(xs) + (jj + g8) * (S::XS / 2) + t4,
+                       qs, (min(S::DC, d - c0) + 15) / 16, rows);
       }
     }
+#pragma unroll
+    for (int w = 0; w < kRunSlots / 8; ++w) {
+      const int i = warp + 8 * w;
+      if (i < rows) {
+        const float v = rpt::warp_sum(nrm[w]);
+        if (lane == 0) qq[i] = v;
+      }
+    }
+    __syncthreads();  // the norms seen by all
     // each distance from the registers that summed it to its pair's row
     if constexpr (F32) {
       if (j < len) {
@@ -460,24 +544,10 @@ __global__ void __launch_bounds__(kThreads, 2) grouped_score_kernel(const Args a
   }
 }
 
-// The device's shared memory a block may opt into and an SM holds (cached
-// a device).
-void smem_limits(int* block, int* sm) {
-  static int cache[64][2];
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 0 || dev >= 64) dev = 0;
-  if (cache[dev][0] == 0) {
-    cudaDeviceGetAttribute(&cache[dev][1], cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
-    cudaDeviceGetAttribute(&cache[dev][0], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  }
-  *block = cache[dev][0];
-  *sm = cache[dev][1];
-}
-
 template <typename T>
 int launch(Args a, cudaStream_t stream) {
-  if (a.m < 1 || a.m > kRunSlots || a.nt < 0 || a.p < 1) return (int)cudaErrorInvalidValue;
+  if (a.m < 1 || a.m > kRunSlots || a.nt < 0 || a.p < 1 || a.d < 1)
+    return (int)cudaErrorInvalidValue;
   a.run_tiles = max(1, kRunSlots / a.m);
   if (a.range_tiles < 1 || a.range_tiles > min(kMaxTiles, max(1, kRangeSlots / a.m)))
     return (int)cudaErrorInvalidValue;
@@ -486,22 +556,11 @@ int launch(Args a, cudaStream_t stream) {
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   a.vec = rpt::vec_rows(static_cast<const T*>(a.x), a.d);
   a.qvec = a.d % 4 == 0 && (reinterpret_cast<uintptr_t>(a.q) & 15) == 0;
-  int block_max = 0, sm_max = 0;
-  smem_limits(&block_max, &sm_max);
-  // the deepest ring and query buffers at which two thread blocks share an
-  // SM, else the first that fits one
-  const int plans[5][2] = {{4, 2}, {3, 2}, {4, 1}, {3, 1}, {2, 1}};
-  int pick = -1;
-  for (int two = 1; two >= 0 && pick < 0; --two) {
-    for (int i = 0; i < 5 && pick < 0; ++i) {
-      const size_t bytes = 4 * score_words<T>(a.d, plans[i][0], plans[i][1]);
-      if (bytes <= (size_t)block_max && (!two || 2 * (bytes + 1024) <= (size_t)sm_max)) pick = i;
-    }
-  }
-  if (pick < 0) return (int)cudaErrorInvalidValue;
-  a.ring = plans[pick][0];
-  a.nbuf = plans[pick][1];
-  const size_t bytes = 4 * score_words<T>(a.d, a.ring, a.nbuf);
+  // The ring's depth reaches the kernel as an argument: as a compile-time
+  // constant, ptxas spilled more of the f32 kernel (464 bytes of loads
+  // against 108) and the D 128 grouped chunk took 4% longer (H100).
+  a.ring = kRing;
+  constexpr size_t bytes = score_bytes<T>();
   cudaError_t e = rpt::allow_smem(grouped_score_kernel<T>, bytes);
   if (e != cudaSuccess) return (int)e;
   grouped_score_kernel<T><<<(unsigned)grid, kThreads, bytes, stream>>>(a);
@@ -513,11 +572,12 @@ int launch(Args a, cudaStream_t stream) {
 extern "C" {
 
 // The arguments packed as int64 (ops/grouped_kernel.py _SCORE_ARGS): x, sq,
-// tb, tp, lens, slot, q, out, reads, pairs, nt, g, tile_m, lmax, d, p, l2,
-// bf16, the tiles a thread block takes (1 to min(32, 256 / tile_m)),
-// stream.  Returns a cudaError_t code: 0 on a good launch;
-// cudaErrorInvalidValue for a tile_m outside [1, 32], a range outside its
-// bounds or rows too wide for shared memory.
+// tb, tp, lens, slot, q, out, reads (null, or two counters: stagings and
+// staged bytes), pairs, nt, g, tile_m, lmax, d, p, l2, bf16, the tiles a
+// thread block takes (1 to min(32, 256 / tile_m)), stream.  Returns a
+// cudaError_t code: 0 on a good launch; cudaErrorInvalidValue for a tile_m
+// outside [1, 32] or a range outside its bounds.  The shared memory does not
+// depend on D, so every width launches.
 int rpt_grouped_score(const long long* v) {
   Args a{};
   a.x = reinterpret_cast<const void*>(v[0]);

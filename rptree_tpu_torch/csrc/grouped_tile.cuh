@@ -2,8 +2,10 @@
 // grouped_score (kernel 1, csrc/grouped_score.cu) and grouped_topk
 // (kernel 4, csrc/grouped_topk.cu).  Kernel 4 stages a tile's distances
 // with score_tile below; kernel 1 scores runs of tiles with the same
-// pieces (stage_rows, f32_dots / bf16_dots, row_norm, bf16_rows,
-// factored_l2), so kernel 4's distances are bit-equal to kernel 1's.
+// pieces (stage_rows, f32_dots, mma_bf16, factored_l2), streaming the query
+// rows a column chunk a stage and summing |q|^2 and rounding to bf16 as
+// row_norm and bf16_word do, so kernel 4's distances are bit-equal to
+// kernel 1's.
 // Kernel 2 (int8 blocks, csrc/grouped_score_i8.cu) stages its block rows
 // with the same stage_rows and TileShape<int8_t>.
 //

@@ -37,7 +37,8 @@ import torch
 from .. import _cuda
 
 __all__ = ["grouped_score_pairs", "grouped_score_pairs_reference",
-           "score_runs", "range_tiles", "grouped_score_tiles",
+           "score_runs", "staged_bytes", "range_tiles",
+           "grouped_score_tiles",
            "grouped_score_tiles_reference",
            "grouped_score_tiles_int8", "grouped_score_tiles_int8_reference",
            "grouped_score_topk", "grouped_score_topk_reference",
@@ -53,6 +54,9 @@ _REF_CHUNK = 4096
 # most 32 slots (kRunSlots), and a thread block takes the tiles of at most
 # 256 slots, 32 tiles at most (kRangeSlots, kMaxTiles); runs break there
 _RUN_SLOTS, _RANGE_SLOTS, _MAX_TILES = 32, 256, 32
+# slots a stage of its ring holds (kSlotTile): a run's query rows are
+# staged once for every such tile of its block's slots
+_SLOT_TILE = 128
 # thread blocks an SM holds (its shared memory) and the waves of them that
 # a launch should give the SMs before its ranges shrink (range_tiles)
 _BLOCKS_PER_SM, _WAVES = 2, 4
@@ -250,15 +254,10 @@ def _check_pairs(x_leaf, sq_leaf, tb, tp, lens_t, slot, q, tile_m):
         raise ValueError("x_leaf holds no blocks")
 
 
-def score_runs(tb, tp, lens_t, tile_m: int, sms: int = None):
-    """The block stagings kernel 1 makes on these tables
-    (``csrc/grouped_score.cu``): the runs, each one block's consecutive
-    tiles (equal ``tb`` and ``lens_t``) of at most ``32 // tile_m`` (1 at
-    least), that hold a pair in their first slot and a block with an
-    occupied row; runs also break where a tile holds no pair and every
-    :func:`range_tiles` tiles (a thread block's tiles; ``sms`` the SMs of
-    the card, None for the plain versions).  ``tp`` None: the identity
-    pair map.  An int64 device scalar."""
+def _run_heads(tb, tp, lens_t, tile_m: int, sms: int = None):
+    """``(head, pair)``: the tiles where kernel 1's runs start (see
+    :func:`score_runs`), and the tiles that hold a pair in their first
+    slot, each in the run of the latest head at or before it."""
     nt = tb.shape[0]
     t = torch.arange(nt, device=tb.device)
     pair = (torch.ones(nt, dtype=torch.bool, device=tb.device)
@@ -268,7 +267,39 @@ def score_runs(tb, tp, lens_t, tile_m: int, sms: int = None):
     fresh = pair & (~same | (t % range_tiles(nt, tile_m, sms) == 0))
     start = torch.cummax(torch.where(fresh, t, 0), 0).values
     head = pair & ((t - start) % max(1, _RUN_SLOTS // tile_m) == 0)
+    return head, pair
+
+
+def score_runs(tb, tp, lens_t, tile_m: int, sms: int = None):
+    """The block stagings kernel 1 makes on these tables
+    (``csrc/grouped_score.cu``): the runs, each one block's consecutive
+    tiles (equal ``tb`` and ``lens_t``) of at most ``32 // tile_m`` (1 at
+    least), that hold a pair in their first slot and a block with an
+    occupied row; runs also break where a tile holds no pair and every
+    :func:`range_tiles` tiles (a thread block's tiles; ``sms`` the SMs of
+    the card, None for the plain versions).  ``tp`` None: the identity
+    pair map.  An int64 device scalar."""
+    head, _ = _run_heads(tb, tp, lens_t, tile_m, sms)
     return (head & (lens_t > 0)).sum()
+
+
+def staged_bytes(tb, tp, lens_t, tile_m: int, lmax: int, d: int,
+                 itemsize: int, sms: int = None):
+    """The bytes kernel 1 copies into shared memory on these tables: for
+    each run of :func:`score_runs`, its block's ``min(lens, lmax)``
+    occupied rows of ``d`` elements of ``itemsize`` bytes once, and its
+    pairs' f32 query rows once for every 128 of those rows.  An int64
+    device scalar."""
+    head, pair = _run_heads(tb, tp, lens_t, tile_m, sms)
+    run = torch.cumsum(head.long(), 0) - 1
+    per_tile = (torch.full_like(lens_t, tile_m, dtype=torch.int64)
+                if tp is None else (tp >= 0).sum(1))
+    pairs = torch.zeros(int(head.sum()), dtype=torch.int64,
+                        device=tb.device).index_add_(0, run[pair],
+                                                     per_tile[pair])
+    rows = lens_t[head].long().clamp(0, lmax)
+    tiles = (rows + _SLOT_TILE - 1) // _SLOT_TILE
+    return ((rows * itemsize + pairs * tiles * 4) * d).sum()
 
 
 @torch.no_grad()
@@ -277,7 +308,7 @@ def grouped_score_pairs_reference(x_leaf, sq_leaf, tb, tp, lens_t, slot, q,
     """Plain torch version of :func:`grouped_score_pairs`: each chunk of
     tiles scored as :func:`grouped_score_tiles_reference` scores it, the
     query rows gathered through ``tp // p``, each pair's row put in its
-    place; ``reads`` gains :func:`score_runs`."""
+    place; ``reads`` gains :func:`score_runs` and :func:`staged_bytes`."""
     _check_metric(metric)
     _check_float_blocks("grouped_score_pairs", x_leaf)
     _check_pairs(x_leaf, sq_leaf, tb, tp, lens_t, slot, q, tile_m)
@@ -295,7 +326,9 @@ def grouped_score_pairs_reference(x_leaf, sq_leaf, tb, tp, lens_t, slot, q,
         ok = tps >= 0
         out[tps[ok]] = dd[ok]
     if reads is not None:
-        reads += score_runs(tb, tp, lens_t, tile_m)
+        reads[0] += score_runs(tb, tp, lens_t, tile_m)
+        reads[1] += staged_bytes(tb, tp, lens_t, tile_m, lmax, x_leaf.shape[2],
+                                 x_leaf.element_size())
     return out
 
 
@@ -313,8 +346,8 @@ def grouped_score_pairs(x_leaf, sq_leaf, tb, tp, lens_t, slot, q, metric,
     probes, capacity overflow) read +inf.  On the card kernel 1 stages
     each run of one block's tiles once (:func:`score_runs` with the card's
     SM count) and writes each pair's row in place; ``reads``, an
-    ``int64[1]`` on its device or None, gains those stagings with no read
-    back.  Each launch counts on
+    ``int64[2]`` on its device or None, gains those stagings and the bytes
+    they copy (:func:`staged_bytes`) with no read back.  Each launch counts on
     ``grouped_score_tiles.launches`` (bf16: ``launches_bf16``)."""
     _check_metric(metric)
     if x_leaf.device.type == "cpu":
@@ -329,6 +362,8 @@ def grouped_score_pairs(x_leaf, sq_leaf, tb, tp, lens_t, slot, q, metric,
                 **({} if reads is None else
                    {"reads": (reads, torch.int64, 1)}))
     _check_pairs(x_leaf, sq_leaf, tb, tp, lens_t, slot, q, tile_m)
+    if reads is not None and reads.numel() != 2:
+        raise ValueError(f"reads must be int64[2], got {tuple(reads.shape)}")
     e = slot.shape[0]
     out = torch.empty((e, x_leaf.shape[1]), dtype=torch.float32,
                       device=x_leaf.device)

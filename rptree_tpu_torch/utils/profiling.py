@@ -69,13 +69,16 @@ counter                      adds up, over the chunks
 ``grouped.block_reads``      block stagings of kernel 1: the runs of one
                              block's tiles it scores
                              (:func:`..ops.grouped_kernel.score_runs`)
+``grouped.staged_bytes``     bytes of block rows and query rows kernel 1
+                             copies into shared memory
+                             (:func:`..ops.grouped_kernel.staged_bytes`)
 ===========================  ==============================================
 
-``grouped.pairs``, ``grouped.tiles_overflow`` and ``grouped.block_reads``
-add into an ``int64[3]`` on their device, kernel 9 adding a chunk's first
-two itself on the card and kernel 1 its stagings
-(:func:`grouped_reads`), and are read back only by :func:`stats`; the
-slots add on the host.  The numbers cover the latest
+``grouped.pairs``, ``grouped.tiles_overflow``, ``grouped.block_reads`` and
+``grouped.staged_bytes`` add into an ``int64[4]`` on their device, kernel 9
+adding a chunk's first two itself on the card and kernel 1 the last two,
+one atomic each a thread block (:func:`grouped_reads`), and are read back
+only by :func:`stats`; the slots add on the host.  The numbers cover the latest
 stretch in which a profiler ran: the first region entered under a
 profiler after a serving entry was called without one (:func:`entry`)
 starts them from zero, as :func:`trace` does.  They assume one serving
@@ -179,10 +182,11 @@ COUNTERS = (
     "grouped.tiles_overflow",
     "grouped.slots_launched",
     "grouped.block_reads",
+    "grouped.staged_bytes",
 )
-# the counters added on their device, in the order of their int64[3]
+# the counters added on their device, in the order of their int64[4]
 _ON_DEVICE = ("grouped.pairs", "grouped.tiles_overflow",
-              "grouped.block_reads")
+              "grouped.block_reads", "grouped.staged_bytes")
 
 _NO_REGION = contextlib.nullcontext()
 _profiler_enabled = torch._C._autograd._profiler_enabled
@@ -194,7 +198,7 @@ class _Stretch:
     def __init__(self):
         self.spans = {}      # name -> [calls, total_ns, self_ns]
         self.slots = 0       # grouped.slots_launched
-        self.device = {}     # torch.device -> int64[3]: _ON_DEVICE
+        self.device = {}     # torch.device -> int64[4]: _ON_DEVICE
 
 
 _stretch = _Stretch()
@@ -275,7 +279,7 @@ def grouped_counts(device, slots: int):
     """The grouped layer's count site, one a chunk (``ops/grouped.py``
     ``tile_tables``).  With no profiler running, None, after one check.
     Else it adds the chunk's ``slots`` launched (``nt * tile_m``) on the
-    host and returns the stretch's ``int64[3]`` on ``device``, into whose
+    host and returns the stretch's ``int64[4]`` on ``device``, into whose
     first two the chunk's valid pairs and its tiles needed past the
     capacity are added (by kernel 9 itself on the card), with no read
     back."""
@@ -288,9 +292,9 @@ def grouped_counts(device, slots: int):
 def grouped_reads(device):
     """Kernel 1's count site (``ops/grouped.py``
     ``grouped_distances_kernel``): with no profiler running, None, after
-    one check; else the stretch's ``int64[1]`` on ``device`` into which
-    the launch adds its block stagings (kernel 1 itself on the card), with
-    no read back."""
+    one check; else the stretch's ``int64[2]`` on ``device`` into which
+    the launch adds its block stagings and the bytes they copy (kernel 1
+    itself on the card), with no read back."""
     if not _profiler_enabled():
         return None
     return _device_counts(device)[2:]

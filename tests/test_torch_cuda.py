@@ -154,20 +154,23 @@ def _slot_order(x, sq, q, tables, metric, tile_m, p):
 
 
 def _pairs_launch(x, sq, q, tables, metric, tile_m):
-    """One pair-addressed launch, its launch counted on kernel 1's counts
-    and its block stagings equal to the runs the tables imply."""
+    """One pair-addressed launch, its launch counted on kernel 1's counts,
+    its block stagings equal to the runs the tables imply and its staged
+    bytes to their plain count."""
     tb, tp, _, slot, lens_t = tables
     bf16 = x.dtype == torch.bfloat16
     before = (gk.grouped_score_tiles.launches,
               gk.grouped_score_tiles.launches_bf16)
-    reads = torch.zeros(1, dtype=torch.int64, device=x.device)
+    reads = torch.zeros(2, dtype=torch.int64, device=x.device)
     got = gk.grouped_score_pairs(x, sq, tb, tp, lens_t, slot, q, metric,
                                  tile_m, reads=reads)
     assert (gk.grouped_score_tiles.launches,
             gk.grouped_score_tiles.launches_bf16) == (before[0] + (not bf16),
                                                       before[1] + bf16)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    assert int(reads) == int(gk.score_runs(tb, tp, lens_t, tile_m, sms))
+    assert int(reads[0]) == int(gk.score_runs(tb, tp, lens_t, tile_m, sms))
+    assert int(reads[1]) == int(gk.staged_bytes(
+        tb, tp, lens_t, tile_m, x.shape[1], x.shape[2], x.element_size(), sms))
     return got
 
 
@@ -208,12 +211,15 @@ def test_pairs_at_the_cells_chunks(dev, b, hot, metric, bf16):
 @pytest.mark.parametrize("g,lmax,d,b,p,tile_m", [
     (40, 24, 20, 300, 5, 3), (9, 300, 131, 64, 6, 16), (5, 8, 1, 50, 4, 32),
     (30, 33, 7, 200, 8, 1), (3, 130, 64, 512, 8, 8), (6, 40, 700, 64, 4, 8),
+    (6, 40, 960, 64, 4, 8), (5, 130, 1504, 64, 4, 8), (4, 40, 2048, 48, 4, 8),
+    (4, 60, 3000, 48, 4, 8),
 ])
 def test_pairs_odd_shapes(dev, bf16, g, lmax, d, b, p, tile_m):
     """Rows of a width not a multiple of 4 (4-byte query copies), blocks
-    past 128 slots, rows too wide for two query buffers (D 700), a
-    capacity cut below the tiles needed (overflow pairs +inf) and
-    misaligned blocks: the slot-order composition's bits."""
+    past 128 slots, wide rows (D 700 to 3,000: the query rows stream a
+    column chunk a stage), a capacity cut below the tiles needed (overflow
+    pairs +inf) and misaligned blocks: the slot-order composition's
+    bits, and at the wide rows the plain version within its tolerance."""
     from rptree_tpu_torch.ops import grouped as og
 
     x, sq, q, tables = _cell_pairs(dev, g, lmax, d, b, p, tile_m, bf16,
@@ -230,9 +236,112 @@ def test_pairs_odd_shapes(dev, bf16, g, lmax, d, b, p, tile_m):
             want = _slot_order(x, sq, q, tables, metric, tile_m, p)
             assert torch.equal(got.view(torch.int32), want.view(torch.int32))
             assert bool(torch.isinf(got[tables[3] >= nt * tile_m]).all())
+            if d >= 700:
+                tb, tp, _, slot, lens_t = tables
+                _close(got, gk.grouped_score_pairs_reference(
+                    x, sq, tb, tp, lens_t, slot, q, metric, tile_m))
             got_o = _pairs_launch(_misaligned(x), sq, q, tables, metric,
                                   tile_m)
             assert torch.equal(got_o, got)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("d", [128, 131, 960, 1000, 1504, 2048, 3000])
+def test_wide_rows_bit_equal_to_whole_row_scoring(dev, bf16, d):
+    """Kernel 1 stages a run's query rows a column chunk at a time and
+    sums |q|^2 along the stages; kernel 4 (``score_tile``) keeps each
+    tile's query rows whole and sums them at once (``row_norm``).  Each
+    slot row's ``kp`` smallest distances are the same bits.  On
+    small-integer rows, where every sum is exact, kernel 1's pair form is
+    bit-equal to its plain version (``grouped_score_pairs_reference``)."""
+    g, lmax, b, p, tile_m, kp = 12, 100, 96, 4, 8, 16
+    x, sq, q, tables = _cell_pairs(dev, g, lmax, d, b, p, tile_m, bf16,
+                                   seed=d)
+    tb, tp, _, slot, lens_t = tables
+    qi = torch.where(tp >= 0, tp // p, 0).reshape(-1).long()
+    qt = q[qi].contiguous()
+    ids = torch.arange(g * lmax, dtype=torch.int32, device=dev).reshape(
+        g, lmax)
+    for metric in ("l2", "sql2"):
+        rows = gk.grouped_score_tiles(x, sq, tb, lens_t, qt, metric, tile_m)
+        want, _ = gk.grouped_score_topk(x, sq, ids, tb, lens_t, qt, metric,
+                                        tile_m, kp)
+        got = rows.sort(dim=1).values[:, :kp].contiguous()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    x, sq, q, tables = _cell_pairs(dev, g, lmax, d, b, p, tile_m, bf16,
+                                   seed=d + 1, ints=True)
+    tb, tp, _, slot, lens_t = tables
+    got = _pairs_launch(x, sq, q, tables, "sql2", tile_m)
+    want = gk.grouped_score_pairs_reference(x, sq, tb, tp, lens_t, slot, q,
+                                            "sql2", tile_m)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_kernel_1_plan_holds_two_blocks_an_sm(dev):
+    """Kernel 1's shared memory does not grow with D: its source checks at
+    compile time that two thread blocks of its four-stage ring fit sm_90's
+    limits (227 KB a thread block, 228 KB an SM), which the card offers,
+    and rows of every width launch (D 128, 960 and 3,000 here)."""
+    props = torch.cuda.get_device_properties(dev)
+    assert props.shared_memory_per_block_optin >= 232_448
+    assert props.shared_memory_per_multiprocessor >= 233_472
+    for bf16 in (False, True):
+        for d in (128, 960, 3000):
+            x, sq, q, tables = _cell_pairs(dev, 4, 64, d, 32, 4, 8, bf16,
+                                           seed=d)
+            _pairs_launch(x, sq, q, tables, "l2", 8)
+
+
+def _hashed(n, seed, dev):
+    """``n`` floats in [-1, 1) of 24 bits each from a multiplicative hash of
+    their index: the same values on every card and PyTorch build."""
+    i = torch.arange(n, dtype=torch.int64, device=dev)
+    h = (i + seed) * 0x9E3779B1 % (1 << 32)
+    h = (h ^ (h >> 15)) * 0x85EBCA77 % (1 << 32)
+    h = h ^ (h >> 13)
+    return (h % (1 << 24)).float() / (1 << 23) - 1.0
+
+
+# Kernel 1's distances at the grouped cell's chunk (:func:`_hashed_chunk`)
+# as the design that kept each run's query rows whole computed them: the
+# sha-256 of their bits, f32 and bf16 blocks.
+CHUNK_SHA256 = {
+    False: "61b1235c1ec3ea053b35223b8ea83e5690f8d57476d8fb1d372285bb156b43d3",
+    True: "fe400130653e8e478f44a3e0eaee372106b4d1241e0582aaf12a22318c9dcabd"}
+
+
+def _hashed_chunk(dev, bf16):
+    """The grouped cell's chunk from hashed values: 65,536 queries x 8
+    probes over 65,536 blocks of 128 x 128 holding 100-128 rows, 2% of the
+    probes masked, at the serving path's capacity; kernel 1's distances
+    through the serving path's scorer, and the sha-256 of their bits."""
+    import hashlib
+
+    from rptree_tpu_torch.ops import grouped as og
+
+    g, lmax, d, b, p, tile_m = 65_536, 128, 128, 65_536, 8, 8
+    x = _hashed(g * lmax * d, 1, dev).reshape(g, lmax, d)
+    if bf16:
+        x = x.bfloat16()
+    sq = x.double().square().sum(-1).float()
+    q = _hashed(b * d, 2, dev).reshape(b, d)
+    u = ((_hashed(2 * b * p, 3, dev) + 1.0) * (1 << 23)).long()
+    gsel = (u[:b * p] % g).int().reshape(b, p)
+    lsel = torch.where(u[b * p:] % 50 == 0, -1, 1).int().reshape(b, p)
+    lens = (100 + (_hashed(g, 4, dev) + 1.0) * (1 << 23) % 29).int()
+    need = int(og.tile_tables(gsel, lsel, lens, tile_m, 1)[2])
+    d_all, _ = og.grouped_distances_kernel(x, sq, lens, gsel, lsel, q, "l2",
+                                           tile_m, need + need // 8)
+    bits = d_all.contiguous().view(torch.int32).cpu().numpy().tobytes()
+    return d_all, hashlib.sha256(bits).hexdigest()
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_grouped_chunk_keeps_its_bits(dev, bf16):
+    """At D 128, kernel 1's distances on the grouped cell's chunk are the
+    bits that the design before the streamed query rows gave."""
+    _, digest = _hashed_chunk(dev, bf16)
+    assert digest == CHUNK_SHA256[bf16], digest
 
 
 @pytest.mark.parametrize("bf16", [False, True])

@@ -45,6 +45,7 @@ def _int8(x):
 @pytest.mark.parametrize("metric", ["l2", "sql2"])
 @pytest.mark.parametrize("g,lmax,d,tile_m,nt", [
     (24, 16, 32, 4, 32), (6, 24, 20, 8, 16), (10, 8, 32, 1, 8),
+    (4, 24, 960, 8, 8), (4, 24, 1000, 8, 8),
 ])
 def test_f32_plain_matches_pallas(metric, g, lmax, d, tile_m, nt):
     x, sq, tb, lens, qt = _tiles(0, g, lmax, d, tile_m, nt)
@@ -60,6 +61,25 @@ def test_f32_plain_matches_pallas(metric, g, lmax, d, tile_m, nt):
     np.testing.assert_array_equal(
         tk.grouped_score_tiles(*args, metric, tile_m).numpy(), got)
     assert tk.grouped_score_tiles.launches == before
+
+
+@pytest.mark.parametrize("metric", ["l2", "sql2"])
+@pytest.mark.parametrize("g,lmax,d,tile_m,nt", [
+    (6, 24, 20, 8, 16), (4, 24, 960, 8, 8), (4, 24, 1000, 8, 8),
+])
+def test_bf16_plain_matches_pallas(metric, g, lmax, d, tile_m, nt):
+    """bf16 blocks: both round the query rows to bf16 and sum the exact
+    products in f32, at D up to the GIST width and past it."""
+    x, sq, tb, lens, qt = _tiles(3, g, lmax, d, tile_m, nt)
+    xb = torch.as_tensor(x).bfloat16()
+    want = np.asarray(jk.grouped_score_tiles(
+        jnp.asarray(xb.float().numpy()).astype(jnp.bfloat16),
+        jnp.asarray(sq), jnp.asarray(tb), jnp.asarray(lens), jnp.asarray(qt),
+        metric, tile_m, 8, interpret=True))
+    args = [xb, *(torch.as_tensor(a) for a in (sq, tb, lens, qt))]
+    got = tk.grouped_score_tiles_reference(*args, metric, tile_m).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    assert np.isinf(got[tile_m:2 * tile_m]).all()  # the empty tile
 
 
 @pytest.mark.parametrize("metric", ["l2", "sql2"])
