@@ -490,6 +490,119 @@ def topk_inputs(b, w, device, seed=2):
     return d.to(device), ids.to(device)
 
 
+# Kernel 3's chunks at the cells' sizes: (rows, pairs, lmax, leaves of the
+# id table): the grouped cells' chunk over SIFT-1M's 65,536 leaves of 128,
+# and the 10M cell's chunk over BIGANN-10M's 524,288 leaves of 160.
+TAIL_CHUNKS = {"": (65536, 8, 128, 65536), "_10m": (8192, 8, 160, 524288)}
+
+
+def pair_topk_inputs(b, p, lmax, nb, device, seed=3):
+    """The selection tail's operands at a chunk of ``b`` rows of ``p``
+    pairs over an id table of ``nb`` leaves of ``lmax``, as a cell holds
+    it: 8 trees of ``nb / 8`` leaves, each tree's leaves a permutation of
+    its points (random lengths, -1 past them); pair ``j`` of a row is a
+    leaf of tree ``j % 8`` drawn from the whole tree, a tenth of the pairs
+    masked (+inf, row 0).  A point's distance depends on the row and the
+    id alone, so its copies in other trees are equal."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t = 8
+    per = nb // t
+    id_leaf = torch.cat([torch.randperm(per * lmax, generator=gen,
+                                        device=device).reshape(per, lmax)
+                         for _ in range(t)]).to(torch.int32)
+    lens = torch.randint(lmax // 2, lmax + 1, (nb, 1), generator=gen,
+                         device=device)
+    id_leaf = torch.where(torch.arange(lmax, device=device) < lens, id_leaf,
+                          -1)
+    rows = (torch.arange(p, device=device) % t * per + torch.randint(
+        0, per, (b, p), generator=gen, device=device)).to(torch.int32)
+    ids = id_leaf[rows.long()].long()
+    key = ids * 2654435761 + torch.arange(b, device=device)[:, None, None] \
+        * 40503
+    d = (key % (1 << 20)).float() / (1 << 20)
+    masked = (torch.rand(b, p, generator=gen, device=device) < 0.1)[..., None]
+    d = torch.where((ids < 0) | masked, float("inf"), d)
+    rows = torch.where(masked[..., 0], 0, rows).to(torch.int32)
+    return d.reshape(b, p * lmax).contiguous(), id_leaf.contiguous(), rows
+
+
+def check_topk_pairs(device, reps):
+    """Kernel 3's pair form (the ids read in place from the leaf id table)
+    at the grouped chunk and the 10M chunk, each over its cell's own id
+    table (``TAIL_CHUNKS``): bit for bit against the ids form on the
+    gathered ids and against the plain version, dedup on and off; then its
+    time against the route that gathers the ids first (the id gather, then
+    the ids form), in turns (pairs, gather, gather, pairs), by CUDA events
+    and as device time, and the rows that took a second prefix or a tie
+    overflow."""
+    import torch
+
+    from rptree_tpu_torch.ops import topk_kernel as tk
+
+    rec = {"max_abs_err": 0.0, "ids_equal": True, "library_ms": None}
+    for label, (b, p, lmax, nb) in TAIL_CHUNKS.items():
+        d, id_leaf, rows = pair_topk_inputs(b, p, lmax, nb, device)
+        paths = torch.zeros(2, dtype=torch.int64, device=device)
+        for dedup in (True, False):
+            got = tk.topk_dedup_pairs(d, id_leaf, rows, K, dedup=dedup,
+                                      paths=paths)
+            ids = id_leaf[rows.long()].reshape(b, -1)
+            _same_bits(f"topk_dedup_pairs{label} against the ids form", got,
+                       tk.topk_dedup_kernel(d, ids, K, dedup=dedup))
+            _same_bits(f"topk_dedup_pairs{label}", got,
+                       tk.topk_dedup_pairs_reference(d, id_leaf, rows, K,
+                                                     dedup=dedup))
+            del ids
+
+        def pairs():
+            return tk.topk_dedup_pairs(d, id_leaf, rows, K)
+
+        def gather():
+            return tk.topk_dedup_kernel(
+                d, id_leaf[rows.long()].reshape(b, -1), K)
+
+        turns = {"pairs": [], "gather": []}
+        for turn, fn in (("pairs", pairs), ("gather", gather),
+                         ("gather", gather), ("pairs", pairs)):
+            turns[turn].append(cuda_ms(fn, reps))
+        w = p * lmax
+        # the id table's rows the chunk touches: the least id bytes a read
+        # from HBM can take, where the card's L2 holds a row between pairs
+        touched = int(torch.unique(rows).numel()) * lmax * 4
+        rec.update({
+            f"ms{label}": min(turns["pairs"]),
+            f"device_ms{label}": graph_ms(pairs),
+            f"gather_route_ms{label}": min(turns["gather"]),
+            f"gather_route_device_ms{label}": graph_ms(gather),
+            f"turns_ms{label}": turns,
+            # the design reads each distance and each id once (the pair rows
+            # too) and writes the k winners; the gather route also writes
+            # and reads back the [B, W] ids
+            **{f"{key}{label}": v for key, v in bound(
+                b * w * 8 + b * p * 4 + b * K * 8, b * w, "f32").items()},
+            f"bound_ms_touched{label}": bound(
+                b * w * 4 + touched + b * p * 4 + b * K * 8, b * w,
+                "f32")["bound_ms"],
+            f"gather_route_bytes{label}": b * w * 16 + b * p * 4 + b * K * 8,
+            f"paths{label}": {"rows": 2 * b,
+                              "second_prefix": int(paths[0]),
+                              "tie_overflow": int(paths[1])},
+            f"shape{label}": {"rows": b, "P": p, "lmax": lmax, "W": w,
+                              "k": K, "table_leaves": nb,
+                              "table_bytes": nb * lmax * 4,
+                              "table_bytes_touched": touched,
+                              "route": tk.topk_route(w)},
+        })
+        if label == "":
+            rec["plain_ms"] = cuda_ms(lambda: tk.topk_dedup_pairs_reference(
+                d, id_leaf, rows, K), 2)
+        del d, id_leaf, rows
+        torch.cuda.empty_cache()
+    return rec
+
+
 def pairs_bound(x, tb, lens_t, tp, slot, q, kind):
     """:func:`bound` of kernel 1's pair form: each probed block's occupied
     rows and norms once, each query row once, the tables, the pairs'
@@ -764,6 +877,7 @@ def check_kernels(device, g=4096, nt=4096, dim=128, reps=5):
         "shape_chunk": {"rows": 65536, "W": 1024, "k": K},
         "ms_wide": big[3000], "shape_wide": {"rows": 2048, "W": 3000, "k": K},
     }
+    out["topk_dedup_pairs"] = check_topk_pairs(device, reps)
     out.update(check_gather(device, reps))
     out.update(check_scan(device, reps))
     out.update(check_descent(device, reps))
@@ -1811,6 +1925,7 @@ def kernel_counts():
         "grouped_score_tiles_bf16": (gk.grouped_score_tiles, "launches_bf16"),
         "grouped_score_tiles_int8": (gk.grouped_score_tiles_int8, "launches"),
         "topk_dedup_kernel": (tk.topk_dedup_kernel, "launches"),
+        "topk_dedup_pairs": (tk.topk_dedup_pairs, "launches"),
         "grouped_score_topk": (gk.grouped_score_topk, "launches"),
         "gather_score": (fg.gather_score, "launches"),
         "gather_score_bf16": (fg.gather_score, "launches_bf16"),
@@ -2049,7 +2164,7 @@ def xla_variants(f, qd, truth, serve, launches, out):
     n_truth = truth.shape[0]
     for name, metric, sel, runs in (
             ("g_f32_cosine_kernel_tail", "cosine", "kernel",
-             {walk, probe, tables, "topk_dedup_kernel"}),
+             {walk, probe, tables, "topk_dedup_pairs"}),
             ("h_f32_dot_sort_tail", "dot", "sort", {walk, probe, tables})):
         (_, exact), truth_s = sync_time(lambda: f.brute_force_knn(
             qd[:n_truth], K, metric=metric))
@@ -2249,10 +2364,12 @@ def check_update_chunk(f, qd, serve, kern, pending_q):
                                        "l2", serve["tile_m"], cap)
     d = d.reshape(qc.shape[0], -1)
     ids = id_leaf[gsel.long()].reshape(qc.shape[0], -1)
-    got, want = (tk.topk_dedup_kernel(d, ids, K),
-                 tk.topk_dedup_kernel_reference(d, ids, K))
-    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-        raise AssertionError("topk_dedup_kernel on the updates chunk differs")
+    got = tk.topk_dedup_pairs(d, id_leaf, gsel, K)
+    for want in (tk.topk_dedup_kernel(d, ids, K),
+                 tk.topk_dedup_pairs_reference(d, id_leaf, gsel, K)):
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError("topk_dedup_pairs on the updates chunk "
+                                 "differs")
     rec["kernel3"] = {"rows": d.shape[0], "width": d.shape[1],
                       "bit_equal": True}
     del d, ids, got, want
@@ -2336,7 +2453,7 @@ def updates_phase(f, qd, device, launches, kern, card):
     qa = qd[:serve["chunk"]]
     rec, res_a = serve_variant(
         "updates_a", f, qa, truth, pack, serve,
-        {walk, probe, tables, "grouped_score_tiles", "topk_dedup_kernel"})
+        {walk, probe, tables, "grouped_score_tiles", "topk_dedup_pairs"})
     add_launches(launches, "updates_a", rec["launches"])
     pending_q = qd[:8192]
     pair, pair_s, pair_n = counted_calls(
@@ -2427,7 +2544,7 @@ def updates_phase(f, qd, device, launches, kern, card):
     (_, truth_r), _ = sync_time(lambda: f.brute_force_knn(qd[:n_truth], K))
     rec_r, _ = serve_variant(
         "updates_rebuilt_a", f, qa, truth_r, pack, serve,
-        {walk, probe, tables, "grouped_score_tiles", "topk_dedup_kernel"})
+        {walk, probe, tables, "grouped_score_tiles", "topk_dedup_pairs"})
     add_launches(launches, "updates_rebuilt_a", rec_r["launches"])
     log("updates_rebuilt", card=card, rebuild_s=rebuild_s,
         fresh_build_pack_s=fresh_s, same_perm_as_fresh=same_perm,
@@ -2460,7 +2577,7 @@ def updates_int8(f, qd, device, launches, card):
     rec, _ = serve_variant(
         "updates_iid_int8", f, q, truth, dict(dtype=torch.int8, slack=8),
         serve, {"traverse", "select_probes", "tile_tables",
-                "grouped_score_tiles_int8", "topk_dedup_kernel"})
+                "grouped_score_tiles_int8", "topk_dedup_pairs"})
     add_launches(launches, "updates_iid_int8", rec["launches"])
     log("updates_iid_int8", card=card, added=IID_ADD, fold_s=fold_s,
         folded=f.n_folded, overflow_pending=f.n_pending, **rec,
@@ -2508,7 +2625,7 @@ def layouts_phase(f, qd, truth, out, launches, kern):
     from rptree_tpu_torch.models import forest as fm
 
     walk, probe, tables = "traverse", "select_probes", "tile_tables"
-    topk = "topk_dedup_kernel"
+    topk = "topk_dedup_pairs"
     g, qg, qp = LAYOUT_GROUPED, qd[:LAYOUT_QUERIES], qd[:LAYOUT_PAIR_QUERIES]
     n_truth = truth.shape[0]
     a = tuple(t[:LAYOUT_QUERIES] for t in out["a"])
@@ -2708,7 +2825,7 @@ def shared_10m_phase(device, launches, kern, card):
     rec, res = per_pair_phase(
         "shared_10m_per_pair_kernel", f, q, truth,
         {**pair, "selection": "kernel"},
-        {walk, probe, "gather_score_shared", "topk_dedup_kernel"}, 3,
+        {walk, probe, "gather_score_shared", "topk_dedup_pairs"}, 3,
         launches)
     rec["sort_tail_same_untied_ids"] = close_results(
         "shared_10m_per_pair_kernel", res, res_p)
@@ -2842,7 +2959,7 @@ def sparse_phase(device, launches, card, n=SPARSE_N, n_queries=SPARSE_QUERIES,
     log("sparse_bow_262k", **cell)
     out, recs = {}, {}
     pair_runs = {walk, probe, ell}
-    grouped_runs = {walk, probe, tables, ell, "topk_dedup_kernel"}
+    grouped_runs = {walk, probe, tables, ell, "topk_dedup_pairs"}
     for name, q in (("s1_per_pair", qd), ("s4_per_pair_sparse_queries", qe)):
         recs[name], out[name] = per_pair_phase(
             f"sparse_{name}", f, q, truth, SPARSE_PAIR, pair_runs, 2,
@@ -2963,7 +3080,7 @@ def surface_stream(f, qd, truth, out, launches, card):
     rec, res = serve_variant(
         "u1_streamed_f32_kernel_tail", fs, q, truth, {}, serve,
         {"traverse", "select_probes", "tile_tables", "grouped_score_tiles",
-         "topk_dedup_kernel"})
+         "topk_dedup_pairs"})
     add_launches(launches, "u1_streamed_f32_kernel_tail", rec["launches"])
     a = tuple(t[:STREAM_QUERIES] for t in out["a"])
     if not bits_equal(res, a):
@@ -3161,7 +3278,7 @@ def surface_checkpoints(f, qd, launches, card):
                      selection="kernel")
         q = qd[:CHECKPOINT_QUERIES]
         runs = {"traverse", "select_probes", "tile_tables",
-                "grouped_score_tiles_int8", "topk_dedup_kernel"}
+                "grouped_score_tiles_int8", "topk_dedup_pairs"}
         truth = f.brute_force_knn(q[:1024], K)[1]
         want, n = counted(lambda: f.knn_grouped(q, K, **serve))
         check_ran("u3 original", n, runs)
@@ -3237,7 +3354,7 @@ TRACE_KERNELS = {
     "select_probes": ("probes_lanes", "probes_warp", "probes_merge"),
     "tile_tables": ("upsweep_kernel",),
     "grouped_score_tiles": ("grouped_score_kernel",),
-    "topk_dedup_kernel": ("topk_regs_kernel", "topk_wide_kernel"),
+    "topk_dedup_pairs": ("topk_pairs_kernel",),
 }
 
 
@@ -3327,7 +3444,7 @@ def side_query_phase(f, qd, truth, launches, card):
     f.pack_leaves()
     q = qd[:SIDE_QUERIES]
     grouped = {walk, probe, tables, "grouped_score_tiles",
-               "topk_dedup_kernel"}
+               "topk_dedup_pairs"}
     # the checked call learns the tile capacity; the untraced twin
     f.knn_grouped(q, K, **SIDE_SERVE)
     plain = f.knn_grouped(q, K, check=False, **SIDE_SERVE)
@@ -3348,6 +3465,16 @@ def side_query_phase(f, qd, truth, launches, card):
         if not bits_equal(got, plain):
             raise AssertionError("p1: the traced chunk differs from the "
                                  "untraced one")
+        st = rp.profiling.stats()
+        rec["topk_rows"] = {n: st[n] for n in ("topk.rows_one_read",
+                                               "topk.rows_swept")}
+        if rec["topk_rows"] != {"topk.rows_one_read": SIDE_QUERIES,
+                                "topk.rows_swept": 0}:
+            raise AssertionError(f"p1: kernel 3's rows by route "
+                                 f"{rec['topk_rows']}, {SIDE_QUERIES} "
+                                 "served")
+        rec["topk_paths"] = {n: st[n] for n in ("topk.rows_second_prefix",
+                                                "topk.rows_tie_overflow")}
         log("side_p1_trace_grouped", card=card, queries=SIDE_QUERIES,
             **SIDE_SERVE, bits_equal_untraced=True, kernels=found, **rec,
             region_host_us_no_profiler=region_host_us())
@@ -3423,7 +3550,7 @@ def side_bf16(f, qd, truth, launches, card):
     rec, res = serve_variant(
         "p6_bf16_dataset", fb, q, own, {}, SIDE_SERVE,
         {"traverse", "select_probes", "tile_tables",
-         "grouped_score_tiles_bf16", "topk_dedup_kernel"})
+         "grouped_score_tiles_bf16", "topk_dedup_pairs"})
     add_launches(launches, "p6_bf16_dataset", rec["launches"])
     ids = res[1][:nr]
     rec["recall_vs_f32_norms_scan"] = recall(ids, f32_norms)
@@ -3702,10 +3829,16 @@ def sharded_clustered_phase(f, qd, truth, out, launches, card):
     for name, extra, twin, runs in (
             ("d2_leaf_f32_kernel_tail", {"selection": "kernel"}, "a",
              {walk, probe, tables, "grouped_score_tiles",
-              "topk_dedup_kernel"}),
+              "topk_dedup_pairs"}),
             ("d2_leaf_f32_kernel_topk", {"selection": "sort",
                                          "impl": "kernel_topk"}, "c",
-             {walk, probe, tables, "grouped_score_topk"})):
+             {walk, probe, tables, "grouped_score_topk"}),
+            # a shard's kernel 4 under the kernel tail: the ids form of
+            # kernel 3 on kernel 4's output
+            ("d2_leaf_f32_kernel_topk_kernel_tail",
+             {"selection": "kernel", "impl": "kernel_topk"}, "c",
+             {walk, probe, tables, "grouped_score_topk",
+              "topk_dedup_kernel"})):
         rec, res = serve_variant(name, fd, qd, truth, dict(shard_by="leaf"),
                                  {**serve, **extra}, runs, per_chunk=4)
         add_launches(launches, name, rec["launches"])
@@ -3775,7 +3908,7 @@ def sharded_iid_phase(f, qd, served, serve, truth, launches, card):
     t_phase = time.perf_counter()
     walk, probe, tables = "traverse", "select_probes", "tile_tables"
     runs = {walk, probe, tables, "grouped_score_tiles_int8",
-            "topk_dedup_kernel"}
+            "topk_dedup_pairs"}
     pack = dict(dtype=torch.int8, slack=8)
     fd = distribute(f, one_card_mesh(f.device, 4, 1))
     name = "d4_iid_int8_leaf"
@@ -3964,7 +4097,7 @@ def dp_clustered_phase(f, qd, truth, out, launches, card):
     for name, extra, twin, runs in (
             ("e2_dp_f32_kernel_tail", {"selection": "kernel"}, "a",
              {walk, probe, tables, "grouped_score_tiles",
-              "topk_dedup_kernel"}),
+              "topk_dedup_pairs"}),
             ("e2_dp_f32_kernel_topk", {"selection": "sort",
                                        "impl": "kernel_topk"}, "c",
              {walk, probe, tables, "grouped_score_topk"})):
@@ -4047,7 +4180,7 @@ def dp_iid_phase(f, qd, served, serve, truth, launches, card):
     args = (SEED, cfg.max_depth, cfg.min_leaf, cfg.n_trees,
             cfg.proj_nz_density)
     runs = {"traverse", "select_probes", "tile_tables",
-            "grouped_score_tiles_int8", "topk_dedup_kernel"}
+            "grouped_score_tiles_int8", "topk_dedup_pairs"}
     pack = dict(dtype=torch.int8, slack=8)
     # (e6)
     (fd, build_s), n = counted(lambda: sync_time(
@@ -4204,7 +4337,7 @@ def dp_shared_10m(f, x, q, truth, res_p, rec_p, launches, card):
     name = "e10_dp_shared_10m_grouped_kernel"
     rec_g, res_g = serve_variant(name, fd, q, truth, dict(store="shared"),
                                  grouped, {walk, probe, "tile_tables",
-                                           "topk_dedup_kernel"},
+                                           "topk_dedup_pairs"},
                                  per_chunk=DP_SHARDS)
     add_launches(launches, name, rec_g.pop("launches"))
     rec_s = {}
@@ -4373,6 +4506,9 @@ def example_checks():
         "grouped_score_tiles": (gk, "grouped_score_pairs", _check_pairs),
         "topk_dedup_kernel": (tk, "topk_dedup_kernel", bits(
             "topk_dedup_kernel", tk.topk_dedup_kernel_reference)),
+        "topk_dedup_pairs": (tk, "topk_dedup_pairs", lambda a, got: _same_bits(
+            "topk_dedup_pairs", got, tk.topk_dedup_pairs_reference(
+                a["d"], a["id_leaf"], a["rows_sel"], a["k"], a["dedup"]))),
         "gather_score": (fg, "gather_score", _check_gather),
         "scan_topk": (sc, "_scan_partial", _check_scan),
         "ell_score_tiles": (ek, "ell_score_tiles", _check_ell),
@@ -4709,7 +4845,7 @@ EXAMPLES = {
                             "tile_tables", "grouped_score_tiles"},
                            _example_serving_loop),
     "torch_scale_10m": ({"project_rows", "traverse", "select_probes",
-                         "gather_score_shared", "topk_dedup_kernel",
+                         "gather_score_shared", "topk_dedup_pairs",
                          "tile_tables", "scan_topk"}, _example_scale_10m),
     "torch_bow_sparse": ({"project_rows", "traverse", "select_probes",
                           "tile_tables", "ell_score_tiles"},
@@ -4782,7 +4918,7 @@ def main():
     bf16 = dict(dtype=torch.bfloat16)
     tiles, tiles_bf16, topk, topk_tiles = (
         "grouped_score_tiles", "grouped_score_tiles_bf16",
-        "topk_dedup_kernel", "grouped_score_topk")
+        "topk_dedup_pairs", "grouped_score_topk")
     out = {}
     serve_grouped((  # (name, pack, serve, the kernels it runs, recall floor)
         ("a_f32_kernel_tail", {}, {**serve, "selection": "kernel"},
@@ -4858,7 +4994,7 @@ def main():
     rec, iid_res = serve_variant("iid", f, qd, truth,
                                  dict(dtype=torch.int8, slack=8), iid_serve,
                            {walk, probe, tables, "grouped_score_tiles_int8",
-                            "topk_dedup_kernel"})
+                            "topk_dedup_pairs"})
     add_launches(launches, "iid_100k_int8", rec["launches"])
     # kernel 2 on the first chunk's own tiles (launches here are not counted)
     rec["kernel2_chunk"] = check_tiles_chunk(f, qd[:iid_serve["chunk"]],
@@ -4983,6 +5119,10 @@ def main():
         "topk_dedup_kernel": ("rptree_tpu_torch/csrc/topk_dedup.cu",
                               "rptree_tpu/ops/topk_kernel.py:72",
                               "topk_dedup_kernel"),
+        "topk_dedup_pairs": ("rptree_tpu_torch/csrc/topk_dedup.cu",
+                             "rptree_tpu/ops/topk_kernel.py:72, its ids "
+                             "read in place from the leaf id table",
+                             "topk_dedup_pairs"),
         "grouped_score_topk": ("rptree_tpu_torch/csrc/grouped_topk.cu",
                                "rptree_tpu/ops/grouped_kernel.py:233",
                                "grouped_score_topk"),
@@ -5016,7 +5156,11 @@ def main():
              "ms_pairs", "device_ms_pairs", "bound_ms_pairs", "ms_bf16",
              "bound_ms_bf16", "route_share", "route_share_pairs",
              "ms_banded", "route_share_banded", "ms_l2", "route_share_l2",
-             "block_route_ms", "routes_same_bits")
+             "block_route_ms", "routes_same_bits", "device_ms_10m",
+             "ms_10m", "gather_route_ms", "gather_route_device_ms",
+             "gather_route_ms_10m", "gather_route_device_ms_10m",
+             "bound_ms_10m", "bound_ms_touched", "bound_ms_touched_10m",
+             "paths", "paths_10m")
 
     def line(key, v):  # kernel 9's grid counts stand in the phase-2 and
         # chunk records only

@@ -53,6 +53,9 @@ kernel 9).
     python3 chip_stages.py --wide         # only kernel 1's pair form at
                                           # D 960 and D 128 against an
                                           # earlier build's
+    python3 chip_stages.py --tail         # only kernel 3 at the cells'
+                                          # chunks against an earlier
+                                          # build's
 
 With ``--wide``, kernel 1's pair form of the commit whose
 ``grouped_score.cu``, ``grouped_tile.cuh`` and ``common.cuh`` sit in
@@ -62,6 +65,15 @@ against this tree's, in turns, at the GIST cell's chunk (65,536 queries x
 (65,536 and 8,192 queries over 65,536 blocks of 128 x 128, f32 and
 bf16): CUDA events and device time, the same bits, and each build's
 staged bytes a second.
+
+With ``--tail``, kernel 3 of the commit whose ``topk_dedup.cu`` sits in
+``_checkout/base`` (``git show e0b7ff7:rptree_tpu_torch/csrc/topk_dedup.cu``
+for the register kernel the serving path ran before the ids were read in
+place) against this tree's, in turns, at the grouped and 10M cells'
+chunks over their own id tables (``tail_turns``): the pair form, the id
+gather followed by each build's ids form, and the earlier pair form where
+that file has one; the same bits, CUDA events and device time, and the
+card's clocks and power around the turns.
 
 Each stage runs as the serving path runs it (``_knn_grouped``), between
 two ``torch.cuda.synchronize`` calls, seven times; the line gives the
@@ -285,19 +297,120 @@ def base_topk_tiles(lib, x, sq, ids, tb, lens, qt, tile_m, kp):
 
 
 def base_topk(lib, d, ids, k):
-    """The earlier kernel 3, with dedup, on its register route where the
-    row fits (``topk_route``)."""
+    """The earlier kernel 3 (``rpt_topk_dedup``), with dedup, on its
+    register route where the row fits (4 distances a lane for every 128
+    of W, up to 1,024), else on its wide-row kernel."""
+    from rptree_tpu_torch import _cuda
+
+    b, w = d.shape
+    regs = 4 * -(-w // 128)
+    od = torch.empty((b, k), device=d.device)
+    oi = torch.empty((b, k), dtype=torch.int32, device=d.device)
+    code = lib.rpt_topk_dedup_base(*map(_cuda.ptr, (d, ids, od, oi)), b, w,
+                                   k, 1, regs if regs <= 32 else 0,
+                                   _cuda.stream_of(d))
+    assert code == 0, code
+    return od, oi
+
+
+def base_tail_lib(src):
+    """An earlier commit's ``topk_dedup.cu`` (at ``src``) built alone under
+    other symbol names: its ids form ``rpt_topk_dedup`` (the register
+    kernel, up to ``e0b7ff7``) and its pair form ``rpt_topk_pairs`` where
+    it has one."""
+    import ctypes
+
+    from rptree_tpu_torch import _cuda
+
+    out = os.path.join(src, "libbase_tail.so")
+    renames = [f"-D{n}={n}_base" for n in ("rpt_topk_dedup",
+                                           "rpt_topk_pairs")]
+    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, *renames, "-I",
+                    str(_cuda._CSRC), "-shared", "-o", out,
+                    os.path.join(src, "topk_dedup.cu")],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(out)
+    p, i, l_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+    for name, args in (("rpt_topk_dedup_base", [p] * 4 + [l_, i, i, i, i, p]),
+                       ("rpt_topk_pairs_base",
+                        [p] * 3 + [l_, p, p, l_] + [i] * 5 + [p, p])):
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = args
+    return lib
+
+
+def base_tail_pairs(lib, d, id_leaf, rows, k):
+    """The earlier pair form of kernel 3, with dedup, on its route for the
+    row's width (this tree's ``topk_route``, which it shares)."""
     from rptree_tpu_torch import _cuda
     from rptree_tpu_torch.ops import topk_kernel as tk
 
     b, w = d.shape
     od = torch.empty((b, k), device=d.device)
     oi = torch.empty((b, k), dtype=torch.int32, device=d.device)
-    code = lib.rpt_topk_dedup_base(*map(_cuda.ptr, (d, ids, od, oi)), b, w,
-                                   k, 1, tk.topk_route(w),
-                                   _cuda.stream_of(d))
+    code = lib.rpt_topk_pairs_base(
+        *map(_cuda.ptr, (d, id_leaf, rows)), id_leaf.shape[0],
+        *map(_cuda.ptr, (od, oi)), b, rows.shape[1], id_leaf.shape[1], k, 1,
+        tk.topk_route(w), None, _cuda.stream_of(d))
     assert code == 0, code
     return od, oi
+
+
+def card_clocks():
+    """The card's SM and memory clocks (MHz), power draw (W), temperature
+    (C) and active throttle reasons, as ``nvidia-smi`` reads them now."""
+    keys = ("clocks.sm", "clocks.mem", "power.draw", "temperature.gpu",
+            "clocks_throttle_reasons.active")
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={','.join(keys)}",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60).stdout
+    return dict(zip(keys, (v.strip() for v in out.splitlines()[0].split(","))))
+
+
+def tail_turns(lib):
+    """Kernel 3 at the cells' chunks over their own id tables
+    (``chip_smoke.TAIL_CHUNKS``): this tree's pair form against the
+    earlier build's routes, in turns (this tree first and last): the id
+    gather then the earlier ids form, and the earlier pair form where the
+    build has one; and the id gather then this tree's ids form.  Each is
+    checked for the same bits as this tree's pair form; CUDA events and
+    device time, one JSON line a chunk, with the card's clocks and power
+    read before and after."""
+    from rptree_tpu_torch.ops import topk_kernel as tk
+
+    dev = torch.device("cuda", 0)
+    for label, (b, p, lmax, nb) in cs.TAIL_CHUNKS.items():
+        d, id_leaf, rows = cs.pair_topk_inputs(b, p, lmax, nb, dev)
+
+        def ids():
+            return id_leaf[rows.long()].reshape(b, -1)
+
+        fns = {"tree_pairs": lambda: tk.topk_dedup_pairs(d, id_leaf, rows, K),
+               "base_gather_ids_form": lambda: base_topk(lib, d, ids(), K)}
+        if hasattr(lib, "rpt_topk_pairs_base"):
+            fns["base_pairs"] = lambda: base_tail_pairs(lib, d, id_leaf,
+                                                        rows, K)
+        fns["tree_gather_ids_form"] = lambda: tk.topk_dedup_kernel(d, ids(), K)
+        want = fns["tree_pairs"]()
+        same = {n: same_bits(fn()[0], want[0])
+                and bool(torch.equal(fn()[1], want[1]))
+                for n, fn in fns.items()}
+        clocks = [card_clocks()]
+        ev = turns(*fns.values())
+        dv = device_turns(*fns.values())
+        clocks.append(card_clocks())
+        w = p * lmax
+        print(json.dumps({
+            "tail_turns": label or "_grouped", "B": b, "P": p, "lmax": lmax,
+            "table_leaves": nb, "k": K, "route": tk.topk_route(w),
+            "ms": dict(zip(fns, ev[:-1])), "turns_ms": ev[-1],
+            "device_ms": dict(zip(fns, dv[:-1])), "device_turns_ms": dv[-1],
+            "same_bits": same, "clocks": clocks,
+            "bound_ms": cs.bound(b * w * 8 + b * p * 4 + b * K * 8, b * w,
+                                 "f32")["bound_ms"]}), flush=True)
+        del d, id_leaf, rows
+        torch.cuda.empty_cache()
 
 
 def same_bits(a, b):
@@ -1785,6 +1898,9 @@ def stages(f, fm, og, gk, tk, rr, qc, cap, sync, budget, probes, base=None):
         lambda: id_leaf[gsel.long()].reshape(b, -1), sync)
     _, st["kernel3_topk_tail"] = timed(
         lambda: tk.topk_dedup_kernel(d, ids, K), sync)
+    # the serving path's tail: the pair form reads the ids in place
+    _, st["kernel3_pairs_tail"] = timed(
+        lambda: tk.topk_dedup_pairs(d, id_leaf, gsel, K), sync)
     (ds, order), st["sort_tail_sort"] = timed(
         lambda: torch.sort(d, dim=1, stable=True), sync)
     kk = K * f.n_trees
@@ -1925,6 +2041,8 @@ def shared_10m_stages(rp, fm, fg, og, rr, tk, dev, sync, on_card):
         d, ids, K, K * f.n_trees, True), sync)
     _, st["kernel3_tail"] = timed(lambda: tk.topk_dedup_kernel(d, ids, K),
                                   sync)
+    _, st["kernel3_pairs_tail"] = timed(
+        lambda: tk.topk_dedup_pairs(d, id_leaf, gsel, K), sync)
     st["sum_sort_tail"] = (st["traversal_probes"]
                            + st["kernel6_gather_score_shared"]
                            + st["distances_mask"] + st["sort_tail"])
@@ -2020,6 +2138,8 @@ def sparse_stages(rp, fm, og, tk, dev, sync, on_card):
         _, st["kernel3_tail"] = timed(
             lambda: tk.topk_dedup_kernel(d, ids, K), sync)
         st["sum"] = sum(st.values())
+        _, st["kernel3_pairs_tail"] = timed(
+            lambda: tk.topk_dedup_pairs(d, id_leaf, gsel, K), sync)
         st["kernel11_projections_within_traversal"] = proj_ms
         whole = qs if label.startswith("s3") else qc
         _, st["whole_call"] = timed(lambda: f.knn_grouped(
@@ -2206,6 +2326,13 @@ def main():
             raise SystemExit(f"chip_stages --wide: needs the card and "
                              f"{WIDE_BASE} of an earlier commit in {src}")
         return wide_turns(base_score_lib(src))
+    if "--tail" in sys.argv[1:]:  # kernel 3 against a base's
+        src = "_checkout/base"
+        if not on_card or not os.path.exists(os.path.join(src,
+                                                          "topk_dedup.cu")):
+            raise SystemExit(f"chip_stages --tail: needs the card and "
+                             f"topk_dedup.cu of an earlier commit in {src}")
+        return tail_turns(base_tail_lib(src))
     if "--sparse" in sys.argv[1:]:  # phase 9's cell alone
         return sparse_stages(rp, fm, og, tk, dev, sync, on_card)
     if "--turns" in sys.argv[1:]:  # kernels 6-11 against a base's

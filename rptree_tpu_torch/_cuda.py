@@ -45,8 +45,9 @@ _SIGNATURES = {
     "rpt_grouped_score": [ctypes.c_char_p],
     # x, sq, scale, tb, lens, qt, out, nt, g, tile_m, lmax, d, l2, stream
     "rpt_grouped_score_i8": [_P] * 7 + [_I] * 6 + [_P],
-    # d, ids, od, oi, b, w, k, dedup, regs, stream
-    "rpt_topk_dedup": [_P] * 4 + [_L, _I, _I, _I, _I, _P],
+    # d, ids, rows (or null), nb, od, oi, b, p, lmax, k, dedup, regs, paths,
+    # stream
+    "rpt_topk_pairs": [_P] * 3 + [_L, _P, _P, _L] + [_I] * 5 + [_P, _P],
     # x, sq, ids, tb, lens, qt, od, oi, nt, g, tile_m, lmax, d, l2, kp, stream
     "rpt_grouped_topk_f32": [_P] * 8 + [_I] * 7 + [_P],
     "rpt_grouped_topk_bf16": [_P] * 8 + [_I] * 7 + [_P],

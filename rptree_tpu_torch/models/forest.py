@@ -95,12 +95,13 @@ from ..ops.scan import SCAN_METRICS, scan_rows, scan_topk, stream_topk
 from ..ops.shared import SharedRows, fetch_blocks
 from ..ops.sparse import (EllBlocks, EllMatrix, ell_sq_norms, ell_take,
                           ell_to_dense)
-from ..ops.topk_kernel import topk_dedup_kernel, topk_kernel_ok
+from ..ops.topk_kernel import (topk_dedup_kernel, topk_dedup_pairs,
+                                topk_kernel_ok)
 from ..ops.traverse import (node_table, project_queries, select_probes,
                              traverse_kernel)
 from ..ops.vector import SVec, to_dense
 from ..utils import gen as rgen
-from ..utils.profiling import entry, region
+from ..utils.profiling import entry, region, topk_paths
 from .plan import TreePlan, make_plan
 
 __all__ = ["RPForest", "forest_batch", "tree_batch", "DEFAULT_BUDGET"]
@@ -425,12 +426,17 @@ def _probe_pairs(f, q, budget, probes, k, bucket_stop=False):
 def _selection_tail(d, id_leaf, rows_sel, k, kk, dedup, min_votes=1,
                     selection="sort"):
     """Candidate-selection tail over ``d f32[B, P * lmax]`` (+inf in masked
-    slots): the ids are fetched as whole leaf blocks with the rows' ``[B,
-    P]`` pattern, then :func:`_selection_tail_ids` selects; both in one
-    ``rpt_topk_tail`` region."""
+    slots) whose ids are the leaf blocks ``id_leaf[rows_sel]``, in one
+    ``rpt_topk_tail`` region.  The kernel tail (``selection="kernel"``, no
+    vote counting) reads each slot's id in place
+    (:func:`topk_dedup_pairs`); the sort tail and vote counting gather the
+    ids into ``[B, P * lmax]`` first, then :func:`_tail` selects."""
     with region("rpt_topk_tail"):
-        b = d.shape[0]
-        ids_flat = id_leaf[rows_sel.long()].reshape(b, -1)
+        if selection == "kernel" and min_votes == 1:
+            return topk_dedup_pairs(d, id_leaf.contiguous(),
+                                    rows_sel.contiguous(), k, dedup=dedup,
+                                    paths=topk_paths(d.device))
+        ids_flat = id_leaf[rows_sel.long()].reshape(d.shape[0], -1)
         return _tail(d, ids_flat, k, kk, dedup, min_votes, selection)
 
 
@@ -454,7 +460,8 @@ def _tail(d, ids_flat, k, kk, dedup, min_votes, selection):
     w = d.shape[1]
     kk = w if min_votes > 1 else min(int(kk), w)
     if selection == "kernel" and min_votes == 1:
-        return topk_dedup_kernel(d, ids_flat, k, dedup=dedup)
+        return topk_dedup_kernel(d, ids_flat, k, dedup=dedup,
+                                 paths=topk_paths(d.device))
     d_top, order = torch.sort(d, dim=1, stable=True)
     d_top = d_top[:, :kk]
     ids_top = ids_flat.gather(1, order[:, :kk])

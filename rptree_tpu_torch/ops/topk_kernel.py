@@ -12,12 +12,25 @@ live (finite) candidates pad with ``(+inf, -1)``.  These semantics are
 pinned by ``tests/test_topk_kernel.py`` for the JAX kernel and by
 ``tests/test_torch_topk_kernel.py`` for this port.
 
-The wrapper takes the plain version for a tensor on the CPU and launches
+Two forms, one kernel.  The serving path calls :func:`topk_dedup_pairs` on
+the scorer's ``d f32[B, P * lmax]`` with the leaf id table ``id_leaf
+int32[NB, lmax]`` and each row's pair rows ``rows_sel int32[B, P]``: the
+kernel reads position ``p * lmax + s``'s id in place, ``id_leaf[rows_sel[b,
+p], s]``, so no ``[B, W]`` id matrix is formed.  :func:`topk_dedup_kernel`
+takes a materialized ``ids int32[B, W]`` (kernel 4's output, the sharded
+merges) through the same kernel, each row its own pair row.
+
+Each wrapper takes the plain version for a tensor on the CPU and launches
 the kernel for a tensor on a CUDA device, or raises there.  On the card a
-row of ``W <= 1024`` is read once into registers (:func:`topk_route`
-gives the registers per lane); a wider row takes the wide-row kernel,
-which sweeps it once per pass.  ``topk_dedup_kernel.launches`` counts
-kernel launches of either route.
+row of ``W <= 2048`` is read once (:func:`topk_route` gives the distances
+a lane holds); a wider row takes the wide-row kernel, which sweeps it once
+per pass.  Each wrapper's ``launches`` counts its launches of either
+route.  While a profiler runs, each launch adds its rows to the counter
+``topk.rows_one_read`` or ``topk.rows_swept`` by the route its width takes
+(``utils/profiling.py`` :func:`topk_rows`), and ``paths`` (an ``int64[2]``
+on the card, :func:`..utils.profiling.topk_paths`) gains the rows the
+kernel saw take a second prefix of their distance order and the rows
+whose prefix overflowed with equal distances (``csrc/topk_dedup.cu``).
 """
 
 from __future__ import annotations
@@ -25,19 +38,23 @@ from __future__ import annotations
 import torch
 
 from .. import _cuda
+from ..utils import profiling
 
 __all__ = ["topk_dedup_kernel", "topk_dedup_kernel_reference",
+           "topk_dedup_pairs", "topk_dedup_pairs_reference",
            "topk_kernel_ok", "topk_route"]
 
 _MAX_K = 128
-_MAX_REGS = 32      # the register route's distances per lane: W <= 32 * 32
+_MAX_REGS = 64      # the one-read route's distances per lane: W <= 32 * 64
 
 
 def topk_route(w: int) -> int:
     """The kernel's route for rows of width ``w``: the distances each lane
-    of a warp holds in registers (a multiple of 4, so that 16-byte loads
-    fill them), or 0 for the wide-row route past ``32 * 32``."""
+    of a warp holds (a multiple of 4 up to 32, then of 8, so that 16-byte
+    loads fill them), or 0 for the wide-row route past ``32 * 64``."""
     regs = 4 * -(-w // 128)
+    if regs > 32:
+        regs = 8 * -(-regs // 8)
     return regs if regs <= _MAX_REGS else 0
 
 
@@ -81,34 +98,94 @@ def topk_dedup_kernel_reference(d, ids, k: int, dedup: bool = True):
     return od, oi
 
 
-def topk_dedup_kernel(d, ids, k: int, dedup: bool = True):
-    """Per-row k smallest ``(distance, id)`` of ``d f32[B, W]`` /
-    ``ids int32[B, W]``; with ``dedup`` the k winners have distinct ids.
-    Returns ``(dk f32[B, k], ik int32[B, k])``.  Any ``B`` and ``W``."""
-    if d.device.type == "cpu":
-        return topk_dedup_kernel_reference(d, ids, k, dedup=dedup)
-    _check_args(d, ids, k)
-    name = "topk_dedup_kernel"
-    for key, t, dtype in (("d", d, torch.float32), ("ids", ids, torch.int32)):
-        if t.device.type != "cuda" or t.device != d.device:
-            raise ValueError(f"{name}: {key} is on {t.device}, expected {d.device}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name}: {key} must be {dtype}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {key} must be contiguous")
+def _launch(name, d, ids, rows, k, dedup, paths):
+    """One launch of kernel 3 on ``d f32[B, W]`` with ``ids`` read through
+    ``rows`` (or, with ``rows`` None, ``ids int32[B, W]`` itself); returns
+    ``(dk, ik)``."""
+    _cuda.check_operands(name, d.device, ("d", d, torch.float32),
+                         ("ids" if rows is None else "id_leaf", ids,
+                          torch.int32),
+                         *(() if rows is None else
+                           (("rows_sel", rows, torch.int32),)),
+                         *(() if paths is None else
+                           (("paths", paths, torch.int64),)))
+    if paths is not None and paths.numel() != 2:
+        raise ValueError(f"{name}: paths must be int64[2], got "
+                         f"{tuple(paths.shape)}")
     b, w = d.shape
     od = torch.empty((b, k), dtype=torch.float32, device=d.device)
     oi = torch.empty((b, k), dtype=torch.int32, device=d.device)
     if b == 0:
         return od, oi
-    lib = _cuda.lib()
+    route = topk_route(w)
+    nb, lmax = ids.shape
     with _cuda.on(d.device):
-        code = lib.rpt_topk_dedup(_cuda.ptr(d), _cuda.ptr(ids), _cuda.ptr(od),
-                                  _cuda.ptr(oi), b, w, k, int(bool(dedup)),
-                                  topk_route(w), _cuda.stream_of(d))
+        code = _cuda.lib().rpt_topk_pairs(
+            _cuda.ptr(d), _cuda.ptr(ids),
+            None if rows is None else _cuda.ptr(rows), nb, _cuda.ptr(od),
+            _cuda.ptr(oi), b, 1 if rows is None else rows.shape[1], lmax, k,
+            int(bool(dedup)), route,
+            None if paths is None else _cuda.ptr(paths),
+            _cuda.raw_stream(d.device))
     _cuda.check(code, name)
-    topk_dedup_kernel.launches += 1
+    profiling.topk_rows(b, route > 0)
     return od, oi
 
 
+def topk_dedup_kernel(d, ids, k: int, dedup: bool = True, paths=None):
+    """Per-row k smallest ``(distance, id)`` of ``d f32[B, W]`` /
+    ``ids int32[B, W]``; with ``dedup`` the k winners have distinct ids.
+    Returns ``(dk f32[B, k], ik int32[B, k])``.  Any ``B`` and ``W``;
+    ``paths`` as the module docstring says."""
+    _check_args(d, ids, k)
+    if d.device.type == "cpu":
+        return topk_dedup_kernel_reference(d, ids, k, dedup=dedup)
+    out = _launch("topk_dedup_kernel", d, ids, None, k, dedup, paths)
+    topk_dedup_kernel.launches += 1
+    return out
+
+
 topk_dedup_kernel.launches = 0
+
+
+def _check_pairs(d, id_leaf, rows_sel, k):
+    if (d.dim() != 2 or id_leaf.dim() != 2 or rows_sel.dim() != 2
+            or rows_sel.shape[0] != d.shape[0]
+            or d.shape[1] != rows_sel.shape[1] * id_leaf.shape[1]):
+        raise ValueError(f"d [B, P * lmax], id_leaf [NB, lmax] and rows_sel "
+                         f"[B, P] disagree: {tuple(d.shape)}, "
+                         f"{tuple(id_leaf.shape)}, {tuple(rows_sel.shape)}")
+    if not 1 <= k <= _MAX_K:
+        raise ValueError(f"k must be in [1, {_MAX_K}], got {k}")
+    if d.shape[1] < 1:
+        raise ValueError("topk over an empty candidate width")
+
+
+@torch.no_grad()
+def topk_dedup_pairs_reference(d, id_leaf, rows_sel, k: int,
+                               dedup: bool = True):
+    """Plain torch version of :func:`topk_dedup_pairs`: the ids gathered
+    into ``[B, P * lmax]``, then :func:`topk_dedup_kernel_reference`."""
+    _check_pairs(d, id_leaf, rows_sel, k)
+    ids = id_leaf[rows_sel.long()].reshape(d.shape[0], -1)
+    return topk_dedup_kernel_reference(d, ids, k, dedup=dedup)
+
+
+def topk_dedup_pairs(d, id_leaf, rows_sel, k: int, dedup: bool = True,
+                     paths=None):
+    """:func:`topk_dedup_kernel` of ``(d, id_leaf[rows_sel].reshape(B,
+    -1))`` with the ids read in place: ``d f32[B, P * lmax]``, ``id_leaf
+    int32[NB, lmax]``, ``rows_sel int32[B, P]`` (a negative row counts from
+    the end, as a tensor index does).  Returns ``(dk f32[B, k], ik
+    int32[B, k])``, bit-equal to the ids form's; ``paths`` as the module
+    docstring says."""
+    _check_pairs(d, id_leaf, rows_sel, k)
+    if d.device.type == "cpu":
+        return topk_dedup_pairs_reference(d, id_leaf, rows_sel, k,
+                                          dedup=dedup)
+    out = _launch("topk_dedup_pairs", d, id_leaf, rows_sel, k, dedup, paths)
+    topk_dedup_pairs.launches += 1
+    return out
+
+
+topk_dedup_pairs.launches = 0

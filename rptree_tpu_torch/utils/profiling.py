@@ -72,13 +72,28 @@ counter                      adds up, over the chunks
 ``grouped.staged_bytes``     bytes of block rows and query rows kernel 1
                              copies into shared memory
                              (:func:`..ops.grouped_kernel.staged_bytes`)
+``topk.rows_one_read``       rows kernel 3 launches on its one-read route
+                             (W <= 2,048: each candidate read once)
+``topk.rows_swept``          rows kernel 3 launches on its wide-row route
+                             (one sweep of the row a winner)
+``topk.rows_second_prefix``  rows of the one-read route that took a second
+                             prefix of their distance order
+``topk.rows_tie_overflow``   rows of the one-read route whose prefix held
+                             too many equal distances, so that their
+                             passes ran over all their slots
 ===========================  ==============================================
 
-``grouped.pairs``, ``grouped.tiles_overflow``, ``grouped.block_reads`` and
-``grouped.staged_bytes`` add into an ``int64[4]`` on their device, kernel 9
-adding a chunk's first two itself on the card and kernel 1 the last two,
-one atomic each a thread block (:func:`grouped_reads`), and are read back
-only by :func:`stats`; the slots add on the host.  The numbers cover the latest
+``grouped.pairs``, ``grouped.tiles_overflow``, ``grouped.block_reads``,
+``grouped.staged_bytes``, ``topk.rows_second_prefix`` and
+``topk.rows_tie_overflow`` add into an ``int64[6]`` on their device, kernel
+9 adding a chunk's first two itself on the card, kernel 1 the next two,
+one atomic each a thread block (:func:`grouped_reads`), and kernel 3 the
+last two, one atomic a row that takes either path (:func:`topk_paths`);
+they are read back only by :func:`stats`.  The slots add on the host, and
+so do kernel 3's rows by route, which its wrappers
+(``ops/topk_kernel.py``) add as they launch it (:func:`topk_rows`); the
+plain versions on the CPU add none of kernel 3's counters.  The numbers
+cover the latest
 stretch in which a profiler ran: the first region entered under a
 profiler after a serving entry was called without one (:func:`entry`)
 starts them from zero, as :func:`trace` does.  They assume one serving
@@ -110,8 +125,8 @@ import numpy as np
 import torch
 
 __all__ = ["device_time", "trace", "sync", "region", "entry", "stats",
-           "grouped_counts", "grouped_reads", "SCOPES", "ENTRIES",
-           "COUNTERS"]
+           "grouped_counts", "grouped_reads", "topk_rows", "topk_paths",
+           "SCOPES", "ENTRIES", "COUNTERS"]
 
 
 def _is_float_array(a) -> bool:
@@ -183,10 +198,15 @@ COUNTERS = (
     "grouped.slots_launched",
     "grouped.block_reads",
     "grouped.staged_bytes",
+    "topk.rows_one_read",
+    "topk.rows_swept",
+    "topk.rows_second_prefix",
+    "topk.rows_tie_overflow",
 )
-# the counters added on their device, in the order of their int64[4]
+# the counters added on their device, in the order of their int64[6]
 _ON_DEVICE = ("grouped.pairs", "grouped.tiles_overflow",
-              "grouped.block_reads", "grouped.staged_bytes")
+              "grouped.block_reads", "grouped.staged_bytes",
+              "topk.rows_second_prefix", "topk.rows_tie_overflow")
 
 _NO_REGION = contextlib.nullcontext()
 _profiler_enabled = torch._C._autograd._profiler_enabled
@@ -198,7 +218,8 @@ class _Stretch:
     def __init__(self):
         self.spans = {}      # name -> [calls, total_ns, self_ns]
         self.slots = 0       # grouped.slots_launched
-        self.device = {}     # torch.device -> int64[4]: _ON_DEVICE
+        self.topk = [0, 0]   # topk.rows_one_read, topk.rows_swept
+        self.device = {}     # torch.device -> int64[6]: _ON_DEVICE
 
 
 _stretch = _Stretch()
@@ -279,7 +300,7 @@ def grouped_counts(device, slots: int):
     """The grouped layer's count site, one a chunk (``ops/grouped.py``
     ``tile_tables``).  With no profiler running, None, after one check.
     Else it adds the chunk's ``slots`` launched (``nt * tile_m``) on the
-    host and returns the stretch's ``int64[4]`` on ``device``, into whose
+    host and returns the stretch's ``int64[6]`` on ``device``, into whose
     first two the chunk's valid pairs and its tiles needed past the
     capacity are added (by kernel 9 itself on the card), with no read
     back."""
@@ -297,7 +318,27 @@ def grouped_reads(device):
     itself on the card), with no read back."""
     if not _profiler_enabled():
         return None
-    return _device_counts(device)[2:]
+    return _device_counts(device)[2:4]
+
+
+def topk_rows(rows: int, one_read: bool) -> None:
+    """Kernel 3's host count site, one a launch on the card
+    (``ops/topk_kernel.py``): with a profiler running, adds ``rows`` to
+    ``topk.rows_one_read`` where the route reads each candidate once, else
+    to ``topk.rows_swept``."""
+    if _profiler_enabled():
+        _stretch.topk[0 if one_read else 1] += rows
+
+
+def topk_paths(device):
+    """Kernel 3's device count site (``models/forest.py``'s selection
+    tails): with no profiler running, None, after one check; else the
+    stretch's ``int64[2]`` on ``device`` into which kernel 3 adds the rows
+    that took a second prefix and the rows of a tie overflow, with no read
+    back."""
+    if not _profiler_enabled():
+        return None
+    return _device_counts(device)[4:]
 
 
 def stats() -> dict:
@@ -312,6 +353,7 @@ def stats() -> dict:
         for name, v in zip(_ON_DEVICE, acc.tolist()):
             out[name] += v
     out["grouped.slots_launched"] = st.slots
+    out["topk.rows_one_read"], out["topk.rows_swept"] = st.topk
     return out
 
 

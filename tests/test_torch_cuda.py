@@ -489,7 +489,9 @@ def test_int8_tiles_bit_equal_on_dyadic_rows(dev, metric, g, lmax, d, nt,
 @pytest.mark.parametrize("b,w,k", [(300, 1024, 10), (77, 640, 10),
                                    (9, 33, 128), (5, 3, 7), (40, 3000, 10),
                                    (50, 1023, 128), (64, 1024, 1),
-                                   (20, 130, 128), (6, 2500, 128)])
+                                   (20, 130, 128), (6, 2500, 128),
+                                   (90, 1280, 10), (30, 2048, 128),
+                                   (25, 1282, 10)])
 def test_topk(dev, dedup, b, w, k):
     gen = torch.Generator().manual_seed(b * w)
     d = torch.randint(0, 50, (b, w), generator=gen).float()
@@ -532,6 +534,176 @@ def test_topk_ties(dev, dedup, w):
     assert torch.equal(kd.view(torch.int32), pd.view(torch.int32))
     assert ki[0].tolist() == list(range(k))
     assert ki[3].tolist() == [-1] * k
+
+
+def _pair_chunk(dev, b, p, lmax, seed, levels=1 << 20):
+    """A chunk of the pair form: 8 trees of four leaves each over ``4 *
+    lmax`` points (so a row's pairs share many ids), leaves of random
+    lengths (-1 past them), each row's pair ``j`` a leaf of tree ``j % 8``,
+    a tenth of the pairs masked (+inf, row 0, as the serving path leaves
+    them).  A point's distance depends on the row and the id alone
+    (``levels`` values: fewer give more ties), so its copies are equal."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t, per = 8, 4
+    perm = torch.argsort(torch.rand(t, per * lmax, generator=gen, device=dev),
+                         dim=1).to(torch.int32)
+    id_leaf = perm.reshape(t * per, lmax)
+    lens = torch.randint(lmax // 2, lmax + 1, (t * per, 1), generator=gen,
+                         device=dev)
+    id_leaf = torch.where(torch.arange(lmax, device=dev) < lens, id_leaf, -1)
+    rows = (torch.arange(p, device=dev) % t * per + torch.randint(
+        0, per, (b, p), generator=gen, device=dev)).to(torch.int32)
+    ids = id_leaf[rows.long()].long()
+    key = ids * 2654435761 + torch.arange(b, device=dev)[:, None, None] * 40503
+    d = (key % levels).float() / levels
+    masked = (torch.rand(b, p, generator=gen, device=dev) < 0.1)[..., None]
+    d = torch.where((ids < 0) | masked, float("inf"), d)
+    rows = torch.where(masked[..., 0], 0, rows).to(torch.int32)
+    return d.reshape(b, p * lmax).contiguous(), id_leaf.contiguous(), rows
+
+
+def _topk_same(got, want):
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+
+
+@pytest.mark.parametrize("dedup", [True, False])
+@pytest.mark.parametrize("b,p,lmax,levels", [
+    (65536, 8, 128, 1 << 20),   # the grouped chunk
+    (8192, 8, 160, 1 << 20),    # the 10M chunk
+    (2048, 8, 128, 1 << 20),    # the per-pair chunk
+    (2048, 8, 128, 64),         # many equal distances
+    (1024, 16, 128, 1 << 20),   # W 2,048, the one-read route's widest
+    (512, 17, 128, 1 << 20),    # W 2,176: the wide-row route
+    (300, 3, 7, 256),           # lmax % 4 != 0: 4-byte copies
+    (300, 9, 13, 256),
+    (200, 16, 100, 1 << 20)])   # W 1,600
+def test_topk_pairs(dev, dedup, b, p, lmax, levels):
+    """The pair form (ids read in place) bit for bit against the ids form
+    on ``id_leaf[rows_sel].reshape(B, -1)`` (the same kernel through the
+    identity row map) and against the plain version, at the cells' chunks
+    and on every route; one launch."""
+    k = 10
+    d, id_leaf, rows = _pair_chunk(dev, b, p, lmax, b + p + lmax, levels)
+    ids = id_leaf[rows.long()].reshape(b, -1)
+    before = tk.topk_dedup_pairs.launches
+    got = tk.topk_dedup_pairs(d, id_leaf, rows, k, dedup=dedup)
+    assert tk.topk_dedup_pairs.launches == before + 1
+    _topk_same(got, tk.topk_dedup_kernel(d, ids, k, dedup=dedup))
+    _topk_same(got, tk.topk_dedup_pairs_reference(d, id_leaf, rows, k,
+                                                  dedup=dedup))
+    torch.cuda.synchronize()
+
+
+def _paths_chunk(dev, lmax):
+    """Eight rows of 16 pairs over four leaves of ``lmax``, one a path of
+    the one-read route: every distance equal (the prefix overflows: a tie
+    overflow), sixteen pairs of one leaf (a prefix holds few ids: more
+    prefixes follow), NaN (never chosen), -inf, -0 beside +0, a row
+    exhausted, one with three live slots, one whose pair rows count from
+    the end."""
+    p = 16
+    w = p * lmax
+    gen = torch.Generator().manual_seed(lmax)
+    id_leaf = torch.randperm(4 * lmax, generator=gen)[:4 * lmax].reshape(
+        4, lmax).to(torch.int32)
+    rows = torch.randint(0, 4, (8, p), generator=gen, dtype=torch.int32)
+    rows[1] = 2
+    rows[7] = -1                          # counts from the end
+    d = torch.rand(8, w, generator=gen) * 8
+    d[1] = torch.rand(lmax, generator=gen).repeat(p)
+    d[0] = 2.5
+    d[2, torch.rand(w, generator=gen) < 0.1] = float("nan")
+    d[3, w // 3] = float("-inf")
+    d[4, :: 7] = 0.0
+    d[4, 3:: 7] = -0.0
+    d[5] = float("inf")
+    d[6] = float("inf")
+    d[6, [5, lmax + 1, w - 1]] = 1.0
+    return d.to(dev), id_leaf.to(dev), rows.to(dev)
+
+
+@pytest.mark.parametrize("dedup", [True, False])
+@pytest.mark.parametrize("lmax", [128, 127])
+def test_topk_pairs_paths(dev, dedup, lmax):
+    """Rows that take each path of the one-read route (``_paths_chunk``),
+    bit for bit against the ids form; the paths counter sees the tie
+    overflow and the extra prefixes, the same in both forms.  Rows without
+    NaN also against the plain version."""
+    k = 128
+    d, id_leaf, rows = _paths_chunk(dev, lmax)
+    paths = torch.zeros(2, dtype=torch.int64, device=dev)
+    got = tk.topk_dedup_pairs(d, id_leaf, rows, k, dedup=dedup, paths=paths)
+    ids = id_leaf[rows.long()].reshape(8, -1)
+    paths_ids = torch.zeros(2, dtype=torch.int64, device=dev)
+    _topk_same(got, tk.topk_dedup_kernel(d, ids, k, dedup=dedup,
+                                         paths=paths_ids))
+    # the plain version gives a tie of -0 and +0 its amin's sign: row 4 by
+    # value; NaN rows not at all (its amin carries NaN)
+    keep = torch.tensor([0, 1, 3, 5, 6, 7], device=dev)
+    _topk_same((got[0][keep], got[1][keep]), tk.topk_dedup_kernel_reference(
+        d[keep], ids[keep], k, dedup=dedup))
+    want = tk.topk_dedup_kernel_reference(d[4:5], ids[4:5], k, dedup=dedup)
+    assert torch.equal(got[1][4:5], want[1])
+    assert torch.equal(got[0][4:5], want[0])
+    assert int(paths[0]) >= 1 and int(paths[1]) >= 1
+    assert torch.equal(paths, paths_ids)
+    first = list(dict.fromkeys(ids[0].tolist())) if dedup else ids[0].tolist()
+    assert got[1][0].tolist() == first[:k]
+    assert not torch.isnan(got[0]).any()
+
+
+def test_topk_counters_under_a_profiler(dev):
+    """Under a profiler the kernel tail (``_selection_tail``) adds each row
+    it launches to ``topk.rows_one_read`` (W <= 2,048) or
+    ``topk.rows_swept`` (wider), and kernel 3 adds the rows that took a
+    second prefix or a tie overflow, as an explicit ``paths`` counts
+    them; the ids form (``_selection_tail_ids``) counts alike.  With no
+    profiler running nothing is counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rptree_tpu_torch.models import forest as fm
+    from rptree_tpu_torch.utils import profiling
+
+    k = 10
+    chunks = (_pair_chunk(dev, 2048, 8, 128, 5), _pair_chunk(
+        dev, 64, 17, 128, 6, 64), _paths_chunk(dev, 128))
+    want = torch.zeros((len(chunks), 2), dtype=torch.int64, device=dev)
+    for (d, id_leaf, rows), paths in zip(chunks, want):
+        tk.topk_dedup_pairs(d, id_leaf, rows, k, paths=paths)
+    assert int(want[:, 1].sum()) >= 1
+    profiling.entry("rpt_knn_grouped")  # no profiler: the stretch ends
+    with profile(activities=[ProfilerActivity.CPU]):
+        for d, id_leaf, rows in chunks:
+            fm._selection_tail(d, id_leaf, rows, k, k, True,
+                               selection="kernel")
+        d, id_leaf, rows = chunks[0]
+        fm._selection_tail_ids(d, id_leaf[rows.long()].reshape(
+            d.shape[0], -1), k, k, True, selection="kernel")
+    s = profiling.stats()
+    assert s["topk.rows_one_read"] == 2 * 2048 + 8
+    assert s["topk.rows_swept"] == 64
+    # the ids form ran the first chunk again
+    assert [s["topk.rows_second_prefix"], s["topk.rows_tie_overflow"]] == (
+        want.sum(0) + want[0]).tolist()
+    profiling.entry("rpt_knn_grouped")
+    fm._selection_tail(*chunks[2], k, k, True, selection="kernel")
+    assert profiling.stats()["topk.rows_one_read"] == 2 * 2048 + 8
+
+
+def test_topk_pairs_operands(dev):
+    d = torch.zeros(4, 16, device=dev)
+    id_leaf = torch.zeros(5, 8, dtype=torch.int32, device=dev)
+    rows = torch.zeros(4, 2, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        tk.topk_dedup_pairs(d, id_leaf, rows.long(), 3)
+    with pytest.raises(TypeError):
+        tk.topk_dedup_pairs(d, id_leaf.long(), rows, 3)
+    with pytest.raises(ValueError):
+        tk.topk_dedup_pairs(d, id_leaf.cpu(), rows, 3)
+    with pytest.raises(ValueError):
+        tk.topk_dedup_pairs(d, id_leaf, torch.zeros(
+            2, 4, dtype=torch.int32, device=dev).t(), 3)
 
 
 @pytest.mark.parametrize("bf16", [False, True])

@@ -177,3 +177,35 @@ def test_grouped_counters_on_a_small_capacity(twins, impl, how):
     assert s["grouped.tiles_overflow"] == 2 * (need - cap)
     assert s["grouped.pairs"] == 2 * int((np.asarray(lsel) >= 0).sum())
     assert s["grouped.slots_launched"] == 2 * cap * 4
+
+
+@pytest.mark.parametrize("entry", ["knn_batched", "knn_grouped"])
+def test_kernel_tail_counts_its_rows(packed, entry):
+    """Kernel 3's counters count launches only: on the CPU the kernel tail
+    runs the plain version, so under a profiler its region is entered
+    once a chunk while ``topk.rows_one_read``, ``topk.rows_swept`` and the
+    device pair ``topk.rows_second_prefix`` / ``topk.rows_tie_overflow``
+    stay 0 (the card's tests hold them to the rows served); the device
+    count site hands out the stretch's ``int64[2]`` only while a profiler
+    runs."""
+    from rptree_tpu_torch.ops import topk_kernel as tk
+
+    f, q = packed
+    q = q[:128]  # whole chunks: no padded rows
+    fn = getattr(f, entry)
+    kw = dict(budget=BUDGET, chunk=64, selection="kernel")
+    if entry == "knn_grouped":
+        kw["check"] = False
+    fn(q, K, **kw)
+    launches = tk.topk_dedup_pairs.launches, tk.topk_dedup_kernel.launches
+    assert profiling.topk_paths(torch.device("cpu")) is None
+    sites = _profiled(lambda: [fn(q, K, **kw) for _ in range(2)]
+                      + [profiling.topk_paths(torch.device("cpu"))])
+    s = profiling.stats()
+    assert s["rpt_topk_tail"]["calls"] == 2 * 2
+    assert (tk.topk_dedup_pairs.launches,
+            tk.topk_dedup_kernel.launches) == launches
+    for name in ("topk.rows_one_read", "topk.rows_swept",
+                 "topk.rows_second_prefix", "topk.rows_tie_overflow"):
+        assert name in profiling.COUNTERS and s[name] == 0
+    assert sites[-1].dtype == torch.int64 and tuple(sites[-1].shape) == (2,)
